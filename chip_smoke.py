@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout; it puts ``<checkout>/src`` on
+``sys.path`` itself, imports only the port (``repro_torch``) and never
+JAX. Phases, in order; any failed check raises, so the exit code is
+nonzero:
+
+1. **build** — compile every CUDA kernel in ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` each, all at once) and print the build time.
+2. **kernels** — hold each kernel against its plain PyTorch version on the
+   card, on rows that attend at least one slot: (a) the serve phase's
+   shapes in bf16 with ragged ``t`` past the ring wrap and shuffled
+   physical pages, (b) the same in f32, (c) page 8, rep 1, hd 128,
+   dilation 2, f16, one all-PAD row. Tolerances: f32 1e-5, bf16/f16 2e-2
+   (abs and rel; the kernel rounds p to the 16-bit type before the PV
+   product, the plain version keeps it in f32). Prints the kernel's, the
+   plain version's and ``scaled_dot_product_attention``'s times (the
+   latter a yardstick only, on the pre-gathered view, gather not timed)
+   beside the bound.
+3. **serve-check** — a 2-layer, hd-64 f32 model served on the card
+   (kernel) and on the CPU (plain version): greedy tokens must be equal.
+4. **serve** — smollm-135m at full width (30 layers, d 576, 9/3 heads,
+   vocab 49152), bf16, random weights from ``--seed``, on
+   ``ContinuousEngine``: 8 requests with prompts over 600-2000 tokens and
+   64 new tokens each. Checks every request's tokens, the prefill launch
+   count, that the kernel launched once per layer per decode step and
+   that the plain version never ran. Three decode-only steps, and then
+   one prefill chunk of an extra request, run under ``torch.profiler``:
+   device time by kernel name and the idle share.
+
+The last three lines of standard output are the ``kernels`` JSON line,
+the card's name and power limit from ``nvidia-smi``, and the result line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the checkout, it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# Decode-only steps [PROFILE_FROM, PROFILE_TO) run under torch.profiler.
+# The profiler's hooks slow the host afterwards, so the serve timings are
+# taken before PROFILE_FROM and the later steps only finish the run.
+PROFILE_FROM, PROFILE_TO = 40, 43
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+class Timer:
+    """Mean device time of one call, with L2 flushed before each call (the
+    serving decode reads a different layer's slab each launch, so it finds
+    L2 cold). The timed calls queue up behind a sleep kernel, so the card
+    runs them back to back and the events do not count the host's time to
+    issue a call."""
+
+    SLEEP_CYCLES = 200_000_000      # ~0.1 s: longer than issuing all calls
+
+    def __init__(self, torch, iters: int = 20):
+        self.torch = torch
+        self.iters = iters
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(self.SLEEP_CYCLES)
+        slept = torch.cuda.Event()
+        slept.record()
+        pairs = []
+        for _ in range(self.iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        check(not slept.query(), "the sleep ended before every timed call "
+              "was issued: the times would count host gaps")
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / self.iters
+
+
+# --------------------------------------------------------------------- #
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    log(f"[build] {len(secs)} kernel source(s) in "
+        f"{time.perf_counter() - t0:.1f} s: {secs}")
+    for name in secs:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
+                ts, pad_rows=()):
+    """Random slab/query/page tables/positions on the card for one
+    kernel case; positions as the engine keeps them (every position <= t
+    written in its ring slot)."""
+    import numpy as np
+
+    from repro_torch.core.patterns import causal_sliding_window
+    from repro_torch.core.scheduler import PAD_SENTINEL, ring_view_positions
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    pat = causal_sliding_window(window, n_sinks=g, dilation=dil)
+    lay = layout_for_pattern(pat, page)
+    npp = lay.pages_per_req
+    n_pages = 1 + B * npp
+    shape = (n_pages, page, Hkv, hd)
+    k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, H, 1, hd), generator=gen, device="cuda").to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    pt = perm[: B * npp].reshape(B, npp).to(torch.int32).contiguous()
+    pos = np.stack([ring_view_positions(t + 1, lay.n_sink, lay.ring_cap, g)
+                    for t in ts]).astype(np.int32)
+    for r in pad_rows:
+        pos[r] = PAD_SENTINEL
+    pos_t = torch.from_numpy(pos).cuda()
+    t = torch.tensor(ts, dtype=torch.int32, device="cuda")
+    return pat, (q, k, v, pt, pos_t, t)
+
+
+def live_mask(torch, pat, pos, t):
+    from repro_torch.core.scheduler import (STEP_GLOBAL, STEP_WINDOW,
+                                            causal_step_mask)
+    return causal_step_mask(pat, t[:, None], pos, STEP_WINDOW | STEP_GLOBAL)
+
+
+def phase_kernels(torch, timer, seed):
+    """K4 against its plain version; returns case (a)'s record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+    from repro_torch.serve.paged_cache import gather_view
+
+    serve = dict(B=8, H=9, Hkv=3, hd=64, page=16, window=1024, g=4, dil=1,
+                 ts=[5, 300, 700, 1027, 1028, 1500, 2047, 3000])
+    cases = [("a", dict(serve, dtype=torch.bfloat16)),
+             ("b", dict(serve, dtype=torch.float32)),
+             ("c", dict(B=4, H=2, Hkv=2, hd=128, page=8, window=64, g=4,
+                        dil=2, ts=[10, 200, 77, 40], pad_rows=(3,),
+                        dtype=torch.float16))]
+    records = {}
+    for i, (name, kw) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        pat, ops = decode_case(torch, gen, **kw)
+        q, k, v, pt, pos, t = ops
+        out = salo_paged_decode(*ops, pattern=pat)
+        ref = salo_paged_decode_plain(*ops, pattern=pat)
+        torch.cuda.synchronize()
+        mask = live_mask(torch, pat, pos, t)                   # (B, S)
+        live_rows = mask.any(dim=1)
+        check(bool(live_rows.any()), f"case {name}: no live row")
+        check(len(kw.get("pad_rows", ())) == int((~live_rows).sum()),
+              f"case {name}: live rows {live_rows.tolist()}")
+        o, r = out[live_rows].float(), ref[live_rows].float()
+        check(bool(torch.isfinite(out[live_rows]).all()),
+              f"case {name}: non-finite kernel output")
+        err = float((o - r).abs().max())
+        dname = str(kw["dtype"]).replace("torch.", "")
+        tol = TOL[dname]
+        check(bool(torch.allclose(o, r, atol=tol, rtol=tol)),
+              f"case {name}: kernel vs plain max abs err {err} > {tol}")
+        if kw.get("pad_rows"):
+            check(bool((out[~live_rows] == 0).all()),
+                  f"case {name}: an all-PAD row must give 0")
+
+        # yardstick: SDPA on the pre-gathered view with a precomputed mask
+        kr, vr = gather_view(k, v, pt)
+        kr = kr.transpose(1, 2).contiguous()
+        vr = vr.transpose(1, 2).contiguous()
+        amask = mask[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=amask,
+                                                  enable_gqa=True)
+
+        kernel_ms = timer(lambda: salo_paged_decode(*ops, pattern=pat))
+        plain_ms = timer(lambda: salo_paged_decode_plain(*ops, pattern=pat))
+        library_ms = timer(lib)
+        # bound: the bytes the function must move for THIS data (the
+        # kernel reads only live slots' K/V rows) vs its operations
+        B, H, _, hd = q.shape
+        Hkv = k.shape[2]
+        live = int(mask.sum())                      # live (b, slot) pairs
+        item = q.element_size()
+        nbytes = (2 * live * Hkv * hd * item        # K and V rows
+                  + 2 * q.numel() * item            # q in, out out
+                  + (pt.numel() + pos.numel() + t.numel()) * 4)
+        ops_ = 4 * live * H * hd                    # QK^T and PV
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_ / PEAK_OPS[dname] * 1e3
+        rec = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=err, bytes=nbytes, live_slots=live)
+        log(f"[kernels] case {name} {dname} B={B} H={H} Hkv={Hkv} hd={hd} "
+            f"page={k.shape[1]} npp={pt.shape[1]}: "
+            + " ".join(f"{a}={b}" for a, b in rec.items()))
+        records[name] = rec
+    return records["a"]
+
+
+def serve_check(torch, seed):
+    """Kernel path (cuda) and plain path (cpu) give the same greedy tokens
+    on a small f32 model with hd 64."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import SALOConfig
+    from repro_torch.models.layers import salo_pattern
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    cfg = dataclasses.replace(get_smoke("smollm-135m"), d_model=192,
+                              n_heads=3, n_kv_heads=1, d_ff=256,
+                              salo=SALOConfig(window=16, n_global=2))
+    lay = layout_for_pattern(salo_pattern(cfg), 8)
+    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
+                            chunk=8, max_batch=4)
+    cpu_model = build_model(cfg, "cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(seed))
+    for layer in params["seg0_attn_mlp"]:       # tokens that use attention
+        layer["attn"]["wo"] *= 6.0
+        layer["mlp"]["w_out"] *= 6.0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 9, 13, 26)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        p = params if dev == "cpu" else _to(torch, params, dev)
+        eng = ContinuousEngine(model, ccfg, device=dev)
+        rids = [eng.submit(x, 8) for x in prompts]
+        res = eng.run(p)
+        outs[dev] = [res[r].tolist() for r in rids]
+    check(outs["cuda"] == outs["cpu"],
+          f"serve-check: cuda {outs['cuda']} != cpu {outs['cpu']}")
+    log(f"[serve-check] cuda == cpu greedy tokens: {outs['cuda']}")
+
+
+def _to(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(torch, v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_serve(torch, seed):
+    """smollm-135m at full width on the continuous engine. Returns the K4
+    launch count of the run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+    from repro_torch.models.layers import salo_pattern
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    cfg = get_config("smollm-135m")
+    page, chunk, R, n_new = 16, 128, 8, 64
+    lay = layout_for_pattern(salo_pattern(cfg), page)
+    check(lay.pages_per_req == 65, f"pages_per_req {lay.pages_per_req}")
+    ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_req, page=page,
+                            chunk=chunk, max_batch=R)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
+    n_param = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[serve] smollm-135m bf16: weights {n_param / 1e6:.1f} MB, slab "
+        f"{eng.slab_resident_bytes() / 1e6:.1f} MB, n_pages={ccfg.n_pages}")
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in np.linspace(600, 2000, R).round()
+            + rng.integers(0, 40, R)]
+    lens = [min(n, 2000) for n in lens]
+    for n in lens:
+        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), n_new)
+
+    decode_fn = eng._decode_fn
+
+    def checked_decode(*a, **k):              # finite logits every step
+        logits = decode_fn(*a, **k)
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        return logits
+
+    eng._decode_fn = checked_decode
+    salo_paged_decode.launches = 0
+    salo_paged_decode_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_done = None
+    decode_steps = []           # (seconds, cohort) before the profiler
+    n_dec = 0                   # decode-only steps so far
+    prof, prof_wall, timed = None, 0.0, None
+    while True:
+        pre, dec = eng.batcher.assemble()
+        decode_only = not pre and bool(dec)
+        profiled = decode_only and PROFILE_FROM <= n_dec < PROFILE_TO
+        if profiled and prof is None:
+            timed = (time.perf_counter() - t0, _emitted(eng))
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        ts = time.perf_counter()
+        more = eng.step(params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        n_dec += decode_only
+        if profiled:
+            prof_wall += dt
+            if n_dec == PROFILE_TO:
+                prof.stop()
+        elif decode_only and prof is None:
+            decode_steps.append((dt, len(dec)))
+        if prefill_done is None and not any(
+                r is not None and r.state in ("waiting", "prefill")
+                for r in eng.batcher.rows) and not eng.batcher.queue \
+                and eng.counters["prefill_launches"]:
+            prefill_done = time.perf_counter() - t0
+        if not more:
+            break
+    check(timed is not None, "the run ended before the profiled steps")
+    launches = salo_paged_decode.launches
+    plain = salo_paged_decode_plain.calls
+    res = eng.batcher.results()
+    c = dict(eng.counters)
+    log(f"[serve] prompts={lens} new={n_new} counters={c}")
+    check(len(res) == R, f"{len(res)} of {R} requests finished")
+    for rid, toks in res.items():
+        check(len(toks) == n_new, f"request {rid}: {len(toks)} tokens")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"request {rid}: token outside the vocabulary")
+    want = sum(math.ceil(n / chunk) for n in lens)
+    check(c["prefill_launches"] == want,
+          f"prefill launches {c['prefill_launches']} != {want}")
+    check(launches == c["decode_launches"] * cfg.n_layers,
+          f"K4 launches {launches} != {c['decode_launches']} x "
+          f"{cfg.n_layers}")
+    check(launches > 0, "K4 never launched")
+    check(plain == 0, f"the plain version ran {plain} times")
+    check(len(decode_steps) > 0, "no decode-only step")
+    med = sorted(d for d, _ in decode_steps)[len(decode_steps) // 2]
+    dec_tps = sum(n for _, n in decode_steps) / sum(d for d, _ in decode_steps)
+    log(f"[serve] prefill {prefill_done:.3f} s (all {R} prompts, "
+        f"{sum(lens)} tokens); decode step median {med * 1e3:.3f} ms over "
+        f"{len(decode_steps)} decode-only steps ({dec_tps:.1f} tok/s in "
+        f"them); {timed[1]} tokens generated in the first {timed[0]:.3f} s "
+        f"({timed[1] / timed[0]:.1f} tok/s); K4 launches {launches}")
+    check(prof is not None, "no decode-only step was profiled")
+    report_profile(prof, prof_wall, PROFILE_TO - PROFILE_FROM, "decode steps")
+
+    # After the counts are read: one more request, whose first engine step
+    # (one 128-token prefill chunk through all layers) runs under the
+    # profiler.
+    eng.submit(rng.integers(0, cfg.vocab_size, (2000,)), 1)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    ts = time.perf_counter()
+    eng.step(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - ts
+    prof.stop()
+    report_profile(prof, dt, 1, "prefill chunk")
+    return launches
+
+
+def report_profile(prof, wall_s: float, n_steps: int, what: str) -> None:
+    """Device time by kernel name over the profiled engine steps, and the
+    device's idle share (1 - kernel time / host wall time of the steps;
+    the profiler's own host overhead inflates the wall time, so this share
+    is an upper bound)."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    busy_ms = sum(t for _, t in by_name.values()) / 1e3
+    if not by_name:
+        log("[profile] the profiler recorded no device events")
+        return
+    log(f"[profile] {n_steps} {what}: host wall {wall_s * 1e3:.3f} ms, "
+        f"device kernel time {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / (wall_s * 1e3):.3f}, "
+        f"{sum(n for n, _ in by_name.values()) / n_steps:.0f} kernels/step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (n, t) in top:
+        log(f"[profile]   {t / 1e3 / n_steps:8.3f} ms/step "
+            f"{n / n_steps:6.1f} launches/step  {name[:90]}")
+
+
+def _emitted(eng) -> int:
+    """Tokens generated so far by every request of the engine."""
+    reqs = list(eng.batcher.finished.values()) + [
+        r for r in eng.batcher.rows if r is not None]
+    return sum(len(r.out) for r in reqs)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+
+    phase_build()
+    timer = Timer(torch)
+    rec = phase_kernels(torch, timer, args.seed)
+    serve_check(torch, args.seed)
+    launches = phase_serve(torch, args.seed)
+
+    kernels = [{
+        "name": "salo_paged_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
+        "replaces": "src/repro/kernels/salo_decode.py:238",
+        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]}]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig.
+
+Lists only the architectures the port serves so far."""
+from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
+                                      RecurrentConfig, SALOConfig, ShapeCell,
+                                      SHAPES, SHAPES_BY_NAME)
+
+ARCHS = ("smollm-135m",)
+
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+
+def _module(name: str):
+    import importlib
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,0 +1,69 @@
+"""Convert the JAX reference's parameters into the port's.
+
+``params_from_jax(tree)`` takes the reference's parameter tree as nested
+dicts of **numpy** arrays (``jax.tree.map(np.asarray, params)``) and
+returns the port's tree: the same keys and orientations (``(d_in,
+d_out)`` weights, so the conversion is a copy), with every stacked segment
+``seg{i}_{kind}`` of shape ``(n, ...)`` sliced into a list of ``n``
+per-layer dicts. A leaf the port does not consume raises, so a silently
+dropped parameter cannot make two models look equal.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+# What the port consumes, per sub-tree: the leaf names of each dict.
+_BLOCK_SCHEMA = {
+    "attn_mlp": {"ln1": ("scale",), "attn": ("wq", "wk", "wv", "wo"),
+                 "ln2": ("scale",), "mlp": ("w_in", "w_out", "w_gate")},
+}
+_TOP_SCHEMA = {"embed": ("w",), "ln_f": ("scale",), "lm_head": ("w",)}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes bf16: reinterpret bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _take(d: Dict[str, Any], names, where: str, index=None, device="cpu"):
+    """Consume the leaves ``names`` (those present) of dict ``d``; raise if
+    anything else is left."""
+    extra = set(d) - set(names)
+    if extra:
+        raise ValueError(f"params_from_jax: unconsumed leaves under {where}: "
+                         f"{sorted(extra)}")
+    out = {}
+    for n in names:
+        if n in d:
+            a = d[n] if index is None else d[n][index]
+            out[n] = _tensor(a, device)
+    return out
+
+
+def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's parameters from the reference's (numpy leaves)."""
+    out: Dict[str, Any] = {}
+    for key, sub in tree.items():
+        if key in _TOP_SCHEMA:
+            out[key] = _take(sub, _TOP_SCHEMA[key], key, device=device)
+            continue
+        kind = key.split("_", 1)[1] if key.startswith("seg") else None
+        if kind not in _BLOCK_SCHEMA:
+            raise ValueError(f"params_from_jax: unconsumed sub-tree {key!r}")
+        schema = _BLOCK_SCHEMA[kind]
+        extra = set(sub) - set(schema)
+        if extra:
+            raise ValueError(f"params_from_jax: unconsumed leaves under "
+                             f"{key}: {sorted(extra)}")
+        n = int(np.shape(sub["ln1"]["scale"])[0])
+        out[key] = [{part: _take(sub[part], schema[part], f"{key}/{part}",
+                                 index=i, device=device)
+                     for part in schema if part in sub}
+                    for i in range(n)]
+    return out

@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (``csrc/``) with their wrappers and plain
+versions."""

@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels (``nvcc`` + ``ctypes``).
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, at first use, into ``<repo>/build/kernels``
+(listed in ``.gitignore``). The library's file name carries a hash of the
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing here runs at import time, and nothing falls back: a
+machine without ``nvcc`` or without a CUDA device gets a ``RuntimeError``.
+
+:func:`build_all` starts one ``nvcc`` per source at once (the chip smoke
+script calls it first); :func:`load` returns the loaded ``ctypes.CDLL``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources in ``csrc/`` (without ``.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    cands = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for root in cands:
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("the CUDA kernels need nvcc (CUDA_HOME, "
+                           "/usr/local/cuda/bin or PATH); none was found")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is built; returns
+    ``(final_path, tmp_path, Popen)`` or ``None``."""
+    out = _lib_path(name)
+    if out.is_file():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> str:
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)        # atomic: a concurrent loader never sees half
+    return log
+
+
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; "
+                           "torch.cuda.is_available() is False")
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source in ``csrc/`` in parallel (one nvcc each).
+    Returns seconds spent per source (0.0 where the library was built)."""
+    _require_cuda()
+    t0 = time.perf_counter()
+    jobs = {n: _start(n) for n in sources()}
+    secs = {}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish(name, job)
+        secs[name] = 0.0 if job is None else time.perf_counter() - t0
+    return secs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
+    the last build of ``name`` in this checkout, or '' if none."""
+    p = BUILD_DIR / f"{name}.log"
+    return p.read_text() if p.is_file() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    _require_cuda()
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    _LIBS[name] = lib
+    return lib

@@ -1,0 +1,111 @@
+"""Block assembly for the serving path.
+
+The port of :mod:`repro.models.transformer`'s serving subset. An
+architecture is a *program*: a list of (block_kind, count) segments. The
+reference stacks each segment's layer parameters on a leading axis and
+runs ``jax.lax.scan``; here a segment's parameters are a list of
+per-layer dicts and the scan is a Python loop over the layer index. The
+paged slab keeps the reference's stacked layout ``(n_layers, n_pages,
+page, Hkv, hd)``; layer ``i`` writes row ``i`` of it in place.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.serve.paged_cache import PagedSlab, slab_write
+
+ATTN_KINDS = ("attn_mlp",)
+
+
+def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """(block_kind, count) segments. The port serves dense attention
+    programs only so far; other families raise."""
+    if cfg.family in ("ssm", "hybrid", "moe") or cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.family} programs are not ported yet: ROADMAP "
+            "'other model families'")
+    return [("attn_mlp", cfg.n_layers)]
+
+
+def block_init(gen, cfg: ModelConfig, kind: str, device):
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+            "attn": L.attn_init(gen, cfg, device),
+            "ln2": L.rmsnorm_init(cfg.d_model, device),
+            "mlp": L.mlp_init(gen, cfg, device)}
+
+
+def segment_init(gen, cfg: ModelConfig, kind: str, n: int, device):
+    return [block_init(gen, cfg, kind, device) for _ in range(n)]
+
+
+def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig,
+                  kind: str) -> torch.Tensor:
+    """The post-attention FFN residual of an attention block."""
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"continuous serving supports attention block kinds "
+                         f"{ATTN_KINDS}, got {kind!r}")
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h2, cfg)
+
+
+def block_chunk_prefill(p, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
+                        flags, cfg: ModelConfig, kind: str, pattern):
+    """One prompt chunk through one block. Returns (x, k_chunk, v_chunk)."""
+    h, k_c, v_c = L.attn_chunk_prefill(
+        p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), ctx_k, ctx_v,
+        ctx_pos, pos_q, kv_blocks, flags, cfg, pattern)
+    return _ffn_residual(p, x + h, cfg, kind), k_c, v_c
+
+
+def block_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
+                       phys_w, off_w, cfg: ModelConfig, kind: str, pattern):
+    """Ragged one-token decode through one block against its slab layer
+    (written in place). Returns x."""
+    h = L.attn_decode_paged(
+        p["attn"], L.rmsnorm(p["ln1"], x_t, cfg.norm_eps), k_slab, v_slab,
+        page_tables, slot_pos, t_vec, phys_w, off_w, cfg, pattern)
+    return _ffn_residual(p, x_t + h, cfg, kind)
+
+
+def segment_chunk_prefill(params, slab: PagedSlab, x, page_table, ctx_pos,
+                          pos_q, kv_blocks, flags, phys_w, off_w,
+                          cfg: ModelConfig, kind: str, pattern):
+    """Run one segment's layers over a prompt chunk, writing the slab.
+
+    ``slab``: the segment's :class:`PagedSlab` (leading layer axis);
+    ``page_table``: (npp,) int32 the request's pages; ``phys_w``/``off_w``:
+    (Cp,) int32 slab write targets for the chunk positions (ring-
+    overwritten and padded positions already routed to the null page).
+    Each layer reads its context view before its chunk is written back.
+    Returns x."""
+    npp = page_table.shape[0]
+    _, _, page, Hkv, hd = slab.k.shape
+    for i, layer_params in enumerate(params):
+        k_l, v_l = slab.k[i], slab.v[i]
+        ctx_k = k_l.index_select(0, page_table).reshape(1, npp * page, Hkv,
+                                                        hd)
+        ctx_v = v_l.index_select(0, page_table).reshape(1, npp * page, Hkv,
+                                                        hd)
+        x, k_c, v_c = block_chunk_prefill(
+            layer_params, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks, flags,
+            cfg, kind, pattern)
+        slab_write(k_l, v_l, phys_w, off_w, k_c[0], v_c[0])
+    return x
+
+
+def segment_decode_paged(params, slab: PagedSlab, x_t, page_tables,
+                         slot_pos, t_vec, phys_w, off_w, cfg: ModelConfig,
+                         kind: str, pattern):
+    """Run one segment's layers for one ragged decode step (slab written
+    in place). Returns x_t."""
+    for i, layer_params in enumerate(params):
+        x_t = block_decode_paged(
+            layer_params, x_t, slab.k[i], slab.v[i], page_tables, slot_pos,
+            t_vec, phys_w, off_w, cfg, kind, pattern)
+    return x_t
