@@ -30,6 +30,26 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
+5. **train-kernels** — hold the training kernels K1 (forward), K2 (dQ) and
+   K3 (dK/dV) against their plain versions on the plan tables and
+   working-space tensors the op hands them: (a) the train phase's shapes
+   (smollm-135m's pattern, 8 x 9 flat heads, n 4096, hd 64, block 256,
+   bf16), (b) the same in f32, (c) ViL 2-D multi-band with a global token,
+   block_q 128 != block_k 64, hd 128, f16, padded rows, (d) a causal
+   dilated window with sinks (reordered; a transposed row splits), block
+   32, f32. Checks that two K3 runs give bitwise-equal dK/dV. Prints for
+   (a) and (b) each kernel's, the plain version's and the bound's time,
+   and ``scaled_dot_product_attention`` with the dense mask (forward, and
+   its backward beside K2 and K3) as a yardstick.
+6. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
+   card (kernels) and on the CPU (plain versions) from the same
+   parameters and batches: losses and grad norms agree within 1e-4.
+7. **train** — smollm-135m at full width and depth, bf16, remat full,
+   random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
+   20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
+   the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 and K3
+   = 30 x steps, and that no plain version ran; prints the median step
+   time, tokens/s and peak memory, then profiles one more step.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the card's name and power limit from ``nvidia-smi``, and the result line
@@ -56,6 +76,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # The profiler's hooks slow the host afterwards, so the serve timings are
 # taken before PROFILE_FROM and the later steps only finish the run.
 PROFILE_FROM, PROFILE_TO = 40, 43
+TRAIN_STEPS, TRAIN_BATCH = 20, 8
 
 
 def log(msg: str) -> None:
@@ -72,7 +93,8 @@ class Timer:
     serving decode reads a different layer's slab each launch, so it finds
     L2 cold). The timed calls queue up behind a sleep kernel, so the card
     runs them back to back and the events do not count the host's time to
-    issue a call."""
+    issue a call. Slow-to-issue calls (the plain versions, which launch
+    many small kernels each) take fewer iterations and a longer sleep."""
 
     SLEEP_CYCLES = 200_000_000      # ~0.1 s: longer than issuing all calls
 
@@ -81,16 +103,17 @@ class Timer:
         self.iters = iters
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, iters: int = 0, sleep_cycles: int = 0) -> float:
         torch = self.torch
+        iters = iters or self.iters
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        torch.cuda._sleep(self.SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles or self.SLEEP_CYCLES)
         slept = torch.cuda.Event()
         slept.record()
         pairs = []
-        for _ in range(self.iters):
+        for _ in range(iters):
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -101,7 +124,7 @@ class Timer:
         check(not slept.query(), "the sleep ended before every timed call "
               "was issued: the times would count host gaps")
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / self.iters
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 # --------------------------------------------------------------------- #
@@ -260,7 +283,7 @@ def serve_check(torch, seed):
     outs = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, dev)
-        p = params if dev == "cpu" else _to(torch, params, dev)
+        p = params if dev == "cpu" else _to(params, dev)
         eng = ContinuousEngine(model, ccfg, device=dev)
         rids = [eng.submit(x, 8) for x in prompts]
         res = eng.run(p)
@@ -270,12 +293,9 @@ def serve_check(torch, seed):
     log(f"[serve-check] cuda == cpu greedy tokens: {outs['cuda']}")
 
 
-def _to(torch, tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(torch, v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(torch, v, dev) for v in tree]
-    return tree.to(dev)
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def phase_serve(torch, seed):
@@ -291,6 +311,7 @@ def phase_serve(torch, seed):
     from repro_torch.obs import Observability
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
     from repro_torch.serve.paged_cache import layout_for_pattern
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config("smollm-135m")
     page, chunk, R, n_new = 16, 128, 8, 64
@@ -301,7 +322,7 @@ def phase_serve(torch, seed):
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
-    n_param = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_param = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[serve] smollm-135m bf16: weights {n_param / 1e6:.1f} MB, slab "
         f"{eng.slab_resident_bytes() / 1e6:.1f} MB, n_pages={ccfg.n_pages}")
     rng = np.random.default_rng(seed)
@@ -402,6 +423,342 @@ def phase_serve(torch, seed):
     return launches
 
 
+# ----------------------------- training ------------------------------ #
+# Kernel cases of the training kernels (K1 forward, K2 dQ, K3 dK/dV), each
+# on the working-space tensors and plan tables the op hands them:
+# (a) the train phase's attention: smollm-135m's pattern, B*H = 8 x 9 flat
+#     heads, n 4096, hd 64, block 256, bf16; (b) the same in f32; (c) ViL
+#     2-D multi-band with a global token, block_q != block_k, hd 128, f16,
+#     padded rows; (d) causal dilated window with sinks (reordered; the
+#     global tile's transposed row splits in pack_rows), block 32, f32.
+TRAIN_CASES = {
+    "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
+              dtype="bfloat16"),
+    "b": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
+              dtype="float32"),
+    "c": dict(pat=("vil", (32, 32), (7, 7), 1), n=1025, bh=4, hd=128,
+              bq=128, bk=64, dtype="float16"),
+    "d": dict(pat=("csw", 64, 4, 2), n=2048, bh=4, hd=64, bq=32, bk=32,
+              dtype="float32"),
+}
+# Tolerances (abs and rel). Kernel and plain version use the same f32
+# arithmetic in another order: f32 forward 1e-5, f32 gradients 1e-4 (three
+# products deep); row stats m, l are f32 in every case (1e-5). 16-bit
+# cases 2e-2: the forward rounds p to the 16-bit type relative to a
+# 64-key sub-tile's running max (the plain version: the 256-key tile's),
+# and dq is returned in the 16-bit type.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
+
+
+def _case_pattern(spec):
+    from repro_torch.core import patterns as P
+    if spec[0] == "csw":
+        _, w, g, dil = spec
+        return P.causal_sliding_window(w, n_sinks=g, dilation=dil)
+    _, grid, win, g = spec
+    return P.vil(grid, win, n_global=g)
+
+
+def _attended_pairs(torch, sched, pos_q, pos_k, kvb, flags) -> int:
+    """Pairs the step tables' masks admit: the work these inputs need."""
+    total = 0
+    for s in range(kvb.shape[1]):
+        pk = pos_k.index_select(0, kvb[:, s])
+        fl = flags[:, s]
+        total += int(sched.step_mask(pos_q[:, :, None], pk[:, None, :],
+                                     fl[:, None, None]).sum())
+    return total
+
+
+def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
+    """K1, K2, K3 against their plain versions; returns case (a)'s records
+    {kernel: record}."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.blockwise import plan_tables
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    out_records = {}
+    for ci, (name, c) in enumerate(TRAIN_CASES.items()):
+        dtype = getattr(torch, c["dtype"])
+        pat = _case_pattern(c["pat"])
+        sched = schedule(pat, c["n"])
+        plan = sched.plan(c["bq"], c["bk"])
+        pk_plan = plan.transposed_packed()
+        t = plan_tables(plan, torch.device("cuda", 0))
+        BH, D, n_pad = c["bh"], c["hd"], plan.n_pad
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100 + ci)
+        q, k, v = (torch.randn((BH, n_pad, D), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        dout = torch.randn((BH, n_pad, D), generator=gen, device="cuda")
+        pos_q = t.pos.reshape(plan.nq, plan.block_q)
+        pos_k = t.pos.reshape(plan.nkb, plan.block_k)
+        scale = D ** -0.5
+        fwd_args = (q, k, v, pos_q, pos_k, t.kv_blocks, t.flags)
+        kw = dict(sched=sched, scale=scale)
+        out, m, l = KA.salo_table_attention(*fwd_args, **kw)
+        ro, rm, rl = KA.salo_table_attention_plain(*fwd_args, **kw)
+        delta = (dout * ro.float()).sum(-1)
+        bwd_in = (dout, delta, rm, rl, q, k, v, pos_q, pos_k)
+        dq = KB.salo_table_backward_dq(*bwd_in, t.kv_blocks, t.flags, **kw)
+        rdq = KB.salo_table_backward_dq_plain(*bwd_in, t.kv_blocks, t.flags,
+                                              **kw)
+        dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+        dk, dv = KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw)
+        dk2, dv2 = KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw)
+        rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t, **kw)
+        torch.cuda.synchronize()
+
+        tol, gtol = TOL[c["dtype"]], GRAD_TOL[c["dtype"]]
+        errs = {}
+        for what, a, b, tl in (("out", out, ro, tol), ("m", m, rm, 1e-5),
+                               ("l", l, rl, 1e-5), ("dq", dq, rdq, gtol),
+                               ("dk", dk, rdk, gtol), ("dv", dv, rdv, gtol)):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"case {name}: non-finite "
+                  f"kernel {what}")
+            errs[what] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, atol=tl, rtol=tl)),
+                  f"case {name}: kernel {what} vs plain max abs err "
+                  f"{errs[what]} > {tl}")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"case {name}: dK/dV differ between two runs on one input")
+        pad = t.pos >= sched.n                      # padding rows
+        if bool(pad.any()):
+            check(bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all()
+                       and (out[:, pad] == 0).all()),
+                  f"case {name}: padded rows must give (0, NEG_INF, 0)")
+        n_split = pk_plan.n_rows - len(set(pk_plan.row_tile.tolist()))
+        pairs = BH * _attended_pairs(torch, sched, pos_q, pos_k, t.kv_blocks,
+                                     t.flags)
+        log(f"[train-kernels] case {name} {c['dtype']} {pat} n={c['n']} "
+            f"n_pad={n_pad} B*H={BH} hd={D} bq={c['bq']} bk={c['bk']}: "
+            f"steps={plan.max_steps} tiles={int(plan.num_steps.sum())} "
+            f"packed rows={pk_plan.n_rows} (split {n_split}) "
+            f"pairs={pairs} max abs err {errs}; dK/dV bitwise equal over "
+            f"two runs")
+        if c["pat"][0] == "csw" and c["pat"][3] > 1:
+            check(n_split > 0, f"case {name}: no transposed row split")
+        if name not in timed:
+            continue
+
+        item = q.element_size()
+        qkv = 3 * BH * n_pad * D * item
+        stats = 3 * BH * n_pad * 4
+        tables = 4 * (t.pos.numel() + t.kv_blocks.numel() + t.flags.numel())
+        ttables = 4 * (t.pos.numel() + sum(x.numel() for x in dkv_t))
+        io = {  # (bytes moved, operations, peak for their type)
+            "salo_table_attention": (
+                qkv + BH * n_pad * D * item + 2 * BH * n_pad * 4 + tables,
+                4 * D * pairs, PEAK_OPS[c["dtype"]]),
+            "salo_table_backward_dq": (
+                qkv + BH * n_pad * D * 4 + stats + BH * n_pad * D * item
+                + tables, 6 * D * pairs, PEAK_OPS["float32"]),
+            "salo_table_backward_dkv": (
+                qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
+                + ttables, 8 * D * pairs, PEAK_OPS["float32"]),
+        }
+        calls = {
+            "salo_table_attention": (
+                lambda: KA.salo_table_attention(*fwd_args, **kw),
+                lambda: KA.salo_table_attention_plain(*fwd_args, **kw)),
+            "salo_table_backward_dq": (
+                lambda: KB.salo_table_backward_dq(*bwd_in, t.kv_blocks,
+                                                  t.flags, **kw),
+                lambda: KB.salo_table_backward_dq_plain(
+                    *bwd_in, t.kv_blocks, t.flags, **kw)),
+            "salo_table_backward_dkv": (
+                lambda: KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw),
+                lambda: KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t,
+                                                         **kw)),
+        }
+        # yardstick: SDPA with the dense boolean mask (working order is the
+        # original order here: no dilation), and that call's backward for
+        # K2 and K3 together
+        mask = torch.from_numpy(pat.mask(c["n"])).cuda()
+        qs, kss, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qs, kss, vs,
+                                                  attn_mask=mask)
+
+        lib_out = lib_fwd()
+        g_lib = dout[None].to(dtype)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qs, kss, vs), g_lib,
+                                       retain_graph=True)
+
+        lib_ms = {"salo_table_attention": timer(lib_fwd),
+                  "backward": timer(lib_bwd)}
+        recs = {}
+        for kname, (kfn, pfn) in calls.items():
+            nbytes, ops, peak = io[kname]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / peak * 1e3
+            err = (errs["out"] if kname == "salo_table_attention" else
+                   errs["dq"] if kname == "salo_table_backward_dq" else
+                   max(errs["dk"], errs["dv"]))
+            recs[kname] = dict(
+                kernel_ms=timer(kfn),
+                # few iterations: a plain call queues hundreds of launches,
+                # and the queue must not fill up behind the sleep kernel
+                plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
+                library_ms=lib_ms.get(kname, lib_ms["backward"]),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err, bytes=nbytes, ops=ops)
+            log(f"[train-kernels] case {name} {kname}: "
+                + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
+        if name == "a":
+            out_records = recs
+    return out_records
+
+
+def _train_cfg(smoke: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import SALOConfig
+
+    if smoke:
+        return dataclasses.replace(
+            get_smoke("smollm-135m"), d_model=192, n_heads=3, n_kv_heads=1,
+            d_ff=256, salo=SALOConfig(window=16, n_global=2, block_q=32,
+                                      block_k=32))
+    return get_config("smollm-135m")
+
+
+def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import Schedule
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    model = build_model(cfg, dev)
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=lr),
+                       schedule=Schedule(warmup_steps=warmup,
+                                         total_steps=steps))
+    ds = SyntheticLM(cfg, DataConfig(seq, batch, seed=seed))
+    return make_train_step(model, tcfg), adamw.init(tcfg.optimizer, params), ds
+
+
+def _counters(reset: bool = False):
+    """The training kernels' launch counts and their plain versions' call
+    counts (all set to 0 first when ``reset``)."""
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    fns = {"K1": KA.salo_table_attention, "K2": KB.salo_table_backward_dq,
+           "K3": KB.salo_table_backward_dkv}
+    plains = (KA.salo_table_attention_plain, KB.salo_table_backward_dq_plain,
+              KB.salo_table_backward_dkv_plain)
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+        for f in plains:
+            f.calls = 0
+    return ({k: f.launches for k, f in fns.items()},
+            sum(f.calls for f in plains))
+
+
+def train_check(torch, seed):
+    """The same small f32 model (hd 64, 2 layers) trained 3 steps on the
+    card (kernels) and on the CPU (plain versions) from the same
+    parameters and batches: losses and grad norms agree within 1e-4
+    (f32, summation order only)."""
+    from repro_torch.models.model import build_model
+
+    cfg = _train_cfg(smoke=True)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cpu" else _to(params, dev)
+        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                                 lr=3e-3, warmup=1, seed=seed)
+        _counters(reset=True)
+        hist[dev] = []
+        for i in range(3):
+            p, opt, met = step(p, opt, ds.batch(i))
+            hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+        launches, plain = _counters()
+        if dev == "cuda":
+            check(plain == 0 and min(launches.values()) > 0,
+                  f"train-check cuda: launches {launches}, plain {plain}")
+        else:
+            check(plain > 0 and max(launches.values()) == 0,
+                  f"train-check cpu: launches {launches}, plain {plain}")
+    for (lc, gc), (lp, gp) in zip(hist["cuda"], hist["cpu"]):
+        check(math.isclose(lc, lp, rel_tol=1e-4, abs_tol=1e-4)
+              and math.isclose(gc, gp, rel_tol=1e-4, abs_tol=1e-4),
+              f"train-check: cuda {hist['cuda']} != cpu {hist['cpu']}")
+    log(f"[train-check] cuda == cpu within 1e-4, (loss, grad norm) per "
+        f"step: cuda {hist['cuda']} cpu {hist['cpu']}")
+
+
+def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
+    """smollm-135m at full width and depth, bf16, remat full, trained on
+    the card. Returns the launch counts of the run."""
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = _train_cfg(smoke=False)
+    check(cfg.remat == "full" and cfg.n_layers == 30, f"config {cfg}")
+    seq = 4096
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(seed))
+    step, opt, ds = _trainer(cfg, "cuda", params, seq=seq, batch=batch,
+                             steps=steps, lr=3e-3, warmup=10, seed=seed)
+    n_param = sum(t.numel() for t in tree_leaves(params))
+    log(f"[train] smollm-135m bf16 remat=full: {n_param / 1e6:.1f}M params, "
+        f"seq {seq} batch {batch} steps {steps}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, ds.batch(i))
+        loss = float(met["loss"])                   # syncs the card
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"[train] step {i:3d} loss {loss:.4f} grad norm "
+            f"{float(met['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(sum(losses[-5:]) / 5 < losses[0],
+          f"the loss did not fall: {losses}")
+    remat = 1 + (cfg.remat == "full")
+    want = {"K1": remat * cfg.n_layers * steps, "K2": cfg.n_layers * steps,
+            "K3": cfg.n_layers * steps}
+    check(launches == want, f"launches {launches} != {want}")
+    check(plain == 0, f"the plain versions ran {plain} times")
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"[train] step median {med * 1e3:.3f} ms over steps 1..{steps - 1} "
+        f"({batch * seq / med:.1f} tokens/s); first step "
+        f"{times[0] * 1e3:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated); launches {launches}")
+
+    # After the counts are read: one more step under the profiler.
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    batch_np = ds.batch(steps)
+    torch.cuda.synchronize()
+    prof.start()
+    ts = time.perf_counter()
+    params, opt, met = step(params, opt, batch_np)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    prof.stop()
+    report_profile(prof, dt, 1, "train step")
+    return launches
+
+
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> None:
     """Device time by kernel name over the profiled engine steps, and the
     device's idle share (1 - kernel time / host wall time of the steps;
@@ -439,17 +796,6 @@ def _emitted(eng) -> int:
     return sum(len(r.out) for r in reqs)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -477,6 +823,9 @@ def main(argv=None) -> int:
     rec = phase_kernels(torch, timer, args.seed)
     serve_check(torch, args.seed)
     launches = phase_serve(torch, args.seed)
+    trec = phase_train_kernels(torch, timer, args.seed)
+    train_check(torch, args.seed)
+    tl = phase_train(torch, args.seed)
 
     kernels = [{
         "name": "salo_paged_decode", "route": "cuda",
@@ -486,6 +835,21 @@ def main(argv=None) -> int:
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"]}]
+    for name, key, src, replaces in (
+            ("salo_table_attention", "K1", "salo_table_attention.cu",
+             "src/repro/kernels/salo_attention.py:119"),
+            ("salo_table_backward_dq", "K2", "salo_table_backward.cu",
+             "src/repro/kernels/salo_backward.py:144"),
+            ("salo_table_backward_dkv", "K3", "salo_table_backward.cu",
+             "src/repro/kernels/salo_backward.py:223")):
+        r = trec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": tl[key],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,16 +1,17 @@
-"""Model-facing hybrid-sparse-attention entry points of the serving path.
+"""Model-facing hybrid-sparse-attention entry points.
 
-The port of :mod:`repro.core.attention`'s serving subset, in the
-reference's model-facing layout (batch, heads, seq, head_dim):
+The port of :mod:`repro.core.attention`, in the reference's model-facing
+layout (batch, heads, seq, head_dim):
 
+* :func:`hybrid_attention` — the full-sequence (training) op on the
+  static ExecutionPlan;
 * :func:`hybrid_chunk_attention` — chunked prefill over ChunkPlan tables;
 * :func:`hybrid_decode_attention` — the ragged one-token decode against
   per-request caches with per-slot positions (the plain version the
   paged-decode kernel is held against).
 
-GQA never copies KV: the ``rep = H / Hkv`` query heads of a group meet
-their KV head through a size-1 broadcast axis. ``hybrid_attention`` (the
-training entry point) comes with the training slice.
+The serving paths never copy KV for GQA: the ``rep = H / Hkv`` query
+heads of a group meet their KV head through a size-1 broadcast axis.
 """
 from __future__ import annotations
 
@@ -23,6 +24,56 @@ from repro_torch.core.blockwise import chunk_attention
 from repro_torch.core.patterns import HybridSparsePattern
 from repro_torch.core.scheduler import (STEP_GLOBAL, STEP_WINDOW,
                                         causal_step_mask)
+
+
+IMPLS = ("dense_ref", "blockwise", "pallas")
+
+
+def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pattern: HybridSparsePattern, *,
+                     impl: str = "blockwise", block_q: int = 128,
+                     block_k: int = 128, scale: Optional[float] = None,
+                     plan: str = "static") -> torch.Tensor:
+    """Hybrid sparse attention (training / full sequence). q: (B, H, N, D);
+    k/v: (B, Hkv, N, D). Differentiable.
+
+    ``impl="dense_ref"`` is the O(n^2) masked oracle. ``impl="blockwise"``
+    and ``impl="pallas"`` both run :func:`repro_torch.kernels.ops
+    .salo_attention` on the static plan; the tensors' device picks the
+    CUDA kernels or their plain versions. ``plan="dynamic"`` (runtime
+    plans, and the reference's ``dynamic_*`` knobs with it) is not ported
+    yet; sequence parallelism is not either (the train CLI raises for
+    ``--data``/``--model`` > 1).
+
+    GQA: KV heads are expanded to H by ``expand(...).reshape`` — a copy of
+    K/V ``rep`` times in torch (the reference's broadcast is free in XLA).
+    """
+    if plan == "dynamic":
+        raise NotImplementedError(
+            "plan='dynamic' is not ported yet: ROADMAP item 5 (runtime "
+            "plans, core/dynamic.py)")
+    if plan != "static":
+        raise ValueError(f"unknown plan {plan!r}; choose static or dynamic")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    B, H, N, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv != H:
+        if H % Hkv:
+            raise ValueError(f"GQA heads {H} not divisible by kv heads {Hkv}")
+        rep = H // Hkv
+        k = k[:, :, None].expand(B, Hkv, rep, N, D).reshape(B, H, N, D)
+        v = v[:, :, None].expand(B, Hkv, rep, N, D).reshape(B, H, N, D)
+    qf = q.reshape(B * H, N, D)
+    kf = k.reshape(B * H, N, D)
+    vf = v.reshape(B * H, N, D)
+    if impl == "dense_ref":
+        from repro_torch.kernels.ref import reference_attention
+        out = reference_attention(qf, kf, vf, pattern, scale=scale)
+    else:
+        from repro_torch.kernels.ops import salo_attention
+        out = salo_attention(qf, kf, vf, pattern, block_q, block_k, scale)
+    return out.reshape(B, H, N, D)
 
 
 def hybrid_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

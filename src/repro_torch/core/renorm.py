@@ -6,9 +6,9 @@ A partial is the online-softmax triple over the keys folded so far:
                             m   = max_j S_ij
                             l   = sum_j exp(S_ij - m)
 
-The port of :mod:`repro.core.renorm`'s serving subset: ``empty_state``,
-``update`` (one KV tile folded in) and ``finalize``. ``merge`` and
-``weights`` come with the sequence-parallel and training slices.
+The port of :mod:`repro.core.renorm`: ``empty_state``, ``merge`` (two
+disjoint-key partials combined), ``update`` (one KV tile folded in) and
+``finalize``. ``weights`` comes with the sequence-parallel slice.
 """
 from __future__ import annotations
 
@@ -38,6 +38,18 @@ def empty_state(q_shape, d: int, device,
         acc=torch.zeros((*q_shape, d), dtype=dtype, device=device),
         m=torch.full(tuple(q_shape), NEG_INF, dtype=dtype, device=device),
         l=torch.zeros(tuple(q_shape), dtype=dtype, device=device),
+    )
+
+
+def merge(a: PartialState, b: PartialState) -> PartialState:
+    """Exact merge of two disjoint-key partials (paper Eq. 2, stabilized)."""
+    m = torch.maximum(a.m, b.m)
+    ca = torch.exp(a.m - m)
+    cb = torch.exp(b.m - m)
+    return PartialState(
+        acc=a.acc * ca[..., None] + b.acc * cb[..., None],
+        m=m,
+        l=a.l * ca + b.l * cb,
     )
 
 

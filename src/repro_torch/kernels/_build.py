@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``<repo>/build/kernels``
 (listed in ``.gitignore``). The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time, and nothing falls back: a
-machine without ``nvcc`` or without a CUDA device gets a ``RuntimeError``.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing here runs at import
+time, and nothing falls back: a machine without ``nvcc`` or without a CUDA
+device gets a ``RuntimeError``.
 
 :func:`build_all` starts one ``nvcc`` per source at once (the chip smoke
 script calls it first); :func:`load` returns the loaded ``ctypes.CDLL``.
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the shared headers too, which any source may include
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

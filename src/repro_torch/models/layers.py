@@ -1,4 +1,4 @@
-"""Shared layer library, serving subset: norms, RoPE, MLP, attention.
+"""Shared layer library: norms, RoPE, MLP, attention, embedding, loss.
 
 The port of :mod:`repro.models.layers` as plain functions on tensors:
 ``*_init(generator, ...) -> params dict`` and ``*_apply(params, x, ...)``.
@@ -8,10 +8,12 @@ parameters are a copy (:mod:`repro_torch.convert`).
 
 The attention layer is where the paper's technique enters the model:
 QKV projection -> RoPE -> hybrid sparse attention with the arch's
-:class:`SALOConfig` pattern -> output projection. This slice ports the
-two serving paths: plan-driven chunked prefill and the ragged paged
-decode (always through :func:`repro_torch.kernels.salo_decode
-.salo_paged_decode`; the slab's device picks kernel or plain version).
+:class:`SALOConfig` pattern -> output projection. Three paths: the
+full-sequence training forward (:func:`attn_apply`, through
+:func:`repro_torch.core.attention.hybrid_attention`), plan-driven chunked
+prefill, and the ragged paged decode (always through
+:func:`repro_torch.kernels.salo_decode.salo_paged_decode`). The tensors'
+device picks kernel or plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SALOConfig
-from repro_torch.core.attention import hybrid_chunk_attention
+from repro_torch.core.attention import (hybrid_attention,
+                                        hybrid_chunk_attention)
 from repro_torch.core.patterns import (HybridSparsePattern,
                                        causal_sliding_window, full,
                                        longformer)
@@ -126,6 +129,27 @@ def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return q, k, v
 
 
+def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
+               pattern: HybridSparsePattern,
+               positions: Optional[torch.Tensor] = None):
+    """Full-sequence attention (train). x: (B, S, d); returns (B, S, d).
+    (The reference also returns (k, v) for its prefill-to-cache path; the
+    port prefills through :func:`attn_chunk_prefill`.)
+
+    The (B, S, H, hd) -> (B*H, S, hd) layout change is a copy in torch
+    (a free transpose in XLA)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    out = hybrid_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pattern,
+        impl=cfg.salo.impl, block_q=cfg.salo.block_q,
+        block_k=cfg.salo.block_k)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(x.dtype)
+
+
 # ------------------- continuous-batching serve paths -------------------- #
 def attn_chunk_prefill(p, x_chunk, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
                        flags, cfg: ModelConfig,
@@ -198,3 +222,16 @@ def logits_apply(p_embed, p_head, x: torch.Tensor,
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B, S, V), targets (B, S) int. Mean NLL over mask, in f32."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,15 +1,17 @@
-"""Unified model API of the port's serving path: ``Model(cfg, device)``.
+"""Unified model API of the port: ``Model(cfg, device)``.
 
 * ``init(generator) -> params`` — the reference's distributions, drawn
   from an explicit ``torch.Generator`` (the numbers differ from
   ``jax.random``'s; parity tests convert the reference's parameters with
   :func:`repro_torch.convert.params_from_jax` instead);
 * ``_embed_inputs(params, batch)`` — token embedding;
+* ``forward(params, batch) -> logits`` (train / full sequence);
+* ``loss(params, batch) -> (loss, metrics)``;
 * ``program`` — the (block_kind, count) segments.
 
 ``params`` is a plain dict: ``embed``/``ln_f``/(``lm_head``) dicts and one
 list of per-layer dicts per segment, under the reference's ``seg{i}_{kind}``
-keys. ``forward``/``loss`` come with the training slice.
+keys.
 """
 from __future__ import annotations
 
@@ -41,6 +43,25 @@ class Model:
 
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         return L.embed_apply(params["embed"], batch["tokens"], self.cfg)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Logits (B, S, vocab) of the full sequence."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        positions = batch.get("positions", None)
+        pattern = L.salo_pattern(cfg)
+        for i, (kind, n) in enumerate(self.program):
+            x = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
+                                pattern, positions=positions)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return L.logits_apply(params["embed"], params.get("lm_head"), x, cfg)
+
+    def loss(self, params, batch):
+        """Mean next-token NLL; returns ``(loss, metrics)`` as the
+        reference does (its MoE aux losses come with that family)."""
+        nll = L.cross_entropy(self.forward(params, batch), batch["labels"],
+                              batch.get("mask"))
+        return nll, {"nll": nll, "loss": nll}
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

@@ -1,18 +1,25 @@
-"""Block assembly for the serving path.
+"""Block assembly: training forward and the serving paths.
 
-The port of :mod:`repro.models.transformer`'s serving subset. An
+The port of :mod:`repro.models.transformer` for the dense ``attn_mlp``
+programs. An
 architecture is a *program*: a list of (block_kind, count) segments. The
 reference stacks each segment's layer parameters on a leading axis and
 runs ``jax.lax.scan``; here a segment's parameters are a list of
 per-layer dicts and the scan is a Python loop over the layer index. The
 paged slab keeps the reference's stacked layout ``(n_layers, n_pages,
 page, Hkv, hd)``; layer ``i`` writes row ``i`` of it in place.
+
+Remat: ``remat="full"`` runs each block under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` — the
+backward re-runs the block's forward (one more attention forward launch
+per layer), as ``jax.checkpoint`` does; ``remat="none"`` is a plain loop.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -42,6 +49,40 @@ def block_init(gen, cfg: ModelConfig, kind: str, device):
 
 def segment_init(gen, cfg: ModelConfig, kind: str, n: int, device):
     return [block_init(gen, cfg, kind, device) for _ in range(n)]
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
+                positions=None):
+    """Full-sequence block. Returns x (the reference also returns the MoE
+    aux losses, which dense blocks do not have)."""
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                  "ROADMAP item 5 (other model families)")
+    h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                     pattern, positions=positions)
+    x = x + h
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h2, cfg)
+
+
+def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                  pattern, positions=None):
+    """Run one segment's layers (the reference's scan). Returns x."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet (the 'dots' policy "
+            "saves matmul outputs: ROADMAP item 5); use 'full' or 'none'")
+
+    def body(layer_params, y):
+        return block_apply(layer_params, y, cfg, kind, pattern,
+                           positions=positions)
+
+    for layer_params in params:
+        if cfg.remat == "full":
+            x = checkpoint(body, layer_params, x, use_reentrant=False)
+        else:
+            x = body(layer_params, x)
+    return x
 
 
 def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig,

@@ -1,0 +1,79 @@
+"""Training step factory: loss -> grads -> AdamW, with microbatch gradient
+accumulation and the LR schedule.
+
+The port of :mod:`repro.train.trainer` for one device.
+``make_train_step(model, tcfg)`` returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+Gradients are f32 on both microbatch paths, and metrics are averaged over
+the microbatches, as in the reference. The reference's fourth argument,
+the error-feedback state of compressed gradients, has no counterpart:
+gradient compression is multi-GPU work (ROADMAP item 5) and raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import Schedule
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: adamw.AdamWConfig = adamw.AdamWConfig()
+    schedule: Schedule = Schedule()
+    microbatches: int = 1            # gradient accumulation
+    compress_grads: bool = False     # int8 all-reduce (not ported)
+
+
+def make_train_step(model, tcfg: TrainConfig) -> Callable:
+    if tcfg.compress_grads:
+        raise NotImplementedError(
+            "compress_grads is multi-GPU work and is not ported yet: "
+            "ROADMAP item 5 (multi-GPU)")
+
+    def loss_and_grads(params, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, metrics = model.loss(leaves, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        it = iter(grads)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_map(lambda _: next(it), params))
+
+    def grads_and_metrics(params, batch):
+        """(grads, loss, metrics) with f32 grads on both microbatch paths
+        and metrics averaged across microbatches."""
+        mb = tcfg.microbatches
+        if mb == 1:
+            loss, metrics, grads = loss_and_grads(params, batch)
+            return tree_map(lambda g: g.float(), grads), loss, metrics
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
+        loss_sum, metric_sums = 0.0, {}
+        for i in range(mb):
+            mbatch = {k: v.tensor_split(mb, dim=0)[i]
+                      for k, v in batch.items()}
+            loss, metrics, grads = loss_and_grads(params, mbatch)
+            acc = tree_map(torch.add, acc, grads)
+            loss_sum = loss_sum + loss
+            for k, v in metrics.items():
+                metric_sums[k] = metric_sums.get(k, 0.0) + v
+        return (tree_map(lambda g: g / mb, acc), loss_sum / mb,
+                {k: v / mb for k, v in metric_sums.items()})
+
+    def train_step(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v).to(model.device)
+                 for k, v in batch.items()}
+        if any(v.shape[0] % tcfg.microbatches for v in batch.values()):
+            raise ValueError(f"batch axis must divide microbatches "
+                             f"{tcfg.microbatches}")
+        grads, loss, metrics = grads_and_metrics(params, batch)
+        lr_scale = tcfg.schedule(opt_state.step)
+        params, opt_state, opt_metrics = adamw.update(
+            tcfg.optimizer, opt_state, params, grads, lr_scale)
+        return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
+
+    return train_step

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import SALOConfig
-from repro_torch.core.patterns import causal_sliding_window
+from repro_torch.core.patterns import causal_sliding_window, longformer, vil
 from repro_torch.core.scheduler import (PAD_SENTINEL, STEP_GLOBAL,
                                         STEP_WINDOW, causal_step_mask,
                                         ring_view_positions)
@@ -102,3 +102,141 @@ def test_engine_tokens_cuda_equal_cpu():
         res = eng.run(p)
         outs[dev] = [res[r].tolist() for r in rids]
     assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------- training kernels K1, K2, K3 ------------------------ #
+def _train_case(pat, n, bh, hd, bq, bk, dtype, seed):
+    from repro_torch.core.blockwise import plan_tables
+    from repro_torch.core.scheduler import schedule
+
+    sched = schedule(pat, n)
+    plan = sched.plan(bq, bk)
+    t = plan_tables(plan, torch.device("cuda", 0))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((bh, plan.n_pad, hd), generator=g,
+                           device="cuda").to(dtype) for _ in range(3))
+    dout = torch.randn((bh, plan.n_pad, hd), generator=g, device="cuda")
+    pos_q = t.pos.reshape(plan.nq, bq)
+    pos_k = t.pos.reshape(plan.nkb, bk)
+    return sched, plan, t, (q, k, v, dout, pos_q, pos_k)
+
+
+# f32: same algorithm, other summation order (forward 1e-5, gradients
+# 1e-4); 16-bit: the forward rounds p to the 16-bit type relative to
+# another running max, and dq is returned in the 16-bit type.
+GTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+TRAIN_PATTERNS = {
+    "causal_sinks": causal_sliding_window(100, n_sinks=4),
+    "dilated_sinks": causal_sliding_window(24, n_sinks=3, dilation=2),
+    "vil": vil((12, 12), (5, 3), n_global=1),
+    "longformer": longformer(48, n_global=2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("pname,n,hd,bq,bk", [
+    ("causal_sinks", 512, 64, 256, 256), ("causal_sinks", 300, 128, 64, 32),
+    ("dilated_sinks", 200, 64, 32, 32), ("vil", 145, 128, 32, 64),
+    ("longformer", 333, 64, 128, 64)])
+def test_training_kernels_match_plain(dtype, pname, n, hd, bq, bk):
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        TRAIN_PATTERNS[pname], n, 3, hd, bq, bk, dtype, seed=n + hd)
+    kw = dict(sched=sched, scale=hd ** -0.5)
+    launches = [f.launches for f in (KA.salo_table_attention,
+                                     KB.salo_table_backward_dq,
+                                     KB.salo_table_backward_dkv)]
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, t.kv_blocks,
+                                        t.flags, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, t.kv_blocks,
+                                               t.flags, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, t.kv_blocks, t.flags, **kw)
+    dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (KA.salo_table_attention,
+                                 KB.salo_table_backward_dq,
+                                 KB.salo_table_backward_dkv)] == \
+        [x + 1 for x in launches]
+    tol, gtol = TOL[dtype], GTOL[dtype]
+    for a, b, tl in ((out, ro, tol), (m, rm, 1e-5), (l, rl, 1e-5),
+                     (dq, rdq, gtol), (dk, rdk, gtol), (dv, rdv, gtol)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+    pad = t.pos >= sched.n
+    assert bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all())
+
+
+def test_dkv_bitwise_deterministic():
+    _need_cuda()
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        causal_sliding_window(64, n_sinks=4, dilation=2), 1024, 8, 64, 32,
+        32, torch.bfloat16, seed=1)
+    pkd = plan.transposed_packed()
+    assert pkd.n_rows > len(set(pkd.row_tile.tolist()))   # a split row
+    m = torch.randn(q.shape[:2], device="cuda")
+    l = torch.rand(q.shape[:2], device="cuda") + 0.5
+    delta = torch.randn(q.shape[:2], device="cuda")
+    args = (dout, delta, m, l, q, k, v, pq, pk, t.row_tile, t.q_blocks,
+            t.pk_flags)
+    kw = dict(sched=sched, scale=0.125)
+    dk1, dv1 = KB.salo_table_backward_dkv(*args, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*args, **kw)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+def test_training_kernel_wrappers_raise_on_unsupported():
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+
+    pat = causal_sliding_window(64, n_sinks=2)
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        pat, 256, 2, 64, 64, 64, torch.float32, seed=0)
+    kw = dict(sched=sched, scale=0.125)
+    tabs = (pq, pk, t.kv_blocks, t.flags)
+    with pytest.raises(TypeError):                       # dtype
+        KA.salo_table_attention(q.double(), k.double(), v.double(), *tabs,
+                                **kw)
+    with pytest.raises(ValueError, match="contiguous"):  # layout
+        qt = q.transpose(0, 1).contiguous().transpose(0, 1)
+        KA.salo_table_attention(qt, k, v, *tabs, **kw)
+    with pytest.raises(ValueError, match="head_dim"):    # hd
+        KA.salo_table_attention(q[..., :32].contiguous(),
+                                k[..., :32].contiguous(),
+                                v[..., :32].contiguous(), *tabs, **kw)
+    _, plan16, t16, ops16 = _train_case(pat, 256, 2, 64, 16, 16,
+                                        torch.float32, seed=0)
+    with pytest.raises(ValueError, match="block"):       # block size
+        KA.salo_table_attention(*ops16[:3], *ops16[4:], t16.kv_blocks,
+                                t16.flags, **kw)
+
+
+def test_attention_op_cuda_equals_cpu():
+    """The op end to end (forward + autograd backward through K1, K2, K3)
+    on the card equals its plain versions on the CPU, f32, GQA."""
+    _need_cuda()
+    from repro_torch.core.attention import hybrid_attention
+
+    pat = causal_sliding_window(48, n_sinks=4)
+    rng = np.random.default_rng(0)
+    x = [rng.normal(size=s).astype(np.float32) for s in
+         ((2, 4, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64),
+          (2, 4, 200, 64))]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in x[:3])
+        out = hybrid_attention(q, k, v, pat, block_q=64, block_k=32)
+        (out * torch.tensor(x[3], device=dev)).sum().backward()
+        res[dev] = [y.detach().cpu() for y in (out, q.grad, k.grad, v.grad)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

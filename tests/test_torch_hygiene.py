@@ -33,6 +33,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 assert "repro_torch.launch.serve" in names, names
+assert "repro_torch.launch.train" in names, names
 assert not bad, bad
 print(len(names))
 """
@@ -68,10 +69,19 @@ def test_cli_default_device_raises_without_gpu():
               "--new-tokens", "2"])
 
 
+def test_train_cli_default_device_raises_without_gpu():
+    _require_no_cuda()
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["--smoke", "--steps", "1", "--seq", "32", "--batch", "1"])
+
+
 def test_kernel_loader_raises_without_gpu():
     _require_no_cuda()
     from repro_torch.kernels import _build
     with pytest.raises(RuntimeError):
         _build.load("salo_paged_decode")
+    with pytest.raises(RuntimeError):
+        _build.load("salo_table_attention")
     with pytest.raises(RuntimeError):
         _build.build_all()
