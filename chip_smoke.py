@@ -47,8 +47,9 @@ nonzero:
 7. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
-   the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 and K3
-   = 30 x steps, and that no plain version ran; prints the median step
+   the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 = 30 x
+   steps, K3 = 2 x 30 x steps (its row walk and its owner-tile sum), and
+   that no plain version ran; prints the median step
    time, tokens/s and peak memory, then profiles one more step.
 
 The last three lines of standard output are the ``kernels`` JSON line,
@@ -443,10 +444,13 @@ TRAIN_CASES = {
 }
 # Tolerances (abs and rel). Kernel and plain version use the same f32
 # arithmetic in another order: f32 forward 1e-5, f32 gradients 1e-4 (three
-# products deep); row stats m, l are f32 in every case (1e-5). 16-bit
-# cases 2e-2: the forward rounds p to the 16-bit type relative to a
-# 64-key sub-tile's running max (the plain version: the 256-key tile's),
-# and dq is returned in the 16-bit type.
+# products deep); row stats m, l are f32 in every case (1e-5). 16-bit out
+# 8e-3, two bf16 ulps at |out| near 0.5: out is returned in the 16-bit type,
+# and the forward rounds p to it relative to a 64-key sub-tile's running
+# max (the plain version: the 256-key tile's), so the two may round one
+# element one ulp apart. 16-bit gradients 2e-2: dq is returned in the
+# 16-bit type, three products after that rounding of p.
+OUT_TOL = {"float32": 1e-5, "bfloat16": 8e-3, "float16": 8e-3}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 
 
@@ -511,7 +515,7 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t, **kw)
         torch.cuda.synchronize()
 
-        tol, gtol = TOL[c["dtype"]], GRAD_TOL[c["dtype"]]
+        tol, gtol = OUT_TOL[c["dtype"]], GRAD_TOL[c["dtype"]]
         errs = {}
         for what, a, b, tl in (("out", out, ro, tol), ("m", m, rm, 1e-5),
                                ("l", l, rl, 1e-5), ("dq", dq, rdq, gtol),
@@ -549,16 +553,21 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         stats = 3 * BH * n_pad * 4
         tables = 4 * (t.pos.numel() + t.kv_blocks.numel() + t.flags.numel())
         ttables = 4 * (t.pos.numel() + sum(x.numel() for x in dkv_t))
-        io = {  # (bytes moved, operations, peak for their type)
+        # (bytes moved, [(operations, peak for their type), ...]). Both
+        # forward products take 16-bit operands (p is rounded to V's type).
+        # In the backward only the score product q.k^T does (f32
+        # accumulator); dout.v^T, ds.k, p^T.dout and ds^T.q take f32.
+        pk16, pk32 = PEAK_OPS[c["dtype"]], PEAK_OPS["float32"]
+        io = {
             "salo_table_attention": (
                 qkv + BH * n_pad * D * item + 2 * BH * n_pad * 4 + tables,
-                4 * D * pairs, PEAK_OPS[c["dtype"]]),
+                [(4 * D * pairs, pk16)]),
             "salo_table_backward_dq": (
                 qkv + BH * n_pad * D * 4 + stats + BH * n_pad * D * item
-                + tables, 6 * D * pairs, PEAK_OPS["float32"]),
+                + tables, [(2 * D * pairs, pk16), (4 * D * pairs, pk32)]),
             "salo_table_backward_dkv": (
                 qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
-                + ttables, 8 * D * pairs, PEAK_OPS["float32"]),
+                + ttables, [(2 * D * pairs, pk16), (6 * D * pairs, pk32)]),
         }
         calls = {
             "salo_table_attention": (
@@ -595,9 +604,10 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
                   "backward": timer(lib_bwd)}
         recs = {}
         for kname, (kfn, pfn) in calls.items():
-            nbytes, ops, peak = io[kname]
+            nbytes, parts = io[kname]
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / peak * 1e3
+            t_ops = sum(o / peak for o, peak in parts) * 1e3
+            ops = sum(o for o, _ in parts)
             err = (errs["out"] if kname == "salo_table_attention" else
                    errs["dq"] if kname == "salo_table_backward_dq" else
                    max(errs["dk"], errs["dv"]))
@@ -733,8 +743,9 @@ def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     check(sum(losses[-5:]) / 5 < losses[0],
           f"the loss did not fall: {losses}")
     remat = 1 + (cfg.remat == "full")
+    # K3 is two kernels per call: the row walk and the owner-tile sum
     want = {"K1": remat * cfg.n_layers * steps, "K2": cfg.n_layers * steps,
-            "K3": cfg.n_layers * steps}
+            "K3": 2 * cfg.n_layers * steps}
     check(launches == want, f"launches {launches} != {want}")
     check(plain == 0, f"the plain versions ran {plain} times")
     med = sorted(times[1:])[len(times[1:]) // 2]
@@ -831,23 +842,25 @@ def main(argv=None) -> int:
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:238",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
-        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "launches": launches, "launches_per_call": 1,
+        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"]}]
-    for name, key, src, replaces in (
+    # launches_per_call: K3's wrapper runs two kernels (the row walk and
+    # the owner-tile sum), and its count and its time cover both
+    for name, key, src, replaces, per_call in (
             ("salo_table_attention", "K1", "salo_table_attention.cu",
-             "src/repro/kernels/salo_attention.py:119"),
+             "src/repro/kernels/salo_attention.py:119", 1),
             ("salo_table_backward_dq", "K2", "salo_table_backward.cu",
-             "src/repro/kernels/salo_backward.py:144"),
+             "src/repro/kernels/salo_backward.py:144", 1),
             ("salo_table_backward_dkv", "K3", "salo_table_backward.cu",
-             "src/repro/kernels/salo_backward.py:223")):
+             "src/repro/kernels/salo_backward.py:223", 2)):
         r = trec[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": tl[key],
-            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "launches_per_call": per_call, "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     smi = subprocess.run(

@@ -57,7 +57,7 @@ class SALOConfig:
     dilation: int = 1
     bidirectional: bool = False     # encoders: symmetric window
     global_rows: bool = False       # Longformer-style global queries
-    impl: str = "blockwise"         # blockwise | pallas | pallas_interpret
+    impl: str = "blockwise"         # blockwise | pallas | dense_ref
     block_q: int = 256
     block_k: int = 256
     # SALO windowed decode: read only window+sinks cache slots per step

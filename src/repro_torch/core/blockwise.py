@@ -15,7 +15,6 @@ card.
   every key);
 * :func:`table_dq_scan` / :func:`table_dkv_scan` — the two gradient
   passes, recomputing ``p`` from the saved ``(m, l)`` (:func:`p_from_stats`);
-  :func:`bwd_dq_scan` / :func:`bwd_dkv_scan` walk a whole plan;
 * :func:`plan_backward` — THE backward contract: host-step adjoints around
   two plan-walking gradient passes, parameterized over the engines;
 * :func:`chunk_attention` — the serving prefill engine.
@@ -255,28 +254,6 @@ def table_dkv_scan(dout, delta, m, l, q, k, v, pos_q, pos_k, row_tile,
     dk = zt.index_add(1, row_tile, dk_r).reshape(B, nkb * bk, D)
     dv = zt.index_add(1, row_tile, dv_r).reshape(B, nkb * bk, D)
     return dk, dv
-
-
-def bwd_dq_scan(dout, delta, m, l, qw, kw, vw, pos, *,
-                plan: ExecutionPlan, scale: float) -> torch.Tensor:
-    """Plan-driven dQ: replay the forward tables. All arrays working-space
-    padded; returns (B, n_pad, D) f32."""
-    t = plan_tables(plan, qw.device)
-    return table_dq_scan(dout, delta, m, l, qw, kw, vw,
-                         pos.reshape(plan.nq, plan.block_q),
-                         pos.reshape(plan.nkb, plan.block_k),
-                         t.kv_blocks, t.flags, plan.sched, scale)
-
-
-def bwd_dkv_scan(dout, delta, m, l, qw, kw, vw, pos, *,
-                 plan: ExecutionPlan, scale: float):
-    """Plan-driven dK/dV: walk ``plan.transposed_packed()``."""
-    t = plan_tables(plan, qw.device)
-    return table_dkv_scan(dout, delta, m, l, qw, kw, vw,
-                          pos.reshape(plan.nq, plan.block_q),
-                          pos.reshape(plan.nkb, plan.block_k),
-                          t.row_tile, t.q_blocks, t.pk_flags, plan.sched,
-                          scale)
 
 
 def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,

@@ -16,8 +16,11 @@
 //          row_tile[r]); f32 per-row partials, then summed per owner tile.
 //
 // Bound on this card: operations (6 and 8 flops x hd per attended pair,
-// against each input byte read once); the products run on the CUDA cores
-// in f32 FMA (exact f32, no TF32), as the TPU kernels' f32 contractions.
+// against each input byte read once). The score product q.k^T takes the
+// compute-type q and k (the TPU kernels accumulate it in f32), so with
+// 16-bit inputs the card could run its 2 x hd flops per pair at the 16-bit
+// tensor rate and the rest at the f32 rate. Here every product runs on the
+// CUDA cores in f32 FMA (exact f32, no TF32).
 //
 // Design, dQ: like the forward kernel — a block takes a 64-row slice of a
 // plan query block with Q and dout resident (transposed, f32) and walks

@@ -3,7 +3,10 @@ wrappers and their plain versions.
 
 Both recompute the attention probabilities from the forward's saved row
 stats (``p = exp(s - m) / l``, guarded so rows that attend nothing give
-exactly zero) and work in f32 throughout:
+exactly zero) and do their arithmetic in f32: q, k, v are widened on load,
+so the score product of the 16-bit q and k is exact products summed in
+f32, as the TPU kernels' f32-accumulated score product; their other
+products take f32 operands.
 
 * **dQ** (:func:`salo_table_backward_dq`, ``csrc/salo_table_backward.cu``)
   replays the FORWARD tables: ``ds = p * (dout.v - delta)``,
@@ -23,7 +26,8 @@ in :func:`repro_torch.core.blockwise.plan_backward`.
 Each wrapper takes its plain version (``table_dq_scan`` /
 ``table_dkv_scan`` of :mod:`repro_torch.core.blockwise`) ONLY for CPU
 tensors; for CUDA tensors it launches the kernel or raises. ``.launches``
-counts kernel launches, ``_plain.calls`` plain-version calls.
+counts kernel launches (two per dK/dV call: the row walk and the owner-tile
+sum), ``_plain.calls`` plain-version calls.
 """
 from __future__ import annotations
 
@@ -157,7 +161,8 @@ def salo_table_backward_dkv(dout, delta, m, l, q, k, v, pos_q, pos_k,
     Shapes as :func:`salo_table_backward_dq`, plus row_tile (R,) and
     q_blocks/flags (R, W) int32. Returns ``(dk, dv)``, both
     (B, nkb*bk, D) float32. On the card the call runs the row walk and
-    then the fixed-order owner-tile sum, two launches on one stream.
+    then the fixed-order owner-tile sum, two launches on one stream, and
+    adds 2 to ``.launches``.
     """
     what = "salo_table_backward_dkv"
     _check_shapes(what, dout, delta, m, l, q, k, v, pos_q, pos_k)
@@ -192,7 +197,7 @@ def salo_table_backward_dkv(dout, delta, m, l, q, k, v, pos_q, pos_k,
                  dv.data_ptr(), ctypes.byref(spec), B, nq, bq, nkb, bk, R,
                  q_blocks.shape[1], float(scale), stream)
     raise_on(lib, err, what)
-    salo_table_backward_dkv.launches += 1
+    salo_table_backward_dkv.launches += 2      # row walk + owner-tile sum
     return dk, dv
 
 

@@ -122,8 +122,11 @@ def _train_case(pat, n, bh, hd, bq, bk, dtype, seed):
 
 
 # f32: same algorithm, other summation order (forward 1e-5, gradients
-# 1e-4); 16-bit: the forward rounds p to the 16-bit type relative to
-# another running max, and dq is returned in the 16-bit type.
+# 1e-4). 16-bit out 8e-3 (two bf16 ulps at 0.5): out is returned in the
+# 16-bit type and the forward rounds p to it relative to another running
+# max. 16-bit gradients 2e-2: dq is returned in the 16-bit type, three
+# products after that rounding.
+OUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
 GTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 TRAIN_PATTERNS = {
     "causal_sinks": causal_sliding_window(100, n_sinks=4),
@@ -165,8 +168,8 @@ def test_training_kernels_match_plain(dtype, pname, n, hd, bq, bk):
     assert [f.launches for f in (KA.salo_table_attention,
                                  KB.salo_table_backward_dq,
                                  KB.salo_table_backward_dkv)] == \
-        [x + 1 for x in launches]
-    tol, gtol = TOL[dtype], GTOL[dtype]
+        [x + d for x, d in zip(launches, (1, 1, 2))]   # K3: walk + sum
+    tol, gtol = OUT_TOL[dtype], GTOL[dtype]
     for a, b, tl in ((out, ro, tol), (m, rm, 1e-5), (l, rl, 1e-5),
                      (dq, rdq, gtol), (dk, rdk, gtol), (dv, rdv, gtol)):
         torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
