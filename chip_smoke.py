@@ -10,19 +10,39 @@ nonzero:
 
 1. **build** — compile every CUDA kernel in ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` each, all at once) and print the build time.
-2. **kernels** — hold each kernel against its plain PyTorch version on the
-   card, on rows that attend at least one slot: (a) the serve phase's
-   shapes in bf16 with ragged ``t`` past the ring wrap and shuffled
-   physical pages, (b) the same in f32, (c) page 8, rep 1, hd 128,
-   dilation 2, f16, one all-PAD row. Tolerances: f32 1e-5, bf16/f16 2e-2
-   (abs and rel; the kernel rounds p to the 16-bit type before the PV
-   product, the plain version keeps it in f32). Prints the kernel's, the
-   plain version's and ``scaled_dot_product_attention``'s times (the
-   latter a yardstick only, on the pre-gathered view, gather not timed)
-   beside the bound.
+2. **kernels** — hold each decode kernel against its plain PyTorch
+   version on the card, on rows that attend at least one slot. K4 (paged
+   slab): (a) the serve phase's shapes in bf16 with ragged ``t`` past the
+   ring wrap and shuffled physical pages, (b) the same in f32, (c) page 8,
+   rep 1, hd 128, dilation 2, f16, one all-PAD row, (d) the serve shapes
+   with an int8 slab (bf16 compute) and page statistics, (e) the serve
+   shapes in f32 with ``return_state`` and page statistics, one all-PAD
+   row (which must give the (0, NEG_INF, 0) identity). ``page_m`` must be
+   equal where either side is NEG_INF. K5 (contiguous caches, read
+   through the transposed view of the lockstep (B, S, Hkv, hd) cache):
+   (a) the lockstep phase's cache in bf16, slot = position, (b) the same
+   in f32, (c) the ring layout (window 512 + 4 sinks, dilation 2, PAD
+   ring slots). Tolerances: f32 1e-5, bf16/f16 2e-2 (abs and rel; the
+   kernels round p to the 16-bit type before the PV product, the plain
+   versions keep it in f32). Prints each kernel's, its plain version's
+   and ``scaled_dot_product_attention``'s times (a yardstick only; for
+   K4 on the pre-gathered view, gather not timed) beside the bound.
 3. **serve-check** — a 2-layer, hd-64 f32 model served on the card
-   (kernel) and on the CPU (plain version): greedy tokens must be equal.
-4. **serve** — smollm-135m at full width (30 layers, d 576, 9/3 heads,
+   (kernel) and on the CPU (plain version): greedy tokens must be equal,
+   (1) on the fp slab, (2) on the int8 slab with page skipping (window 64,
+   threshold -3, decay 0.3), where the page counters must be equal too and
+   0 < pages read < pages total.
+4. **lockstep** — smollm-135m at full width and depth, bf16, on the
+   lockstep ``ServeEngine``: batch 8, a 1088-token prompt prefilled token
+   by token, 32 new tokens. Checks finite logits every step, 30 K5
+   launches per decode step, no plain call; prints the step times and
+   tokens/s.
+5. **serve-int8** — the serve phase's requests and weights on
+   ``ContinuousEngine`` with ``kv_dtype="int8"``, threshold -3, decay 0.3.
+   Checks as the serve phase, and the slab's resident bytes; prints the
+   decode step median, tokens/s, prefill time, the page counters and how
+   many tokens agree with the serve phase's (not gated: random weights).
+6. **serve** — smollm-135m at full width (30 layers, d 576, 9/3 heads,
    vocab 49152), bf16, random weights from ``--seed``, on
    ``ContinuousEngine``: 8 requests with prompts over 600-2000 tokens and
    64 new tokens each. Checks every request's tokens, the prefill launch
@@ -30,7 +50,7 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
-5. **train-kernels** — hold the training kernels K1 (forward), K2 (dQ) and
+7. **train-kernels** — hold the training kernels K1 (forward), K2 (dQ) and
    K3 (dK/dV) against their plain versions on the plan tables and
    working-space tensors the op hands them: (a) the train phase's shapes
    (smollm-135m's pattern, 8 x 9 flat heads, n 4096, hd 64, block 256,
@@ -41,10 +61,10 @@ nonzero:
    (a) and (b) each kernel's, the plain version's and the bound's time,
    and ``scaled_dot_product_attention`` with the dense mask (forward, and
    its backward beside K2 and K3) as a yardstick.
-6. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
+8. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
    card (kernels) and on the CPU (plain versions) from the same
    parameters and batches: losses and grad norms agree within 1e-4.
-7. **train** — smollm-135m at full width and depth, bf16, remat full,
+9. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
    the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 = 30 x
@@ -142,11 +162,33 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+def int8_slab(torch, gen, n_pages, page, Hkv, hd):
+    """An int8 slab with per-page scales, written through the engine's
+    quant_slab_write (two rounds per slot: scale growth and rescale)."""
+    from repro_torch.serve.paged_cache import quant_slab_write
+
+    k8 = torch.zeros((n_pages, page, Hkv, hd), dtype=torch.int8,
+                     device="cuda")
+    v8 = torch.zeros_like(k8)
+    ks = torch.zeros(n_pages, device="cuda")
+    vs = torch.zeros_like(ks)
+    phys = torch.arange(1, n_pages, device="cuda",
+                        dtype=torch.int32).repeat_interleave(page)
+    off = torch.arange(page, device="cuda",
+                       dtype=torch.int32).repeat(n_pages - 1)
+    for gain in (0.5, 1.0):
+        rows = torch.randn((2, phys.numel(), Hkv, hd), generator=gen,
+                           device="cuda") * gain
+        quant_slab_write(k8, v8, ks, vs, phys, off, rows[0], rows[1])
+    return k8, v8, ks, vs
+
+
 def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
-                ts, pad_rows=()):
+                ts, pad_rows=(), int8=False, **_):
     """Random slab/query/page tables/positions on the card for one
     kernel case; positions as the engine keeps them (every position <= t
-    written in its ring slot)."""
+    written in its ring slot). Returns (pattern, operands, scales) —
+    scales (k_scale, v_scale) for an int8 slab, else (None, None)."""
     import numpy as np
 
     from repro_torch.core.patterns import causal_sliding_window
@@ -158,8 +200,12 @@ def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
     npp = lay.pages_per_req
     n_pages = 1 + B * npp
     shape = (n_pages, page, Hkv, hd)
-    k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if int8:
+        k, v, ks, vs = int8_slab(torch, gen, n_pages, page, Hkv, hd)
+    else:
+        k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        ks = vs = None
     q = torch.randn((B, H, 1, hd), generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
     pt = perm[: B * npp].reshape(B, npp).to(torch.int32).contiguous()
@@ -169,7 +215,7 @@ def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
         pos[r] = PAD_SENTINEL
     pos_t = torch.from_numpy(pos).cuda()
     t = torch.tensor(ts, dtype=torch.int32, device="cuda")
-    return pat, (q, k, v, pt, pos_t, t)
+    return pat, (q, k, v, pt, pos_t, t), (ks, vs)
 
 
 def live_mask(torch, pat, pos, t):
@@ -179,7 +225,8 @@ def live_mask(torch, pat, pos, t):
 
 
 def phase_kernels(torch, timer, seed):
-    """K4 against its plain version; returns case (a)'s record."""
+    """K4 against its plain version in every variant; returns the records
+    of the cases by name."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
@@ -192,34 +239,69 @@ def phase_kernels(torch, timer, seed):
              ("b", dict(serve, dtype=torch.float32)),
              ("c", dict(B=4, H=2, Hkv=2, hd=128, page=8, window=64, g=4,
                         dil=2, ts=[10, 200, 77, 40], pad_rows=(3,),
-                        dtype=torch.float16))]
+                        dtype=torch.float16)),
+             # the int8 serve phase's kernel: int8 slab, bf16 compute,
+             # page statistics
+             ("d", dict(serve, dtype=torch.bfloat16, int8=True,
+                        stats=True)),
+             # the sequence-parallel partial: f32 (out, m, l) and page
+             # statistics, one all-PAD row
+             ("e", dict(serve, dtype=torch.float32, state=True, stats=True,
+                        pad_rows=(0,)))]
     records = {}
     for i, (name, kw) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
-        pat, ops = decode_case(torch, gen, **kw)
+        pat, ops, (ks, vs) = decode_case(torch, gen, **kw)
         q, k, v, pt, pos, t = ops
-        out = salo_paged_decode(*ops, pattern=pat)
-        ref = salo_paged_decode_plain(*ops, pattern=pat)
+        var = dict(pattern=pat, k_scale=ks, v_scale=vs,
+                   return_state=kw.get("state", False),
+                   return_page_stats=kw.get("stats", False))
+        res = salo_paged_decode(*ops, **var)
+        ref = salo_paged_decode_plain(*ops, **var)
         torch.cuda.synchronize()
+        res = res if isinstance(res, tuple) else (res,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
         mask = live_mask(torch, pat, pos, t)                   # (B, S)
         live_rows = mask.any(dim=1)
         check(bool(live_rows.any()), f"case {name}: no live row")
         check(len(kw.get("pad_rows", ())) == int((~live_rows).sum()),
               f"case {name}: live rows {live_rows.tolist()}")
-        o, r = out[live_rows].float(), ref[live_rows].float()
-        check(bool(torch.isfinite(out[live_rows]).all()),
-              f"case {name}: non-finite kernel output")
-        err = float((o - r).abs().max())
         dname = str(kw["dtype"]).replace("torch.", "")
         tol = TOL[dname]
-        check(bool(torch.allclose(o, r, atol=tol, rtol=tol)),
-              f"case {name}: kernel vs plain max abs err {err} > {tol}")
-        if kw.get("pad_rows"):
-            check(bool((out[~live_rows] == 0).all()),
+        n_row_out = 3 if var["return_state"] else 1
+        names = ["out", "m", "l"][:n_row_out]
+        errs = {}
+        for what, a, b in zip(names, res, ref):
+            o, r = a[live_rows].float(), b[live_rows].float()
+            check(bool(torch.isfinite(o).all()),
+                  f"case {name}: non-finite kernel {what}")
+            errs[what] = float((o - r).abs().max())
+            check(bool(torch.allclose(o, r, atol=tol, rtol=tol)),
+                  f"case {name}: kernel {what} vs plain max abs err "
+                  f"{errs[what]} > {tol}")
+            if kw.get("pad_rows") and var["return_state"]:
+                check(torch.equal(a[~live_rows], b[~live_rows]),
+                      f"case {name}: an all-PAD row must give the "
+                      f"(0, NEG_INF, 0) identity, {what}")
+        if kw.get("pad_rows") and not var["return_state"]:
+            check(bool((res[0][~live_rows] == 0).all()),
                   f"case {name}: an all-PAD row must give 0")
+        if var["return_page_stats"]:
+            pm, rpm = res[-1], ref[-1]
+            dead = (pm <= -1e29) | (rpm <= -1e29)
+            check(torch.equal(pm[dead], rpm[dead]),
+                  f"case {name}: page_m differs where a side is NEG_INF")
+            errs["page_m"] = float((pm[~dead] - rpm[~dead]).abs().max())
+            check(bool(torch.allclose(pm[~dead], rpm[~dead], atol=tol,
+                                      rtol=tol)),
+                  f"case {name}: page_m max abs err {errs['page_m']}")
+            check(bool(dead.any()) and bool((~dead).any()),
+                  f"case {name}: page_m has no dead or no live page")
 
-        # yardstick: SDPA on the pre-gathered view with a precomputed mask
-        kr, vr = gather_view(k, v, pt)
+        # yardstick: SDPA on the pre-gathered (dequantized) view with a
+        # precomputed mask
+        kr, vr = gather_view(k, v, pt, *((ks, vs, q.dtype) if ks is not None
+                                         else ()))
         kr = kr.transpose(1, 2).contiguous()
         vr = vr.transpose(1, 2).contiguous()
         amask = mask[:, None, None, :]
@@ -228,70 +310,195 @@ def phase_kernels(torch, timer, seed):
             return F.scaled_dot_product_attention(q, kr, vr, attn_mask=amask,
                                                   enable_gqa=True)
 
-        kernel_ms = timer(lambda: salo_paged_decode(*ops, pattern=pat))
-        plain_ms = timer(lambda: salo_paged_decode_plain(*ops, pattern=pat))
+        kernel_ms = timer(lambda: salo_paged_decode(*ops, **var))
+        plain_ms = timer(lambda: salo_paged_decode_plain(*ops, **var))
         library_ms = timer(lib)
         # bound: the bytes the function must move for THIS data (the
-        # kernel reads only live slots' K/V rows) vs its operations
+        # kernel reads only live slots' K/V rows, and the scales of the
+        # pages that hold them) vs its operations
         B, H, _, hd = q.shape
-        Hkv = k.shape[2]
+        Hkv, page = k.shape[2], k.shape[1]
         live = int(mask.sum())                      # live (b, slot) pairs
+        live_pages = int(mask.reshape(B, -1, page).any(-1).sum())
         item = q.element_size()
-        nbytes = (2 * live * Hkv * hd * item        # K and V rows
-                  + 2 * q.numel() * item            # q in, out out
+        out_item = 4 if var["return_state"] else item
+        nbytes = (2 * live * Hkv * hd * k.element_size()   # K and V rows
+                  + q.numel() * item + q.numel() * out_item
                   + (pt.numel() + pos.numel() + t.numel()) * 4)
+        if ks is not None:
+            nbytes += 2 * live_pages * 4                   # their scales
+        if var["return_state"]:
+            nbytes += 2 * B * H * 4                        # m, l
+        if var["return_page_stats"]:
+            nbytes += pt.numel() * 4                       # page_m
         ops_ = 4 * live * H * hd                    # QK^T and PV
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops_ / PEAK_OPS[dname] * 1e3
         rec = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=err, bytes=nbytes, live_slots=live)
-        log(f"[kernels] case {name} {dname} B={B} H={H} Hkv={Hkv} hd={hd} "
-            f"page={k.shape[1]} npp={pt.shape[1]}: "
+                   max_abs_err=max(errs.values()), errs=errs, bytes=nbytes,
+                   live_slots=live)
+        log(f"[kernels] K4 case {name} {dname} "
+            f"{'int8 slab ' if ks is not None else ''}"
+            f"state={var['return_state']} "
+            f"stats={var['return_page_stats']} B={B} H={H} Hkv={Hkv} "
+            f"hd={hd} page={page} npp={pt.shape[1]}: "
             + " ".join(f"{a}={b}" for a, b in rec.items()))
         records[name] = rec
-    return records["a"]
+    return records
+
+
+LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW = 8, 1088, 32
+
+
+def phase_k5(torch, timer, seed):
+    """K5 against its plain version: (a) the lockstep phase's cache (bf16,
+    full cache, slot = position, read through the transposed view of the
+    (B, S, Hkv, hd) cache), (b) the same in f32, (c) the ring layout
+    (window + sinks slots, PAD for unwritten ring slots) with dilation 2.
+    Returns the records by case."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core.patterns import causal_sliding_window
+    from repro_torch.core.scheduler import PAD_SENTINEL
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+
+    B, H, Hkv, hd = LOCKSTEP_B, 9, 3, 64
+    S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
+    full = dict(window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
+    cases = [("a", dict(full, dtype=torch.bfloat16)),
+             ("b", dict(full, dtype=torch.float32)),
+             ("c", dict(window=512, g=4, dil=2, S=512 + 4, t=3000,
+                        ring=True, dtype=torch.bfloat16))]
+    records = {}
+    for i, (name, c) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 50 + i)
+        pat = causal_sliding_window(c["window"], n_sinks=c["g"],
+                                    dilation=c["dil"])
+        S_, t, dt = c["S"], c["t"], c["dtype"]
+        cache = torch.randn((2, B, S_, Hkv, hd), generator=gen,
+                            device="cuda").to(dt)
+        k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        q = torch.randn((B, H, 1, hd), generator=gen, device="cuda").to(dt)
+        positions = None
+        if c["ring"]:
+            w, g = c["window"], c["g"]
+            j = np.arange(S_)
+            pos = np.where(j < g, j, t - np.mod(t - j, w))
+            pos = np.where((j >= g) & (pos < g), PAD_SENTINEL, pos)
+            positions = torch.from_numpy(pos.astype(np.int32)).cuda()
+        out = salo_decode(q, k, v, positions, t, pattern=pat)
+        ref = salo_decode_plain(q, k, v, positions, t, pattern=pat)
+        torch.cuda.synchronize()
+        dname = str(dt).replace("torch.", "")
+        tol = TOL[dname]
+        check(bool(torch.isfinite(out).all()), f"K5 case {name}: non-finite")
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.allclose(out.float(), ref.float(), atol=tol,
+                                  rtol=tol)),
+              f"K5 case {name}: kernel vs plain max abs err {err} > {tol}")
+        pos_k = (torch.arange(S_, dtype=torch.int32, device="cuda")
+                 if positions is None else positions)
+        mask = live_mask(torch, pat, pos_k[None].expand(B, S_),
+                         torch.full((B,), t, dtype=torch.int32,
+                                    device="cuda"))
+        amask = mask[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=amask,
+                                                  enable_gqa=True)
+
+        kernel_ms = timer(lambda: salo_decode(q, k, v, positions, t,
+                                              pattern=pat))
+        # few iterations: a plain call on the strided cache copies it and
+        # takes long to issue, and the queue must stay behind the sleep
+        plain_ms = timer(lambda: salo_decode_plain(q, k, v, positions, t,
+                                                   pattern=pat),
+                         iters=2, sleep_cycles=4_000_000_000)
+        library_ms = timer(lib)
+        live = int(mask.sum())
+        item = q.element_size()
+        nbytes = (2 * live * Hkv * hd * item + 2 * q.numel() * item
+                  + (0 if positions is None else positions.numel() * 4))
+        ops_ = 4 * live * H * hd
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_ / PEAK_OPS[dname] * 1e3
+        rec = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=err, bytes=nbytes, live_slots=live)
+        log(f"[kernels] K5 case {name} {dname} {pat} B={B} H={H} Hkv={Hkv} "
+            f"hd={hd} S={S_} t={t} ring={c['ring']}: "
+            + " ".join(f"{a}={b}" for a, b in rec.items()))
+        records[name] = rec
+    return records
+
+
+def _serve_check_cfg(window):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import SALOConfig
+
+    return dataclasses.replace(get_smoke("smollm-135m"), d_model=192,
+                               n_heads=3, n_kv_heads=1, d_ff=256,
+                               salo=SALOConfig(window=window, n_global=2))
 
 
 def serve_check(torch, seed):
     """Kernel path (cuda) and plain path (cpu) give the same greedy tokens
-    on a small f32 model with hd 64."""
-    import dataclasses
-
+    on a small f32 model with hd 64: (1) the fp slab, window 16; (2) the
+    int8 slab with page skipping on the workload of the reference's
+    ``test_page_skip_engages_at_parity`` (window 64, prompts 24/17/9/30,
+    24 new tokens, threshold -3, decay 0.3), where the page counters must
+    be equal too and pages really skipped (0 < read < total)."""
     import numpy as np
 
-    from repro_torch.configs import get_smoke
-    from repro_torch.configs.base import SALOConfig
     from repro_torch.models.layers import salo_pattern
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
     from repro_torch.serve.paged_cache import layout_for_pattern
 
-    cfg = dataclasses.replace(get_smoke("smollm-135m"), d_model=192,
-                              n_heads=3, n_kv_heads=1, d_ff=256,
-                              salo=SALOConfig(window=16, n_global=2))
-    lay = layout_for_pattern(salo_pattern(cfg), 8)
-    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
-                            chunk=8, max_batch=4)
-    cpu_model = build_model(cfg, "cpu")
-    params = cpu_model.init(torch.Generator().manual_seed(seed))
-    for layer in params["seg0_attn_mlp"]:       # tokens that use attention
-        layer["attn"]["wo"] *= 6.0
-        layer["mlp"]["w_out"] *= 6.0
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 9, 13, 26)]
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, dev)
-        p = params if dev == "cpu" else _to(params, dev)
-        eng = ContinuousEngine(model, ccfg, device=dev)
-        rids = [eng.submit(x, 8) for x in prompts]
-        res = eng.run(p)
-        outs[dev] = [res[r].tolist() for r in rids]
-    check(outs["cuda"] == outs["cpu"],
-          f"serve-check: cuda {outs['cuda']} != cpu {outs['cpu']}")
-    log(f"[serve-check] cuda == cpu greedy tokens: {outs['cuda']}")
+    runs = [("fp", 16, (5, 9, 13, 26), 8, {}),
+            ("int8 page-sparse", 64, (24, 17, 9, 30), 24,
+             dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
+                  page_stat_decay=0.3))]
+    for what, window, lens, n_new, extra in runs:
+        cfg = _serve_check_cfg(window)
+        lay = layout_for_pattern(salo_pattern(cfg), 8)
+        ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
+                                chunk=8, max_batch=4, **extra)
+        cpu_model = build_model(cfg, "cpu")
+        params = cpu_model.init(torch.Generator().manual_seed(seed))
+        for layer in params["seg0_attn_mlp"]:   # tokens that use attention
+            layer["attn"]["wo"] *= 6.0
+            layer["mlp"]["w_out"] *= 6.0
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+        outs, counters = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, dev)
+            p = params if dev == "cpu" else _to(params, dev)
+            eng = ContinuousEngine(model, ccfg, device=dev)
+            rids = [eng.submit(x, n_new) for x in prompts]
+            res = eng.run(p)
+            outs[dev] = [res[r].tolist() for r in rids]
+            counters[dev] = dict(eng.counters)
+        check(outs["cuda"] == outs["cpu"],
+              f"serve-check {what}: cuda {outs['cuda']} != cpu "
+              f"{outs['cpu']}")
+        check(counters["cuda"] == counters["cpu"],
+              f"serve-check {what}: counters cuda {counters['cuda']} != "
+              f"cpu {counters['cpu']}")
+        c = counters["cuda"]
+        if extra:
+            check(0 < c["decode_pages_read"] < c["decode_pages_total"],
+                  f"serve-check {what}: no page skipped: {c}")
+        log(f"[serve-check] {what}: cuda == cpu greedy tokens and counters "
+            f"(decode pages read {c['decode_pages_read']} of "
+            f"{c['decode_pages_total']}): {outs['cuda']}")
 
 
 def _to(tree, dev):
@@ -299,14 +506,17 @@ def _to(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
 
 
-def phase_serve(torch, seed):
-    """smollm-135m at full width on the continuous engine. Returns the K4
-    launch count of the run."""
+SERVE_PAGE, SERVE_CHUNK, SERVE_R, SERVE_NEW = 16, 128, 8, 64
+
+
+def _serve_engine(torch, seed, what, **extra):
+    """smollm-135m at full width, bf16, random weights from ``seed``, on
+    the continuous engine with the serve phases' 8 requests submitted
+    (prompts over 600-2000 tokens). ``extra``: ContinuousConfig fields.
+    Returns (cfg, engine, params, prompt lengths, rng)."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.salo_decode import (salo_paged_decode,
-                                                 salo_paged_decode_plain)
     from repro_torch.models.layers import salo_pattern
     from repro_torch.models.model import build_model
     from repro_torch.obs import Observability
@@ -315,32 +525,68 @@ def phase_serve(torch, seed):
     from repro_torch.tree import tree_leaves
 
     cfg = get_config("smollm-135m")
-    page, chunk, R, n_new = 16, 128, 8, 64
-    lay = layout_for_pattern(salo_pattern(cfg), page)
+    R = SERVE_R
+    lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE)
     check(lay.pages_per_req == 65, f"pages_per_req {lay.pages_per_req}")
-    ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_req, page=page,
-                            chunk=chunk, max_batch=R)
+    ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_req,
+                            page=SERVE_PAGE, chunk=SERVE_CHUNK, max_batch=R,
+                            **extra)
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
     n_param = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"[serve] smollm-135m bf16: weights {n_param / 1e6:.1f} MB, slab "
-        f"{eng.slab_resident_bytes() / 1e6:.1f} MB, n_pages={ccfg.n_pages}")
+    log(f"[{what}] smollm-135m bf16 {extra}: weights {n_param / 1e6:.1f} MB,"
+        f" slab {eng.slab_resident_bytes()} bytes resident "
+        f"({eng.slab_resident_bytes() / 1e6:.1f} MB), "
+        f"n_pages={ccfg.n_pages}")
     rng = np.random.default_rng(seed)
     lens = [int(x) for x in np.linspace(600, 2000, R).round()
             + rng.integers(0, 40, R)]
     lens = [min(n, 2000) for n in lens]
     for n in lens:
-        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), n_new)
+        eng.submit(rng.integers(0, cfg.vocab_size, (n,)), SERVE_NEW)
 
     decode_fn = eng._decode_fn
 
     def checked_decode(*a, **k):              # finite logits every step
-        logits = decode_fn(*a, **k)
+        logits, page_m = decode_fn(*a, **k)
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
-        return logits
+        return logits, page_m
 
     eng._decode_fn = checked_decode
+    return cfg, eng, params, lens, rng
+
+
+def _check_serve_run(cfg, eng, lens, launches, plain, what):
+    """Every request finished with its tokens, the prefill launch count,
+    one K4 launch per layer per decode step, no plain call."""
+    res = eng.batcher.results()
+    c = dict(eng.counters)
+    log(f"[{what}] prompts={lens} new={SERVE_NEW} counters={c}")
+    check(len(res) == SERVE_R, f"{len(res)} of {SERVE_R} requests finished")
+    for rid, toks in res.items():
+        check(len(toks) == SERVE_NEW, f"request {rid}: {len(toks)} tokens")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"request {rid}: token outside the vocabulary")
+    want = sum(math.ceil(n / SERVE_CHUNK) for n in lens)
+    check(c["prefill_launches"] == want,
+          f"prefill launches {c['prefill_launches']} != {want}")
+    check(launches == c["decode_launches"] * cfg.n_layers,
+          f"K4 launches {launches} != {c['decode_launches']} x "
+          f"{cfg.n_layers}")
+    check(launches > 0, "K4 never launched")
+    check(plain == 0, f"the plain version ran {plain} times")
+    return res, c
+
+
+def phase_serve(torch, seed):
+    """smollm-135m at full width on the continuous engine. Returns the K4
+    launch count of the run and the requests' tokens."""
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+
+    cfg, eng, params, lens, rng = _serve_engine(torch, seed, "serve")
+    R = SERVE_R
     salo_paged_decode.launches = 0
     salo_paged_decode_plain.calls = 0
     torch.cuda.synchronize()
@@ -380,22 +626,7 @@ def phase_serve(torch, seed):
     check(timed is not None, "the run ended before the profiled steps")
     launches = salo_paged_decode.launches
     plain = salo_paged_decode_plain.calls
-    res = eng.batcher.results()
-    c = dict(eng.counters)
-    log(f"[serve] prompts={lens} new={n_new} counters={c}")
-    check(len(res) == R, f"{len(res)} of {R} requests finished")
-    for rid, toks in res.items():
-        check(len(toks) == n_new, f"request {rid}: {len(toks)} tokens")
-        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-              f"request {rid}: token outside the vocabulary")
-    want = sum(math.ceil(n / chunk) for n in lens)
-    check(c["prefill_launches"] == want,
-          f"prefill launches {c['prefill_launches']} != {want}")
-    check(launches == c["decode_launches"] * cfg.n_layers,
-          f"K4 launches {launches} != {c['decode_launches']} x "
-          f"{cfg.n_layers}")
-    check(launches > 0, "K4 never launched")
-    check(plain == 0, f"the plain version ran {plain} times")
+    res, _ = _check_serve_run(cfg, eng, lens, launches, plain, "serve")
     check(len(decode_steps) > 0, "no decode-only step")
     med = sorted(d for d, _ in decode_steps)[len(decode_steps) // 2]
     dec_tps = sum(n for _, n in decode_steps) / sum(d for d, _ in decode_steps)
@@ -421,6 +652,122 @@ def phase_serve(torch, seed):
     dt = time.perf_counter() - ts
     prof.stop()
     report_profile(prof, dt, 1, "prefill chunk")
+    return launches, res
+
+
+def phase_serve_int8(torch, seed):
+    """The serve phase's requests and weights on the int8 slab with page
+    skipping (threshold -3, decay 0.3). Checks the run like the serve
+    phase and the slab's resident bytes; reports the step time and the
+    page counters (random weights need not skip pages at full width, so
+    that is not gated). Returns the K4 launch count and the tokens."""
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+    from repro_torch.serve.paged_cache import slab_bytes
+
+    cfg, eng, params, lens, _ = _serve_engine(
+        torch, seed, "serve-int8", kv_dtype="int8",
+        page_sparsity_threshold=-3.0, page_stat_decay=0.3)
+    n_layers = sum(n for _, n in eng.model.program)
+    want_bytes = slab_bytes(n_layers, eng.ccfg.n_pages, SERVE_PAGE,
+                            cfg.n_kv_heads, cfg.hd, 1, with_scales=True)
+    fp_bytes = slab_bytes(n_layers, eng.ccfg.n_pages, SERVE_PAGE,
+                          cfg.n_kv_heads, cfg.hd, 2)
+    check(eng.slab_resident_bytes() == want_bytes,
+          f"int8 slab {eng.slab_resident_bytes()} bytes != {want_bytes}")
+    salo_paged_decode.launches = 0
+    salo_paged_decode_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_done, decode_steps = None, []
+    while True:
+        pre, dec = eng.batcher.assemble()
+        ts = time.perf_counter()
+        more = eng.step(params)
+        torch.cuda.synchronize()
+        if not pre and dec:
+            decode_steps.append((time.perf_counter() - ts, len(dec)))
+        if prefill_done is None and not any(
+                r is not None and r.state in ("waiting", "prefill")
+                for r in eng.batcher.rows) and not eng.batcher.queue \
+                and eng.counters["prefill_launches"]:
+            prefill_done = time.perf_counter() - t0
+        if not more:
+            break
+    wall = time.perf_counter() - t0
+    launches = salo_paged_decode.launches
+    plain = salo_paged_decode_plain.calls
+    res, c = _check_serve_run(cfg, eng, lens, launches, plain, "serve-int8")
+    check(len(decode_steps) > 0, "no decode-only step")
+    med = sorted(d for d, _ in decode_steps)[len(decode_steps) // 2]
+    log(f"[serve-int8] slab {eng.slab_resident_bytes()} bytes resident "
+        f"(bf16 slab {fp_bytes}, ratio {fp_bytes / eng.slab_resident_bytes():.3f});"
+        f" prefill {prefill_done:.3f} s; decode step median {med * 1e3:.3f} "
+        f"ms over {len(decode_steps)} decode-only steps; "
+        f"{SERVE_R * SERVE_NEW / wall:.1f} generated tokens/s over the "
+        f"phase's {wall:.3f} s; decode pages read "
+        f"{c['decode_pages_read']} of {c['decode_pages_total']}, prefill "
+        f"{c['prefill_pages_read']} of {c['prefill_pages_total']}; K4 "
+        f"launches {launches}")
+    return launches, res
+
+
+def phase_lockstep(torch, seed):
+    """smollm-135m at full width and depth, bf16, on the lockstep
+    ServeEngine: batch 8, a 1088-token prompt (past the 1024 window, so the
+    window and the sinks both bite) prefilled token by token, 32 new
+    tokens. Checks finite logits every step, 30 K5 launches per decode
+    step and no plain call. Returns the K5 launch count."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config("smollm-135m")
+    B, P, n_new = LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW
+    check(P > cfg.salo.window, f"prompt {P} within the window")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                   (B, P))
+    decode_step = model.decode_step
+    times = []
+
+    def timed_step(*a, **k):                  # finite logits every step
+        ts = time.perf_counter()
+        logits, cache = decode_step(*a, **k)
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        times.append(time.perf_counter() - ts)
+        return logits, cache
+
+    model.decode_step = timed_step
+    salo_decode.launches = 0
+    salo_decode_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate(params, prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = salo_decode.launches, salo_decode_plain.calls
+    steps = len(times)
+    check(steps == P + n_new, f"{steps} decode steps, want {P + n_new}")
+    check(launches == steps * cfg.n_layers,
+          f"K5 launches {launches} != {steps} x {cfg.n_layers}")
+    check(plain == 0, f"the plain version ran {plain} times")
+    check(tuple(toks.shape) == (B, n_new), f"tokens {tuple(toks.shape)}")
+    med = sorted(times)[steps // 2]
+    gen_med = sorted(times[P:])[n_new // 2]
+    gen_s = sum(times[P:])
+    log(f"[lockstep] smollm-135m bf16 B={B} prompt={P} new={n_new}: "
+        f"{steps} decode steps in {wall:.3f} s; step median {med * 1e3:.3f} "
+        f"ms (prefill and generation), generation step median "
+        f"{gen_med * 1e3:.3f} ms, {B * n_new / gen_s:.1f} generated "
+        f"tokens/s in the generation steps, {B * (P + n_new) / wall:.1f} "
+        f"tokens/s through the whole run; K5 launches {launches}; first "
+        f"tokens {toks[:2, :8].tolist()}")
     return launches
 
 
@@ -831,21 +1178,48 @@ def main(argv=None) -> int:
 
     phase_build()
     timer = Timer(torch)
-    rec = phase_kernels(torch, timer, args.seed)
+    k4 = phase_kernels(torch, timer, args.seed)
+    k5 = phase_k5(torch, timer, args.seed)
     serve_check(torch, args.seed)
-    launches = phase_serve(torch, args.seed)
+    # the lockstep and int8 serve phases run before the profiled serve
+    # phase: the profiler's hooks slow the host afterwards
+    launches_k5 = phase_lockstep(torch, args.seed)
+    launches_int8, int8_tokens = phase_serve_int8(torch, args.seed)
+    launches, bf16_tokens = phase_serve(torch, args.seed)
+    agree = sum(int((int8_tokens[r] == bf16_tokens[r]).sum())
+                for r in bf16_tokens)
+    first = sum(int(int8_tokens[r][0] == bf16_tokens[r][0])
+                for r in bf16_tokens)
+    log(f"[serve-int8] tokens equal to the bf16 slab's run: {agree} of "
+        f"{SERVE_R * SERVE_NEW} (first tokens {first} of {SERVE_R}; random "
+        f"weights, not gated)")
     trec = phase_train_kernels(torch, timer, args.seed)
     train_check(torch, args.seed)
     tl = phase_train(torch, args.seed)
 
+    def row(rec):
+        return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"]}
+
+    # K4's main numbers are case (a), the bf16 serve phase's kernel; case
+    # (d) is the int8 serve phase's (int8 slab + page statistics) and (e)
+    # the f32 state variant
     kernels = [{
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:238",
-        "launches": launches, "launches_per_call": 1,
-        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"]}]
+        "launches": launches + launches_int8,
+        "launches_by_path": {"serve": launches, "serve_int8": launches_int8},
+        "launches_per_call": 1, **row(k4["a"]),
+        "variants": {"int8_page_stats_bf16": row(k4["d"]),
+                     "state_page_stats_f32": row(k4["e"])}}, {
+        "name": "salo_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
+        "replaces": "src/repro/kernels/salo_decode.py:173",
+        "launches": launches_k5, "launches_per_call": 1, **row(k5["a"]),
+        "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"])}}]
     # launches_per_call: K3's wrapper runs two kernels (the row walk and
     # the owner-tile sum), and its count and its time cover both
     for name, key, src, replaces, per_call in (

@@ -1,1 +1,2 @@
-"""Plan IR, masks and attention engines of the port's serving path."""
+"""Plan IR, masks, attention engines and the quantization grids of the
+port."""

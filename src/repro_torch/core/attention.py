@@ -8,7 +8,7 @@ layout (batch, heads, seq, head_dim):
 * :func:`hybrid_chunk_attention` — chunked prefill over ChunkPlan tables;
 * :func:`hybrid_decode_attention` — the ragged one-token decode against
   per-request caches with per-slot positions (the plain version the
-  paged-decode kernel is held against).
+  decode kernels K4 and K5 are held against).
 
 The serving paths never copy KV for GQA: the ``rep = H / Hkv`` query
 heads of a group meet their KV head through a size-1 broadcast axis.
@@ -50,7 +50,7 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if plan == "dynamic":
         raise NotImplementedError(
-            "plan='dynamic' is not ported yet: ROADMAP item 5 (runtime "
+            "plan='dynamic' is not ported yet: ROADMAP item 6 (runtime "
             "plans, core/dynamic.py)")
     if plan != "static":
         raise ValueError(f"unknown plan {plan!r}; choose static or dynamic")
@@ -80,35 +80,98 @@ def hybrid_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, t,
                             pattern: HybridSparsePattern, *,
                             scale: Optional[float] = None,
-                            cache_positions: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            cache_positions: Optional[torch.Tensor] = None,
+                            slice_window: bool = False,
+                            return_state: bool = False,
+                            return_slot_m: bool = False):
     """Single-token decode, ragged aware. q: (B, H, 1, D); caches:
-    (B, Hkv, S, D); ``t``: a (B,) int32 tensor (one position per request)
-    or an int; ``cache_positions``: (S,) or (B, S) int32 absolute position
-    per slot (``PAD_SENTINEL`` = empty), default ``arange(S)``.
+    (B, Hkv, S, D); ``t``: an int (lockstep batch) or a (B,) int32 tensor
+    (one position per request); ``cache_positions``: (S,) or (B, S) int32
+    absolute position per slot (``PAD_SENTINEL`` = empty), default
+    ``arange(S)``.
 
     A row with no live slot takes the softmax of all-``NEG_INF`` scores
     and returns the mean of V, exactly as the reference's XLA twin does
-    (the paged kernel returns 0 there; only inactive engine rows are
+    (the decode kernels return 0 there; only inactive engine rows are
     empty, and their logits are discarded).
+
+    ``slice_window=True`` reads only the last ``window`` cache slots and
+    the global-token prefix (the reference's windowed decode). It needs
+    the slot == position layout (``cache_positions is None``) and a
+    scalar ``t``; otherwise the whole cache is read.
+
+    ``return_state=True`` returns ``(out, m, l)`` in f32 (out unrounded,
+    m and l (B, H, 1)); a row with no live slot gives the ``(0, NEG_INF,
+    0)`` identity. ``return_slot_m=True`` appends ``slot_m`` (B, S), each
+    request's max masked score against each slot (``NEG_INF`` where
+    masked). Both read the whole cache.
     """
     B, H, _, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
     scale_ = (D ** -0.5) if scale is None else scale
     dev = q.device
-    qg = q.reshape(B, Hkv, rep, D)
-    s = torch.einsum("bgrd,bgsd->bgrs", qg.float(), k_cache.float()) * scale_
-    pos_i = torch.as_tensor(t, dtype=torch.int32, device=dev).expand(B)
-    pos_k = (torch.arange(S, dtype=torch.int32, device=dev)
-             if cache_positions is None else cache_positions)
-    pos_k = pos_k.expand(B, S)
-    m = causal_step_mask(pattern, pos_i[:, None], pos_k,
-                         STEP_WINDOW | STEP_GLOBAL)              # (B, S)
-    s = torch.where(m[:, None, None, :], s, renorm.NEG_INF)
+    qg = q.reshape(B, Hkv, rep, D).float()
+    a, _ = pattern.window
+    g = pattern.n_global
+    # an int t becomes a fill on the device, not a host-to-device copy
+    # (which would wait for the work queued before it)
+    pos_i = (t.to(torch.int32).expand(B) if torch.is_tensor(t) else
+             torch.full((B,), int(t), dtype=torch.int32, device=dev))
+
+    def grouped(kc, pos_k, extra_mask=None):
+        """kc: (B, Hkv, L, D); pos_k: (L,) or (B, L) -> masked scores."""
+        s = torch.einsum("bgrd,bgsd->bgrs", qg, kc.float()) * scale_
+        pos_kb = pos_k.expand(B, kc.shape[2])
+        m = causal_step_mask(pattern, pos_i[:, None], pos_kb,
+                             STEP_WINDOW | STEP_GLOBAL)         # (B, L)
+        if extra_mask is not None:
+            m = m & extra_mask
+        return torch.where(m[:, None, None, :], s, renorm.NEG_INF)
+
+    def all_slots():
+        return (torch.arange(S, dtype=torch.int32, device=dev)
+                if cache_positions is None else cache_positions)
+
+    if return_state:
+        s = grouped(k_cache, all_slots())                 # (B, Hkv, rep, S)
+        m = s.amax(dim=-1)
+        # masked entries sit at NEG_INF: exp(NEG_INF - shift) underflows to
+        # exactly 0, and an all-masked row keeps (0, NEG_INF, 0)
+        shift = torch.where(m <= renorm.NEG_INF / 2, 0.0, m)
+        p = torch.exp(s - shift[..., None])
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
+        out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+        res = (out.reshape(B, H, 1, D), m.reshape(B, H, 1),
+               l.reshape(B, H, 1))
+        return (*res, s.amax(dim=(1, 2))) if return_slot_m else res
+
+    vc = v_cache
+    if return_slot_m:
+        s = grouped(k_cache, all_slots())
+    elif slice_window and cache_positions is None and a > -(1 << 29) \
+            and not (torch.is_tensor(t) and t.dim() > 0):
+        L = min(S, -a + 1)
+        start = min(max(int(t) - (L - 1), 0), S - L)
+        pos_win = start + torch.arange(L, dtype=torch.int32, device=dev)
+        parts_s = [grouped(k_cache[:, :, start:start + L], pos_win)]
+        parts_v = [v_cache[:, :, start:start + L]]
+        if g > 0:
+            gp = min(g, S)
+            pos_sink = torch.arange(gp, dtype=torch.int32, device=dev)
+            # exclude sink slots already inside the window slice
+            parts_s.insert(0, grouped(k_cache[:, :, :gp], pos_sink,
+                                      extra_mask=pos_sink < start))
+            parts_v.insert(0, v_cache[:, :, :gp])
+        s = torch.cat(parts_s, dim=-1)
+        vc = torch.cat(parts_v, dim=2)
+    else:
+        s = grouped(k_cache, all_slots())
     wts = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrs,bgsd->bgrd", wts, v_cache.float())
-    return out.to(q.dtype).reshape(B, H, 1, D)
+    out = torch.einsum("bgrs,bgsd->bgrd", wts, vc.float())
+    out = out.to(q.dtype).reshape(B, H, 1, D)
+    return (out, s.amax(dim=(1, 2))) if return_slot_m else out
 
 
 def hybrid_chunk_attention(q: torch.Tensor, k_view: torch.Tensor,

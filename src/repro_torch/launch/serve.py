@@ -1,22 +1,33 @@
-"""Serving driver of the port: the continuous-batching engine.
+"""Serving driver of the port: the continuous-batching engine (default)
+or the lockstep baseline.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 8 --prompt-len 1024 --new-tokens 64 --chunk 128 --page 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --smoke --device cpu --batch 4 --prompt-len 32 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --device cpu --kv-dtype int8 --page-sparsity-threshold -3 \\
+      --page-stat-decay 0.3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --device cpu --engine lockstep
 
-Greedy decoding. Submits a RAGGED batch (prompt lengths spread around ``--prompt-len``) to
-the paged-slab engine with random weights from ``--seed`` and reports
-launch counters beside throughput. Runs on the card unless ``--device cpu``
-is given; with no card, ``--device cuda`` (the default) raises.
+Random weights from ``--seed``. ``--engine continuous`` (greedy) submits a
+RAGGED batch (prompt lengths spread around ``--prompt-len``) to the
+paged-slab engine and reports launch counters beside throughput;
+``--kv-dtype int8`` stores the slab quantized per (layer, page), and
+``--page-sparsity-threshold``/``--page-stat-decay`` turn on page skipping.
+``--engine lockstep`` prefills a rectangular batch token by token and
+decodes it in lockstep (greedy, or sampled with ``--temperature``). Runs
+on the card unless ``--device cpu`` is given; with no card, ``--device
+cuda`` (the default) raises.
 
-``--trace-out trace.json`` writes the engine's step-phase spans and every
-request's lifecycle events as Chrome trace-event JSON at exit;
+``--trace-out trace.json`` writes the continuous engine's step-phase spans
+and every request's lifecycle events as Chrome trace-event JSON at exit;
 ``--metrics-out`` dumps the metrics registry; ``--summary-every N`` prints
 a one-line stderr summary every N engine steps.
 
-The JAX driver's lockstep engine, sequence sharding, int8 slab, page
-sparsity and snapshot/fault-injection options are not ported yet.
+The JAX driver's sequence sharding and snapshot/fault-injection options
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,7 +42,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.models.layers import salo_pattern
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability, summary_line
-from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
+from repro_torch.serve.engine import (ContinuousConfig, ContinuousEngine,
+                                     ServeConfig, ServeEngine)
 from repro_torch.serve.paged_cache import layout_for_pattern
 
 
@@ -45,16 +57,32 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--engine", choices=("continuous",),
+    ap.add_argument("--engine", choices=("lockstep", "continuous"),
                     default="continuous")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--page", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=0,
                     help="engine rows (0 = --batch)")
+    ap.add_argument("--kv-dtype", choices=("compute", "int8"),
+                    default="compute",
+                    help="paged-slab storage dtype (continuous engine): "
+                         "'int8' stores K/V quantized per (layer, page) "
+                         "with f32 scales, dequantized in-kernel")
+    ap.add_argument("--page-sparsity-threshold", type=float, default=None,
+                    help="continuous engine: skip reading pages whose "
+                         "historical max attention score (log-space, "
+                         "relative to the row max) fell below this; sink "
+                         "and write pages are always read. Unset = dense "
+                         "reads; -inf = track stats but keep everything")
+    ap.add_argument("--page-stat-decay", type=float, default=0.0,
+                    help="per-step decay of the per-page score history; "
+                         "must be > 0 for --page-sparsity-threshold to "
+                         "ever skip a page")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bound the admission queue; unset = unbounded")
     ap.add_argument("--deadline-s", type=float, default=None,
@@ -78,11 +106,24 @@ def main(argv=None):
     model = build_model(cfg, args.device)
     params = model.init(torch.Generator().manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
+
+    if args.engine != "continuous" and (args.trace_out or args.metrics_out
+                                        or args.summary_every):
+        ap.error("--trace-out/--metrics-out/--summary-every need "
+                 "--engine continuous (the instrumented engine)")
+    if args.engine == "lockstep":
+        return _lockstep(args, cfg, model, params, rng)
+    if args.temperature != 0.0:
+        ap.error("--engine continuous is greedy-only "
+                 "(temperature sampling needs per-request RNG streams)")
+
     max_batch = args.max_batch or args.batch
     lay = layout_for_pattern(salo_pattern(cfg, causal=True), args.page)
     ccfg = ContinuousConfig(
         n_pages=1 + max_batch * lay.pages_per_req, page=args.page,
-        chunk=args.chunk, max_batch=max_batch, max_queue=args.max_queue)
+        chunk=args.chunk, max_batch=max_batch, kv_dtype=args.kv_dtype,
+        page_sparsity_threshold=args.page_sparsity_threshold,
+        page_stat_decay=args.page_stat_decay, max_queue=args.max_queue)
     lens = _ragged_lengths(args.prompt_len, args.batch, rng)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
     obs = Observability(tracing=bool(args.trace_out))
@@ -107,14 +148,37 @@ def main(argv=None):
         obs.write_metrics(args.metrics_out)
         print(f"# metrics: {args.metrics_out}", file=sys.stderr)
     total_new = sum(len(r) for r in results.values())
-    print(f"# arch={cfg.name} device={args.device} batch={args.batch} "
-          f"prompts={lens} new={args.new_tokens} chunk={args.chunk} "
-          f"page={args.page}")
+    print(f"# arch={cfg.name} engine=continuous device={args.device} "
+          f"batch={args.batch} prompts={lens} new={args.new_tokens} "
+          f"chunk={args.chunk} page={args.page} kv_dtype={args.kv_dtype} "
+          f"page_thr={args.page_sparsity_threshold}")
     print(f"# {dt:.2f}s total, {total_new / dt:.1f} tok/s "
           f"(includes kernel build); counters={eng.counters}")
     for rid in sorted(results)[:2]:
         print(f"sample[{rid}]: {results[rid][:16].tolist()}")
     return results
+
+
+def _lockstep(args, cfg, model, params, rng):
+    """The lockstep baseline: a rectangular batch, prefilled token by
+    token, decoded in lockstep. Returns the (B, new) tokens."""
+    max_len = args.prompt_len + args.new_tokens
+    eng = ServeEngine(model, ServeConfig(max_len=max_len,
+                                         temperature=args.temperature,
+                                         seed=args.seed))
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    toks = eng.generate(params, prompts, args.new_tokens).cpu().numpy()
+    dt = time.perf_counter() - t0
+    total_new = args.batch * args.new_tokens
+    print(f"# arch={cfg.name} engine=lockstep device={args.device} "
+          f"batch={args.batch} prompt={args.prompt_len} "
+          f"new={args.new_tokens} temperature={args.temperature}")
+    print(f"# {dt:.2f}s total, {total_new / dt:.1f} tok/s "
+          f"(includes kernel build)")
+    for b in range(min(args.batch, 2)):
+        print(f"sample[{b}]: {toks[b][:16].tolist()}")
+    return toks
 
 
 if __name__ == "__main__":

@@ -8,18 +8,22 @@ parameters are a copy (:mod:`repro_torch.convert`).
 
 The attention layer is where the paper's technique enters the model:
 QKV projection -> RoPE -> hybrid sparse attention with the arch's
-:class:`SALOConfig` pattern -> output projection. Three paths: the
+:class:`SALOConfig` pattern -> output projection. Four paths: the
 full-sequence training forward (:func:`attn_apply`, through
 :func:`repro_torch.core.attention.hybrid_attention`), plan-driven chunked
-prefill, and the ragged paged decode (always through
-:func:`repro_torch.kernels.salo_decode.salo_paged_decode`). The tensors'
-device picks kernel or plain version.
+prefill, the ragged paged decode (always through
+:func:`repro_torch.kernels.salo_decode.salo_paged_decode`) and the
+lockstep decode on contiguous caches (always through
+:func:`repro_torch.kernels.salo_decode.salo_decode`). The tensors' device
+picks kernel or plain version.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,8 +34,8 @@ from repro_torch.core.patterns import (HybridSparsePattern,
                                        causal_sliding_window, full,
                                        longformer)
 from repro_torch.core.scheduler import PAD_SENTINEL
-from repro_torch.kernels.salo_decode import salo_paged_decode
-from repro_torch.serve.paged_cache import slab_write
+from repro_torch.kernels.salo_decode import salo_decode, salo_paged_decode
+from repro_torch.serve.paged_cache import quant_slab_write, slab_write
 
 
 def dt(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
@@ -176,7 +180,8 @@ def attn_chunk_prefill(p, x_chunk, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
 
 def attn_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
                       phys_w, off_w, cfg: ModelConfig,
-                      pattern: HybridSparsePattern) -> torch.Tensor:
+                      pattern: HybridSparsePattern, k_scale=None,
+                      v_scale=None, want_page_stats: bool = False):
     """Ragged one-token decode against ONE layer's pooled paged slab.
 
     x_t: (R, 1, d) — one token per engine row; k_slab/v_slab:
@@ -186,16 +191,94 @@ def attn_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
     int32 slab write targets (null page for inactive rows).
 
     The new token's KV is written into the slab IN PLACE first, then the
-    token attends — so it attends itself, as in the reference. Returns the
-    attention output (R, 1, d)."""
+    token attends — so it attends itself, as in the reference.
+
+    ``k_scale``/``v_scale``: the layer's (n_pages,) f32 dequant scales,
+    present iff the slab is int8. The new KV is quantized into its page
+    (:func:`~repro_torch.serve.paged_cache.quant_slab_write`, monotone
+    scale growth, in place) and the read dequantizes per page inside the
+    decode. ``want_page_stats=True`` makes ``page_m`` (R, npp) the max
+    masked score of each request against each of its logical pages
+    (``NEG_INF`` where fully masked); otherwise it is ``None``.
+
+    Returns the reference's ``(out, k_slab, v_slab, k_scale, v_scale,
+    page_m)``; the slab and scale tensors are the ones passed in, updated
+    in place. (The reference's sequence-parallel ``axis`` comes with
+    multi-GPU serving.)"""
     R = x_t.shape[0]
     q, k, v = attn_qkv(p, x_t, cfg, t_vec[:, None])
-    slab_write(k_slab, v_slab, phys_w, off_w, k[:, 0], v[:, 0])
+    if k_scale is not None:
+        quant_slab_write(k_slab, v_slab, k_scale, v_scale, phys_w, off_w,
+                         k[:, 0], v[:, 0])
+    else:
+        slab_write(k_slab, v_slab, phys_w, off_w, k[:, 0], v[:, 0])
     qt = q.transpose(1, 2).contiguous()                   # (R, H, 1, hd)
-    out = salo_paged_decode(qt, k_slab, v_slab, page_tables, slot_pos,
-                            t_vec, pattern=pattern)
+    res = salo_paged_decode(qt, k_slab, v_slab, page_tables, slot_pos,
+                            t_vec, pattern=pattern, k_scale=k_scale,
+                            v_scale=v_scale,
+                            return_page_stats=want_page_stats)
+    out, page_m = res if want_page_stats else (res, None)
     out = out.transpose(1, 2).reshape(R, 1, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(x_t.dtype)
+    return (out @ p["wo"].to(x_t.dtype), k_slab, v_slab, k_scale, v_scale,
+            page_m)
+
+
+# -------------------------- lockstep serve path ------------------------- #
+@functools.lru_cache(maxsize=8)
+def _ring_positions(t: int, n_slots: int, window: int, n_global: int,
+                    device: torch.device) -> torch.Tensor:
+    """Absolute position held by each slot of the lockstep SALO ring cache
+    at step ``t``: slot ``j < g`` holds position ``j``; ring slot ``j >= g``
+    the latest ``p <= t`` with ``(p - g) % w == j - g``; ring slots not
+    written yet (``p < g``) get ``PAD_SENTINEL``. Read-only; shared by the
+    layers of one step."""
+    j = np.arange(n_slots, dtype=np.int64)
+    pos = np.where(j < n_global, j, t - np.mod(t - j, window))
+    pos = np.where((j >= n_global) & (pos < n_global), PAD_SENTINEL, pos)
+    return torch.from_numpy(pos.astype(np.int32)).to(device)
+
+
+def attn_decode(p, x_t, cache_k, cache_v, t: int, cfg: ModelConfig,
+                pattern: HybridSparsePattern):
+    """One-token lockstep decode. x_t: (B, 1, d); caches: (B, S, Hkv, hd),
+    written IN PLACE; ``t``: the batch's position (an int).
+
+    Full cache (slot = position): the new KV goes to slot ``t``. SALO ring
+    cache (``cfg.salo.ring_cache``): slots ``[0, g)`` hold the sinks and
+    ``[g, g + w)`` a ring keyed by ``(t - g) % w``; the slots' positions
+    are recomputed per step (``PAD_SENTINEL`` for ring slots not written
+    yet). The token then attends through
+    :func:`repro_torch.kernels.salo_decode.salo_decode` on the caches'
+    (B, Hkv, S, hd) transposed views — the kernel reads them in place on
+    the card, the plain version runs on the CPU (windowed when
+    ``cfg.salo.decode_slice``). Returns (out, cache_k, cache_v), the
+    caches being the ones passed in. M-RoPE decode comes with the VLM
+    family."""
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE decode is not ported yet: ROADMAP 'other model "
+            "families' (qwen2-vl)")
+    B = x_t.shape[0]
+    t = int(t)
+    positions = torch.full((B, 1), t, dtype=torch.int32, device=x_t.device)
+    q, k, v = attn_qkv(p, x_t, cfg, positions)
+    cache_positions = None
+    if cfg.salo.ring_cache:
+        w_, g_ = cfg.salo.window, max(cfg.salo.n_global, 0)
+        slot = t if t < g_ else g_ + (t - g_) % w_
+        cache_positions = _ring_positions(t, cache_k.shape[1], w_, g_,
+                                          x_t.device)
+    else:
+        slot = t
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    out = salo_decode(q.transpose(1, 2).contiguous(),
+                      cache_k.transpose(1, 2), cache_v.transpose(1, 2),
+                      cache_positions, t, pattern=pattern,
+                      slice_window=(cfg.salo.decode_slice
+                                    and not cfg.salo.ring_cache))
+    out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(x_t.dtype), cache_k, cache_v
 
 
 # ------------------------------ embedding -------------------------------- #

@@ -7,6 +7,9 @@
 * ``_embed_inputs(params, batch)`` — token embedding;
 * ``forward(params, batch) -> logits`` (train / full sequence);
 * ``loss(params, batch) -> (loss, metrics)``;
+* ``init_cache(batch_size, max_len) -> cache`` and
+  ``decode_step(params, cache, batch_t, t) -> (logits, cache)`` — the
+  lockstep decode (the cache is updated in place and returned);
 * ``program`` — the (block_kind, count) segments.
 
 ``params`` is a plain dict: ``embed``/``ln_f``/(``lm_head``) dicts and one
@@ -62,6 +65,36 @@ class Model:
         nll = L.cross_entropy(self.forward(params, batch), batch["labels"],
                               batch.get("mask"))
         return nll, {"nll": nll, "loss": nll}
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        """Lockstep decode caches: per segment ``{"k", "v"}`` of (n, B, S,
+        Hkv, hd) in the compute dtype, zeroed, on the model's device (the
+        reference's stacked layout)."""
+        cfg, dtype = self.cfg, L.dt(self.cfg, "compute")
+        cache = {}
+        for i, (kind, n) in enumerate(self.program):
+            one = T.block_cache_init(cfg, kind, batch_size, max_len, dtype,
+                                     self.device)
+            cache[f"seg{i}_{kind}"] = {
+                k: torch.zeros((n, *a.shape), dtype=a.dtype,
+                               device=a.device) for k, a in one.items()}
+        return cache
+
+    def decode_step(self, params, cache, batch_t, t: int):
+        """One lockstep decode step. batch_t: ``{"tokens": (B, 1)}``; t:
+        the batch's position (an int). Writes the new KV into ``cache`` in
+        place; returns (logits (B, 1, vocab), cache)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch_t)
+        pattern = L.salo_pattern(cfg)
+        for i, (kind, n) in enumerate(self.program):
+            key = f"seg{i}_{kind}"
+            x, cache[key] = T.segment_decode(params[key], cache[key], x, t,
+                                             cfg, kind, pattern)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
+                                cfg)
+        return logits, cache
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

@@ -1,1 +1,2 @@
-"""Continuous-batching serving: paged slab, batcher, engine."""
+"""Serving: the lockstep engine and its caches, the continuous-batching
+engine with its paged slab (fp or int8) and batcher."""

@@ -1,24 +1,32 @@
-"""The continuous-batching serving engine on one device.
+"""Serving engines on one device: the lockstep baseline and the
+continuous-batching engine.
 
-The port of :class:`repro.serve.engine.ContinuousEngine`. Requests of
-different lengths enter the scheduler (:mod:`repro_torch.serve.batcher`),
-share ONE pooled paged ring-cache slab per model segment
-(:mod:`repro_torch.serve.paged_cache`), prefill in plan-driven chunks
-(``ChunkPlan`` — ``ceil(P / chunk)`` fused passes), and decode ragged: one
-step serves every in-flight request at its own position through the
-per-request ``t`` vector and page tables of
+The port of :mod:`repro.serve.engine`.
+
+``ServeEngine`` (lockstep): prefill a rectangular batch token by token
+through ``Model.decode_step``, then decode every sequence at the same
+position. Its contiguous caches are read by the decode kernel
+:func:`repro_torch.kernels.salo_decode.salo_decode` — one launch per layer
+per step on the card.
+
+``ContinuousEngine``: requests of different lengths enter the scheduler
+(:mod:`repro_torch.serve.batcher`), share ONE pooled paged ring-cache slab
+per model segment (:mod:`repro_torch.serve.paged_cache`, fp or int8),
+prefill in plan-driven chunks (``ChunkPlan`` — ``ceil(P / chunk)`` fused
+passes), and decode ragged: one step serves every in-flight request at its
+own position through the per-request ``t`` vector and page tables of
 :func:`repro_torch.kernels.salo_decode.salo_paged_decode` — one kernel
-launch per layer per step on the card.
+launch per layer per step on the card. With ``page_sparsity_threshold``
+the kernel also returns per-page max scores, whose decayed history
+decides which pages the next step reads.
 
-The reference's jitted steps become eager calls; the slab is updated in
-place. The engine runs on ``device`` ("cuda" unless the caller asks for
-"cpu", where every kernel wrapper takes its plain version). Greedy only:
-logits come to the host once per step and ``np.argmax`` picks the token
-(ties go to the first index), as in the reference.
+The reference's jitted steps become eager calls; caches and slabs are
+updated in place. The engines run on the model's device ("cuda" unless the
+caller asks for "cpu", where every kernel wrapper takes its plain
+version).
 
 Not ported yet, each raising ``NotImplementedError``: sequence-parallel
-serving (``seq_shards > 1``), the int8 slab (``kv_dtype="int8"``),
-page sparsity (``page_sparsity_threshold``) and engine snapshots
+serving (``seq_shards > 1``) and engine snapshots
 (``state_dict``/``load_state``).
 """
 from __future__ import annotations
@@ -40,7 +48,8 @@ from repro_torch.models.model import Model
 from repro_torch.obs import Observability
 from repro_torch.serve.batcher import Batcher
 from repro_torch.serve.paged_cache import (empty_positions,
-                                           layout_for_pattern, slab_init)
+                                           layout_for_pattern,
+                                           reset_page_scales, slab_init)
 
 
 class CountersView(MutableMapping):
@@ -79,6 +88,72 @@ class CountersView(MutableMapping):
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int
+    temperature: float = 0.0   # 0 = greedy
+    seed: int = 0
+
+
+class ServeEngine:
+    """The lockstep engine: every sequence of a rectangular batch at the
+    same position, a Python loop over ``Model.decode_step`` on the
+    model's device.
+
+    Greedy decoding takes ``argmax`` (ties to the first index).
+    ``temperature > 0`` samples from ``softmax(logits / temperature)``
+    with a ``torch.Generator`` seeded from ``ServeConfig.seed``; it cannot
+    reproduce the reference's ``jax.random`` stream, so sampled tokens
+    differ from the reference's for the same seed."""
+
+    def __init__(self, model: Model, scfg: ServeConfig):
+        if model.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServeEngine on a cuda model needs a CUDA device and "
+                "torch.cuda.is_available() is False; build the model with "
+                "device='cpu' to run the plain versions on the CPU")
+        self.model = model
+        self.scfg = scfg
+
+    def prefill(self, params, prompts):
+        """prompts: (B, P) token ids. Returns (cache, last_logits (B, V))
+        after P decode steps, one token at a time — exactly the decode
+        path."""
+        prompts = (prompts if torch.is_tensor(prompts)
+                   else torch.from_numpy(np.asarray(prompts)))
+        prompts = prompts.to(device=self.model.device, dtype=torch.long)
+        B, P = prompts.shape
+        cache = self.model.init_cache(B, self.scfg.max_len)
+        logits = None
+        for t in range(P):
+            logits, cache = self.model.decode_step(
+                params, cache, {"tokens": prompts[:, t:t + 1]}, t)
+        return cache, logits[:, -1, :]
+
+    def generate(self, params, prompts, n_new: int) -> torch.Tensor:
+        """Greedy or temperature generation. Returns (B, n_new) token ids
+        on the model's device."""
+        P = prompts.shape[1]
+        cache, logits = self.prefill(params, prompts)
+        gen = None
+        if self.scfg.temperature != 0.0:
+            gen = torch.Generator(device=self.model.device)
+            gen.manual_seed(self.scfg.seed)
+        toks = []
+        for i in range(n_new):
+            if gen is None:
+                tok = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits.float() / self.scfg.temperature,
+                                      dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            toks.append(tok)
+            new_logits, cache = self.model.decode_step(
+                params, cache, {"tokens": tok[:, None]}, P + i)
+            logits = new_logits[:, -1, :]
+        return torch.stack(toks, dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
 class ContinuousConfig:
     """Knobs of the continuous-batching engine.
 
@@ -88,10 +163,22 @@ class ContinuousConfig:
     admission queue (``submit`` raises ``QueueFull`` beyond it);
     ``preempt`` enables page-pressure preemption with re-prefill.
 
-    ``seq_shards``, ``kv_dtype`` and ``page_sparsity_threshold`` keep the
-    reference's fields; only their single-device, compute-dtype, dense
-    values are served by the port so far. There is no ``decode_impl``:
-    the slab's device decides kernel or plain version."""
+    ``kv_dtype``: ``"compute"`` stores the slab at the model's compute
+    dtype; ``"int8"`` stores it quantized with per-(layer, page) scales
+    (paper §6.4 deployment numerics).
+
+    ``page_sparsity_threshold``: ``None`` disables the page statistics.
+    A float enables Salca-style page skipping: each decode step every
+    request's per-page max score (log-space, relative to its row max)
+    updates a decayed historical max, and pages whose history falls below
+    the threshold are routed to the null page for the next step — sink
+    pages and the current write page are always kept. ``-inf`` keeps the
+    statistics on but skips nothing. ``page_stat_decay`` is the per-step
+    additive log-space decay (``hist = max(rel, hist - decay)``).
+
+    ``seq_shards`` keeps the reference's field; only 1 is served by the
+    port so far. There is no ``decode_impl``: the slab's device decides
+    kernel or plain version."""
     n_pages: int
     page: int = 8
     chunk: int = 16
@@ -99,6 +186,7 @@ class ContinuousConfig:
     seq_shards: int = 1
     kv_dtype: str = "compute"
     page_sparsity_threshold: Optional[float] = None
+    page_stat_decay: float = 0.0
     max_queue: Optional[int] = None
     preempt: bool = True
 
@@ -128,20 +216,16 @@ class ContinuousEngine:
         if ccfg.seq_shards != 1:
             raise _not_ported("sequence-parallel serving (seq_shards > 1)",
                               "'multi-GPU'")
-        if ccfg.kv_dtype == "int8":
-            raise _not_ported("the int8 slab (kv_dtype='int8')",
-                              "'K4 variants' (int8 dequant)")
-        if ccfg.kv_dtype != "compute":
+        if ccfg.kv_dtype not in ("compute", "int8"):
             raise ValueError(f"kv_dtype must be 'compute' or 'int8', got "
                              f"{ccfg.kv_dtype!r}")
-        if ccfg.page_sparsity_threshold is not None:
-            raise _not_ported("page sparsity (page_sparsity_threshold)",
-                              "'K4 variants' (page stats)")
         cfg = model.cfg
         if cfg.mrope_sections is not None or cfg.encoder_decoder:
             raise NotImplementedError("continuous serving: text-only LMs")
         self.model = model
         self.ccfg = ccfg
+        self.quantized = ccfg.kv_dtype == "int8"
+        self.track_stats = ccfg.page_sparsity_threshold is not None
         self.pattern = L.salo_pattern(cfg, causal=True)
         if self.pattern.is_2d or not self.pattern.causal:
             raise NotImplementedError("continuous serving: causal 1-D only")
@@ -152,6 +236,7 @@ class ContinuousEngine:
         self.batcher = Batcher(self.layout, ccfg.n_pages, ccfg.max_batch,
                                max_queue=ccfg.max_queue,
                                clock=clock or time.monotonic, obs=self.obs)
+        self.batcher.on_finish = self._release_hook
 
         lay = self.layout
         self.chunk_pad = -(-max(ccfg.chunk, 1) // ccfg.page) * ccfg.page
@@ -164,8 +249,14 @@ class ContinuousEngine:
         self.slabs = {
             f"seg{i}_{kind}": slab_init(n, ccfg.n_pages, ccfg.page,
                                         cfg.n_kv_heads, cfg.hd, dtype,
-                                        self.device)
+                                        self.device,
+                                        quantized=self.quantized)
             for i, (kind, n) in enumerate(model.program)}
+        # Per-(request row, logical page) decayed historical max score
+        # (log-space, relative to the row max). 0 = "hot": fresh pages
+        # start kept; fully-masked or skipped pages only ever decay.
+        self.page_hist = np.zeros((ccfg.max_batch, lay.pages_per_req),
+                                  np.float64)
         self.slot_pos = empty_positions(ccfg.max_batch, lay, self.device)
         self.page_tables = np.zeros((ccfg.max_batch, lay.pages_per_req),
                                     np.int32)
@@ -174,7 +265,8 @@ class ContinuousEngine:
             self.registry.counter("serve_" + key)
         # Per-launch estimated HBM traffic of the KV slab reads (pages read
         # x page bytes across all layers).
-        itemsize = torch.empty((), dtype=dtype).element_size()
+        itemsize = 1 if self.quantized else \
+            torch.empty((), dtype=dtype).element_size()
         self._page_read_bytes = (2 * sum(n for _, n in model.program)
                                  * ccfg.page * cfg.n_kv_heads * cfg.hd
                                  * itemsize)
@@ -205,12 +297,20 @@ class ContinuousEngine:
                 self.pattern)
         return x
 
-    def _decode_fn(self, params, page_tables, tokens, t_vec,
-                   active) -> torch.Tensor:
+    def _decode_fn(self, params, page_tables, tokens, t_vec, active,
+                   page_keep=None):
         """Every in-flight request advances one token at its own position.
         Inactive rows write to the null page; their logits are discarded.
-        Returns logits (R, V)."""
-        cfg = self.model.cfg
+
+        ``page_keep`` (R, npp) bool (page-sparsity mode only): pages the
+        stats history says to read this step. Dropped pages are routed to
+        the null page AND their slots' read positions masked to PAD; the
+        persisted ``slot_pos`` and page tables are untouched, so a page
+        whose history comes back above threshold is simply read again.
+
+        Returns (logits (R, V), page_m) — ``page_m`` (R, npp), the max
+        per-(request, page) score over all layers, when page stats are
+        tracked, else ``None``."""
         lay = self.layout
         R = tokens.shape[0]
         slot = lay.slot(t_vec).long()
@@ -218,13 +318,26 @@ class ContinuousEngine:
         rows = torch.arange(R, device=self.device)
         self.slot_pos[rows, slot] = torch.where(
             active, t_vec, self.slot_pos[rows, slot])
+        pt_read, pos_read = page_tables, self.slot_pos
+        if page_keep is not None:
+            pt_read = torch.where(page_keep, page_tables, 0)
+            pos_read = torch.where(
+                page_keep.repeat_interleave(lay.page, dim=1), self.slot_pos,
+                PAD_SENTINEL)
         x = self.model._embed_inputs(params, {"tokens": tokens[:, None]})
+        page_m = None
         for i, (kind, _) in enumerate(self.model.program):
             key = f"seg{i}_{kind}"
-            x = T.segment_decode_paged(
-                params[key], self.slabs[key], x, page_tables, self.slot_pos,
-                t_vec, phys_w, off_w, cfg, kind, self.pattern)
-        return self._head(params, x)[:, 0, :]
+            res = T.segment_decode_paged(
+                params[key], self.slabs[key], x, pt_read, pos_read, t_vec,
+                phys_w, off_w, self.model.cfg, kind, self.pattern,
+                want_page_stats=self.track_stats)
+            if self.track_stats:
+                x, pm = res
+                page_m = pm if page_m is None else torch.maximum(page_m, pm)
+            else:
+                x = res
+        return self._head(params, x)[:, 0, :], page_m
 
     # --------------------------- host driving -------------------------- #
     def submit(self, prompt, max_new: int, priority: int = 0,
@@ -232,9 +345,20 @@ class ContinuousEngine:
         return self.batcher.submit(prompt, max_new, priority=priority,
                                    deadline_s=deadline_s)
 
+    def _release_hook(self, row: int, pages: np.ndarray):
+        """Batcher completion callback: retire the row's page stats and
+        (int8 slabs) zero the recycled pages' scales in every slab, so a
+        reused page starts from a fresh quantization grid."""
+        self.page_hist[row] = 0.0
+        if self.quantized:
+            for s in self.slabs.values():
+                reset_page_scales(s.k_scale, pages)
+                reset_page_scales(s.v_scale, pages)
+
     def _admit(self):
         for req in self.batcher.admit():
             self.page_tables[req.row] = req.pages
+            self.page_hist[req.row] = 0.0
             self.slot_pos[req.row] = PAD_SENTINEL
 
     def _advance_prefill(self, params, req):
@@ -265,20 +389,37 @@ class ContinuousEngine:
             (pos < lay.n_global) | (pos + lay.ring_cap >= c1))
         slot = np.where(pos < lay.n_global, pos,
                         lay.n_sink + (pos - lay.n_global) % lay.ring_cap)
+        # Stats-driven ctx-page skipping for the chunk's READ of the paged
+        # context (the prefill twin of the decode page-keep mask): pages
+        # whose history fell below the threshold are routed to the null
+        # page and their positions to BIG; sink pages and pages the chunk
+        # WRITES are always kept. Fresh requests have an all-zero (hot)
+        # history, so plain prefill is untouched.
         npp = lay.pages_per_req
+        pt_read, ctx_read = req.pages, ctx_pos
+        pages_read = npp
+        if self.track_stats:
+            rkeep = self.page_hist[req.row] \
+                >= self.ccfg.page_sparsity_threshold
+            rkeep[: lay.sink_pages] = True
+            rkeep[np.unique(slot[keep] // page)] = True
+            pages_read = int(rkeep.sum())
+            pt_read = np.where(rkeep, req.pages, 0).astype(np.int32)
+            ctx_read = np.where(np.repeat(rkeep, page), ctx_pos,
+                                BIG).astype(np.int32)
         kv, fl = plan.padded_tables(self.nq, self.table_w)
         phys = np.where(keep, req.pages[slot // page], 0).astype(np.int32)
         off = np.where(keep, slot % page, 0).astype(np.int32)
-        x = self._chunk_fn(params, self._dev(req.pages), self._dev(ctx_pos),
+        x = self._chunk_fn(params, self._dev(pt_read), self._dev(ctx_read),
                            self._dev(pos_q), self._dev(tokens),
                            self._dev(kv), self._dev(fl), self._dev(phys),
                            self._dev(off))
         self.counters["prefill_launches"] += 1
         self.counters["prefill_tokens"] += clen
-        self.counters["prefill_pages_read"] += npp
+        self.counters["prefill_pages_read"] += pages_read
         self.counters["prefill_pages_total"] += npp
         self.registry.inc("serve_prefill_est_hbm_bytes",
-                          npp * self._page_read_bytes)
+                          pages_read * self._page_read_bytes)
         self.registry.inc("serve_prefill_tiles",
                           plan.stats()["executed_tiles"])
         req.prefilled = c1
@@ -291,6 +432,35 @@ class ContinuousEngine:
             self.slot_pos[req.row] = self._dev(rvp)
             self.batcher.to_decode(req, first)
 
+    def _page_keep_mask(self, t_vec, active) -> np.ndarray:
+        """(R, npp) bool: pages each request reads this step. History at or
+        above the threshold keeps a page; sink pages and the page being
+        written are always kept (never starve the global prefix or the
+        live write point); inactive rows keep all (their reads are already
+        null-routed)."""
+        lay = self.layout
+        R = self.ccfg.max_batch
+        keep = self.page_hist >= self.ccfg.page_sparsity_threshold
+        keep[:, :lay.sink_pages] = True
+        p = np.asarray(t_vec, np.int64)
+        slot = np.where(p < lay.n_global, p,
+                        lay.n_sink + (p - lay.n_global) % lay.ring_cap)
+        keep[np.arange(R), slot // lay.page] = True
+        keep[~np.asarray(active, bool)] = True
+        return keep
+
+    def _update_page_stats(self, page_m: np.ndarray, active) -> None:
+        """Fold one step's per-page max scores into the decayed history.
+        ``rel`` is log-relative to the request's row max, so the history
+        is invariant to the softmax shift; fully-masked or skipped pages
+        carry NEG_INF and therefore only decay."""
+        pm = np.asarray(page_m, np.float64)
+        rowmax = pm.max(axis=1, keepdims=True)
+        rel = pm - np.where(rowmax <= -1e29, 0.0, rowmax)
+        upd = np.maximum(rel, self.page_hist - self.ccfg.page_stat_decay)
+        act = np.asarray(active, bool)[:, None]
+        self.page_hist = np.where(act, upd, self.page_hist)
+
     def _advance_decode(self, params, reqs):
         R = self.ccfg.max_batch
         lay = self.layout
@@ -301,16 +471,24 @@ class ContinuousEngine:
             tokens[req.row] = req.out[-1]
             t_vec[req.row] = req.t_next
             active[req.row] = True
+        keep = (self._page_keep_mask(t_vec, active) if self.track_stats
+                else None)
         with self.tracer.span("ragged_decode", cohort=len(reqs)):
-            logits = self._decode_fn(params, self._dev(self.page_tables),
-                                     self._dev(tokens), self._dev(t_vec),
-                                     self._dev(active))
+            logits, page_m = self._decode_fn(
+                params, self._dev(self.page_tables), self._dev(tokens),
+                self._dev(t_vec), self._dev(active),
+                None if keep is None else self._dev(keep))
             logits = logits.float().cpu().numpy()   # span covers the sync
-        pages_read = len(reqs) * lay.pages_per_req
+        if self.track_stats:
+            with self.tracer.span("page_stats_fold"):
+                self._update_page_stats(page_m.cpu().numpy(), active)
+            pages_read = int(keep[active].sum())
+        else:
+            pages_read = len(reqs) * lay.pages_per_req
         self.counters["decode_launches"] += 1
         self.counters["decode_tokens"] += len(reqs)
         self.counters["decode_pages_read"] += pages_read
-        self.counters["decode_pages_total"] += pages_read
+        self.counters["decode_pages_total"] += len(reqs) * lay.pages_per_req
         self.registry.inc("serve_decode_est_hbm_bytes",
                           pages_read * self._page_read_bytes)
         with self.tracer.span("sample", cohort=len(reqs)):
@@ -319,9 +497,10 @@ class ContinuousEngine:
                                           int(np.argmax(logits[req.row])))
 
     def slab_resident_bytes(self) -> int:
-        """Actual bytes of the pooled KV slabs (all segments, K+V)."""
+        """Actual bytes of the pooled KV slabs (all segments, K+V, plus the
+        per-(layer, page) scales of int8 slabs)."""
         return sum(a.numel() * a.element_size()
-                   for s in self.slabs.values() for a in s)
+                   for s in self.slabs.values() for a in s.tensors())
 
     def step(self, params) -> bool:
         """One engine iteration: expire overdue requests, admit (preempting

@@ -1,6 +1,6 @@
 """Paged ring-cache slab: ONE pooled KV allocation shared by all requests.
 
-The port of :mod:`repro.serve.paged_cache`, fp slabs:
+The port of :mod:`repro.serve.paged_cache`, on one device:
 
 * **One slab per model segment** — ``(n_layers, n_pages, page, Hkv, hd)``
   for K and V. Admission hands out pages, completion recycles them.
@@ -18,13 +18,22 @@ Slot map (logical, per request): position ``p < g`` lives at slot ``p``;
 position ``p >= g`` lives at slot ``n_sink + (p - g) % ring_cap``. Masks
 downstream are position-based, so the scrambled ring order is transparent.
 
-The int8 slab (``quant_slab_write``, ``reset_page_scales``) and the
-sequence-parallel layout (``shards > 1``) are not ported yet.
+**Quantized slab** (``kv_dtype="int8"``): K/V are stored int8 with one f32
+scale per (layer, page) (:class:`PagedSlab` ``k_scale``/``v_scale``).
+:func:`quant_slab_write` grows a page's scale monotonically as hotter rows
+land in it (rescaling the resident int8 payload by the old/new ratio) and
+pins the null page's scale to 0, so routed-away writes quantize to zeros.
+Reads dequantize per page: :func:`gather_view` for the plain path, the
+paged-decode kernel in its loads. Recycled pages get their scales reset to
+0 (:func:`reset_page_scales`).
+
+The sequence-parallel layout (``shards > 1``) is not served by the port
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -157,18 +166,43 @@ def layout_for_pattern(pattern, page: int, shards: int = 1) -> PagedLayout:
 
 
 class PagedSlab(NamedTuple):
-    """Pooled fp KV for one model segment: (n_layers, n_pages, page, Hkv,
+    """Pooled KV for one model segment: (n_layers, n_pages, page, Hkv,
     hd). Layer ``i`` uses slab row ``i``; all layers share the same page
-    tables."""
+    tables.
+
+    ``k_scale``/``v_scale`` are ``None`` for fp slabs; for int8 slabs they
+    are f32 ``(n_layers, n_pages)`` per-(layer, page) dequant scales.
+    Scale 0 marks an empty page — the null page 0, always."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The slab's tensors: K, V and, for int8 slabs, the scales."""
+        return [a for a in self if a is not None]
 
 
 def slab_init(n_layers: int, n_pages: int, page: int, n_kv_heads: int,
-              head_dim: int, dtype, device) -> PagedSlab:
+              head_dim: int, dtype, device,
+              quantized: bool = False) -> PagedSlab:
+    """``quantized=True`` allocates int8 K/V (``dtype`` then only names the
+    compute dtype readers dequantize to) plus zeroed per-(layer, page)
+    scales."""
     shape = (n_layers, n_pages, page, n_kv_heads, head_dim)
-    return PagedSlab(k=torch.zeros(shape, dtype=dtype, device=device),
-                     v=torch.zeros(shape, dtype=dtype, device=device))
+    if not quantized:
+        return PagedSlab(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device))
+    sshape = (n_layers, n_pages)
+    return PagedSlab(
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device),
+        k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+        v_scale=torch.zeros(sshape, dtype=torch.float32, device=device))
 
 
 def slab_write(k_slab: torch.Tensor, v_slab: torch.Tensor,
@@ -187,18 +221,89 @@ def slab_write(k_slab: torch.Tensor, v_slab: torch.Tensor,
     v_slab.index_put_(idx, v_t.to(v_slab.dtype))
 
 
+def _quant_write_one(slab: torch.Tensor, scale: torch.Tensor,
+                     phys: torch.Tensor, off: torch.Tensor,
+                     x: torch.Tensor) -> None:
+    """int8 scatter of ``x`` into one layer's slab with per-page scales, IN
+    PLACE.
+
+    slab: (n_pages, page, Hkv, hd) int8; scale: (n_pages,) f32; phys/off:
+    (n,) int32 write targets; x: (n, Hkv, hd) new rows. Page scales grow
+    MONOTONICALLY (scatter-max of the incoming rows' amax/127); growth
+    rescales the page's resident payload by old/new, and the null page's
+    scale stays 0 so routed-away writes quantize to zeros.
+
+    Only the written pages can change scale, so only they are rescaled
+    (the reference rescales the whole slab, where every other page's ratio
+    is exactly 1.0: the same bits). That includes a page whose scale goes
+    from 0 to positive: its ratio is 0, which zeroes a recycled page's
+    stale payload. A page written by several rows is gathered and written
+    back several times with the same values, so the result is defined."""
+    x = x.float()
+    pg = phys.long()
+    row_scale = x.abs().amax(dim=(-2, -1)) / 127.0                 # (n,)
+    new_scale = scale.scatter_reduce(0, pg, row_scale, reduce="amax")
+    new_scale[0] = 0.0
+    ratio = torch.where(new_scale > 0.0,
+                        scale / torch.clamp(new_scale, min=1e-30), 1.0)
+    slab[pg] = torch.clamp(torch.round(slab[pg].float()
+                                       * ratio[pg][:, None, None, None]),
+                           -128, 127).to(torch.int8)
+    s = new_scale[pg][:, None, None]                              # (n,1,1)
+    q = torch.where(s > 0.0,
+                    torch.clamp(torch.round(x / torch.clamp(s, min=1e-30)),
+                                -128, 127), 0.0).to(torch.int8)
+    slab.index_put_((pg, off.long()), q)
+    scale.copy_(new_scale)
+
+
+def quant_slab_write(k_slab: torch.Tensor, v_slab: torch.Tensor,
+                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                     phys: torch.Tensor, off: torch.Tensor,
+                     k_t: torch.Tensor, v_t: torch.Tensor):
+    """Quantizing twin of :func:`slab_write` for int8 slabs, IN PLACE.
+
+    Same write targets as :func:`slab_write`, plus the layer's (n_pages,)
+    scale vectors, which are updated in place too. Returns
+    ``(k_slab, v_slab, k_scale, v_scale)`` — the same tensors, as the
+    reference's functional contract returns the new ones."""
+    _quant_write_one(k_slab, k_scale, phys, off, k_t)
+    _quant_write_one(v_slab, v_scale, phys, off, v_t)
+    return k_slab, v_slab, k_scale, v_scale
+
+
+def reset_page_scales(scale: torch.Tensor, pages) -> torch.Tensor:
+    """Zero the scales of freshly (re)allocated pages, all layers at once,
+    IN PLACE. scale: (..., n_layers, n_pages); pages: (n,) physical page
+    ids. Called when a request's pages return to the pool, so a recycled
+    page's stale amax cannot inflate the next request's grid."""
+    idx = torch.as_tensor(np.asarray(pages), dtype=torch.long,
+                          device=scale.device)
+    scale[..., idx] = 0.0
+    return scale
+
+
 def gather_view(k_slab: torch.Tensor, v_slab: torch.Tensor,
-                page_tables: torch.Tensor):
+                page_tables: torch.Tensor,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None, dtype=None):
     """Materialize per-request logical KV views (the plain decode path;
     the CUDA kernel chases the page table instead and never does this).
 
-    k_slab/v_slab: (n_pages, page, Hkv, hd); page_tables: (B, npp).
-    Returns (B, npp * page, Hkv, hd) x 2."""
+    k_slab/v_slab: (n_pages, page, Hkv, hd); page_tables: (B, npp). For
+    int8 slabs pass the layer's ``k_scale``/``v_scale`` (n_pages,) and the
+    compute ``dtype``: each gathered page is dequantized by its own scale
+    and rounded to ``dtype``. Returns (B, npp * page, Hkv, hd) x 2."""
     B, npp = page_tables.shape
     _, page, Hkv, hd = k_slab.shape
-    idx = page_tables.reshape(-1)
+    idx = page_tables.reshape(-1).long()
     kv = k_slab.index_select(0, idx)
     vv = v_slab.index_select(0, idx)
+    if k_scale is not None:
+        sk = k_scale.index_select(0, idx)[:, None, None, None]
+        sv = v_scale.index_select(0, idx)[:, None, None, None]
+        kv = (kv.float() * sk).to(dtype)
+        vv = (vv.float() * sv).to(dtype)
     return (kv.reshape(B, npp * page, Hkv, hd),
             vv.reshape(B, npp * page, Hkv, hd))
 
@@ -248,7 +353,13 @@ class PageAllocator:
 
 
 def slab_bytes(n_layers_total: int, n_pages: int, page: int,
-               n_kv_heads: int, head_dim: int, dtype_bytes: int = 2) -> int:
-    """Total pooled fp slab footprint (all segments' layers, K+V)."""
-    return 2 * n_layers_total * n_pages * page * n_kv_heads * head_dim \
+               n_kv_heads: int, head_dim: int, dtype_bytes: int = 2,
+               with_scales: bool = False) -> int:
+    """Total pooled slab footprint (all segments' layers, K+V).
+    ``with_scales`` adds the int8 slab's per-(layer, page) f32 scales (K
+    and V)."""
+    base = 2 * n_layers_total * n_pages * page * n_kv_heads * head_dim \
         * dtype_bytes
+    if with_scales:
+        base += 2 * n_layers_total * n_pages * 4
+    return base

@@ -104,6 +104,246 @@ def test_engine_tokens_cuda_equal_cpu():
     assert outs["cuda"] == outs["cpu"]
 
 
+# ------------------- K4 variants: int8, page stats, state ---------------- #
+def _int8_slab(g, n_pages, page, Hkv, hd):
+    """An int8 slab filled through quant_slab_write on the card (twice
+    per slot: scale growth and payload rescale included)."""
+    from repro_torch.serve.paged_cache import quant_slab_write
+
+    k8 = torch.zeros((n_pages, page, Hkv, hd), dtype=torch.int8,
+                     device="cuda")
+    v8 = torch.zeros_like(k8)
+    ks = torch.zeros(n_pages, device="cuda")
+    vs = torch.zeros_like(ks)
+    phys = torch.arange(1, n_pages, device="cuda", dtype=torch.int32)
+    phys = phys.repeat_interleave(page)
+    off = torch.arange(page, device="cuda", dtype=torch.int32).repeat(
+        n_pages - 1)
+    for gain in (0.5, 2.0):
+        rows = torch.randn((2, phys.numel(), Hkv, hd), generator=g,
+                           device="cuda") * gain
+        quant_slab_write(k8, v8, ks, vs, phys, off, rows[0], rows[1])
+    return k8, v8, ks, vs
+
+
+def _paged_ops(g, pat, lay, ts, q_dtype, H, Hkv, hd, pad_last=True):
+    B, npp = len(ts), lay.pages_per_req
+    n_pages = 1 + B * npp
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda").to(q_dtype)
+    pt = (torch.randperm(n_pages - 1, generator=g, device="cuda") + 1)
+    pt = pt.reshape(B, npp).to(torch.int32)
+    pos = np.stack([ring_view_positions(t + 1, lay.n_sink, lay.ring_cap,
+                                        lay.n_global) for t in ts])
+    if pad_last:
+        pos[-1] = PAD_SENTINEL                   # one row attends nothing
+    pos = torch.from_numpy(pos.astype(np.int32)).cuda()
+    t = torch.tensor(ts, dtype=torch.int32, device="cuda")
+    live = causal_step_mask(pat, t[:, None], pos,
+                            STEP_WINDOW | STEP_GLOBAL).any(dim=1)
+    return n_pages, q, pt, pos, t, live
+
+
+def _check_page_m(pm, ref, tol):
+    dead = (pm <= -1e29) | (ref <= -1e29)
+    assert torch.equal(pm[dead], ref[dead])
+    torch.testing.assert_close(pm[~dead], ref[~dead], atol=tol, rtol=tol)
+    assert bool(dead.any()) and bool((~dead).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd,H,Hkv,page,dil", [(64, 9, 3, 16, 1),
+                                               (128, 4, 4, 8, 2),
+                                               (256, 6, 1, 32, 1)])
+def test_paged_decode_int8_page_stats_match_plain(dtype, hd, H, Hkv, page,
+                                                  dil):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(hd + page + 7)
+    pat = causal_sliding_window(40, n_sinks=3, dilation=dil)
+    lay = layout_for_pattern(pat, page)
+    ts = [0, 2, 37, 90, 301, 15]
+    n_pages, q, pt, pos, t, live = _paged_ops(g, pat, lay, ts, dtype, H,
+                                              Hkv, hd)
+    k8, v8, ks, vs = _int8_slab(g, n_pages, page, Hkv, hd)
+    kw = dict(pattern=pat, k_scale=ks, v_scale=vs, return_page_stats=True)
+    before = salo_paged_decode.launches
+    out, pm = salo_paged_decode(q, k8, v8, pt, pos, t, **kw)
+    ref, rpm = salo_paged_decode_plain(q, k8, v8, pt, pos, t, **kw)
+    torch.cuda.synchronize()
+    assert salo_paged_decode.launches == before + 1
+    assert out.dtype == dtype and tuple(pm.shape) == tuple(pt.shape)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=tol, rtol=tol)
+    assert bool((out[~live] == 0).all())
+    _check_page_m(pm, rpm, 1e-4)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_return_state_matches_plain(quant):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3 + quant)
+    H, Hkv, hd, page = 9, 3, 64, 16
+    pat = causal_sliding_window(64, n_sinks=4)
+    lay = layout_for_pattern(pat, page)
+    n_pages, q, pt, pos, t, live = _paged_ops(
+        g, pat, lay, [5, 70, 200, 33], torch.float32, H, Hkv, hd)
+    if quant:
+        k, v, ks, vs = _int8_slab(g, n_pages, page, Hkv, hd)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (torch.randn((n_pages, page, Hkv, hd), generator=g,
+                            device="cuda") for _ in range(2))
+        kw = {}
+    for stats in (False, True):
+        res = salo_paged_decode(q, k, v, pt, pos, t, pattern=pat,
+                                return_state=True, return_page_stats=stats,
+                                **kw)
+        ref = salo_paged_decode_plain(q, k, v, pt, pos, t, pattern=pat,
+                                      return_state=True,
+                                      return_page_stats=stats, **kw)
+        assert len(res) == len(ref) == 3 + stats
+        out, m, l = res[:3]
+        assert out.dtype == m.dtype == l.dtype == torch.float32
+        for a, b in zip(res[:3], ref[:3]):
+            torch.testing.assert_close(a[live], b[live], atol=1e-5,
+                                       rtol=1e-5)
+            assert torch.equal(a[~live], b[~live])    # (0, NEG_INF, 0)
+        if stats:
+            _check_page_m(res[3], ref[3], 1e-5)
+
+
+# --------------------- K5: contiguous-cache decode ----------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd,H,Hkv,S", [(64, 9, 3, 300), (128, 4, 4, 77),
+                                        (256, 8, 2, 513)])
+def test_contiguous_decode_kernel_matches_plain(dtype, hd, H, Hkv, S):
+    """The lockstep cache (B, S, Hkv, hd) read through its transposed view
+    (no copy), S not a multiple of the 256-slot tile; positions None,
+    shared (S,) or per-request (B, S); t a scalar or a vector."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(hd + S)
+    B = 4
+    pat = causal_sliding_window(100, n_sinks=3, dilation=1 + (hd == 128))
+    cache = torch.randn((2, B, S, Hkv, hd), generator=g,
+                        device="cuda").to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    assert not k.is_contiguous()
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda").to(dtype)
+    perm = torch.stack([torch.randperm(S, generator=g, device="cuda")
+                        for _ in range(B)]).to(torch.int32)
+    tv = torch.tensor([0, 50, S // 2, S - 1], dtype=torch.int32,
+                      device="cuda")
+    cases = [(None, S - 1), (torch.arange(S, dtype=torch.int32,
+                                          device="cuda"), tv), (perm, tv)]
+    tol = TOL[dtype]
+    for positions, t in cases:
+        before = salo_decode.launches
+        out = salo_decode(q, k, v, positions, t, pattern=pat)
+        ref = salo_decode_plain(q, k, v, positions, t, pattern=pat)
+        torch.cuda.synchronize()
+        assert salo_decode.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_contiguous_decode_ring_layout_and_empty_rows():
+    """Ring positions with PAD slots (dilation 2), and rows whose slots are
+    all PAD give 0."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, H, Hkv, hd, w, gs = 3, 6, 2, 64, 24, 2
+    pat = causal_sliding_window(w, n_sinks=gs, dilation=2)
+    S = w + gs
+    k, v = (torch.randn((B, Hkv, S, hd), generator=g, device="cuda")
+            for _ in range(2))
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda")
+    t = 40
+    j = np.arange(S)
+    pos = np.where(j < gs, j, t - np.mod(t - j, w))
+    pos = np.where((j >= gs) & (pos < gs), PAD_SENTINEL, pos)
+    pos = np.stack([pos, pos, np.full(S, PAD_SENTINEL)]).astype(np.int32)
+    pos = torch.from_numpy(pos).cuda()
+    out = salo_decode(q, k, v, pos, t, pattern=pat)
+    ref = salo_decode_plain(q, k, v, pos, t, pattern=pat)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:2], ref[:2], atol=1e-5, rtol=1e-5)
+    assert bool((out[2] == 0).all())
+
+
+def _smoke_hd64(**salo):
+    return dataclasses.replace(get_smoke("smollm-135m"), d_model=192,
+                               n_heads=3, n_kv_heads=1, d_ff=256,
+                               salo=SALOConfig(**salo))
+
+
+def _params_on(params, dev):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to(dev), params)
+
+
+def test_int8_page_sparse_engine_cuda_equals_cpu():
+    """int8 slab + page skipping (window 64, threshold -3, decay 0.3):
+    greedy tokens and page counters equal on the card and on the CPU, and
+    pages are really skipped."""
+    _need_cuda()
+    cfg = _smoke_hd64(window=64, n_global=2)
+    lay = layout_for_pattern(salo_pattern(cfg), 8)
+    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
+                            chunk=8, max_batch=4, kv_dtype="int8",
+                            page_sparsity_threshold=-3.0,
+                            page_stat_decay=0.3)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(5))
+    for layer in params["seg0_attn_mlp"]:
+        layer["attn"]["wo"] *= 6.0
+        layer["mlp"]["w_out"] *= 6.0
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (24, 17, 9, 30)]
+    outs, counters = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ContinuousEngine(build_model(cfg, dev), ccfg, device=dev)
+        rids = [eng.submit(x, 24) for x in prompts]
+        res = eng.run(_params_on(params, dev))
+        outs[dev] = [res[r].tolist() for r in rids]
+        counters[dev] = dict(eng.counters)
+    assert outs["cuda"] == outs["cpu"]
+    assert counters["cuda"] == counters["cpu"]
+    c = counters["cuda"]
+    assert 0 < c["decode_pages_read"] < c["decode_pages_total"]
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_lockstep_engine_cuda_equals_cpu(ring):
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = _smoke_hd64(window=16, n_global=2, ring_cache=ring)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    for layer in params["seg0_attn_mlp"]:
+        layer["attn"]["wo"] *= 6.0
+        layer["mlp"]["w_out"] *= 6.0
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 21))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        launches, calls = salo_decode.launches, salo_decode_plain.calls
+        eng = ServeEngine(build_model(cfg, dev), ServeConfig(max_len=33))
+        outs[dev] = eng.generate(_params_on(params, dev), prompts,
+                                 12).cpu().tolist()
+        steps = (21 + 12) * cfg.n_layers
+        if dev == "cuda":
+            assert salo_decode.launches - launches == steps
+            assert salo_decode_plain.calls == calls
+        else:
+            assert salo_decode_plain.calls - calls == steps
+    assert outs["cuda"] == outs["cpu"]
+
+
 # ------------------- training kernels K1, K2, K3 ------------------------ #
 def _train_case(pat, n, bh, hd, bq, bk, dtype, seed):
     from repro_torch.core.blockwise import plan_tables

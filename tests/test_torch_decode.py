@@ -109,15 +109,6 @@ def test_cpu_tensors_take_the_plain_version():
     assert salo_paged_decode.launches == launches
 
 
-@pytest.mark.parametrize("kwarg", [
-    dict(k_scale=torch.ones(4), v_scale=torch.ones(4)),
-    dict(return_state=True), dict(return_page_stats=True)])
-def test_unported_variants_raise(kwarg):
-    _, tpat, arrs = _case(4, **CASES[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        salo_paged_decode(*_torch(arrs), pattern=tpat, **kwarg)
-
-
 @pytest.mark.parametrize("which", [3, 4, 5])
 def test_int64_tables_raise(which):
     _, tpat, arrs = _case(5, **CASES[0])

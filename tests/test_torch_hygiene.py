@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.models.model import build_model
-from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
+from repro_torch.serve.engine import (ContinuousConfig, ContinuousEngine,
+                                     ServeConfig, ServeEngine)
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,6 +35,8 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.launch.train" in names, names
+assert "repro_torch.core.quant" in names, names
+assert "repro_torch.serve.kv_cache" in names, names
 assert not bad, bad
 print(len(names))
 """
@@ -61,6 +64,21 @@ def test_default_device_engine_raises_without_gpu():
         ContinuousEngine(model, ContinuousConfig(n_pages=9))
 
 
+def test_default_device_lockstep_engine_raises_without_gpu():
+    _require_no_cuda()
+    model = build_model(get_smoke("smollm-135m"))      # default: cuda
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ServeEngine(model, ServeConfig(max_len=8))
+
+
+def test_lockstep_cli_default_device_raises_without_gpu():
+    _require_no_cuda()
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        main(["--smoke", "--engine", "lockstep", "--batch", "1",
+              "--prompt-len", "4", "--new-tokens", "2"])
+
+
 def test_cli_default_device_raises_without_gpu():
     _require_no_cuda()
     from repro_torch.launch.serve import main
@@ -83,5 +101,7 @@ def test_kernel_loader_raises_without_gpu():
         _build.load("salo_paged_decode")
     with pytest.raises(RuntimeError):
         _build.load("salo_table_attention")
+    with pytest.raises(RuntimeError):
+        _build.load("salo_decode")
     with pytest.raises(RuntimeError):
         _build.build_all()

@@ -108,9 +108,14 @@ def test_attn_decode_paged(weights):
                                jnp.asarray(vs), pt, pos, t, phys, off, jcfg,
                                jpat)
     tk, tv = _t(ks.copy()), _t(vs.copy())
-    out = TL.attn_decode_paged(tl["attn"], _t(x), tk, tv, _t(pt), _t(pos),
+    res = TL.attn_decode_paged(tl["attn"], _t(x), tk, tv, _t(pt), _t(pos),
                                _t(t), _t(phys.astype(np.int32)),
                                _t(off.astype(np.int32)), tcfg, tpat)
+    # the reference's (out, k_slab, v_slab, k_scale, v_scale, page_m)
+    # contract; the slabs are the ones passed in, written in place
+    assert len(res) == len(ref) == 6
+    assert res[1] is tk and res[2] is tv and res[3:] == (None, None, None)
+    out = res[0]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref[0]), **TOL)
     # the in-place slab write equals the reference's functional one
     np.testing.assert_allclose(tk.numpy()[1:], np.asarray(ref[1])[1:], **TOL)
