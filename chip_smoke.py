@@ -57,10 +57,20 @@ nonzero:
    bf16), (b) the same in f32, (c) ViL 2-D multi-band with a global token,
    block_q 128 != block_k 64, hd 128, f16, padded rows, (d) a causal
    dilated window with sinks (reordered; a transposed row splits), block
-   32, f32. Checks that two K3 runs give bitwise-equal dK/dV. Prints for
-   (a) and (b) each kernel's, the plain version's and the bound's time,
-   and ``scaled_dot_product_attention`` with the dense mask (forward, and
-   its backward beside K2 and K3) as a yardstick.
+   32, f32, (e) case (a) in f16. Tolerances: dk/dv 1e-3 (bf16) and 1e-4
+   (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
+   16-bit hi + lo on the tensor cores; 1e-4 in f32; dq 2e-2 in 16 bits
+   (returned in the 16-bit type), and equal to the plain f32 dq rounded
+   to that type on all but 2 % of its elements (``salo_backward.DKV_TOL``,
+   ``DQ_OFF_SHARE``). The 16-bit cases run K2/K3 again with dout at 2^-20
+   of its scale (a train step's) and compare relative to it. Checks that
+   two K3 runs give bitwise-equal dK/dV. Prints for (a) and (b) each
+   kernel's, the plain version's and the bound's time (16-bit K2/K3: each
+   product once at the 16-bit tensor rate, 6 and 8 x hd flops per
+   attended pair; f32: all but q.k^T at the f32 rate), the flops the
+   kernel runs (the split's 10 and 16 x hd) and their rate, and
+   ``scaled_dot_product_attention`` with the dense mask (forward, and its
+   backward beside K2 and K3) as a yardstick.
 8. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
    card (kernels) and on the CPU (plain versions) from the same
    parameters and batches: losses and grad norms agree within 1e-4.
@@ -157,9 +167,12 @@ def phase_build():
     log(f"[build] {len(secs)} kernel source(s) in "
         f"{time.perf_counter() - t0:.1f} s: {secs}")
     for name in secs:
+        fn = ""
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {fn}: {line.strip()}")
 
 
 def int8_slab(torch, gen, n_pages, page, Hkv, hd):
@@ -778,7 +791,8 @@ def phase_lockstep(torch, seed):
 #     heads, n 4096, hd 64, block 256, bf16; (b) the same in f32; (c) ViL
 #     2-D multi-band with a global token, block_q != block_k, hd 128, f16,
 #     padded rows; (d) causal dilated window with sinks (reordered; the
-#     global tile's transposed row splits in pack_rows), block 32, f32.
+#     global tile's transposed row splits in pack_rows), block 32, f32;
+#     (e) case (a) in f16, where small ds meet f16's subnormal range.
 TRAIN_CASES = {
     "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
@@ -788,6 +802,8 @@ TRAIN_CASES = {
               bq=128, bk=64, dtype="float16"),
     "d": dict(pat=("csw", 64, 4, 2), n=2048, bh=4, hd=64, bq=32, bk=32,
               dtype="float32"),
+    "e": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
+              dtype="float16"),
 }
 # Tolerances (abs and rel). Kernel and plain version use the same f32
 # arithmetic in another order: f32 forward 1e-5, f32 gradients 1e-4 (three
@@ -795,10 +811,18 @@ TRAIN_CASES = {
 # 8e-3, two bf16 ulps at |out| near 0.5: out is returned in the 16-bit type,
 # and the forward rounds p to it relative to a 64-key sub-tile's running
 # max (the plain version: the 256-key tile's), so the two may round one
-# element one ulp apart. 16-bit gradients 2e-2: dq is returned in the
-# 16-bit type, three products after that rounding of p.
+# element one ulp apart. 16-bit dq 2e-2: it is returned in the 16-bit type;
+# beyond that it must equal the plain f32 dq rounded to its type on all but
+# salo_backward.DQ_OFF_SHARE of its elements. dk/dv (f32 outputs) within
+# salo_backward.DKV_TOL (16-bit: 1e-3 bf16, 1e-4 f16): the backward kernels
+# split every f32 operand into 16-bit hi + lo on the tensor cores, which
+# keeps them within ~1e-5 of f32 arithmetic, where one 16-bit rounding of
+# dout, p and ds would miss both (tests/test_torch_backward_numerics.py).
 OUT_TOL = {"float32": 1e-5, "bfloat16": 8e-3, "float16": 8e-3}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
+# a train step's dout relative to unit scale (the gradient of a mean over
+# ~3e4 tokens): below f16's normal range
+SMALL_DOUT = 2.0 ** -20
 
 
 def _case_pattern(spec):
@@ -863,10 +887,11 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         torch.cuda.synchronize()
 
         tol, gtol = OUT_TOL[c["dtype"]], GRAD_TOL[c["dtype"]]
+        ktol = KB.DKV_TOL[dtype]
         errs = {}
         for what, a, b, tl in (("out", out, ro, tol), ("m", m, rm, 1e-5),
                                ("l", l, rl, 1e-5), ("dq", dq, rdq, gtol),
-                               ("dk", dk, rdk, gtol), ("dv", dv, rdv, gtol)):
+                               ("dk", dk, rdk, ktol), ("dv", dv, rdv, ktol)):
             a, b = a.float(), b.float()
             check(bool(torch.isfinite(a).all()), f"case {name}: non-finite "
                   f"kernel {what}")
@@ -876,6 +901,30 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
                   f"{errs[what]} > {tl}")
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"case {name}: dK/dV differ between two runs on one input")
+        if dtype != torch.float32:
+            errs["dq_off_share"] = KB.dq_off_share(dq, rdq)
+            check(errs["dq_off_share"] <= KB.DQ_OFF_SHARE,
+                  f"case {name}: kernel dq differs from the plain f32 dq "
+                  f"rounded to {dtype} on {errs['dq_off_share']} of its "
+                  f"elements > {KB.DQ_OFF_SHARE}")
+            # dout at a train step's scale, compared relative to it
+            sin = (dout * SMALL_DOUT, delta * SMALL_DOUT, *bwd_in[2:])
+            sdq = KB.salo_table_backward_dq(*sin, t.kv_blocks, t.flags, **kw)
+            srdq = KB.salo_table_backward_dq_plain(*sin, t.kv_blocks,
+                                                   t.flags, **kw)
+            sdk, sdv = KB.salo_table_backward_dkv(*sin, *dkv_t, **kw)
+            srdk, srdv = KB.salo_table_backward_dkv_plain(*sin, *dkv_t, **kw)
+            for what, a, b in (("dk", sdk, srdk), ("dv", sdv, srdv)):
+                a, b = a / SMALL_DOUT, b / SMALL_DOUT
+                errs[f"small_{what}"] = float((a - b).abs().max())
+                check(bool(torch.allclose(a, b, atol=ktol, rtol=ktol)),
+                      f"case {name}: dout x {SMALL_DOUT}: kernel {what} vs "
+                      f"plain max abs err {errs[f'small_{what}']} (relative "
+                      f"to the scale) > {ktol}")
+            errs["small_dq_off_share"] = KB.dq_off_share(sdq, srdq)
+            check(errs["small_dq_off_share"] <= KB.DQ_OFF_SHARE,
+                  f"case {name}: dout x {SMALL_DOUT}: dq off share "
+                  f"{errs['small_dq_off_share']} > {KB.DQ_OFF_SHARE}")
         pad = t.pos >= sched.n                      # padding rows
         if bool(pad.any()):
             check(bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all()
@@ -902,20 +951,34 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         ttables = 4 * (t.pos.numel() + sum(x.numel() for x in dkv_t))
         # (bytes moved, [(operations, peak for their type), ...]). Both
         # forward products take 16-bit operands (p is rounded to V's type).
-        # In the backward only the score product q.k^T does (f32
-        # accumulator); dout.v^T, ds.k, p^T.dout and ds^T.q take f32.
+        # In the backward, with 16-bit inputs, each product once at the
+        # 16-bit tensor rate: 6 x hd flops per pair for dQ (q.k^T, dout.v^T,
+        # ds.k), 8 x hd for dK/dV (q.k^T, dout.v^T, p^T.dout, ds^T.q). With
+        # f32 inputs every product but q.k^T at the f32 peak.
         pk16, pk32 = PEAK_OPS[c["dtype"]], PEAK_OPS["float32"]
+        if c["dtype"] == "float32":
+            dq_ops = [(2 * D * pairs, pk16), (4 * D * pairs, pk32)]
+            dkv_ops = [(2 * D * pairs, pk16), (6 * D * pairs, pk32)]
+        else:
+            dq_ops = [(6 * D * pairs, pk16)]
+            dkv_ops = [(8 * D * pairs, pk16)]
         io = {
             "salo_table_attention": (
                 qkv + BH * n_pad * D * item + 2 * BH * n_pad * 4 + tables,
                 [(4 * D * pairs, pk16)]),
             "salo_table_backward_dq": (
                 qkv + BH * n_pad * D * 4 + stats + BH * n_pad * D * item
-                + tables, [(2 * D * pairs, pk16), (4 * D * pairs, pk32)]),
+                + tables, dq_ops),
             "salo_table_backward_dkv": (
                 qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
-                + ttables, [(2 * D * pairs, pk16), (6 * D * pairs, pk32)]),
+                + ttables, dkv_ops),
         }
+        # what the kernels run: with 16-bit inputs the hi/lo split's
+        # tensor-core flops (10 and 16 x hd per pair), with f32 each product
+        split = c["dtype"] != "float32"
+        run_ops = {"salo_table_attention": 4 * D * pairs,
+                   "salo_table_backward_dq": (10 if split else 6) * D * pairs,
+                   "salo_table_backward_dkv": (16 if split else 8) * D * pairs}
         calls = {
             "salo_table_attention": (
                 lambda: KA.salo_table_attention(*fwd_args, **kw),
@@ -958,15 +1021,19 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
             err = (errs["out"] if kname == "salo_table_attention" else
                    errs["dq"] if kname == "salo_table_backward_dq" else
                    max(errs["dk"], errs["dv"]))
+            kernel_ms = timer(kfn)
             recs[kname] = dict(
-                kernel_ms=timer(kfn),
+                kernel_ms=kernel_ms,
                 # few iterations: a plain call queues hundreds of launches,
                 # and the queue must not fill up behind the sleep kernel
                 plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
                 library_ms=lib_ms.get(kname, lib_ms["backward"]),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=err, bytes=nbytes, ops=ops)
+                max_abs_err=err, bytes=nbytes, ops=ops,
+                run_ops=run_ops[kname],
+                run_tflops=run_ops[kname] / kernel_ms / 1e9,
+                run_ops_bound_ms=run_ops[kname] / pk16 * 1e3)
             log(f"[train-kernels] case {name} {kname}: "
                 + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
         if name == "a":
@@ -1113,15 +1180,27 @@ def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     float(met["loss"])
     dt = time.perf_counter() - ts
     prof.stop()
-    report_profile(prof, dt, 1, "train step")
+    by_name = report_profile(prof, dt, 1, "train step")
+    # the training kernels' device time per step; K3 is its row walk and
+    # its owner-tile sum
+    parts = {"K1": ("table_attention_kernel",),
+             "K2": ("dq_mma_kernel", "dq_kernel"),
+             "K3": ("dkv_mma_kernel", "dkv_kernel", "owner_sum_kernel")}
+    per = {key: sum(t for name, (_, t) in by_name.items()
+                    if any(f"::{k}<" in name or f"::{k}(" in name
+                           for k in keys)) / 1e3
+           for key, keys in parts.items()}
+    log(f"[profile] train kernels per step: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
+        + f"; K2 + K3 {per['K2'] + per['K3']:.3f} ms")
     return launches
 
 
-def report_profile(prof, wall_s: float, n_steps: int, what: str) -> None:
+def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
     """Device time by kernel name over the profiled engine steps, and the
     device's idle share (1 - kernel time / host wall time of the steps;
     the profiler's own host overhead inflates the wall time, so this share
-    is an upper bound)."""
+    is an upper bound). Returns {name: (launches, device us)}."""
     from torch.autograd import DeviceType
 
     by_name: dict = {}
@@ -1136,7 +1215,7 @@ def report_profile(prof, wall_s: float, n_steps: int, what: str) -> None:
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
     if not by_name:
         log("[profile] the profiler recorded no device events")
-        return
+        return by_name
     log(f"[profile] {n_steps} {what}: host wall {wall_s * 1e3:.3f} ms, "
         f"device kernel time {busy_ms:.3f} ms, idle share "
         f"{1 - busy_ms / (wall_s * 1e3):.3f}, "
@@ -1145,6 +1224,7 @@ def report_profile(prof, wall_s: float, n_steps: int, what: str) -> None:
     for name, (n, t) in top:
         log(f"[profile]   {t / 1e3 / n_steps:8.3f} ms/step "
             f"{n / n_steps:6.1f} launches/step  {name[:90]}")
+    return by_name
 
 
 def _emitted(eng) -> int:

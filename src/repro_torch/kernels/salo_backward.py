@@ -3,10 +3,34 @@ wrappers and their plain versions.
 
 Both recompute the attention probabilities from the forward's saved row
 stats (``p = exp(s - m) / l``, guarded so rows that attend nothing give
-exactly zero) and do their arithmetic in f32: q, k, v are widened on load,
-so the score product of the 16-bit q and k is exact products summed in
-f32, as the TPU kernels' f32-accumulated score product; their other
-products take f32 operands.
+exactly zero). The plain versions do their arithmetic in f32: q, k, v are
+widened on load, so the score product of the 16-bit q and k is exact
+products summed in f32, as the TPU kernels' f32-accumulated score
+product; their other products take f32 operands.
+
+The kernels (``csrc/salo_table_backward.cu``, whose header gives the
+design) keep that precision two ways:
+
+* **f32 inputs** — the exact path: every product in f32 FMA on the CUDA
+  cores (no TF32).
+* **bf16 / f16 inputs** — every product on the tensor cores
+  (``mma.sync.m16n8k16``, f32 accumulators). The score product takes q and
+  k as they are. Each f32 operand (dout, p, ds) is split into a 16-bit
+  ``hi = rn(x)`` and ``lo = rn(x - hi)`` and the partial products are
+  summed in f32: ``hi @ b + lo @ b`` against a 16-bit v, k or q, and
+  ``hi @ hi + hi @ lo + lo @ hi`` for ``p^T @ dout``. No f32 operand is
+  rounded to 16 bits once, so dk/dv stay within ~1e-5 of f32 arithmetic
+  (one rounding would move them by ~5e-3 in bf16;
+  ``tests/test_torch_backward_numerics.py``). With f16 inputs dout is
+  first scaled by an exact power of two that brings its largest element
+  near 1 (per query row for dQ, per 64-query sub-tile for dK/dV), dQ's ds
+  by one that brings its largest element near 2^15, and the sums are
+  scaled back: a train step's dout (~1e-6), and the ds of far keys, lie
+  below f16's normal range (bf16 has f32's). :data:`DKV_TOL`, :data:`DQ_OFF_SHARE` and :func:`dq_off_share`
+  state what the card checks hold them to. Bound on the card:
+  operations, each product once at the 16-bit tensor rate (6 x hd flops
+  per attended pair for dQ, 8 x hd for dK/dV); the split runs 10 x hd and
+  16 x hd.
 
 * **dQ** (:func:`salo_table_backward_dq`, ``csrc/salo_table_backward.cu``)
   replays the FORWARD tables: ``ds = p * (dout.v - delta)``,
@@ -17,8 +41,9 @@ products take f32 operands.
   tables with the owner KV tile resident: ``dv_j = sum_i p_ij dout_i``,
   ``dk_j = scale * sum_i ds_ij q_i``. Per-row partials are summed per
   owner tile in ascending row order — a fixed order, so two runs give
-  bitwise-equal dK/dV. Replaces ``salo_table_backward_dkv`` (body
-  ``_dkv_kernel`` and the scatter-add after it).
+  bitwise-equal dK/dV (on the 16-bit path a tile with one packed row is
+  written by the row walk itself). Replaces ``salo_table_backward_dkv``
+  (body ``_dkv_kernel`` and the scatter-add after it).
 
 The ``delta = sum(dout * out)`` precompute and the host-step adjoints live
 in :func:`repro_torch.core.blockwise.plan_backward`.
@@ -42,6 +67,24 @@ from repro_torch.kernels.salo_attention import (DTYPE_CODE, bind,
                                                 check_kernel_operands,
                                                 check_tables, mask_spec,
                                                 raise_on)
+
+
+# What the kernels are held to against the f32 plain versions, on the card
+# (chip_smoke.py, tests/test_torch_cuda.py) and in the CPU emulation of the
+# 16-bit split (tests/test_torch_backward_numerics.py), which shows one
+# 16-bit rounding of dout, p and ds outside both. dk/dv (f32 outputs):
+# DKV_TOL, abs and rel. dq, returned in the inputs' type: with 16-bit
+# inputs, equal to the plain f32 dq rounded to that type on all but
+# DQ_OFF_SHARE of its elements (the split leaves ~0.5 % a rounding apart,
+# one rounding ~50 %).
+DKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-4}
+DQ_OFF_SHARE = 0.02
+
+
+def dq_off_share(dq: torch.Tensor, dq_f32: torch.Tensor) -> float:
+    """The share of the elements of ``dq`` that differ from the f32
+    ``dq_f32`` rounded to ``dq``'s type."""
+    return float((dq != dq_f32.to(dq.dtype)).float().mean())
 
 
 def _check_shapes(what, dout, delta, m, l, q, k, v, pos_q, pos_k):

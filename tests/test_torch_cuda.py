@@ -364,8 +364,12 @@ def _train_case(pat, n, bh, hd, bq, bk, dtype, seed):
 # f32: same algorithm, other summation order (forward 1e-5, gradients
 # 1e-4). 16-bit out 8e-3 (two bf16 ulps at 0.5): out is returned in the
 # 16-bit type and the forward rounds p to it relative to another running
-# max. 16-bit gradients 2e-2: dq is returned in the 16-bit type, three
-# products after that rounding.
+# max. 16-bit dq 2e-2: it is returned in the 16-bit type; beyond that it
+# must equal the plain f32 dq rounded to its type on all but
+# KB.DQ_OFF_SHARE of its elements. dk/dv (f32 outputs) within KB.DKV_TOL:
+# the 16-bit kernels split every f32 operand into 16-bit hi + lo
+# (tests/test_torch_backward_numerics.py shows the split inside and one
+# 16-bit rounding outside these).
 OUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
 GTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 TRAIN_PATTERNS = {
@@ -409,21 +413,59 @@ def test_training_kernels_match_plain(dtype, pname, n, hd, bq, bk):
                                  KB.salo_table_backward_dq,
                                  KB.salo_table_backward_dkv)] == \
         [x + d for x, d in zip(launches, (1, 1, 2))]   # K3: walk + sum
-    tol, gtol = OUT_TOL[dtype], GTOL[dtype]
+    tol, gtol, ktol = OUT_TOL[dtype], GTOL[dtype], KB.DKV_TOL[dtype]
     for a, b, tl in ((out, ro, tol), (m, rm, 1e-5), (l, rl, 1e-5),
-                     (dq, rdq, gtol), (dk, rdk, gtol), (dv, rdv, gtol)):
+                     (dq, rdq, gtol), (dk, rdk, ktol), (dv, rdv, ktol)):
         torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
     pad = t.pos >= sched.n
     assert bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all())
 
 
-def test_dkv_bitwise_deterministic():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("pname,n,hd,bq,bk", [
+    ("causal_sinks", 512, 64, 256, 256), ("vil", 145, 128, 32, 64)])
+def test_backward_kernels_keep_precision_at_small_dout(dtype, pname, n, hd,
+                                                       bq, bk):
+    """dout at 2^-20 of unit scale, as a train step's (the gradient of a
+    mean over many tokens): below f16's normal range, where the kernels'
+    power-of-two scale keeps the split's bits. Compared relative to that
+    scale."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    small = 2.0 ** -20
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        TRAIN_PATTERNS[pname], n, 3, hd, bq, bk, dtype, seed=n + hd)
+    dout = dout * small
+    kw = dict(sched=sched, scale=hd ** -0.5)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, t.kv_blocks,
+                                               t.flags, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, t.kv_blocks, t.flags, **kw)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    ktol = KB.DKV_TOL[dtype]
+    for a, b in ((dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(a / small, b / small, atol=ktol, rtol=ktol)
+    assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+
+
+@pytest.mark.parametrize("pat,n,bh,hd,bq,bk", [
+    (causal_sliding_window(64, n_sinks=4, dilation=2), 1024, 8, 64, 32, 32),
+    (causal_sliding_window(200, n_sinks=4), 2048, 4, 128, 64, 128)])
+def test_dkv_bitwise_deterministic(pat, n, bh, hd, bq, bk):
     _need_cuda()
     from repro_torch.kernels import salo_backward as KB
 
     sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
-        causal_sliding_window(64, n_sinks=4, dilation=2), 1024, 8, 64, 32,
-        32, torch.bfloat16, seed=1)
+        pat, n, bh, hd, bq, bk, torch.bfloat16, seed=1)
     pkd = plan.transposed_packed()
     assert pkd.n_rows > len(set(pkd.row_tile.tolist()))   # a split row
     m = torch.randn(q.shape[:2], device="cuda")
@@ -435,6 +477,94 @@ def test_dkv_bitwise_deterministic():
     dk1, dv1 = KB.salo_table_backward_dkv(*args, **kw)
     dk2, dv2 = KB.salo_table_backward_dkv(*args, **kw)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_backward_padding_query_blocks_give_exact_zeros(dtype):
+    """n 129 on 32-row query blocks: blocks 5-7 hold only padding rows, and
+    their dq, and the dk/dv of every padding key, are exact zeros."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        causal_sliding_window(100, n_sinks=4), 129, 3, 64, 32, 128, dtype,
+        seed=5)
+    pad = t.pos >= sched.n
+    assert bool(pad.reshape(plan.nq, 32).all(dim=1)[5:].all())
+    kw = dict(sched=sched, scale=0.125)
+    _, m, l = KA.salo_table_attention(q, k, v, pq, pk, t.kv_blocks, t.flags,
+                                      **kw)
+    delta = torch.randn(q.shape[:2], device="cuda")
+    bwd = (dout, delta, m, l, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, t.row_tile, t.q_blocks,
+                                        t.pk_flags, **kw)
+    torch.cuda.synchronize()
+    for x in (dq, dk, dv):
+        assert bool(torch.isfinite(x).all())
+        assert bool((x[:, pad] == 0).all())
+    assert bool((dq[:, ~pad] != 0).any() and (dv[:, ~pad] != 0).any())
+
+
+@pytest.mark.parametrize("rows_q", [True, False])
+@pytest.mark.parametrize("pname,n", [("causal_sinks", 700),
+                                     ("dilated_sinks", 500), ("vil", 145),
+                                     ("longformer", 333)])
+def test_mask_2x16_matches_step_mask(pname, n, rows_q):
+    """The 16-bit backward kernels' mask evaluator (``mask_2x16`` in
+    ``csrc/salo_mma.cuh``: the pattern's branches hoisted, whole-grid
+    answers from position ranges) against ``step_mask`` pair by pair, on
+    the working positions (padding included) in the kernels' fragment
+    layout: a thread's 2 rows g, g + 8 and 16 columns 8j + 2t + (0, 1) of
+    a 64-wide sub-tile, rows near and far from the columns, every flag."""
+    _need_cuda()
+    import ctypes
+
+    from repro_torch.core.blockwise import plan_tables
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.salo_attention import MaskSpec, mask_spec
+
+    sched = schedule(TRAIN_PATTERNS[pname], n)
+    pos = plan_tables(sched.plan(32, 32), torch.device("cpu")).pos.numpy()
+    ext = np.concatenate([pos, np.full(128, PAD_SENTINEL, pos.dtype)])
+    rng = np.random.default_rng(n)
+    units = 20000
+    s0 = rng.integers(0, len(pos), units)
+    t = rng.integers(0, 4, units)
+    cols = (s0[:, None] + 8 * (np.arange(16) // 2)[None]
+            + 2 * t[:, None] + (np.arange(16) % 2)[None])
+    near = s0 + rng.integers(-96, 97, units) + rng.integers(0, 8, units)
+    far = rng.integers(0, len(pos), units)
+    r0 = np.clip(np.where(rng.random(units) < 0.7, near, far), 0,
+                 len(pos) - 1)
+    rows = r0[:, None] + np.array([0, 8])[None]
+    dev = torch.device("cuda", 0)
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    rp, cp = on_dev(ext[rows]), on_dev(ext[cols])
+    fl = on_dev(rng.integers(0, 4, units))
+    fast = torch.empty(units, dtype=torch.int32, device=dev)
+    ref = torch.empty_like(fast)
+    fn = _build.load("salo_table_backward").salo_mask_2x16_check
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(MaskSpec), vp, vp, vp, vp, vp, ci, ci, vp]
+    fn.restype = ci
+    spec = mask_spec(sched)
+    err = fn(ctypes.byref(spec), rp.data_ptr(), cp.data_ptr(), fl.data_ptr(),
+             fast.data_ptr(), ref.data_ptr(), units, int(rows_q),
+             torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(fast, ref)
+    # grids with no pair in and with some came up; with all 32 in where the
+    # window spans a sub-tile's 64 columns and is undilated
+    assert bool((ref == 0).any() and ((ref != 0) & (ref != -1)).any())
+    assert bool((ref == -1).any()) == (pname == "causal_sinks")
 
 
 def test_training_kernel_wrappers_raise_on_unsupported():
