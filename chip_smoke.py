@@ -50,14 +50,17 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
-7. **train-kernels** — hold the training kernels K1 (forward), K2 (dQ) and
-   K3 (dK/dV) against their plain versions on the plan tables and
-   working-space tensors the op hands them: (a) the train phase's shapes
+7. **train-kernels** — hold the training kernels K1 (forward; with
+   16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
+   K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
+   and working-space tensors the op hands them: (a) the train phase's shapes
    (smollm-135m's pattern, 8 x 9 flat heads, n 4096, hd 64, block 256,
    bf16), (b) the same in f32, (c) ViL 2-D multi-band with a global token,
    block_q 128 != block_k 64, hd 128, f16, padded rows, (d) a causal
    dilated window with sinks (reordered; a transposed row splits), block
-   32, f32, (e) case (a) in f16. Tolerances: dk/dv 1e-3 (bf16) and 1e-4
+   32, f32, (e) case (a) in f16. Tolerances: out 8e-3 in 16 bits and
+   1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
+   padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
    (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
    16-bit hi + lo on the tensor cores; 1e-4 in f32; dq 2e-2 in 16 bits
    (returned in the 16-bit type), and equal to the plain f32 dq rounded
@@ -68,7 +71,10 @@ nonzero:
    kernel's, the plain version's and the bound's time (16-bit K2/K3: each
    product once at the 16-bit tensor rate, 6 and 8 x hd flops per
    attended pair; f32: all but q.k^T at the f32 rate), the flops the
-   kernel runs (the split's 10 and 16 x hd) and their rate, and
+   kernel runs and their rate (K1: 4 x hd per pair of the sub-tiles it
+   executes, 16 x 64 warp sub-tiles in 16 bits and 64 x 64 block
+   sub-tiles in f32; K2/K3: the split's 10 and 16 x hd per attended
+   pair), and
    ``scaled_dot_product_attention`` with the dense mask (forward, and its
    backward beside K2 and K3) as a yardstick.
 8. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
@@ -805,20 +811,18 @@ TRAIN_CASES = {
     "e": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="float16"),
 }
-# Tolerances (abs and rel). Kernel and plain version use the same f32
-# arithmetic in another order: f32 forward 1e-5, f32 gradients 1e-4 (three
-# products deep); row stats m, l are f32 in every case (1e-5). 16-bit out
-# 8e-3, two bf16 ulps at |out| near 0.5: out is returned in the 16-bit type,
-# and the forward rounds p to it relative to a 64-key sub-tile's running
-# max (the plain version: the 256-key tile's), so the two may round one
-# element one ulp apart. 16-bit dq 2e-2: it is returned in the 16-bit type;
+# Tolerances (abs and rel). The forward's out and row stats within
+# salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
+# ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
+# sub-tile's running max; m, l 1e-5 in every case). Kernel and plain
+# version use the same f32 arithmetic in another order: f32 gradients 1e-4
+# (three products deep). 16-bit dq 2e-2: it is returned in the 16-bit type;
 # beyond that it must equal the plain f32 dq rounded to its type on all but
 # salo_backward.DQ_OFF_SHARE of its elements. dk/dv (f32 outputs) within
 # salo_backward.DKV_TOL (16-bit: 1e-3 bf16, 1e-4 f16): the backward kernels
 # split every f32 operand into 16-bit hi + lo on the tensor cores, which
 # keeps them within ~1e-5 of f32 arithmetic, where one 16-bit rounding of
 # dout, p and ds would miss both (tests/test_torch_backward_numerics.py).
-OUT_TOL = {"float32": 1e-5, "bfloat16": 8e-3, "float16": 8e-3}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 # a train step's dout relative to unit scale (the gradient of a mean over
 # ~3e4 tokens): below f16's normal range
@@ -842,6 +846,23 @@ def _attended_pairs(torch, sched, pos_q, pos_k, kvb, flags) -> int:
         fl = flags[:, s]
         total += int(sched.step_mask(pos_q[:, :, None], pk[:, None, :],
                                      fl[:, None, None]).sum())
+    return total
+
+
+def _executed_pairs(sched, pos_q, pos_k, kvb, flags, rows: int) -> int:
+    """Pairs of the (rows x 64-key) sub-tiles of the step tables in which
+    any pair survives: what K1 executes for one head (a 32-key tile is one
+    sub-tile of 32 keys)."""
+    nq, bq = pos_q.shape
+    bk = pos_k.shape[1]
+    ks = min(64, bk)
+    total = 0
+    for s in range(kvb.shape[1]):
+        pk = pos_k.index_select(0, kvb[:, s])
+        live = sched.step_mask(pos_q[:, :, None], pk[:, None, :],
+                               flags[:, s, None, None])
+        live = live.reshape(nq, bq // rows, rows, bk // ks, ks)
+        total += int(live.any(dim=4).any(dim=2).sum()) * rows * ks
     return total
 
 
@@ -886,11 +907,11 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t, **kw)
         torch.cuda.synchronize()
 
-        tol, gtol = OUT_TOL[c["dtype"]], GRAD_TOL[c["dtype"]]
-        ktol = KB.DKV_TOL[dtype]
+        tol, gtol = KA.OUT_TOL[dtype], GRAD_TOL[c["dtype"]]
+        ktol, stol = KB.DKV_TOL[dtype], KA.STATS_TOL
         errs = {}
-        for what, a, b, tl in (("out", out, ro, tol), ("m", m, rm, 1e-5),
-                               ("l", l, rl, 1e-5), ("dq", dq, rdq, gtol),
+        for what, a, b, tl in (("out", out, ro, tol), ("m", m, rm, stol),
+                               ("l", l, rl, stol), ("dq", dq, rdq, gtol),
                                ("dk", dk, rdk, ktol), ("dv", dv, rdv, ktol)):
             a, b = a.float(), b.float()
             check(bool(torch.isfinite(a).all()), f"case {name}: non-finite "
@@ -973,10 +994,14 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
                 qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
                 + ttables, dkv_ops),
         }
-        # what the kernels run: with 16-bit inputs the hi/lo split's
+        # what the kernels run: K1 4 x hd flops per pair of every sub-tile
+        # it executes (16-bit: 16-row x 64-key warp sub-tiles, f32: 64 x 64
+        # block sub-tiles); K2/K3 with 16-bit inputs the hi/lo split's
         # tensor-core flops (10 and 16 x hd per pair), with f32 each product
         split = c["dtype"] != "float32"
-        run_ops = {"salo_table_attention": 4 * D * pairs,
+        exec_pairs = BH * _executed_pairs(sched, pos_q, pos_k, t.kv_blocks,
+                                          t.flags, 16 if split else 64)
+        run_ops = {"salo_table_attention": 4 * D * exec_pairs,
                    "salo_table_backward_dq": (10 if split else 6) * D * pairs,
                    "salo_table_backward_dkv": (16 if split else 8) * D * pairs}
         calls = {
@@ -1183,7 +1208,7 @@ def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     by_name = report_profile(prof, dt, 1, "train step")
     # the training kernels' device time per step; K3 is its row walk and
     # its owner-tile sum
-    parts = {"K1": ("table_attention_kernel",),
+    parts = {"K1": ("table_attention_mma_kernel", "table_attention_kernel"),
              "K2": ("dq_mma_kernel", "dq_kernel"),
              "K3": ("dkv_mma_kernel", "dkv_kernel", "owner_sum_kernel")}
     per = {key: sum(t for name, (_, t) in by_name.items()

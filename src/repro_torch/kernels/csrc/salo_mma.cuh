@@ -1,8 +1,9 @@
 // Warp-level tensor-core building blocks for the 16-bit training kernels
-// (salo_table_backward.cu): mma.sync m16n8k16 with an f32 accumulator,
-// ldmatrix (plain and transposed), cp.async, the hi/lo split that carries
-// an f32 operand through the 16-bit tensor cores and the power-of-two
-// scaling ahead of it.
+// (salo_table_attention.cu, salo_table_backward.cu): mma.sync m16n8k16 with
+// an f32 accumulator, ldmatrix (plain and transposed), cp.async, the hi/lo
+// split that carries an f32 operand through the 16-bit tensor cores and the
+// power-of-two scaling ahead of it, the blocks' warp counts and the walk
+// over the live sub-tiles of a table row.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4): A (16 x 16, row-major) a[0] = (g, 2t..2t+1), a[1] =
@@ -207,5 +208,103 @@ __device__ __forceinline__ uint32_t mask_2x16(const MaskSpec& s, const int (&rp)
   }
   return b;
 }
+
+// ------------- the 16-bit kernels' blocks and their mask walk ------------- //
+// Rows of the 16-bit shared tiles are padded to HD + 8 elements (16 bytes),
+// so the eight rows that one ldmatrix phase reads fall on distinct banks.
+constexpr int kSub = 64;       // keys (forward, dQ) / queries (dK/dV) a sub-tile
+constexpr int kBatch = 8;      // sub-tiles whose masks one pass evaluates
+constexpr float kLog2e = 1.4426950408889634f;
+// Warps of a block; each owns 16 rows (forward, dQ) / keys (dK/dV). At hd
+// 64 the 8-warp blocks are held to 128 registers a thread, so two fit on an
+// SM (a few hundred bytes of dK/dV spill, which cost less than one block an
+// SM: measured on the H100, see PERF.md).
+constexpr int kMaxWarps = 8;
+
+__host__ __device__ constexpr int min_blocks(int nw, int hd) {
+  return nw == 8 && hd == 64 ? 2 : 1;
+}
+
+// Warps of a block over a plan block of b rows (forward, dQ) or keys
+// (dK/dV): a block never straddles two plan blocks.
+inline int warps_for(int b) { return min(b, 16 * kMaxWarps) / 16; }
+
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Shared memory of the mask walk below.
+template <int NW>
+__host__ __device__ constexpr int walk_smem_bytes() {
+  return kBatch * kSub * 4 + kBatch * 32 * NW * 4 + 2 * NW * 4 + 8;
+}
+
+// The live sub-tiles of one table row, in order. Sub-tile u = step * nsub
+// + sub starts at tiles[step] * blk + sub * len of the streamed array (keys
+// for the forward and dQ, queries for dK/dV) and holds len <= kSub of its
+// entries. A pass takes kBatch sub-tiles at once: their positions go to
+// shared memory in one coalesced load (BIG past len and on padding steps),
+// each thread keeps the mask bits mask(ps, fl) of the 32 pairs it owns in
+// shared memory, and each warp reports the sub-tiles where any of its bits
+// is set; a sub-tile is live when any warp's is. Two barriers a pass, and
+// every thread takes the same path.
+template <int NW>
+struct LiveWalk {
+  int* pos_s;        // [kBatch][kSub]
+  uint32_t* bits_s;  // [kBatch][32 * NW]
+  uint32_t* wl_s;    // [2][NW]
+  const int* pos;    // positions of the streamed array
+  const int* tiles;  // the row's step tables
+  const int* flags;
+  int total, nsub, blk, len;
+  int c0 = 0, cnext = 0;
+  uint32_t live = 0;
+
+  __device__ LiveWalk(unsigned char* smem, const int* pos_, const int* tiles_,
+                      const int* flags_, int steps, int blk_, int len_)
+      : pos_s(reinterpret_cast<int*>(smem)),
+        bits_s(reinterpret_cast<uint32_t*>(smem + kBatch * kSub * 4)),
+        wl_s(reinterpret_cast<uint32_t*>(smem + kBatch * kSub * 4 + kBatch * 32 * NW * 4)),
+        pos(pos_), tiles(tiles_), flags(flags_), total(steps * (blk_ / len_)),
+        nsub(blk_ / len_), blk(blk_), len(len_) {}
+
+  __device__ int start(int u) const { return __ldg(tiles + u / nsub) * blk + (u % nsub) * len; }
+
+  // The next live sub-tile (its index, start and this thread's bits), or
+  // total when none is left.
+  template <class Mask>
+  __device__ int next(const Mask& mask, int& s0, uint32_t& bits) {
+    constexpr int NT = 32 * NW;
+    const int tid = threadIdx.x;
+    while (live == 0) {
+      if (cnext >= total) return total;
+      c0 = cnext;
+      cnext = min(c0 + kBatch, total);
+      const int n = cnext - c0;
+      for (int x = tid; x < n * kSub; x += NT) {
+        const int u = c0 + x / kSub, j = x % kSub;
+        pos_s[x] = (j < len && __ldg(flags + u / nsub) != 0) ? __ldg(pos + start(u) + j) : kBig;
+      }
+      __syncthreads();
+      uint32_t wm = 0;
+      for (int c = 0; c < n; ++c) {
+        const int fl = __ldg(flags + (c0 + c) / nsub);
+        const uint32_t b = fl != 0 ? mask(pos_s + c * kSub, fl) : 0u;
+        bits_s[c * NT + tid] = b;
+        if (__any_sync(0xffffffffu, b != 0u)) wm |= 1u << c;
+      }
+      uint32_t* w = wl_s + ((c0 / kBatch) & 1) * NW;
+      if ((tid & 31) == 0) w[tid >> 5] = wm;
+      __syncthreads();
+#pragma unroll
+      for (int x = 0; x < NW; ++x) live |= w[x];
+    }
+    const int c = __ffs(live) - 1;
+    live &= live - 1;
+    s0 = start(c0 + c);
+    bits = bits_s[c * NT + tid];
+    return c0 + c;
+  }
+};
 
 }  // namespace salo

@@ -32,6 +32,16 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 BLOCKS = (32, 64, 128, 256)
 _I32_MAX = 2 ** 31 - 1
+# The kernel against its plain version, abs and rel. f32: the same
+# arithmetic in another order (1e-5). 16-bit out 8e-3, two bf16 ulps at
+# |out| near 0.5: out is returned in the 16-bit type, and the kernel rounds
+# p to it relative to a 64-key sub-tile's running max (the plain version:
+# the plan tile's), so the two may round one element one ulp apart. The
+# row stats m, l are f32 in every case (STATS_TOL): the kernel sums the f32
+# p into l, as the reference does (tests/test_torch_forward_numerics.py
+# shows that summing the rounded p misses it).
+OUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
+STATS_TOL = 1e-5
 
 
 class MaskSpec(ctypes.Structure):

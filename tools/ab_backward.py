@@ -1,24 +1,25 @@
 #!/usr/bin/env python3
-"""Compare the 16-bit training backward kernels K2 (dQ) and K3 (dK/dV) of
-several checkouts of this repository on one GPU, in one run.
+"""Compare the 16-bit training kernels K1 (forward), K2 (dQ) and K3 (dK/dV)
+of several checkouts of this repository on one GPU, in one run.
 
     python3 tools/ab_backward.py ROOT [ROOT ...] [--rounds 1] [--seed 0]
 
 Each ROOT is a directory holding a checkout's ``src/repro_torch`` (for
 example a ``git archive`` unpacked under the git-ignored ``build/``). Every
-ROOT's ``salo_table_backward.cu`` is built first, all at once, and its
-ptxas registers and spills printed. Then each ROOT runs in a process of
+ROOT's kernels are built first, all at once, and the ptxas registers and
+spills of the tensor-core kernels of ``salo_table_attention.cu`` and
+``salo_table_backward.cu`` printed. Then each ROOT runs in a process of
 its own, in the order ROOT_1 .. ROOT_n, ROOT_n .. ROOT_1 (``--rounds``
 times), so that a drift of the card shows as a gap between two visits of
-one ROOT. A process times K2 and K3 at ``chip_smoke.py``'s train-kernels
-case (a) (smollm-135m's pattern, 72 flat heads, n 4096, hd 64, block 256),
-in bf16 and again in f16, with ``chip_smoke.Timer`` (L2 flushed, calls
-queued behind a sleep kernel), and reports, not gated, how far each ROOT's
-kernels lie from the plain f32 versions: at case (a), and at case (c)
-(ViL, hd 128, f16) with dout at 2^-20 of unit scale, relative to that
-scale. The last lines are one JSON object per visit, the card's name and
-power limit from ``nvidia-smi``, and a summary JSON line with each ROOT's
-mean times.
+one ROOT. A process times K1, K2 and K3 at ``chip_smoke.py``'s
+train-kernels case (a) (smollm-135m's pattern, 72 flat heads, n 4096, hd
+64, block 256), in bf16 and again in f16, with ``chip_smoke.Timer`` (L2
+flushed, calls queued behind a sleep kernel), and reports, not gated, how
+far each ROOT's kernels lie from the plain versions: K1's out, m and l,
+and K2/K3's gradients, at case (a), and K2/K3's at case (c) (ViL, hd 128,
+f16) with dout at 2^-20 of unit scale, relative to that scale. The last
+lines are one JSON object per visit, the card's name and power limit from
+``nvidia-smi``, and a summary JSON line with each ROOT's mean times.
 """
 from __future__ import annotations
 
@@ -61,6 +62,15 @@ def _inputs(torch, CS, name, seed, dtype=None):
     return (dout, delta, m, l, q, k, v, pos_q, pos_k), t, kw
 
 
+def _fwd_errors(KA, bwd, t, kw):
+    """Max |kernel - plain| of K1's out, m and l."""
+    fwd = (*bwd[4:], t.kv_blocks, t.flags)
+    got = KA.salo_table_attention(*fwd, **kw)
+    ref = KA.salo_table_attention_plain(*fwd, **kw)
+    return {w: float((a.float() - b.float()).abs().max())
+            for w, a, b in zip(("out", "m", "l"), got, ref)}
+
+
 def _errors(torch, KB, bwd, t, kw, scale=1.0):
     """Max |kernel - plain| of dq, dk, dv (relative to ``scale``) and the
     share of dq off the plain f32 dq rounded to dq's type."""
@@ -82,6 +92,7 @@ def visit(root: Path, seed: int) -> dict:
 
     import chip_smoke as CS
     import repro_torch
+    from repro_torch.kernels import salo_attention as KA
     from repro_torch.kernels import salo_backward as KB
 
     src = Path(repro_torch.__file__).resolve()
@@ -92,11 +103,15 @@ def visit(root: Path, seed: int) -> dict:
     for dtype, tag in ((torch.bfloat16, ""), (torch.float16, "_f16")):
         bwd, t, kw = _inputs(torch, CS, "a", seed + 100, dtype)
         dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+        fwd = (*bwd[4:], t.kv_blocks, t.flags)
+        rec[f"K1{tag}_ms"] = timer(lambda: KA.salo_table_attention(*fwd,
+                                                                   **kw))
         rec[f"K2{tag}_ms"] = timer(lambda: KB.salo_table_backward_dq(
             *bwd, t.kv_blocks, t.flags, **kw))
         rec[f"K3{tag}_ms"] = timer(lambda: KB.salo_table_backward_dkv(
             *bwd, *dkv_t, **kw))
-        rec[f"a{tag or '_bf16'}"] = _errors(torch, KB, bwd, t, kw)
+        rec[f"a{tag or '_bf16'}"] = {**_fwd_errors(KA, bwd, t, kw),
+                                     **_errors(torch, KB, bwd, t, kw)}
     cbwd, ct, ckw = _inputs(torch, CS, "c", seed + 102)
     small = (cbwd[0] * SMALL, cbwd[1] * SMALL, *cbwd[2:])
     rec["c_f16_small_dout"] = _errors(torch, KB, small, ct, ckw, SMALL)
@@ -104,10 +119,10 @@ def visit(root: Path, seed: int) -> dict:
 
 
 def _build(roots):
-    """Build every ROOT's backward kernels at once; print ptxas lines."""
+    """Build every ROOT's training kernels at once; print ptxas lines."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from repro_torch.kernels import _build; "
-            "_build.load('salo_table_backward'); "
+            "from repro_torch.kernels import _build; _build.build_all(); "
+            "print(_build.build_log('salo_table_attention')); "
             "print(_build.build_log('salo_table_backward'))")
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r / "src")],
                               stdout=subprocess.PIPE,
@@ -164,8 +179,8 @@ def main(argv=None) -> int:
     for r in roots:
         mine = [x for x in recs if x["root"] == str(r)]
         summary[r.name] = {k: sum(x[k] for x in mine) / len(mine)
-                           for k in ("K2_ms", "K3_ms", "K2_f16_ms",
-                                     "K3_f16_ms")}
+                           for k in ("K1_ms", "K2_ms", "K3_ms", "K1_f16_ms",
+                                     "K2_f16_ms", "K3_f16_ms")}
         summary[r.name]["visits"] = len(mine)
     print(json.dumps(summary))
     return 0
