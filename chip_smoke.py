@@ -17,16 +17,21 @@ nonzero:
    rep 1, hd 128, dilation 2, f16, one all-PAD row, (d) the serve shapes
    with an int8 slab (bf16 compute) and page statistics, (e) the serve
    shapes in f32 with ``return_state`` and page statistics, one all-PAD
-   row (which must give the (0, NEG_INF, 0) identity). ``page_m`` must be
-   equal where either side is NEG_INF. K5 (contiguous caches, read
-   through the transposed view of the lockstep (B, S, Hkv, hd) cache):
-   (a) the lockstep phase's cache in bf16, slot = position, (b) the same
-   in f32, (c) the ring layout (window 512 + 4 sinks, dilation 2, PAD
-   ring slots). Tolerances: f32 1e-5, bf16/f16 2e-2 (abs and rel; the
-   kernels round p to the 16-bit type before the PV product, the plain
-   versions keep it in f32). Prints each kernel's, its plain version's
-   and ``scaled_dot_product_attention``'s times (a yardstick only; for
-   K4 on the pre-gathered view, gather not timed) beside the bound.
+   row (which must give the (0, NEG_INF, 0) identity), (f) one request
+   (B = 1) at the serve shapes, t = 3000 (the single-user long-cache
+   decode). ``page_m`` must be equal where either side is NEG_INF. K5
+   (contiguous caches, read through the transposed view of the lockstep
+   (B, S, Hkv, hd) cache): (a) the lockstep phase's cache in bf16, slot =
+   position, (b) the same in f32, (c) the ring layout (window 512 + 4
+   sinks, dilation 2, PAD ring slots). Tolerances: f32 1e-5, bf16/f16
+   2e-2 (abs and rel; the kernels round p to the 16-bit type before the
+   PV product, the plain versions keep it in f32). Every case's outputs
+   must be bitwise equal over repeated calls (the split-KV merge does not
+   depend on which block finishes last). Prints the split the planner
+   chose (``n_split``, ``split_len``) and each kernel's, its plain
+   version's and ``scaled_dot_product_attention``'s times (a yardstick
+   only; for K4 on the pre-gathered view, gather not timed) beside the
+   bound.
 3. **serve-check** — a 2-layer, hd-64 f32 model served on the card
    (kernel) and on the CPU (plain version): greedy tokens must be equal,
    (1) on the fp slab, (2) on the int8 slab with page skipping (window 64,
@@ -109,6 +114,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+REPEATS = 10                     # calls a decode case must repeat bitwise
 # Decode-only steps [PROFILE_FROM, PROFILE_TO) run under torch.profiler.
 # The profiler's hooks slow the host afterwards, so the serve timings are
 # taken before PROFILE_FROM and the later steps only finish the run.
@@ -237,10 +243,42 @@ def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
     return pat, (q, k, v, pt, pos_t, t), (ks, vs)
 
 
+def check_repeats(torch, fn, first, what):
+    """REPEATS more calls of ``fn`` give outputs bitwise equal to
+    ``first`` (a tuple of tensors)."""
+    for _ in range(REPEATS):
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        check(all(torch.equal(a, b) for a, b in zip(res, first)),
+              f"{what}: a repeated call is not bitwise equal")
+
+
 def live_mask(torch, pat, pos, t):
     from repro_torch.core.scheduler import (STEP_GLOBAL, STEP_WINDOW,
                                             causal_step_mask)
     return causal_step_mask(pat, t[:, None], pos, STEP_WINDOW | STEP_GLOBAL)
+
+
+def k4_cases(torch):
+    """K4's kernel cases by name: decode_case keyword arguments."""
+    serve = dict(B=8, H=9, Hkv=3, hd=64, page=16, window=1024, g=4, dil=1,
+                 ts=[5, 300, 700, 1027, 1028, 1500, 2047, 3000])
+    return [("a", dict(serve, dtype=torch.bfloat16)),
+            ("b", dict(serve, dtype=torch.float32)),
+            ("c", dict(B=4, H=2, Hkv=2, hd=128, page=8, window=64, g=4,
+                       dil=2, ts=[10, 200, 77, 40], pad_rows=(3,),
+                       dtype=torch.float16)),
+            # the int8 serve phase's kernel: int8 slab, bf16 compute,
+            # page statistics
+            ("d", dict(serve, dtype=torch.bfloat16, int8=True,
+                       stats=True)),
+            # the sequence-parallel partial: f32 (out, m, l) and page
+            # statistics, one all-PAD row
+            ("e", dict(serve, dtype=torch.float32, state=True, stats=True,
+                       pad_rows=(0,))),
+            # one request with a long cache: few (request, head) pairs,
+            # so the split carries the grid
+            ("f", dict(serve, B=1, ts=[3000], dtype=torch.bfloat16))]
 
 
 def phase_kernels(torch, timer, seed):
@@ -249,24 +287,11 @@ def phase_kernels(torch, timer, seed):
     import torch.nn.functional as F
 
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
-                                                 salo_paged_decode_plain)
+                                                 salo_paged_decode_plain,
+                                                 split_plan)
     from repro_torch.serve.paged_cache import gather_view
 
-    serve = dict(B=8, H=9, Hkv=3, hd=64, page=16, window=1024, g=4, dil=1,
-                 ts=[5, 300, 700, 1027, 1028, 1500, 2047, 3000])
-    cases = [("a", dict(serve, dtype=torch.bfloat16)),
-             ("b", dict(serve, dtype=torch.float32)),
-             ("c", dict(B=4, H=2, Hkv=2, hd=128, page=8, window=64, g=4,
-                        dil=2, ts=[10, 200, 77, 40], pad_rows=(3,),
-                        dtype=torch.float16)),
-             # the int8 serve phase's kernel: int8 slab, bf16 compute,
-             # page statistics
-             ("d", dict(serve, dtype=torch.bfloat16, int8=True,
-                        stats=True)),
-             # the sequence-parallel partial: f32 (out, m, l) and page
-             # statistics, one all-PAD row
-             ("e", dict(serve, dtype=torch.float32, state=True, stats=True,
-                        pad_rows=(0,)))]
+    cases = k4_cases(torch)
     records = {}
     for i, (name, kw) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
@@ -280,6 +305,8 @@ def phase_kernels(torch, timer, seed):
         torch.cuda.synchronize()
         res = res if isinstance(res, tuple) else (res,)
         ref = ref if isinstance(ref, tuple) else (ref,)
+        check_repeats(torch, lambda: salo_paged_decode(*ops, **var), res,
+                      f"K4 case {name}")
         mask = live_mask(torch, pat, pos, t)                   # (B, S)
         live_rows = mask.any(dim=1)
         check(bool(live_rows.any()), f"case {name}: no live row")
@@ -337,6 +364,8 @@ def phase_kernels(torch, timer, seed):
         # pages that hold them) vs its operations
         B, H, _, hd = q.shape
         Hkv, page = k.shape[2], k.shape[1]
+        n_split, split_len = split_plan(q.device, B, H, Hkv, pos.shape[1],
+                                        page)
         live = int(mask.sum())                      # live (b, slot) pairs
         live_pages = int(mask.reshape(B, -1, page).any(-1).sum())
         item = q.element_size()
@@ -357,7 +386,7 @@ def phase_kernels(torch, timer, seed):
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=max(errs.values()), errs=errs, bytes=nbytes,
-                   live_slots=live)
+                   live_slots=live, n_split=n_split, split_len=split_len)
         log(f"[kernels] K4 case {name} {dname} "
             f"{'int8 slab ' if ks is not None else ''}"
             f"state={var['return_state']} "
@@ -371,46 +400,67 @@ def phase_kernels(torch, timer, seed):
 LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW = 8, 1088, 32
 
 
-def phase_k5(torch, timer, seed):
-    """K5 against its plain version: (a) the lockstep phase's cache (bf16,
-    full cache, slot = position, read through the transposed view of the
-    (B, S, Hkv, hd) cache), (b) the same in f32, (c) the ring layout
-    (window + sinks slots, PAD for unwritten ring slots) with dilation 2.
-    Returns the records by case."""
+def k5_cases(torch):
+    """K5's kernel cases by name: (a) the lockstep phase's cache (bf16,
+    full cache, slot = position), (b) the same in f32, (c) the ring layout
+    (window + sinks slots, PAD for unwritten ring slots) with dilation 2."""
+    S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
+    full = dict(window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
+    return [("a", dict(full, dtype=torch.bfloat16)),
+            ("b", dict(full, dtype=torch.float32)),
+            ("c", dict(window=512, g=4, dil=2, S=512 + 4, t=3000,
+                       ring=True, dtype=torch.bfloat16))]
+
+
+def k5_case(torch, gen, c):
+    """Random operands of one K5 case on the card, the caches read through
+    the transposed view of a (B, S, Hkv, hd) cache. Returns (pattern, q,
+    k, v, positions or None, t)."""
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.core.patterns import causal_sliding_window
     from repro_torch.core.scheduler import PAD_SENTINEL
-    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
 
     B, H, Hkv, hd = LOCKSTEP_B, 9, 3, 64
-    S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
-    full = dict(window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
-    cases = [("a", dict(full, dtype=torch.bfloat16)),
-             ("b", dict(full, dtype=torch.float32)),
-             ("c", dict(window=512, g=4, dil=2, S=512 + 4, t=3000,
-                        ring=True, dtype=torch.bfloat16))]
+    pat = causal_sliding_window(c["window"], n_sinks=c["g"],
+                                dilation=c["dil"])
+    S, t, dt = c["S"], c["t"], c["dtype"]
+    cache = torch.randn((2, B, S, Hkv, hd), generator=gen,
+                        device="cuda").to(dt)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    q = torch.randn((B, H, 1, hd), generator=gen, device="cuda").to(dt)
+    positions = None
+    if c["ring"]:
+        w, g = c["window"], c["g"]
+        j = np.arange(S)
+        pos = np.where(j < g, j, t - np.mod(t - j, w))
+        pos = np.where((j >= g) & (pos < g), PAD_SENTINEL, pos)
+        positions = torch.from_numpy(pos.astype(np.int32)).cuda()
+    return pat, q, k, v, positions, t
+
+
+def phase_k5(torch, timer, seed):
+    """K5 against its plain version in the cases of ``k5_cases``. Returns
+    the records by case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.salo_decode import (salo_decode,
+                                                 salo_decode_plain,
+                                                 split_plan)
+
     records = {}
-    for i, (name, c) in enumerate(cases):
+    for i, (name, c) in enumerate(k5_cases(torch)):
         gen = torch.Generator(device="cuda").manual_seed(seed + 50 + i)
-        pat = causal_sliding_window(c["window"], n_sinks=c["g"],
-                                    dilation=c["dil"])
-        S_, t, dt = c["S"], c["t"], c["dtype"]
-        cache = torch.randn((2, B, S_, Hkv, hd), generator=gen,
-                            device="cuda").to(dt)
-        k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
-        q = torch.randn((B, H, 1, hd), generator=gen, device="cuda").to(dt)
-        positions = None
-        if c["ring"]:
-            w, g = c["window"], c["g"]
-            j = np.arange(S_)
-            pos = np.where(j < g, j, t - np.mod(t - j, w))
-            pos = np.where((j >= g) & (pos < g), PAD_SENTINEL, pos)
-            positions = torch.from_numpy(pos.astype(np.int32)).cuda()
+        pat, q, k, v, positions, t = k5_case(torch, gen, c)
+        B, H, _, hd = q.shape
+        Hkv, S_, dt = k.shape[1], c["S"], c["dtype"]
         out = salo_decode(q, k, v, positions, t, pattern=pat)
         ref = salo_decode_plain(q, k, v, positions, t, pattern=pat)
         torch.cuda.synchronize()
+        check_repeats(torch, lambda: salo_decode(q, k, v, positions, t,
+                                                 pattern=pat), (out,),
+                      f"K5 case {name}")
+        n_split, split_len = split_plan(q.device, B, H, Hkv, S_)
         dname = str(dt).replace("torch.", "")
         tol = TOL[dname]
         check(bool(torch.isfinite(out).all()), f"K5 case {name}: non-finite")
@@ -447,7 +497,8 @@ def phase_k5(torch, timer, seed):
         rec = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=err, bytes=nbytes, live_slots=live)
+                   max_abs_err=err, bytes=nbytes, live_slots=live,
+                   n_split=n_split, split_len=split_len)
         log(f"[kernels] K5 case {name} {dname} {pat} B={B} H={H} Hkv={Hkv} "
             f"hd={hd} S={S_} t={t} ring={c['ring']}: "
             + " ".join(f"{a}={b}" for a, b in rec.items()))
@@ -1306,11 +1357,12 @@ def main(argv=None) -> int:
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]}
+                "library_ms": rec["library_ms"],
+                **{k: rec[k] for k in ("n_split", "split_len") if k in rec}}
 
     # K4's main numbers are case (a), the bf16 serve phase's kernel; case
-    # (d) is the int8 serve phase's (int8 slab + page statistics) and (e)
-    # the f32 state variant
+    # (d) is the int8 serve phase's (int8 slab + page statistics), (e) the
+    # f32 state variant and (f) one request with a long cache
     kernels = [{
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
@@ -1319,7 +1371,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"serve": launches, "serve_int8": launches_int8},
         "launches_per_call": 1, **row(k4["a"]),
         "variants": {"int8_page_stats_bf16": row(k4["d"]),
-                     "state_page_stats_f32": row(k4["e"])}}, {
+                     "state_page_stats_f32": row(k4["e"]),
+                     "single_request_bf16": row(k4["f"])}}, {
         "name": "salo_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:173",

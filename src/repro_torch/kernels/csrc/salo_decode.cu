@@ -22,14 +22,19 @@ extern "C" {
 // head dimension must be contiguous and every row 16-byte aligned (the
 // wrapper checks). positions: null (slot = position) or rows of S int32
 // with batch stride pos_sb (0 = one row shared by the batch). t: (B,)
-// int32, or null and t_scalar for every row. Returns cudaGetLastError()
-// after the launch; the launch is asynchronous on `stream`.
+// int32, or null and t_scalar for every row. n_split / split_len: the
+// wrapper's split of the S slots; with n_split > 1, ws is the f32 workspace
+// of the partials and counters the zeroed int32 ticket counters (one per
+// (request, kv head, row group); the kernel leaves them 0). Returns
+// cudaGetLastError() after the launch; the launch is asynchronous on
+// `stream`.
 int salo_decode(int dtype, int hd, const void* q, const void* k_cache,
                 const void* v_cache, long long k_sb, long long k_sh, long long k_ss,
                 long long v_sb, long long v_sh, long long v_ss, const void* positions,
                 long long pos_sb, const void* t, int t_scalar, void* out, int B,
                 int H, int Hkv, int S, int win_lo, int dilation, int n_global,
-                float scale, void* stream) {
+                float scale, int n_split, int split_len, void* ws, void* counters,
+                void* stream) {
   decode_body::Params p = {};
   p.q = q;
   p.k = k_cache;
@@ -54,6 +59,10 @@ int salo_decode(int dtype, int hd, const void* q, const void* k_cache,
   p.dilation = dilation;
   p.n_global = n_global;
   p.scale = scale;
+  p.n_split = n_split;
+  p.split_len = split_len;
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
   return (int)decode_body::dispatch<false>(dtype, 0, p, static_cast<cudaStream_t>(stream));
 }
 

@@ -18,15 +18,20 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q's type); kv_int8: the
 // slab is int8 with k_scale/v_scale. Pointers of unused variants are null.
-// Returns cudaGetLastError() after the launch (0 = success); the launch is
-// asynchronous on `stream`. The slabs must be 16-byte aligned.
+// n_split / split_len: the wrapper's split of the npp * page slots (whole
+// pages); with n_split > 1, ws is the f32 workspace of the partials and
+// counters the zeroed int32 ticket counters (one per (request, kv head, row
+// group); the kernel leaves them 0). Returns cudaGetLastError() after the
+// launch (0 = success); the launch is asynchronous on `stream`. q and the
+// slabs must be 16-byte aligned.
 int salo_paged_decode(int dtype, int kv_int8, int hd, const void* q,
                       const void* k_slab, const void* v_slab, const void* k_scale,
                       const void* v_scale, const void* page_tables,
                       const void* positions, const void* t, void* out, int out_f32,
                       void* m_out, void* l_out, void* pm_out, int B, int H, int Hkv,
                       int page, int npp, int win_lo, int dilation, int n_global,
-                      float scale, void* stream) {
+                      float scale, int n_split, int split_len, void* ws,
+                      void* counters, void* stream) {
   decode_body::Params p = {};
   p.q = q;
   p.k = k_slab;
@@ -52,6 +57,10 @@ int salo_paged_decode(int dtype, int kv_int8, int hd, const void* q,
   p.dilation = dilation;
   p.n_global = n_global;
   p.scale = scale;
+  p.n_split = n_split;
+  p.split_len = split_len;
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
   if (p.t_vec == nullptr || p.positions == nullptr || p.page_tables == nullptr ||
       (kv_int8 && (p.k_scale == nullptr || p.v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;

@@ -18,7 +18,9 @@ as in the reference's ``repro/kernels/salo_decode.py``:
   kernel ``salo_decode`` (``_ragged_kernel``).
 
 Both kernels share one body (``csrc/salo_decode_body.cuh``), whose note
-gives the design and the bound.
+gives the design and the bound: split-KV in one launch, each request's
+slots split over several blocks whose partials the last block to finish
+merges. :func:`plan_splits` picks the split from shapes alone.
 
 Each wrapper takes its plain version (:func:`salo_paged_decode_plain`,
 :func:`salo_decode_plain`: the ragged decode twin, exactly the
@@ -39,7 +41,8 @@ one per plain-version call.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +51,73 @@ from repro_torch.core.patterns import HybridSparsePattern
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128, 256)
 _ROWS_PER_BLOCK = 4          # kRows of the kernel body: query rows per block
+_MAX_SPLITS = 64             # kMaxSplits of the kernel body
+_SPLIT_GRAIN = 16            # a split's length is a multiple of 16 slots
+_BLOCKS_PER_SM = 2           # what the planner aims at
+
+
+def plan_splits(S: int, units: int, n_sm: int,
+                page: int = 1) -> Tuple[int, int]:
+    """How the decode kernels split each request's ``S`` slots over
+    blocks: returns ``(n_split, split_len)``.
+
+    ``units`` is the number of (request, kv head, row group) triples, the
+    grid's other dimension, and ``n_sm`` the card's SM count. The plan aims
+    at about ``_BLOCKS_PER_SM`` blocks per SM, at most ``_MAX_SPLITS``
+    splits, and a split length that is a multiple of 16 slots and of
+    ``page`` (so a paged split owns whole pages). It reads shapes only,
+    never ``t`` or positions, so a launch stays the same from step to step
+    (and capturable in a CUDA graph). Every split is non-empty:
+    ``(n_split - 1) * split_len < S <= n_split * split_len``.
+    """
+    if S <= 0 or units <= 0 or n_sm <= 0 or page <= 0:
+        raise ValueError(f"plan_splits needs positive sizes, got S={S}, "
+                         f"units={units}, n_sm={n_sm}, page={page}")
+    grain = math.lcm(_SPLIT_GRAIN, page)
+    want = -(-_BLOCKS_PER_SM * n_sm // units)
+    n = max(1, min(want, -(-S // grain), _MAX_SPLITS))
+    length = -(-(-(-S // n)) // grain) * grain
+    return -(-S // length), length
+
+
+_SM_COUNT: Dict[int, int] = {}                # device index -> SMs
+_COUNTERS: Dict[int, torch.Tensor] = {}       # device index -> tickets
+
+
+def _units(B: int, H: int, Hkv: int) -> int:
+    """(request, kv head, row group) triples: the grid's other dimension."""
+    return B * Hkv * -(-(H // Hkv) // _ROWS_PER_BLOCK)
+
+
+def split_plan(device: torch.device, B: int, H: int, Hkv: int, S: int,
+               page: int = 1) -> Tuple[int, int]:
+    """:func:`plan_splits` for a call with these shapes on ``device``
+    (a CUDA device: its SM count comes from the device properties)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return plan_splits(S, _units(B, H, Hkv), _SM_COUNT[idx], page)
+
+
+def _split_operands(device, B, H, Hkv, hd, n_split):
+    """The workspace of the partials (``torch.empty``, f32) and the ticket
+    counters for a split launch, or ``(None, None)`` for ``n_split == 1``.
+    The counters are one int32 buffer per device, made zeroed once and
+    grown (zeroed) when a grid needs more; every launch leaves them 0, so
+    launches of this device must not run concurrently on two streams."""
+    if n_split == 1:
+        return None, None
+    units = _units(B, H, Hkv)
+    ws = torch.empty(units * n_split * _ROWS_PER_BLOCK * (hd + 2),
+                     dtype=torch.float32, device=device)
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < units:
+        buf = torch.zeros(max(units, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return ws, buf
 
 
 def _bind(name: str, argtypes):
@@ -64,10 +134,11 @@ def _bind(name: str, argtypes):
 
 
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SPLIT_ARGS = [ctypes.c_float, _CI, _CI, _VP, _VP, _VP]
 _PAGED_ARGS = [_CI, _CI, _CI] + [_VP] * 9 + [_CI] + [_VP] * 3 + [_CI] * 8 \
-    + [ctypes.c_float, _VP]
+    + _SPLIT_ARGS
 _CONTIG_ARGS = [_CI, _CI] + [_VP] * 3 + [_CL] * 6 + [_VP, _CL, _VP, _CI, _VP] \
-    + [_CI] * 7 + [ctypes.c_float, _VP]
+    + [_CI] * 7 + _SPLIT_ARGS
 
 
 def _pattern_args(pattern: HybridSparsePattern):
@@ -92,8 +163,12 @@ def _check_kernel_q(name: str, q: torch.Tensor) -> None:
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS}, got "
                          f"{q.shape[-1]}")
-    if not q.is_contiguous():
-        raise ValueError("the kernel needs a contiguous q")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("the kernel needs a contiguous, 16-byte aligned q")
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -248,17 +323,18 @@ def salo_paged_decode(q: torch.Tensor, k_slab: torch.Tensor,
         pm = torch.empty((B, Hkv, n_rg, npp), dtype=torch.float32,
                          device=q.device)
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
+    n_split, split_len = split_plan(q.device, B, H, Hkv, npp * page, page)
+    ws, counters = _split_operands(q.device, B, H, Hkv, hd, n_split)
 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.salo_paged_decode(
             _DTYPE_CODE[q.dtype], int(k_scale is not None), hd, q.data_ptr(),
-            k_slab.data_ptr(), v_slab.data_ptr(), ptr(k_scale), ptr(v_scale),
-            page_tables.data_ptr(), positions.data_ptr(), t.data_ptr(),
-            out.data_ptr(), int(return_state), ptr(m), ptr(l), ptr(pm), B, H,
-            Hkv, page, npp, win_lo, dil, n_global, scale_, stream)
+            k_slab.data_ptr(), v_slab.data_ptr(), _ptr(k_scale),
+            _ptr(v_scale), page_tables.data_ptr(), positions.data_ptr(),
+            t.data_ptr(), out.data_ptr(), int(return_state), _ptr(m), _ptr(l),
+            _ptr(pm), B, H, Hkv, page, npp, win_lo, dil, n_global, scale_,
+            n_split, split_len, _ptr(ws), _ptr(counters), stream)
     _raise_on(lib, "salo_paged_decode", err)
     salo_paged_decode.launches += 1
     res = (out, m, l) if return_state else (out,)
@@ -380,15 +456,16 @@ def salo_decode(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _bind("salo_decode", _CONTIG_ARGS)
     out = torch.empty_like(q)
     ks, vs = k_cache.stride(), v_cache.stride()
+    n_split, split_len = split_plan(q.device, B, H, Hkv, S)
+    ws, counters = _split_operands(q.device, B, H, Hkv, hd, n_split)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.salo_decode(
             _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-            None if positions is None else positions.data_ptr(), pos_sb,
-            None if t_vec is None else t_vec.data_ptr(), t_scalar,
-            out.data_ptr(), B, H, Hkv, S, win_lo, dil, n_global, scale_,
-            stream)
+            _ptr(positions), pos_sb, _ptr(t_vec), t_scalar, out.data_ptr(), B,
+            H, Hkv, S, win_lo, dil, n_global, scale_, n_split, split_len,
+            _ptr(ws), _ptr(counters), stream)
     _raise_on(lib, "salo_decode", err)
     salo_decode.launches += 1
     return out

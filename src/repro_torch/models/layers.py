@@ -91,13 +91,14 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
 
 
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # GELU is tanh-approximate, as the reference's jax.nn.gelu defaults to
     h = x @ p["w_in"].to(x.dtype)
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
     elif cfg.act == "geglu":
-        h = F.gelu(x @ p["w_gate"].to(x.dtype)) * h
+        h = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh") * h
     else:
-        h = F.gelu(h)
+        h = F.gelu(h, approximate="tanh")
     return h @ p["w_out"].to(x.dtype)
 
 

@@ -220,7 +220,7 @@ def test_paged_decode_return_state_matches_plain(quant):
                                         (256, 8, 2, 513)])
 def test_contiguous_decode_kernel_matches_plain(dtype, hd, H, Hkv, S):
     """The lockstep cache (B, S, Hkv, hd) read through its transposed view
-    (no copy), S not a multiple of the 256-slot tile; positions None,
+    (no copy), S not a multiple of the 16-slot split grain; positions None,
     shared (S,) or per-request (B, S); t a scalar or a vector."""
     _need_cuda()
     from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
@@ -274,6 +274,123 @@ def test_contiguous_decode_ring_layout_and_empty_rows():
     torch.cuda.synchronize()
     torch.testing.assert_close(out[:2], ref[:2], atol=1e-5, rtol=1e-5)
     assert bool((out[2] == 0).all())
+
+
+# ------------------- split-KV: determinism, counters, grids ------------- #
+def _serve_paged_ops(g, ts, dtype, hd=64, H=9, Hkv=3, int8=False):
+    """The serve shapes (window 1024 + 4 sinks, page 16: 65 pages a
+    request) for the requests at positions ``ts``."""
+    pat = causal_sliding_window(1024, n_sinks=4)
+    lay = layout_for_pattern(pat, 16)
+    n_pages, q, pt, pos, t, live = _paged_ops(g, pat, lay, ts, dtype, H,
+                                              Hkv, hd, pad_last=False)
+    if int8:
+        k, v, ks, vs = _int8_slab(g, n_pages, 16, Hkv, hd)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (torch.randn((n_pages, 16, Hkv, hd), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        kw = {}
+    return pat, (q, k, v, pt, pos, t), kw, live
+
+
+@pytest.mark.parametrize("variant", ["k4_fp", "k4_int8_stats",
+                                     "k4_f32_state", "k5"])
+def test_decode_kernels_bitwise_deterministic(variant):
+    """20 calls give bitwise-equal outputs (the split merge does not depend
+    on which block finishes last), one launch each."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, split_plan
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    ts = [5, 300, 1027, 1500, 2047, 3000]
+    if variant == "k5":
+        S = 1120
+        pat = causal_sliding_window(1024, n_sinks=4)
+        cache = torch.randn((2, 6, S, 3, 64), generator=g,
+                            device="cuda").to(torch.bfloat16)
+        q = torch.randn((6, 9, 1, 64), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, cache[0].transpose(1, 2), cache[1].transpose(1, 2), None,
+                S - 1)
+        fn, kw = salo_decode, dict(pattern=pat)
+        assert split_plan(q.device, 6, 9, 3, S)[0] > 1
+    else:
+        dtype = torch.float32 if variant == "k4_f32_state" else \
+            torch.bfloat16
+        pat, args, kw, _ = _serve_paged_ops(g, ts, dtype,
+                                            int8=variant == "k4_int8_stats")
+        kw = dict(kw, pattern=pat,
+                  return_state=variant == "k4_f32_state",
+                  return_page_stats=variant != "k4_fp")
+        fn = salo_paged_decode
+        assert split_plan(args[0].device, 6, 9, 3, args[3].shape[1] * 16,
+                          16)[0] > 1
+    first = fn(*args, **kw)
+    first = first if isinstance(first, tuple) else (first,)
+    for _ in range(20):
+        before = fn.launches
+        res = fn(*args, **kw)
+        assert fn.launches == before + 1
+        res = res if isinstance(res, tuple) else (res,)
+        assert all(torch.equal(a, b) for a, b in zip(res, first))
+
+
+def test_decode_counters_reset_between_grids():
+    """A call with a larger grid, then a smaller one, then the larger one
+    again: every call agrees with the plain version, and the ticket
+    counters are all 0 after each (the kernel resets them)."""
+    _need_cuda()
+    from repro_torch.kernels import salo_decode as SD
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    calls = [[5, 300, 1027, 1500, 2047, 3000, 700, 64], [3000, 1100],
+             [5, 300, 1027, 1500, 2047, 3000, 700, 64]]
+    for ts in calls:
+        pat, ops, kw, live = _serve_paged_ops(g, ts, torch.bfloat16)
+        out = salo_paged_decode(*ops, pattern=pat)
+        ref = salo_paged_decode_plain(*ops, pattern=pat)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[live].float(), ref[live].float(),
+                                   atol=2e-2, rtol=2e-2)
+        counters = SD._COUNTERS[ops[0].device.index]
+        assert counters.numel() >= len(ts) * 3
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,Hkv", [(64, 9, 3), (256, 8, 1)])
+def test_single_request_many_splits(dtype, hd, H, Hkv):
+    """B = 1 at the serve layout (1040 slots): the split carries the grid
+    (many splits of whole pages). fp at t = 3000 (every ring slot live),
+    and int8 + page stats + state at t = 600 (the later splits dead) agree
+    with the plain version."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import split_plan
+
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    for int8 in (False, True):
+        pat, ops, kw, live = _serve_paged_ops(g, [600 if int8 else 3000],
+                                              dtype, hd=hd, H=H, Hkv=Hkv,
+                                              int8=int8)
+        n_split, length = split_plan(ops[0].device, 1, H, Hkv,
+                                     ops[4].shape[1], 16)
+        assert n_split >= 16 and length % 16 == 0
+        var = dict(kw, pattern=pat, return_state=int8,
+                   return_page_stats=int8)
+        before = salo_paged_decode.launches
+        res = salo_paged_decode(*ops, **var)
+        ref = salo_paged_decode_plain(*ops, **var)
+        torch.cuda.synchronize()
+        assert salo_paged_decode.launches == before + 1
+        res = res if isinstance(res, tuple) else (res,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        tol = TOL[dtype]
+        for a, b in zip(res[:3 if int8 else 1], ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=tol,
+                                       rtol=tol)
+        if int8:
+            _check_page_m(res[-1], ref[-1], tol)
 
 
 def _smoke_hd64(**salo):

@@ -134,3 +134,44 @@ def test_embed_and_logits(weights):
     np.testing.assert_allclose(
         TL.logits_apply(tparams["embed"], None, tx, tcfg).numpy(),
         np.asarray(JL.logits_apply(jparams["embed"], None, jx, jcfg)), **TOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_mlp_apply_activations(weights, act):
+    """Every MLP activation against the reference's; GELU is
+    tanh-approximate on both sides (jax.nn.gelu's default)."""
+    import dataclasses
+
+    jcfg, tcfg, jl, tl = weights
+    jcfg, tcfg = (dataclasses.replace(c, act=act) for c in (jcfg, tcfg))
+    x = np.random.default_rng(6).standard_normal(
+        (2, 4, jcfg.d_model)).astype(np.float32) * 3.0
+    np.testing.assert_allclose(
+        TL.mlp_apply(tl["mlp"], _t(x), tcfg).numpy(),
+        np.asarray(JL.mlp_apply(jl["mlp"], x, jcfg)), **TOL)
+
+
+@pytest.mark.parametrize("act", ["geglu", "gelu"])
+def test_model_forward_and_loss_match_jax_per_activation(act):
+    """A geglu and a gelu model (smollm's smoke config with the activation
+    replaced in both packages, f32, the reference's parameters): logits and
+    loss within 1e-5."""
+    import dataclasses
+
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model as t_build
+
+    jcfg = dataclasses.replace(j_smoke("smollm-135m"), act=act)
+    tcfg = dataclasses.replace(t_smoke("smollm-135m"), act=act)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    batch = SyntheticLM(jcfg, DataConfig(32, 2, seed=1)).batch(0)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tmodel = t_build(tcfg, "cpu")
+    np.testing.assert_allclose(
+        tmodel.forward(tparams, tbatch).numpy(),
+        np.asarray(jmodel.forward(jparams, batch)), **TOL)
+    jloss, _ = jmodel.loss(jparams, batch)
+    tloss, _ = tmodel.loss(tparams, tbatch)
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
