@@ -19,7 +19,8 @@ nonzero:
    shapes in f32 with ``return_state`` and page statistics, one all-PAD
    row (which must give the (0, NEG_INF, 0) identity), (f) one request
    (B = 1) at the serve shapes, t = 3000 (the single-user long-cache
-   decode). ``page_m`` must be equal where either side is NEG_INF. K5
+   decode), (g) gemma-7b's decode (16 heads of hd 256, no GQA) at the
+   serve shapes in bf16. ``page_m`` must be equal where either side is NEG_INF. K5
    (contiguous caches, read through the transposed view of the lockstep
    (B, S, Hkv, hd) cache): (a) the lockstep phase's cache in bf16, slot =
    position, (b) the same in f32, (c) the ring layout (window 512 + 4
@@ -36,7 +37,9 @@ nonzero:
    (kernel) and on the CPU (plain version): greedy tokens must be equal,
    (1) on the fp slab, (2) on the int8 slab with page skipping (window 64,
    threshold -3, decay 0.3), where the page counters must be equal too and
-   0 < pages read < pages total.
+   0 < pages read < pages total; (3) gemma-7b (hd 256, geglu, soft-capped
+   logits, tied embeddings), phi4-mini (hd 128, GQA 3) and granite (hd
+   128, GQA 4) at narrowed widths, 2 layers, on the fp slab.
 4. **lockstep** — smollm-135m at full width and depth, bf16, on the
    lockstep ``ServeEngine``: batch 8, a 1088-token prompt prefilled token
    by token, 32 new tokens. Checks finite logits every step, 30 K5
@@ -55,7 +58,11 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
-7. **train-kernels** — hold the training kernels K1 (forward; with
+7. **serve gemma-7b** — the serve phase's traffic on gemma-7b at full
+   width and depth (28 layers, d 3072, 16 heads of hd 256, vocab 256000),
+   bf16, random weights: the same checks (28 K4 launches a decode step),
+   one decode-only step profiled.
+8. **train-kernels** — hold the training kernels K1 (forward; with
    16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
    K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
    and working-space tensors the op hands them: (a) the train phase's shapes
@@ -63,7 +70,12 @@ nonzero:
    bf16), (b) the same in f32, (c) ViL 2-D multi-band with a global token,
    block_q 128 != block_k 64, hd 128, f16, padded rows, (d) a causal
    dilated window with sinks (reordered; a transposed row splits), block
-   32, f32, (e) case (a) in f16. Tolerances: out 8e-3 in 16 bits and
+   32, f32, (e) case (a) in f16, (f) gemma-7b's attention (its pattern, 2
+   x 16 heads, n 4096, hd 256, block 256, bf16), (g) case (f) in f32,
+   (h) longformer-4k's (bidirectional window 512, one global token with
+   global rows, 8 x 12 heads, hd 64, bf16), (i), (j) the paper's ViL
+   stages 1 and 2 (56 x 56 and 28 x 28 grids, 15 x 15 window, one global
+   token, 3 and 6 heads of hd 64, block 128, bf16). Tolerances: out 8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
    (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
@@ -72,26 +84,37 @@ nonzero:
    to that type on all but 2 % of its elements (``salo_backward.DKV_TOL``,
    ``DQ_OFF_SHARE``). The 16-bit cases run K2/K3 again with dout at 2^-20
    of its scale (a train step's) and compare relative to it. Checks that
-   two K3 runs give bitwise-equal dK/dV. Prints for (a) and (b) each
-   kernel's, the plain version's and the bound's time (16-bit K2/K3: each
+   two K3 runs give bitwise-equal dK/dV. Prints for (a), (b), (f), (g),
+   (h) each kernel's, and for (i), (j) K1's, the plain version's and the
+   bound's time (16-bit K2/K3: each
    product once at the 16-bit tensor rate, 6 and 8 x hd flops per
    attended pair; f32: all but q.k^T at the f32 rate), the flops the
    kernel runs and their rate (K1: 4 x hd per pair of the sub-tiles it
    executes, 16 x 64 warp sub-tiles in 16 bits and 64 x 64 block
    sub-tiles in f32; K2/K3: the split's 10 and 16 x hd per attended
-   pair), and
+   pair; at hd 256 the 16-bit kernels' column split adds the products
+   each of its two blocks recomputes), and
    ``scaled_dot_product_attention`` with the dense mask (forward, and its
    backward beside K2 and K3) as a yardstick.
-8. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
+9. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
    card (kernels) and on the CPU (plain versions) from the same
-   parameters and batches: losses and grad norms agree within 1e-4.
-9. **train** — smollm-135m at full width and depth, bf16, remat full,
+   parameters and batches: losses and grad norms agree within 1e-4; then
+   the same for gemma-7b (hd 256) and longformer-4k (hd 64, bidirectional,
+   global rows) at narrowed widths.
+10. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
    the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 = 30 x
    steps, K3 = 2 x 30 x steps (its row walk and its owner-tile sum), and
    that no plain version ran; prints the median step
    time, tokens/s and peak memory, then profiles one more step.
+11. **train gemma-7b** — every published width of gemma-7b kept, the
+    depth cut to the deepest whose reckoned step peak (``train_bytes``,
+    printed first) fits 92 % of the card, seq 4096, batch 1, 10 steps,
+    lr 1e-3, warmup 3; the same checks and lines as the train phase.
+12. **train longformer-4k** — at full width and depth (12 layers, d
+    768), seq 4096, batch 8, 20 steps, as the train phase: the
+    bidirectional band and the global-rows epilogue on the card.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the card's name and power limit from ``nvidia-smi``, and the result line
@@ -120,6 +143,7 @@ REPEATS = 10                     # calls a decode case must repeat bitwise
 # taken before PROFILE_FROM and the later steps only finish the run.
 PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
+GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
 
 
 def log(msg: str) -> None:
@@ -137,7 +161,10 @@ class Timer:
     L2 cold). The timed calls queue up behind a sleep kernel, so the card
     runs them back to back and the events do not count the host's time to
     issue a call. Slow-to-issue calls (the plain versions, which launch
-    many small kernels each) take fewer iterations and a longer sleep."""
+    many small kernels each) take fewer iterations and a longer sleep; a
+    run whose calls outlast the sleep is repeated behind a longer one, and
+    calls that read from the card themselves (so never queue) are timed on
+    the host clock."""
 
     SLEEP_CYCLES = 200_000_000      # ~0.1 s: longer than issuing all calls
 
@@ -149,25 +176,39 @@ class Timer:
     def __call__(self, fn, iters: int = 0, sleep_cycles: int = 0) -> float:
         torch = self.torch
         iters = iters or self.iters
+        sleep = sleep_cycles or self.SLEEP_CYCLES
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(sleep_cycles or self.SLEEP_CYCLES)
-        slept = torch.cuda.Event()
-        slept.record()
-        pairs = []
+        # calls slower to issue than the sleep lasts are timed again behind
+        # a sleep four times as long
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(sleep)
+            slept = torch.cuda.Event()
+            slept.record()
+            pairs = []
+            for _ in range(iters):
+                self.flush.zero_()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                pairs.append((s, e))
+            issued = not slept.query()
+            torch.cuda.synchronize()
+            if issued:
+                return sum(s.elapsed_time(e) for s, e in pairs) / iters
+            sleep *= 4
+        # a call that waits on the card itself (a host read inside) cannot
+        # queue behind a sleep: its time is the host's, synchronized
+        log("[timer] the calls wait on the card (they never queue behind "
+            "the sleep): timed on the host clock, synchronized")
+        t0 = time.perf_counter()
         for _ in range(iters):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
             fn()
-            e.record()
-            pairs.append((s, e))
-        check(not slept.query(), "the sleep ended before every timed call "
-              "was issued: the times would count host gaps")
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        return (time.perf_counter() - t0) / iters * 1e3
 
 
 # --------------------------------------------------------------------- #
@@ -278,7 +319,9 @@ def k4_cases(torch):
                        pad_rows=(0,))),
             # one request with a long cache: few (request, head) pairs,
             # so the split carries the grid
-            ("f", dict(serve, B=1, ts=[3000], dtype=torch.bfloat16))]
+            ("f", dict(serve, B=1, ts=[3000], dtype=torch.bfloat16)),
+            # gemma-7b's decode: 16 heads of hd 256, no GQA
+            ("g", dict(serve, H=16, Hkv=16, hd=256, dtype=torch.bfloat16))]
 
 
 def phase_kernels(torch, timer, seed):
@@ -517,13 +560,43 @@ def _serve_check_cfg(window):
                                salo=SALOConfig(window=window, n_global=2))
 
 
+def _narrow(arch, **fields):
+    """The f32 smoke config of ``arch`` (2 layers, vocab 256, a 16-slot
+    window, 32-wide plan blocks) with ``fields`` replaced."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+
+    return dataclasses.replace(get_smoke(arch), **fields)
+
+
+# Narrowed configs of the dense archs for the cuda == cpu checks: widths cut
+# so the checks are quick, head dims the kernels take, each arch's own
+# features kept (gemma: geglu, logit softcap, tied embeddings, hd 256;
+# phi4-mini: GQA 3 at hd 128; granite: GQA 4 at hd 128; longformer:
+# bidirectional window, a global token with global rows, gelu, hd 64).
+def _check_cfgs():
+    return {
+        "gemma-7b": _narrow("gemma-7b", d_model=256, n_heads=2,
+                            n_kv_heads=2, head_dim=256, d_ff=512),
+        "phi4-mini-3.8b": _narrow("phi4-mini-3.8b", d_model=384, n_heads=3,
+                                  n_kv_heads=1, d_ff=512),
+        "granite-3-8b": _narrow("granite-3-8b", d_model=512, n_heads=4,
+                                n_kv_heads=1, d_ff=512),
+        "longformer-4k": _narrow("longformer-4k", d_model=128, n_heads=2,
+                                 n_kv_heads=2, d_ff=256),
+    }
+
+
 def serve_check(torch, seed):
     """Kernel path (cuda) and plain path (cpu) give the same greedy tokens
     on a small f32 model with hd 64: (1) the fp slab, window 16; (2) the
     int8 slab with page skipping on the workload of the reference's
     ``test_page_skip_engages_at_parity`` (window 64, prompts 24/17/9/30,
     24 new tokens, threshold -3, decay 0.3), where the page counters must
-    be equal too and pages really skipped (0 < read < total)."""
+    be equal too and pages really skipped (0 < read < total); then (3)
+    gemma-7b (hd 256), phi4-mini and granite (hd 128, GQA 3 and 4) at
+    narrowed widths (``_check_cfgs``) on the fp slab."""
     import numpy as np
 
     from repro_torch.models.layers import salo_pattern
@@ -531,12 +604,15 @@ def serve_check(torch, seed):
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
     from repro_torch.serve.paged_cache import layout_for_pattern
 
-    runs = [("fp", 16, (5, 9, 13, 26), 8, {}),
-            ("int8 page-sparse", 64, (24, 17, 9, 30), 24,
+    runs = [("fp", _serve_check_cfg(16), (5, 9, 13, 26), 8, {}),
+            ("int8 page-sparse", _serve_check_cfg(64), (24, 17, 9, 30), 24,
              dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
                   page_stat_decay=0.3))]
-    for what, window, lens, n_new, extra in runs:
-        cfg = _serve_check_cfg(window)
+    # the causal dense archs at narrowed widths, fp slab
+    runs += [(f"{arch} hd {cfg.hd} H {cfg.n_heads}/{cfg.n_kv_heads}", cfg,
+              (5, 9, 13, 26), 8, {})
+             for arch, cfg in _check_cfgs().items() if arch in SERVE_CHECK]
+    for what, cfg, lens, n_new, extra in runs:
         lay = layout_for_pattern(salo_pattern(cfg), 8)
         ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
                                 chunk=8, max_batch=4, **extra)
@@ -577,13 +653,16 @@ def _to(tree, dev):
 
 
 SERVE_PAGE, SERVE_CHUNK, SERVE_R, SERVE_NEW = 16, 128, 8, 64
+SERVE_CHECK = ("gemma-7b", "phi4-mini-3.8b", "granite-3-8b")
+TRAIN_CHECK = ("gemma-7b", "longformer-4k")
 
 
-def _serve_engine(torch, seed, what, **extra):
-    """smollm-135m at full width, bf16, random weights from ``seed``, on
-    the continuous engine with the serve phases' 8 requests submitted
-    (prompts over 600-2000 tokens). ``extra``: ContinuousConfig fields.
-    Returns (cfg, engine, params, prompt lengths, rng)."""
+def _serve_engine(torch, seed, what, arch="smollm-135m", **extra):
+    """``arch`` (smollm-135m by default) at full width and depth, bf16,
+    random weights from ``seed``, on the continuous engine with the serve
+    phases' 8 requests submitted (prompts over 600-2000 tokens): n_pages
+    from ``layout_for_pattern``, 8 rows. ``extra``: ContinuousConfig
+    fields. Returns (cfg, engine, params, prompt lengths, rng)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -594,7 +673,7 @@ def _serve_engine(torch, seed, what, **extra):
     from repro_torch.serve.paged_cache import layout_for_pattern
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     R = SERVE_R
     lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE)
     check(lay.pages_per_req == 65, f"pages_per_req {lay.pages_per_req}")
@@ -605,7 +684,7 @@ def _serve_engine(torch, seed, what, **extra):
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
     n_param = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    log(f"[{what}] smollm-135m bf16 {extra}: weights {n_param / 1e6:.1f} MB,"
+    log(f"[{what}] {arch} bf16 {extra}: weights {n_param / 1e6:.1f} MB,"
         f" slab {eng.slab_resident_bytes()} bytes resident "
         f"({eng.slab_resident_bytes() / 1e6:.1f} MB), "
         f"n_pages={ccfg.n_pages}")
@@ -649,13 +728,17 @@ def _check_serve_run(cfg, eng, lens, launches, plain, what):
     return res, c
 
 
-def phase_serve(torch, seed):
-    """smollm-135m at full width on the continuous engine. Returns the K4
-    launch count of the run and the requests' tokens."""
+def phase_serve(torch, seed, arch="smollm-135m", what="serve",
+                profile=(PROFILE_FROM, PROFILE_TO), profile_prefill=True):
+    """``arch`` at full width on the continuous engine; the decode-only
+    steps [profile[0], profile[1]) run under the profiler, and then (when
+    ``profile_prefill``) one prefill chunk. Returns the K4 launch count of
+    the run and the requests' tokens."""
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
                                                  salo_paged_decode_plain)
 
-    cfg, eng, params, lens, rng = _serve_engine(torch, seed, "serve")
+    cfg, eng, params, lens, rng = _serve_engine(torch, seed, what, arch)
+    prof_from, prof_to = profile
     R = SERVE_R
     salo_paged_decode.launches = 0
     salo_paged_decode_plain.calls = 0
@@ -668,7 +751,7 @@ def phase_serve(torch, seed):
     while True:
         pre, dec = eng.batcher.assemble()
         decode_only = not pre and bool(dec)
-        profiled = decode_only and PROFILE_FROM <= n_dec < PROFILE_TO
+        profiled = decode_only and prof_from <= n_dec < prof_to
         if profiled and prof is None:
             timed = (time.perf_counter() - t0, _emitted(eng))
             prof = torch.profiler.profile(activities=[
@@ -682,7 +765,7 @@ def phase_serve(torch, seed):
         n_dec += decode_only
         if profiled:
             prof_wall += dt
-            if n_dec == PROFILE_TO:
+            if n_dec == prof_to:
                 prof.stop()
         elif decode_only and prof is None:
             decode_steps.append((dt, len(dec)))
@@ -696,17 +779,19 @@ def phase_serve(torch, seed):
     check(timed is not None, "the run ended before the profiled steps")
     launches = salo_paged_decode.launches
     plain = salo_paged_decode_plain.calls
-    res, _ = _check_serve_run(cfg, eng, lens, launches, plain, "serve")
+    res, _ = _check_serve_run(cfg, eng, lens, launches, plain, what)
     check(len(decode_steps) > 0, "no decode-only step")
     med = sorted(d for d, _ in decode_steps)[len(decode_steps) // 2]
     dec_tps = sum(n for _, n in decode_steps) / sum(d for d, _ in decode_steps)
-    log(f"[serve] prefill {prefill_done:.3f} s (all {R} prompts, "
+    log(f"[{what}] prefill {prefill_done:.3f} s (all {R} prompts, "
         f"{sum(lens)} tokens); decode step median {med * 1e3:.3f} ms over "
         f"{len(decode_steps)} decode-only steps ({dec_tps:.1f} tok/s in "
         f"them); {timed[1]} tokens generated in the first {timed[0]:.3f} s "
         f"({timed[1] / timed[0]:.1f} tok/s); K4 launches {launches}")
     check(prof is not None, "no decode-only step was profiled")
-    report_profile(prof, prof_wall, PROFILE_TO - PROFILE_FROM, "decode steps")
+    report_profile(prof, prof_wall, prof_to - prof_from, "decode steps")
+    if not profile_prefill:
+        return launches, res
 
     # After the counts are read: one more request, whose first engine step
     # (one 128-token prefill chunk through all layers) runs under the
@@ -849,7 +934,14 @@ def phase_lockstep(torch, seed):
 #     2-D multi-band with a global token, block_q != block_k, hd 128, f16,
 #     padded rows; (d) causal dilated window with sinks (reordered; the
 #     global tile's transposed row splits in pack_rows), block 32, f32;
-#     (e) case (a) in f16, where small ds meet f16's subnormal range.
+#     (e) case (a) in f16, where small ds meet f16's subnormal range;
+# (f) gemma-7b's attention: its pattern, batch 2 x 16 heads, n 4096, hd 256,
+#     block 256, bf16 (the column split over blocks); (g) the same in f32
+#     (the staged hd chunks on the CUDA cores); (h) longformer-4k's:
+#     bidirectional window 512, one global token with global rows, batch
+#     8 x 12 heads, hd 64, bf16; (i), (j) the paper's ViL stages 1 and 2
+#     (grids 56 x 56 and 28 x 28, window 15 x 15, one global token, 3 and 6
+#     heads of hd 64), bf16.
 TRAIN_CASES = {
     "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
@@ -861,7 +953,22 @@ TRAIN_CASES = {
               dtype="float32"),
     "e": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="float16"),
+    "f": dict(pat=("csw", 1024, 4, 1), n=4096, bh=32, hd=256, bq=256,
+              bk=256, dtype="bfloat16"),
+    "g": dict(pat=("csw", 1024, 4, 1), n=4096, bh=32, hd=256, bq=256,
+              bk=256, dtype="float32"),
+    "h": dict(pat=("lf", 512, 1), n=4096, bh=96, hd=64, bq=256, bk=256,
+              dtype="bfloat16"),
+    "i": dict(pat=("vil", (56, 56), (15, 15), 1), n=3137, bh=3, hd=64,
+              bq=128, bk=128, dtype="bfloat16"),
+    "j": dict(pat=("vil", (28, 28), (15, 15), 1), n=785, bh=6, hd=64,
+              bq=128, bk=128, dtype="bfloat16"),
 }
+K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
+              "salo_table_backward_dkv")
+# the cases whose kernels are timed (the ViL stages: K1 only)
+TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
+         "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -885,6 +992,9 @@ def _case_pattern(spec):
     if spec[0] == "csw":
         _, w, g, dil = spec
         return P.causal_sliding_window(w, n_sinks=g, dilation=dil)
+    if spec[0] == "lf":
+        _, w, g = spec
+        return P.longformer(w, n_global=g)
     _, grid, win, g = spec
     return P.vil(grid, win, n_global=g)
 
@@ -917,9 +1027,9 @@ def _executed_pairs(sched, pos_q, pos_k, kvb, flags, rows: int) -> int:
     return total
 
 
-def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
-    """K1, K2, K3 against their plain versions; returns case (a)'s records
-    {kernel: record}."""
+def phase_train_kernels(torch, timer, seed):
+    """K1, K2, K3 against their plain versions; returns the timed cases'
+    records {case: {kernel: record}}."""
     import torch.nn.functional as F
 
     from repro_torch.core.blockwise import plan_tables
@@ -1013,7 +1123,7 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
             f"two runs")
         if c["pat"][0] == "csw" and c["pat"][3] > 1:
             check(n_split > 0, f"case {name}: no transposed row split")
-        if name not in timed:
+        if name not in TIMED:
             continue
 
         item = q.element_size()
@@ -1048,13 +1158,17 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         # what the kernels run: K1 4 x hd flops per pair of every sub-tile
         # it executes (16-bit: 16-row x 64-key warp sub-tiles, f32: 64 x 64
         # block sub-tiles); K2/K3 with 16-bit inputs the hi/lo split's
-        # tensor-core flops (10 and 16 x hd per pair), with f32 each product
+        # tensor-core flops (10 and 16 x hd per pair), with f32 each product.
+        # At hd 256 the 16-bit kernels split the accumulated columns over
+        # nz = 2 blocks, each of which runs the products before them (K1's
+        # scores, 2 x hd; K2/K3's scores and dp, 6 x hd) over the full hd.
         split = c["dtype"] != "float32"
+        nz = max(1, D // 128) if split else 1
         exec_pairs = BH * _executed_pairs(sched, pos_q, pos_k, t.kv_blocks,
                                           t.flags, 16 if split else 64)
-        run_ops = {"salo_table_attention": 4 * D * exec_pairs,
-                   "salo_table_backward_dq": (10 if split else 6) * D * pairs,
-                   "salo_table_backward_dkv": (16 if split else 8) * D * pairs}
+        run_ops = {K1: (2 * nz + 2) * D * exec_pairs,
+                   K2: (6 * nz + 4 if split else 6) * D * pairs,
+                   K3: (6 * nz + 10 if split else 8) * D * pairs}
         calls = {
             "salo_table_attention": (
                 lambda: KA.salo_table_attention(*fwd_args, **kw),
@@ -1071,8 +1185,9 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
         }
         # yardstick: SDPA with the dense boolean mask (working order is the
         # original order here: no dilation), and that call's backward for
-        # K2 and K3 together
-        mask = torch.from_numpy(pat.mask(c["n"])).cuda()
+        # K2 and K3 together; padding rows (n_pad > n) attend to themselves
+        mask = torch.eye(n_pad, dtype=torch.bool, device="cuda")
+        mask[:c["n"], :c["n"]] = torch.from_numpy(pat.mask(c["n"])).cuda()
         qs, kss, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
 
         def lib_fwd():
@@ -1086,10 +1201,14 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
             return torch.autograd.grad(lib_out, (qs, kss, vs), g_lib,
                                        retain_graph=True)
 
-        lib_ms = {"salo_table_attention": timer(lib_fwd),
-                  "backward": timer(lib_bwd)}
+        lib_ms = {"salo_table_attention": timer(lib_fwd)}
+        if K2 in TIMED[name]:
+            lib_ms["backward"] = timer(lib_bwd)
+        del lib_out
         recs = {}
         for kname, (kfn, pfn) in calls.items():
+            if kname not in TIMED[name]:
+                continue
             nbytes, parts = io[kname]
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = sum(o / peak for o, peak in parts) * 1e3
@@ -1103,7 +1222,7 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
                 # few iterations: a plain call queues hundreds of launches,
                 # and the queue must not fill up behind the sleep kernel
                 plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
-                library_ms=lib_ms.get(kname, lib_ms["backward"]),
+                library_ms=lib_ms[K1 if kname == K1 else "backward"],
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=err, bytes=nbytes, ops=ops,
@@ -1112,8 +1231,7 @@ def phase_train_kernels(torch, timer, seed, timed=("a", "b")):
                 run_ops_bound_ms=run_ops[kname] / pk16 * 1e3)
             log(f"[train-kernels] case {name} {kname}: "
                 + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
-        if name == "a":
-            out_records = recs
+        out_records[name] = recs
     return out_records
 
 
@@ -1165,14 +1283,14 @@ def _counters(reset: bool = False):
             sum(f.calls for f in plains))
 
 
-def train_check(torch, seed):
-    """The same small f32 model (hd 64, 2 layers) trained 3 steps on the
-    card (kernels) and on the CPU (plain versions) from the same
-    parameters and batches: losses and grad norms agree within 1e-4
-    (f32, summation order only)."""
+def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
+    """The same small f32 model (2 layers; by default smollm's at hd 64)
+    trained 3 steps on the card (kernels) and on the CPU (plain versions)
+    from the same parameters and batches: losses and grad norms agree
+    within 1e-4 (f32, summation order only)."""
     from repro_torch.models.model import build_model
 
-    cfg = _train_cfg(smoke=True)
+    cfg = cfg if cfg is not None else _train_cfg(smoke=True)
     params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     hist = {}
     for dev in ("cuda", "cpu"):
@@ -1194,27 +1312,89 @@ def train_check(torch, seed):
     for (lc, gc), (lp, gp) in zip(hist["cuda"], hist["cpu"]):
         check(math.isclose(lc, lp, rel_tol=1e-4, abs_tol=1e-4)
               and math.isclose(gc, gp, rel_tol=1e-4, abs_tol=1e-4),
-              f"train-check: cuda {hist['cuda']} != cpu {hist['cpu']}")
-    log(f"[train-check] cuda == cpu within 1e-4, (loss, grad norm) per "
-        f"step: cuda {hist['cuda']} cpu {hist['cpu']}")
+              f"train-check {what}: cuda {hist['cuda']} != cpu "
+              f"{hist['cpu']}")
+    log(f"[train-check] {what}: cuda == cpu within 1e-4, (loss, grad norm) "
+        f"per step: cuda {hist['cuda']} cpu {hist['cpu']}")
 
 
-def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
-    """smollm-135m at full width and depth, bf16, remat full, trained on
-    the card. Returns the launch counts of the run."""
+def train_bytes(cfg, seq: int, batch: int) -> dict:
+    """The device bytes a train step of ``cfg`` needs at its peak, reckoned
+    from the shapes (bf16 parameters; see ``optim/adamw.py`` and
+    ``train/trainer.py``). Resident are the parameters (2 B each) and
+    AdamW's f32 moments (4 + 4). The update holds, besides, the step's f32
+    gradients and their clipped copy (4 + 4), and adds the new f32
+    parameters and moments leaf by leaf (4 + 4 + 4), then the new bf16
+    parameters (2): 32 B a parameter at its end. A leaf's own f32
+    temporaries (~5 x 4 B each) come on top while it is updated; the
+    embedding, the largest, is the first leaf, so they meet only the 18 B
+    a parameter held when the update starts. The loss holds the f32 logits, their soft-capped and
+    log-softmax copies and their gradient (4 x 4 B a logit)."""
+    d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    layer = d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    params = embed + cfg.n_layers * layer + d
+    update = max(32 * params, 18 * params + 20 * embed)
+    loss = 16 * seq * batch * cfg.vocab_size + 10 * params
+    return dict(params=params, per_layer=layer, embedding=embed,
+                resident=10 * params, update_peak=update, loss_peak=loss,
+                peak=max(update, loss))
+
+
+def gemma_train_depth(torch, seq: int, batch: int) -> int:
+    """The deepest gemma-7b (every published width kept) whose reckoned
+    train-step peak (``train_bytes``) fits in 92 % of the card's memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("gemma-7b")
+    budget = 0.92 * torch.cuda.get_device_properties(0).total_memory
+    depth = 0
+    for n in range(1, full.n_layers + 1):
+        if train_bytes(dataclasses.replace(full, n_layers=n), seq,
+                       batch)["peak"] > budget:
+            break
+        depth = n
+    check(depth > 0, "no layer of gemma-7b fits the card")
+    b = train_bytes(dataclasses.replace(full, n_layers=depth), seq, batch)
+    log(f"[train gemma-7b] reckoned bytes at seq {seq} batch {batch}: "
+        f"embedding {b['embedding'] / 1e6:.1f}M params (tied), "
+        f"{b['per_layer'] / 1e6:.1f}M a layer; {depth} of {full.n_layers} "
+        f"layers fit {budget / 1e9:.2f} GB (92 % of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}): "
+        f"{b['params'] / 1e6:.1f}M params, resident {b['resident'] / 1e9:.2f}"
+        f" GB, update peak {b['update_peak'] / 1e9:.2f} GB, loss peak "
+        f"{b['loss_peak'] / 1e9:.2f} GB (f32 logits {seq * batch * full.vocab_size * 4 / 1e9:.2f} GB)")
+    return depth
+
+
+def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
+                steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10):
+    """``arch`` at full width (and depth unless ``n_layers`` cuts it),
+    bf16, remat full, trained on the card at seq 4096. Returns the launch
+    counts of the run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_leaves
 
-    cfg = _train_cfg(smoke=False)
-    check(cfg.remat == "full" and cfg.n_layers == 30, f"config {cfg}")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    check(cfg.remat == "full", f"config {cfg}")
+    tag = "train" if arch == "smollm-135m" else f"train {arch}"
     seq = 4096
     params = build_model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(seed))
     step, opt, ds = _trainer(cfg, "cuda", params, seq=seq, batch=batch,
-                             steps=steps, lr=3e-3, warmup=10, seed=seed)
+                             steps=steps, lr=lr, warmup=warmup, seed=seed)
     n_param = sum(t.numel() for t in tree_leaves(params))
-    log(f"[train] smollm-135m bf16 remat=full: {n_param / 1e6:.1f}M params, "
-        f"seq {seq} batch {batch} steps {steps}")
+    log(f"[{tag}] {arch} bf16 remat=full: {n_param / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers, seq {seq} batch {batch} steps {steps}, "
+        f"lr {lr} warmup {warmup}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _counters(reset=True)
@@ -1225,7 +1405,7 @@ def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
         loss = float(met["loss"])                   # syncs the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        log(f"[train] step {i:3d} loss {loss:.4f} grad norm "
+        log(f"[{tag}] step {i:3d} loss {loss:.4f} grad norm "
             f"{float(met['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms")
     launches, plain = _counters()
     peak = torch.cuda.max_memory_allocated()
@@ -1239,10 +1419,11 @@ def phase_train(torch, seed, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     check(launches == want, f"launches {launches} != {want}")
     check(plain == 0, f"the plain versions ran {plain} times")
     med = sorted(times[1:])[len(times[1:]) // 2]
-    log(f"[train] step median {med * 1e3:.3f} ms over steps 1..{steps - 1} "
+    log(f"[{tag}] step median {med * 1e3:.3f} ms over steps 1..{steps - 1} "
         f"({batch * seq / med:.1f} tokens/s); first step "
         f"{times[0] * 1e3:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated); launches {launches}")
+        f"(torch.cuda.max_memory_allocated); launches {launches} "
+        f"({ {k: v // steps for k, v in launches.items()} } a step)")
 
     # After the counts are read: one more step under the profiler.
     prof = torch.profiler.profile(activities=[
@@ -1315,6 +1496,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import os
+
+    # gemma-7b's train step allocates and frees f32 temporaries of its
+    # 786M-parameter embedding: without growable segments the cached
+    # blocks fragment (23.6 GiB reserved but unusable at an OOM, on the
+    # H100)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1349,9 +1537,24 @@ def main(argv=None) -> int:
     log(f"[serve-int8] tokens equal to the bf16 slab's run: {agree} of "
         f"{SERVE_R * SERVE_NEW} (first tokens {first} of {SERVE_R}; random "
         f"weights, not gated)")
+    # gemma-7b at full width and depth on the continuous engine, one
+    # profiled decode step
+    launches_gemma, _ = phase_serve(torch, args.seed, "gemma-7b",
+                                    "serve gemma-7b", (40, 41), False)
+    torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
     train_check(torch, args.seed)
-    tl = phase_train(torch, args.seed)
+    for arch, cfg in _check_cfgs().items():
+        if arch in TRAIN_CHECK:
+            train_check(torch, args.seed, cfg, f"{arch} hd {cfg.hd}")
+    tl = {"smollm-135m": phase_train(torch, args.seed)}
+    torch.cuda.empty_cache()
+    tl["gemma-7b"] = phase_train(
+        torch, args.seed, "gemma-7b",
+        n_layers=gemma_train_depth(torch, 4096, GEMMA_BATCH),
+        steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
+    tl["longformer-4k"] = phase_train(torch, args.seed, "longformer-4k")
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -1367,34 +1570,43 @@ def main(argv=None) -> int:
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:238",
-        "launches": launches + launches_int8,
-        "launches_by_path": {"serve": launches, "serve_int8": launches_int8},
+        "launches": launches + launches_int8 + launches_gemma,
+        "launches_by_path": {"serve": launches, "serve_int8": launches_int8,
+                             "serve_gemma_7b": launches_gemma},
         "launches_per_call": 1, **row(k4["a"]),
         "variants": {"int8_page_stats_bf16": row(k4["d"]),
                      "state_page_stats_f32": row(k4["e"]),
-                     "single_request_bf16": row(k4["f"])}}, {
+                     "single_request_bf16": row(k4["f"]),
+                     "gemma_7b_hd256_bf16": row(k4["g"])}}, {
         "name": "salo_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:173",
         "launches": launches_k5, "launches_per_call": 1, **row(k5["a"]),
         "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"])}}]
     # launches_per_call: K3's wrapper runs two kernels (the row walk and
-    # the owner-tile sum), and its count and its time cover both
+    # the owner-tile sum), and its count and its time cover both. The main
+    # numbers are case (a), smollm-135m's train attention; the variants are
+    # the other timed cases (ViL stages: K1 only)
+    variants = {"f": "gemma_7b_hd256_bf16", "g": "gemma_7b_hd256_f32",
+                "h": "longformer_4k_bf16", "b": "smollm_f32",
+                "i": "vil_stage1_bf16", "j": "vil_stage2_bf16"}
     for name, key, src, replaces, per_call in (
-            ("salo_table_attention", "K1", "salo_table_attention.cu",
+            (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),
-            ("salo_table_backward_dq", "K2", "salo_table_backward.cu",
+            (K2, "K2", "salo_table_backward.cu",
              "src/repro/kernels/salo_backward.py:144", 1),
-            ("salo_table_backward_dkv", "K3", "salo_table_backward.cu",
+            (K3, "K3", "salo_table_backward.cu",
              "src/repro/kernels/salo_backward.py:223", 2)):
-        r = trec[name]
+        by_path = {path.replace("-", "_").replace(".", "_"): c[key]
+                   for path, c in tl.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": tl[key],
-            "launches_per_call": per_call, "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "launches_per_call": per_call,
+            **row(trec["a"][name]),
+            "variants": {v: row(trec[c][name]) for c, v in variants.items()
+                         if name in trec[c]}})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -5,10 +5,15 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
                                       RecurrentConfig, SALOConfig, ShapeCell,
                                       SHAPES, SHAPES_BY_NAME)
 
-ARCHS = ("smollm-135m",)
+ARCHS = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
+         "longformer-4k")
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "gemma-7b": "gemma_7b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "granite-3-8b": "granite_3_8b",
+    "longformer-4k": "longformer_4k",
 }
 
 

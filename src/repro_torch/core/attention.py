@@ -50,8 +50,8 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if plan == "dynamic":
         raise NotImplementedError(
-            "plan='dynamic' is not ported yet: ROADMAP item 6 (runtime "
-            "plans, core/dynamic.py)")
+            "plan='dynamic' is not ported yet: ROADMAP queue 1, 'runtime "
+            "plans' (core/dynamic.py)")
     if plan != "static":
         raise ValueError(f"unknown plan {plan!r}; choose static or dynamic")
     if impl not in IMPLS:

@@ -38,7 +38,7 @@ class SyntheticLM:
         if cfg.encoder_decoder or cfg.n_vision_tokens:
             raise NotImplementedError(
                 "audio/vision batch extras are not ported yet: ROADMAP "
-                "item 6 (other model families)")
+                "queue 1, 'other model families'")
         self.cfg, self.data = cfg, data
         self.host_id, self.n_hosts = host_id, n_hosts
         self.local_batch = data.global_batch // n_hosts

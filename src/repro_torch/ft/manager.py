@@ -3,7 +3,7 @@
 The port of :class:`repro.ft.manager.StragglerWatchdog`: per-step
 wall-time EWMA; a step exceeding ``threshold x`` the EWMA is flagged. The
 restart loop, the serving supervisor and elastic rescale come with the
-obs/ft slice (ROADMAP item 6).
+obs/ft slice (ROADMAP queue 1, 'obs/ft').
 """
 from __future__ import annotations
 

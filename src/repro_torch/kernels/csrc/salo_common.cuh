@@ -100,11 +100,12 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Stage `rows` (<= 64) rows of HD elements of T, starting at `src`, into
-// shared memory transposed: dst[d * ld + j] = src[j * HD + d] in f32.
-// Rows in [valid, 64) are zero. Thread-fast index = row, so the stores
-// hit consecutive banks.
-template <typename T, int HD>
+// Stage `rows` (<= 64) rows of HD elements of T, starting at `src`, rows
+// SRC_LD elements apart, into shared memory transposed: dst[d * ld + j] =
+// src[j * SRC_LD + d] in f32 (HD < SRC_LD stages a column chunk). Rows in
+// [valid, 64) are zero. Thread-fast index = row, so the stores hit
+// consecutive banks.
+template <typename T, int HD, int SRC_LD = HD>
 __device__ __forceinline__ void stage_t(float* dst, int ld, const T* __restrict__ src,
                                         int rows, int valid) {
   constexpr int N = Vec<T>::N;
@@ -113,7 +114,7 @@ __device__ __forceinline__ void stage_t(float* dst, int ld, const T* __restrict_
     const int j = idx % rows, c = idx / rows;
     float f[N];
     if (j < valid) {
-      load16(src + (int64_t)j * HD + c * N, f);
+      load16(src + (int64_t)j * SRC_LD + c * N, f);
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) f[e] = 0.f;

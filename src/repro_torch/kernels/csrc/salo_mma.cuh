@@ -225,6 +225,13 @@ __host__ __device__ constexpr int min_blocks(int nw, int hd) {
   return nw == 8 && hd == 64 ? 2 : 1;
 }
 
+// The hd columns of the accumulator (out, dq, or dk and dv) one block
+// holds: all of them up to hd 128. At hd 256 a warp's 16 x 256 f32
+// accumulators do not fit its registers beside the score fragments, so the
+// kernels split the columns over blockIdx.z, two blocks of 128, each of
+// which recomputes the scores over the full hd.
+__host__ __device__ constexpr int acc_cols(int hd) { return hd > 128 ? 128 : hd; }
+
 // Warps of a block over a plan block of b rows (forward, dQ) or keys
 // (dK/dV): a block never straddles two plan blocks.
 inline int warps_for(int b) { return min(b, 16 * kMaxWarps) / 16; }

@@ -25,8 +25,17 @@
 // forward over the plan's step tables. A block owns 16 x NW rows of one
 // plan query block (NW warps, a warp 16 rows; NW = 2, 4, 8 for blocks of
 // 32, 64, >= 128) and never straddles it. Q's mma fragments are loaded once
-// into registers. Each step's KV tile is walked in 64-key sub-tiles
-// through a two-stage cp.async ring: the mask walk (LiveWalk, salo_mma.cuh)
+// into registers (at hd <= 128). At hd 256 a warp's Q fragments (64
+// registers) and its 16 x 256 accumulator (128) do not fit beside the
+// scores, so the accumulated columns are split over blocks: blockIdx.z
+// takes hd columns [128z, 128z + 128) of out (acc 64 registers), loads only
+// those columns of V, and rereads Q's fragments from shared memory with
+// ldmatrix per sub-tile, as FlashAttention-2 does at hd 256. Both blocks of
+// a row compute the same scores and row stats in the same order (the
+// z = 0 block writes m, l), so the split changes no number; it runs the
+// score product and the fold twice. Each step's KV tile is walked in
+// 64-key sub-tiles through a two-stage cp.async ring: the mask walk
+// (LiveWalk, salo_mma.cuh)
 // evaluates step_mask (as mask_2x16) on the 32 score positions each thread
 // owns, from the positions alone, before the sub-tile's loads are issued,
 // and the block skips a sub-tile in which no pair survives; the next live
@@ -58,7 +67,9 @@
 // tile past the diagonal, the window's edge); the half-warp of a row
 // reduces the row max and sum with shuffles; p goes through shared memory
 // to the PV product, where each thread owns 4 rows x hd/16 columns of acc.
-// The skip is exact: a masked sub-tile leaves (acc, m, l) unchanged.
+// The skip is exact: a masked sub-tile leaves (acc, m, l) unchanged. At hd
+// 256 the staged tiles take 223,488 of the 232,448 bytes a block may have:
+// one block an SM.
 #include <type_traits>
 
 #include "salo_mma.cuh"
@@ -224,8 +235,9 @@ table_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------- 16-bit inputs: the tensor-core path ------------------ //
 template <int HD, int NW>
-constexpr int mma_smem_bytes() {   // Q; 2 stages of K, V; the walk
-  return (16 * NW + 4 * kSub) * (HD + 8) * 2 + walk_smem_bytes<NW>();
+constexpr int mma_smem_bytes() {   // Q; 2 stages of K and V's columns; the walk
+  return (16 * NW * (HD + 8) + 2 * kSub * (HD + 8) + 2 * kSub * (acc_cols(HD) + 8)) * 2 +
+         walk_smem_bytes<NW>();
 }
 
 // 2^x on the special-function unit (results below 2^-126 flush to 0).
@@ -249,10 +261,14 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int nq, int bq, int nkb, int bk, int steps, float scale) {
   using M = Mma16<T>;
   constexpr int LD = HD + 8, RB = 16 * NW, NT = 32 * NW, KC = HD / 8;
+  constexpr int DC = acc_cols(HD), LDV = DC + 8, VC = DC / 8;
+  constexpr bool kQRegs = DC == HD;   // else Q is reread from shared memory
+  constexpr int STAGE = kSub * (LD + LDV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [RB][LD]
-  T* ring = Qs + RB * LD;   // stage st: K at 2st, V at 2st + 1, [kSub][LD]
+  T* ring = Qs + RB * LD;   // stage st: K [kSub][LD], then V's columns [kSub][LDV]
 
+  const int c0 = kQRegs ? 0 : blockIdx.z * DC;   // this block's out columns
   const int slices = bq / RB;
   const int i = blockIdx.x / slices;
   const int row0 = i * bq + (blockIdx.x % slices) * RB;
@@ -260,7 +276,7 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nQ = nq * bq, nK = nkb * bk;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
   const int ks = min(kSub, bk);
-  LiveWalk<NW> walk(reinterpret_cast<unsigned char*>(ring + 4 * kSub * LD), pos_k,
+  LiveWalk<NW> walk(reinterpret_cast<unsigned char*>(ring + 2 * STAGE), pos_k,
                     kvt + i * steps, flg + i * steps, steps, bk, ks);
 
   {
@@ -268,16 +284,32 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = tid; c < RB * KC; c += NT) cp16(Qs + (c / KC) * LD + (c % KC) * 8, src + c * 8);
     cp_commit();
     // the rows a 32-key tile leaves empty stay zero (0 * 0, never 0 * NaN)
-    const int tail = (kSub - ks) * KC;
-    for (int c = tid; c < 4 * tail; c += NT)
-      zero16(ring + (c / tail) * kSub * LD + (ks + (c % tail) / KC) * LD + (c % KC) * 8);
+    if constexpr (kQRegs) {   // K and V rows alike: 4 tiles of [kSub][LD]
+      const int tail = (kSub - ks) * KC;
+      for (int c = tid; c < 4 * tail; c += NT)
+        zero16(ring + (c / tail) * kSub * LD + (ks + (c % tail) / KC) * LD + (c % KC) * 8);
+    } else {
+      const int tail = kSub - ks;
+      for (int c = tid; c < 2 * tail * KC; c += NT) {
+        const int x = c % (tail * KC);
+        zero16(ring + (c / (tail * KC)) * STAGE + (ks + x / KC) * LD + (x % KC) * 8);
+      }
+      for (int c = tid; c < 2 * tail * VC; c += NT) {
+        const int x = c % (tail * VC);
+        zero16(ring + (c / (tail * VC)) * STAGE + kSub * LD + (ks + x / VC) * LDV +
+               (x % VC) * 8);
+      }
+    }
     cp_wait<0>();
     __syncthreads();
   }
-  uint32_t qa[HD / 16][4];   // the warp's Q as A fragments, over hd in steps of 16
+  // the warp's Q as A fragments, over hd in steps of 16 (at hd <= 128)
+  uint32_t qa[kQRegs ? HD / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  }
 
   // p = exp(s * scale - shift) as 2^(s * scale2 - shift * log2(e))
   const float scale2 = scale * kLog2e;
@@ -289,9 +321,9 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_run[h] = kNegInf;
     l_run[h] = 0.f;
   }
-  float acc[HD / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
@@ -308,14 +340,21 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return mask_2x16<true>(ms, pq, cp, fl);
   };
   auto load_kv = [&](int st, int key0) {
-    T* Kd = ring + 2 * st * kSub * LD;
+    T* Kd = ring + st * STAGE;
     T* Vd = Kd + kSub * LD;
     const T* ksrc = k + (bh * nK + key0) * HD;
-    const T* vsrc = v + (bh * nK + key0) * HD;
-    for (int c = tid; c < (ks * KC); c += NT) {
-      const int o = (c / KC) * LD + (c % KC) * 8;
-      cp16(Kd + o, ksrc + c * 8);
-      cp16(Vd + o, vsrc + c * 8);
+    const T* vsrc = v + (bh * nK + key0) * HD + c0;
+    if constexpr (kQRegs) {   // all of V's columns: one loop for K and V
+      for (int c = tid; c < ks * KC; c += NT) {
+        const int o = (c / KC) * LD + (c % KC) * 8;
+        cp16(Kd + o, ksrc + c * 8);
+        cp16(Vd + o, vsrc + c * 8);
+      }
+    } else {
+      for (int c = tid; c < ks * KC; c += NT)
+        cp16(Kd + (c / KC) * LD + (c % KC) * 8, ksrc + c * 8);
+      for (int c = tid; c < ks * VC; c += NT)
+        cp16(Vd + (c / VC) * LDV + (c % VC) * 8, vsrc + (c / VC) * HD + (c % VC) * 8);
     }
     cp_commit();
   };
@@ -357,7 +396,7 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * corr[h] + ls[h];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -376,24 +415,35 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int u1 = walk.next(mask, key0, bits1);
     if (u1 < walk.total) load_kv(st ^ 1, key0);
     if (__any_sync(0xffffffffu, bits != 0u)) {
-      const T* Ks = ring + 2 * st * kSub * LD;
+      const T* Ks = ring + st * STAGE;
       const T* Vs = Ks + kSub * LD;
       float sc[kSub / 8][4];
 #pragma unroll
       for (int j = 0; j < kSub / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      // S over hd in steps of 16, with the warp's Q fragment a for step kk
+      auto scores = [&](const uint32_t(&a)[4], int kk) {
 #pragma unroll
         for (int jp = 0; jp < kSub / 16; ++jp) {
           const int bo = (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
                          ((lane >> 3) & 1) * 8;
           uint32_t b[4];
           ldsm_x4(b, Ks + bo);
-          M::mma(sc[2 * jp], qa[kk], b[0], b[1]);
-          M::mma(sc[2 * jp + 1], qa[kk], b[2], b[3]);
+          M::mma(sc[2 * jp], a, b[0], b[1]);
+          M::mma(sc[2 * jp + 1], a, b[2], b[3]);
         }
+      };
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        if constexpr (kQRegs) {
+          scores(qa[kk], kk);
+        } else {
+          uint32_t a[4];
+          ldsm_x4(a, Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+          scores(a, kk);
+        }
+      }
       // inside a band every pair of the warp survives: no mask to apply
       if (__all_sync(0xffffffffu, bits == ~0u))
         fold(sc, bits, std::true_type{});
@@ -408,8 +458,8 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
           a[x] = pack2<T>(sc[j][2 * h], sc[j][2 * h + 1]);
         }
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-          const int bo = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + np * 16 +
+        for (int np = 0; np < DC / 16; ++np) {
+          const int bo = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDV + np * 16 +
                          (lane >> 4) * 8;
           uint32_t b[4];
           ldsm_x4_t(b, Vs + bo);
@@ -431,10 +481,10 @@ table_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l_safe = l == 0.f ? 1.f : l;
     const int64_t gi = bh * nQ + row0 + warp * 16 + g + 8 * h;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + gi * HD + n * 8 + 2 * tg) =
+    for (int n = 0; n < DC / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + gi * HD + c0 + n * 8 + 2 * tg) =
           pack2<T>(acc[n][2 * h] / l_safe, acc[n][2 * h + 1] / l_safe);
-    if (tg == 0) {
+    if (tg == 0 && (kQRegs || blockIdx.z == 0)) {
       m_out[gi] = m_run[h];
       l_out[gi] = l;
     }
@@ -450,7 +500,7 @@ cudaError_t launch_mma(const T* q, const T* k, const T* v, const int* pos_q, con
   constexpr int smem = mma_smem_bytes<HD, NW>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(nq * (bq / (16 * NW)), B);
+  dim3 grid(nq * (bq / (16 * NW)), B, HD / acc_cols(HD));
   kern<<<grid, 32 * NW, smem, stream>>>(q, k, v, pos_q, pos_k, kvt, flg, out, m, l, ms, nq, bq,
                                         nkb, bk, steps, scale);
   return cudaGetLastError();
@@ -499,6 +549,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, pos_q, pos_k, kvt, flg, out, m, l, ms, B, nq, bq, nkb,
                             bk, steps, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, pos_q, pos_k, kvt, flg, out, m, l, ms, B, nq, bq, nkb,
+                            bk, steps, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -510,7 +563,7 @@ bool block_ok(int b) { return b == 32 || b == 64 || b == 128 || b == 256; }
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; hd in {64, 128}; block_q,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; hd in {64, 128, 256}; block_q,
 // block_k in {32, 64, 128, 256}. q: (B, nq*bq, hd); k, v: (B, nkb*bk, hd);
 // pos_q: (nq*bq,), pos_k: (nkb*bk,), kvt, flg: (nq*steps,) int32; out like
 // q; m, l: (B, nq*bq) f32. All 16-byte aligned and contiguous (the wrapper

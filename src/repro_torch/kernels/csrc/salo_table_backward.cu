@@ -75,6 +75,20 @@
 // blocks past in 32-query sub-tiles (Q and dout staged transposed and
 // row-major); each thread owns 4 keys x 2 queries of the tile and 4 keys x
 // hd/16 columns of dk and dv.
+// At hd 256 both f32 kernels stage the score products' operands (Q, dout,
+// K, V transposed) 128 hd columns at a time, each sub-tile, in the same
+// order of arithmetic: the resident tiles above would take 362,752 (dQ)
+// and 298,496 (dK/dV) of the 232,448 bytes a block may have.
+// Design at hd 256, 16-bit: a warp's 16 x 256 accumulators (dq, or dk and
+// dv) do not fit in its registers beside the score fragments, so the
+// accumulated columns are split over blocks: blockIdx.z takes hd columns
+// [128z, 128z + 128) of dq (or dk, dv) and recomputes S and dP over the
+// full hd from shared memory, in the same order as the other block, so the
+// split changes no number; the launch counts stay as they are. dQ then runs
+// 2-warp blocks (Q, dout hi/lo and the K/V ring over 264-element rows take
+// 189,976 bytes), dK/dV 4-warp blocks (211,256 bytes), whose dout is read
+// straight from global memory (L2) at the split instead of through a
+// 65,536-byte f32 staging buffer.
 // Both dK/dV paths write f32 per-row partials; a second, small kernel sums
 // the rows of each owner tile in ascending row order. pack_rows emits the
 // split rows of a tile next to each other, so the order is the plan's and
@@ -95,10 +109,13 @@ constexpr int kQs = 32;       // dK/dV: queries per sub-tile
 constexpr int kLdT = 68;      // leading dim of 64-wide transposed tiles
 constexpr int kLdQ = 36;      // leading dim of 32-wide transposed tiles
 
+// hd columns the f32 kernels stage at once: all of them up to hd 128
+__host__ __device__ constexpr int staged_cols(int hd) { return hd > 128 ? 128 : hd; }
+
 // ------------------------------- dQ (K2) -------------------------------- //
 template <int HD>
 constexpr int dq_smem_bytes() {
-  return (4 * HD * kLdT + kKeys * (HD + 4) + kRows * kLdT) * 4 + kKeys * 4;
+  return (4 * staged_cols(HD) * kLdT + kKeys * (HD + 4) + kRows * kLdT) * 4 + kKeys * 4;
 }
 
 template <typename T, int HD>
@@ -111,12 +128,14 @@ dq_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
           MaskSpec ms, int nq, int bq, int nkb, int bk, int steps, float scale) {
   constexpr int LDR = HD + 4;
   constexpr int NU = HD / 64;
+  constexpr int HC = staged_cols(HD);
+  constexpr bool kResident = HC == HD;    // Q and dout staged once
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                       // [HD][kLdT]
-  float* Ot = Qt + HD * kLdT;             // dout, [HD][kLdT]
-  float* Kt = Ot + HD * kLdT;             // [HD][kLdT]
-  float* Vt = Kt + HD * kLdT;             // [HD][kLdT]
-  float* Ks = Vt + HD * kLdT;             // [kKeys][LDR]
+  float* Qt = smem;                       // [HC][kLdT]
+  float* Ot = Qt + HC * kLdT;             // dout, [HC][kLdT]
+  float* Kt = Ot + HC * kLdT;             // [HC][kLdT]
+  float* Vt = Kt + HC * kLdT;             // [HC][kLdT]
+  float* Ks = Vt + HC * kLdT;             // [kKeys][LDR]
   float* Ds = Ks + kKeys * LDR;           // ds, [kRows][kLdT]
   int* pk = reinterpret_cast<int*>(Ds + kRows * kLdT);
 
@@ -129,8 +148,10 @@ dq_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   const int nQ = nq * bq, nK = nkb * bk;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  stage_t<T, HD>(Qt, kLdT, q + (bh * nQ + row0) * HD, kRows, rq);
-  stage_t<float, HD>(Ot, kLdT, dout + (bh * nQ + row0) * HD, kRows, rq);
+  if constexpr (kResident) {
+    stage_t<T, HD>(Qt, kLdT, q + (bh * nQ + row0) * HD, kRows, rq);
+    stage_t<float, HD>(Ot, kLdT, dout + (bh * nQ + row0) * HD, kRows, rq);
+  }
   int pq[4];
   float shift[4], lsafe[4], dl[4], acc[4][4 * NU];
 #pragma unroll
@@ -154,10 +175,13 @@ dq_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     const int tile = kvt[i * steps + s];
     for (int sub = 0; sub < bk / ks; ++sub) {
       const int key0 = tile * bk + sub * ks;
+      const T* ksrc = k + (bh * nK + key0) * HD;
       __syncthreads();
-      stage_t<T, HD>(Kt, kLdT, k + (bh * nK + key0) * HD, kKeys, ks);
-      stage_t<T, HD>(Vt, kLdT, v + (bh * nK + key0) * HD, kKeys, ks);
-      stage_r<T, HD>(Ks, LDR, k + (bh * nK + key0) * HD, kKeys, ks);
+      if constexpr (kResident) {
+        stage_t<T, HD>(Kt, kLdT, ksrc, kKeys, ks);
+        stage_t<T, HD>(Vt, kLdT, v + (bh * nK + key0) * HD, kKeys, ks);
+      }
+      stage_r<T, HD>(Ks, LDR, ksrc, kKeys, ks);
       if (tid < kKeys) pk[tid] = tid < ks ? pos_k[key0 + tid] : kBig;
       __syncthreads();
 
@@ -177,21 +201,31 @@ dq_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) sc[r][c] = dp[r][c] = 0.f;
+      for (int h0 = 0; h0 < HD; h0 += HC) {
+        if constexpr (!kResident) {   // this chunk of hd columns of Q, dout, K, V
+          __syncthreads();
+          stage_t<T, HC, HD>(Qt, kLdT, q + (bh * nQ + row0) * HD + h0, kRows, rq);
+          stage_t<float, HC, HD>(Ot, kLdT, dout + (bh * nQ + row0) * HD + h0, kRows, rq);
+          stage_t<T, HC, HD>(Kt, kLdT, ksrc + h0, kKeys, ks);
+          stage_t<T, HC, HD>(Vt, kLdT, v + (bh * nK + key0) * HD + h0, kKeys, ks);
+          __syncthreads();
+        }
 #pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        const float4 a = *reinterpret_cast<const float4*>(Qt + d * kLdT + ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(Kt + d * kLdT + tx * 4);
-        const float4 o = *reinterpret_cast<const float4*>(Ot + d * kLdT + ty * 4);
-        const float4 w = *reinterpret_cast<const float4*>(Vt + d * kLdT + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-        const float ov[4] = {o.x, o.y, o.z, o.w}, wv[4] = {w.x, w.y, w.z, w.w};
+        for (int d = 0; d < HC; ++d) {
+          const float4 a = *reinterpret_cast<const float4*>(Qt + d * kLdT + ty * 4);
+          const float4 b = *reinterpret_cast<const float4*>(Kt + d * kLdT + tx * 4);
+          const float4 o = *reinterpret_cast<const float4*>(Ot + d * kLdT + ty * 4);
+          const float4 w = *reinterpret_cast<const float4*>(Vt + d * kLdT + tx * 4);
+          const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+          const float ov[4] = {o.x, o.y, o.z, o.w}, wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            sc[r][c] = fmaf(av[r], bv[c], sc[r][c]);
-            dp[r][c] = fmaf(ov[r], wv[c], dp[r][c]);
-          }
+            for (int c = 0; c < 4; ++c) {
+              sc[r][c] = fmaf(av[r], bv[c], sc[r][c]);
+              dp[r][c] = fmaf(ov[r], wv[c], dp[r][c]);
+            }
+        }
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -240,8 +274,8 @@ dq_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
 // ------------------------------ dK/dV (K3) ------------------------------ //
 template <int HD>
 constexpr int dkv_smem_bytes() {
-  return (2 * HD * kLdT + 2 * HD * kLdQ + 2 * kQs * (HD + 4) + 2 * kKeys * kLdQ + 3 * kQs) *
-             4 + kQs * 4;
+  return (2 * staged_cols(HD) * (kLdT + kLdQ) + 2 * kQs * (HD + 4) + 2 * kKeys * kLdQ +
+          3 * kQs) * 4 + kQs * 4;
 }
 
 template <typename T, int HD>
@@ -256,12 +290,14 @@ dkv_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
            int R, int steps, float scale) {
   constexpr int LDR = HD + 4;
   constexpr int NU = HD / 64;
+  constexpr int HC = staged_cols(HD);
+  constexpr bool kResident = HC == HD;    // K and V staged once
   extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;                       // [HD][kLdT] resident
-  float* Vt = Kt + HD * kLdT;             // [HD][kLdT] resident
-  float* Qt = Vt + HD * kLdT;             // [HD][kLdQ]
-  float* Ot = Qt + HD * kLdQ;             // dout, [HD][kLdQ]
-  float* Qs = Ot + HD * kLdQ;             // [kQs][LDR]
+  float* Kt = smem;                       // [HC][kLdT]
+  float* Vt = Kt + HC * kLdT;             // [HC][kLdT]
+  float* Qt = Vt + HC * kLdT;             // [HC][kLdQ]
+  float* Ot = Qt + HC * kLdQ;             // dout, [HC][kLdQ]
+  float* Qs = Ot + HC * kLdQ;             // [kQs][LDR]
   float* Os = Qs + kQs * LDR;             // dout, [kQs][LDR]
   float* Pt = Os + kQs * LDR;             // p^T, [kKeys][kLdQ]
   float* Dt = Pt + kKeys * kLdQ;          // ds^T, [kKeys][kLdQ]
@@ -281,8 +317,10 @@ dkv_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   const int nQ = nq * bq, nK = nkb * bk;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  stage_t<T, HD>(Kt, kLdT, k + (bh * nK + key0) * HD, kKeys, ks);
-  stage_t<T, HD>(Vt, kLdT, v + (bh * nK + key0) * HD, kKeys, ks);
+  if constexpr (kResident) {
+    stage_t<T, HD>(Kt, kLdT, k + (bh * nK + key0) * HD, kKeys, ks);
+    stage_t<T, HD>(Vt, kLdT, v + (bh * nK + key0) * HD, kKeys, ks);
+  }
   int pkr[4];
   float dk[4][4 * NU], dv[4][4 * NU];
 #pragma unroll
@@ -300,8 +338,10 @@ dkv_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     for (int sub = 0; sub < bq / qs; ++sub) {
       const int q0 = qb * bq + sub * qs;
       __syncthreads();
-      stage_t<T, HD>(Qt, kLdQ, q + (bh * nQ + q0) * HD, kQs, qs);
-      stage_t<float, HD>(Ot, kLdQ, dout + (bh * nQ + q0) * HD, kQs, qs);
+      if constexpr (kResident) {
+        stage_t<T, HD>(Qt, kLdQ, q + (bh * nQ + q0) * HD, kQs, qs);
+        stage_t<float, HD>(Ot, kLdQ, dout + (bh * nQ + q0) * HD, kQs, qs);
+      }
       stage_r<T, HD>(Qs, LDR, q + (bh * nQ + q0) * HD, kQs, qs);
       stage_r<float, HD>(Os, LDR, dout + (bh * nQ + q0) * HD, kQs, qs);
       if (tid < kQs) {
@@ -332,21 +372,31 @@ dkv_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int c = 0; c < 2; ++c) sc[kk][c] = dp[kk][c] = 0.f;
+      for (int h0 = 0; h0 < HD; h0 += HC) {
+        if constexpr (!kResident) {   // this chunk of hd columns of K, V, Q, dout
+          __syncthreads();
+          stage_t<T, HC, HD>(Kt, kLdT, k + (bh * nK + key0) * HD + h0, kKeys, ks);
+          stage_t<T, HC, HD>(Vt, kLdT, v + (bh * nK + key0) * HD + h0, kKeys, ks);
+          stage_t<T, HC, HD>(Qt, kLdQ, q + (bh * nQ + q0) * HD + h0, kQs, qs);
+          stage_t<float, HC, HD>(Ot, kLdQ, dout + (bh * nQ + q0) * HD + h0, kQs, qs);
+          __syncthreads();
+        }
 #pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        const float4 a = *reinterpret_cast<const float4*>(Kt + d * kLdT + ty * 4);
-        const float4 w = *reinterpret_cast<const float4*>(Vt + d * kLdT + ty * 4);
-        const float2 b = *reinterpret_cast<const float2*>(Qt + d * kLdQ + tx * 2);
-        const float2 o = *reinterpret_cast<const float2*>(Ot + d * kLdQ + tx * 2);
-        const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
-        const float bv[2] = {b.x, b.y}, ov[2] = {o.x, o.y};
+        for (int d = 0; d < HC; ++d) {
+          const float4 a = *reinterpret_cast<const float4*>(Kt + d * kLdT + ty * 4);
+          const float4 w = *reinterpret_cast<const float4*>(Vt + d * kLdT + ty * 4);
+          const float2 b = *reinterpret_cast<const float2*>(Qt + d * kLdQ + tx * 2);
+          const float2 o = *reinterpret_cast<const float2*>(Ot + d * kLdQ + tx * 2);
+          const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+          const float bv[2] = {b.x, b.y}, ov[2] = {o.x, o.y};
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            sc[kk][c] = fmaf(av[kk], bv[c], sc[kk][c]);
-            dp[kk][c] = fmaf(wv[kk], ov[c], dp[kk][c]);
-          }
+            for (int c = 0; c < 2; ++c) {
+              sc[kk][c] = fmaf(av[kk], bv[c], sc[kk][c]);
+              dp[kk][c] = fmaf(wv[kk], ov[c], dp[kk][c]);
+            }
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -426,12 +476,14 @@ dq_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
               MaskSpec ms, int nq, int bq, int nkb, int bk, int steps, float scale) {
   using M = Mma16<T>;
   constexpr int LD = HD + 8, RB = 16 * NW, NT = 32 * NW, KC = HD / 8;
+  constexpr int DC = acc_cols(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [RB][LD], resident
   T* Dh = Qs + RB * LD;                     // dout hi, [RB][LD], resident
   T* Dl = Dh + RB * LD;                     // dout lo
   T* ring = Dl + RB * LD;                   // stage st: K at 2st, V at 2st + 1, [kSub][LD]
 
+  const int c0 = DC == HD ? 0 : blockIdx.z * DC;   // this block's dq columns
   const int slices = bq / RB;
   const int i = blockIdx.x / slices;
   const int row0 = i * bq + (blockIdx.x % slices) * RB;
@@ -505,9 +557,9 @@ dq_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     rl[h] = 1.f / ((lr == 0.f) ? 1.f : lr);
     dl[h] = delta[gi] * pow2(-ex[h]);
   }
-  float acc[HD / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   int dt[2] = {15 + kMaxExp, 15 + kMaxExp};   // f16: acc of rows g, g + 8 carry 2^dt
@@ -603,7 +655,7 @@ dq_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
           if (mx[h] > 0.f && t != dt[h]) {
             const float ratio = pow2(t - dt[h]);
 #pragma unroll
-            for (int n = 0; n < HD / 8; ++n) {
+            for (int n = 0; n < DC / 8; ++n) {
               acc[n][2 * h] *= ratio;
               acc[n][2 * h + 1] *= ratio;
             }
@@ -632,8 +684,8 @@ dq_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
           split2<T>(d2[0], d2[1], ah[x], al[x]);
         }
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-          const int bo = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + np * 16 +
+        for (int np = 0; np < DC / 16; ++np) {
+          const int bo = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + c0 + np * 16 +
                          (lane >> 4) * 8;
           uint32_t b[4];
           ldsm_x4_t(b, Ks + bo);
@@ -654,8 +706,8 @@ dq_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     const int64_t gi = bh * nQ + row0 + warp * 16 + g + 8 * h;
     const float un = pow2(ex[h]), ud = M::kScale ? pow2(-dt[h]) : 1.f;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dq + gi * HD + n * 8 + 2 * tg) = pack2<T>(
+    for (int n = 0; n < DC / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dq + gi * HD + c0 + n * 8 + 2 * tg) = pack2<T>(
           acc[n][2 * h] * ud * un * scale, acc[n][2 * h + 1] * ud * un * scale);
   }
 }
@@ -665,10 +717,14 @@ template <int HD>
 __host__ __device__ constexpr int dkv_mma_stage_bytes() {
   return kSub * (HD + 8) * 2 + 3 * kSub * 4;
 }
+// dK/dV stages dout in f32 through shared memory up to hd 128; at hd 256
+// the split reads it from global memory (65,536 more bytes would not fit).
+__host__ __device__ constexpr bool dkv_stages_dout(int hd) { return hd <= 128; }
 template <int HD, int NW>
 constexpr int dkv_mma_smem_bytes() {   // K, V; dout hi/lo; stats; dout f32; 2 stages; the walk; max
-  return (2 * 16 * NW + 2 * kSub) * (HD + 8) * 2 + 3 * kSub * 4 + kSub * HD * 4 +
-         2 * dkv_mma_stage_bytes<HD>() + walk_smem_bytes<NW>() + NW * 4;
+  return (2 * 16 * NW + 2 * kSub) * (HD + 8) * 2 + 3 * kSub * 4 +
+         (dkv_stages_dout(HD) ? kSub * HD * 4 : 0) + 2 * dkv_mma_stage_bytes<HD>() +
+         walk_smem_bytes<NW>() + NW * 4;
 }
 
 // dK/dV on the tensor cores. A block owns KB = 16 * NW keys of packed row
@@ -693,6 +749,8 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
                int R, int steps, float scale) {
   using M = Mma16<T>;
   constexpr int LD = HD + 8, KB = 16 * NW, NT = 32 * NW, KC = HD / 8;
+  constexpr int DC = acc_cols(HD);
+  constexpr bool kStageOf = dkv_stages_dout(HD);
   constexpr int QC = 16;   // queries per score chunk: bounds the registers
   constexpr int STAGE = dkv_mma_stage_bytes<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -702,7 +760,7 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   T* Dl = Dh + kSub * LD;
   float* stat = reinterpret_cast<float*>(Dl + kSub * LD);   // [3][kSub]: shift2, 1/l, delta
   float* Of = stat + 3 * kSub;                              // dout of the next sub-tile, f32
-  unsigned char* ring = reinterpret_cast<unsigned char*>(Of + kSub * HD);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Of + (kStageOf ? kSub * HD : 0));
   auto q_at = [&](int st) { return reinterpret_cast<T*>(ring + st * STAGE); };
   auto s_at = [&](int st) {   // [3][kSub]: m, l, delta
     return reinterpret_cast<float*>(ring + st * STAGE + kSub * LD * 2);
@@ -713,6 +771,7 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   const int kofs = (blockIdx.x % kslices) * KB;   // key offset inside the tile
   const int tile = row_tile[r];
   const int key0 = tile * bk + kofs;
+  const int c0 = DC == HD ? 0 : blockIdx.z * DC;   // this block's dk, dv columns
   const int64_t bh = blockIdx.y;
   const int nQ = nq * bq, nK = nkb * bk;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
@@ -747,9 +806,9 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   int pk[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) pk[h] = pos_k[key0 + warp * 16 + g + 8 * h];
-  float dk[HD / 8][4], dv[HD / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
   int ex = 0;   // dk, dv hold their sums times 2^-ex (uniform over the block)
@@ -771,8 +830,10 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     float* Sd = s_at(st);
     const T* qsrc = q + (bh * nQ + q0) * HD;
     for (int c = tid; c < qs * KC; c += NT) cp16(Qd + (c / KC) * LD + (c % KC) * 8, qsrc + c * 8);
-    const float* osrc = dout + (bh * nQ + q0) * HD;
-    for (int c = tid; c < qs * HD / 4; c += NT) cp16(Of + c * 4, osrc + c * 4);
+    if constexpr (kStageOf) {
+      const float* osrc = dout + (bh * nQ + q0) * HD;
+      for (int c = tid; c < qs * HD / 4; c += NT) cp16(Of + c * 4, osrc + c * 4);
+    }
     const int64_t s0 = bh * nQ + q0;
     for (int c = tid; c < 3 * (qs / 4); c += NT) {
       const int a = c / (qs / 4), o = (c % (qs / 4)) * 4;
@@ -780,16 +841,21 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     }
     cp_commit();
   };
-  // The sub-tile just arrived: dout -> 2^-e dout as hi/lo (in f16 e =
-  // pow2_exp of its largest |element|, one scale for the sub-tile since dV
-  // and dK sum over its queries; else 0), delta -> 2^-e delta, (m, l) ->
-  // (shift * log2 e, 1 / l_safe). Returns e.
-  auto split = [&](int st) {
+  // The sub-tile just arrived (queries from qstart): dout -> 2^-e dout as hi/lo
+  // (in f16 e = pow2_exp of its largest |element|, one scale for the
+  // sub-tile since dV and dK sum over its queries; else 0), delta -> 2^-e
+  // delta, (m, l) -> (shift * log2 e, 1 / l_safe). Returns e.
+  auto split = [&](int st, int qstart) {
+    const float* osrc = dout + (bh * nQ + qstart) * HD;
+    auto of4 = [&](int c) {   // dout's 4 elements from c * 4 of the sub-tile
+      if constexpr (kStageOf) return *reinterpret_cast<const float4*>(Of + c * 4);
+      else return __ldg(reinterpret_cast<const float4*>(osrc + c * 4));
+    };
     int e = 0;
     if constexpr (M::kScale) {
       float mx = 0.f;
       for (int c = tid; c < qs * HD / 4; c += NT) {
-        const float4 x = *reinterpret_cast<const float4*>(Of + c * 4);
+        const float4 x = of4(c);
         mx = fmaxf(mx, fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w))));
       }
 #pragma unroll
@@ -802,7 +868,7 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
     }
     const float sc = pow2(-e);
     for (int c = tid; c < qs * HD / 4; c += NT) {
-      const float4 x = *reinterpret_cast<const float4*>(Of + c * 4);
+      const float4 x = of4(c);
       const int o = (c / (HD / 4)) * LD + (c % (HD / 4)) * 4;
       uint32_t h0, l0, h1, l1;
       split2<T>(x.x * sc, x.y * sc, h0, l0);
@@ -827,11 +893,11 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   while (u < walk.total) {
     cp_wait<0>();
     __syncthreads();   // sub-tile u has landed; every warp is done with the last one
-    const int e = split(st);
+    const int e = split(st, q0);
     if (M::kScale && e != ex) {   // dk, dv to the new scale (exact): like terms add
       const float ratio = pow2(ex - e);
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           dk[n][c] *= ratio;
@@ -852,7 +918,9 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
         for (int j = 0; j < QC / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
+        // at hd 256 a full unroll spills ~1 KB a thread (4 rolls: ~40 B,
+        // and K3 at gemma-7b's shapes 20 % faster; tools/ab_backward.py)
+#pragma unroll (HD > 128 ? 4 : HD / 16)
         for (int kk = 0; kk < HD / 16; ++kk) {
           const int ao = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
           uint32_t a[4], av[4];
@@ -893,8 +961,8 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
             split2<T>(d0, d1, dh[x], dlo[x]);
           }
 #pragma unroll
-          for (int np = 0; np < HD / 16; ++np) {
-            const int bo = (c * QC + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+          for (int np = 0; np < DC / 16; ++np) {
+            const int bo = (c * QC + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + c0 +
                            np * 16 + (lane >> 4) * 8;
             uint32_t fh[4], fl[4], fq[4];
             ldsm_x4_t(fh, Dh + bo);
@@ -931,9 +999,9 @@ dkv_mma_kernel(const float* __restrict__ dout, const float* __restrict__ delta,
   const float un = pow2(ex);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int o = (warp * 16 + g + 8 * h) * HD + 2 * tg;
+    const int o = (warp * 16 + g + 8 * h) * HD + c0 + 2 * tg;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       *reinterpret_cast<float2*>(odk + o + n * 8) =
           make_float2(dk[n][2 * h] * un * scale, dk[n][2 * h + 1] * un * scale);
       *reinterpret_cast<float2*>(odv + o + n * 8) =
@@ -985,7 +1053,7 @@ cudaError_t launch_dq_mma(const float* dout, const float* delta, const float* m,
   constexpr int smem = dq_mma_smem_bytes<HD, NW>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(nq * (bq / (16 * NW)), B);
+  dim3 grid(nq * (bq / (16 * NW)), B, HD / acc_cols(HD));
   kern<<<grid, 32 * NW, smem, stream>>>(
       dout, delta, m, l, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos_q, pos_k, kvt, flg, static_cast<T*>(dq), ms, nq, bq, nkb,
@@ -1003,10 +1071,14 @@ cudaError_t launch_dq(const float* dout, const float* delta, const float* m, con
 #define SALO_DQ_MMA(NW)                                                                     \
   launch_dq_mma<T, HD, NW>(dout, delta, m, l, q, k, v, pos_q, pos_k, kvt, flg, dq, ms, B, nq, \
                            bq, nkb, bk, steps, scale, stream)
-    switch (warps_for(bq)) {
-      case 2: return SALO_DQ_MMA(2);
-      case 4: return SALO_DQ_MMA(4);
-      default: return SALO_DQ_MMA(kMaxWarps);
+    if constexpr (HD > 128) {
+      return SALO_DQ_MMA(2);   // 189,976 bytes of shared memory
+    } else {
+      switch (warps_for(bq)) {
+        case 2: return SALO_DQ_MMA(2);
+        case 4: return SALO_DQ_MMA(4);
+        default: return SALO_DQ_MMA(kMaxWarps);
+      }
     }
 #undef SALO_DQ_MMA
   } else {
@@ -1034,7 +1106,7 @@ cudaError_t launch_dkv_mma(const float* dout, const float* delta, const float* m
   constexpr int smem = dkv_mma_smem_bytes<HD, NW>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(R * (bk / (16 * NW)), B);
+  dim3 grid(R * (bk / (16 * NW)), B, HD / acc_cols(HD));
   kern<<<grid, 32 * NW, smem, stream>>>(
       dout, delta, m, l, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos_q, pos_k, row_tile, qbt, flg, part_dk, part_dv, dk, dv, ms,
@@ -1055,11 +1127,14 @@ cudaError_t launch_dkv(const float* dout, const float* delta, const float* m, co
   launch_dkv_mma<T, HD, NW>(dout, delta, m, l, q, k, v, pos_q, pos_k, row_tile, qbt, flg,  \
                             part_dk, part_dv, dk, dv, ms, B, nq, bq, nkb, bk, R, steps,   \
                             scale, stream)
-    switch (warps_for(bk)) {
-      case 2: e = SALO_DKV_MMA(2); break;
-      case 4: e = SALO_DKV_MMA(4); break;
-      default: e = SALO_DKV_MMA(kMaxWarps);
-    }
+    if constexpr (HD > 128)   // 4 warps at most: 211,256 bytes of shared memory
+      e = warps_for(bk) == 2 ? SALO_DKV_MMA(2) : SALO_DKV_MMA(4);
+    else
+      switch (warps_for(bk)) {
+        case 2: e = SALO_DKV_MMA(2); break;
+        case 4: e = SALO_DKV_MMA(4); break;
+        default: e = SALO_DKV_MMA(kMaxWarps);
+      }
 #undef SALO_DKV_MMA
   } else {
     auto kern = dkv_kernel<T, HD>;
@@ -1112,7 +1187,7 @@ __global__ void mask_check_kernel(MaskSpec ms, const int* __restrict__ rp,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (of q, k, v; dout, delta,
-// m, l are f32); hd in {64, 128}; block_q, block_k in {32, 64, 128, 256}.
+// m, l are f32); hd in {64, 128, 256}; block_q, block_k in {32, 64, 128, 256}.
 // q, dout: (B, nq*bq, hd); delta, m, l: (B, nq*bq); k, v: (B, nkb*bk, hd);
 // pos_q: (nq*bq,), pos_k: (nkb*bk,), kvt, flg: (nq*steps,) int32. dq is
 // written in q's type. Returns cudaGetLastError() after the launch.
@@ -1136,13 +1211,16 @@ int salo_table_backward_dq(int dtype, int hd, const void* dout, const void* delt
 #define SALO_DQ(T, HD)                                                                   \
   launch_dq<T, HD>(d_o, dl, mf, lf, q, k, v, pq, pk, kt, fl, dq, *ms, B, nq, bq, nkb, bk, \
                    steps, scale, s)
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+#define SALO_DQ_HD(T) \
+  (hd == 64 ? SALO_DQ(T, 64) : hd == 128 ? SALO_DQ(T, 128) : SALO_DQ(T, 256))
+  if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)(hd == 64 ? SALO_DQ(float, 64) : SALO_DQ(float, 128));
-    case 1: return (int)(hd == 64 ? SALO_DQ(__nv_bfloat16, 64) : SALO_DQ(__nv_bfloat16, 128));
-    case 2: return (int)(hd == 64 ? SALO_DQ(__half, 64) : SALO_DQ(__half, 128));
+    case 0: return (int)SALO_DQ_HD(float);
+    case 1: return (int)SALO_DQ_HD(__nv_bfloat16);
+    case 2: return (int)SALO_DQ_HD(__half);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SALO_DQ_HD
 #undef SALO_DQ
 }
 
@@ -1177,13 +1255,16 @@ int salo_table_backward_dkv(int dtype, int hd, const void* dout, const void* del
 #define SALO_DKV(T, HD)                                                                     \
   launch_dkv<T, HD>(d_o, dl, mf, lf, q, k, v, pq, pk, rt, qt, fl, pdk, pdv, dkf, dvf, *ms, B, \
                     nq, bq, nkb, bk, R, steps, scale, s)
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+#define SALO_DKV_HD(T) \
+  (hd == 64 ? SALO_DKV(T, 64) : hd == 128 ? SALO_DKV(T, 128) : SALO_DKV(T, 256))
+  if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)(hd == 64 ? SALO_DKV(float, 64) : SALO_DKV(float, 128));
-    case 1: return (int)(hd == 64 ? SALO_DKV(__nv_bfloat16, 64) : SALO_DKV(__nv_bfloat16, 128));
-    case 2: return (int)(hd == 64 ? SALO_DKV(__half, 64) : SALO_DKV(__half, 128));
+    case 0: return (int)SALO_DKV_HD(float);
+    case 1: return (int)SALO_DKV_HD(__nv_bfloat16);
+    case 2: return (int)SALO_DKV_HD(__half);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SALO_DKV_HD
 #undef SALO_DKV
 }
 

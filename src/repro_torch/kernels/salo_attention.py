@@ -29,7 +29,7 @@ from repro_torch.core.blockwise import plan_tables, table_attention_scan
 from repro_torch.core.scheduler import BandSchedule, ExecutionPlan
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 BLOCKS = (32, 64, 128, 256)
 _I32_MAX = 2 ** 31 - 1
 # The kernel against its plain version, abs and rel. f32: the same
@@ -146,7 +146,7 @@ def salo_table_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, nq*block_q) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32 / bf16 / f16, hd in {64, 128}, blocks in {32, 64, 128, 256}) or
+    (f32 / bf16 / f16, hd in {64, 128, 256}, blocks in {32, 64, 128, 256}) or
     raise.
     """
     B, nQ, D = q.shape

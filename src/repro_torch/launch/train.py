@@ -11,8 +11,8 @@ trace of the step spans, ``--metrics-out`` the metrics registry (step-time
 histogram, token/step counters, per-kernel launch accounting).
 
 Not ported yet, and raising ``NotImplementedError``: ``--ckpt`` /
-``--resume`` (ROADMAP item 6, obs/ft: ``ft/checkpoint.py``),
-``--compress-grads`` and ``--data``/``--model`` > 1 (item 6, multi-GPU).
+``--resume`` (ROADMAP queue 1, 'obs/ft': ``ft/checkpoint.py``),
+``--compress-grads`` and ``--data``/``--model`` > 1 (queue 1, 'multi-GPU').
 """
 from __future__ import annotations
 
@@ -64,12 +64,12 @@ def main(argv=None):
 
     if args.ckpt or args.resume:
         raise NotImplementedError(
-            "--ckpt/--resume are not ported yet: ROADMAP item 6 (obs/ft, "
-            "ft/checkpoint.py)")
+            "--ckpt/--resume are not ported yet: ROADMAP queue 1, 'obs/ft' "
+            "(ft/checkpoint.py)")
     if args.compress_grads or args.data > 1 or args.model > 1:
         raise NotImplementedError(
             "--compress-grads and --data/--model > 1 are not ported yet: "
-            "ROADMAP item 6 (multi-GPU)")
+            "ROADMAP queue 1, 'multi-GPU'")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device and "
                            "torch.cuda.is_available() is False; pass "

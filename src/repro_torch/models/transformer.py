@@ -65,7 +65,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     aux losses, which dense blocks do not have)."""
     if kind != "attn_mlp":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  "ROADMAP item 6 (other model families)")
+                                  "ROADMAP queue 1, 'other model families'")
     h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                      pattern, positions=positions)
     x = x + h
@@ -79,7 +79,8 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported yet (the 'dots' policy "
-            "saves matmul outputs: ROADMAP item 6); use 'full' or 'none'")
+            "saves matmul outputs: ROADMAP queue 1, 'remat=\"dots\"'); use "
+            "'full' or 'none'")
 
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,

@@ -7,7 +7,8 @@ The port of :mod:`repro.train.trainer` for one device.
 Gradients are f32 on both microbatch paths, and metrics are averaged over
 the microbatches, as in the reference. The reference's fourth argument,
 the error-feedback state of compressed gradients, has no counterpart:
-gradient compression is multi-GPU work (ROADMAP item 6) and raises.
+gradient compression is multi-GPU work (ROADMAP queue 1, 'multi-GPU') and
+raises.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     if tcfg.compress_grads:
         raise NotImplementedError(
             "compress_grads is multi-GPU work and is not ported yet: "
-            "ROADMAP item 6 (multi-GPU)")
+            "ROADMAP queue 1, 'multi-GPU'")
 
     def loss_and_grads(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)

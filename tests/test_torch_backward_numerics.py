@@ -25,7 +25,10 @@ scans, and shows that one 16-bit rounding of dout, p and ds, as
 FlashAttention does, falls outside them: so those tolerances cannot be
 loosened to admit it without this file failing. At a train step's small
 dout (here 2^-20 of unit scale) it shows that f16 needs the power-of-two
-scale.
+scale. At head dim 256 (the ``_hd256`` cases) the kernels split the
+accumulated columns over two blocks of 128, each of which recomputes the
+scores and dp over the full head dim: here dq, dk and dv are accumulated
+per 128-column chunk from the same ds and p.
 """
 import numpy as np
 import pytest
@@ -42,10 +45,15 @@ from repro_torch.kernels.salo_backward import (DKV_TOL, DQ_OFF_SHARE,
 torch.set_num_threads(2)
 
 SMALL = 2.0 ** -20     # a train step's dout, relative to unit scale
+COLS = 128             # accumulated columns of one block
+# (pattern, n, block_q, block_k[, head dim: 64 by default])
 CASES = {
     "causal_sinks": (causal_sliding_window(256, n_sinks=4), 1024, 64, 64),
     "vil": (vil((16, 16), (5, 5), n_global=1), 257, 32, 64),
     "longformer": (longformer(48, n_global=2), 300, 64, 32),
+    "causal_sinks_hd256": (causal_sliding_window(256, n_sinks=4), 512, 64,
+                           64, 256),
+    "longformer_hd256": (longformer(48, n_global=1), 200, 64, 32, 256),
 }
 
 
@@ -81,6 +89,14 @@ def _products(scheme, dtype):
         def mm2(a, b):
             return a.to(dtype).float() @ b.to(dtype).float()
     return mm1, mm2
+
+
+def _by_cols(mm, a, b):
+    """mm(a, b) with b's columns (the accumulated hd) taken 128 at a
+    time, as the hd-256 kernels' blocks do, concatenated."""
+    dc = min(b.shape[-1], COLS)
+    return torch.cat([mm(a, b[..., z:z + dc])
+                      for z in range(0, b.shape[-1], dc)], -1)
 
 
 def _emulated(scheme, dtype, dout, delta, m, l, q, k, v, pos_q, pos_k, t,
@@ -128,7 +144,7 @@ def _emulated(scheme, dtype, dout, delta, m, l, q, k, v, pos_q, pos_k, t,
             dq = dq * torch.exp2(new - dt)[..., None]
             dt = new
             ds = ds * torch.exp2(dt)[..., None]
-        dq = dq + mm1(ds, k_b) * scale
+        dq = dq + _by_cols(mm1, ds, k_b) * scale
     if scaled:
         dq = dq * torch.exp2(-dt)[..., None]
     dq = dq * torch.exp2(e_row)[..., None]
@@ -149,8 +165,9 @@ def _emulated(scheme, dtype, dout, delta, m, l, q, k, v, pos_q, pos_k, t,
         p, ds = p_ds(q_b, k_t, v_t, do_b, mask, m_r.index_select(1, qb),
                      l_r.index_select(1, qb),
                      dl_r.index_select(1, qb) * torch.exp2(-e[..., 0]))
-        dv_r = dv_r + mm2(p.transpose(-1, -2), do_b) * torch.exp2(e)
-        dk_r = dk_r + mm1(ds.transpose(-1, -2), q_b) * scale * torch.exp2(e)
+        dv_r = dv_r + _by_cols(mm2, p.transpose(-1, -2), do_b) * torch.exp2(e)
+        dk_r = dk_r + (_by_cols(mm1, ds.transpose(-1, -2), q_b) * scale
+                       * torch.exp2(e))
     zt = torch.zeros((B, nkb, bk, D))
     return (dq.reshape(B, nQ, D),
             zt.index_add(1, t.row_tile, dk_r).reshape(B, nkb * bk, D),
@@ -158,19 +175,20 @@ def _emulated(scheme, dtype, dout, delta, m, l, q, k, v, pos_q, pos_k, t,
 
 
 def _run(case, dtype, scheme, dscale=1.0):
-    pat, n, bq, bk = CASES[case]
+    pat, n, bq, bk, *hd = CASES[case]
+    hd = hd[0] if hd else 64
     sched = schedule(pat, n)
     plan = sched.plan(bq, bk)
     t = plan_tables(plan, torch.device("cpu"))
     pos_q = t.pos.reshape(plan.nq, bq)
     pos_k = t.pos.reshape(plan.nkb, bk)
     rng = np.random.default_rng(n)
-    shape = (2, plan.n_pad, 64)
+    shape = (2, plan.n_pad, hd)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
                .to(dtype) for _ in range(3))
     dout = torch.from_numpy(rng.standard_normal(shape,
                                                 dtype=np.float32)) * dscale
-    scale = 64 ** -0.5
+    scale = hd ** -0.5
     out, m, l = table_attention_scan(q, k, v, pos_q, pos_k, t.kv_blocks,
                                      t.flags, sched, scale)
     delta = (dout * out.float()).sum(-1)

@@ -494,6 +494,9 @@ TRAIN_PATTERNS = {
     "dilated_sinks": causal_sliding_window(24, n_sinks=3, dilation=2),
     "vil": vil((12, 12), (5, 3), n_global=1),
     "longformer": longformer(48, n_global=2),
+    # gemma-7b's and longformer-4k's patterns, at their own n
+    "gemma_7b": causal_sliding_window(1024, n_sinks=4),
+    "longformer_4k": longformer(512, n_global=1),
 }
 
 
@@ -502,7 +505,11 @@ TRAIN_PATTERNS = {
 @pytest.mark.parametrize("pname,n,hd,bq,bk", [
     ("causal_sinks", 512, 64, 256, 256), ("causal_sinks", 300, 128, 64, 32),
     ("dilated_sinks", 200, 64, 32, 32), ("vil", 145, 128, 32, 64),
-    ("longformer", 333, 64, 128, 64)])
+    ("longformer", 333, 64, 128, 64),
+    # hd 256: the column split over blocks (16-bit), the staged hd chunks
+    # (f32); 32-key tiles leave rows of the ring empty
+    ("causal_sinks", 512, 256, 256, 256), ("dilated_sinks", 200, 256, 32, 32),
+    ("vil", 145, 256, 32, 64), ("longformer", 333, 256, 128, 64)])
 def test_training_kernels_match_plain(dtype, pname, n, hd, bq, bk):
     _need_cuda()
     from repro_torch.kernels import salo_attention as KA
@@ -543,7 +550,8 @@ def test_training_kernels_match_plain(dtype, pname, n, hd, bq, bk):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("pname,n,hd,bq,bk", [
-    ("causal_sinks", 512, 64, 256, 256), ("vil", 145, 128, 32, 64)])
+    ("causal_sinks", 512, 64, 256, 256), ("vil", 145, 128, 32, 64),
+    ("causal_sinks", 512, 256, 256, 256)])
 def test_backward_kernels_keep_precision_at_small_dout(dtype, pname, n, hd,
                                                        bq, bk):
     """dout at 2^-20 of unit scale, as a train step's (the gradient of a
@@ -577,7 +585,8 @@ def test_backward_kernels_keep_precision_at_small_dout(dtype, pname, n, hd,
 
 @pytest.mark.parametrize("pat,n,bh,hd,bq,bk", [
     (causal_sliding_window(64, n_sinks=4, dilation=2), 1024, 8, 64, 32, 32),
-    (causal_sliding_window(200, n_sinks=4), 2048, 4, 128, 64, 128)])
+    (causal_sliding_window(200, n_sinks=4), 2048, 4, 128, 64, 128),
+    (causal_sliding_window(64, n_sinks=4, dilation=2), 1024, 4, 256, 32, 32)])
 def test_dkv_bitwise_deterministic(pat, n, bh, hd, bq, bk):
     _need_cuda()
     from repro_torch.kernels import salo_backward as KB
@@ -629,7 +638,8 @@ def test_backward_padding_query_blocks_give_exact_zeros(dtype):
 @pytest.mark.parametrize("rows_q", [True, False])
 @pytest.mark.parametrize("pname,n", [("causal_sinks", 700),
                                      ("dilated_sinks", 500), ("vil", 145),
-                                     ("longformer", 333)])
+                                     ("longformer", 333), ("gemma_7b", 4096),
+                                     ("longformer_4k", 4096)])
 def test_mask_2x16_matches_step_mask(pname, n, rows_q):
     """The 16-bit backward kernels' mask evaluator (``mask_2x16`` in
     ``csrc/salo_mma.cuh``: the pattern's branches hoisted, whole-grid
@@ -682,7 +692,8 @@ def test_mask_2x16_matches_step_mask(pname, n, rows_q):
     # grids with no pair in and with some came up; with all 32 in where the
     # window spans a sub-tile's 64 columns and is undilated
     assert bool((ref == 0).any() and ((ref != 0) & (ref != -1)).any())
-    assert bool((ref == -1).any()) == (pname == "causal_sinks")
+    assert bool((ref == -1).any()) == (pname in ("causal_sinks", "gemma_7b",
+                                                 "longformer_4k"))
 
 
 def test_training_kernel_wrappers_raise_on_unsupported():

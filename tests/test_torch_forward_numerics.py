@@ -15,12 +15,15 @@ in another order):
   correction ``exp2((m_prev - shift) * log2(e))``, with the reference's
   guarded shift (``m <= NEG_INF/2 -> 0``) and correction (0 after an empty
   prefix);
-- l sums the f32 p, while the PV product takes p rounded to V's type.
+- l sums the f32 p, while the PV product takes p rounded to V's type;
+- at head dim 256 the kernel splits out's columns over two blocks (128
+  each), which recompute the same scores from Q reread from shared
+  memory: here acc is accumulated per 128-column chunk from the same p.
 
 It holds that emulation against ``salo_table_attention_plain`` within the
 tolerances the card checks use (``salo_attention.OUT_TOL`` for out,
 ``STATS_TOL`` for m and l) at the training pattern (causal window with
-sinks, 256-wide blocks, padded rows) and head dims 64 and 128, and shows
+sinks, 256-wide blocks, padded rows) and head dims 64, 128 and 256, and shows
 that summing the rounded p into l, as FlashAttention does, falls outside
 l's tolerance: so that tolerance cannot admit it without this file failing.
 """
@@ -38,6 +41,7 @@ from repro_torch.kernels.salo_attention import (OUT_TOL, STATS_TOL,
 torch.set_num_threads(2)
 
 SUB = 64                                  # keys of the kernel's sub-tiles
+COLS = 128                                # out columns a block accumulates
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 NEG_INF = renorm.NEG_INF
 # (pattern, n, block_q, block_k): the training pattern at a small n with
@@ -67,7 +71,8 @@ def _emulated(q, k, v, pos_q, pos_k, t, sched, scale, *, l_rounded=False):
     scale2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
     m = torch.full((B, nq, bq), NEG_INF)
     l = torch.zeros((B, nq, bq))
-    acc = torch.zeros((B, nq, bq, D))
+    dc = min(D, COLS)
+    acc = [torch.zeros((B, nq, bq, dc)) for _ in range(D // dc)]
     for s in range(t.kv_blocks.shape[1]):
         blk, fl = t.kv_blocks[:, s], t.flags[:, s]
         k_b, v_b = k_r.index_select(1, blk), v_r.index_select(1, blk)
@@ -88,9 +93,10 @@ def _emulated(q, k, v, pos_q, pos_k, t, sched, scale, *, l_rounded=False):
                 shift * LOG2E)[..., None])), 0.0)
             p16 = p.to(v.dtype).float()
             l = l * corr + (p16 if l_rounded else p).sum(-1)
-            acc = acc * corr[..., None] + p16 @ v_b[:, :, keys]
+            acc = [a * corr[..., None] + p16 @ v_b[:, :, keys, z * dc:(z + 1) * dc]
+                   for z, a in enumerate(acc)]
             m = m_new
-    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    out = torch.cat(acc, -1) / torch.where(l == 0.0, 1.0, l)[..., None]
     return (out.to(q.dtype).reshape(B, nQ, D), m.reshape(B, nQ),
             l.reshape(B, nQ))
 
@@ -119,7 +125,7 @@ def _excess(a, b, tol):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_emulated_kernel_matches_plain(case, hd, dtype):
     (out, m, l), (ro, rm, rl), pad = _run(case, hd, dtype)
@@ -135,7 +141,7 @@ def test_emulated_kernel_matches_plain(case, hd, dtype):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_summing_rounded_p_misses_l_tolerance(case, hd, dtype):
     (_, _, l), (_, _, rl), _ = _run(case, hd, dtype, l_rounded=True)

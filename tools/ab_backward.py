@@ -3,6 +3,7 @@
 of several checkouts of this repository on one GPU, in one run.
 
     python3 tools/ab_backward.py ROOT [ROOT ...] [--rounds 1] [--seed 0]
+                                 [--case a]
 
 Each ROOT is a directory holding a checkout's ``src/repro_torch`` (for
 example a ``git archive`` unpacked under the git-ignored ``build/``). Every
@@ -12,11 +13,12 @@ spills of the tensor-core kernels of ``salo_table_attention.cu`` and
 its own, in the order ROOT_1 .. ROOT_n, ROOT_n .. ROOT_1 (``--rounds``
 times), so that a drift of the card shows as a gap between two visits of
 one ROOT. A process times K1, K2 and K3 at ``chip_smoke.py``'s
-train-kernels case (a) (smollm-135m's pattern, 72 flat heads, n 4096, hd
-64, block 256), in bf16 and again in f16, with ``chip_smoke.Timer`` (L2
+train-kernels case ``--case`` (by default (a): smollm-135m's pattern, 72
+flat heads, n 4096, hd 64, block 256; (f) is gemma-7b's at hd 256), in
+bf16 and again in f16, with ``chip_smoke.Timer`` (L2
 flushed, calls queued behind a sleep kernel), and reports, not gated, how
 far each ROOT's kernels lie from the plain versions: K1's out, m and l,
-and K2/K3's gradients, at case (a), and K2/K3's at case (c) (ViL, hd 128,
+and K2/K3's gradients, at that case, and K2/K3's at case (c) (ViL, hd 128,
 f16) with dout at 2^-20 of unit scale, relative to that scale. The last
 lines are one JSON object per visit, the card's name and power limit from
 ``nvidia-smi``, and a summary JSON line with each ROOT's mean times.
@@ -85,7 +87,7 @@ def _errors(torch, KB, bwd, t, kw, scale=1.0):
     return err
 
 
-def visit(root: Path, seed: int) -> dict:
+def visit(root: Path, seed: int, case: str = "a") -> dict:
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(1, str(HERE))
     import torch
@@ -101,7 +103,7 @@ def visit(root: Path, seed: int) -> dict:
     timer = CS.Timer(torch)
     rec = {"root": str(root)}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float16, "_f16")):
-        bwd, t, kw = _inputs(torch, CS, "a", seed + 100, dtype)
+        bwd, t, kw = _inputs(torch, CS, case, seed + 100, dtype)
         dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
         fwd = (*bwd[4:], t.kv_blocks, t.flags)
         rec[f"K1{tag}_ms"] = timer(lambda: KA.salo_table_attention(*fwd,
@@ -110,7 +112,7 @@ def visit(root: Path, seed: int) -> dict:
             *bwd, t.kv_blocks, t.flags, **kw))
         rec[f"K3{tag}_ms"] = timer(lambda: KB.salo_table_backward_dkv(
             *bwd, *dkv_t, **kw))
-        rec[f"a{tag or '_bf16'}"] = {**_fwd_errors(KA, bwd, t, kw),
+        rec[f"{case}{tag or '_bf16'}"] = {**_fwd_errors(KA, bwd, t, kw),
                                      **_errors(torch, KB, bwd, t, kw)}
     cbwd, ct, ckw = _inputs(torch, CS, "c", seed + 102)
     small = (cbwd[0] * SMALL, cbwd[1] * SMALL, *cbwd[2:])
@@ -146,11 +148,14 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="+", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--case", default="a",
+                    help="chip_smoke.TRAIN_CASES key whose shapes are timed")
     ap.add_argument("--visit", action="store_true",
                     help=argparse.SUPPRESS)    # one ROOT, in this process
     args = ap.parse_args(argv)
     if args.visit:
-        print(json.dumps(visit(args.roots[0], args.seed)), flush=True)
+        print(json.dumps(visit(args.roots[0], args.seed, args.case)),
+              flush=True)
         return 0
     import torch
 
@@ -163,8 +168,8 @@ def main(argv=None) -> int:
     recs = []
     for r in order:
         p = subprocess.run([sys.executable, __file__, "--visit", str(r),
-                            "--seed", str(args.seed)], capture_output=True,
-                           text=True)
+                            "--seed", str(args.seed), "--case", args.case],
+                           capture_output=True, text=True)
         if p.returncode != 0:
             raise SystemExit(f"visit of {r} failed:\n{p.stdout}{p.stderr}")
         rec = json.loads(p.stdout.strip().splitlines()[-1])
