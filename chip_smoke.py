@@ -58,11 +58,25 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
-7. **serve gemma-7b** — the serve phase's traffic on gemma-7b at full
+7. **serve-ft** — kill and resume: the serve phase's weights and requests
+   under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
+   every 16 engine steps under ``build/``, removed at the end), with two
+   injected crashes: one while requests still prefill (before the first
+   snapshot, so a restart from scratch), one in decode (a restore).
+   Checks the greedy tokens and every engine counter equal to the serve
+   phase's, 2 restarts with at most 16 steps lost, every allocator back
+   to n_pages - 1 free, the slabs and slot map on the card after each
+   restore; prints the snapshot bytes, the median state_dict + save and
+   restore times and the steps lost.
+8. **serve-ft-int8** — the same on the serve-int8 phase's engine (int8
+   slab, page skipping): the scales and the page-stats history go
+   through the snapshots; tokens and counters (pages read) equal to the
+   serve-int8 phase's.
+9. **serve gemma-7b** — the serve phase's traffic on gemma-7b at full
    width and depth (28 layers, d 3072, 16 heads of hd 256, vocab 256000),
    bf16, random weights: the same checks (28 K4 launches a decode step),
    one decode-only step profiled.
-8. **train-kernels** — hold the training kernels K1 (forward; with
+10. **train-kernels** — hold the training kernels K1 (forward; with
    16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
    K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
    and working-space tensors the op hands them: (a) the train phase's shapes
@@ -96,23 +110,32 @@ nonzero:
    each of its two blocks recomputes), and
    ``scaled_dot_product_attention`` with the dense mask (forward, and its
    backward beside K2 and K3) as a yardstick.
-9. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
+11. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
    card (kernels) and on the CPU (plain versions) from the same
    parameters and batches: losses and grad norms agree within 1e-4; then
    the same for gemma-7b (hd 256) and longformer-4k (hd 64, bidirectional,
    global rows) at narrowed widths.
-10. **train** — smollm-135m at full width and depth, bf16, remat full,
+12. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
    the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 = 30 x
    steps, K3 = 2 x 30 x steps (its row walk and its owner-tile sum), and
    that no plain version ran; prints the median step
-   time, tokens/s and peak memory, then profiles one more step.
-11. **train gemma-7b** — every published width of gemma-7b kept, the
+   time, tokens/s and peak memory, then profiles one more step. After step
+   10, {"params", "opt"} go to ``build/`` through an async
+   ``ft.CheckpointManager`` (the device-to-host copy synchronous, the
+   write in the background), a clone stays on the card; the steps that
+   overlap the write are printed and left out of the median.
+13. **train-ft** — the checkpoint restored into a freshly initialised
+   state: every parameter, m and v bit-equal to the clone on the card, the
+   step an int; steps 10 and 11 replayed from it give the train phase's
+   losses and grad norms bit for bit. Prints the checkpoint bytes, the
+   synchronous snapshot ms, the background write s and the restore ms.
+14. **train gemma-7b** — every published width of gemma-7b kept, the
     depth cut to the deepest whose reckoned step peak (``train_bytes``,
     printed first) fits 92 % of the card, seq 4096, batch 1, 10 steps,
     lr 1e-3, warmup 3; the same checks and lines as the train phase.
-12. **train longformer-4k** — at full width and depth (12 layers, d
+15. **train longformer-4k** — at full width and depth (12 layers, d
     768), seq 4096, batch 8, 20 steps, as the train phase: the
     bidirectional band and the global-rows epilogue on the card.
 
@@ -144,6 +167,7 @@ REPEATS = 10                     # calls a decode case must repeat bitwise
 PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
+FT_TRAIN_AT = 10                   # train-ft: the step checkpointed
 
 
 def log(msg: str) -> None:
@@ -657,41 +681,57 @@ SERVE_CHECK = ("gemma-7b", "phi4-mini-3.8b", "granite-3-8b")
 TRAIN_CHECK = ("gemma-7b", "longformer-4k")
 
 
-def _serve_engine(torch, seed, what, arch="smollm-135m", **extra):
-    """``arch`` (smollm-135m by default) at full width and depth, bf16,
-    random weights from ``seed``, on the continuous engine with the serve
-    phases' 8 requests submitted (prompts over 600-2000 tokens): n_pages
-    from ``layout_for_pattern``, 8 rows. ``extra``: ContinuousConfig
-    fields. Returns (cfg, engine, params, prompt lengths, rng)."""
+def _serve_weights(torch, seed, arch="smollm-135m"):
+    """``arch`` at full width and depth on the card, bf16 weights from
+    ``seed``. Returns (cfg, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg, "cuda")
+    return cfg, model, model.init(
+        torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _serve_lens(seed):
+    """The serve phases' prompt lengths (600-2000) and the generator that
+    then draws their tokens."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in np.linspace(600, 2000, SERVE_R).round()
+            + rng.integers(0, 40, SERVE_R)]
+    return [min(n, 2000) for n in lens], rng
+
+
+def _serve_engine(torch, seed, what, arch="smollm-135m", weights=None,
+                  **extra):
+    """``arch`` (smollm-135m by default) at full width and depth, bf16,
+    random weights from ``seed`` (or ``weights``, ``_serve_weights``'s),
+    on the continuous engine with the serve phases' 8 requests submitted
+    (prompts over 600-2000 tokens): n_pages from ``layout_for_pattern``, 8
+    rows. ``extra``: ContinuousConfig fields. Returns (cfg, engine,
+    params, prompt lengths, rng)."""
     from repro_torch.models.layers import salo_pattern
-    from repro_torch.models.model import build_model
     from repro_torch.obs import Observability
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
     from repro_torch.serve.paged_cache import layout_for_pattern
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
+    cfg, model, params = weights or _serve_weights(torch, seed, arch)
     R = SERVE_R
     lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE)
     check(lay.pages_per_req == 65, f"pages_per_req {lay.pages_per_req}")
     ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_req,
                             page=SERVE_PAGE, chunk=SERVE_CHUNK, max_batch=R,
                             **extra)
-    model = build_model(cfg, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
     n_param = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[{what}] {arch} bf16 {extra}: weights {n_param / 1e6:.1f} MB,"
         f" slab {eng.slab_resident_bytes()} bytes resident "
         f"({eng.slab_resident_bytes() / 1e6:.1f} MB), "
         f"n_pages={ccfg.n_pages}")
-    rng = np.random.default_rng(seed)
-    lens = [int(x) for x in np.linspace(600, 2000, R).round()
-            + rng.integers(0, 40, R)]
-    lens = [min(n, 2000) for n in lens]
+    lens, rng = _serve_lens(seed)
     for n in lens:
         eng.submit(rng.integers(0, cfg.vocab_size, (n,)), SERVE_NEW)
 
@@ -733,7 +773,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     """``arch`` at full width on the continuous engine; the decode-only
     steps [profile[0], profile[1]) run under the profiler, and then (when
     ``profile_prefill``) one prefill chunk. Returns the K4 launch count of
-    the run and the requests' tokens."""
+    the run, the requests' tokens and the engine counters."""
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
                                                  salo_paged_decode_plain)
 
@@ -779,7 +819,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     check(timed is not None, "the run ended before the profiled steps")
     launches = salo_paged_decode.launches
     plain = salo_paged_decode_plain.calls
-    res, _ = _check_serve_run(cfg, eng, lens, launches, plain, what)
+    res, counters = _check_serve_run(cfg, eng, lens, launches, plain, what)
     check(len(decode_steps) > 0, "no decode-only step")
     med = sorted(d for d, _ in decode_steps)[len(decode_steps) // 2]
     dec_tps = sum(n for _, n in decode_steps) / sum(d for d, _ in decode_steps)
@@ -791,7 +831,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     check(prof is not None, "no decode-only step was profiled")
     report_profile(prof, prof_wall, prof_to - prof_from, "decode steps")
     if not profile_prefill:
-        return launches, res
+        return launches, res, counters
 
     # After the counts are read: one more request, whose first engine step
     # (one 128-token prefill chunk through all layers) runs under the
@@ -807,7 +847,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     dt = time.perf_counter() - ts
     prof.stop()
     report_profile(prof, dt, 1, "prefill chunk")
-    return launches, res
+    return launches, res, counters
 
 
 def phase_serve_int8(torch, seed):
@@ -815,7 +855,8 @@ def phase_serve_int8(torch, seed):
     skipping (threshold -3, decay 0.3). Checks the run like the serve
     phase and the slab's resident bytes; reports the step time and the
     page counters (random weights need not skip pages at full width, so
-    that is not gated). Returns the K4 launch count and the tokens."""
+    that is not gated). Returns the K4 launch count, the tokens and the
+    engine counters."""
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
                                                  salo_paged_decode_plain)
     from repro_torch.serve.paged_cache import slab_bytes
@@ -864,7 +905,124 @@ def phase_serve_int8(torch, seed):
         f"{c['decode_pages_read']} of {c['decode_pages_total']}, prefill "
         f"{c['prefill_pages_read']} of {c['prefill_pages_total']}; K4 "
         f"launches {launches}")
-    return launches, res
+    return launches, res, c
+
+
+FT_EVERY = 16                     # serve-ft: engine steps between snapshots
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_serve_ft(torch, seed, what, ref_res, ref_c, **extra):
+    """The serve phase's weights and requests (``extra``: the int8 phase's
+    engine fields) under ``ServeSupervisor``: a fresh engine every boot,
+    a snapshot every ``FT_EVERY`` steps into ``build/``, and a
+    ``FaultInjector`` crashing two attempts, one while requests still
+    prefill (engine step half of the longest prompt's chunks) and one in
+    decode (from the uninterrupted run's step count, ``ref_c``). Checks
+    the greedy tokens and every engine counter against the uninterrupted
+    phase's (``ref_res``, ``ref_c``), 2 restarts with at most
+    ``FT_EVERY`` steps lost, every allocator back to n_pages - 1 free, the
+    slabs and slot map on the card after each restore, K4 launched and no
+    plain call. Prints the snapshot bytes, the median state_dict + save
+    and restore times, and the steps lost. Returns the K4 launch count."""
+    import shutil
+
+    from repro_torch.ft import FaultInjector, FaultPlan, ServeSupervisor
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+
+    weights = _serve_weights(torch, seed)
+    n_steps = ref_c["engine_steps"]
+    marks = {"t": 0.0, "boots": 0}
+    snap_ms, restore_ms = [], []
+
+    def make_engine():
+        eng = _serve_engine(torch, seed, what, weights=weights, **extra)[1]
+        marks["boots"] += 1
+        state_dict, load = eng.state_dict, eng.load_state
+
+        def timed_state_dict():
+            marks["t"] = time.perf_counter()
+            return state_dict()
+
+        def checked_load(tree):     # after state_dict (the like) and read
+            load(tree)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - marks["t"]) * 1e3)
+            check(all(a.is_cuda for s_ in eng.slabs.values()
+                      for a in s_.tensors()) and eng.slot_pos.is_cuda,
+                  f"[{what}] a restored tensor left the card")
+
+        eng.state_dict, eng.load_state = timed_state_dict, checked_load
+        return eng
+
+    # crash attempts: engine step p (prefill: no snapshot yet, so a
+    # restart from scratch), then engine step d in decode, FT_EVERY
+    # stepping not landing on a snapshot (attempt p + 1 + d)
+    n_prefill = max(math.ceil(n / SERVE_CHUNK) for n in _serve_lens(seed)[0])
+    p = n_prefill // 2
+    d = FT_EVERY * ((n_prefill + n_steps) // (2 * FT_EVERY)) + 9
+    check(0 < p < n_prefill < d < n_steps - 1,
+          f"[{what}] no crash plan: prefill {n_prefill}, steps {n_steps}")
+    ckdir = ROOT / "build" / f"ft_{what}"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    sup = ServeSupervisor(
+        make_engine, weights[2], str(ckdir), checkpoint_every=FT_EVERY,
+        keep=2, injector=FaultInjector(FaultPlan(
+            crash_steps=frozenset({p, p + 1 + d}))))
+    save = sup.manager.save
+
+    def timed_save(tree, step):
+        save(tree, step)
+        snap_ms.append((time.perf_counter() - marks["t"]) * 1e3)
+        marks["bytes"] = _dir_bytes(ckdir / f"step_{step:08d}")
+
+    sup.manager.save = timed_save
+    try:
+        salo_paged_decode.launches = 0
+        salo_paged_decode_plain.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, hist = sup.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = salo_paged_decode.launches
+        plain = salo_paged_decode_plain.calls
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    res = eng.batcher.results()
+    c = dict(eng.counters)
+    check(sorted(res) == sorted(ref_res), f"[{what}] requests {sorted(res)}")
+    for rid, toks in ref_res.items():
+        check(len(res[rid]) == len(toks) and bool((res[rid] == toks).all()),
+              f"[{what}] request {rid}: tokens differ from the "
+              f"uninterrupted run")
+    check(c == ref_c, f"[{what}] counters {c} != uninterrupted {ref_c}")
+    check(hist["restarts"] == 2 and hist["max_step_loss"] <= FT_EVERY,
+          f"[{what}] history {hist}")
+    check(len(restore_ms) >= 1, f"[{what}] no restore ran")
+    check(all(a.n_free == eng.ccfg.n_pages - 1
+              for a in eng.batcher.allocs), f"[{what}] pages leaked")
+    n_layers = sum(n for _, n in eng.model.program)
+    check(launches >= ref_c["decode_launches"] * n_layers and plain == 0,
+          f"[{what}] K4 launches {launches}, plain {plain}")
+    med = sorted(snap_ms)[len(snap_ms) // 2]
+    rmed = sorted(restore_ms)[len(restore_ms) // 2]
+    log(f"[{what}] crashes at attempts {p} (prefill, engine step {p}) and "
+        f"{p + 1 + d} (decode, engine step {d}); {marks['boots']} boots, "
+        f"{len(restore_ms)} restore(s), steps lost {hist['steps_lost']} (max "
+        f"{hist['max_step_loss']}), {hist['steps_run']} steps run for "
+        f"{n_steps}; tokens and counters equal to the uninterrupted run's")
+    log(f"[{what}] snapshot {marks['bytes']} bytes on disk; state_dict + "
+        f"save median {med:.3f} ms over {len(snap_ms)} snapshots "
+        f"({[round(x, 3) for x in snap_ms]}); restore median {rmed:.3f} ms "
+        f"over {len(restore_ms)} ({[round(x, 3) for x in restore_ms]}); "
+        f"phase {wall:.3f} s; K4 launches {launches}")
+    return launches
 
 
 def phase_lockstep(torch, seed):
@@ -1371,10 +1529,15 @@ def gemma_train_depth(torch, seq: int, batch: int) -> int:
 
 
 def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
-                steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10):
+                steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10,
+                ft_save_at=None):
     """``arch`` at full width (and depth unless ``n_layers`` cuts it),
-    bf16, remat full, trained on the card at seq 4096. Returns the launch
-    counts of the run."""
+    bf16, remat full, trained on the card at seq 4096. With
+    ``ft_save_at``, {"params", "opt"} after that many steps go to
+    ``build/`` through an async ``CheckpointManager``, with a clone kept
+    on the card; the steps that overlap the background write are printed
+    and left out of the median. Returns the launch counts of the run and
+    what ``phase_train_ft`` needs (None without ``ft_save_at``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1398,15 +1561,22 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _counters(reset=True)
-    losses, times = [], []
+    losses, norms, times, overlapped, ft = [], [], [], [], None
     for i in range(steps):
+        if ft is not None and ft["mgr"].writing():
+            overlapped.append(i)
         t0 = time.perf_counter()
         params, opt, met = step(params, opt, ds.batch(i))
         loss = float(met["loss"])                   # syncs the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        norms.append(float(met["grad_norm"]))
         log(f"[{tag}] step {i:3d} loss {loss:.4f} grad norm "
-            f"{float(met['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms")
+            f"{norms[-1]:.4f} {times[-1] * 1e3:.1f} ms"
+            + (" (overlaps the checkpoint write)" if overlapped
+               and overlapped[-1] == i else ""))
+        if i + 1 == ft_save_at:
+            ft = _ft_save(torch, params, opt, i + 1)
     launches, plain = _counters()
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -1418,7 +1588,12 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
             "K3": 2 * cfg.n_layers * steps}
     check(launches == want, f"launches {launches} != {want}")
     check(plain == 0, f"the plain versions ran {plain} times")
-    med = sorted(times[1:])[len(times[1:]) // 2]
+    timed = [t for i, t in enumerate(times) if i and i not in overlapped]
+    med = sorted(timed)[len(timed) // 2]
+    if overlapped:
+        log(f"[{tag}] steps {overlapped} overlapped the background "
+            f"checkpoint write: left out of the median "
+            f"({[round(times[i] * 1e3, 3) for i in overlapped]} ms)")
     log(f"[{tag}] step median {med * 1e3:.3f} ms over steps 1..{steps - 1} "
         f"({batch * seq / med:.1f} tokens/s); first step "
         f"{times[0] * 1e3:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
@@ -1450,6 +1625,100 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     log(f"[profile] train kernels per step: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
         + f"; K2 + K3 {per['K2'] + per['K3']:.3f} ms")
+    if ft is not None:
+        ft.update(cfg=cfg, step_fn=step, ds=ds,
+                  ref={i: (losses[i], norms[i]) for i in range(ft_save_at,
+                                                              steps)})
+    return launches, ft
+
+
+def _ft_save(torch, params, opt, at: int) -> dict:
+    """train-ft, first half: {"params", "opt"} at step ``at`` through an
+    async CheckpointManager under ``build/`` (the device-to-host copy on
+    this thread, the write in the background), and a clone on the card."""
+    import shutil
+
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.tree import tree_flatten_with_path, tree_unflatten
+
+    ckdir = ROOT / "build" / "ft_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckdir), keep=1, async_write=True)
+    state = {"params": params, "opt": opt}
+    flat, treedef = tree_flatten_with_path(state)
+    clone = tree_unflatten(treedef, [x.clone() if torch.is_tensor(x) else x
+                                     for _, x in flat])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, at)
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(x.numel() * x.element_size() for _, x in flat
+                 if torch.is_tensor(x))
+    log(f"[train-ft] checkpoint of step {at} handed to the background "
+        f"writer: synchronous snapshot (device to host) {snap_ms:.3f} ms; "
+        f"the clone kept on the card adds {nbytes} bytes to the phase's "
+        f"peak memory")
+    return dict(mgr=mgr, dir=ckdir, at=at, clone=clone, snapshot_ms=snap_ms)
+
+
+def phase_train_ft(torch, seed, ft) -> dict:
+    """train-ft, second half: the checkpoint restored into a freshly
+    initialised state must equal the clone bit for bit (every parameter,
+    m, v, and the step as an int, each on the card in its dtype); steps
+    ``at`` and ``at + 1`` replayed from it must give the train phase's
+    losses and grad norms bit for bit. Removes the checkpoint. Returns the
+    replay's launch counts."""
+    import shutil
+
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten_with_path
+
+    mgr, at, cfg = ft["mgr"], ft["at"], ft["cfg"]
+    try:
+        mgr.wait()
+        nbytes = _dir_bytes(ft["dir"])
+        params0 = build_model(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(seed + 1))
+        like = {"params": params0,
+                "opt": adamw.init(adamw.AdamWConfig(), params0)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step_at = mgr.restore_latest(like)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(ft["dir"], ignore_errors=True)
+    check(step_at == at, f"[train-ft] restored step {step_at}, want {at}")
+    got, want = (tree_flatten_with_path(t)[0] for t in (state, ft["clone"]))
+    check([p for p, _ in got] == [p for p, _ in want],
+          "[train-ft] restored tree differs in structure")
+    for (path, a), (_, b) in zip(got, want):
+        if torch.is_tensor(b):
+            check(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b),
+                  f"[train-ft] {'::'.join(path)} not bit-equal on the card")
+        else:
+            check(type(a) is int and a == b == at,
+                  f"[train-ft] {'::'.join(path)}: {a!r} != {b!r}")
+    params, opt = state["params"], state["opt"]
+    del like, params0
+    _counters(reset=True)
+    replay = {}
+    for i in (at, at + 1):
+        params, opt, met = ft["step_fn"](params, opt, ft["ds"].batch(i))
+        replay[i] = (float(met["loss"]), float(met["grad_norm"]))
+    launches, plain = _counters()
+    check(plain == 0 and min(launches.values()) > 0,
+          f"[train-ft] launches {launches}, plain {plain}")
+    for i, got_i in replay.items():
+        check(got_i == ft["ref"][i],
+              f"[train-ft] step {i} replayed (loss, grad norm) {got_i} != "
+              f"the train phase's {ft['ref'][i]}")
+    log(f"[train-ft] checkpoint {nbytes} bytes on disk; synchronous "
+        f"snapshot {ft['snapshot_ms']:.3f} ms, background write "
+        f"{mgr.write_s:.3f} s, restore {restore_ms:.3f} ms; restored state "
+        f"bit-equal to the clone (step {step_at}); steps {at}, {at + 1} "
+        f"replayed bit-equal: {replay}; launches {launches}")
     return launches
 
 
@@ -1528,8 +1797,8 @@ def main(argv=None) -> int:
     # the lockstep and int8 serve phases run before the profiled serve
     # phase: the profiler's hooks slow the host afterwards
     launches_k5 = phase_lockstep(torch, args.seed)
-    launches_int8, int8_tokens = phase_serve_int8(torch, args.seed)
-    launches, bf16_tokens = phase_serve(torch, args.seed)
+    launches_int8, int8_tokens, int8_c = phase_serve_int8(torch, args.seed)
+    launches, bf16_tokens, bf16_c = phase_serve(torch, args.seed)
     agree = sum(int((int8_tokens[r] == bf16_tokens[r]).sum())
                 for r in bf16_tokens)
     first = sum(int(int8_tokens[r][0] == bf16_tokens[r][0])
@@ -1539,22 +1808,33 @@ def main(argv=None) -> int:
         f"weights, not gated)")
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
-    launches_gemma, _ = phase_serve(torch, args.seed, "gemma-7b",
-                                    "serve gemma-7b", (40, 41), False)
+    # kill and resume: the serve phases' runs under the supervisor, two
+    # injected crashes each
+    launches_ft = phase_serve_ft(torch, args.seed, "serve-ft", bf16_tokens,
+                                 bf16_c)
+    launches_ft8 = phase_serve_ft(
+        torch, args.seed, "serve-ft-int8", int8_tokens, int8_c,
+        kv_dtype="int8", page_sparsity_threshold=-3.0, page_stat_decay=0.3)
+    launches_gemma, _, _ = phase_serve(torch, args.seed, "gemma-7b",
+                                       "serve gemma-7b", (40, 41), False)
     torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
     train_check(torch, args.seed)
     for arch, cfg in _check_cfgs().items():
         if arch in TRAIN_CHECK:
             train_check(torch, args.seed, cfg, f"{arch} hd {cfg.hd}")
-    tl = {"smollm-135m": phase_train(torch, args.seed)}
+    tl = {}
+    tl["smollm-135m"], ft = phase_train(torch, args.seed,
+                                        ft_save_at=FT_TRAIN_AT)
+    tl["train-ft"] = phase_train_ft(torch, args.seed, ft)
+    del ft
     torch.cuda.empty_cache()
-    tl["gemma-7b"] = phase_train(
+    tl["gemma-7b"], _ = phase_train(
         torch, args.seed, "gemma-7b",
         n_layers=gemma_train_depth(torch, 4096, GEMMA_BATCH),
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    tl["longformer-4k"] = phase_train(torch, args.seed, "longformer-4k")
+    tl["longformer-4k"], _ = phase_train(torch, args.seed, "longformer-4k")
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -1570,8 +1850,11 @@ def main(argv=None) -> int:
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:238",
-        "launches": launches + launches_int8 + launches_gemma,
+        "launches": launches + launches_int8 + launches_gemma
+        + launches_ft + launches_ft8,
         "launches_by_path": {"serve": launches, "serve_int8": launches_int8,
+                             "serve_ft": launches_ft,
+                             "serve_ft_int8": launches_ft8,
                              "serve_gemma_7b": launches_gemma},
         "launches_per_call": 1, **row(k4["a"]),
         "variants": {"int8_page_stats_bf16": row(k4["d"]),

@@ -1,4 +1,5 @@
-"""Convert the JAX reference's parameters into the port's.
+"""Convert the JAX reference's parameters and engine snapshots into the
+port's.
 
 ``params_from_jax(tree)`` takes the reference's parameter tree as nested
 dicts of **numpy** arrays (``jax.tree.map(np.asarray, params)``) and
@@ -7,6 +8,14 @@ d_out)`` weights, so the conversion is a copy), with every stacked segment
 ``seg{i}_{kind}`` of shape ``(n, ...)`` sliced into a list of ``n``
 per-layer dicts. A leaf the port does not consume raises, so a silently
 dropped parameter cannot make two models look equal.
+
+``engine_state_from_jax(tree, device)`` takes a reference
+``ContinuousEngine.state_dict()`` with numpy leaves and returns the port's
+image of it for ``ContinuousEngine.load_state``. It reads the tree by the
+checkpoint keys (``slabs::seg0_attn_mlp::.k``, ``slot_pos``, ...; see
+:mod:`repro_torch.ft.checkpoint`), the same keys a snapshot written by
+``repro.ft.save`` holds on disk, and raises on any leaf it does not
+consume.
 """
 from __future__ import annotations
 
@@ -14,6 +23,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.serve.paged_cache import PagedSlab
+from repro_torch.tree import tree_flatten_with_path
 
 # What the port consumes, per sub-tree: the leaf names of each dict.
 _BLOCK_SCHEMA = {
@@ -66,4 +78,34 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
                                  index=i, device=device)
                      for part in schema if part in sub}
                     for i in range(n)]
+    return out
+
+
+# The host leaves of an engine snapshot and their dtypes.
+_ENGINE_HOST = {"page_tables": np.int32, "page_hist": np.float64,
+                "control": np.uint8}
+
+
+def engine_state_from_jax(tree: Dict[str, Any], device="cuda"
+                          ) -> Dict[str, Any]:
+    """The port's engine image of a reference engine snapshot (numpy
+    leaves): slabs and slot map as tensors on ``device``, the host leaves
+    as numpy arrays."""
+    flat, _ = tree_flatten_with_path(tree)
+    leaves = {"::".join(path): a for path, a in flat}
+    out: Dict[str, Any] = {
+        name: np.asarray(leaves.pop(name), dt).copy()
+        for name, dt in _ENGINE_HOST.items()}
+    out["slot_pos"] = _tensor(leaves.pop("slot_pos"), device)
+    fields = {f: "." + f for f in PagedSlab._fields}
+    out["slabs"] = {}
+    for seg in tree["slabs"]:
+        part = {f: leaves.pop(f"slabs::{seg}::{k}", None)
+                for f, k in fields.items()}
+        out["slabs"][seg] = PagedSlab(**{
+            f: None if a is None else _tensor(a, device)
+            for f, a in part.items()})
+    if leaves:
+        raise ValueError(f"engine_state_from_jax: unconsumed leaves "
+                         f"{sorted(leaves)}")
     return out

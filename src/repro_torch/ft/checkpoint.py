@@ -1,0 +1,238 @@
+"""Checkpointing: atomic, keep-k, async.
+
+The port of :mod:`repro.ft.checkpoint`, on one device, with the
+reference's on-disk layout, so a checkpoint written by either package
+restores in the other:
+
+  * ``<dir>/step_%08d/arrays.npz`` holds one array per leaf, keyed by the
+    leaf's path joined with ``::`` (``params::layers::0::w``,
+    ``opt::.m::w``, ``opt::.step``; see :func:`repro_torch.tree
+    .tree_flatten_with_path`), and ``meta.json`` the step and the sorted
+    keys.
+  * **Atomic**: written to ``<dir>/tmp.<step>.<pid>`` and then renamed, so
+    a writer killed halfway never corrupts the latest checkpoint; orphaned
+    tmp dirs are swept (:func:`sweep_stale_tmp`).
+  * **Keep-k GC** bounds the disk under frequent checkpoints.
+  * **Async** (:class:`CheckpointManager`): the device-to-host copy is
+    synchronous, on the caller's thread, so what is written is the state
+    at the call even though the serving engine updates its slabs in place
+    afterwards; only the serialization runs on a background thread.
+
+Leaves: tensors (bf16 is written as f32, which numpy can hold, as the
+reference writes its ml_dtypes leaves; every other dtype as itself), numpy
+arrays, and Python ``int``s (``AdamWState.step``), written as 0-d int32 as
+JAX writes its step. :func:`restore` takes dtype and device from the
+``like`` tree, leaf by leaf, and never its shapes: the engine snapshot's
+``control`` leaf is a byte blob whose length follows the queue. A tensor
+leaf is restored onto its ``like`` leaf's device, an ``int`` comes back as
+an ``int``.
+
+Re-placing a checkpoint onto another device layout (the reference's
+``shardings``) is multi-GPU work (ROADMAP queue 1, 'multi-GPU').
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten_with_path, tree_unflatten
+
+_SEP = "::"
+_TMP_RE = re.compile(r"tmp\.(\d+)\.(\d+)")
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True  # exists, owned by someone else
+    except OSError:
+        return False
+    return True
+
+
+def sweep_stale_tmp(path) -> int:
+    """Remove orphaned ``tmp.<step>.<pid>`` dirs (a writer killed between
+    ``makedirs`` and the atomic rename leaks its tmp dir).
+
+    A tmp dir is stale when its writer pid is dead, or is THIS process
+    (writes within a process are serialized: :meth:`CheckpointManager.save`
+    joins the previous writer thread, so a same-pid tmp can only be an
+    abandoned earlier attempt). Returns the number of dirs removed; called
+    from :func:`save` before each write and from the keep-k GC."""
+    removed = 0
+    if not os.path.isdir(path):
+        return removed
+    for d in os.listdir(path):
+        m = _TMP_RE.fullmatch(d)
+        if m and (int(m.group(2)) == os.getpid()
+                  or not _pid_alive(int(m.group(2)))):
+            shutil.rmtree(os.path.join(path, d), ignore_errors=True)
+            removed += 1
+    return removed
+
+
+def _host(leaf):
+    """A host copy of one leaf, taken now: tensors to (cloned) CPU
+    tensors, arrays copied, ints kept."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    if isinstance(leaf, np.ndarray):
+        return leaf.copy()
+    if isinstance(leaf, (int, np.integer)) and not isinstance(leaf, bool):
+        return int(leaf)
+    raise TypeError(f"checkpoint: unsupported leaf type {type(leaf)}")
+
+
+def _array(leaf) -> np.ndarray:
+    """The array written for one leaf (bf16 upcast to f32)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.numpy()
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def _flatten(tree) -> dict:
+    """``{key: np.ndarray}`` of a tree, keyed as the reference keys it."""
+    flat, _ = tree_flatten_with_path(tree)
+    return {_SEP.join(path): _array(leaf) for path, leaf in flat}
+
+
+def save(path, tree: Any, step: int) -> str:
+    """Atomic checkpoint write. Returns the final directory."""
+    path = os.fspath(path)
+    final = os.path.join(path, f"step_{step:08d}")
+    sweep_stale_tmp(path)
+    tmp = os.path.join(path, f"tmp.{step}.{os.getpid()}")
+    os.makedirs(tmp, exist_ok=True)
+    flat = _flatten(tree)
+    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    meta = {"step": step, "keys": sorted(flat.keys())}
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(path) -> Optional[int]:
+    if not os.path.isdir(path):
+        return None
+    steps = [int(m.group(1)) for d in os.listdir(path)
+             if (m := re.fullmatch(r"step_(\d+)", d))]
+    return max(steps) if steps else None
+
+
+def _restore_leaf(arr: np.ndarray, like):
+    """One leaf from its array, as the ``like`` leaf: a tensor of its
+    dtype on its device, an array of its dtype, or an ``int``."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=like.device, dtype=like.dtype)
+    if isinstance(like, np.ndarray):
+        return arr.astype(like.dtype)
+    if isinstance(like, (int, np.integer)) and not isinstance(like, bool):
+        return int(arr)
+    raise TypeError(f"restore: unsupported leaf type {type(like)}")
+
+
+def restore(path, like: Any, step: Optional[int] = None) -> Any:
+    """Restore into the structure of ``like`` (its dtypes and devices; not
+    its shapes). ``step`` defaults to the latest."""
+    path = os.fspath(path)
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+    d = os.path.join(path, f"step_{step:08d}")
+    flat_like, treedef = tree_flatten_with_path(like)
+    keys = [_SEP.join(p) for p, _ in flat_like]
+    with np.load(os.path.join(d, "arrays.npz")) as data:
+        missing = set(keys) - set(data.files)
+        if missing:
+            raise ValueError(
+                f"checkpoint missing keys: {sorted(missing)[:5]}...")
+        leaves = [_restore_leaf(data[k], leaf)
+                  for k, (_, leaf) in zip(keys, flat_like)]
+    return tree_unflatten(treedef, leaves)
+
+
+class CheckpointManager:
+    """keep-k GC + async background writes + restart bookkeeping."""
+
+    def __init__(self, path, keep: int = 3, async_write: bool = True):
+        self.path = os.fspath(path)
+        self.keep = keep
+        self.async_write = async_write
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.write_s: Optional[float] = None   # the last write's seconds
+        os.makedirs(self.path, exist_ok=True)
+
+    def _gc(self):
+        sweep_stale_tmp(self.path)
+        steps = sorted(int(m.group(1)) for d in os.listdir(self.path)
+                       if (m := re.fullmatch(r"step_(\d+)", d)))
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.path, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    def wait(self):
+        """Join the background writer; re-raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def writing(self) -> bool:
+        """True while a background write is still running."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def save(self, tree: Any, step: int):
+        self.wait()
+        # Synchronous device->host snapshot (consistent view), async write.
+        flat, treedef = tree_flatten_with_path(tree)
+        host_tree = tree_unflatten(treedef, [_host(x) for _, x in flat])
+
+        def work():
+            t0 = time.perf_counter()
+            save(self.path, host_tree, step)
+            self._gc()
+            self.write_s = time.perf_counter() - t0
+
+        if not self.async_write:
+            work()
+            return
+
+        def run():
+            try:
+                work()
+            except BaseException as e:   # handed to the caller by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def restore_latest(self, like: Any):
+        self.wait()
+        step = latest_step(self.path)
+        if step is None:
+            return None, None
+        return restore(self.path, like, step), step

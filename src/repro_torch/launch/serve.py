@@ -21,13 +21,25 @@ decodes it in lockstep (greedy, or sampled with ``--temperature``). Runs
 on the card unless ``--device cpu`` is given; with no card, ``--device
 cuda`` (the default) raises.
 
+``--snapshot-dir DIR`` runs the continuous engine under the fault-tolerant
+:class:`~repro_torch.ft.manager.ServeSupervisor`: full engine snapshots
+(slabs, page tables, request lifecycle) every ``--snapshot-every`` steps
+through the atomic keep-k writer, a fresh engine restored from the latest
+snapshot on every recoverable fault, at most ``--max-restarts`` times.
+Token output is exactly-once across kill and resume. ``--inject-crash-at``
+takes a comma list of step attempts to crash (needs ``--snapshot-dir``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --device cpu --snapshot-dir /tmp/snap --inject-crash-at 3,7
+
 ``--trace-out trace.json`` writes the continuous engine's step-phase spans
-and every request's lifecycle events as Chrome trace-event JSON at exit;
+and every request's lifecycle events (and the supervisor's fault,
+snapshot and restore events) as Chrome trace-event JSON at exit;
 ``--metrics-out`` dumps the metrics registry; ``--summary-every N`` prints
 a one-line stderr summary every N engine steps.
 
-The JAX driver's sequence sharding and snapshot/fault-injection options
-are not ported yet.
+The JAX CLI's sequence sharding (``--seq-shards``) is not ported yet
+(ROADMAP queue 1, 'multi-GPU').
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.ft import FaultInjector, FaultPlan, ServeSupervisor
 from repro_torch.models.layers import salo_pattern
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability, summary_line
@@ -83,6 +96,17 @@ def main(argv=None):
                     help="per-step decay of the per-page score history; "
                          "must be > 0 for --page-sparsity-threshold to "
                          "ever skip a page")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="continuous engine: run under the ServeSupervisor "
+                         "with engine snapshots in this directory "
+                         "(fault-tolerant serving)")
+    ap.add_argument("--snapshot-every", type=int, default=4,
+                    help="engine steps between snapshots")
+    ap.add_argument("--max-restarts", type=int, default=4,
+                    help="restart budget before RestartsExhausted")
+    ap.add_argument("--inject-crash-at", default=None,
+                    help="comma list of step attempts at which to inject "
+                         "a StepCrash (needs --snapshot-dir)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bound the admission queue; unset = unbounded")
     ap.add_argument("--deadline-s", type=float, default=None,
@@ -102,15 +126,18 @@ def main(argv=None):
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to run the plain versions")
 
+    if args.engine != "continuous" and (args.trace_out or args.metrics_out
+                                        or args.summary_every
+                                        or args.snapshot_dir):
+        ap.error("--trace-out/--metrics-out/--summary-every/--snapshot-dir "
+                 "need --engine continuous (the instrumented engine)")
+    if args.inject_crash_at and not args.snapshot_dir:
+        ap.error("--inject-crash-at needs --snapshot-dir")
+
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, args.device)
     params = model.init(torch.Generator().manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
-
-    if args.engine != "continuous" and (args.trace_out or args.metrics_out
-                                        or args.summary_every):
-        ap.error("--trace-out/--metrics-out/--summary-every need "
-                 "--engine continuous (the instrumented engine)")
     if args.engine == "lockstep":
         return _lockstep(args, cfg, model, params, rng)
     if args.temperature != 0.0:
@@ -126,18 +153,43 @@ def main(argv=None):
         page_stat_decay=args.page_stat_decay, max_queue=args.max_queue)
     lens = _ragged_lengths(args.prompt_len, args.batch, rng)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    # ONE obs bundle shared by the engine, the batcher and the supervisor,
+    # and across supervisor restarts, so the exported trace holds the
+    # whole timeline including kills and restores.
     obs = Observability(tracing=bool(args.trace_out))
-    eng = ContinuousEngine(model, ccfg, device=args.device, obs=obs)
-    for p in prompts:
-        eng.submit(p, args.new_tokens, deadline_s=args.deadline_s)
 
-    t0 = time.perf_counter()
-    while eng.step(params):
+    def summarize():
         if args.summary_every and \
                 obs.registry.total("serve_engine_steps") \
                 % args.summary_every == 0:
             print(f"# {summary_line(obs.registry)}", file=sys.stderr,
                   flush=True)
+
+    def make_engine():
+        eng = ContinuousEngine(model, ccfg, device=args.device, obs=obs)
+        for p in prompts:
+            eng.submit(p, args.new_tokens, deadline_s=args.deadline_s)
+        return eng
+
+    t0 = time.perf_counter()
+    if args.snapshot_dir:
+        injector = None
+        if args.inject_crash_at:
+            injector = FaultInjector(FaultPlan(crash_steps=frozenset(
+                int(s) for s in args.inject_crash_at.split(","))))
+        sup = ServeSupervisor(
+            make_engine, params, args.snapshot_dir,
+            checkpoint_every=args.snapshot_every,
+            max_restarts=args.max_restarts, injector=injector, obs=obs,
+            on_step=lambda eng, hist: summarize())
+        eng, history = sup.run()
+        print(f"# supervisor: {history}")
+        if eng.batcher.failures():
+            print(f"# failed: {eng.batcher.failures()}")
+    else:
+        eng = make_engine()
+        while eng.step(params):
+            summarize()
     results = eng.batcher.results()
     dt = time.perf_counter() - t0
     if args.trace_out:

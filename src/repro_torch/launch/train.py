@@ -1,18 +1,23 @@
 """End-to-end training driver of the port.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-      --steps 20 --seq 4096 --batch 8 [--smoke] [--device cuda|cpu]
+      --steps 20 --seq 4096 --batch 8 [--smoke] [--device cuda|cpu] \\
+      [--ckpt DIR [--ckpt-every N] [--resume]]
 
 One device. ``--device cuda`` (the default) runs the attention kernels and
 raises without a CUDA device; ``--device cpu`` runs their plain versions.
 SALO attention, grad clip + schedule, straggler watchdog, restart-safe
-data stream (stateless in the step). ``--trace-out`` writes a Chrome
-trace of the step spans, ``--metrics-out`` the metrics registry (step-time
+data stream (stateless in the step). ``--ckpt DIR`` saves ``{"params",
+"opt"}`` every ``--ckpt-every`` steps and at the end through the atomic,
+keep-3, async :class:`~repro_torch.ft.checkpoint.CheckpointManager`;
+``--resume`` restores the latest checkpoint there and continues from its
+step. The batches are a function of the step, so a resumed run sees the
+batches an uninterrupted run would. ``--trace-out`` writes a Chrome trace
+of the step spans, ``--metrics-out`` the metrics registry (step-time
 histogram, token/step counters, per-kernel launch accounting).
 
-Not ported yet, and raising ``NotImplementedError``: ``--ckpt`` /
-``--resume`` (ROADMAP queue 1, 'obs/ft': ``ft/checkpoint.py``),
-``--compress-grads`` and ``--data``/``--model`` > 1 (queue 1, 'multi-GPU').
+Not ported yet, and raising ``NotImplementedError``: ``--compress-grads``
+and ``--data``/``--model`` > 1 (ROADMAP queue 1, 'multi-GPU').
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.ft.manager import StragglerWatchdog
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability
@@ -50,6 +56,7 @@ def main(argv=None):
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -62,10 +69,8 @@ def main(argv=None):
                     help="write the full metrics-registry JSON here at exit")
     args = ap.parse_args(argv)
 
-    if args.ckpt or args.resume:
-        raise NotImplementedError(
-            "--ckpt/--resume are not ported yet: ROADMAP queue 1, 'obs/ft' "
-            "(ft/checkpoint.py)")
+    if args.resume and not args.ckpt:
+        ap.error("--resume needs --ckpt")
     if args.compress_grads or args.data > 1 or args.model > 1:
         raise NotImplementedError(
             "--compress-grads and --data/--model > 1 are not ported yet: "
@@ -88,6 +93,15 @@ def main(argv=None):
     print(f"# arch={cfg.name} params={n_par / 1e6:.1f}M device={args.device}"
           f" window={cfg.salo.window} sinks={cfg.salo.n_global}")
 
+    mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt else None
+    start = 0
+    if mgr and args.resume:
+        restored, step0 = mgr.restore_latest({"params": params, "opt": opt})
+        if restored is not None:
+            params, opt = restored["params"], restored["opt"]
+            start = step0
+            print(f"# resumed from step {start}")
+
     step = make_train_step(model, tcfg)
     ds = SyntheticLM(cfg, DataConfig(args.seq, args.batch, seed=args.seed,
                                      branch=args.data_branch,
@@ -96,26 +110,35 @@ def main(argv=None):
     obs = Observability(tracing=bool(args.trace_out))
     reg = obs.registry
     loss = float("nan")
-    for i in range(args.steps):
-        t0 = time.perf_counter()
-        with obs.tracer.span("train.step", track="train", step=i):
-            params, opt, metrics = step(params, opt, ds.batch(i))
-            loss = float(metrics["loss"])   # host sync inside the span
-        dt = time.perf_counter() - t0
-        reg.inc("train_steps")
-        reg.inc("train_tokens", args.batch * args.seq)
-        reg.observe("train_step_s", dt)
-        straggler = wd.observe(dt)
-        if straggler:
-            reg.inc("ft_straggler_events")
-            obs.tracer.instant("ft.straggler", track="ft", step=i,
-                               step_time_s=round(dt, 6))
-        if i % args.log_every == 0 or i == args.steps - 1:
-            toks = args.batch * args.seq / dt
-            print(f"step {i:5d} loss {loss:8.4f} "
-                  f"gnorm {float(metrics['grad_norm']):7.3f} "
-                  f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
-                  + (" [straggler]" if straggler else ""), flush=True)
+    try:
+        for i in range(start, args.steps):
+            t0 = time.perf_counter()
+            with obs.tracer.span("train.step", track="train", step=i):
+                params, opt, metrics = step(params, opt, ds.batch(i))
+                loss = float(metrics["loss"])   # host sync inside the span
+            dt = time.perf_counter() - t0
+            reg.inc("train_steps")
+            reg.inc("train_tokens", args.batch * args.seq)
+            reg.observe("train_step_s", dt)
+            straggler = wd.observe(dt)
+            if straggler:
+                reg.inc("ft_straggler_events")
+                obs.tracer.instant("ft.straggler", track="ft", step=i,
+                                   step_time_s=round(dt, 6))
+            if i % args.log_every == 0 or i == args.steps - 1:
+                toks = args.batch * args.seq / dt
+                print(f"step {i:5d} loss {loss:8.4f} "
+                      f"gnorm {float(metrics['grad_norm']):7.3f} "
+                      f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
+                      + (" [straggler]" if straggler else ""), flush=True)
+            if mgr and (i + 1) % args.ckpt_every == 0:
+                mgr.save({"params": params, "opt": opt}, i + 1)
+                obs.tracer.instant("ft.snapshot", track="ft", step=i + 1)
+        if mgr:
+            mgr.save({"params": params, "opt": opt}, args.steps)
+    finally:
+        if mgr:   # a checkpoint in flight lands even when a step raised
+            mgr.wait()
     if args.trace_out:
         obs.write_trace(args.trace_out)
         print(f"# trace: {args.trace_out} ({len(obs.tracer)} events)",

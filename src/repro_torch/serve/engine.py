@@ -25,13 +25,16 @@ updated in place. The engines run on the model's device ("cuda" unless the
 caller asks for "cpu", where every kernel wrapper takes its plain
 version).
 
-Not ported yet, each raising ``NotImplementedError``: sequence-parallel
-serving (``seq_shards > 1``) and engine snapshots
-(``state_dict``/``load_state``).
+``ContinuousEngine.state_dict``/``load_state`` snapshot and restore the
+whole serving state (the fault-tolerant supervisor,
+:class:`repro_torch.ft.manager.ServeSupervisor`, drives them). Not ported
+yet, raising ``NotImplementedError``: sequence-parallel serving
+(``seq_shards > 1``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections.abc import MutableMapping
 from typing import Callable, Dict, Optional
@@ -47,7 +50,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 from repro_torch.obs import Observability
 from repro_torch.serve.batcher import Batcher
-from repro_torch.serve.paged_cache import (empty_positions,
+from repro_torch.serve.paged_cache import (PagedSlab, empty_positions,
                                            layout_for_pattern,
                                            reset_page_scales, slab_init)
 
@@ -544,10 +547,73 @@ class ContinuousEngine:
             pass
         return self.batcher.results()
 
+    # --------------------------- snapshotting --------------------------- #
     def state_dict(self) -> dict:
-        raise _not_ported("engine snapshots (state_dict)",
-                          "'host services' (obs/ft snapshot)")
+        """Full serving state as a checkpointable tree, as the reference
+        builds it: the KV slabs (payload + int8 scales), the slot map, the
+        host page tables and page-stats history, and ONE variable-length
+        uint8 leaf of JSON bytes carrying the control plane (the metrics
+        registry, engine counters included, and the batcher's request
+        lifecycle, ``Batcher.state_dict``). Encoding the control plane as
+        bytes keeps the tree STRUCTURE fixed while its length tracks queue
+        depth.
+
+        The device tensors are CLONES: the engine updates its slabs and
+        slot map in place, where the reference's arrays were immutable,
+        so a snapshot holding the live tensors would change with the next
+        step. Take it at a step boundary, where device and host state are
+        mutually consistent."""
+        ctl = {"counters": dict(self.counters),
+               "batcher": self.batcher.state_dict(),
+               "metrics": self.registry.state_dict()}
+        blob = np.frombuffer(json.dumps(ctl).encode("utf-8"),
+                             np.uint8).copy()
+        return {"slabs": {key: PagedSlab(*(None if a is None else a.clone()
+                                           for a in s))
+                          for key, s in self.slabs.items()},
+                "slot_pos": self.slot_pos.clone(),
+                "page_tables": self.page_tables.copy(),
+                "page_hist": self.page_hist.copy(),
+                "control": blob}
 
     def load_state(self, tree: dict) -> None:
-        raise _not_ported("engine snapshots (load_state)",
-                          "'host services' (obs/ft snapshot)")
+        """Wholesale state replacement from a :meth:`state_dict` image of
+        the same model and config (a tree from ``ft.restore``, or a
+        reference snapshot through ``convert.engine_state_from_jax``).
+        The slab tensors and the slot map are copied INTO the engine's
+        own tensors on ``self.device``, so the engine stays on its device
+        whatever device the image's tensors are on. After this the engine
+        continues exactly where the snapshot was taken: greedy outputs
+        match an uninterrupted run token for token (exactly-once
+        emission). An image without ``"metrics"`` (the format before the
+        registry) restores the counters alone."""
+        slabs = tree["slabs"]
+        if set(slabs) != set(self.slabs):
+            raise ValueError(f"snapshot slabs {sorted(slabs)} != the "
+                             f"engine's {sorted(self.slabs)}")
+        for key, own in self.slabs.items():
+            if slabs[key].quantized != own.quantized:
+                raise ValueError(f"snapshot slab {key}: quantized "
+                                 f"{slabs[key].quantized}, engine "
+                                 f"{own.quantized}")
+            for dst, src in zip(own.tensors(), slabs[key].tensors()):
+                _copy_into(dst, src, f"slab {key}")
+        _copy_into(self.slot_pos, tree["slot_pos"], "slot_pos")
+        self.page_tables = np.asarray(tree["page_tables"], np.int32).copy()
+        self.page_hist = np.asarray(tree["page_hist"], np.float64).copy()
+        ctl = json.loads(bytes(np.asarray(tree["control"],
+                                          np.uint8)).decode("utf-8"))
+        self.counters.update(ctl["counters"])
+        if "metrics" in ctl:   # full-registry image; absent in pre-obs
+            self.registry.load_state(ctl["metrics"])   # snapshots, whose
+        self.batcher.load_state(ctl["batcher"])        # counters loaded above
+
+
+def _copy_into(dst: torch.Tensor, src, what: str) -> None:
+    """Copy a snapshot tensor into the engine's own tensor, which must
+    have its shape and dtype (a mismatch is another model or config)."""
+    src = torch.as_tensor(src)
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError(f"snapshot {what}: {tuple(src.shape)} {src.dtype},"
+                         f" engine {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(src)

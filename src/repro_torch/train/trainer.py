@@ -3,7 +3,8 @@ accumulation and the LR schedule.
 
 The port of :mod:`repro.train.trainer` for one device.
 ``make_train_step(model, tcfg)`` returns
-``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
+``make_eval_step(model)`` returns ``eval_step(params, batch) -> metrics``.
 Gradients are f32 on both microbatch paths, and metrics are averaged over
 the microbatches, as in the reference. The reference's fourth argument,
 the error-feedback state of compressed gradients, has no counterpart:
@@ -78,3 +79,17 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
         return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
 
     return train_step
+
+
+def make_eval_step(model) -> Callable:
+    """``eval_step(params, batch) -> metrics``: the loss's metrics on one
+    batch, no gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        batch = {k: torch.as_tensor(v).to(model.device)
+                 for k, v in batch.items()}
+        _, metrics = model.loss(params, batch)
+        return metrics
+
+    return eval_step

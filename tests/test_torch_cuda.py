@@ -434,6 +434,73 @@ def test_int8_page_sparse_engine_cuda_equals_cpu():
     assert 0 < c["decode_pages_read"] < c["decode_pages_total"]
 
 
+# ------------------- fault tolerance: snapshots on the card -------------- #
+@pytest.mark.parametrize("kv", ["compute", "int8"])
+def test_engine_snapshot_restores_on_cuda(tmp_path, kv):
+    """A CUDA engine's snapshot, written to disk after 4 steps and
+    restored into a fresh CUDA engine: every slab tensor and the slot map
+    stay on the card, and the tokens and counters equal the uninterrupted
+    CUDA run's. The snapshot taken before the further steps is unchanged
+    by them (its tensors are clones)."""
+    from repro_torch.ft import restore, save
+
+    _need_cuda()
+    cfg = _smoke_hd64(window=64, n_global=2)
+    lay = layout_for_pattern(salo_pattern(cfg), 8)
+    extra = (dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
+                  page_stat_decay=0.3) if kv == "int8" else {})
+    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
+                            chunk=8, max_batch=4, **extra)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(6))
+    for layer in params["seg0_attn_mlp"]:
+        layer["attn"]["wo"] *= 6.0
+        layer["mlp"]["w_out"] *= 6.0
+    params = _params_on(params, "cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (24, 17, 9, 50)]
+    model = build_model(cfg, "cuda")
+
+    def fresh():
+        eng = ContinuousEngine(model, ccfg, device="cuda")
+        return eng, [eng.submit(x, 16) for x in prompts]
+
+    eng, rids = fresh()
+    for _ in range(4):
+        eng.step(params)
+    snap = eng.state_dict()
+    frozen = [a.clone() for s in snap["slabs"].values() for a in s.tensors()]
+    save(tmp_path, snap, 4)
+    res = eng.run(params)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [a for s in snap["slabs"].values() for a in s.tensors()], frozen))
+
+    eng2, _ = fresh()
+    eng2.load_state(restore(tmp_path, eng2.state_dict()))
+    tensors = [a for s in eng2.slabs.values() for a in s.tensors()]
+    assert all(a.is_cuda for a in tensors) and eng2.slot_pos.is_cuda
+    res2 = eng2.run(params)
+    assert [res2[r].tolist() for r in rids] == [res[r].tolist()
+                                                for r in rids]
+    assert dict(eng2.counters) == dict(eng.counters)
+
+
+def test_restore_gives_cuda_leaves_of_the_like_dtype(tmp_path):
+    from repro_torch.ft import restore, save
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tree = {"bf16": torch.randn(8, 3, generator=g, device="cuda").bfloat16(),
+            "f32": torch.randn(5, generator=g, device="cuda"),
+            "i8": torch.ones(4, dtype=torch.int8, device="cuda"),
+            "step": 3}
+    save(tmp_path, tree, 1)
+    got = restore(tmp_path, tree)
+    for k in ("bf16", "f32", "i8"):
+        assert got[k].is_cuda and got[k].dtype == tree[k].dtype
+        assert torch.equal(got[k], tree[k])
+    assert got["step"] == 3 and isinstance(got["step"], int)
+
+
 @pytest.mark.parametrize("ring", [False, True])
 def test_lockstep_engine_cuda_equals_cpu(ring):
     _need_cuda()

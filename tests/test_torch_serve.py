@@ -166,12 +166,3 @@ def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(t_build(tcfg, "cpu"), TConfig(n_pages=9, **kw),
                 device="cpu")
-
-
-def test_snapshots_raise():
-    _, tcfg = _cfgs()
-    eng = TEngine(t_build(tcfg, "cpu"), TConfig(n_pages=9), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.load_state({})

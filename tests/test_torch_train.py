@@ -186,7 +186,6 @@ def test_cli_smoke_loss_drops(capsys):
 def test_cli_unported_options_raise():
     from repro_torch.launch.train import main
 
-    for extra in (["--ckpt", "x"], ["--resume"], ["--compress-grads"],
-                  ["--data", "2"]):
+    for extra in (["--compress-grads"], ["--data", "2"], ["--model", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--smoke", "--device", "cpu", "--steps", "1", *extra])
