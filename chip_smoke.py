@@ -110,12 +110,38 @@ nonzero:
    each of its two blocks recomputes), and
    ``scaled_dot_product_attention`` with the dense mask (forward, and its
    backward beside K2 and K3) as a yardstick.
-11. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
+11. **dynamic** — runtime plans: ``hybrid_attention(plan="dynamic")``
+   fwd + bwd with a seeded cotangent at smollm-135m's attention (its
+   pattern, 8 x 9 query heads on 3 KV heads, n 4096, hd 64, block 256,
+   bf16) with keep 4 (61 of the static plan's 96 steps) and full keep
+   (7), and at longformer-4k's (bidirectional window 512, one global token
+   with global rows, 8 x 12 heads) with keep 4 (62 of 74). Each call must
+   launch K1 once and K2 once on the step tables selected on the card, K3
+   never, and no plain version. At full keep the device tables must equal
+   the static plan's, out and dQ the static path's (bitwise printed), and
+   the scatter dK/dV twin K3's on the packed tables within
+   ``salo_backward.DKV_TOL``; at keep 4, K1 and K2 on the device tables
+   must match their plain versions on the same tables (the train-kernels
+   tolerances). Two calls of the scatter dK/dV must be bitwise equal.
+   Prints, for smollm at keep 4, the selection's time, K1's and K2's
+   (beside their plain versions, bounds and SDPA with the mask the
+   selection implies), the scatter twin's against K3's, the op's fwd +
+   bwd dynamic against static, the host's time to issue each of those
+   calls, and the executed-tile ratio; one fwd + bwd runs under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read on the
+   call path.
+12. **dynamic-check** — narrowed f32 cases (causal sinks, longformer with
+   global rows, dilated sinks with hd 128), keep below ``max_steps``, on
+   the card and on the CPU from the same tensors: equal tables; out and
+   the three gradients within 1e-4. Then how many rows of smollm's bf16
+   keep-4 tables differ between the card and the CPU (near-ties may flip;
+   not gated).
+13. **train-check** — a 2-layer, hd-64 f32 model trained 3 steps on the
    card (kernels) and on the CPU (plain versions) from the same
    parameters and batches: losses and grad norms agree within 1e-4; then
    the same for gemma-7b (hd 256) and longformer-4k (hd 64, bidirectional,
    global rows) at narrowed widths.
-12. **train** — smollm-135m at full width and depth, bf16, remat full,
+14. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
    the last 5 is below the first, K1 launches = 2 x 30 x steps, K2 = 30 x
@@ -126,16 +152,25 @@ nonzero:
    ``ft.CheckpointManager`` (the device-to-host copy synchronous, the
    write in the background), a clone stays on the card; the steps that
    overlap the write are printed and left out of the median.
-13. **train-ft** — the checkpoint restored into a freshly initialised
+15. **train-ft** — the checkpoint restored into a freshly initialised
    state: every parameter, m and v bit-equal to the clone on the card, the
    step an int; steps 10 and 11 replayed from it give the train phase's
    losses and grad norms bit for bit. Prints the checkpoint bytes, the
    synchronous snapshot ms, the background write s and the restore ms.
-14. **train gemma-7b** — every published width of gemma-7b kept, the
+16. **train-dots** — the train phase's first 5 steps (same seed,
+    weights, batches and 20-step schedule) under ``remat="dots"``: losses
+    equal to the train phase's within 1e-4 (bitwise printed), K1 = 2 x 30
+    x steps (the attention forward replays under dots too), K2 = 30 x
+    steps, K3 = 2 x 30 x steps. Prints ``train_bytes``' reckoning of what
+    dots saves first, then the step time and peak memory beside the train
+    phase's, and profiles one more step. Each train phase collects Python's
+   cyclic garbage before it resets the peak-memory counter and prints
+   what is allocated when it starts.
+17. **train gemma-7b** — every published width of gemma-7b kept, the
     depth cut to the deepest whose reckoned step peak (``train_bytes``,
     printed first) fits 92 % of the card, seq 4096, batch 1, 10 steps,
     lr 1e-3, warmup 3; the same checks and lines as the train phase.
-15. **train longformer-4k** — at full width and depth (12 layers, d
+18. **train longformer-4k** — at full width and depth (12 layers, d
     768), seq 4096, batch 8, 20 steps, as the train phase: the
     bidirectional band and the global-rows epilogue on the card.
 
@@ -147,6 +182,7 @@ rest of the checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -1185,6 +1221,32 @@ def _executed_pairs(sched, pos_q, pos_k, kvb, flags, rows: int) -> int:
     return total
 
 
+def _k12_io(BH, n_pad, D, item, tables, pairs, dtype):
+    """(bytes moved, [(operations, peak for their type)]) of K1 and K2 on
+    step tables whose masks admit ``pairs`` pairs: each input read once,
+    each output written once. Both forward products take 16-bit operands
+    (p is rounded to V's type): 4 x hd flops per pair. dQ with 16-bit
+    inputs: each product once at the 16-bit tensor rate, 6 x hd per pair
+    (q.k^T, dout.v^T, ds.k); with f32 inputs all but q.k^T at the f32
+    rate."""
+    qkv = 3 * BH * n_pad * D * item
+    stats = 3 * BH * n_pad * 4
+    pk16, pk32 = PEAK_OPS[dtype], PEAK_OPS["float32"]
+    dq_ops = ([(2 * D * pairs, pk16), (4 * D * pairs, pk32)]
+              if dtype == "float32" else [(6 * D * pairs, pk16)])
+    return {
+        K1: (qkv + BH * n_pad * D * item + 2 * BH * n_pad * 4 + tables,
+             [(4 * D * pairs, pk16)]),
+        K2: (qkv + BH * n_pad * D * 4 + stats + BH * n_pad * D * item
+             + tables, dq_ops)}
+
+
+def _bound(nbytes, parts):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(o / peak for o, peak in parts) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_train_kernels(torch, timer, seed):
     """K1, K2, K3 against their plain versions; returns the timed cases'
     records {case: {kernel: record}}."""
@@ -1289,30 +1351,19 @@ def phase_train_kernels(torch, timer, seed):
         stats = 3 * BH * n_pad * 4
         tables = 4 * (t.pos.numel() + t.kv_blocks.numel() + t.flags.numel())
         ttables = 4 * (t.pos.numel() + sum(x.numel() for x in dkv_t))
-        # (bytes moved, [(operations, peak for their type), ...]). Both
-        # forward products take 16-bit operands (p is rounded to V's type).
-        # In the backward, with 16-bit inputs, each product once at the
-        # 16-bit tensor rate: 6 x hd flops per pair for dQ (q.k^T, dout.v^T,
-        # ds.k), 8 x hd for dK/dV (q.k^T, dout.v^T, p^T.dout, ds^T.q). With
-        # f32 inputs every product but q.k^T at the f32 peak.
+        # (bytes moved, [(operations, peak for their type), ...]); K1 and
+        # K2 as _k12_io. dK/dV with 16-bit inputs: each product once at the
+        # 16-bit tensor rate, 8 x hd flops per pair (q.k^T, dout.v^T,
+        # p^T.dout, ds^T.q); with f32 inputs every product but q.k^T at
+        # the f32 peak.
         pk16, pk32 = PEAK_OPS[c["dtype"]], PEAK_OPS["float32"]
         if c["dtype"] == "float32":
-            dq_ops = [(2 * D * pairs, pk16), (4 * D * pairs, pk32)]
             dkv_ops = [(2 * D * pairs, pk16), (6 * D * pairs, pk32)]
         else:
-            dq_ops = [(6 * D * pairs, pk16)]
             dkv_ops = [(8 * D * pairs, pk16)]
-        io = {
-            "salo_table_attention": (
-                qkv + BH * n_pad * D * item + 2 * BH * n_pad * 4 + tables,
-                [(4 * D * pairs, pk16)]),
-            "salo_table_backward_dq": (
-                qkv + BH * n_pad * D * 4 + stats + BH * n_pad * D * item
-                + tables, dq_ops),
-            "salo_table_backward_dkv": (
-                qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
-                + ttables, dkv_ops),
-        }
+        io = {**_k12_io(BH, n_pad, D, item, tables, pairs, c["dtype"]),
+              K3: (qkv + BH * n_pad * D * 4 + stats + 2 * BH * n_pad * D * 4
+                   + ttables, dkv_ops)}
         # what the kernels run: K1 4 x hd flops per pair of every sub-tile
         # it executes (16-bit: 16-row x 64-key warp sub-tiles, f32: 64 x 64
         # block sub-tiles); K2/K3 with 16-bit inputs the hi/lo split's
@@ -1368,8 +1419,7 @@ def phase_train_kernels(torch, timer, seed):
             if kname not in TIMED[name]:
                 continue
             nbytes, parts = io[kname]
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = sum(o / peak for o, peak in parts) * 1e3
+            bound_ms, bound_by = _bound(nbytes, parts)
             ops = sum(o for o, _ in parts)
             err = (errs["out"] if kname == "salo_table_attention" else
                    errs["dq"] if kname == "salo_table_backward_dq" else
@@ -1381,8 +1431,7 @@ def phase_train_kernels(torch, timer, seed):
                 # and the queue must not fill up behind the sleep kernel
                 plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
                 library_ms=lib_ms[K1 if kname == K1 else "backward"],
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=err, bytes=nbytes, ops=ops,
                 run_ops=run_ops[kname],
                 run_tflops=run_ops[kname] / kernel_ms / 1e9,
@@ -1391,6 +1440,338 @@ def phase_train_kernels(torch, timer, seed):
                 + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
         out_records[name] = recs
     return out_records
+
+
+# --------------------------------------------------------------------- #
+# Runtime plans: the dynamic path (hybrid_attention(plan="dynamic")), on
+# device-built step tables. smollm-135m's and longformer-4k's attention at
+# full width (8 x 9 query heads on 3 KV heads; 8 x 12 heads), n 4096, hd
+# 64, block 256, bf16; keep 4 of smollm's 7 steps (61 of 96 executed),
+# full keep, and keep 4 of longformer's 5 (62 of 74).
+DYN_CASES = {
+    "smollm-135m": dict(pat=("csw", 1024, 4, 1), B=8, H=9, Hkv=3, n=4096,
+                        hd=64, blk=256, keeps=(4, 7)),
+    "longformer-4k": dict(pat=("lf", 512, 1), B=8, H=12, Hkv=12, n=4096,
+                          hd=64, blk=256, keeps=(4,)),
+}
+# the dynamic-check cases: narrowed f32, run on the card and on the CPU
+DYN_CHECK = {
+    "causal_sinks": dict(pat=("csw", 100, 4, 1), B=2, H=4, Hkv=2, n=512,
+                         hd=64, blk=64),
+    "longformer": dict(pat=("lf", 48, 2), B=2, H=3, Hkv=3, n=333, hd=64,
+                       blk=32),
+    "dilated_sinks": dict(pat=("csw", 24, 3, 2), B=2, H=2, Hkv=1, n=200,
+                          hd=128, blk=32),
+}
+
+
+def _issue_ms(torch, fn, n: int = 5) -> float:
+    """The host's time to issue one call of ``fn`` (mean of ``n``, after a
+    warm-up), without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+def _dyn_inputs(torch, c, dtype, gen, device="cuda"):
+    shp_q = (c["B"], c["H"], c["n"], c["hd"])
+    shp_kv = (c["B"], c["Hkv"], c["n"], c["hd"])
+    return [torch.randn(s, generator=gen, device=device).to(dtype)
+            for s in (shp_q, shp_kv, shp_kv, shp_q)]
+
+
+def _flat(torch, q, k):
+    """hybrid_attention's flat (B*H, n, D) q and GQA-expanded k."""
+    B, H, n, D = q.shape
+    rep = H // k.shape[1]
+    kf = k[:, :, None].expand(B, k.shape[1], rep, n, D).reshape(B * H, n, D)
+    return q.reshape(B * H, n, D), kf
+
+
+def _dyn_grad(torch, pat, c, q, k, v, cot, plan="dynamic", keep=None):
+    """One fwd + bwd of hybrid_attention; returns (out, dq, dk, dv)."""
+    from repro_torch.core.attention import hybrid_attention
+
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    kw = dict(dynamic_keep=keep) if plan == "dynamic" else {}
+    out = hybrid_attention(*xs, pat, block_q=c["blk"], block_k=c["blk"],
+                           plan=plan, **kw)
+    return (out.detach(), *torch.autograd.grad(out, xs, cot))
+
+
+def phase_dynamic(torch, timer, seed):
+    """The dynamic path on the card: each fwd + bwd must launch K1 once
+    and K2 once, K3 never, no plain version; at full keep the device
+    tables equal the static plan's and out / dQ the static path's; at
+    small keep K1 and K2 on the device tables match their plain versions
+    on the same tables; the scatter dK/dV repeats bitwise. Returns the
+    path's launch counts and K1/K2 records of smollm-135m at keep 4."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import dynamic as DY
+    from repro_torch.core.blockwise import (plan_tables,
+                                            table_dkv_scatter_scan,
+                                            working_stream)
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    dtype = torch.bfloat16
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    records = {}
+    for ci, (arch, c) in enumerate(DYN_CASES.items()):
+        pat = _case_pattern(c["pat"])
+        gen = torch.Generator(device="cuda").manual_seed(seed + 300 + ci)
+        q, k, v, cot = _dyn_inputs(torch, c, dtype, gen)
+        qf, kf = _flat(torch, q, k)
+        BH, D, blk = c["B"] * c["H"], c["hd"], c["blk"]
+        for keep in c["keeps"]:
+            # the main path: counts set to 0 just before, read just after
+            _counters(reset=True)
+            res = _dyn_grad(torch, pat, c, q, k, v, cot, keep=keep)
+            torch.cuda.synchronize()
+            launches, plain = _counters()
+            check(launches == {"K1": 1, "K2": 1, "K3": 0} and plain == 0,
+                  f"[dynamic] {arch} keep {keep}: launches {launches}, "
+                  f"plain {plain}; want K1 1, K2 1, K3 0, plain 0")
+            for key in total:
+                total[key] += launches[key]
+            check(all(bool(torch.isfinite(x.float()).all()) for x in res),
+                  f"[dynamic] {arch} keep {keep}: non-finite out or grads")
+
+            cfg = DY.DynamicConfig(keep=keep)
+            plan, kvt, flg, _ = DY.dynamic_tables(qf, kf, pat, cfg,
+                                                  block_q=blk, block_k=blk)
+            sched = plan.sched
+            t = plan_tables(plan, q.device)
+            pos_q = t.pos.reshape(plan.nq, blk)
+            pos_k = t.pos.reshape(plan.nkb, blk)
+            total_steps, kept = DY._kept_steps(plan.flags, keep)
+            check(int((flg != 0).sum()) == kept,
+                  f"[dynamic] {arch} keep {keep}: {int((flg != 0).sum())} "
+                  f"steps kept, want {kept}")
+            scale = D ** -0.5
+            kw = dict(sched=sched, scale=scale)
+            vf = v[:, :, None].expand(c["B"], c["Hkv"], c["H"] // c["Hkv"],
+                                      c["n"], D).reshape(BH, c["n"], D)
+            qw, kw_, vw = (working_stream(x, sched, plan).contiguous()
+                           for x in (qf, kf, vf))
+            dout = working_stream(cot.reshape(BH, c["n"], D), sched,
+                                  plan).float().contiguous()
+            fwd = (qw, kw_, vw, pos_q, pos_k, kvt, flg)
+            out_w, m, l = KA.salo_table_attention(*fwd, **kw)
+            delta = (dout * out_w.float()).sum(-1)
+            bwd = (dout, delta, m, l, qw, kw_, vw, pos_q, pos_k)
+            sc1 = table_dkv_scatter_scan(*bwd, kvt, flg, sched, scale)
+            sc2 = table_dkv_scatter_scan(*bwd, kvt, flg, sched, scale)
+            check(torch.equal(sc1[0], sc2[0]) and torch.equal(sc1[1], sc2[1]),
+                  f"[dynamic] {arch} keep {keep}: the scatter dK/dV differs "
+                  f"between two calls")
+            errs = {}
+            if keep >= plan.max_steps:
+                check(torch.equal(kvt, t.kv_blocks)
+                      and torch.equal(flg, t.flags),
+                      f"[dynamic] {arch} full keep: the device tables differ "
+                      f"from the static plan's")
+                st = _dyn_grad(torch, pat, c, q, k, v, cot, plan="static")
+                bitwise = {w: torch.equal(a, b) for w, a, b in
+                           zip(("out", "dq", "dk", "dv"), res, st)}
+                for w, a, b, tl in (("out", res[0], st[0], KA.OUT_TOL[dtype]),
+                                    ("dq", res[1], st[1], GRAD_TOL["bfloat16"])):
+                    errs[w] = float((a.float() - b.float()).abs().max())
+                    check(bool(torch.allclose(a.float(), b.float(), atol=tl,
+                                              rtol=tl)),
+                          f"[dynamic] {arch} full keep: {w} vs the static "
+                          f"path max abs err {errs[w]} > {tl}")
+                dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+                dk3, dv3 = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+                ktol = KB.DKV_TOL[dtype]
+                for w, a, b in (("dk", sc1[0], dk3), ("dv", sc1[1], dv3)):
+                    errs[w] = float((a - b).abs().max())
+                    check(bool(torch.allclose(a, b, atol=ktol, rtol=ktol)),
+                          f"[dynamic] {arch} full keep: scatter {w} vs K3 "
+                          f"max abs err {errs[w]} > {ktol}")
+                log(f"[dynamic] {arch} full keep {keep}: device tables equal "
+                    f"the static plan's; vs the static path: bitwise "
+                    f"{bitwise}, max abs err {errs} (scatter dK/dV vs K3 "
+                    f"on the packed tables)")
+            else:
+                ro, rm, rl = KA.salo_table_attention_plain(*fwd, **kw)
+                dq = KB.salo_table_backward_dq(*bwd, kvt, flg, **kw)
+                rdq = KB.salo_table_backward_dq_plain(*bwd, kvt, flg, **kw)
+                for w, a, b, tl in (("out", out_w, ro, KA.OUT_TOL[dtype]),
+                                    ("m", m, rm, KA.STATS_TOL),
+                                    ("l", l, rl, KA.STATS_TOL),
+                                    ("dq", dq, rdq, GRAD_TOL["bfloat16"])):
+                    errs[w] = float((a.float() - b.float()).abs().max())
+                    check(bool(torch.allclose(a.float(), b.float(), atol=tl,
+                                              rtol=tl)),
+                          f"[dynamic] {arch} keep {keep}: kernel {w} vs plain "
+                          f"on the device tables max abs err {errs[w]} > {tl}")
+                errs["dq_off_share"] = KB.dq_off_share(dq, rdq)
+                check(errs["dq_off_share"] <= KB.DQ_OFF_SHARE,
+                      f"[dynamic] {arch} keep {keep}: dq off share "
+                      f"{errs['dq_off_share']} > {KB.DQ_OFF_SHARE}")
+                rows_moved = int((kvt != t.kv_blocks[:, :keep]).any(1).sum())
+                log(f"[dynamic] {arch} keep {keep}: K1, K2 on the device "
+                    f"tables vs their plain versions max abs err {errs}; "
+                    f"{rows_moved} of {plan.nq} rows differ from the static "
+                    f"table's first {keep} steps")
+            log(f"[dynamic] {arch} keep {keep}: tables {tuple(kvt.shape)} "
+                f"(static {tuple(t.kv_blocks.shape)}), executed steps "
+                f"{kept} of {total_steps} (ratio {kept / total_steps}); "
+                f"launches {launches}; scatter dK/dV bitwise equal over two "
+                f"calls")
+            if arch != "smollm-135m" or keep >= plan.max_steps:
+                continue
+
+            # times on the card: selection, K1 and K2 on the device
+            # tables, the scatter twin against K3, the op fwd + bwd
+            # dynamic against static
+            window = DY._resolve_window(cfg, blk, blk)
+            dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+            tms_fns = {
+                "select_ms": lambda: DY._selected(qw, kw_, plan, cfg, window,
+                                                  keep, scale),
+                "scatter_dkv_ms": lambda: table_dkv_scatter_scan(
+                    *bwd, kvt, flg, sched, scale),
+                "k3_static_ms": lambda: KB.salo_table_backward_dkv(
+                    *bwd, *dkv_t, **kw),
+                "dynamic_fwd_bwd_ms": lambda: _dyn_grad(
+                    torch, pat, c, q, k, v, cot, keep=keep),
+                "static_fwd_bwd_ms": lambda: _dyn_grad(
+                    torch, pat, c, q, k, v, cot, plan="static"),
+            }
+            tms = {name: timer(fn, iters=20 if name in ("select_ms",
+                                                         "k3_static_ms")
+                               else 5)
+                   for name, fn in tms_fns.items()}
+            # the host's time to issue a call (no wait on the card): the
+            # selection is ~30 small launches
+            issue = {name: _issue_ms(torch, fn) for name, fn in (
+                ("select", tms_fns["select_ms"]),
+                ("scatter_dkv", tms_fns["scatter_dkv_ms"]),
+                ("dynamic_fwd_bwd", tms_fns["dynamic_fwd_bwd_ms"]),
+                ("static_fwd_bwd", tms_fns["static_fwd_bwd_ms"]))}
+            # no host read on the call path: ATen's synchronizing ops raise
+            # under the sync debug mode (which does not see every sync)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tms_fns["dynamic_fwd_bwd_ms"]()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log(f"[dynamic] {arch} keep {keep}: fwd + bwd ran under "
+                f"torch.cuda.set_sync_debug_mode('error') with no "
+                f"synchronizing op; host issue ms a call {issue}")
+            item = q.element_size()
+            tables = 4 * (t.pos.numel() + kvt.numel() + flg.numel())
+            pairs = BH * _attended_pairs(torch, sched, pos_q, pos_k, kvt,
+                                         flg)
+            io = _k12_io(BH, plan.n_pad, D, item, tables, pairs, "bfloat16")
+            # yardstick: SDPA with the dense mask the selection implies
+            sel = torch.zeros((plan.nq, plan.nkb + 1), dtype=torch.bool,
+                              device="cuda")
+            sel.scatter_(1, torch.where(flg != 0, kvt, plan.nkb).long(),
+                         True)
+            sel = sel[:, :plan.nkb]
+            mask = torch.from_numpy(pat.mask(c["n"])).cuda() & \
+                sel.repeat_interleave(blk, 0).repeat_interleave(blk, 1)
+            qs, kss, vs = (x[None].detach().requires_grad_()
+                           for x in (qw, kw_, vw))
+            lib_out = F.scaled_dot_product_attention(qs, kss, vs,
+                                                     attn_mask=mask)
+            lib = {K1: timer(lambda: F.scaled_dot_product_attention(
+                       qs, kss, vs, attn_mask=mask)),
+                   K2: timer(lambda: torch.autograd.grad(
+                       lib_out, (qs, kss, vs), dout[None].to(dtype),
+                       retain_graph=True))}
+            del lib_out
+            calls = {
+                K1: (lambda: KA.salo_table_attention(*fwd, **kw),
+                     lambda: KA.salo_table_attention_plain(*fwd, **kw),
+                     errs["out"]),
+                K2: (lambda: KB.salo_table_backward_dq(*bwd, kvt, flg, **kw),
+                     lambda: KB.salo_table_backward_dq_plain(*bwd, kvt, flg,
+                                                             **kw),
+                     errs["dq"])}
+            for kname, (kfn, pfn, err) in calls.items():
+                bound_ms, bound_by = _bound(*io[kname])
+                records[kname] = dict(
+                    kernel_ms=timer(kfn),
+                    plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
+                    library_ms=lib[kname], bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err, pairs=pairs)
+                log(f"[dynamic] {arch} keep {keep} {kname}: "
+                    + " ".join(f"{a}={b}" for a, b in records[kname].items()))
+            log(f"[dynamic] {arch} keep {keep} times (ms): "
+                + " ".join(f"{a}={b}" for a, b in tms.items())
+                + f"; scatter / K3 {tms['scatter_dkv_ms'] / tms['k3_static_ms']}"
+                + f"; dynamic / static fwd+bwd "
+                f"{tms['dynamic_fwd_bwd_ms'] / tms['static_fwd_bwd_ms']}; "
+                f"executed-tile ratio {kept / total_steps}")
+    log(f"[dynamic] launches on the dynamic path {total}")
+    return total, records
+
+
+def dynamic_check(torch, seed):
+    """Narrowed f32 cases on the card and on the CPU from the same tensors:
+    the device-built tables equal, out and the three gradients within
+    1e-4. Then smollm-135m's bf16 case at full width: how many table rows
+    differ between the card and the CPU (near-ties may flip; not gated)."""
+    from repro_torch.core import dynamic as DY
+    from repro_torch.core.scheduler import schedule
+
+    for ci, (name, c) in enumerate(DYN_CHECK.items()):
+        pat = _case_pattern(c["pat"])
+        gen = torch.Generator().manual_seed(seed + 400 + ci)
+        xs = _dyn_inputs(torch, c, torch.float32, gen, device="cpu")
+        qf, kf = _flat(torch, xs[0], xs[1])
+        sched_plan = schedule(pat, c["n"]).plan(c["blk"], c["blk"])
+        need = int(DY.plan_always_keep(sched_plan, c["blk"]).sum(-1).max())
+        # below max_steps (a real selection), at or above the always-kept
+        keep = max(need, min(need + 1, sched_plan.max_steps - 1))
+        check(keep < sched_plan.max_steps, f"[dynamic-check] {name}: keep "
+              f"{keep} leaves nothing to select of {sched_plan.max_steps}")
+        cfg = DY.DynamicConfig(keep=keep)
+        tabs, res = {}, {}
+        for dev in ("cuda", "cpu"):
+            _, kvt, flg, _ = DY.dynamic_tables(qf.to(dev), kf.to(dev), pat,
+                                               cfg, block_q=c["blk"],
+                                               block_k=c["blk"])
+            tabs[dev] = (kvt.cpu(), flg.cpu())
+            res[dev] = [x.cpu() for x in _dyn_grad(
+                torch, pat, c, *(x.to(dev) for x in xs), keep=keep)]
+        check(all(torch.equal(a, b) for a, b in zip(tabs["cuda"],
+                                                      tabs["cpu"])),
+              f"[dynamic-check] {name}: tables differ between cuda and cpu")
+        errs = [float((a - b).abs().max()) for a, b in zip(res["cuda"],
+                                                            res["cpu"])]
+        check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                  for a, b in zip(res["cuda"], res["cpu"])),
+              f"[dynamic-check] {name}: cuda vs cpu (out, dq, dk, dv) max "
+              f"abs err {errs} > 1e-4")
+        log(f"[dynamic-check] {name} f32 keep {keep} of "
+            f"{sched_plan.max_steps}: tables equal on cuda and cpu; (out, "
+            f"dq, dk, dv) max abs err {errs}")
+    c = DYN_CASES["smollm-135m"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+    q, k, _, _ = _dyn_inputs(torch, c, torch.bfloat16, gen)
+    qf, kf = _flat(torch, q, k)
+    keep = c["keeps"][0]
+    cfg = DY.DynamicConfig(keep=keep)
+    got = [DY.dynamic_tables(x, y, _case_pattern(c["pat"]), cfg,
+                             block_q=c["blk"], block_k=c["blk"])[1:3]
+           for x, y in ((qf, kf), (qf.cpu(), kf.cpu()))]
+    rows = int(((got[0][0].cpu() != got[1][0]) |
+                (got[0][1].cpu() != got[1][1])).any(1).sum())
+    log(f"[dynamic-check] smollm-135m bf16 keep {keep} at full width: "
+        f"{rows} of {got[1][0].shape[0]} table rows differ between cuda and "
+        f"cpu (not gated)")
 
 
 def _train_cfg(smoke: bool):
@@ -1487,16 +1868,28 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     temporaries (~5 x 4 B each) come on top while it is updated; the
     embedding, the largest, is the first leaf, so they meet only the 18 B
     a parameter held when the update starts. The loss holds the f32 logits, their soft-capped and
-    log-softmax copies and their gradient (4 x 4 B a logit)."""
+    log-softmax copies and their gradient (4 x 4 B a logit), beside what
+    the forward saved for the backward: under remat "full" each layer's
+    input (d values a token a layer), under "dots" the projections'
+    outputs too (q, k, v, o, the MLP's up (and gate) and down products;
+    ``models/transformer.py``), all in bf16."""
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    gated = cfg.act in ("swiglu", "geglu")
+    mlp = (3 if gated else 2) * d * cfg.d_ff
     layer = d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     params = embed + cfg.n_layers * layer + d
     update = max(32 * params, 18 * params + 20 * embed)
-    loss = 16 * seq * batch * cfg.vocab_size + 10 * params
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"train_bytes reckons remat full and dots, got "
+                         f"{cfg.remat!r}")
+    proj = hd * (H + 2 * Hkv) + d + (2 if gated else 1) * cfg.d_ff + d
+    per_token = d + (proj if cfg.remat == "dots" else 0)
+    saved = 2 * per_token * seq * batch * cfg.n_layers
+    loss = 16 * seq * batch * cfg.vocab_size + 10 * params + saved
     return dict(params=params, per_layer=layer, embedding=embed,
                 resident=10 * params, update_peak=update, loss_peak=loss,
+                saved=saved, saved_per_token_layer=per_token,
                 peak=max(update, loss))
 
 
@@ -1528,16 +1921,43 @@ def gemma_train_depth(torch, seq: int, batch: int) -> int:
     return depth
 
 
+DOTS_STEPS = 5                   # train-dots: the train phase's first steps
+
+
+def dots_reckoning(seq: int, batch: int) -> None:
+    """train-dots, printed before it runs: what remat "dots" saves beyond
+    "full" for smollm-135m (``train_bytes``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-135m")
+    full = train_bytes(cfg, seq, batch)
+    dots = train_bytes(dataclasses.replace(cfg, remat="dots"), seq, batch)
+    log(f"[train-dots] reckoned at seq {seq} batch {batch}: remat dots "
+        f"saves {dots['saved_per_token_layer']} bf16 values a token a layer "
+        f"(full: {full['saved_per_token_layer']}, the layer input), "
+        f"{dots['saved'] / 1e9:.3f} GB over {seq * batch} tokens x "
+        f"{cfg.n_layers} layers against {full['saved'] / 1e9:.3f} GB: "
+        f"+{(dots['saved'] - full['saved']) / 2**30:.3f} GiB on remat "
+        f"full's peak; reckoned loss peak {dots['loss_peak'] / 1e9:.3f} GB "
+        f"(full {full['loss_peak'] / 1e9:.3f})")
+
+
 def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
                 steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10,
-                ft_save_at=None):
+                ft_save_at=None, remat="full", ref=None):
     """``arch`` at full width (and depth unless ``n_layers`` cuts it),
-    bf16, remat full, trained on the card at seq 4096. With
+    bf16, remat ``remat``, trained on the card at seq 4096. With
     ``ft_save_at``, {"params", "opt"} after that many steps go to
     ``build/`` through an async ``CheckpointManager``, with a clone kept
     on the card; the steps that overlap the background write are printed
-    and left out of the median. Returns the launch counts of the run and
-    what ``phase_train_ft`` needs (None without ``ft_save_at``)."""
+    and left out of the median. With ``ref`` (the stats an earlier run of
+    the same seed returned), only ``len(ref["losses"])`` steps of the
+    ``steps``-step schedule run, their losses must equal ``ref``'s within
+    1e-4 instead of falling. Returns the launch counts of the run,
+    what ``phase_train_ft`` needs (None without ``ft_save_at``) and the
+    run's stats (losses, median step ms, peak bytes)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1545,24 +1965,33 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
+    check(cfg.remat == "full", f"config {cfg}")
+    cfg = dataclasses.replace(cfg, remat=remat)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    check(cfg.remat == "full", f"config {cfg}")
     tag = "train" if arch == "smollm-135m" else f"train {arch}"
+    if remat != "full":
+        tag = f"train-{remat}"
+    run = steps if ref is None else len(ref["losses"])
     seq = 4096
     params = build_model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(seed))
     step, opt, ds = _trainer(cfg, "cuda", params, seq=seq, batch=batch,
                              steps=steps, lr=lr, warmup=warmup, seed=seed)
     n_param = sum(t.numel() for t in tree_leaves(params))
-    log(f"[{tag}] {arch} bf16 remat=full: {n_param / 1e6:.1f}M params, "
-        f"{cfg.n_layers} layers, seq {seq} batch {batch} steps {steps}, "
-        f"lr {lr} warmup {warmup}")
+    log(f"[{tag}] {arch} bf16 remat={remat}: {n_param / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers, seq {seq} batch {batch} steps {run} of a "
+        f"{steps}-step schedule, lr {lr} warmup {warmup}")
+    # cyclic garbage of earlier phases must not count in this one's peak
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    log(f"[{tag}] allocated before the first step "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB (parameters, "
+        f"optimizer state and whatever earlier phases still hold)")
     _counters(reset=True)
     losses, norms, times, overlapped, ft = [], [], [], [], None
-    for i in range(steps):
+    for i in range(run):
         if ft is not None and ft["mgr"].writing():
             overlapped.append(i)
         t0 = time.perf_counter()
@@ -1580,12 +2009,21 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     launches, plain = _counters()
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(sum(losses[-5:]) / 5 < losses[0],
-          f"the loss did not fall: {losses}")
-    remat = 1 + (cfg.remat == "full")
+    if ref is None:
+        check(sum(losses[-5:]) / 5 < losses[0],
+              f"the loss did not fall: {losses}")
+    else:
+        want_l = ref["losses"][:run]
+        check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
+                  for a, b in zip(losses, want_l)),
+              f"[{tag}] losses {losses} != remat full's {want_l} (1e-4)")
+        log(f"[{tag}] losses equal remat full's first {run} within 1e-4 "
+            f"(bitwise: {losses == want_l}): {losses} vs {want_l}")
+    # remat full and dots replay the attention forward in the backward
+    replay = 1 + (cfg.remat != "none")
     # K3 is two kernels per call: the row walk and the owner-tile sum
-    want = {"K1": remat * cfg.n_layers * steps, "K2": cfg.n_layers * steps,
-            "K3": 2 * cfg.n_layers * steps}
+    want = {"K1": replay * cfg.n_layers * run, "K2": cfg.n_layers * run,
+            "K3": 2 * cfg.n_layers * run}
     check(launches == want, f"launches {launches} != {want}")
     check(plain == 0, f"the plain versions ran {plain} times")
     timed = [t for i, t in enumerate(times) if i and i not in overlapped]
@@ -1594,17 +2032,23 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         log(f"[{tag}] steps {overlapped} overlapped the background "
             f"checkpoint write: left out of the median "
             f"({[round(times[i] * 1e3, 3) for i in overlapped]} ms)")
-    log(f"[{tag}] step median {med * 1e3:.3f} ms over steps 1..{steps - 1} "
+    log(f"[{tag}] step median {med * 1e3:.3f} ms over steps 1..{run - 1} "
         f"({batch * seq / med:.1f} tokens/s); first step "
         f"{times[0] * 1e3:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated); launches {launches} "
-        f"({ {k: v // steps for k, v in launches.items()} } a step)")
+        f"({ {k: v // run for k, v in launches.items()} } a step)")
+    stats = dict(losses=losses, median_ms=med * 1e3, peak=peak)
+    if ref is not None:
+        log(f"[{tag}] step median {med * 1e3:.3f} ms against remat full's "
+            f"{ref['median_ms']:.3f}; peak {peak / 2**30:.3f} GiB against "
+            f"{ref['peak'] / 2**30:.3f} GiB (remat full's includes "
+            f"train-ft's clone)")
 
     # After the counts are read: one more step under the profiler.
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    batch_np = ds.batch(steps)
+    batch_np = ds.batch(run)
     torch.cuda.synchronize()
     prof.start()
     ts = time.perf_counter()
@@ -1629,7 +2073,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         ft.update(cfg=cfg, step_fn=step, ds=ds,
                   ref={i: (losses[i], norms[i]) for i in range(ft_save_at,
                                                               steps)})
-    return launches, ft
+    return launches, ft, stats
 
 
 def _ft_save(torch, params, opt, at: int) -> dict:
@@ -1819,22 +2263,31 @@ def main(argv=None) -> int:
                                        "serve gemma-7b", (40, 41), False)
     torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
+    tl = {}
+    tl["dynamic"], drec = phase_dynamic(torch, timer, args.seed)
+    dynamic_check(torch, args.seed)
+    torch.cuda.empty_cache()
     train_check(torch, args.seed)
     for arch, cfg in _check_cfgs().items():
         if arch in TRAIN_CHECK:
             train_check(torch, args.seed, cfg, f"{arch} hd {cfg.hd}")
-    tl = {}
-    tl["smollm-135m"], ft = phase_train(torch, args.seed,
-                                        ft_save_at=FT_TRAIN_AT)
+    tl["smollm-135m"], ft, full = phase_train(torch, args.seed,
+                                              ft_save_at=FT_TRAIN_AT)
     tl["train-ft"] = phase_train_ft(torch, args.seed, ft)
     del ft
     torch.cuda.empty_cache()
-    tl["gemma-7b"], _ = phase_train(
+    dots_reckoning(4096, TRAIN_BATCH)
+    tl["train-dots"], _, _ = phase_train(
+        torch, args.seed, remat="dots",
+        ref={**full, "losses": full["losses"][:DOTS_STEPS]})
+    torch.cuda.empty_cache()
+    tl["gemma-7b"], _, _ = phase_train(
         torch, args.seed, "gemma-7b",
         n_layers=gemma_train_depth(torch, 4096, GEMMA_BATCH),
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    tl["longformer-4k"], _ = phase_train(torch, args.seed, "longformer-4k")
+    tl["longformer-4k"], _, _ = phase_train(torch, args.seed,
+                                            "longformer-4k")
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -1888,8 +2341,11 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "launches_per_call": per_call,
             **row(trec["a"][name]),
-            "variants": {v: row(trec[c][name]) for c, v in variants.items()
-                         if name in trec[c]}})
+            "variants": {
+                **{v: row(trec[c][name]) for c, v in variants.items()
+                   if name in trec[c]},
+                **({"dynamic_smollm_keep4_bf16": row(drec[name])}
+                   if name in drec else {})}})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,7 +4,7 @@ The port of :mod:`repro.core.attention`, in the reference's model-facing
 layout (batch, heads, seq, head_dim):
 
 * :func:`hybrid_attention` — the full-sequence (training) op on the
-  static ExecutionPlan;
+  static ExecutionPlan or on runtime plans built on the device;
 * :func:`hybrid_chunk_attention` — chunked prefill over ChunkPlan tables;
 * :func:`hybrid_decode_attention` — the ragged one-token decode against
   per-request caches with per-slot positions (the plain version the
@@ -33,27 +33,44 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pattern: HybridSparsePattern, *,
                      impl: str = "blockwise", block_q: int = 128,
                      block_k: int = 128, scale: Optional[float] = None,
-                     plan: str = "static") -> torch.Tensor:
+                     plan: str = "static",
+                     dynamic_keep: Optional[int] = None,
+                     dynamic_local_window: Optional[int] = None,
+                     dynamic_pool_k: Optional[int] = None) -> torch.Tensor:
     """Hybrid sparse attention (training / full sequence). q: (B, H, N, D);
     k/v: (B, Hkv, N, D). Differentiable.
 
     ``impl="dense_ref"`` is the O(n^2) masked oracle. ``impl="blockwise"``
-    and ``impl="pallas"`` both run :func:`repro_torch.kernels.ops
-    .salo_attention` on the static plan; the tensors' device picks the
-    CUDA kernels or their plain versions. ``plan="dynamic"`` (runtime
-    plans, and the reference's ``dynamic_*`` knobs with it) is not ported
-    yet; sequence parallelism is not either (the train CLI raises for
-    ``--data``/``--model`` > 1).
+    and ``impl="pallas"`` both run the table-driven kernels; the tensors'
+    device picks the CUDA kernels or their plain versions.
+
+    ``plan`` selects how step tables are built: ``"static"`` lowers the
+    pattern alone (:func:`repro_torch.kernels.ops.salo_attention`);
+    ``"dynamic"`` routes through :mod:`repro_torch.core.dynamic` — per
+    query block only the ``dynamic_keep`` highest estimated-mass candidate
+    tiles execute (causal-local and global/sink tiles are never dropped;
+    see the DynamicConfig knobs ``dynamic_local_window`` /
+    ``dynamic_pool_k``), on tables built on the device at run time.
+    Dynamic plans need a table-driven engine (any ``impl`` but
+    ``dense_ref``). Sequence parallelism is not ported (the train CLI
+    raises for ``--data``/``--model`` > 1).
 
     GQA: KV heads are expanded to H by ``expand(...).reshape`` — a copy of
     K/V ``rep`` times in torch (the reference's broadcast is free in XLA).
     """
-    if plan == "dynamic":
-        raise NotImplementedError(
-            "plan='dynamic' is not ported yet: ROADMAP queue 1, 'runtime "
-            "plans' (core/dynamic.py)")
-    if plan != "static":
+    if plan not in ("static", "dynamic"):
         raise ValueError(f"unknown plan {plan!r}; choose static or dynamic")
+    dcfg = None
+    if plan == "dynamic":
+        if impl == "dense_ref":
+            raise ValueError("plan='dynamic' needs a table-driven engine "
+                             "(impl != 'dense_ref')")
+        if dynamic_keep is None:
+            raise ValueError("plan='dynamic' requires dynamic_keep")
+        from repro_torch.core.dynamic import DynamicConfig
+        dcfg = DynamicConfig(keep=int(dynamic_keep),
+                             local_window=dynamic_local_window,
+                             pool_k=dynamic_pool_k)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     B, H, N, D = q.shape
@@ -67,7 +84,11 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.reshape(B * H, N, D)
     kf = k.reshape(B * H, N, D)
     vf = v.reshape(B * H, N, D)
-    if impl == "dense_ref":
+    if dcfg is not None:
+        from repro_torch.core.dynamic import dynamic_attention
+        out = dynamic_attention(qf, kf, vf, pattern, dcfg, block_q=block_q,
+                                block_k=block_k, scale=scale, impl=impl)
+    elif impl == "dense_ref":
         from repro_torch.kernels.ref import reference_attention
         out = reference_attention(qf, kf, vf, pattern, scale=scale)
     else:

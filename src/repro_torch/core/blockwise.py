@@ -15,6 +15,9 @@ card.
   every key);
 * :func:`table_dq_scan` / :func:`table_dkv_scan` — the two gradient
   passes, recomputing ``p`` from the saved ``(m, l)`` (:func:`p_from_stats`);
+* :func:`table_dkv_scatter_scan` — the dK/dV pass over forward-shaped
+  tables built on the device (runtime plans, :mod:`repro_torch.core
+  .dynamic`), which have no packed transposed walk;
 * :func:`plan_backward` — THE backward contract: host-step adjoints around
   two plan-walking gradient passes, parameterized over the engines;
 * :func:`chunk_attention` — the serving prefill engine.
@@ -28,6 +31,7 @@ Shapes: q, k, v are ``(B, N, D)`` where ``B`` folds batch*heads.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Optional
 
@@ -254,6 +258,75 @@ def table_dkv_scan(dout, delta, m, l, q, k, v, pos_q, pos_k, row_tile,
     dk = zt.index_add(1, row_tile, dk_r).reshape(B, nkb * bk, D)
     dv = zt.index_add(1, row_tile, dv_r).reshape(B, nkb * bk, D)
     return dk, dv
+
+
+@contextlib.contextmanager
+def _full_f32_products():
+    """f32 products in full f32 on the card while inside (no TF32)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def table_dkv_scatter_scan(dout, delta, m, l, q, k, v, pos_q, pos_k,
+                           kv_blocks, flags, sched: BandSchedule,
+                           scale: float):
+    """dK/dV pass over (possibly runtime-valued) FORWARD step tables.
+
+    The packed transposed walk (:func:`table_dkv_scan`, K3) is built on the
+    host from a static plan; tables computed on the device
+    (:mod:`repro_torch.core.dynamic`) have none. This twin walks the
+    forward table width instead: at step ``s`` every query block computes
+    its (dk, dv) contribution to its step-``s`` tile, and the contributions
+    are summed into the tiles. Same visits, same masks, same ``p``
+    recompute; padding steps (flags 0) mask to nothing and add zeros to
+    tile 0.
+
+    Query blocks of one step may share a tile. The reference adds them with
+    a scatter (``.at[:, blk].add``); ``index_add_`` would use atomics on
+    the card, whose f32 sums change from run to run. Here each step's
+    contributions go through a ``(nkb, nq)`` one-hot product in full f32:
+    a fixed summation order, so two runs give bitwise-equal dK/dV, as K3's
+    do.
+
+    Shapes as :func:`table_dq_scan`. Returns ``(dk, dv)``, both
+    (B, nkb*Bk, D) f32.
+    """
+    B, nQ, D = q.shape
+    nq, W = kv_blocks.shape
+    bq = nQ // nq
+    nkb, bk = pos_k.shape
+    q_blk = q.reshape(B, nq, bq, D)
+    qf_blk = q_blk.float()
+    do_blk = dout.reshape(B, nq, bq, D)
+    m_blk, l_blk = m.reshape(B, nq, bq), l.reshape(B, nq, bq)
+    dl_blk = delta.reshape(B, nq, bq)
+    k_r = k.reshape(B, nkb, bk, D)
+    v_r = v.reshape(B, nkb, bk, D)
+    tiles = torch.arange(nkb, dtype=kv_blocks.dtype, device=q.device)
+    dk = torch.zeros((B, nkb, bk * D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    with _full_f32_products():
+        for s in range(W):
+            blk = kv_blocks[:, s]
+            fl = flags[:, s]
+            k_b = k_r.index_select(1, blk)                     # (B,nq,Bk,D)
+            v_b = v_r.index_select(1, blk)
+            pos_kb = pos_k.index_select(0, blk)                # (nq, Bk)
+            scores = _dot(q_blk, k_b) * scale
+            mask = sched.step_mask(pos_q[:, :, None], pos_kb[:, None, :],
+                                   fl[:, None, None])[None]
+            p = p_from_stats(scores, mask, m_blk, l_blk)
+            ds = p * (_dot(do_blk, v_b) - dl_blk[..., None])
+            dv_s = torch.matmul(p.transpose(-1, -2), do_blk)   # (B,nq,Bk,D)
+            dk_s = torch.matmul(ds.transpose(-1, -2), qf_blk) * scale
+            onehot = (tiles[:, None] == blk[None, :]).float()  # (nkb, nq)
+            dv = dv + torch.matmul(onehot, dv_s.reshape(B, nq, bk * D))
+            dk = dk + torch.matmul(onehot, dk_s.reshape(B, nq, bk * D))
+    return dk.reshape(B, nkb * bk, D), dv.reshape(B, nkb * bk, D)
 
 
 def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,

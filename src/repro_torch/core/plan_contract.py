@@ -85,12 +85,16 @@ def _np_dtype(a) -> np.dtype:
 
 
 def validate_tables(kv_blocks, flags, *, nkb: int,
-                    num_steps=None, name: str = "step tables") -> None:
+                    num_steps=None, name: str = "step tables",
+                    values: bool = True) -> None:
     """Check a ``(kv_blocks, flags)`` pair against the table contract.
 
     ``nkb`` is the tile universe the consumer will index with these
     values (padded working grid / shard view / chunk view). Raises
     :class:`ValueError` with the offending row/step on violation.
+    ``values=False`` checks shapes and dtypes only: what the reference's
+    check sees inside ``jax.jit``, and what a hot path on the card can
+    check without copying its tables to the host.
     """
     shape = getattr(kv_blocks, "shape", None)
     fshape = getattr(flags, "shape", None)
@@ -108,6 +112,8 @@ def validate_tables(kv_blocks, flags, *, nkb: int,
     if nkb < 1:
         raise ValueError(f"{name}: tile universe nkb must be >= 1, "
                          f"got {nkb}")
+    if not values:
+        return
 
     kv = _concrete(kv_blocks)
     fl = _concrete(flags)

@@ -41,7 +41,7 @@ from repro_torch.kernels.salo_backward import (salo_plan_backward_dkv,
 from repro_torch.obs.metrics import global_registry
 
 # ONE forward launch (the paper's single-launch claim) and THREE for a
-# training step's gradient under full remat (forward replay for the
+# training step's gradient under remat "full" or "dots" (forward replay for the
 # residuals + dQ + dK/dV — a fourth would mean the backward re-ran the
 # forward).
 LAUNCH_CONTRACT = {"forward": 1, "grad": 3}

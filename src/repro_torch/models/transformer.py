@@ -13,14 +13,24 @@ page, Hkv, hd)``; layer ``i`` writes row ``i`` of it in place.
 Remat: ``remat="full"`` runs each block under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` — the
 backward re-runs the block's forward (one more attention forward launch
-per layer), as ``jax.checkpoint`` does; ``remat="none"`` is a plain loop.
+per layer), as ``jax.checkpoint`` does; ``remat="dots"`` does the same
+under a selective-checkpoint policy that saves the outputs of the
+projections (``aten.mm`` / ``aten.addmm``: the ``x @ w`` products) and
+recomputes everything else, as the reference's
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: batched
+products (``aten.bmm``) are recomputed, and so is the attention forward,
+whose kernel is launched outside the dispatcher (so a grad still runs
+three attention launches a layer, ``kernels.ops.LAUNCH_CONTRACT``);
+``remat="none"`` is a plain loop.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -73,14 +83,22 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     return x + L.mlp_apply(p["mlp"], h2, cfg)
 
 
+# The products ``remat="dots"`` saves: unbatched matmuls.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   pattern, positions=None):
-    """Run one segment's layers (the reference's scan). Returns x."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (the 'dots' policy "
-            "saves matmul outputs: ROADMAP queue 1, 'remat=\"dots\"'); use "
-            "'full' or 'none'")
+    """Run one segment's layers (the reference's scan) under the config's
+    remat policy ("none" | "full" | "dots"). Returns x."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
+                         "or dots")
 
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,
@@ -89,6 +107,11 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     for layer_params in params:
         if cfg.remat == "full":
             x = checkpoint(body, layer_params, x, use_reentrant=False)
+        elif cfg.remat == "dots":
+            x = checkpoint(body, layer_params, x, use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts,
+                               _dots_policy))
         else:
             x = body(layer_params, x)
     return x

@@ -274,7 +274,13 @@ def test_plain_launch_counts_one_forward_two_backward():
 
 
 def test_dynamic_plan_raises_naming_roadmap():
+    """plan="dynamic" is ported (tests/test_torch_dynamic.py holds it to
+    the reference): without ``dynamic_keep`` it raises the reference's
+    ValueError, and with it it runs."""
     pat = _tpat(JP.causal_sliding_window(8))
     x = torch.zeros((1, 1, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dynamic_keep"):
         t_attention(x, x, x, pat, plan="dynamic")
+    out = t_attention(x, x, x, pat, plan="dynamic", dynamic_keep=2,
+                      block_q=8, block_k=8)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())

@@ -809,3 +809,160 @@ def test_attention_op_cuda_equals_cpu():
         res[dev] = [y.detach().cpu() for y in (out, q.grad, k.grad, v.grad)]
     for a, b in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# --------------- runtime plans: K1 and K2 on device tables --------------- #
+# (pattern, n, hd, block_q, block_k, keep): keep below the plan's max_steps
+# and at or above its always-kept count, so rows keep a content-chosen
+# subset of their tiles that need not be consecutive
+DYN_CASES = [
+    ("causal_sinks", causal_sliding_window(200, n_sinks=4), 1024, 64, 64, 32,
+     6),
+    ("dilated_sinks", causal_sliding_window(64, n_sinks=3, dilation=2), 512,
+     128, 32, 32, 4),
+    ("longformer", longformer(48, n_global=2), 333, 64, 32, 32, 4),
+    ("vil", vil((16, 16), (5, 5), n_global=1), 257, 128, 32, 32, 4),
+    ("causal_sinks_hd256", causal_sliding_window(100, n_sinks=4), 512, 256,
+     64, 64, 4),
+    ("longformer_hd256", longformer(48, n_global=2), 333, 256, 32, 32, 4),
+]
+
+
+def _dyn_tables(plan, q, k, keep):
+    from repro_torch.core import dynamic as DY
+    from repro_torch.core.plan_contract import validate_tables
+
+    cfg = DY.DynamicConfig(keep=keep)
+    window = DY._resolve_window(cfg, plan.block_q, plan.block_k)
+    kvt, flg = DY._selected(q, k, plan, cfg, window, keep,
+                            q.shape[-1] ** -0.5)
+    validate_tables(kvt, flg, nkb=plan.nkb)
+    return kvt, flg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pname,pat,n,hd,bq,bk,keep", DYN_CASES,
+                         ids=[c[0] for c in DYN_CASES])
+def test_training_kernels_on_device_tables_match_plain(dtype, pname, pat, n,
+                                                       hd, bq, bk, keep):
+    """K1 and K2 on step tables selected on the card (width keep, a
+    content-chosen tile subset per row) against their plain versions on
+    the same tables."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        pat, n, 3, hd, bq, bk, dtype, seed=n + hd + keep)
+    assert keep < plan.max_steps
+    kvt, flg = _dyn_tables(plan, q, k, keep)
+    assert kvt.shape == (plan.nq, keep)
+    assert int((flg != 0).sum()) < int((plan.flags != 0).sum())
+    kw = dict(sched=sched, scale=hd ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, kvt, flg, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, kvt, flg,
+                                               **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, kvt, flg, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, kvt, flg, **kw)
+    torch.cuda.synchronize()
+    tol, gtol, stol = KA.OUT_TOL[dtype], GTOL[dtype], KA.STATS_TOL
+    for a, b, tl in ((out, ro, tol), (m, rm, stol), (l, rl, stol),
+                     (dq, rdq, gtol)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+    pad = t.pos >= sched.n
+    assert bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_dkv_bitwise_deterministic(dtype):
+    """The scatter dK/dV (query blocks of one step share tiles) gives
+    bitwise-equal results over repeated calls on the card."""
+    _need_cuda()
+    from repro_torch.core.blockwise import table_dkv_scatter_scan
+
+    pname, pat, n, hd, bq, bk, keep = DYN_CASES[0]
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        pat, n, 8, hd, bq, bk, dtype, seed=3)
+    kvt, flg = _dyn_tables(plan, q, k, keep)
+    m = torch.randn(q.shape[:2], device="cuda")
+    l = torch.rand(q.shape[:2], device="cuda") + 0.5
+    delta = torch.randn(q.shape[:2], device="cuda")
+    args = (dout, delta, m, l, q, k, v, pq, pk, kvt, flg, sched, 0.125)
+    first = table_dkv_scatter_scan(*args)
+    for _ in range(3):
+        again = table_dkv_scatter_scan(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("pname,pat,n,hd,bq,bk,keep", DYN_CASES[:4],
+                         ids=[c[0] for c in DYN_CASES[:4]])
+def test_dynamic_op_cuda_equals_cpu(pname, pat, n, hd, bq, bk, keep):
+    """hybrid_attention(plan="dynamic") end to end, f32, GQA: the tables
+    built on the card equal the CPU's, out and the three gradients within
+    1e-4, and a fwd + bwd on the card launches K1 once, K2 once, K3
+    never."""
+    _need_cuda()
+    from repro_torch.core import dynamic as DY
+    from repro_torch.core.attention import hybrid_attention
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    rng = np.random.default_rng(n)
+    x = [rng.normal(size=s).astype(np.float32) for s in
+         ((2, 4, n, hd), (2, 2, n, hd), (2, 2, n, hd), (2, 4, n, hd))]
+    res, tabs = {}, {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in x[:3])
+        fns = (KA.salo_table_attention, KB.salo_table_backward_dq,
+               KB.salo_table_backward_dkv)
+        before = [f.launches for f in fns]
+        out = hybrid_attention(q, k, v, pat, block_q=bq, block_k=bk,
+                               plan="dynamic", dynamic_keep=keep)
+        (out * torch.tensor(x[3], device=dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 0]
+        res[dev] = [y.detach().cpu() for y in (out, q.grad, k.grad, v.grad)]
+        kf = k.detach()[:, :, None].expand(2, 2, 2, n, hd).reshape(8, n, hd)
+        tabs[dev] = [y.cpu() for y in DY.dynamic_tables(
+            q.detach().reshape(8, n, hd), kf, pat,
+            DY.DynamicConfig(keep=keep), block_q=bq, block_k=bk)[1:3]]
+    assert all(torch.equal(a, b) for a, b in zip(tabs["cuda"], tabs["cpu"]))
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_dots_train_step_cuda_equals_cpu():
+    """Two train steps of a 2-layer f32 model under remat="dots" on the
+    card (K1-K3, selective checkpointing) equal the CPU's within 1e-4."""
+    _need_cuda()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import Schedule
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(
+        get_smoke("smollm-135m"), d_model=192, n_heads=3, n_kv_heads=1,
+        d_ff=256, remat="dots",
+        salo=SALOConfig(window=16, n_global=2, block_q=32, block_k=32))
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                       schedule=Schedule(warmup_steps=1, total_steps=2))
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    ds = SyntheticLM(cfg, DataConfig(128, 2, seed=0))
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda a: a.to(dev), params)
+        step = make_train_step(build_model(cfg, dev), tcfg)
+        opt = adamw.init(tcfg.optimizer, p)
+        hist[dev] = []
+        for i in range(2):
+            p, opt, met = step(p, opt, ds.batch(i))
+            hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+    np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
+                               rtol=1e-4, atol=1e-4)
