@@ -24,7 +24,9 @@ nonzero:
    (contiguous caches, read through the transposed view of the lockstep
    (B, S, Hkv, hd) cache): (a) the lockstep phase's cache in bf16, slot =
    position, (b) the same in f32, (c) the ring layout (window 512 + 4
-   sinks, dilation 2, PAD ring slots). Tolerances: f32 1e-5, bf16/f16
+   sinks, dilation 2, PAD ring slots), (k) recurrentgemma-9b's decode (16
+   query heads on one KV head of hd 256, bf16, a 2304-slot full cache, t
+   past the 2048 window, 4 sinks). Tolerances: f32 1e-5, bf16/f16
    2e-2 (abs and rel; the kernels round p to the 16-bit type before the
    PV product, the plain versions keep it in f32). Every case's outputs
    must be bitwise equal over repeated calls (the split-KV merge does not
@@ -40,11 +42,23 @@ nonzero:
    0 < pages read < pages total; (3) gemma-7b (hd 256, geglu, soft-capped
    logits, tied embeddings), phi4-mini (hd 128, GQA 3) and granite (hd
    128, GQA 4) at narrowed widths, 2 layers, on the fp slab.
+3b. **lockstep-check** — recurrentgemma-9b (one griffin group, one KV
+   head of hd 256 under 2 query heads, local window 32 + 4 sinks) and
+   mamba2-370m (smoke widths) at narrowed widths, f32, residual branches
+   amplified, on the lockstep ``ServeEngine`` on the card and on the CPU
+   from the same weights: batch 2, prompt 40 (past the window), 8 new
+   tokens; greedy tokens equal, K5 launched once per griffin group a step
+   on the card and never on the CPU (its plain version the reverse).
 4. **lockstep** — smollm-135m at full width and depth, bf16, on the
    lockstep ``ServeEngine``: batch 8, a 1088-token prompt prefilled token
    by token, 32 new tokens. Checks finite logits every step, 30 K5
-   launches per decode step, no plain call; prints the step times and
-   tokens/s.
+   launches per decode step, no plain call; prints the step times,
+   tokens/s and peak memory.
+4b. **lockstep recurrentgemma-9b**, **lockstep mamba2-370m** — the same
+   at full width and depth (recurrentgemma: 38 layers, d 4096, 16 heads on
+   one KV head of hd 256, local window 2048, vocab 256000; mamba2: 48 SSD
+   layers, d 1024), batch 8, prompt 256, 32 new tokens: 12 K5 launches a
+   decode step (one a griffin group) for recurrentgemma, none for mamba2.
 5. **serve-int8** — the serve phase's requests and weights on
    ``ContinuousEngine`` with ``kv_dtype="int8"``, threshold -3, decay 0.3.
    Checks as the serve phase, and the slab's resident bytes; prints the
@@ -76,6 +90,9 @@ nonzero:
    width and depth (28 layers, d 3072, 16 heads of hd 256, vocab 256000),
    bf16, random weights: the same checks (28 K4 launches a decode step),
    one decode-only step profiled.
+9b. **lockstep profiles** — one lockstep decode step each of
+   recurrentgemma-9b and mamba2-370m (full size, at position 256 on zeroed
+   caches) under the profiler, after the serve phases' timings.
 10. **train-kernels** — hold the training kernels K1 (forward; with
    16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
    K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
@@ -89,7 +106,9 @@ nonzero:
    (h) longformer-4k's (bidirectional window 512, one global token with
    global rows, 8 x 12 heads, hd 64, bf16), (i), (j) the paper's ViL
    stages 1 and 2 (56 x 56 and 28 x 28 grids, 15 x 15 window, one global
-   token, 3 and 6 heads of hd 64, block 128, bf16). Tolerances: out 8e-3 in 16 bits and
+   token, 3 and 6 heads of hd 64, block 128, bf16), (k) recurrentgemma-9b's
+   local attention (its one KV head copied to 16 query heads, n 4096, hd
+   256, window 2048, 4 sinks, block 256, bf16). Tolerances: out 8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
    (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
@@ -140,7 +159,9 @@ nonzero:
    card (kernels) and on the CPU (plain versions) from the same
    parameters and batches: losses and grad norms agree within 1e-4; then
    the same for gemma-7b (hd 256) and longformer-4k (hd 64, bidirectional,
-   global rows) at narrowed widths.
+   global rows) at narrowed widths, and the lockstep-check's recurrentgemma
+   (K1-K3 at hd 256 on one KV head; dK/dV of the 16 copies summed by
+   autograd of the GQA expand) and mamba2 (no kernel may launch).
 14. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
@@ -173,6 +194,15 @@ nonzero:
 18. **train longformer-4k** — at full width and depth (12 layers, d
     768), seq 4096, batch 8, 20 steps, as the train phase: the
     bidirectional band and the global-rows epilogue on the card.
+19. **train recurrentgemma-9b** — every published width, the depth cut
+    to the deepest multiple of 3 (whole griffin groups) whose reckoned
+    peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
+    recomputed f32 scan temporaries counted) fits 92 % of the card, seq
+    4096, batch 1, 10 steps, lr 1e-3, warmup 3; per step and group K1 2
+    (remat full replays it), K2 1, K3 2 (two kernels a call).
+20. **train mamba2-370m** — at full size, seq 4096, batch 4, 10 steps,
+    lr 1e-3, warmup 3: no kernel launches; the loss falls.
+Each phase added for the recurrent families prints its wall time.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the card's name and power limit from ``nvidia-smi``, and the result line
@@ -203,6 +233,8 @@ REPEATS = 10                     # calls a decode case must repeat bitwise
 PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
+# (recurrentgemma-9b trains the same way, whole griffin groups)
+MAMBA_BATCH = 4                    # mamba2-370m train: full size
 FT_TRAIN_AT = 10                   # train-ft: the step checkpointed
 
 
@@ -503,16 +535,29 @@ def phase_kernels(torch, timer, seed):
 LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW = 8, 1088, 32
 
 
+# recurrentgemma-9b on the lockstep engine (full width and depth) and its
+# K5 case (k): one KV head under 16 query heads of hd 256, window 2048
+RG_B, RG_PROMPT, RG_NEW = 8, 256, 32
+RG_K5_S = 2304                   # case (k)'s full cache: t = S - 1 > window
+
+
 def k5_cases(torch):
     """K5's kernel cases by name: (a) the lockstep phase's cache (bf16,
-    full cache, slot = position), (b) the same in f32, (c) the ring layout
-    (window + sinks slots, PAD for unwritten ring slots) with dilation 2."""
+    full cache, slot = position; smollm-135m's 9 query heads on 3 KV heads
+    of hd 64), (b) the same in f32, (c) the ring layout (window + sinks
+    slots, PAD for unwritten ring slots) with dilation 2, (k)
+    recurrentgemma-9b's decode (16 query heads on one KV head of hd 256,
+    bf16, full cache of 2304 slots, t past its 2048 window, 4 sinks)."""
     S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
-    full = dict(window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
+    heads = dict(H=9, Hkv=3, hd=64)
+    full = dict(heads, window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
     return [("a", dict(full, dtype=torch.bfloat16)),
             ("b", dict(full, dtype=torch.float32)),
-            ("c", dict(window=512, g=4, dil=2, S=512 + 4, t=3000,
-                       ring=True, dtype=torch.bfloat16))]
+            ("c", dict(heads, window=512, g=4, dil=2, S=512 + 4, t=3000,
+                       ring=True, dtype=torch.bfloat16)),
+            ("k", dict(H=16, Hkv=1, hd=256, window=2048, g=4, dil=1,
+                       S=RG_K5_S, t=RG_K5_S - 1, ring=False,
+                       dtype=torch.bfloat16))]
 
 
 def k5_case(torch, gen, c):
@@ -524,7 +569,7 @@ def k5_case(torch, gen, c):
     from repro_torch.core.patterns import causal_sliding_window
     from repro_torch.core.scheduler import PAD_SENTINEL
 
-    B, H, Hkv, hd = LOCKSTEP_B, 9, 3, 64
+    B, H, Hkv, hd = LOCKSTEP_B, c["H"], c["Hkv"], c["hd"]
     pat = causal_sliding_window(c["window"], n_sinks=c["g"],
                                 dilation=c["dil"])
     S, t, dt = c["S"], c["t"], c["dtype"]
@@ -646,6 +691,89 @@ def _check_cfgs():
         "longformer-4k": _narrow("longformer-4k", d_model=128, n_heads=2,
                                  n_kv_heads=2, d_ff=256),
     }
+
+
+# Narrowed f32 configs of the recurrent archs for the cuda == cpu checks:
+# recurrentgemma keeps its one KV head of hd 256 under 2 query heads and
+# one griffin group (rec, rec, local attention), its local window cut to 32
+# (4 sinks, 32-wide plan blocks) so a 40-token prompt crosses the window
+# and the sinks; mamba2 keeps its smoke widths (d 64, SSD chunk 16).
+def _recurrent_check_cfgs():
+    from repro_torch.configs.base import RecurrentConfig, SALOConfig
+
+    return {
+        "recurrentgemma-9b": _narrow(
+            "recurrentgemma-9b", d_model=256, n_heads=2, n_kv_heads=1,
+            head_dim=256, d_ff=512, recurrent=RecurrentConfig(local_window=32),
+            salo=SALOConfig(window=32, n_global=4, block_q=32, block_k=32)),
+        "mamba2-370m": _narrow("mamba2-370m"),
+    }
+
+
+def lockstep_check(torch, seed):
+    """The recurrent archs at narrowed widths (``_recurrent_check_cfgs``),
+    f32, on the lockstep ServeEngine on the card (recurrentgemma's local
+    attention through K5) and on the CPU (plain versions), from the same
+    weights and prompts (batch 2, prompt 40, 8 new tokens): greedy tokens
+    must be equal; on the card K5 launched once per griffin group per
+    step and its plain version never ran, on the CPU the reverse."""
+    import numpy as np
+
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    B, P, n_new = 2, 40, 8
+    for arch, cfg in _recurrent_check_cfgs().items():
+        t0 = time.perf_counter()
+        params = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        _amplify_residuals(params)        # tokens that use every block
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                       (B, P))
+        n_attn = _attention_layers(cfg)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, dev)
+            p = params if dev == "cpu" else _to(params, dev)
+            salo_decode.launches = 0
+            salo_decode_plain.calls = 0
+            eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
+            outs[dev] = eng.generate(p, prompts, n_new).cpu().tolist()
+            steps = P + n_new
+            want = ((n_attn * steps, 0) if dev == "cuda"
+                    else (0, n_attn * steps))
+            got = (salo_decode.launches, salo_decode_plain.calls)
+            check(got == want, f"lockstep-check {arch} {dev}: (K5 launches, "
+                  f"plain calls) {got} != {want}")
+        check(outs["cuda"] == outs["cpu"],
+              f"lockstep-check {arch}: cuda {outs['cuda']} != cpu "
+              f"{outs['cpu']}")
+        log(f"[lockstep-check] {arch} d {cfg.d_model} hd {cfg.hd} H "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} f32, prompt {P} new {n_new}: "
+            f"cuda == cpu greedy tokens ({n_attn} K5 launches a step on the "
+            f"card) in {time.perf_counter() - t0:.1f} s: {outs['cuda']}")
+
+
+def _amplify_residuals(params, gain: float = 6.0) -> None:
+    """Scale every residual branch's output projection (``w_out``,
+    ``wo``) in place, so greedy tokens depend on the blocks (at the plain
+    init the tied embedding dominates)."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    for path, leaf in tree_flatten_with_path(params)[0]:
+        if path[-1] in ("w_out", "wo"):
+            leaf.mul_(gain)
+
+
+def _attention_layers(cfg) -> int:
+    """The attention layers of ``cfg``'s program: one per attention block,
+    one per griffin group (its local third), none in ssm / rec_mlp
+    segments."""
+    from repro_torch.models.transformer import ATTN_KINDS, make_program
+
+    return sum(n for kind, n in make_program(cfg)
+               if kind in ATTN_KINDS + ("griffin",))
 
 
 def serve_check(torch, seed):
@@ -1061,22 +1189,29 @@ def phase_serve_ft(torch, seed, what, ref_res, ref_c, **extra):
     return launches
 
 
-def phase_lockstep(torch, seed):
-    """smollm-135m at full width and depth, bf16, on the lockstep
-    ServeEngine: batch 8, a 1088-token prompt (past the 1024 window, so the
-    window and the sinks both bite) prefilled token by token, 32 new
-    tokens. Checks finite logits every step, 30 K5 launches per decode
-    step and no plain call. Returns the K5 launch count."""
+def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
+                   P=LOCKSTEP_PROMPT, n_new=LOCKSTEP_NEW):
+    """``arch`` at full width and depth, bf16, on the lockstep ServeEngine:
+    batch ``B``, a ``P``-token prompt prefilled token by token, ``n_new``
+    new tokens. Checks finite logits every step, one K5 launch per
+    attention layer per decode step (smollm-135m: 30; recurrentgemma-9b:
+    12, one a griffin group; mamba2-370m: none) and no plain call; prints
+    the step times, tokens/s and peak memory. Returns the K5 launch
+    count."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.tree import tree_leaves
 
-    cfg = get_config("smollm-135m")
-    B, P, n_new = LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW
-    check(P > cfg.salo.window, f"prompt {P} within the window")
+    cfg = get_config(arch)
+    tag = "lockstep" if arch == "smollm-135m" else f"lockstep {arch}"
+    n_attn = _attention_layers(cfg)
+    if arch == "smollm-135m":     # the window and the sinks both bite
+        check(P > cfg.salo.window, f"prompt {P} within the window")
+    t_phase = time.perf_counter()
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
@@ -1093,31 +1228,72 @@ def phase_lockstep(torch, seed):
         return logits, cache
 
     model.decode_step = timed_step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     salo_decode.launches = 0
     salo_decode_plain.calls = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = eng.generate(params, prompts, n_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = salo_decode.launches, salo_decode_plain.calls
+    peak = torch.cuda.max_memory_allocated()
     steps = len(times)
     check(steps == P + n_new, f"{steps} decode steps, want {P + n_new}")
-    check(launches == steps * cfg.n_layers,
-          f"K5 launches {launches} != {steps} x {cfg.n_layers}")
+    check(launches == steps * n_attn,
+          f"K5 launches {launches} != {steps} x {n_attn}")
     check(plain == 0, f"the plain version ran {plain} times")
     check(tuple(toks.shape) == (B, n_new), f"tokens {tuple(toks.shape)}")
     med = sorted(times)[steps // 2]
     gen_med = sorted(times[P:])[n_new // 2]
     gen_s = sum(times[P:])
-    log(f"[lockstep] smollm-135m bf16 B={B} prompt={P} new={n_new}: "
+    n_param = sum(t.numel() for t in tree_leaves(params))
+    log(f"[{tag}] {arch} bf16 ({n_param / 1e6:.1f}M params) B={B} "
+        f"prompt={P} new={n_new}: "
         f"{steps} decode steps in {wall:.3f} s; step median {med * 1e3:.3f} "
         f"ms (prefill and generation), generation step median "
         f"{gen_med * 1e3:.3f} ms, {B * n_new / gen_s:.1f} generated "
         f"tokens/s in the generation steps, {B * (P + n_new) / wall:.1f} "
-        f"tokens/s through the whole run; K5 launches {launches}; first "
+        f"tokens/s through the whole run; peak memory {peak / 2**30:.3f} "
+        f"GiB; K5 launches {launches} ({n_attn} a step); first "
         f"tokens {toks[:2, :8].tolist()}")
+    if arch != "smollm-135m":
+        log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def profile_lockstep(torch, seed, arch, B, P):
+    """One lockstep decode step of ``arch`` (full width and depth, bf16,
+    random weights from ``seed``) at position ``P`` on zeroed caches (the
+    shapes and the work of the lockstep phase's first generation step)
+    under the profiler: device time by kernel name and the idle share.
+    Runs after the serve phases, whose timings the profiler's hooks would
+    slow."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    cache = model.init_cache(B, P + 1)
+    tok = {"tokens": torch.zeros((B, 1), dtype=torch.long, device="cuda")}
+    for _ in range(2):                                   # warm up
+        model.decode_step(params, cache, tok, P)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    ts = time.perf_counter()
+    model.decode_step(params, cache, tok, P)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - ts
+    prof.stop()
+    report_profile(prof, dt, 1, f"{arch} lockstep decode step at t={P}")
+    log(f"[lockstep {arch}] profiled step phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------- training ------------------------------ #
@@ -1135,7 +1311,9 @@ def phase_lockstep(torch, seed):
 #     bidirectional window 512, one global token with global rows, batch
 #     8 x 12 heads, hd 64, bf16; (i), (j) the paper's ViL stages 1 and 2
 #     (grids 56 x 56 and 28 x 28, window 15 x 15, one global token, 3 and 6
-#     heads of hd 64), bf16.
+#     heads of hd 64), bf16; (k) recurrentgemma-9b's local attention: its
+#     one KV head copied to 16 query heads by the GQA expand (B*H = 16),
+#     n 4096, hd 256, window 2048, 4 sinks, block 256, bf16.
 TRAIN_CASES = {
     "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
@@ -1157,12 +1335,15 @@ TRAIN_CASES = {
               bq=128, bk=128, dtype="bfloat16"),
     "j": dict(pat=("vil", (28, 28), (15, 15), 1), n=785, bh=6, hd=64,
               bq=128, bk=128, dtype="bfloat16"),
+    "k": dict(pat=("csw", 2048, 4, 1), n=4096, bh=16, hd=256, bq=256,
+              bk=256, dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
 # the cases whose kernels are timed (the ViL stages: K1 only)
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
-         "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,)}
+         "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
+         "k": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -1826,7 +2007,8 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
     """The same small f32 model (2 layers; by default smollm's at hd 64)
     trained 3 steps on the card (kernels) and on the CPU (plain versions)
     from the same parameters and batches: losses and grad norms agree
-    within 1e-4 (f32, summation order only)."""
+    within 1e-4 (f32, summation order only). A program without attention
+    layers (mamba2) must launch no kernel and call no plain version."""
     from repro_torch.models.model import build_model
 
     cfg = cfg if cfg is not None else _train_cfg(smoke=True)
@@ -1842,7 +2024,11 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
             p, opt, met = step(p, opt, ds.batch(i))
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
         launches, plain = _counters()
-        if dev == "cuda":
+        if not _attention_layers(cfg):
+            check(plain == 0 and max(launches.values()) == 0,
+                  f"train-check {dev}: launches {launches}, plain {plain} "
+                  f"in a program without attention")
+        elif dev == "cuda":
             check(plain == 0 and min(launches.values()) > 0,
                   f"train-check cuda: launches {launches}, plain {plain}")
         else:
@@ -1857,6 +2043,57 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
         f"per step: cuda {hist['cuda']} cpu {hist['cpu']}")
 
 
+def _block_params(cfg, kind: str) -> int:
+    """Parameters of one segment element of ``kind`` (``models/
+    transformer.py``'s block_init): an attention block (q, k, v, o
+    projections), an RG-LRU block (w_in, w_gate_branch, w_out: 3 d dr;
+    w_a, w_i: 2 dr^2; the conv W dr; lam dr), an SSD block (w_in, w_out,
+    the conv over d_inner + 2N channels, A_log, D, dt_bias, norm_scale),
+    each with its MLP and RMS norms; a griffin group is two RG-LRU blocks
+    and one attention block."""
+    d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    if kind in ("attn_mlp", "attn_mlp_local"):
+        return d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
+    if kind == "rec_mlp":
+        dr = cfg.recurrent.d_rnn or d
+        W = cfg.recurrent.conv_width
+        return 3 * d * dr + 2 * dr * dr + W * dr + dr + mlp + 2 * d
+    if kind == "ssm":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        Hs = d_inner // s.head_dim
+        return (d * (2 * d_inner + 2 * s.d_state + Hs) + d_inner * d
+                + s.conv_width * (d_inner + 2 * s.d_state) + 3 * Hs
+                + d_inner + d)
+    if kind == "griffin":
+        return (2 * _block_params(cfg, "rec_mlp")
+                + _block_params(cfg, "attn_mlp_local"))
+    raise ValueError(f"train_bytes does not reckon block kind {kind!r}")
+
+
+def _recompute_bytes(cfg, kind: str, seq: int, batch: int) -> int:
+    """The f32 temporaries one segment element holds in its backward
+    (under remat its forward runs again there, saving them) beyond the
+    projections: an RG-LRU block's scan keeps each of its ceil(log2 T)
+    passes' (a, b) pair and ~10 gate and product tensors, f32 over (tokens,
+    d_rnn); a griffin group's two RG-LRU blocks are recomputed together;
+    an SSD block keeps ~4 chunk-quadratic f32 tensors (tokens x chunk x
+    heads) and ~8 f32 (tokens, d_inner) ones."""
+    tokens = seq * batch
+    if kind == "rec_mlp":
+        dr = cfg.recurrent.d_rnn or cfg.d_model
+        return (2 * math.ceil(math.log2(seq)) + 10) * 4 * dr * tokens
+    if kind == "griffin":
+        return 2 * _recompute_bytes(cfg, "rec_mlp", seq, batch)
+    if kind == "ssm":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        Hs = d_inner // s.head_dim
+        return (4 * s.chunk * Hs + 8 * d_inner) * 4 * tokens
+    return 0
+
+
 def train_bytes(cfg, seq: int, batch: int) -> dict:
     """The device bytes a train step of ``cfg`` needs at its peak, reckoned
     from the shapes (bf16 parameters; see ``optim/adamw.py`` and
@@ -1867,57 +2104,78 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     parameters (2): 32 B a parameter at its end. A leaf's own f32
     temporaries (~5 x 4 B each) come on top while it is updated; the
     embedding, the largest, is the first leaf, so they meet only the 18 B
-    a parameter held when the update starts. The loss holds the f32 logits, their soft-capped and
-    log-softmax copies and their gradient (4 x 4 B a logit), beside what
-    the forward saved for the backward: under remat "full" each layer's
-    input (d values a token a layer), under "dots" the projections'
-    outputs too (q, k, v, o, the MLP's up (and gate) and down products;
-    ``models/transformer.py``), all in bf16."""
+    a parameter held when the update starts. The loss holds the f32
+    logits, their soft-capped and log-softmax copies and their gradient
+    (4 x 4 B a logit), beside what the forward saved for the backward:
+    under remat "full" each segment element's input (d values a token an
+    element: a layer, or a whole griffin group), under "dots" (attention
+    programs only) the projections' outputs too (q, k, v, o, the MLP's up
+    (and gate) and down products; ``models/transformer.py``), all in
+    bf16; and the largest element's recomputed f32 temporaries
+    (``_recompute_bytes``: the RG-LRU scan's, the SSD's)."""
+    from repro_torch.models.transformer import ATTN_KINDS, make_program
+
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     gated = cfg.act in ("swiglu", "geglu")
-    mlp = (3 if gated else 2) * d * cfg.d_ff
-    layer = d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
+    program = make_program(cfg)
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    params = embed + cfg.n_layers * layer + d
+    params = embed + sum(n * _block_params(cfg, kind)
+                         for kind, n in program) + d
     update = max(32 * params, 18 * params + 20 * embed)
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"train_bytes reckons remat full and dots, got "
                          f"{cfg.remat!r}")
+    if cfg.remat == "dots" and any(k not in ATTN_KINDS for k, _ in program):
+        raise ValueError("train_bytes reckons remat dots for attention "
+                         "programs only")
     proj = hd * (H + 2 * Hkv) + d + (2 if gated else 1) * cfg.d_ff + d
     per_token = d + (proj if cfg.remat == "dots" else 0)
-    saved = 2 * per_token * seq * batch * cfg.n_layers
-    loss = 16 * seq * batch * cfg.vocab_size + 10 * params + saved
-    return dict(params=params, per_layer=layer, embedding=embed,
+    elements = sum(n for _, n in program)
+    saved = 2 * per_token * seq * batch * elements
+    recompute = max(_recompute_bytes(cfg, kind, seq, batch)
+                    for kind, _ in program)
+    loss = 16 * seq * batch * cfg.vocab_size + 10 * params + saved \
+        + recompute
+    per_layer = _block_params(cfg, program[0][0])
+    return dict(params=params, per_layer=per_layer, embedding=embed,
                 resident=10 * params, update_peak=update, loss_peak=loss,
                 saved=saved, saved_per_token_layer=per_token,
-                peak=max(update, loss))
+                recompute=recompute, peak=max(update, loss))
 
 
-def gemma_train_depth(torch, seq: int, batch: int) -> int:
-    """The deepest gemma-7b (every published width kept) whose reckoned
-    train-step peak (``train_bytes``) fits in 92 % of the card's memory."""
+def train_depth(torch, arch: str, seq: int, batch: int) -> int:
+    """The deepest ``arch`` (every published width kept) whose reckoned
+    train-step peak (``train_bytes``) fits in 92 % of the card's memory;
+    a multiple of 3 for hybrid programs (whole griffin groups)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    full = get_config("gemma-7b")
+    full = get_config(arch)
+    unit = 3 if full.family == "hybrid" else 1
     budget = 0.92 * torch.cuda.get_device_properties(0).total_memory
     depth = 0
-    for n in range(1, full.n_layers + 1):
+    for n in range(unit, full.n_layers + 1, unit):
         if train_bytes(dataclasses.replace(full, n_layers=n), seq,
                        batch)["peak"] > budget:
             break
         depth = n
-    check(depth > 0, "no layer of gemma-7b fits the card")
+    check(depth > 0, f"no {unit} layer(s) of {arch} fit the card")
     b = train_bytes(dataclasses.replace(full, n_layers=depth), seq, batch)
-    log(f"[train gemma-7b] reckoned bytes at seq {seq} batch {batch}: "
-        f"embedding {b['embedding'] / 1e6:.1f}M params (tied), "
-        f"{b['per_layer'] / 1e6:.1f}M a layer; {depth} of {full.n_layers} "
-        f"layers fit {budget / 1e9:.2f} GB (92 % of "
+    nxt = train_bytes(dataclasses.replace(full, n_layers=depth + unit), seq,
+                      batch)
+    log(f"[train {arch}] reckoned bytes at seq {seq} batch {batch}: "
+        f"embedding {b['embedding'] / 1e6:.1f}M params "
+        f"({'tied' if full.tie_embeddings else 'untied'}), "
+        f"{b['per_layer'] / 1e6:.1f}M a segment element; {depth} of "
+        f"{full.n_layers} layers fit {budget / 1e9:.2f} GB (92 % of "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}): "
         f"{b['params'] / 1e6:.1f}M params, resident {b['resident'] / 1e9:.2f}"
         f" GB, update peak {b['update_peak'] / 1e9:.2f} GB, loss peak "
-        f"{b['loss_peak'] / 1e9:.2f} GB (f32 logits {seq * batch * full.vocab_size * 4 / 1e9:.2f} GB)")
+        f"{b['loss_peak'] / 1e9:.2f} GB (f32 logits "
+        f"{seq * batch * full.vocab_size * 4 / 1e9:.2f} GB, recomputed "
+        f"f32 temporaries {b['recompute'] / 1e9:.2f} GB); "
+        f"{depth + unit} layers would peak at {nxt['peak'] / 1e9:.2f} GB")
     return depth
 
 
@@ -1972,6 +2230,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     tag = "train" if arch == "smollm-135m" else f"train {arch}"
     if remat != "full":
         tag = f"train-{remat}"
+    t_phase = time.perf_counter()
     run = steps if ref is None else len(ref["losses"])
     seq = 4096
     params = build_model(cfg, "cuda").init(
@@ -2021,9 +2280,11 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
             f"(bitwise: {losses == want_l}): {losses} vs {want_l}")
     # remat full and dots replay the attention forward in the backward
     replay = 1 + (cfg.remat != "none")
-    # K3 is two kernels per call: the row walk and the owner-tile sum
-    want = {"K1": replay * cfg.n_layers * run, "K2": cfg.n_layers * run,
-            "K3": 2 * cfg.n_layers * run}
+    # K3 is two kernels per call: the row walk and the owner-tile sum; one
+    # call of each per attention layer (a griffin group has one)
+    n_attn = _attention_layers(cfg)
+    want = {"K1": replay * n_attn * run, "K2": n_attn * run,
+            "K3": 2 * n_attn * run}
     check(launches == want, f"launches {launches} != {want}")
     check(plain == 0, f"the plain versions ran {plain} times")
     timed = [t for i, t in enumerate(times) if i and i not in overlapped]
@@ -2069,6 +2330,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     log(f"[profile] train kernels per step: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
         + f"; K2 + K3 {per['K2'] + per['K3']:.3f} ms")
+    log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
     if ft is not None:
         ft.update(cfg=cfg, step_fn=step, ds=ds,
                   ref={i: (losses[i], norms[i]) for i in range(ft_save_at,
@@ -2238,9 +2500,15 @@ def main(argv=None) -> int:
     k4 = phase_kernels(torch, timer, args.seed)
     k5 = phase_k5(torch, timer, args.seed)
     serve_check(torch, args.seed)
+    lockstep_check(torch, args.seed)
     # the lockstep and int8 serve phases run before the profiled serve
     # phase: the profiler's hooks slow the host afterwards
     launches_k5 = phase_lockstep(torch, args.seed)
+    launches_rg = phase_lockstep(torch, args.seed, "recurrentgemma-9b",
+                                 RG_B, RG_PROMPT, RG_NEW)
+    torch.cuda.empty_cache()
+    phase_lockstep(torch, args.seed, "mamba2-370m", RG_B, RG_PROMPT, RG_NEW)
+    torch.cuda.empty_cache()
     launches_int8, int8_tokens, int8_c = phase_serve_int8(torch, args.seed)
     launches, bf16_tokens, bf16_c = phase_serve(torch, args.seed)
     agree = sum(int((int8_tokens[r] == bf16_tokens[r]).sum())
@@ -2262,6 +2530,9 @@ def main(argv=None) -> int:
     launches_gemma, _, _ = phase_serve(torch, args.seed, "gemma-7b",
                                        "serve gemma-7b", (40, 41), False)
     torch.cuda.empty_cache()
+    for arch in ("recurrentgemma-9b", "mamba2-370m"):
+        profile_lockstep(torch, args.seed, arch, RG_B, RG_PROMPT)
+        torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
     tl = {}
     tl["dynamic"], drec = phase_dynamic(torch, timer, args.seed)
@@ -2271,6 +2542,8 @@ def main(argv=None) -> int:
     for arch, cfg in _check_cfgs().items():
         if arch in TRAIN_CHECK:
             train_check(torch, args.seed, cfg, f"{arch} hd {cfg.hd}")
+    for arch, cfg in _recurrent_check_cfgs().items():
+        train_check(torch, args.seed, cfg, f"{arch} d {cfg.d_model}")
     tl["smollm-135m"], ft, full = phase_train(torch, args.seed,
                                               ft_save_at=FT_TRAIN_AT)
     tl["train-ft"] = phase_train_ft(torch, args.seed, ft)
@@ -2283,11 +2556,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tl["gemma-7b"], _, _ = phase_train(
         torch, args.seed, "gemma-7b",
-        n_layers=gemma_train_depth(torch, 4096, GEMMA_BATCH),
+        n_layers=train_depth(torch, "gemma-7b", 4096, GEMMA_BATCH),
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
     tl["longformer-4k"], _, _ = phase_train(torch, args.seed,
                                             "longformer-4k")
+    torch.cuda.empty_cache()
+    tl["train-recurrentgemma-9b"], _, _ = phase_train(
+        torch, args.seed, "recurrentgemma-9b",
+        n_layers=train_depth(torch, "recurrentgemma-9b", 4096, GEMMA_BATCH),
+        steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
+    phase_train(torch, args.seed, "mamba2-370m", steps=GEMMA_STEPS,
+                batch=MAMBA_BATCH, lr=1e-3, warmup=3)
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -2317,15 +2598,20 @@ def main(argv=None) -> int:
         "name": "salo_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:173",
-        "launches": launches_k5, "launches_per_call": 1, **row(k5["a"]),
-        "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"])}}]
+        "launches": launches_k5 + launches_rg,
+        "launches_by_path": {"lockstep": launches_k5,
+                             "lockstep_recurrentgemma_9b": launches_rg},
+        "launches_per_call": 1, **row(k5["a"]),
+        "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"]),
+                     "recurrentgemma_9b_hd256_mqa_bf16": row(k5["k"])}}]
     # launches_per_call: K3's wrapper runs two kernels (the row walk and
     # the owner-tile sum), and its count and its time cover both. The main
     # numbers are case (a), smollm-135m's train attention; the variants are
     # the other timed cases (ViL stages: K1 only)
     variants = {"f": "gemma_7b_hd256_bf16", "g": "gemma_7b_hd256_f32",
                 "h": "longformer_4k_bf16", "b": "smollm_f32",
-                "i": "vil_stage1_bf16", "j": "vil_stage2_bf16"}
+                "i": "vil_stage1_bf16", "j": "vil_stage2_bf16",
+                "k": "recurrentgemma_9b_local_hd256_mqa_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

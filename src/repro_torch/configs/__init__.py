@@ -6,7 +6,7 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
                                       SHAPES, SHAPES_BY_NAME)
 
 ARCHS = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
-         "longformer-4k")
+         "longformer-4k", "recurrentgemma-9b", "mamba2-370m")
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
@@ -14,6 +14,8 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "granite-3-8b": "granite_3_8b",
     "longformer-4k": "longformer_4k",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 

@@ -27,10 +27,22 @@ import torch
 from repro_torch.serve.paged_cache import PagedSlab
 from repro_torch.tree import tree_flatten_with_path
 
-# What the port consumes, per sub-tree: the leaf names of each dict.
+# What the port consumes, per block kind: the leaf names of each dict, or
+# the schema of a nested block (griffin's r1/r2/a).
+_ATTN = {"ln1": ("scale",), "attn": ("wq", "wk", "wv", "wo"),
+         "ln2": ("scale",), "mlp": ("w_in", "w_out", "w_gate")}
+_REC = {"ln1": ("scale",),
+        "rec": ("w_in", "w_gate_branch", "w_out", "conv_w", "w_a", "w_i",
+                "lam"),
+        "ln2": ("scale",), "mlp": ("w_in", "w_out", "w_gate")}
 _BLOCK_SCHEMA = {
-    "attn_mlp": {"ln1": ("scale",), "attn": ("wq", "wk", "wv", "wo"),
-                 "ln2": ("scale",), "mlp": ("w_in", "w_out", "w_gate")},
+    "attn_mlp": _ATTN,
+    "attn_mlp_local": _ATTN,
+    "rec_mlp": _REC,
+    "ssm": {"ln1": ("scale",),
+            "ssm": ("w_in", "w_out", "conv_w", "A_log", "D", "dt_bias",
+                    "norm_scale")},
+    "griffin": {"r1": _REC, "r2": _REC, "a": _ATTN},
 }
 _TOP_SCHEMA = {"embed": ("w",), "ln_f": ("scale",), "lm_head": ("w",)}
 
@@ -58,6 +70,29 @@ def _take(d: Dict[str, Any], names, where: str, index=None, device="cpu"):
     return out
 
 
+def _take_block(sub: Dict[str, Any], schema, where: str, index: int,
+                device) -> Dict[str, Any]:
+    """Layer ``index`` of a stacked block sub-tree, by its schema; raise on
+    any part or leaf the schema does not name."""
+    extra = set(sub) - set(schema)
+    if extra:
+        raise ValueError(f"params_from_jax: unconsumed leaves under "
+                         f"{where}: {sorted(extra)}")
+    return {part: (_take(sub[part], names, f"{where}/{part}", index=index,
+                         device=device)
+                   if isinstance(names, tuple) else
+                   _take_block(sub[part], names, f"{where}/{part}", index,
+                               device))
+            for part, names in schema.items() if part in sub}
+
+
+def _n_layers(sub) -> int:
+    """The leading (layer) axis of a stacked sub-tree: any leaf's."""
+    while isinstance(sub, dict):
+        sub = next(iter(sub.values()))
+    return int(np.shape(sub)[0])
+
+
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The port's parameters from the reference's (numpy leaves)."""
     out: Dict[str, Any] = {}
@@ -68,16 +103,8 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         kind = key.split("_", 1)[1] if key.startswith("seg") else None
         if kind not in _BLOCK_SCHEMA:
             raise ValueError(f"params_from_jax: unconsumed sub-tree {key!r}")
-        schema = _BLOCK_SCHEMA[kind]
-        extra = set(sub) - set(schema)
-        if extra:
-            raise ValueError(f"params_from_jax: unconsumed leaves under "
-                             f"{key}: {sorted(extra)}")
-        n = int(np.shape(sub["ln1"]["scale"])[0])
-        out[key] = [{part: _take(sub[part], schema[part], f"{key}/{part}",
-                                 index=i, device=device)
-                     for part in schema if part in sub}
-                    for i in range(n)]
+        out[key] = [_take_block(sub, _BLOCK_SCHEMA[kind], key, i, device)
+                    for i in range(_n_layers(sub))]
     return out
 
 

@@ -10,6 +10,8 @@ or the lockstep baseline.
       --page-stat-decay 0.3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --smoke --device cpu --engine lockstep
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --smoke --device cpu --engine lockstep
 
 Random weights from ``--seed``. ``--engine continuous`` (greedy) submits a
 RAGGED batch (prompt lengths spread around ``--prompt-len``) to the
@@ -17,7 +19,10 @@ paged-slab engine and reports launch counters beside throughput;
 ``--kv-dtype int8`` stores the slab quantized per (layer, page), and
 ``--page-sparsity-threshold``/``--page-stat-decay`` turn on page skipping.
 ``--engine lockstep`` prefills a rectangular batch token by token and
-decodes it in lockstep (greedy, or sampled with ``--temperature``). Runs
+decodes it in lockstep (greedy, or sampled with ``--temperature``); the
+recurrent archs (``recurrentgemma-9b``, ``mamba2-370m``) serve only
+there, and ``--engine continuous`` raises ``NotImplementedError`` for
+them, as the reference's engine does. Runs
 on the card unless ``--device cpu`` is given; with no card, ``--device
 cuda`` (the default) raises.
 
@@ -56,7 +61,8 @@ from repro_torch.models.layers import salo_pattern
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability, summary_line
 from repro_torch.serve.engine import (ContinuousConfig, ContinuousEngine,
-                                     ServeConfig, ServeEngine)
+                                     ServeConfig, ServeEngine,
+                                     require_attention_program)
 from repro_torch.serve.paged_cache import layout_for_pattern
 
 
@@ -144,6 +150,7 @@ def main(argv=None):
         ap.error("--engine continuous is greedy-only "
                  "(temperature sampling needs per-request RNG streams)")
 
+    require_attention_program(model)
     max_batch = args.max_batch or args.batch
     lay = layout_for_pattern(salo_pattern(cfg, causal=True), args.page)
     ccfg = ContinuousConfig(

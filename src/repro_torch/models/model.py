@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
 
 class Model:
@@ -52,10 +53,11 @@ class Model:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = batch.get("positions", None)
-        pattern = L.salo_pattern(cfg)
+        pats = T._patterns(cfg)
         for i, (kind, n) in enumerate(self.program):
             x = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
-                                pattern, positions=positions)
+                                pats.get(kind, pats["attn_mlp"]),
+                                positions=positions)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return L.logits_apply(params["embed"], params.get("lm_head"), x, cfg)
 
@@ -67,30 +69,33 @@ class Model:
         return nll, {"nll": nll, "loss": nll}
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
-        """Lockstep decode caches: per segment ``{"k", "v"}`` of (n, B, S,
-        Hkv, hd) in the compute dtype, zeroed, on the model's device (the
-        reference's stacked layout)."""
+        """Lockstep decode caches, zeroed, on the model's device, in the
+        reference's stacked layout: per segment the block's cache tree
+        (``T.block_cache_init``: ``{"k", "v"}`` of attention blocks in the
+        compute dtype, the recurrent blocks' ``conv`` in the compute dtype
+        and ``state`` in f32) with a leading axis of n layers."""
         cfg, dtype = self.cfg, L.dt(self.cfg, "compute")
         cache = {}
         for i, (kind, n) in enumerate(self.program):
             one = T.block_cache_init(cfg, kind, batch_size, max_len, dtype,
                                      self.device)
-            cache[f"seg{i}_{kind}"] = {
-                k: torch.zeros((n, *a.shape), dtype=a.dtype,
-                               device=a.device) for k, a in one.items()}
+            cache[f"seg{i}_{kind}"] = tree_map(
+                lambda a: a.new_zeros((n, *a.shape)), one)
         return cache
 
     def decode_step(self, params, cache, batch_t, t: int):
         """One lockstep decode step. batch_t: ``{"tokens": (B, 1)}``; t:
-        the batch's position (an int). Writes the new KV into ``cache`` in
-        place; returns (logits (B, 1, vocab), cache)."""
+        the batch's position (an int). Writes the new KV and recurrent
+        states into ``cache`` in place; returns (logits (B, 1, vocab),
+        cache)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch_t)
-        pattern = L.salo_pattern(cfg)
+        pats = T._patterns(cfg)
         for i, (kind, n) in enumerate(self.program):
             key = f"seg{i}_{kind}"
             x, cache[key] = T.segment_decode(params[key], cache[key], x, t,
-                                             cfg, kind, pattern)
+                                             cfg, kind,
+                                             pats.get(kind, pats["attn_mlp"]))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
                                 cfg)

@@ -1,20 +1,28 @@
 """Block assembly: training forward and the serving paths.
 
-The port of :mod:`repro.models.transformer` for the dense ``attn_mlp``
-programs: the training forward, the continuous engine's paged paths and
-the lockstep engine's decode caches. An
-architecture is a *program*: a list of (block_kind, count) segments. The
-reference stacks each segment's layer parameters on a leading axis and
+The port of :mod:`repro.models.transformer`: the training forward, the
+continuous engine's paged paths and the lockstep engine's decode caches.
+An architecture is a *program*: a list of (block_kind, count) segments.
+The reference stacks each segment's layer parameters on a leading axis and
 runs ``jax.lax.scan``; here a segment's parameters are a list of
 per-layer dicts and the scan is a Python loop over the layer index. The
 paged slab keeps the reference's stacked layout ``(n_layers, n_pages,
 page, Hkv, hd)``; layer ``i`` writes row ``i`` of it in place.
 
-Remat: ``remat="full"`` runs each block under
+Block kinds:
+  attn_mlp        pre-norm attention + MLP           (dense archs)
+  attn_mlp_local  the same on the local-window pattern (recurrentgemma)
+  ssm             Mamba2 SSD block                   (mamba2)
+  rec_mlp         RG-LRU recurrent block + MLP       (recurrentgemma)
+  griffin         (rec_mlp, rec_mlp, attn_mlp_local) supergroup, one unit
+The MoE and cross-attention kinds come with their families.
+
+Remat: ``remat="full"`` runs each segment element (a layer, or a whole
+griffin group, as the reference's scan body) under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` — the
-backward re-runs the block's forward (one more attention forward launch
-per layer), as ``jax.checkpoint`` does; ``remat="dots"`` does the same
-under a selective-checkpoint policy that saves the outputs of the
+backward re-runs its forward (one more attention forward launch per
+attention layer), as ``jax.checkpoint`` does; ``remat="dots"`` does the
+same under a selective-checkpoint policy that saves the outputs of the
 projections (``aten.mm`` / ``aten.addmm``: the ``x @ w`` products) and
 recomputes everything else, as the reference's
 ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: batched
@@ -25,6 +33,7 @@ three attention launches a layer, ``kernels.ops.LAUNCH_CONTRACT``);
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, Tuple
 
@@ -34,10 +43,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.serve.paged_cache import (PagedSlab, gather_view,
                                            quant_slab_write, slab_write)
+from repro_torch.tree import tree_map
 
-ATTN_KINDS = ("attn_mlp",)
+ATTN_KINDS = ("attn_mlp", "attn_mlp_local")
 
 
 def _not_ported_kind(kind: str) -> NotImplementedError:
@@ -47,9 +59,17 @@ def _not_ported_kind(kind: str) -> NotImplementedError:
 
 
 def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """(block_kind, count) segments. The port serves dense attention
-    programs only so far; other families raise."""
-    if cfg.family in ("ssm", "hybrid", "moe") or cfg.encoder_decoder:
+    """(block_kind, count) segments. MoE and encoder-decoder programs are
+    not ported yet and raise."""
+    if cfg.family == "ssm":
+        return [("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, 3)
+        prog = [("griffin", n_groups)]
+        if rem:
+            prog.append(("rec_mlp", rem))
+        return prog
+    if cfg.family == "moe" or cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.family} programs are not ported yet: ROADMAP "
             "'other model families'")
@@ -57,30 +77,66 @@ def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, device):
-    if kind != "attn_mlp":
-        raise _not_ported_kind(kind)
-    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-            "attn": L.attn_init(gen, cfg, device),
-            "ln2": L.rmsnorm_init(cfg.d_model, device),
-            "mlp": L.mlp_init(gen, cfg, device)}
+    if kind in ATTN_KINDS:
+        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                "attn": L.attn_init(gen, cfg, device),
+                "ln2": L.rmsnorm_init(cfg.d_model, device),
+                "mlp": L.mlp_init(gen, cfg, device)}
+    if kind == "ssm":
+        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                "ssm": SSM.ssm_init(gen, cfg, device)}
+    if kind == "rec_mlp":
+        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                "rec": RG.rglru_init(gen, cfg, device),
+                "ln2": L.rmsnorm_init(cfg.d_model, device),
+                "mlp": L.mlp_init(gen, cfg, device)}
+    if kind == "griffin":
+        return {"r1": block_init(gen, cfg, "rec_mlp", device),
+                "r2": block_init(gen, cfg, "rec_mlp", device),
+                "a": block_init(gen, cfg, "attn_mlp_local", device)}
+    raise _not_ported_kind(kind)
 
 
 def segment_init(gen, cfg: ModelConfig, kind: str, n: int, device):
     return [block_init(gen, cfg, kind, device) for _ in range(n)]
 
 
+def _patterns(cfg: ModelConfig, causal: bool = True):
+    """The pattern of each attention block kind: recurrentgemma's local
+    third runs ``recurrent.local_window``."""
+    main = L.salo_pattern(cfg, causal=causal)
+    if cfg.recurrent is not None:
+        local = dataclasses.replace(cfg.salo,
+                                    window=cfg.recurrent.local_window)
+        return {"attn_mlp": main,
+                "attn_mlp_local": L.salo_pattern(cfg, causal=causal,
+                                                 salo=local)}
+    return {"attn_mlp": main, "attn_mlp_local": main}
+
+
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                 positions=None):
     """Full-sequence block. Returns x (the reference also returns the MoE
-    aux losses, which dense blocks do not have)."""
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  "ROADMAP queue 1, 'other model families'")
-    h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                     pattern, positions=positions)
-    x = x + h
-    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2, cfg)
+    aux losses, which these kinds do not have)."""
+    if kind == "griffin":
+        pats = _patterns(cfg)
+        x = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions)
+        x = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions)
+        return block_apply(p["a"], x, cfg, "attn_mlp_local",
+                           pats["attn_mlp_local"], positions)
+    if kind in ATTN_KINDS:
+        h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                         cfg, pattern, positions=positions)
+        return _ffn_residual(p, x + h, cfg, kind)
+    if kind == "ssm":
+        return x + SSM.ssm_apply(p["ssm"],
+                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg)
+    if kind == "rec_mlp":
+        x = x + RG.rglru_apply(p["rec"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                               cfg)
+        return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                               cfg)
+    raise _not_ported_kind(kind)
 
 
 # The products ``remat="dots"`` saves: unbatched matmuls.
@@ -95,7 +151,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   pattern, positions=None):
     """Run one segment's layers (the reference's scan) under the config's
-    remat policy ("none" | "full" | "dots"). Returns x."""
+    remat policy ("none" | "full" | "dots"), a griffin group as one unit.
+    Returns x."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
@@ -211,37 +268,91 @@ def segment_decode_paged(params, slab: PagedSlab, x_t, page_tables,
 # ------------------------ lockstep decode caches ------------------------ #
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device):
-    """One block's lockstep decode cache: ``{"k", "v"}`` of (batch, S, Hkv,
-    hd), S = ``max_len`` (full cache) or ``min(max_len, window + g)``
-    (SALO ring cache). The SSM / recurrent / cross-attention caches come
-    with their families."""
-    if kind not in ATTN_KINDS:
-        raise _not_ported_kind(kind)
+    """One block's lockstep decode cache. Attention: ``{"k", "v"}`` of
+    (batch, S, Hkv, hd), S = ``max_len`` (full cache) or ``min(max_len,
+    window + g)`` (SALO ring cache). SSM: ``{"conv"}`` (batch, W-1, d_inner
+    + 2N) in ``dtype`` and ``{"state"}`` (batch, H, N, P) f32. RG-LRU:
+    ``{"conv"}`` (batch, W-1, d_rnn) in ``dtype`` and ``{"state"}`` (batch,
+    d_rnn) f32. Griffin: ``{"r1", "r2", "a"}`` of those. The
+    cross-attention caches come with their family."""
     if cfg.salo.ring_cache:
         max_len = min(max_len, cfg.salo.window + cfg.salo.n_global)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    z = functools.partial(torch.zeros, device=device)
+    if kind == "griffin":
+        return {"r1": block_cache_init(cfg, "rec_mlp", batch, max_len, dtype,
+                                       device),
+                "r2": block_cache_init(cfg, "rec_mlp", batch, max_len, dtype,
+                                       device),
+                "a": block_cache_init(cfg, "attn_mlp_local", batch, max_len,
+                                      dtype, device)}
+    if kind in ATTN_KINDS:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
+    if kind == "ssm":
+        d_inner, H, N, P = SSM._dims(cfg)
+        W = cfg.ssm.conv_width
+        return {"conv": z((batch, W - 1, d_inner + 2 * N), dtype=dtype),
+                "state": z((batch, H, N, P), dtype=torch.float32)}
+    if kind == "rec_mlp":
+        dr = RG._d_rnn(cfg)
+        W = cfg.recurrent.conv_width
+        return {"conv": z((batch, W - 1, dr), dtype=dtype),
+                "state": z((batch, dr), dtype=torch.float32)}
+    raise _not_ported_kind(kind)
 
 
 def block_decode(p, cache, x_t, t: int, cfg: ModelConfig, kind: str,
                  pattern):
-    """One-token lockstep decode through one block; the cache is written
-    in place. Returns (x_t, cache)."""
-    if kind not in ATTN_KINDS:
-        raise _not_ported_kind(kind)
-    h, _, _ = L.attn_decode(p["attn"], L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
-                            cache["k"], cache["v"], t, cfg, pattern)
-    return _ffn_residual(p, x_t + h, cfg, kind), cache
+    """One-token lockstep decode through one block. Attention caches are
+    written in place and returned; the recurrent blocks return new
+    ``conv``/``state`` tensors. Returns (x_t, cache)."""
+    if kind == "griffin":
+        pats = _patterns(cfg)
+        x_t, c1 = block_decode(p["r1"], cache["r1"], x_t, t, cfg, "rec_mlp",
+                               pattern)
+        x_t, c2 = block_decode(p["r2"], cache["r2"], x_t, t, cfg, "rec_mlp",
+                               pattern)
+        x_t, c3 = block_decode(p["a"], cache["a"], x_t, t, cfg,
+                               "attn_mlp_local", pats["attn_mlp_local"])
+        return x_t, {"r1": c1, "r2": c2, "a": c3}
+    if kind in ATTN_KINDS:
+        h, _, _ = L.attn_decode(p["attn"],
+                                L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
+                                cache["k"], cache["v"], t, cfg, pattern)
+        return _ffn_residual(p, x_t + h, cfg, kind), cache
+    if kind == "ssm":
+        y, conv, st = SSM.ssm_decode(p["ssm"],
+                                     L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
+                                     cache["conv"], cache["state"], cfg)
+        return x_t + y, {"conv": conv, "state": st}
+    if kind == "rec_mlp":
+        y, conv, st = RG.rglru_decode(p["rec"],
+                                      L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
+                                      cache["conv"], cache["state"], cfg)
+        x_t = x_t + y
+        x_t = x_t + L.mlp_apply(p["mlp"],
+                                L.rmsnorm(p["ln2"], x_t, cfg.norm_eps), cfg)
+        return x_t, {"conv": conv, "state": st}
+    raise _not_ported_kind(kind)
+
+
+def _write_back(row, new):
+    """Copy a block's new cache leaf into its row of the stacked cache,
+    unless the block wrote the row in place."""
+    if new is not row:
+        row.copy_(new)
+    return row
 
 
 def segment_decode(params, caches, x_t, t: int, cfg: ModelConfig, kind: str,
                    pattern):
     """One lockstep decode step through a segment's layers (the
-    reference's scan): layer ``i`` uses row ``i`` of the stacked caches
-    ``{"k", "v"}`` of (n, B, S, Hkv, hd). Returns (x_t, caches)."""
+    reference's scan): layer ``i`` uses row ``i`` of every leaf of the
+    stacked caches (leading axis n) and its new cache goes back into that
+    row, each leaf keeping its dtype. Returns (x_t, caches)."""
     for i, layer_params in enumerate(params):
-        x_t, _ = block_decode(layer_params,
-                              {"k": caches["k"][i], "v": caches["v"][i]},
-                              x_t, t, cfg, kind, pattern)
+        rows = tree_map(lambda a: a[i], caches)
+        x_t, new = block_decode(layer_params, rows, x_t, t, cfg, kind,
+                                pattern)
+        tree_map(_write_back, rows, new)
     return x_t, caches

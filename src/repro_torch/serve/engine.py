@@ -6,8 +6,9 @@ The port of :mod:`repro.serve.engine`.
 ``ServeEngine`` (lockstep): prefill a rectangular batch token by token
 through ``Model.decode_step``, then decode every sequence at the same
 position. Its contiguous caches are read by the decode kernel
-:func:`repro_torch.kernels.salo_decode.salo_decode` — one launch per layer
-per step on the card.
+:func:`repro_torch.kernels.salo_decode.salo_decode` — one launch per
+attention layer per step on the card. It serves every ported family; the
+recurrent ones (mamba2, recurrentgemma) only here, as in the reference.
 
 ``ContinuousEngine``: requests of different lengths enter the scheduler
 (:mod:`repro_torch.serve.batcher`), share ONE pooled paged ring-cache slab
@@ -198,6 +199,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
+def require_attention_program(model: Model) -> None:
+    """The continuous engine serves text-only attention programs; the
+    recurrent families (mamba2, recurrentgemma) serve through the lockstep
+    :class:`ServeEngine`. Raises the reference's ``NotImplementedError``."""
+    cfg = model.cfg
+    if cfg.mrope_sections is not None or cfg.encoder_decoder:
+        raise NotImplementedError("continuous serving: text-only LMs")
+    for kind, _ in model.program:
+        if kind not in T.ATTN_KINDS:
+            raise NotImplementedError(
+                f"continuous serving needs attention blocks, got {kind}")
+
+
 class ContinuousEngine:
     """Continuous-batching serving over the paged ring-cache slab, on one
     device. Greedy decoding only; attention-block architectures with a
@@ -222,9 +236,8 @@ class ContinuousEngine:
         if ccfg.kv_dtype not in ("compute", "int8"):
             raise ValueError(f"kv_dtype must be 'compute' or 'int8', got "
                              f"{ccfg.kv_dtype!r}")
+        require_attention_program(model)
         cfg = model.cfg
-        if cfg.mrope_sections is not None or cfg.encoder_decoder:
-            raise NotImplementedError("continuous serving: text-only LMs")
         self.model = model
         self.ccfg = ccfg
         self.quantized = ccfg.kv_dtype == "int8"

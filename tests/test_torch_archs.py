@@ -82,7 +82,8 @@ def test_archs_list_the_dense_configs():
     """The registry lists the ported configs, and each is the reference's
     config field for field (CONFIG at its published shape, and SMOKE)."""
     from repro.configs import get_config as j_config
-    assert TC.ARCHS == ("smollm-135m",) + DENSE
+    assert TC.ARCHS == ("smollm-135m",) + DENSE + ("recurrentgemma-9b",
+                                                  "mamba2-370m")
     for arch in TC.ARCHS:
         for jget, tget in ((j_config, t_config), (j_smoke, t_smoke)):
             assert dataclasses.asdict(tget(arch)) == \

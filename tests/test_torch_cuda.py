@@ -966,3 +966,142 @@ def test_dots_train_step_cuda_equals_cpu():
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------- the recurrent families: recurrentgemma, mamba2 ------------ #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contiguous_decode_hd256_one_kv_head(dtype):
+    """K5 at recurrentgemma-9b's decode layout: 16 query heads on one KV
+    head of hd 256 (4 row groups of the kernel's 4 rows), a full cache
+    past the window with sinks, scalar and per-request t."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(256)
+    B, H, Hkv, hd, S = 4, 16, 1, 256, 700
+    pat = causal_sliding_window(512, n_sinks=4)
+    cache = torch.randn((2, B, S, Hkv, hd), generator=g,
+                        device="cuda").to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda").to(dtype)
+    tv = torch.tensor([3, 300, 600, S - 1], dtype=torch.int32,
+                      device="cuda")
+    for t in (S - 1, tv):
+        out = salo_decode(q, k, v, None, t, pattern=pat)
+        ref = salo_decode_plain(q, k, v, None, t, pattern=pat)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        assert torch.equal(out, salo_decode(q, k, v, None, t, pattern=pat))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_one_kv_head(dtype):
+    """K1, K2, K3 at recurrentgemma-9b's attention layout (B*H = 16 copies
+    of one KV head, hd 256, window with 4 sinks, block 256) at a narrowed
+    n, against their plain versions."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    pat = causal_sliding_window(512, n_sinks=4)
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        pat, 1100, 16, 256, 256, 256, dtype, seed=16)
+    k = k[:1].expand_as(k).contiguous()        # the GQA expand's copies
+    v = v[:1].expand_as(v).contiguous()
+    kw = dict(sched=sched, scale=256 ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, t.kv_blocks,
+                                        t.flags, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, t.kv_blocks,
+                                               t.flags, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, t.kv_blocks, t.flags, **kw)
+    dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    tol, gtol, ktol = KA.OUT_TOL[dtype], GTOL[dtype], KB.DKV_TOL[dtype]
+    stol = KA.STATS_TOL
+    for a, b, tl in ((out, ro, tol), (m, rm, stol), (l, rl, stol),
+                     (dq, rdq, gtol), (dk, rdk, ktol), (dv, rdv, ktol)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+
+
+def test_attention_op_one_kv_head_cuda_equals_cpu():
+    """The op with one KV head under 16 query heads of hd 256, f32: the
+    16 copies' dK/dV sum back to the one head through autograd of the
+    expand, on the card as on the CPU."""
+    _need_cuda()
+    from repro_torch.core.attention import hybrid_attention
+
+    pat = causal_sliding_window(64, n_sinks=4)
+    rng = np.random.default_rng(3)
+    x = [rng.normal(size=s).astype(np.float32) for s in
+         ((1, 16, 160, 256), (1, 1, 160, 256), (1, 1, 160, 256),
+          (1, 16, 160, 256))]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in x[:3])
+        out = hybrid_attention(q, k, v, pat, block_q=32, block_k=32)
+        (out * torch.tensor(x[3], device=dev)).sum().backward()
+        res[dev] = [y.detach().cpu() for y in (out, q.grad, k.grad, v.grad)]
+    assert res["cuda"][2].shape == (1, 1, 160, 256)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _recurrent_cfg(arch):
+    """recurrentgemma narrowed to widths its kernels take (one KV head of
+    hd 256 under 2 query heads, local window 32 + 4 sinks, 32-wide
+    blocks); mamba2 at its smoke widths."""
+    from repro_torch.configs.base import RecurrentConfig
+
+    if arch == "mamba2-370m":
+        return get_smoke(arch)
+    return dataclasses.replace(
+        get_smoke(arch), d_model=256, n_heads=2, n_kv_heads=1, head_dim=256,
+        d_ff=512, recurrent=RecurrentConfig(local_window=32),
+        salo=SALOConfig(window=32, n_global=4, block_q=32, block_k=32))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m"])
+def test_recurrent_models_cuda_equal_cpu(arch):
+    """The recurrent models, f32: two train steps (recurrentgemma's local
+    attention through K1, K2, K3; loss and grad norm within 1e-4) and the
+    lockstep engine's greedy tokens past the local window (through K5),
+    equal on the card and on the CPU."""
+    _need_cuda()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import Schedule
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = _recurrent_cfg(arch)
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                       schedule=Schedule(warmup_steps=1, total_steps=2))
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(2))
+    for path, leaf in tree_flatten_with_path(params)[0]:
+        if path[-1] in ("w_out", "wo"):    # tokens that use every block
+            leaf.mul_(6.0)
+    ds = SyntheticLM(cfg, DataConfig(128, 2, seed=2))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
+    hist, toks = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        toks[dev] = ServeEngine(model, ServeConfig(max_len=48)).generate(
+            _params_on(params, dev), prompts, 8).cpu().tolist()
+        p = _params_on(params, dev)
+        step = make_train_step(model, tcfg)
+        opt = adamw.init(tcfg.optimizer, p)
+        hist[dev] = []
+        for i in range(2):
+            p, opt, met = step(p, opt, ds.batch(i))
+            hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+    np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
+                               rtol=1e-4, atol=1e-4)
+    assert toks["cuda"] == toks["cpu"]

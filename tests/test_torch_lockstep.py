@@ -253,7 +253,7 @@ def test_block_cache_init_raises_for_unported_kinds():
     from repro_torch.models import transformer as T
 
     _, tcfg = _cfgs()
-    for kind in ("ssm", "rec_mlp", "griffin", "xattn"):
+    for kind in ("xattn",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.block_cache_init(tcfg, kind, 1, 8, torch.float32, "cpu")
 
