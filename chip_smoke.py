@@ -20,13 +20,18 @@ nonzero:
    row (which must give the (0, NEG_INF, 0) identity), (f) one request
    (B = 1) at the serve shapes, t = 3000 (the single-user long-cache
    decode), (g) gemma-7b's decode (16 heads of hd 256, no GQA) at the
-   serve shapes in bf16. ``page_m`` must be equal where either side is NEG_INF. K5
+   serve shapes in bf16, (l) arctic-480b's decode (56 query heads on 8 KV
+   heads of hd 128, rep 7: one full row group of 4 and a partial one of
+   3) at the serve shapes in bf16. ``page_m`` must be equal where either
+   side is NEG_INF. K5
    (contiguous caches, read through the transposed view of the lockstep
    (B, S, Hkv, hd) cache): (a) the lockstep phase's cache in bf16, slot =
    position, (b) the same in f32, (c) the ring layout (window 512 + 4
    sinks, dilation 2, PAD ring slots), (k) recurrentgemma-9b's decode (16
    query heads on one KV head of hd 256, bf16, a 2304-slot full cache, t
-   past the 2048 window, 4 sinks). Tolerances: f32 1e-5, bf16/f16
+   past the 2048 window, 4 sinks), (l) arctic-480b's decode on the MoE
+   lockstep phases' cache (56 query heads on 8 KV heads of hd 128, bf16,
+   288 slots). Tolerances: f32 1e-5, bf16/f16
    2e-2 (abs and rel; the kernels round p to the 16-bit type before the
    PV product, the plain versions keep it in f32). Every case's outputs
    must be bitwise equal over repeated calls (the split-KV merge does not
@@ -41,14 +46,21 @@ nonzero:
    threshold -3, decay 0.3), where the page counters must be equal too and
    0 < pages read < pages total; (3) gemma-7b (hd 256, geglu, soft-capped
    logits, tied embeddings), phi4-mini (hd 128, GQA 3) and granite (hd
-   128, GQA 4) at narrowed widths, 2 layers, on the fp slab.
+   128, GQA 4) at narrowed widths, 2 layers, on the fp slab; (4)
+   arctic-480b and kimi-k2 at narrowed widths (d 256, hd 128 at their
+   published rep 7 and 8, expert width 64, every other MoE field of the
+   published config: 128 experts top-2 with the dense residual, 384
+   top-8 with the shared expert and the leading dense layer; smoke depth),
+   f32, on the fp slab.
 3b. **lockstep-check** — recurrentgemma-9b (one griffin group, one KV
    head of hd 256 under 2 query heads, local window 32 + 4 sinks) and
-   mamba2-370m (smoke widths) at narrowed widths, f32, residual branches
-   amplified, on the lockstep ``ServeEngine`` on the card and on the CPU
-   from the same weights: batch 2, prompt 40 (past the window), 8 new
-   tokens; greedy tokens equal, K5 launched once per griffin group a step
-   on the card and never on the CPU (its plain version the reverse).
+   mamba2-370m (smoke widths), and serve-check (4)'s arctic-480b and
+   kimi-k2, at narrowed widths, f32, residual branches amplified, on the
+   lockstep ``ServeEngine`` on the card and on the CPU from the same
+   weights: batch 2, prompt 40 (past the window), 8 new tokens; greedy
+   tokens equal, K5 launched once per attention layer (a griffin group
+   has one) a step on the card and never on the CPU (its plain version
+   the reverse).
 4. **lockstep** — smollm-135m at full width and depth, bf16, on the
    lockstep ``ServeEngine``: batch 8, a 1088-token prompt prefilled token
    by token, 32 new tokens. Checks finite logits every step, 30 K5
@@ -93,6 +105,18 @@ nonzero:
 9b. **lockstep profiles** — one lockstep decode step each of
    recurrentgemma-9b and mamba2-370m (full size, at position 256 on zeroed
    caches) under the profiler, after the serve phases' timings.
+9c. **lockstep arctic-480b**, **serve arctic-480b**, **lockstep
+   kimi-k2**, **serve kimi-k2** — every published width, the depth cut
+   to the deepest whose reckoned serving peak (``serve_bytes``, printed
+   first: bf16 weights, slab, lockstep caches, a prefill chunk's MoE
+   dispatch temporaries, the logits) fits 92 % of the card; one set of
+   bf16 weights drawn on the card serves the lockstep phase's traffic
+   (batch 8, prompt 256, 32 new; one K5 launch a layer a step) and then
+   the serve phase's on the continuous engine (the serve checks, one K4
+   launch a layer a decode step, one decode step profiled). Then the
+   decode step split: one MoE layer's ``moe_apply`` on 8 rows timed
+   against its expert products alone and its shared expert (the rest is
+   routing and dispatch), K4 / K5 case (l) per layer, and the remainder.
 10. **train-kernels** — hold the training kernels K1 (forward; with
    16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
    K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
@@ -108,7 +132,9 @@ nonzero:
    stages 1 and 2 (56 x 56 and 28 x 28 grids, 15 x 15 window, one global
    token, 3 and 6 heads of hd 64, block 128, bf16), (k) recurrentgemma-9b's
    local attention (its one KV head copied to 16 query heads, n 4096, hd
-   256, window 2048, 4 sinks, block 256, bf16). Tolerances: out 8e-3 in 16 bits and
+   256, window 2048, 4 sinks, block 256, bf16), (l) kimi-k2's attention
+   (64 query heads from 8 KV heads, batch 1, n 4096, hd 128, window 1024,
+   4 sinks, block 256, bf16). Tolerances: out 8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
    (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
@@ -161,7 +187,10 @@ nonzero:
    the same for gemma-7b (hd 256) and longformer-4k (hd 64, bidirectional,
    global rows) at narrowed widths, and the lockstep-check's recurrentgemma
    (K1-K3 at hd 256 on one KV head; dK/dV of the 16 copies summed by
-   autograd of the GQA expand) and mamba2 (no kernel may launch).
+   autograd of the GQA expand) and mamba2 (no kernel may launch), and
+   serve-check (4)'s arctic-480b and kimi-k2 (hd 128 at rep 7 and 8, the
+   published routing), whose load balance, router z and dropped share
+   must agree within 1e-4 too.
 14. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
@@ -202,7 +231,8 @@ nonzero:
     (remat full replays it), K2 1, K3 2 (two kernels a call).
 20. **train mamba2-370m** — at full size, seq 4096, batch 4, 10 steps,
     lr 1e-3, warmup 3: no kernel launches; the loss falls.
-Each phase added for the recurrent families prints its wall time.
+Each phase added for the recurrent and MoE families prints its wall time,
+and the script its own before the ``kernels`` line.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the card's name and power limit from ``nvidia-smi``, and the result line
@@ -235,6 +265,10 @@ TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
 # (recurrentgemma-9b trains the same way, whole griffin groups)
 MAMBA_BATCH = 4                    # mamba2-370m train: full size
+# the MoE family: served at full width, depth cut to fit (serve_depth);
+# their names in the kernels line's launch paths
+MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
+MOE_TAGS = {"arctic-480b": "arctic-480b", "kimi-k2-1t-a32b": "kimi-k2"}
 FT_TRAIN_AT = 10                   # train-ft: the step checkpointed
 
 
@@ -413,7 +447,10 @@ def k4_cases(torch):
             # so the split carries the grid
             ("f", dict(serve, B=1, ts=[3000], dtype=torch.bfloat16)),
             # gemma-7b's decode: 16 heads of hd 256, no GQA
-            ("g", dict(serve, H=16, Hkv=16, hd=256, dtype=torch.bfloat16))]
+            ("g", dict(serve, H=16, Hkv=16, hd=256, dtype=torch.bfloat16)),
+            # arctic-480b's decode: 56 query heads on 8 KV heads of hd 128
+            # (rep 7: a full row group of 4 and a partial one of 3)
+            ("l", dict(serve, H=56, Hkv=8, hd=128, dtype=torch.bfloat16))]
 
 
 def phase_kernels(torch, timer, seed):
@@ -547,7 +584,9 @@ def k5_cases(torch):
     of hd 64), (b) the same in f32, (c) the ring layout (window + sinks
     slots, PAD for unwritten ring slots) with dilation 2, (k)
     recurrentgemma-9b's decode (16 query heads on one KV head of hd 256,
-    bf16, full cache of 2304 slots, t past its 2048 window, 4 sinks)."""
+    bf16, full cache of 2304 slots, t past its 2048 window, 4 sinks), (l)
+    arctic-480b's decode on the MoE lockstep phases' cache (56 query heads
+    on 8 KV heads of hd 128, bf16, 288 slots, t = 287)."""
     S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
     heads = dict(H=9, Hkv=3, hd=64)
     full = dict(heads, window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
@@ -557,7 +596,10 @@ def k5_cases(torch):
                        ring=True, dtype=torch.bfloat16)),
             ("k", dict(H=16, Hkv=1, hd=256, window=2048, g=4, dil=1,
                        S=RG_K5_S, t=RG_K5_S - 1, ring=False,
-                       dtype=torch.bfloat16))]
+                       dtype=torch.bfloat16)),
+            ("l", dict(H=56, Hkv=8, hd=128, window=1024, g=4, dil=1,
+                       S=RG_PROMPT + RG_NEW, t=RG_PROMPT + RG_NEW - 1,
+                       ring=False, dtype=torch.bfloat16))]
 
 
 def k5_case(torch, gen, c):
@@ -710,13 +752,35 @@ def _recurrent_check_cfgs():
     }
 
 
+# Narrowed f32 configs of the MoE archs for the cuda == cpu checks: every
+# MoE field of the published config kept (experts, top-k, the shared
+# expert, the leading dense layer, the dense residual, the capacity factor
+# and the dispatch groups: the routing is the real one), each arch's
+# published rep through an explicit head dim of 128 (arctic 7 query heads
+# on one KV head, kimi 8), d 256, the experts' width cut to 64; the smoke
+# depth (arctic 2 MoE layers, kimi 1 dense + 2 MoE) and window.
+def _moe_check_cfgs():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    def narrow(arch, H):
+        return _narrow(arch, d_model=256, n_heads=H, n_kv_heads=1,
+                       head_dim=128, d_ff=512, moe=dataclasses.replace(
+                           get_config(arch).moe, d_ff_expert=64))
+
+    return {"arctic-480b": narrow("arctic-480b", 7),
+            "kimi-k2-1t-a32b": narrow("kimi-k2-1t-a32b", 8)}
+
+
 def lockstep_check(torch, seed):
-    """The recurrent archs at narrowed widths (``_recurrent_check_cfgs``),
-    f32, on the lockstep ServeEngine on the card (recurrentgemma's local
-    attention through K5) and on the CPU (plain versions), from the same
-    weights and prompts (batch 2, prompt 40, 8 new tokens): greedy tokens
-    must be equal; on the card K5 launched once per griffin group per
-    step and its plain version never ran, on the CPU the reverse."""
+    """The recurrent archs (``_recurrent_check_cfgs``) and the MoE archs
+    (``_moe_check_cfgs``) at narrowed widths, f32, on the lockstep
+    ServeEngine on the card (attention through K5) and on the CPU (plain
+    versions), from the same weights and prompts (batch 2, prompt 40, 8
+    new tokens): greedy tokens must be equal; on the card K5 launched once
+    per attention layer (a griffin group has one) per step and its plain
+    version never ran, on the CPU the reverse."""
     import numpy as np
 
     from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
@@ -724,7 +788,7 @@ def lockstep_check(torch, seed):
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     B, P, n_new = 2, 40, 8
-    for arch, cfg in _recurrent_check_cfgs().items():
+    for arch, cfg in {**_recurrent_check_cfgs(), **_moe_check_cfgs()}.items():
         t0 = time.perf_counter()
         params = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(seed))
@@ -784,7 +848,9 @@ def serve_check(torch, seed):
     24 new tokens, threshold -3, decay 0.3), where the page counters must
     be equal too and pages really skipped (0 < read < total); then (3)
     gemma-7b (hd 256), phi4-mini and granite (hd 128, GQA 3 and 4) at
-    narrowed widths (``_check_cfgs``) on the fp slab."""
+    narrowed widths (``_check_cfgs``), and arctic-480b and kimi-k2 (hd
+    128, rep 7 and 8, their published routing; ``_moe_check_cfgs``), on
+    the fp slab."""
     import numpy as np
 
     from repro_torch.models.layers import salo_pattern
@@ -797,18 +863,17 @@ def serve_check(torch, seed):
              dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
                   page_stat_decay=0.3))]
     # the causal dense archs at narrowed widths, fp slab
+    checks = {**{a: c for a, c in _check_cfgs().items() if a in SERVE_CHECK},
+              **_moe_check_cfgs()}
     runs += [(f"{arch} hd {cfg.hd} H {cfg.n_heads}/{cfg.n_kv_heads}", cfg,
-              (5, 9, 13, 26), 8, {})
-             for arch, cfg in _check_cfgs().items() if arch in SERVE_CHECK]
+              (5, 9, 13, 26), 8, {}) for arch, cfg in checks.items()]
     for what, cfg, lens, n_new, extra in runs:
         lay = layout_for_pattern(salo_pattern(cfg), 8)
         ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
                                 chunk=8, max_batch=4, **extra)
         cpu_model = build_model(cfg, "cpu")
         params = cpu_model.init(torch.Generator().manual_seed(seed))
-        for layer in params["seg0_attn_mlp"]:   # tokens that use attention
-            layer["attn"]["wo"] *= 6.0
-            layer["mlp"]["w_out"] *= 6.0
+        _amplify_residuals(params)        # tokens that use every block
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
         outs, counters = {}, {}
@@ -845,13 +910,17 @@ SERVE_CHECK = ("gemma-7b", "phi4-mini-3.8b", "granite-3-8b")
 TRAIN_CHECK = ("gemma-7b", "longformer-4k")
 
 
-def _serve_weights(torch, seed, arch="smollm-135m"):
-    """``arch`` at full width and depth on the card, bf16 weights from
-    ``seed``. Returns (cfg, model, params)."""
+def _serve_weights(torch, seed, arch="smollm-135m", n_layers=None):
+    """``arch`` at full width and depth (unless ``n_layers`` cuts it) on
+    the card, bf16 weights from ``seed``. Returns (cfg, model, params)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg, "cuda")
     return cfg, model, model.init(
         torch.Generator(device="cuda").manual_seed(seed))
@@ -933,15 +1002,19 @@ def _check_serve_run(cfg, eng, lens, launches, plain, what):
 
 
 def phase_serve(torch, seed, arch="smollm-135m", what="serve",
-                profile=(PROFILE_FROM, PROFILE_TO), profile_prefill=True):
-    """``arch`` at full width on the continuous engine; the decode-only
+                profile=(PROFILE_FROM, PROFILE_TO), profile_prefill=True,
+                weights=None):
+    """``arch`` at full width on the continuous engine (the weights from
+    ``seed``, or ``weights``, ``_serve_weights``'s); the decode-only
     steps [profile[0], profile[1]) run under the profiler, and then (when
     ``profile_prefill``) one prefill chunk. Returns the K4 launch count of
-    the run, the requests' tokens and the engine counters."""
+    the run, the requests' tokens, the engine counters and the decode
+    step median (s)."""
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
                                                  salo_paged_decode_plain)
 
-    cfg, eng, params, lens, rng = _serve_engine(torch, seed, what, arch)
+    cfg, eng, params, lens, rng = _serve_engine(torch, seed, what, arch,
+                                                weights=weights)
     prof_from, prof_to = profile
     R = SERVE_R
     salo_paged_decode.launches = 0
@@ -995,7 +1068,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     check(prof is not None, "no decode-only step was profiled")
     report_profile(prof, prof_wall, prof_to - prof_from, "decode steps")
     if not profile_prefill:
-        return launches, res, counters
+        return launches, res, counters, med
 
     # After the counts are read: one more request, whose first engine step
     # (one 128-token prefill chunk through all layers) runs under the
@@ -1011,7 +1084,7 @@ def phase_serve(torch, seed, arch="smollm-135m", what="serve",
     dt = time.perf_counter() - ts
     prof.stop()
     report_profile(prof, dt, 1, "prefill chunk")
-    return launches, res, counters
+    return launches, res, counters, med
 
 
 def phase_serve_int8(torch, seed):
@@ -1190,14 +1263,15 @@ def phase_serve_ft(torch, seed, what, ref_res, ref_c, **extra):
 
 
 def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
-                   P=LOCKSTEP_PROMPT, n_new=LOCKSTEP_NEW):
-    """``arch`` at full width and depth, bf16, on the lockstep ServeEngine:
-    batch ``B``, a ``P``-token prompt prefilled token by token, ``n_new``
-    new tokens. Checks finite logits every step, one K5 launch per
-    attention layer per decode step (smollm-135m: 30; recurrentgemma-9b:
-    12, one a griffin group; mamba2-370m: none) and no plain call; prints
-    the step times, tokens/s and peak memory. Returns the K5 launch
-    count."""
+                   P=LOCKSTEP_PROMPT, n_new=LOCKSTEP_NEW, weights=None):
+    """``arch`` at full width and depth (or ``weights``,
+    ``_serve_weights``', whose depth may be cut), bf16, on the lockstep
+    ServeEngine: batch ``B``, a ``P``-token prompt prefilled token by
+    token, ``n_new`` new tokens. Checks finite logits every step, one K5
+    launch per attention layer per decode step (smollm-135m: 30;
+    recurrentgemma-9b: 12, one a griffin group; mamba2-370m: none) and no
+    plain call; prints the step times, tokens/s and peak memory. Returns
+    the K5 launch count and the generation step median (s)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1206,14 +1280,17 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
     tag = "lockstep" if arch == "smollm-135m" else f"lockstep {arch}"
+    t_phase = time.perf_counter()
+    if weights is None:
+        cfg = get_config(arch)
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    else:
+        cfg, model, params = weights
     n_attn = _attention_layers(cfg)
     if arch == "smollm-135m":     # the window and the sinks both bite
         check(P > cfg.salo.window, f"prompt {P} within the window")
-    t_phase = time.perf_counter()
-    model = build_model(cfg, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                    (B, P))
@@ -1229,6 +1306,7 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
 
     model.decode_step = timed_step
     gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     salo_decode.launches = 0
@@ -1249,7 +1327,8 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
     gen_med = sorted(times[P:])[n_new // 2]
     gen_s = sum(times[P:])
     n_param = sum(t.numel() for t in tree_leaves(params))
-    log(f"[{tag}] {arch} bf16 ({n_param / 1e6:.1f}M params) B={B} "
+    log(f"[{tag}] {arch} bf16 ({n_param / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers) B={B} "
         f"prompt={P} new={n_new}: "
         f"{steps} decode steps in {wall:.3f} s; step median {med * 1e3:.3f} "
         f"ms (prefill and generation), generation step median "
@@ -1258,9 +1337,10 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
         f"tokens/s through the whole run; peak memory {peak / 2**30:.3f} "
         f"GiB; K5 launches {launches} ({n_attn} a step); first "
         f"tokens {toks[:2, :8].tolist()}")
+    del model.decode_step
     if arch != "smollm-135m":
         log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, gen_med
 
 
 def profile_lockstep(torch, seed, arch, B, P):
@@ -1313,7 +1393,10 @@ def profile_lockstep(torch, seed, arch, B, P):
 #     (grids 56 x 56 and 28 x 28, window 15 x 15, one global token, 3 and 6
 #     heads of hd 64), bf16; (k) recurrentgemma-9b's local attention: its
 #     one KV head copied to 16 query heads by the GQA expand (B*H = 16),
-#     n 4096, hd 256, window 2048, 4 sinks, block 256, bf16.
+#     n 4096, hd 256, window 2048, 4 sinks, block 256, bf16; (l) kimi-k2's
+#     attention: 64 query heads (8 KV heads copied 8 times by the GQA
+#     expand), batch 1, n 4096, hd 128, window 1024, 4 sinks, block 256,
+#     bf16.
 TRAIN_CASES = {
     "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
@@ -1337,13 +1420,15 @@ TRAIN_CASES = {
               bq=128, bk=128, dtype="bfloat16"),
     "k": dict(pat=("csw", 2048, 4, 1), n=4096, bh=16, hd=256, bq=256,
               bk=256, dtype="bfloat16"),
+    "l": dict(pat=("csw", 1024, 4, 1), n=4096, bh=64, hd=128, bq=256,
+              bk=256, dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
 # the cases whose kernels are timed (the ViL stages: K1 only)
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
          "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
-         "k": (K1, K2, K3)}
+         "k": (K1, K2, K3), "l": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -2003,12 +2088,17 @@ def _counters(reset: bool = False):
             sum(f.calls for f in plains))
 
 
+# the MoE aux metrics a train step reports (models/moe.py)
+AUX = ("load_balance", "router_z", "dropped_frac")
+
+
 def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
     """The same small f32 model (2 layers; by default smollm's at hd 64)
     trained 3 steps on the card (kernels) and on the CPU (plain versions)
-    from the same parameters and batches: losses and grad norms agree
-    within 1e-4 (f32, summation order only). A program without attention
-    layers (mamba2) must launch no kernel and call no plain version."""
+    from the same parameters and batches: losses and grad norms (and an
+    MoE model's three aux metrics) agree within 1e-4 (f32, summation order
+    only). A program without attention layers (mamba2) must launch no
+    kernel and call no plain version. Returns the card's launch counts."""
     from repro_torch.models.model import build_model
 
     cfg = cfg if cfg is not None else _train_cfg(smoke=True)
@@ -2022,8 +2112,11 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
         hist[dev] = []
         for i in range(3):
             p, opt, met = step(p, opt, ds.batch(i))
-            hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+            hist[dev].append(tuple(float(met[k]) for k in (
+                "loss", "grad_norm", *(a for a in AUX if a in met))))
         launches, plain = _counters()
+        if dev == "cuda":
+            card = launches
         if not _attention_layers(cfg):
             check(plain == 0 and max(launches.values()) == 0,
                   f"train-check {dev}: launches {launches}, plain {plain} "
@@ -2034,13 +2127,16 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
         else:
             check(plain > 0 and max(launches.values()) == 0,
                   f"train-check cpu: launches {launches}, plain {plain}")
-    for (lc, gc), (lp, gp) in zip(hist["cuda"], hist["cpu"]):
-        check(math.isclose(lc, lp, rel_tol=1e-4, abs_tol=1e-4)
-              and math.isclose(gc, gp, rel_tol=1e-4, abs_tol=1e-4),
+    for hc, hp in zip(hist["cuda"], hist["cpu"]):
+        check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
+                  for a, b in zip(hc, hp)),
               f"train-check {what}: cuda {hist['cuda']} != cpu "
               f"{hist['cpu']}")
-    log(f"[train-check] {what}: cuda == cpu within 1e-4, (loss, grad norm) "
-        f"per step: cuda {hist['cuda']} cpu {hist['cpu']}")
+    names = ("loss", "grad norm") + tuple(a for a in AUX if cfg.moe)
+    log(f"[train-check] {what}: cuda == cpu within 1e-4, "
+        f"({', '.join(names)}) per step: cuda {hist['cuda']} cpu "
+        f"{hist['cpu']}")
+    return card
 
 
 def _block_params(cfg, kind: str) -> int:
@@ -2050,11 +2146,21 @@ def _block_params(cfg, kind: str) -> int:
     w_a, w_i: 2 dr^2; the conv W dr; lam dr), an SSD block (w_in, w_out,
     the conv over d_inner + 2N channels, A_log, D, dt_bias, norm_scale),
     each with its MLP and RMS norms; a griffin group is two RG-LRU blocks
-    and one attention block."""
+    and one attention block; an MoE block (``models/moe.py``) is an
+    attention block with the router (d E), the expert stacks and the
+    shared experts in place of its MLP (arctic's keeps the MLP beside
+    them)."""
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    mults = 3 if cfg.act in ("swiglu", "geglu") else 2
+    mlp = mults * d * cfg.d_ff
     if kind in ("attn_mlp", "attn_mlp_local"):
         return d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
+    if kind in ("attn_moe", "attn_moe_dense"):
+        m = cfg.moe
+        moe = d * m.n_experts + mults * d * m.d_ff_expert * (
+            m.n_experts + m.n_shared_experts)
+        return (d * hd * (2 * H + 2 * Hkv) + moe + 2 * d
+                + (mlp if kind == "attn_moe_dense" else 0))
     if kind == "rec_mlp":
         dr = cfg.recurrent.d_rnn or d
         W = cfg.recurrent.conv_width
@@ -2177,6 +2283,184 @@ def train_depth(torch, arch: str, seq: int, batch: int) -> int:
         f"f32 temporaries {b['recompute'] / 1e9:.2f} GB); "
         f"{depth + unit} layers would peak at {nxt['peak'] / 1e9:.2f} GB")
     return depth
+
+
+def serve_bytes(cfg) -> dict:
+    """The device bytes the MoE serve and lockstep phases of ``cfg`` need
+    at their peak, reckoned from the shapes: the weights (bf16, the
+    routers f32), the continuous engine's bf16 slab (the serve traffic's
+    n_pages of page 16) and the lockstep caches (batch 8, 288 slots), the
+    largest call's MoE dispatch temporaries (a 128-token prefill chunk:
+    the (E·G·C, d) dispatch buffer and the experts' output, their three
+    (E·G·C, f) products, and the (T·k, d) copies of the tokens and their
+    contributions; ``models/moe.py``), and the logits of the widest step
+    (8 rows, bf16 and their f32 copy)."""
+    from repro_torch.models.layers import salo_pattern
+    from repro_torch.models.moe import capacity, n_groups
+    from repro_torch.models.transformer import MOE_KINDS, make_program
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    d, m = cfg.d_model, cfg.moe
+    program = make_program(cfg)
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    params = embed + sum(n * _block_params(cfg, kind)
+                         for kind, n in program) + d
+    router = sum(n * d * m.n_experts for kind, n in program
+                 if kind in MOE_KINDS)
+    weights = 2 * params + 2 * router
+    layers = sum(n for _, n in program)
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * 2            # K and V, bf16
+    lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE)
+    slab = layers * (1 + SERVE_R * lay.pages_per_req) * SERVE_PAGE * kv_row
+    caches = layers * RG_B * (RG_PROMPT + RG_NEW) * kv_row
+    T = SERVE_CHUNK
+    G = n_groups(cfg, T)
+    slots = m.n_experts * G * capacity(cfg, T // G)
+    dispatch = 2 * (2 * slots * d + 3 * slots * m.d_ff_expert
+                    + 2 * T * m.top_k * d)
+    logits = SERVE_R * cfg.vocab_size * (2 + 4)
+    return dict(params=params, weights=weights, slab=slab, caches=caches,
+                dispatch=dispatch, dispatch_slots=slots, logits=logits,
+                peak=weights + slab + caches + dispatch + logits)
+
+
+def serve_depth(torch, arch: str) -> int:
+    """The deepest ``arch`` (every published width kept, at least one MoE
+    layer) whose reckoned serving peak (``serve_bytes``) fits in 92 % of
+    the card's memory; prints the reckoning."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    budget = 0.92 * torch.cuda.get_device_properties(0).total_memory
+    depth = 0
+    for n in range(full.moe.first_k_dense + 1, full.n_layers + 1):
+        if serve_bytes(dataclasses.replace(full, n_layers=n))["peak"] \
+                > budget:
+            break
+        depth = n
+    check(depth > 0, f"no MoE layer of {arch} fits the card")
+    b = serve_bytes(dataclasses.replace(full, n_layers=depth))
+    nxt = serve_bytes(dataclasses.replace(full, n_layers=depth + 1))
+    log(f"[serve {arch}] reckoned bytes: {depth} of {full.n_layers} layers "
+        f"fit {budget / 1e9:.2f} GB (92 % of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}): "
+        f"{b['params'] / 1e9:.3f}G params, weights {b['weights'] / 1e9:.2f} "
+        f"GB, slab {b['slab'] / 1e9:.3f} GB, lockstep caches "
+        f"{b['caches'] / 1e9:.3f} GB, dispatch temporaries "
+        f"{b['dispatch'] / 1e9:.3f} GB ({b['dispatch_slots']} expert slots "
+        f"at a {SERVE_CHUNK}-token chunk), logits {b['logits'] / 1e9:.3f} "
+        f"GB: peak {b['peak'] / 1e9:.2f} GB; {depth + 1} layers would peak "
+        f"at {nxt['peak'] / 1e9:.2f} GB")
+    return depth
+
+
+def moe_breakdown(torch, timer, weights, k4_ms: float, k5_ms: float,
+                  serve_ms: float, lockstep_ms: float) -> dict:
+    """The MoE decode step split into its parts: one MoE layer's
+    ``moe_apply`` on a decode step's 8 rows, timed as K1's cases are (L2
+    flushed), against its expert products alone (``_expert_ffn`` on the
+    step's (E, G·C, d) buffer) and its shared expert; the rest of the
+    call is routing and dispatch. With the measured decode step medians
+    (``serve_ms``, ``lockstep_ms``) and one K4 / K5 launch of case (l)
+    (``k4_ms``, ``k5_ms``), per step: the layers' expert products,
+    dispatch, attention kernels, and what is left (projections, norms,
+    the LM head, the host). One ``moe_apply`` runs first under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read on the call
+    path. Prints and returns them (ms)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import dt, mlp_apply
+    from repro_torch.models.transformer import MOE_KINDS
+
+    cfg, model, params = weights
+    m = cfg.moe
+    key, kind = next((f"seg{i}_{k}", k)
+                     for i, (k, _) in enumerate(model.program)
+                     if k in MOE_KINDS)
+    p = params[key][0]["moe"]
+    n_moe = sum(n for k, n in model.program if k in MOE_KINDS)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((SERVE_R, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(dt(cfg, "compute"))
+    G = MOE.n_groups(cfg, SERVE_R)
+    C = MOE.capacity(cfg, SERVE_R // G)
+    buf = torch.randn((m.n_experts, G * C, cfg.d_model), generator=gen,
+                      device="cuda").to(x.dtype)
+    with torch.no_grad():
+        # no host read on the call path (the sync debug mode raises on
+        # ATen's synchronizing ops), so the calls queue behind the timer
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            MOE.moe_apply(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # few iterations: a call issues ~60 small kernels, and the queue
+        # must stay behind the sleep kernel
+        moe_ms = timer(lambda: MOE.moe_apply(p, x, cfg), iters=4,
+                       sleep_cycles=2_000_000_000)
+        expert_ms = timer(lambda: MOE._expert_ffn(p, buf, cfg))
+        shared_ms = (timer(lambda: mlp_apply(p["shared"], x, cfg))
+                     if m.n_shared_experts else 0.0)
+    expert_bytes = sum(p[w].numel() * p[w].element_size()
+                       for w in ("w_in", "w_gate", "w_out") if w in p)
+    layers = sum(n for _, n in model.program)
+    rec = dict(moe_ms=moe_ms, expert_ms=expert_ms, shared_ms=shared_ms,
+               dispatch_ms=moe_ms - expert_ms - shared_ms,
+               expert_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
+               expert_bytes=expert_bytes, slots=G * C, moe_layers=n_moe)
+    for what, step_ms, attn_ms in (("serve", serve_ms, k4_ms),
+                                   ("lockstep", lockstep_ms, k5_ms)):
+        parts = {"experts": n_moe * expert_ms,
+                 "shared expert": n_moe * shared_ms,
+                 "routing and dispatch": n_moe * rec["dispatch_ms"],
+                 "attention kernel": layers * attn_ms}
+        parts["rest"] = step_ms - sum(parts.values())
+        rec[what] = parts
+        log(f"[moe {cfg.name}] {what} decode step {step_ms:.3f} ms: "
+            + ", ".join(f"{a} {b:.3f} ms" for a, b in parts.items())
+            + f" ({n_moe} MoE layers, {layers} attention layers)")
+    log(f"[moe {cfg.name}] one MoE layer ({kind}) on {SERVE_R} rows: "
+        + " ".join(f"{a}={b}" for a, b in rec.items()
+                   if a not in ("serve", "lockstep")))
+    return rec
+
+
+def phase_moe(torch, timer, seed, arch, k4_ms, k5_ms) -> dict:
+    """lockstep <arch> and serve <arch>: every published width, the depth
+    from ``serve_depth``, bf16 weights from ``seed`` initialised once on
+    the card; the lockstep phase's traffic (batch 8, prompt 256, 32 new;
+    one K5 launch a layer a step), then the serve phase's on the
+    continuous engine (one K4 launch a layer a decode step, one decode
+    step profiled), then ``moe_breakdown``. Returns the K4 and K5 launch
+    counts."""
+    t_phase = time.perf_counter()
+    depth = serve_depth(torch, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    weights = _serve_weights(torch, seed, arch, depth)
+    torch.cuda.synchronize()
+    log(f"[serve {arch}] {depth} layers' weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    k5, lock_med = phase_lockstep(torch, seed, arch, RG_B, RG_PROMPT,
+                                  RG_NEW, weights=weights)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    k4, _, _, serve_med = phase_serve(torch, seed, arch, f"serve {arch}",
+                                      (40, 41), False, weights=weights)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve {arch}] peak memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    moe_breakdown(torch, timer, weights, k4_ms, k5_ms, serve_med * 1e3,
+                  lock_med * 1e3)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve {arch}] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return k4, k5
 
 
 DOTS_STEPS = 5                   # train-dots: the train phase's first steps
@@ -2467,6 +2751,7 @@ def _emitted(eng) -> int:
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -2503,14 +2788,14 @@ def main(argv=None) -> int:
     lockstep_check(torch, args.seed)
     # the lockstep and int8 serve phases run before the profiled serve
     # phase: the profiler's hooks slow the host afterwards
-    launches_k5 = phase_lockstep(torch, args.seed)
-    launches_rg = phase_lockstep(torch, args.seed, "recurrentgemma-9b",
-                                 RG_B, RG_PROMPT, RG_NEW)
+    launches_k5, _ = phase_lockstep(torch, args.seed)
+    launches_rg, _ = phase_lockstep(torch, args.seed, "recurrentgemma-9b",
+                                    RG_B, RG_PROMPT, RG_NEW)
     torch.cuda.empty_cache()
     phase_lockstep(torch, args.seed, "mamba2-370m", RG_B, RG_PROMPT, RG_NEW)
     torch.cuda.empty_cache()
     launches_int8, int8_tokens, int8_c = phase_serve_int8(torch, args.seed)
-    launches, bf16_tokens, bf16_c = phase_serve(torch, args.seed)
+    launches, bf16_tokens, bf16_c, _ = phase_serve(torch, args.seed)
     agree = sum(int((int8_tokens[r] == bf16_tokens[r]).sum())
                 for r in bf16_tokens)
     first = sum(int(int8_tokens[r][0] == bf16_tokens[r][0])
@@ -2527,12 +2812,19 @@ def main(argv=None) -> int:
     launches_ft8 = phase_serve_ft(
         torch, args.seed, "serve-ft-int8", int8_tokens, int8_c,
         kv_dtype="int8", page_sparsity_threshold=-3.0, page_stat_decay=0.3)
-    launches_gemma, _, _ = phase_serve(torch, args.seed, "gemma-7b",
-                                       "serve gemma-7b", (40, 41), False)
+    launches_gemma, _, _, _ = phase_serve(torch, args.seed, "gemma-7b",
+                                          "serve gemma-7b", (40, 41), False)
     torch.cuda.empty_cache()
     for arch in ("recurrentgemma-9b", "mamba2-370m"):
         profile_lockstep(torch, args.seed, arch, RG_B, RG_PROMPT)
         torch.cuda.empty_cache()
+    # the MoE family at full width, depth cut to fit: one set of weights
+    # for its lockstep and serve phases
+    moe_k4, moe_k5 = {}, {}
+    for arch in MOE_ARCHS:
+        moe_k4[arch], moe_k5[arch] = phase_moe(
+            torch, timer, args.seed, arch, k4["l"]["kernel_ms"],
+            k5["l"]["kernel_ms"])
     trec = phase_train_kernels(torch, timer, args.seed)
     tl = {}
     tl["dynamic"], drec = phase_dynamic(torch, timer, args.seed)
@@ -2544,6 +2836,11 @@ def main(argv=None) -> int:
             train_check(torch, args.seed, cfg, f"{arch} hd {cfg.hd}")
     for arch, cfg in _recurrent_check_cfgs().items():
         train_check(torch, args.seed, cfg, f"{arch} d {cfg.d_model}")
+    for arch, cfg in _moe_check_cfgs().items():
+        tl[f"train-check-{MOE_TAGS[arch]}"] = train_check(
+            torch, args.seed, cfg, f"{arch} hd {cfg.hd} H "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts "
+            f"top-{cfg.moe.top_k}")
     tl["smollm-135m"], ft, full = phase_train(torch, args.seed,
                                               ft_save_at=FT_TRAIN_AT)
     tl["train-ft"] = phase_train_ft(torch, args.seed, ft)
@@ -2580,30 +2877,36 @@ def main(argv=None) -> int:
     # K4's main numbers are case (a), the bf16 serve phase's kernel; case
     # (d) is the int8 serve phase's (int8 slab + page statistics), (e) the
     # f32 state variant and (f) one request with a long cache
+    k4_paths = {"serve": launches, "serve_int8": launches_int8,
+                "serve_ft": launches_ft, "serve_ft_int8": launches_ft8,
+                "serve_gemma_7b": launches_gemma,
+                **{f"serve_{MOE_TAGS[a]}": n for a, n in moe_k4.items()}}
+    k5_paths = {"lockstep": launches_k5,
+                "lockstep_recurrentgemma_9b": launches_rg,
+                **{f"lockstep_{MOE_TAGS[a]}": n for a, n in moe_k5.items()}}
     kernels = [{
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:238",
-        "launches": launches + launches_int8 + launches_gemma
-        + launches_ft + launches_ft8,
-        "launches_by_path": {"serve": launches, "serve_int8": launches_int8,
-                             "serve_ft": launches_ft,
-                             "serve_ft_int8": launches_ft8,
-                             "serve_gemma_7b": launches_gemma},
+        "launches": sum(k4_paths.values()),
+        "launches_by_path": {k.replace("-", "_"): v
+                             for k, v in k4_paths.items()},
         "launches_per_call": 1, **row(k4["a"]),
         "variants": {"int8_page_stats_bf16": row(k4["d"]),
                      "state_page_stats_f32": row(k4["e"]),
                      "single_request_bf16": row(k4["f"]),
-                     "gemma_7b_hd256_bf16": row(k4["g"])}}, {
+                     "gemma_7b_hd256_bf16": row(k4["g"]),
+                     "arctic_480b_rep7_hd128_bf16": row(k4["l"])}}, {
         "name": "salo_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:173",
-        "launches": launches_k5 + launches_rg,
-        "launches_by_path": {"lockstep": launches_k5,
-                             "lockstep_recurrentgemma_9b": launches_rg},
+        "launches": sum(k5_paths.values()),
+        "launches_by_path": {k.replace("-", "_"): v
+                             for k, v in k5_paths.items()},
         "launches_per_call": 1, **row(k5["a"]),
         "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"]),
-                     "recurrentgemma_9b_hd256_mqa_bf16": row(k5["k"])}}]
+                     "recurrentgemma_9b_hd256_mqa_bf16": row(k5["k"]),
+                     "arctic_480b_rep7_hd128_bf16": row(k5["l"])}}]
     # launches_per_call: K3's wrapper runs two kernels (the row walk and
     # the owner-tile sum), and its count and its time cover both. The main
     # numbers are case (a), smollm-135m's train attention; the variants are
@@ -2611,7 +2914,8 @@ def main(argv=None) -> int:
     variants = {"f": "gemma_7b_hd256_bf16", "g": "gemma_7b_hd256_f32",
                 "h": "longformer_4k_bf16", "b": "smollm_f32",
                 "i": "vil_stage1_bf16", "j": "vil_stage2_bf16",
-                "k": "recurrentgemma_9b_local_hd256_mqa_bf16"}
+                "k": "recurrentgemma_9b_local_hd256_mqa_bf16",
+                "l": "kimi_k2_hd128_gqa8_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),
@@ -2637,6 +2941,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(f"[wall] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+        f"end to end, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {

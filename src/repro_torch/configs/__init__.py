@@ -6,7 +6,8 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
                                       SHAPES, SHAPES_BY_NAME)
 
 ARCHS = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
-         "longformer-4k", "recurrentgemma-9b", "mamba2-370m")
+         "longformer-4k", "recurrentgemma-9b", "mamba2-370m", "arctic-480b",
+         "kimi-k2-1t-a32b")
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
@@ -16,6 +17,8 @@ _MODULES = {
     "longformer-4k": "longformer_4k",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "mamba2-370m": "mamba2_370m",
+    "arctic-480b": "arctic_480b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 

@@ -9,6 +9,12 @@ d_out)`` weights, so the conversion is a copy), with every stacked segment
 per-layer dicts. A leaf the port does not consume raises, so a silently
 dropped parameter cannot make two models look equal.
 
+``checkpoint_from_jax(path, like)`` reads a reference train checkpoint
+(``{"params", "opt"}`` written by ``repro.launch.train --ckpt``: stacked
+segments, AdamW's m, v, master and step) and returns it in the port's
+per-layer layout, shaped and typed as ``like``; ``is_jax_checkpoint``
+tells the two layouts apart.
+
 ``engine_state_from_jax(tree, device)`` takes a reference
 ``ContinuousEngine.state_dict()`` with numpy leaves and returns the port's
 image of it for ``ContinuousEngine.load_state``. It reads the tree by the
@@ -19,13 +25,16 @@ consume.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.ft.checkpoint import _restore_leaf, latest_step
 from repro_torch.serve.paged_cache import PagedSlab
-from repro_torch.tree import tree_flatten_with_path
+from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 # What the port consumes, per block kind: the leaf names of each dict, or
 # the schema of a nested block (griffin's r1/r2/a).
@@ -35,9 +44,16 @@ _REC = {"ln1": ("scale",),
         "rec": ("w_in", "w_gate_branch", "w_out", "conv_w", "w_a", "w_i",
                 "lam"),
         "ln2": ("scale",), "mlp": ("w_in", "w_out", "w_gate")}
+# a schema entry of None is a leaf of the dict itself (the MoE router and
+# expert stacks beside the shared expert's MLP)
+_MOE = {"router": None, "w_in": None, "w_gate": None, "w_out": None,
+        "shared": ("w_in", "w_out", "w_gate")}
 _BLOCK_SCHEMA = {
     "attn_mlp": _ATTN,
     "attn_mlp_local": _ATTN,
+    "attn_moe": {"ln1": ("scale",), "attn": _ATTN["attn"],
+                 "ln2": ("scale",), "moe": _MOE},
+    "attn_moe_dense": dict(_ATTN, moe=_MOE),
     "rec_mlp": _REC,
     "ssm": {"ln1": ("scale",),
             "ssm": ("w_in", "w_out", "conv_w", "A_log", "D", "dt_bias",
@@ -78,12 +94,19 @@ def _take_block(sub: Dict[str, Any], schema, where: str, index: int,
     if extra:
         raise ValueError(f"params_from_jax: unconsumed leaves under "
                          f"{where}: {sorted(extra)}")
-    return {part: (_take(sub[part], names, f"{where}/{part}", index=index,
-                         device=device)
-                   if isinstance(names, tuple) else
-                   _take_block(sub[part], names, f"{where}/{part}", index,
-                               device))
-            for part, names in schema.items() if part in sub}
+    out = {}
+    for part, names in schema.items():
+        if part not in sub:
+            continue
+        if names is None:
+            out[part] = _tensor(sub[part][index], device)
+        elif isinstance(names, tuple):
+            out[part] = _take(sub[part], names, f"{where}/{part}",
+                              index=index, device=device)
+        else:
+            out[part] = _take_block(sub[part], names, f"{where}/{part}",
+                                    index, device)
+    return out
 
 
 def _n_layers(sub) -> int:
@@ -106,6 +129,69 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         out[key] = [_take_block(sub, _BLOCK_SCHEMA[kind], key, i, device)
                     for i in range(_n_layers(sub))]
     return out
+
+
+def _stacked_key(key: str):
+    """(the reference's checkpoint key, layer index) of a port key: a
+    segment leaf's layer index dropped (``params::seg0_attn_mlp::3::attn::
+    wq`` -> (``params::seg0_attn_mlp::attn::wq``, 3), row 3 of the stacked
+    array); (key, None) for a leaf outside the segments."""
+    parts = key.split("::")
+    for i, part in enumerate(parts[:-1]):
+        if part.startswith("seg") and parts[i + 1].isdigit():
+            return "::".join(parts[:i + 1] + parts[i + 2:]), int(parts[i + 1])
+    return key, None
+
+
+def is_jax_checkpoint(path, step=None) -> bool:
+    """True when the checkpoint at ``path`` (its latest step by default)
+    holds the reference's stacked segments: a ``seg*`` key followed
+    directly by a leaf name, where the port's keys have a layer index."""
+    step = latest_step(path) if step is None else step
+    with open(os.path.join(os.fspath(path), f"step_{step:08d}",
+                           "meta.json")) as f:
+        keys = json.load(f)["keys"]
+    return any(_stacked_key(k)[1] is None and any(
+        p.startswith("seg") for p in k.split("::")[:-1]) for k in keys)
+
+
+def checkpoint_from_jax(path, like: Any, step=None):
+    """Restore a reference checkpoint (stacked segments) at ``path`` into
+    the structure of ``like``, the port's per-layer tree (its dtypes and
+    devices): layer ``i`` of a segment leaf is row ``i`` of the
+    reference's stacked array, for the parameters and every part of the
+    optimizer state alike. Raises unless the checkpoint holds exactly the
+    keys and stacked depths ``like`` takes. Returns (tree, step)."""
+    path = os.fspath(path)
+    step = latest_step(path) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    flat, treedef = tree_flatten_with_path(like)
+    with np.load(os.path.join(path, f"step_{step:08d}",
+                              "arrays.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    leaves, rows = [], {}
+    for p, leaf in flat:
+        key = "::".join(p)
+        src, i = _stacked_key(key)
+        if src not in arrays:
+            raise ValueError(f"checkpoint_from_jax: {src!r} (for {key!r}) "
+                             f"is not in the checkpoint")
+        rows.setdefault(src, set()).add(i)
+        arr = arrays[src]
+        if i is not None and i >= arr.shape[0]:
+            raise ValueError(f"checkpoint_from_jax: {key!r} is past the "
+                             f"{arr.shape[0]} layers of {src!r}")
+        leaves.append(_restore_leaf(arr if i is None else arr[i], leaf))
+    extra = sorted(set(arrays) - set(rows))
+    if extra:
+        raise ValueError(f"checkpoint_from_jax: unconsumed keys {extra}")
+    for src, r in rows.items():
+        n = arrays[src].shape[0] if None not in r else None
+        if n is not None and r != set(range(n)):
+            raise ValueError(f"checkpoint_from_jax: {src!r} stacks {n} "
+                             f"layers, the port's tree takes {sorted(r)}")
+    return tree_unflatten(treedef, leaves), step
 
 
 # The host leaves of an engine snapshot and their dtypes.

@@ -11,10 +11,15 @@ data stream (stateless in the step). ``--ckpt DIR`` saves ``{"params",
 "opt"}`` every ``--ckpt-every`` steps and at the end through the atomic,
 keep-3, async :class:`~repro_torch.ft.checkpoint.CheckpointManager`;
 ``--resume`` restores the latest checkpoint there and continues from its
-step. The batches are a function of the step, so a resumed run sees the
-batches an uninterrupted run would. ``--trace-out`` writes a Chrome trace
+step; a checkpoint written by the reference's CLI (``repro.launch.train
+--ckpt``: stacked segments) is unstacked on the way in
+(:func:`repro_torch.convert.checkpoint_from_jax`). The batches are a
+function of the step, so a resumed run sees the batches an uninterrupted
+run would. ``--trace-out`` writes a Chrome trace
 of the step spans, ``--metrics-out`` the metrics registry (step-time
-histogram, token/step counters, per-kernel launch accounting).
+histogram, token/step counters, per-kernel launch accounting). MoE
+models log their aux losses (load balance, router z) and the share of
+dropped (token, expert) entries beside the loss.
 
 Not ported yet, and raising ``NotImplementedError``: ``--compress-grads``
 and ``--data``/``--model`` > 1 (ROADMAP queue 1, 'multi-GPU').
@@ -28,8 +33,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.convert import checkpoint_from_jax, is_jax_checkpoint
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.ft.checkpoint import CheckpointManager
+from repro_torch.ft.checkpoint import CheckpointManager, latest_step
 from repro_torch.ft.manager import StragglerWatchdog
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability
@@ -38,6 +44,11 @@ from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
 from repro_torch.train.trainer import TrainConfig, make_train_step
 from repro_torch.tree import tree_leaves
+
+
+# the MoE aux metrics the step log shows, by their short names
+_AUX_LOG = (("load_balance", "lb"), ("router_z", "z"),
+            ("dropped_frac", "dropped"))
 
 
 def main(argv=None):
@@ -96,7 +107,14 @@ def main(argv=None):
     mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt else None
     start = 0
     if mgr and args.resume:
-        restored, step0 = mgr.restore_latest({"params": params, "opt": opt})
+        like = {"params": params, "opt": opt}
+        step0 = latest_step(args.ckpt)
+        if step0 is None:
+            restored = None
+        elif is_jax_checkpoint(args.ckpt, step0):
+            restored, _ = checkpoint_from_jax(args.ckpt, like, step0)
+        else:
+            restored, _ = mgr.restore_latest(like)
         if restored is not None:
             params, opt = restored["params"], restored["opt"]
             start = step0
@@ -127,8 +145,10 @@ def main(argv=None):
                                    step_time_s=round(dt, 6))
             if i % args.log_every == 0 or i == args.steps - 1:
                 toks = args.batch * args.seq / dt
+                aux = "".join(f" {name} {float(metrics[key]):.4g}"
+                              for key, name in _AUX_LOG if key in metrics)
                 print(f"step {i:5d} loss {loss:8.4f} "
-                      f"gnorm {float(metrics['grad_norm']):7.3f} "
+                      f"gnorm {float(metrics['grad_norm']):7.3f}{aux} "
                       f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
                       + (" [straggler]" if straggler else ""), flush=True)
             if mgr and (i + 1) % args.ckpt_every == 0:

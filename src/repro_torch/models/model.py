@@ -5,7 +5,9 @@
   ``jax.random``'s; parity tests convert the reference's parameters with
   :func:`repro_torch.convert.params_from_jax` instead);
 * ``_embed_inputs(params, batch)`` — token embedding;
-* ``forward(params, batch) -> logits`` (train / full sequence);
+* ``forward(params, batch, return_aux=False) -> logits`` (train / full
+  sequence; with ``return_aux``, ``(logits, aux)``: the MoE aux losses
+  summed over every layer);
 * ``loss(params, batch) -> (loss, metrics)``;
 * ``init_cache(batch_size, max_len) -> cache`` and
   ``decode_step(params, cache, batch_t, t) -> (logits, cache)`` — the
@@ -48,25 +50,39 @@ class Model:
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         return L.embed_apply(params["embed"], batch["tokens"], self.cfg)
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Logits (B, S, vocab) of the full sequence."""
+    def forward(self, params, batch, return_aux: bool = False):
+        """Logits (B, S, vocab) of the full sequence; with ``return_aux``,
+        (logits, aux): the MoE aux losses (``load_balance``, ``router_z``,
+        ``dropped_frac``) summed over the segments' layers, ``{}`` for
+        the other families."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = batch.get("positions", None)
         pats = T._patterns(cfg)
+        aux_total: Dict[str, torch.Tensor] = {}
         for i, (kind, n) in enumerate(self.program):
-            x = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
-                                pats.get(kind, pats["attn_mlp"]),
-                                positions=positions)
+            x, aux = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
+                                     pats.get(kind, pats["attn_mlp"]),
+                                     positions=positions)
+            T.add_aux(aux_total, aux)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        return L.logits_apply(params["embed"], params.get("lm_head"), x, cfg)
+        logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
+                                cfg)
+        return (logits, aux_total) if return_aux else logits
 
     def loss(self, params, batch):
-        """Mean next-token NLL; returns ``(loss, metrics)`` as the
-        reference does (its MoE aux losses come with that family)."""
-        nll = L.cross_entropy(self.forward(params, batch), batch["labels"],
-                              batch.get("mask"))
-        return nll, {"nll": nll, "loss": nll}
+        """Mean next-token NLL plus the MoE aux losses ``load_balance`` and
+        ``router_z``; returns ``(loss, metrics)`` as the reference does:
+        ``nll``, every aux term (``dropped_frac`` too) and ``loss``."""
+        logits, aux = self.forward(params, batch, return_aux=True)
+        nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+        loss, metrics = nll, {"nll": nll}
+        for key, v in aux.items():
+            if key in ("load_balance", "router_z"):
+                loss = loss + v
+            metrics[key] = v
+        metrics["loss"] = loss
+        return loss, metrics
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         """Lockstep decode caches, zeroed, on the model's device, in the

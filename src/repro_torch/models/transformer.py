@@ -15,7 +15,13 @@ Block kinds:
   ssm             Mamba2 SSD block                   (mamba2)
   rec_mlp         RG-LRU recurrent block + MLP       (recurrentgemma)
   griffin         (rec_mlp, rec_mlp, attn_mlp_local) supergroup, one unit
-The MoE and cross-attention kinds come with their families.
+  attn_moe        attention + MoE FFN                (kimi)
+  attn_moe_dense  attention + dense MLP + MoE in parallel (arctic)
+The cross-attention kind comes with its family.
+
+A full-sequence block returns ``(x, aux)``: the MoE blocks' aux losses
+(:func:`repro_torch.models.moe.moe_apply`), ``{}`` for the other kinds;
+a segment sums them over its layers, as the reference's scan does.
 
 Remat: ``remat="full"`` runs each segment element (a layer, or a whole
 griffin group, as the reference's scan body) under
@@ -25,10 +31,12 @@ attention layer), as ``jax.checkpoint`` does; ``remat="dots"`` does the
 same under a selective-checkpoint policy that saves the outputs of the
 projections (``aten.mm`` / ``aten.addmm``: the ``x @ w`` products) and
 recomputes everything else, as the reference's
-``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: batched
-products (``aten.bmm``) are recomputed, and so is the attention forward,
-whose kernel is launched outside the dispatcher (so a grad still runs
-three attention launches a layer, ``kernels.ops.LAUNCH_CONTRACT``);
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the MoE
+router's and shared expert's products are saved, batched products
+(``aten.bmm``: the experts' products and their combine) are recomputed,
+and so is the attention forward, whose kernel is launched outside the
+dispatcher (so a grad still runs three attention launches a layer,
+``kernels.ops.LAUNCH_CONTRACT``);
 ``remat="none"`` is a plain loop.
 """
 from __future__ import annotations
@@ -43,13 +51,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.serve.paged_cache import (PagedSlab, gather_view,
                                            quant_slab_write, slab_write)
 from repro_torch.tree import tree_map
 
-ATTN_KINDS = ("attn_mlp", "attn_mlp_local")
+# attention + a plain MLP
+MLP_KINDS = ("attn_mlp", "attn_mlp_local")
+# attention + an MoE FFN (arctic's with a dense MLP beside it)
+MOE_KINDS = ("attn_moe", "attn_moe_dense")
+# the attention block kinds: what the continuous engine serves (the
+# reference's ``ATTN_KINDS``)
+ATTN_KINDS = MLP_KINDS + MOE_KINDS
 
 
 def _not_ported_kind(kind: str) -> NotImplementedError:
@@ -59,8 +74,13 @@ def _not_ported_kind(kind: str) -> NotImplementedError:
 
 
 def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """(block_kind, count) segments. MoE and encoder-decoder programs are
-    not ported yet and raise."""
+    """(block_kind, count) segments. Encoder-decoder and vision-language
+    programs are not ported yet and raise (a VLM config would otherwise
+    run as a text model, without its vision merge and M-RoPE)."""
+    if cfg.mrope_sections is not None or cfg.n_vision_tokens:
+        raise NotImplementedError(
+            "vision-language programs (M-RoPE, vision embeddings) are not "
+            "ported yet: ROADMAP 'other model families'")
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -69,19 +89,28 @@ def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
         if rem:
             prog.append(("rec_mlp", rem))
         return prog
-    if cfg.family == "moe" or cfg.encoder_decoder:
+    if cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.family} programs are not ported yet: ROADMAP "
+            "encoder-decoder programs are not ported yet: ROADMAP "
             "'other model families'")
+    if cfg.family == "moe":
+        m = cfg.moe
+        prog = [("attn_mlp", m.first_k_dense)] if m.first_k_dense else []
+        kind = "attn_moe_dense" if m.dense_residual else "attn_moe"
+        return prog + [(kind, cfg.n_layers - m.first_k_dense)]
     return [("attn_mlp", cfg.n_layers)]
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, device):
     if kind in ATTN_KINDS:
-        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-                "attn": L.attn_init(gen, cfg, device),
-                "ln2": L.rmsnorm_init(cfg.d_model, device),
-                "mlp": L.mlp_init(gen, cfg, device)}
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+             "attn": L.attn_init(gen, cfg, device),
+             "ln2": L.rmsnorm_init(cfg.d_model, device)}
+        if kind != "attn_moe":
+            p["mlp"] = L.mlp_init(gen, cfg, device)
+        if kind in MOE_KINDS:
+            p["moe"] = MOE.moe_init(gen, cfg, device)
+        return p
     if kind == "ssm":
         return {"ln1": L.rmsnorm_init(cfg.d_model, device),
                 "ssm": SSM.ssm_init(gen, cfg, device)}
@@ -116,12 +145,12 @@ def _patterns(cfg: ModelConfig, causal: bool = True):
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                 positions=None):
-    """Full-sequence block. Returns x (the reference also returns the MoE
-    aux losses, which these kinds do not have)."""
+    """Full-sequence block. Returns (x, aux): the MoE blocks' aux losses,
+    else ``{}``."""
     if kind == "griffin":
         pats = _patterns(cfg)
-        x = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions)
-        x = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions)
+        x, _ = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions)
+        x, _ = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions)
         return block_apply(p["a"], x, cfg, "attn_mlp_local",
                            pats["attn_mlp_local"], positions)
     if kind in ATTN_KINDS:
@@ -130,12 +159,13 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
         return _ffn_residual(p, x + h, cfg, kind)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
-                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg)
+                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 cfg), {}
     if kind == "rec_mlp":
         x = x + RG.rglru_apply(p["rec"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                cfg)
         return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                               cfg)
+                               cfg), {}
     raise _not_ported_kind(kind)
 
 
@@ -152,7 +182,7 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   pattern, positions=None):
     """Run one segment's layers (the reference's scan) under the config's
     remat policy ("none" | "full" | "dots"), a griffin group as one unit.
-    Returns x."""
+    Returns (x, aux summed over the layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
@@ -161,27 +191,42 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
         return block_apply(layer_params, y, cfg, kind, pattern,
                            positions=positions)
 
+    total = {}
     for layer_params in params:
         if cfg.remat == "full":
-            x = checkpoint(body, layer_params, x, use_reentrant=False)
+            x, aux = checkpoint(body, layer_params, x, use_reentrant=False)
         elif cfg.remat == "dots":
-            x = checkpoint(body, layer_params, x, use_reentrant=False,
-                           context_fn=functools.partial(
-                               create_selective_checkpoint_contexts,
-                               _dots_policy))
+            x, aux = checkpoint(body, layer_params, x, use_reentrant=False,
+                                context_fn=functools.partial(
+                                    create_selective_checkpoint_contexts,
+                                    _dots_policy))
         else:
-            x = body(layer_params, x)
-    return x
+            x, aux = body(layer_params, x)
+        add_aux(total, aux)
+    return x, total
 
 
-def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig,
-                  kind: str) -> torch.Tensor:
-    """The post-attention FFN residual of an attention block."""
+def add_aux(total: dict, aux: dict) -> dict:
+    """Add the aux terms ``aux`` into ``total`` key by key, in place."""
+    for key, v in aux.items():
+        total[key] = total[key] + v if key in total else v
+    return total
+
+
+def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str):
+    """The post-attention FFN residual of an attention block. Returns (x,
+    aux): the MoE aux losses, else ``{}`` (the serving paths drop them:
+    serving never backprops)."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"continuous serving supports attention block kinds "
                          f"{ATTN_KINDS}, got {kind!r}")
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h2, cfg)
+    if kind in MLP_KINDS:
+        return x + L.mlp_apply(p["mlp"], h2, cfg), {}
+    y, aux = MOE.moe_apply(p["moe"], h2, cfg)
+    if kind == "attn_moe_dense":    # arctic: the dense MLP beside the MoE
+        return x + y + L.mlp_apply(p["mlp"], h2, cfg), aux
+    return x + y, aux
 
 
 def block_chunk_prefill(p, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
@@ -190,7 +235,7 @@ def block_chunk_prefill(p, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
     h, k_c, v_c = L.attn_chunk_prefill(
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), ctx_k, ctx_v,
         ctx_pos, pos_q, kv_blocks, flags, cfg, pattern)
-    return _ffn_residual(p, x + h, cfg, kind), k_c, v_c
+    return _ffn_residual(p, x + h, cfg, kind)[0], k_c, v_c
 
 
 def block_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
@@ -205,7 +250,7 @@ def block_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
         p["attn"], L.rmsnorm(p["ln1"], x_t, cfg.norm_eps), k_slab, v_slab,
         page_tables, slot_pos, t_vec, phys_w, off_w, cfg, pattern,
         k_scale=k_scale, v_scale=v_scale, want_page_stats=want_page_stats)
-    return (_ffn_residual(p, x_t + h, cfg, kind), k_slab, v_slab, k_scale,
+    return (_ffn_residual(p, x_t + h, cfg, kind)[0], k_slab, v_slab, k_scale,
             v_scale, page_m)
 
 
@@ -319,7 +364,7 @@ def block_decode(p, cache, x_t, t: int, cfg: ModelConfig, kind: str,
         h, _, _ = L.attn_decode(p["attn"],
                                 L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
                                 cache["k"], cache["v"], t, cfg, pattern)
-        return _ffn_residual(p, x_t + h, cfg, kind), cache
+        return _ffn_residual(p, x_t + h, cfg, kind)[0], cache
     if kind == "ssm":
         y, conv, st = SSM.ssm_decode(p["ssm"],
                                      L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),

@@ -200,9 +200,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def require_attention_program(model: Model) -> None:
-    """The continuous engine serves text-only attention programs; the
-    recurrent families (mamba2, recurrentgemma) serve through the lockstep
-    :class:`ServeEngine`. Raises the reference's ``NotImplementedError``."""
+    """The continuous engine serves text-only programs of attention blocks
+    (``transformer.ATTN_KINDS``: with a plain MLP, or the MoE FFN of
+    arctic and kimi); the recurrent families (mamba2, recurrentgemma)
+    serve through the lockstep :class:`ServeEngine`. Raises the
+    reference's ``NotImplementedError``."""
     cfg = model.cfg
     if cfg.mrope_sections is not None or cfg.encoder_decoder:
         raise NotImplementedError("continuous serving: text-only LMs")

@@ -82,8 +82,8 @@ def test_archs_list_the_dense_configs():
     """The registry lists the ported configs, and each is the reference's
     config field for field (CONFIG at its published shape, and SMOKE)."""
     from repro.configs import get_config as j_config
-    assert TC.ARCHS == ("smollm-135m",) + DENSE + ("recurrentgemma-9b",
-                                                  "mamba2-370m")
+    assert TC.ARCHS == ("smollm-135m",) + DENSE + (
+        "recurrentgemma-9b", "mamba2-370m", "arctic-480b", "kimi-k2-1t-a32b")
     for arch in TC.ARCHS:
         for jget, tget in ((j_config, t_config), (j_smoke, t_smoke)):
             assert dataclasses.asdict(tget(arch)) == \
@@ -182,6 +182,26 @@ def test_longformer_engine_matches_jax():
     for a, b in zip(jo, to):
         np.testing.assert_array_equal(a, b)
     assert dict(jeng.counters) == dict(teng.counters)
+
+
+def test_vlm_config_raises_until_ported():
+    """A vision-language config (qwen2-vl's smoke, built field by field
+    from the reference's) raises instead of running as a text model
+    without its vision merge and M-RoPE."""
+    from repro.configs import qwen2_vl_2b as JQ
+    from repro_torch.configs.base import ModelConfig, SALOConfig
+
+    fields = {f.name: getattr(JQ.SMOKE, f.name)
+              for f in dataclasses.fields(JQ.SMOKE)}
+    fields["salo"] = SALOConfig(**dataclasses.asdict(JQ.SMOKE.salo))
+    cfg = ModelConfig(**fields)
+    assert cfg.mrope_sections == (2, 3, 3) and cfg.n_vision_tokens == 16
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP 'other model families'"):
+        t_build(cfg, "cpu")
+    for extra in (dict(n_vision_tokens=0), dict(mrope_sections=None)):
+        with pytest.raises(NotImplementedError, match="vision-language"):
+            t_build(dataclasses.replace(cfg, **extra), "cpu")
 
 
 @pytest.mark.parametrize("stage", ["VIL_STAGE1", "VIL_STAGE2"])

@@ -42,7 +42,8 @@ def _need_cuda():
 @pytest.mark.parametrize("hd,H,Hkv,page,dil", [(64, 9, 3, 16, 1),
                                                (128, 4, 4, 8, 2),
                                                (256, 8, 2, 4, 1),
-                                               (128, 12, 2, 16, 3)])
+                                               (128, 12, 2, 16, 3),
+                                               (128, 56, 8, 16, 1)])
 def test_paged_decode_kernel_matches_plain(dtype, hd, H, Hkv, page, dil):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(hd + page)
@@ -217,7 +218,7 @@ def test_paged_decode_return_state_matches_plain(quant):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("hd,H,Hkv,S", [(64, 9, 3, 300), (128, 4, 4, 77),
-                                        (256, 8, 2, 513)])
+                                        (256, 8, 2, 513), (128, 56, 8, 288)])
 def test_contiguous_decode_kernel_matches_plain(dtype, hd, H, Hkv, S):
     """The lockstep cache (B, S, Hkv, hd) read through its transposed view
     (no copy), S not a multiple of the 16-slot split grain; positions None,
@@ -1102,6 +1103,69 @@ def test_recurrent_models_cuda_equal_cpu(arch):
         for i in range(2):
             p, opt, met = step(p, opt, ds.batch(i))
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+    np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
+                               rtol=1e-4, atol=1e-4)
+    assert toks["cuda"] == toks["cpu"]
+
+
+def _moe_cfg(arch):
+    """The MoE smoke config at widths the kernels take: d 256, hd 128 at
+    the arch's published rep (arctic 7 query heads on one KV head, kimi
+    8), every MoE field of the published config but the experts' width
+    (64)."""
+    from repro_torch.configs import get_config
+
+    H = {"arctic-480b": 7, "kimi-k2-1t-a32b": 8}[arch]
+    return dataclasses.replace(
+        get_smoke(arch), d_model=256, n_heads=H, n_kv_heads=1, head_dim=128,
+        d_ff=512, moe=dataclasses.replace(get_config(arch).moe,
+                                          d_ff_expert=64))
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_models_cuda_equal_cpu(arch):
+    """The MoE models, f32, with the published routing: two train steps
+    (loss, grad norm and the aux metrics within 1e-4) and the lockstep
+    and continuous engines' greedy tokens, equal on the card and on the
+    CPU."""
+    _need_cuda()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import Schedule
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = _moe_cfg(arch)
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                       schedule=Schedule(warmup_steps=1, total_steps=2))
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(2))
+    for path, leaf in tree_flatten_with_path(params)[0]:
+        if path[-1] in ("w_out", "wo"):    # tokens that use every block
+            leaf.mul_(6.0)
+    ds = SyntheticLM(cfg, DataConfig(128, 2, seed=2))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
+    lay = layout_for_pattern(salo_pattern(cfg), 8)
+    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_req, page=8,
+                            chunk=8, max_batch=4)
+    hist, toks = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        toks[dev] = ServeEngine(model, ServeConfig(max_len=48)).generate(
+            _params_on(params, dev), prompts, 8).cpu().tolist()
+        eng = ContinuousEngine(model, ccfg, device=dev)
+        rids = [eng.submit(x, 8) for x in prompts]
+        res = eng.run(_params_on(params, dev))
+        toks[dev] += [res[r].tolist() for r in rids]
+        p = _params_on(params, dev)
+        step = make_train_step(model, tcfg)
+        opt = adamw.init(tcfg.optimizer, p)
+        hist[dev] = []
+        for i in range(2):
+            p, opt, met = step(p, opt, ds.batch(i))
+            hist[dev].append([float(met[k]) for k in (
+                "loss", "grad_norm", "load_balance", "router_z",
+                "dropped_frac")])
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
     assert toks["cuda"] == toks["cpu"]

@@ -154,6 +154,29 @@ def test_ssd_chunked_gradient_is_finite_where_exp_overflows():
     assert torch.isfinite(y).all() and torch.isfinite(a.grad).all()
 
 
+@pytest.mark.parametrize("a_val,finite", [(-8.0, False), (-1.0, True)])
+def test_reference_ssd_gradient_overflows_where_the_port_masks(a_val,
+                                                               finite):
+    """The reference's own gradient, pinned (ROADMAP "Known differences"):
+    ``jax.grad`` of ``repro.models.ssm.ssd_chunked`` over one 16-step
+    chunk is non-finite at a = -8, where a masked pair's exp(L) overflows
+    f32 and ``where(causal, exp(L), 0)`` passes 0 x inf back, and finite
+    at a = -1; the port's gradient is finite at both."""
+    rng = np.random.default_rng(2)
+    B, T, H, P, N = 1, 16, 2, 4, 3
+    x = rng.normal(size=(B, T, H, P)).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, T, N)).astype(np.float32)
+              for _ in range(2))
+    a = np.full((B, T, H), a_val, np.float32)
+    jg = jax.grad(lambda a_: JSSM.ssd_chunked(
+        jnp.asarray(x), jnp.asarray(Bm), jnp.asarray(Cm), a_, 16).sum())(
+        jnp.asarray(a))
+    assert bool(np.isfinite(np.asarray(jg)).all()) == finite
+    ta = _t(a).requires_grad_()
+    TSSM.ssd_chunked(_t(x), _t(Bm), _t(Cm), ta, 16).sum().backward()
+    assert torch.isfinite(ta.grad).all()
+
+
 def test_ssm_apply_matches_jax():
     jcfg, tcfg, jp, tp = _block_params("mamba2-370m", "ssm")
     x = np.random.default_rng(3).normal(size=(2, 32, jcfg.d_model)) \
