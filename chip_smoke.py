@@ -31,7 +31,10 @@ nonzero:
    query heads on one KV head of hd 256, bf16, a 2304-slot full cache, t
    past the 2048 window, 4 sinks), (l) arctic-480b's decode on the MoE
    lockstep phases' cache (56 query heads on 8 KV heads of hd 128, bf16,
-   288 slots). Tolerances: f32 1e-5, bf16/f16
+   288 slots), (m) qwen2-vl-2b's decode (12 query heads on 2 KV heads of
+   hd 128, rep 6: row groups of 4 and 2) and (n) whisper-base's (8 heads
+   on 8 of hd 64, rep 1, window 512) on the same 288 slots. Tolerances:
+   f32 1e-5, bf16/f16
    2e-2 (abs and rel; the kernels round p to the 16-bit type before the
    PV product, the plain versions keep it in f32). Every case's outputs
    must be bitwise equal over repeated calls (the split-KV merge does not
@@ -55,7 +58,11 @@ nonzero:
 3b. **lockstep-check** — recurrentgemma-9b (one griffin group, one KV
    head of hd 256 under 2 query heads, local window 32 + 4 sinks) and
    mamba2-370m (smoke widths), and serve-check (4)'s arctic-480b and
-   kimi-k2, at narrowed widths, f32, residual branches amplified, on the
+   kimi-k2, and qwen2-vl-2b (d 256, 6 query heads on one KV head of hd
+   128: rep 6, the published M-RoPE sections) and whisper-base (d 128,
+   hd 64, rep 1, 1500 audio frames; the cross caches filled from the
+   encoder over seeded frames on each device), at narrowed widths, f32,
+   residual branches amplified (not whisper's cross attention), on the
    lockstep ``ServeEngine`` on the card and on the CPU from the same
    weights: batch 2, prompt 40 (past the window), 8 new tokens; greedy
    tokens equal, K5 launched once per attention layer (a griffin group
@@ -117,6 +124,15 @@ nonzero:
    decode step split: one MoE layer's ``moe_apply`` on 8 rows timed
    against its expert products alone and its shared expert (the rest is
    routing and dispatch), K4 / K5 case (l) per layer, and the remainder.
+9d. **lockstep qwen2-vl-2b**, **lockstep whisper-base** — full width and
+   depth (qwen2-vl: 28 layers, d 1536, 12 query heads on 2 KV heads of hd
+   128, M-RoPE text decode; whisper: 6 decoder layers, d 512, 8 heads of
+   hd 64), bf16, batch 8, prompt 256, 32 new: one K5 launch a layer a
+   step. For whisper the phase first fills every layer's cross caches
+   from ``Model._encode`` over seeded audio frames (8 x 1500 x 512; one
+   K1 launch an encoder layer) through the layer's cross-attention
+   ``wk``/``wv`` (``fill_cross_caches``: the package's engine leaves them
+   zero, as the reference's does).
 10. **train-kernels** — hold the training kernels K1 (forward; with
    16-bit inputs on the tensor cores, in 16-row x 64-key warp sub-tiles),
    K2 (dQ) and K3 (dK/dV) against their plain versions on the plan tables
@@ -134,7 +150,10 @@ nonzero:
    local attention (its one KV head copied to 16 query heads, n 4096, hd
    256, window 2048, 4 sinks, block 256, bf16), (l) kimi-k2's attention
    (64 query heads from 8 KV heads, batch 1, n 4096, hd 128, window 1024,
-   4 sinks, block 256, bf16). Tolerances: out 8e-3 in 16 bits and
+   4 sinks, block 256, bf16), (m) whisper-base's encoder attention
+   (bidirectional window 512 with 4 global tokens, global rows too, 8 x 8
+   heads, n 1500 padded to 1536, hd 64, block 256, bf16). Tolerances: out
+   8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
    (f16) in the 16-bit cases, where K2/K3 split every f32 operand into
@@ -144,7 +163,8 @@ nonzero:
    ``DQ_OFF_SHARE``). The 16-bit cases run K2/K3 again with dout at 2^-20
    of its scale (a train step's) and compare relative to it. Checks that
    two K3 runs give bitwise-equal dK/dV. Prints for (a), (b), (f), (g),
-   (h) each kernel's, and for (i), (j) K1's, the plain version's and the
+   (h), (k), (l), (m) each kernel's, and for (i), (j) K1's, the plain
+   version's and the
    bound's time (16-bit K2/K3: each
    product once at the 16-bit tensor rate, 6 and 8 x hd flops per
    attended pair; f32: all but q.k^T at the f32 rate), the flops the
@@ -190,7 +210,15 @@ nonzero:
    autograd of the GQA expand) and mamba2 (no kernel may launch), and
    serve-check (4)'s arctic-480b and kimi-k2 (hd 128 at rep 7 and 8, the
    published routing), whose load balance, router z and dropped share
-   must agree within 1e-4 too.
+   must agree within 1e-4 too, and lockstep-check's qwen2-vl-2b (the
+   vision extras and (3, B, S) positions of ``SyntheticLM``) and
+   whisper-base (the encoder's K1-K3 over 1500 frames).
+13b. **train qwen2-vl-2b** — every published width at the largest batch
+   of 8, 4, 2, 1 whose full depth's reckoned peak fits 92 % of the card
+   (``train_shape``, printed), seq 4096 with 1024 vision slots, 10 steps,
+   lr 1e-3, warmup 3; **train whisper-base** at full size, batch 8, 1500
+   audio frames a sample; per step and attention layer K1 2, K2 1, K3 2
+   (whisper's 6 decoder and 6 encoder layers); the loss falls.
 14. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
    20 steps, lr 3e-3, warmup 10. Checks finite losses, that the mean of
@@ -215,7 +243,9 @@ nonzero:
     dots saves first, then the step time and peak memory beside the train
     phase's, and profiles one more step. Each train phase collects Python's
    cyclic garbage before it resets the peak-memory counter and prints
-   what is allocated when it starts.
+   what is allocated when it starts, draws each step's batch on the host
+   before the step's clock starts (its median printed apart) and prints
+   the caching allocator's retries over its steps.
 17. **train gemma-7b** — every published width of gemma-7b kept, the
     depth cut to the deepest whose reckoned step peak (``train_bytes``,
     printed first) fits 92 % of the card, seq 4096, batch 1, 10 steps,
@@ -269,6 +299,8 @@ MAMBA_BATCH = 4                    # mamba2-370m train: full size
 # their names in the kernels line's launch paths
 MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
 MOE_TAGS = {"arctic-480b": "arctic-480b", "kimi-k2-1t-a32b": "kimi-k2"}
+# the VLM and the encoder-decoder: full width and depth on one card
+FAMILY_ARCHS = ("qwen2-vl-2b", "whisper-base")
 FT_TRAIN_AT = 10                   # train-ft: the step checkpointed
 
 
@@ -586,7 +618,10 @@ def k5_cases(torch):
     recurrentgemma-9b's decode (16 query heads on one KV head of hd 256,
     bf16, full cache of 2304 slots, t past its 2048 window, 4 sinks), (l)
     arctic-480b's decode on the MoE lockstep phases' cache (56 query heads
-    on 8 KV heads of hd 128, bf16, 288 slots, t = 287)."""
+    on 8 KV heads of hd 128, bf16, 288 slots, t = 287), (m) qwen2-vl-2b's
+    (12 query heads on 2 KV heads of hd 128, rep 6: row groups of 4 and
+    2, window 1024) and (n) whisper-base's decoder's (8 heads of hd 64, rep
+    1, window 512) on the same lockstep cache length."""
     S = LOCKSTEP_PROMPT + LOCKSTEP_NEW
     heads = dict(H=9, Hkv=3, hd=64)
     full = dict(heads, window=1024, g=4, dil=1, S=S, t=S - 1, ring=False)
@@ -598,6 +633,12 @@ def k5_cases(torch):
                        S=RG_K5_S, t=RG_K5_S - 1, ring=False,
                        dtype=torch.bfloat16)),
             ("l", dict(H=56, Hkv=8, hd=128, window=1024, g=4, dil=1,
+                       S=RG_PROMPT + RG_NEW, t=RG_PROMPT + RG_NEW - 1,
+                       ring=False, dtype=torch.bfloat16)),
+            ("m", dict(H=12, Hkv=2, hd=128, window=1024, g=4, dil=1,
+                       S=RG_PROMPT + RG_NEW, t=RG_PROMPT + RG_NEW - 1,
+                       ring=False, dtype=torch.bfloat16)),
+            ("n", dict(H=8, Hkv=8, hd=64, window=512, g=4, dil=1,
                        S=RG_PROMPT + RG_NEW, t=RG_PROMPT + RG_NEW - 1,
                        ring=False, dtype=torch.bfloat16))]
 
@@ -773,14 +814,79 @@ def _moe_check_cfgs():
             "kimi-k2-1t-a32b": narrow("kimi-k2-1t-a32b", 8)}
 
 
+# Narrowed f32 configs of the last two families for the cuda == cpu checks:
+# qwen2-vl keeps hd 128, its rep 6 (6 query heads on one KV head) and its
+# M-RoPE sections (16, 24, 24); whisper keeps hd 64, rep 1 and its 1500
+# audio frames (the encoder's K1-K3 at n 1500 with 2 global rows); d cut
+# to 256 and 128, the smoke depth (2 layers) and window.
+def _family_check_cfgs():
+    from repro_torch.configs import get_config
+
+    return {
+        "qwen2-vl-2b": _narrow("qwen2-vl-2b", d_model=256, n_heads=6,
+                               n_kv_heads=1, head_dim=128, d_ff=512,
+                               mrope_sections=get_config(
+                                   "qwen2-vl-2b").mrope_sections),
+        "whisper-base": _narrow("whisper-base", d_model=128, n_heads=2,
+                                n_kv_heads=2, d_ff=256,
+                                n_audio_frames=get_config(
+                                    "whisper-base").n_audio_frames),
+    }
+
+
+def fill_cross_caches(torch, model, params, cache, audio):
+    """Whisper's lockstep cross caches from the encoder: ``Model._encode``
+    over ``audio`` (B, frames, d) and, per decoder layer, the encoder
+    output through that layer's cross-attention ``wk``/``wv``, written
+    into ``xk``/``xv`` (the package's ServeEngine leaves them zero, as
+    the reference's does). Returns ``cache``."""
+    cfg = model.cfg
+    with torch.no_grad():
+        enc = model._encode(params, {"audio_embeds": audio})
+        B, Se, _ = enc.shape
+        for i, layer in enumerate(params["seg0_xattn"]):
+            for w, key in (("wk", "xk"), ("wv", "xv")):
+                cache["seg0_xattn"][key][i].copy_(
+                    (enc @ layer["xattn"][w].to(enc.dtype)).reshape(
+                        B, Se, cfg.n_kv_heads, cfg.hd))
+    return cache
+
+
+def _with_cross_caches(torch, model, params, seed):
+    """For an encoder-decoder ``model``: make its ``init_cache`` fill the
+    cross caches (``fill_cross_caches``) from seeded audio frames (one
+    draw for the largest batch asked, in the compute dtype, on the
+    model's device), so the lockstep engine's cross attention reads real
+    keys. A no-op for the other families."""
+    from repro_torch.models.layers import dt
+
+    cfg = model.cfg
+    if not cfg.encoder_decoder:
+        return
+    init_cache = model.init_cache
+
+    def filled(batch_size, max_len):
+        gen = torch.Generator().manual_seed(seed + 7)
+        audio = torch.randn((batch_size, cfg.n_audio_frames, cfg.d_model),
+                            generator=gen).to(model.device,
+                                              dt(cfg, "compute"))
+        return fill_cross_caches(torch, model, params,
+                                 init_cache(batch_size, max_len), audio)
+
+    model.init_cache = filled
+
+
 def lockstep_check(torch, seed):
-    """The recurrent archs (``_recurrent_check_cfgs``) and the MoE archs
-    (``_moe_check_cfgs``) at narrowed widths, f32, on the lockstep
-    ServeEngine on the card (attention through K5) and on the CPU (plain
-    versions), from the same weights and prompts (batch 2, prompt 40, 8
-    new tokens): greedy tokens must be equal; on the card K5 launched once
-    per attention layer (a griffin group has one) per step and its plain
-    version never ran, on the CPU the reverse."""
+    """The recurrent archs (``_recurrent_check_cfgs``), the MoE archs
+    (``_moe_check_cfgs``) and qwen2-vl and whisper
+    (``_family_check_cfgs``; whisper's cross caches filled from its
+    encoder over seeded audio frames on each device) at narrowed widths,
+    f32, on the lockstep ServeEngine on the card (attention through K5)
+    and on the CPU (plain versions), from the same weights and prompts
+    (batch 2, prompt 40, 8 new tokens): greedy tokens must be equal; on
+    the card K5 launched once per attention layer (a griffin group has
+    one) per step and its plain version never ran, on the CPU the
+    reverse."""
     import numpy as np
 
     from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
@@ -788,7 +894,8 @@ def lockstep_check(torch, seed):
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     B, P, n_new = 2, 40, 8
-    for arch, cfg in {**_recurrent_check_cfgs(), **_moe_check_cfgs()}.items():
+    for arch, cfg in {**_recurrent_check_cfgs(), **_moe_check_cfgs(),
+                      **_family_check_cfgs()}.items():
         t0 = time.perf_counter()
         params = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(seed))
@@ -800,6 +907,7 @@ def lockstep_check(torch, seed):
         for dev in ("cuda", "cpu"):
             model = build_model(cfg, dev)
             p = params if dev == "cpu" else _to(params, dev)
+            _with_cross_caches(torch, model, p, seed)
             salo_decode.launches = 0
             salo_decode_plain.calls = 0
             eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
@@ -821,23 +929,33 @@ def lockstep_check(torch, seed):
 
 def _amplify_residuals(params, gain: float = 6.0) -> None:
     """Scale every residual branch's output projection (``w_out``,
-    ``wo``) in place, so greedy tokens depend on the blocks (at the plain
-    init the tied embedding dominates)."""
+    ``wo``; an encoder's too) in place, so greedy tokens depend on the
+    blocks (at the plain init the tied embedding dominates). Whisper's
+    cross attention keeps its drawn ``wo``: at random weights it returns
+    about the mean of the audio frames' values, which amplified would
+    pick every token of a row alone."""
     from repro_torch.tree import tree_flatten_with_path
 
     for path, leaf in tree_flatten_with_path(params)[0]:
-        if path[-1] in ("w_out", "wo"):
+        if path[-1] in ("w_out", "wo") and "xattn" not in path:
             leaf.mul_(gain)
 
 
 def _attention_layers(cfg) -> int:
-    """The attention layers of ``cfg``'s program: one per attention block,
-    one per griffin group (its local third), none in ssm / rec_mlp
-    segments."""
+    """The self-attention layers of ``cfg``'s program (what K5 serves):
+    one per attention block and per whisper decoder block, one per
+    griffin group (its local third), none in ssm / rec_mlp segments."""
     from repro_torch.models.transformer import ATTN_KINDS, make_program
 
     return sum(n for kind, n in make_program(cfg)
-               if kind in ATTN_KINDS + ("griffin",))
+               if kind in ATTN_KINDS + ("griffin", "xattn"))
+
+
+def _train_attention_layers(cfg) -> int:
+    """The layers a train step runs K1-K3 in: the program's attention
+    layers and an encoder-decoder's encoder layers."""
+    return _attention_layers(cfg) + (cfg.n_layers if cfg.encoder_decoder
+                                     else 0)
 
 
 def serve_check(torch, seed):
@@ -1270,8 +1388,12 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
     token, ``n_new`` new tokens. Checks finite logits every step, one K5
     launch per attention layer per decode step (smollm-135m: 30;
     recurrentgemma-9b: 12, one a griffin group; mamba2-370m: none) and no
-    plain call; prints the step times, tokens/s and peak memory. Returns
-    the K5 launch count and the generation step median (s)."""
+    plain call; prints the step times, tokens/s and peak memory. An
+    encoder-decoder (whisper-base) first fills its cross caches from its
+    encoder over seeded audio frames (``_with_cross_caches``): one K1
+    launch per encoder layer, and no K2/K3 (the training kernels' counts,
+    ``_counters``, hold them after the phase). Returns the K5 launch
+    count and the generation step median (s)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1292,6 +1414,7 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
     if arch == "smollm-135m":     # the window and the sinks both bite
         check(P > cfg.salo.window, f"prompt {P} within the window")
     eng = ServeEngine(model, ServeConfig(max_len=P + n_new))
+    _with_cross_caches(torch, model, params, seed)
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                    (B, P))
     decode_step = model.decode_step
@@ -1311,11 +1434,17 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
     torch.cuda.reset_peak_memory_stats()
     salo_decode.launches = 0
     salo_decode_plain.calls = 0
+    _counters(reset=True)
     t0 = time.perf_counter()
     toks = eng.generate(params, prompts, n_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = salo_decode.launches, salo_decode_plain.calls
+    train_k, train_plain = _counters()
+    enc = cfg.n_layers if cfg.encoder_decoder else 0
+    check(train_k == {"K1": enc, "K2": 0, "K3": 0} and train_plain == 0,
+          f"training kernels {train_k} (plain {train_plain}), want K1 = "
+          f"{enc} (the encoder's layers) and nothing else")
     peak = torch.cuda.max_memory_allocated()
     steps = len(times)
     check(steps == P + n_new, f"{steps} decode steps, want {P + n_new}")
@@ -1335,9 +1464,13 @@ def phase_lockstep(torch, seed, arch="smollm-135m", B=LOCKSTEP_B,
         f"{gen_med * 1e3:.3f} ms, {B * n_new / gen_s:.1f} generated "
         f"tokens/s in the generation steps, {B * (P + n_new) / wall:.1f} "
         f"tokens/s through the whole run; peak memory {peak / 2**30:.3f} "
-        f"GiB; K5 launches {launches} ({n_attn} a step); first "
-        f"tokens {toks[:2, :8].tolist()}")
+        f"GiB; K5 launches {launches} ({n_attn} a step)"
+        + (f", K1 launches {enc} (the encoder over {cfg.n_audio_frames} "
+           f"seeded audio frames a row, filling the cross caches)"
+           if enc else "")
+        + f"; first tokens {toks[:2, :8].tolist()}")
     del model.decode_step
+    model.__dict__.pop("init_cache", None)
     if arch != "smollm-135m":
         log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches, gen_med
@@ -1396,7 +1529,9 @@ def profile_lockstep(torch, seed, arch, B, P):
 #     n 4096, hd 256, window 2048, 4 sinks, block 256, bf16; (l) kimi-k2's
 #     attention: 64 query heads (8 KV heads copied 8 times by the GQA
 #     expand), batch 1, n 4096, hd 128, window 1024, 4 sinks, block 256,
-#     bf16.
+#     bf16; (m) whisper-base's encoder attention: bidirectional window 512
+#     with 4 global tokens (global rows too), batch 8 x 8 heads, n 1500
+#     (the audio frames, padded to 1536), hd 64, block 256, bf16.
 TRAIN_CASES = {
     "a": dict(pat=("csw", 1024, 4, 1), n=4096, bh=72, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
@@ -1422,13 +1557,15 @@ TRAIN_CASES = {
               bk=256, dtype="bfloat16"),
     "l": dict(pat=("csw", 1024, 4, 1), n=4096, bh=64, hd=128, bq=256,
               bk=256, dtype="bfloat16"),
+    "m": dict(pat=("lf", 512, 4), n=1500, bh=64, hd=64, bq=256, bk=256,
+              dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
 # the cases whose kernels are timed (the ViL stages: K1 only)
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
          "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
-         "k": (K1, K2, K3), "l": (K1, K2, K3)}
+         "k": (K1, K2, K3), "l": (K1, K2, K3), "m": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -2149,12 +2286,15 @@ def _block_params(cfg, kind: str) -> int:
     and one attention block; an MoE block (``models/moe.py``) is an
     attention block with the router (d E), the expert stacks and the
     shared experts in place of its MLP (arctic's keeps the MLP beside
-    them)."""
+    them); a whisper decoder block (``xattn``) is an attention block with
+    a second attention (cross) and its norm."""
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     mults = 3 if cfg.act in ("swiglu", "geglu") else 2
     mlp = mults * d * cfg.d_ff
     if kind in ("attn_mlp", "attn_mlp_local"):
         return d * hd * (2 * H + 2 * Hkv) + mlp + 2 * d
+    if kind == "xattn":
+        return 2 * d * hd * (2 * H + 2 * Hkv) + mlp + 3 * d
     if kind in ("attn_moe", "attn_moe_dense"):
         m = cfg.moe
         moe = d * m.n_experts + mults * d * m.d_ff_expert * (
@@ -2185,8 +2325,12 @@ def _recompute_bytes(cfg, kind: str, seq: int, batch: int) -> int:
     passes' (a, b) pair and ~10 gate and product tensors, f32 over (tokens,
     d_rnn); a griffin group's two RG-LRU blocks are recomputed together;
     an SSD block keeps ~4 chunk-quadratic f32 tensors (tokens x chunk x
-    heads) and ~8 f32 (tokens, d_inner) ones."""
+    heads) and ~8 f32 (tokens, d_inner) ones; a whisper decoder block's
+    dense cross attention its f32 probabilities over the audio frames,
+    their gradient and the scores' (3 x (batch, H, seq, frames))."""
     tokens = seq * batch
+    if kind == "xattn":
+        return 3 * 4 * tokens * cfg.n_heads * cfg.n_audio_frames
     if kind == "rec_mlp":
         dr = cfg.recurrent.d_rnn or cfg.d_model
         return (2 * math.ceil(math.log2(seq)) + 10) * 4 * dr * tokens
@@ -2218,15 +2362,22 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     programs only) the projections' outputs too (q, k, v, o, the MLP's up
     (and gate) and down products; ``models/transformer.py``), all in
     bf16; and the largest element's recomputed f32 temporaries
-    (``_recompute_bytes``: the RG-LRU scan's, the SSD's)."""
+    (``_recompute_bytes``: the RG-LRU scan's, the SSD's, the cross
+    attention's). An encoder-decoder adds its encoder (``n_layers``
+    attention blocks and a norm; each layer's input over the audio frames
+    saved too) and the f32 audio frames; a VLM its vision projection (d
+    x d) and the f32 vision embeddings with their bf16 projection."""
     from repro_torch.models.transformer import ATTN_KINDS, make_program
 
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     gated = cfg.act in ("swiglu", "geglu")
     program = make_program(cfg)
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    enc = (cfg.n_layers * _block_params(cfg, "attn_mlp") + d
+           if cfg.encoder_decoder else 0)
     params = embed + sum(n * _block_params(cfg, kind)
-                         for kind, n in program) + d
+                         for kind, n in program) + d + enc
+    params += d * d if cfg.n_vision_tokens else 0
     update = max(32 * params, 18 * params + 20 * embed)
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"train_bytes reckons remat full and dots, got "
@@ -2238,15 +2389,49 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     per_token = d + (proj if cfg.remat == "dots" else 0)
     elements = sum(n for _, n in program)
     saved = 2 * per_token * seq * batch * elements
+    extras = 6 * seq * batch * d if cfg.n_vision_tokens else 0
+    if cfg.encoder_decoder:
+        frames = cfg.n_audio_frames * batch
+        saved += 2 * d * frames * (cfg.n_layers + 1)
+        extras += 4 * d * frames
     recompute = max(_recompute_bytes(cfg, kind, seq, batch)
                     for kind, _ in program)
     loss = 16 * seq * batch * cfg.vocab_size + 10 * params + saved \
-        + recompute
+        + recompute + extras
     per_layer = _block_params(cfg, program[0][0])
     return dict(params=params, per_layer=per_layer, embedding=embed,
                 resident=10 * params, update_peak=update, loss_peak=loss,
                 saved=saved, saved_per_token_layer=per_token,
                 recompute=recompute, peak=max(update, loss))
+
+
+def _fit_depth(full, seq: int, batch: int, budget: float) -> int:
+    """The deepest ``full`` (a multiple of 3 for hybrid programs) whose
+    reckoned train-step peak fits ``budget`` bytes; 0 if none does."""
+    import dataclasses
+
+    unit = 3 if full.family == "hybrid" else 1
+    depth = 0
+    for n in range(unit, full.n_layers + 1, unit):
+        if train_bytes(dataclasses.replace(full, n_layers=n), seq,
+                       batch)["peak"] > budget:
+            break
+        depth = n
+    return depth
+
+
+def train_shape(torch, arch: str, seq: int, batches=(8, 4, 2, 1)):
+    """(batch, depth) for a train phase of ``arch``: the largest of
+    ``batches`` at which the full depth's reckoned peak (``train_bytes``)
+    fits 92 % of the card, else batch 1 at ``train_depth``. Prints the
+    reckoning of the pick (``train_depth``'s line)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    budget = 0.92 * torch.cuda.get_device_properties(0).total_memory
+    batch = next((b for b in batches
+                  if _fit_depth(full, seq, b, budget) == full.n_layers), 1)
+    return batch, train_depth(torch, arch, seq, batch)
 
 
 def train_depth(torch, arch: str, seq: int, batch: int) -> int:
@@ -2260,12 +2445,7 @@ def train_depth(torch, arch: str, seq: int, batch: int) -> int:
     full = get_config(arch)
     unit = 3 if full.family == "hybrid" else 1
     budget = 0.92 * torch.cuda.get_device_properties(0).total_memory
-    depth = 0
-    for n in range(unit, full.n_layers + 1, unit):
-        if train_bytes(dataclasses.replace(full, n_layers=n), seq,
-                       batch)["peak"] > budget:
-            break
-        depth = n
+    depth = _fit_depth(full, seq, batch, budget)
     check(depth > 0, f"no {unit} layer(s) of {arch} fit the card")
     b = train_bytes(dataclasses.replace(full, n_layers=depth), seq, batch)
     nxt = train_bytes(dataclasses.replace(full, n_layers=depth + unit), seq,
@@ -2533,12 +2713,18 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB (parameters, "
         f"optimizer state and whatever earlier phases still hold)")
     _counters(reset=True)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     losses, norms, times, overlapped, ft = [], [], [], [], None
+    draws = []
     for i in range(run):
         if ft is not None and ft["mgr"].writing():
             overlapped.append(i)
+        # the batch is drawn on the host before the step's clock starts
+        td = time.perf_counter()
+        batch_np = ds.batch(i)
+        draws.append(time.perf_counter() - td)
         t0 = time.perf_counter()
-        params, opt, met = step(params, opt, ds.batch(i))
+        params, opt, met = step(params, opt, batch_np)
         loss = float(met["loss"])                   # syncs the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
@@ -2551,6 +2737,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
             ft = _ft_save(torch, params, opt, i + 1)
     launches, plain = _counters()
     peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     if ref is None:
         check(sum(losses[-5:]) / 5 < losses[0],
@@ -2565,8 +2752,9 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     # remat full and dots replay the attention forward in the backward
     replay = 1 + (cfg.remat != "none")
     # K3 is two kernels per call: the row walk and the owner-tile sum; one
-    # call of each per attention layer (a griffin group has one)
-    n_attn = _attention_layers(cfg)
+    # call of each per attention layer (a griffin group has one; whisper's
+    # encoder layers count too)
+    n_attn = _train_attention_layers(cfg)
     want = {"K1": replay * n_attn * run, "K2": n_attn * run,
             "K3": 2 * n_attn * run}
     check(launches == want, f"launches {launches} != {want}")
@@ -2581,7 +2769,11 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         f"({batch * seq / med:.1f} tokens/s); first step "
         f"{times[0] * 1e3:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated); launches {launches} "
-        f"({ {k: v // run for k, v in launches.items()} } a step)")
+        f"({ {k: v // run for k, v in launches.items()} } a step); the "
+        f"batch drawn on the host before each step's clock: median "
+        f"{sorted(draws)[run // 2] * 1e3:.3f} ms; caching-allocator "
+        f"retries (cached blocks freed, the device synchronized) "
+        f"{retries} over the {run} steps")
     stats = dict(losses=losses, median_ms=med * 1e3, peak=peak)
     if ref is not None:
         log(f"[{tag}] step median {med * 1e3:.3f} ms against remat full's "
@@ -2825,8 +3017,16 @@ def main(argv=None) -> int:
         moe_k4[arch], moe_k5[arch] = phase_moe(
             torch, timer, args.seed, arch, k4["l"]["kernel_ms"],
             k5["l"]["kernel_ms"])
+    # qwen2-vl-2b (M-RoPE text decode) and whisper-base (its cross caches
+    # filled from the encoder through K1) at full width and depth
+    fam_k5, fam_k1 = {}, {}
+    for arch in FAMILY_ARCHS:
+        fam_k5[arch], _ = phase_lockstep(torch, args.seed, arch, RG_B,
+                                         RG_PROMPT, RG_NEW)
+        fam_k1[arch] = _counters()[0]
+        torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
-    tl = {}
+    tl = {"lockstep-whisper-base": fam_k1["whisper-base"]}
     tl["dynamic"], drec = phase_dynamic(torch, timer, args.seed)
     dynamic_check(torch, args.seed)
     torch.cuda.empty_cache()
@@ -2841,6 +3041,20 @@ def main(argv=None) -> int:
             torch, args.seed, cfg, f"{arch} hd {cfg.hd} H "
             f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts "
             f"top-{cfg.moe.top_k}")
+    for arch, cfg in _family_check_cfgs().items():
+        tl[f"train-check-{arch}"] = train_check(
+            torch, args.seed, cfg, f"{arch} d {cfg.d_model} hd {cfg.hd} H "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}")
+    torch.cuda.empty_cache()
+    batch, depth = train_shape(torch, "qwen2-vl-2b", 4096)
+    tl["train-qwen2-vl-2b"], _, _ = phase_train(
+        torch, args.seed, "qwen2-vl-2b", n_layers=depth, steps=GEMMA_STEPS,
+        batch=batch, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
+    tl["train-whisper-base"], _, _ = phase_train(
+        torch, args.seed, "whisper-base", steps=GEMMA_STEPS,
+        batch=TRAIN_BATCH, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
     tl["smollm-135m"], ft, full = phase_train(torch, args.seed,
                                               ft_save_at=FT_TRAIN_AT)
     tl["train-ft"] = phase_train_ft(torch, args.seed, ft)
@@ -2883,7 +3097,8 @@ def main(argv=None) -> int:
                 **{f"serve_{MOE_TAGS[a]}": n for a, n in moe_k4.items()}}
     k5_paths = {"lockstep": launches_k5,
                 "lockstep_recurrentgemma_9b": launches_rg,
-                **{f"lockstep_{MOE_TAGS[a]}": n for a, n in moe_k5.items()}}
+                **{f"lockstep_{MOE_TAGS[a]}": n for a, n in moe_k5.items()},
+                **{f"lockstep_{a}": n for a, n in fam_k5.items()}}
     kernels = [{
         "name": "salo_paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_paged_decode.cu",
@@ -2906,7 +3121,9 @@ def main(argv=None) -> int:
         "launches_per_call": 1, **row(k5["a"]),
         "variants": {"f32": row(k5["b"]), "ring_dilated_bf16": row(k5["c"]),
                      "recurrentgemma_9b_hd256_mqa_bf16": row(k5["k"]),
-                     "arctic_480b_rep7_hd128_bf16": row(k5["l"])}}]
+                     "arctic_480b_rep7_hd128_bf16": row(k5["l"]),
+                     "qwen2_vl_2b_rep6_hd128_bf16": row(k5["m"]),
+                     "whisper_base_rep1_hd64_bf16": row(k5["n"])}}]
     # launches_per_call: K3's wrapper runs two kernels (the row walk and
     # the owner-tile sum), and its count and its time cover both. The main
     # numbers are case (a), smollm-135m's train attention; the variants are
@@ -2915,7 +3132,8 @@ def main(argv=None) -> int:
                 "h": "longformer_4k_bf16", "b": "smollm_f32",
                 "i": "vil_stage1_bf16", "j": "vil_stage2_bf16",
                 "k": "recurrentgemma_9b_local_hd256_mqa_bf16",
-                "l": "kimi_k2_hd128_gqa8_bf16"}
+                "l": "kimi_k2_hd128_gqa8_bf16",
+                "m": "whisper_base_encoder_n1500_global_rows_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

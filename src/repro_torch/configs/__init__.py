@@ -1,13 +1,12 @@
-"""Architecture registry: ``--arch <id>`` -> ModelConfig.
-
-Lists only the architectures the port serves so far."""
+"""Architecture registry: ``--arch <id>`` -> ModelConfig. Lists every
+architecture of the reference's registry."""
 from repro_torch.configs.base import (ModelConfig, MoEConfig, SSMConfig,
                                       RecurrentConfig, SALOConfig, ShapeCell,
                                       SHAPES, SHAPES_BY_NAME)
 
 ARCHS = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
          "longformer-4k", "recurrentgemma-9b", "mamba2-370m", "arctic-480b",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "qwen2-vl-2b", "whisper-base")
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
@@ -19,6 +18,8 @@ _MODULES = {
     "mamba2-370m": "mamba2_370m",
     "arctic-480b": "arctic_480b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-base": "whisper_base",
 }
 
 

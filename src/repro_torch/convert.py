@@ -6,8 +6,9 @@ dicts of **numpy** arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's tree: the same keys and orientations (``(d_in,
 d_out)`` weights, so the conversion is a copy), with every stacked segment
 ``seg{i}_{kind}`` of shape ``(n, ...)`` sliced into a list of ``n``
-per-layer dicts. A leaf the port does not consume raises, so a silently
-dropped parameter cannot make two models look equal.
+per-layer dicts (an encoder-decoder's ``enc`` sub-tree likewise). A leaf
+the port does not consume raises, so a silently dropped parameter cannot
+make two models look equal.
 
 ``checkpoint_from_jax(path, like)`` reads a reference train checkpoint
 (``{"params", "opt"}`` written by ``repro.launch.train --ckpt``: stacked
@@ -59,8 +60,12 @@ _BLOCK_SCHEMA = {
             "ssm": ("w_in", "w_out", "conv_w", "A_log", "D", "dt_bias",
                     "norm_scale")},
     "griffin": {"r1": _REC, "r2": _REC, "a": _ATTN},
+    "xattn": dict(_ATTN, ln_x=("scale",), xattn=_ATTN["attn"]),
 }
-_TOP_SCHEMA = {"embed": ("w",), "ln_f": ("scale",), "lm_head": ("w",)}
+_TOP_SCHEMA = {"embed": ("w",), "ln_f": ("scale",), "lm_head": ("w",),
+               "vision_proj": ("w",)}
+# whisper's encoder: one stacked attn_mlp segment and its final norm
+_ENC_KEYS = {"seg0_attn_mlp", "ln_f"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -122,6 +127,13 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     for key, sub in tree.items():
         if key in _TOP_SCHEMA:
             out[key] = _take(sub, _TOP_SCHEMA[key], key, device=device)
+            continue
+        if key == "enc":
+            extra = set(sub) - _ENC_KEYS
+            if extra:
+                raise ValueError(f"params_from_jax: unconsumed leaves under "
+                                 f"enc: {sorted(extra)}")
+            out[key] = params_from_jax(sub, device)
             continue
         kind = key.split("_", 1)[1] if key.startswith("seg") else None
         if kind not in _BLOCK_SCHEMA:

@@ -4,8 +4,9 @@ The port's own copy of :mod:`repro.data.pipeline`'s ``SyntheticLM``: packed
 token streams from a mixture of order-k Markov chains with per-document
 transition tables, learnable enough that training shows a real loss curve.
 Host-sharded and stateless in (seed, step, host), so batches equal the
-reference's bit for bit. The per-family extras (audio, vision, M-RoPE
-positions) come with those model families.
+reference's bit for bit, the per-family extras (whisper's audio
+embeddings; a VLM's vision mask, vision embeddings and M-RoPE positions)
+included: they are drawn from the same generator in the reference's order.
 """
 from __future__ import annotations
 
@@ -35,10 +36,6 @@ class SyntheticLM:
         if data.global_batch % n_hosts:
             raise ValueError(f"global batch {data.global_batch} does not "
                              f"split over {n_hosts} hosts")
-        if cfg.encoder_decoder or cfg.n_vision_tokens:
-            raise NotImplementedError(
-                "audio/vision batch extras are not ported yet: ROADMAP "
-                "queue 1, 'other model families'")
         self.cfg, self.data = cfg, data
         self.host_id, self.n_hosts = host_id, n_hosts
         self.local_batch = data.global_batch // n_hosts
@@ -64,14 +61,30 @@ class SyntheticLM:
         return toks
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
-        """Global-step-indexed batch for THIS host (resume = same stream)."""
-        d = self.data
+        """Global-step-indexed batch for THIS host (resume = same stream):
+        ``tokens``, ``labels`` (B, S) int32; an encoder-decoder's
+        ``audio_embeds`` (B, n_audio_frames, d) f32; a VLM's
+        ``vision_mask`` (B, S) bool (the first ``min(n_vision_tokens, S //
+        2)`` slots), ``vision_embeds`` (B, S, d) f32 and ``positions`` (3,
+        B, S) int32."""
+        d, cfg = self.data, self.cfg
         rng = np.random.default_rng((d.seed, step, self.host_id))
-        S = d.seq_len
-        toks = np.stack([self._sample_doc(rng, S + 1)
-                         for _ in range(self.local_batch)])
-        return {"tokens": toks[:, :S].astype(np.int32),
-                "labels": toks[:, 1:].astype(np.int32)}
+        S, B = d.seq_len, self.local_batch
+        toks = np.stack([self._sample_doc(rng, S + 1) for _ in range(B)])
+        out = {"tokens": toks[:, :S].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if cfg.encoder_decoder:
+            out["audio_embeds"] = rng.normal(
+                size=(B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        if cfg.n_vision_tokens:
+            mask = np.zeros((B, S), bool)
+            mask[:, :min(cfg.n_vision_tokens, S // 2)] = True
+            out["vision_mask"] = mask
+            out["vision_embeds"] = rng.normal(
+                size=(B, S, cfg.d_model)).astype(np.float32)
+            out["positions"] = np.broadcast_to(
+                np.arange(S, dtype=np.int32), (3, B, S)).copy()
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

@@ -14,6 +14,8 @@ or the lockstep baseline.
       --arch recurrentgemma-9b --smoke --device cpu --engine lockstep
   PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \\
       --smoke --device cpu [--engine lockstep]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --smoke --device cpu --engine lockstep
 
 Random weights from ``--seed``. ``--engine continuous`` (greedy) submits a
 RAGGED batch (prompt lengths spread around ``--prompt-len``) to the
@@ -24,7 +26,10 @@ paged-slab engine and reports launch counters beside throughput;
 decodes it in lockstep (greedy, or sampled with ``--temperature``); the
 recurrent archs (``recurrentgemma-9b``, ``mamba2-370m``) serve only
 there, and ``--engine continuous`` raises ``NotImplementedError`` for
-them, as the reference's engine does. The MoE archs (``arctic-480b``,
+them, as the reference's engine does; so do the VLM (``qwen2-vl-2b``:
+text-only decode, M-RoPE positions advancing together) and the
+encoder-decoder (``whisper-base``: its cross caches stay zero, as the
+reference's engine leaves them). The MoE archs (``arctic-480b``,
 ``kimi-k2-1t-a32b``) serve on both engines. Runs
 on the card unless ``--device cpu`` is given; with no card, ``--device
 cuda`` (the default) raises.

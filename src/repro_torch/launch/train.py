@@ -19,7 +19,9 @@ run would. ``--trace-out`` writes a Chrome trace
 of the step spans, ``--metrics-out`` the metrics registry (step-time
 histogram, token/step counters, per-kernel launch accounting). MoE
 models log their aux losses (load balance, router z) and the share of
-dropped (token, expert) entries beside the loss.
+dropped (token, expert) entries beside the loss. Every arch of the registry
+trains here, the VLM with its vision extras and M-RoPE positions and
+whisper with its audio frames (``SyntheticLM``).
 
 Not ported yet, and raising ``NotImplementedError``: ``--compress-grads``
 and ``--data``/``--model`` > 1 (ROADMAP queue 1, 'multi-GPU').

@@ -7,15 +7,17 @@ Parameter names and orientations are the reference's — weights are
 parameters are a copy (:mod:`repro_torch.convert`).
 
 The attention layer is where the paper's technique enters the model:
-QKV projection -> RoPE -> hybrid sparse attention with the arch's
-:class:`SALOConfig` pattern -> output projection. Four paths: the
-full-sequence training forward (:func:`attn_apply`, through
+QKV projection -> RoPE (M-RoPE for the VLM) -> hybrid sparse attention
+with the arch's :class:`SALOConfig` pattern -> output projection. Four
+paths: the full-sequence training forward (:func:`attn_apply`, through
 :func:`repro_torch.core.attention.hybrid_attention`), plan-driven chunked
 prefill, the ragged paged decode (always through
 :func:`repro_torch.kernels.salo_decode.salo_paged_decode`) and the
 lockstep decode on contiguous caches (always through
 :func:`repro_torch.kernels.salo_decode.salo_decode`). The tensors' device
-picks kernel or plain version.
+picks kernel or plain version. Whisper's cross attention (dense over the
+encoder output) and sinusoidal positions are plain torch, as the
+reference's are plain XLA.
 """
 from __future__ import annotations
 
@@ -65,15 +67,40 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ------------------------------- RoPE ----------------------------------- #
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10000.0) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def _rope_tables(half: int, theta: float, sections, device: torch.device):
+    """RoPE's frequencies (half,) f32 and, with M-RoPE ``sections``, each
+    frequency pair's position component (half,) int64, made once per
+    shape and device (no host-to-device copy on the call path). The
+    frequencies are f32 exponents raised in f64 and rounded once to f32,
+    which gives XLA's f32 ``pow`` (``torch.pow`` in f32 is an ulp off on
+    some, which moves the angle at positions in the thousands)."""
+    expo = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    freqs = torch.pow(theta, expo.double()).float()
+    if sections is None:
+        return freqs, None
+    t, h, _ = sections
+    j = torch.arange(half, device=device)
+    return freqs, (j >= t).long() + (j >= t + h).long()
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+         sections: Optional[tuple] = None) -> torch.Tensor:
     """Rotary embedding, half-split rotation. x: (B, S, H, D); positions:
-    (B, S) int. M-RoPE comes with the VLM family."""
+    (B, S) int, or (3, B, S) for M-RoPE with ``sections=(t, h, w)``
+    splitting the D/2 frequency pairs: pair ``i`` takes the position
+    component of its section (temporal, height, width)."""
     D = x.shape[-1]
     half = D // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions.float()[..., None] * freqs             # (B, S, half)
+    if sections is not None:
+        assert sum(sections) == half, (sections, half)
+    freqs, sec = _rope_tables(half, float(theta), sections, x.device)
+    if sec is None:
+        ang = positions.float()[..., None] * freqs         # (B, S, half)
+    else:
+        pos = positions.float().permute(1, 2, 0)            # (B, S, 3)
+        pos = torch.gather(pos, -1, sec.expand(*pos.shape[:2], half))
+        ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -123,30 +150,33 @@ def attn_init(gen, cfg: ModelConfig, device):
             "wo": dense_init(gen, H * hd, d, dt(cfg), device)}
 
 
-def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+             mrope=None):
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
     k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = rope(q, positions, cfg.rope_theta, mrope)
+    k = rope(k, positions, cfg.rope_theta, mrope)
     return q, k, v
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
                pattern: HybridSparsePattern,
-               positions: Optional[torch.Tensor] = None):
-    """Full-sequence attention (train). x: (B, S, d); returns (B, S, d).
+               positions: Optional[torch.Tensor] = None, mrope=None):
+    """Full-sequence attention (train). x: (B, S, d); positions (B, S), or
+    (3, B, S) under M-RoPE (``mrope``: the sections); returns (B, S, d).
     (The reference also returns (k, v) for its prefill-to-cache path; the
-    port prefills through :func:`attn_chunk_prefill`.)
+    port prefills through :func:`attn_chunk_prefill`. Its ``kv`` argument
+    has no caller: cross attention is :func:`cross_attn_apply`.)
 
     The (B, S, H, hd) -> (B*H, S, hd) layout change is a copy in torch
     (a free transpose in XLA)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = attn_qkv(p, x, cfg, positions)
+    q, k, v = attn_qkv(p, x, cfg, positions, mrope)
     out = hybrid_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pattern,
         impl=cfg.salo.impl, block_q=cfg.salo.block_q,
@@ -240,7 +270,7 @@ def _ring_positions(t: int, n_slots: int, window: int, n_global: int,
 
 
 def attn_decode(p, x_t, cache_k, cache_v, t: int, cfg: ModelConfig,
-                pattern: HybridSparsePattern):
+                pattern: HybridSparsePattern, positions=None, mrope=None):
     """One-token lockstep decode. x_t: (B, 1, d); caches: (B, S, Hkv, hd),
     written IN PLACE; ``t``: the batch's position (an int).
 
@@ -252,17 +282,18 @@ def attn_decode(p, x_t, cache_k, cache_v, t: int, cfg: ModelConfig,
     :func:`repro_torch.kernels.salo_decode.salo_decode` on the caches'
     (B, Hkv, S, hd) transposed views — the kernel reads them in place on
     the card, the plain version runs on the CPU (windowed when
-    ``cfg.salo.decode_slice``). Returns (out, cache_k, cache_v), the
-    caches being the ones passed in. M-RoPE decode comes with the VLM
-    family."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE decode is not ported yet: ROADMAP 'other model "
-            "families' (qwen2-vl)")
+    ``cfg.salo.decode_slice``). ``positions``: the token's RoPE positions,
+    (B, 1), or (3, B, 1) under M-RoPE (``mrope``: the sections); by
+    default ``t`` in every component (M-RoPE text decode: all three
+    advance together). Returns (out, cache_k, cache_v), the caches being
+    the ones passed in."""
     B = x_t.shape[0]
     t = int(t)
-    positions = torch.full((B, 1), t, dtype=torch.int32, device=x_t.device)
-    q, k, v = attn_qkv(p, x_t, cfg, positions)
+    if positions is None:
+        shape = (3, B, 1) if mrope is not None else (B, 1)
+        positions = torch.full(shape, t, dtype=torch.int32,
+                               device=x_t.device)
+    q, k, v = attn_qkv(p, x_t, cfg, positions, mrope)
     cache_positions = None
     if cfg.salo.ring_cache:
         w_, g_ = cfg.salo.window, max(cfg.salo.n_global, 0)
@@ -280,6 +311,62 @@ def attn_decode(p, x_t, cache_k, cache_v, t: int, cfg: ModelConfig,
                                     and not cfg.salo.ring_cache))
     out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(x_t.dtype), cache_k, cache_v
+
+
+# --------------------------- cross attention ----------------------------- #
+def _cross_attend(q, k, v, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """Dense softmax attention of q (B, S, H, hd) over the encoder's k, v
+    (B, Se, Hkv, hd), no mask and no RoPE; GQA by repeating each KV head
+    over its query heads. Both products run on f32 copies (exact 16-bit
+    products, f32 sums, as the reference's ``preferred_element_type``)
+    and the softmax in f32; one rounding to ``dtype`` at the end.
+    Returns (B, S, H * hd)."""
+    B, S, H, hd = q.shape
+    if k.shape[2] != H:
+        k = k.repeat_interleave(H // k.shape[2], dim=2)
+        v = v.repeat_interleave(H // v.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return out.to(dtype).reshape(B, S, H * hd)
+
+
+def cross_attn_apply(p, x: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): x (B, S, d) attends the
+    whole encoder output enc_out (B, Se, d), dense and rectangular (S !=
+    Se), so plain torch rather than the square-pattern SALO engines, as in
+    the reference (an einsum under XLA there). Returns (B, S, d). (The
+    reference also returns the encoder's (k, v); the lockstep cache's
+    ``xk``/``xv`` are ``enc_out @ wk`` and ``enc_out @ wv``.)"""
+    B, S, _ = x.shape
+    Se = enc_out.shape[1]
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, Se, Hkv, hd)
+    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, Se, Hkv, hd)
+    return _cross_attend(q, k, v, cfg, x.dtype) @ p["wo"].to(x.dtype)
+
+
+def cross_attn_decode(p, x_t: torch.Tensor, k_enc: torch.Tensor,
+                      v_enc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decode-time cross attention of x_t (B, 1, d) over the cached
+    encoder K/V (B, Se, Hkv, hd). Returns (B, 1, d)."""
+    B = x_t.shape[0]
+    q = (x_t @ p["wq"].to(x_t.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
+    return _cross_attend(q, k_enc, v_enc, cfg, x_t.dtype) @ \
+        p["wo"].to(x_t.dtype)
+
+
+def sinusoidal_pos(S: int, d: int, dtype, device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal positional embedding (S, d): built in
+    numpy f64 and rounded once to ``dtype`` (the caller adds it in its
+    own dtype, as the reference does)."""
+    half = d // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    ang = np.arange(S)[:, None] * freqs[None, :]
+    pe = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(pe).to(dtype=dtype, device=device)
 
 
 # ------------------------------ embedding -------------------------------- #

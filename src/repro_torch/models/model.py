@@ -4,7 +4,10 @@
   from an explicit ``torch.Generator`` (the numbers differ from
   ``jax.random``'s; parity tests convert the reference's parameters with
   :func:`repro_torch.convert.params_from_jax` instead);
-* ``_embed_inputs(params, batch)`` — token embedding;
+* ``_embed_inputs(params, batch)`` — token embedding, with a VLM's
+  projected ``vision_embeds`` merged where ``vision_mask`` is set;
+* ``_encode(params, batch)`` — whisper's bidirectional encoder over
+  ``audio_embeds`` plus sinusoidal positions;
 * ``forward(params, batch, return_aux=False) -> logits`` (train / full
   sequence; with ``return_aux``, ``(logits, aux)``: the MoE aux losses
   summed over every layer);
@@ -16,10 +19,12 @@
 
 ``params`` is a plain dict: ``embed``/``ln_f``/(``lm_head``) dicts and one
 list of per-layer dicts per segment, under the reference's ``seg{i}_{kind}``
-keys.
+keys; an encoder-decoder adds ``enc`` = ``{"seg0_attn_mlp": [per-layer
+dicts], "ln_f"}``, a VLM ``vision_proj`` = ``{"w": (d, d)}``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -45,25 +50,66 @@ class Model:
         for i, (kind, n) in enumerate(self.program):
             params[f"seg{i}_{kind}"] = T.segment_init(generator, cfg, kind, n,
                                                       dev)
+        if cfg.encoder_decoder:
+            params["enc"] = {
+                "seg0_attn_mlp": T.segment_init(generator, cfg, "attn_mlp",
+                                                cfg.n_layers, dev),
+                "ln_f": L.rmsnorm_init(cfg.d_model, dev)}
+        if cfg.n_vision_tokens:
+            params["vision_proj"] = {"w": L.dense_init(
+                generator, cfg.d_model, cfg.d_model, L.dt(cfg), dev)}
         return params
 
     def _embed_inputs(self, params, batch) -> torch.Tensor:
-        return L.embed_apply(params["embed"], batch["tokens"], self.cfg)
+        """Token embeddings; a VLM batch's ``vision_embeds`` (B, S, d),
+        projected by ``vision_proj``, replace them where ``vision_mask``
+        (B, S) is set (the vision frontend is stubbed: the embeddings come
+        aligned to token slots)."""
+        cfg = self.cfg
+        x = L.embed_apply(params["embed"], batch["tokens"], cfg)
+        if cfg.n_vision_tokens and "vision_embeds" in batch:
+            vis = batch["vision_embeds"].to(x.dtype) @ \
+                params["vision_proj"]["w"].to(x.dtype)
+            x = torch.where(batch["vision_mask"][..., None], vis, x)
+        return x
+
+    def _encode(self, params, batch) -> torch.Tensor:
+        """Whisper's encoder over the stub audio-frame embeddings
+        ``audio_embeds`` (B, n_frames, d) plus sinusoidal positions: the
+        ``enc`` attn_mlp layers on the bidirectional SALO pattern
+        (``longformer(window, n_global)``: global rows and columns), then
+        its final norm. Returns (B, n_frames, d)."""
+        cfg = self.cfg
+        pattern = L.salo_pattern(
+            cfg, causal=False,
+            salo=dataclasses.replace(cfg.salo, bidirectional=True))
+        x = batch["audio_embeds"].to(L.dt(cfg, "compute"))
+        x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)
+        x, _ = T.segment_apply(params["enc"]["seg0_attn_mlp"], x, cfg,
+                               "attn_mlp", pattern)
+        return L.rmsnorm(params["enc"]["ln_f"], x, cfg.norm_eps)
 
     def forward(self, params, batch, return_aux: bool = False):
         """Logits (B, S, vocab) of the full sequence; with ``return_aux``,
         (logits, aux): the MoE aux losses (``load_balance``, ``router_z``,
         ``dropped_frac``) summed over the segments' layers, ``{}`` for
-        the other families."""
+        the other families. Under M-RoPE the positions default to
+        ``arange(S)`` in all three components, (3, B, S)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = batch.get("positions", None)
+        mrope = cfg.mrope_sections
+        if mrope is not None and positions is None:
+            B, S = batch["tokens"].shape
+            positions = torch.arange(S, device=x.device).expand(3, B, S)
+        enc_out = self._encode(params, batch) if cfg.encoder_decoder else None
         pats = T._patterns(cfg)
         aux_total: Dict[str, torch.Tensor] = {}
         for i, (kind, n) in enumerate(self.program):
             x, aux = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
                                      pats.get(kind, pats["attn_mlp"]),
-                                     positions=positions)
+                                     positions=positions, mrope=mrope,
+                                     enc_out=enc_out)
             T.add_aux(aux_total, aux)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
@@ -88,8 +134,9 @@ class Model:
         """Lockstep decode caches, zeroed, on the model's device, in the
         reference's stacked layout: per segment the block's cache tree
         (``T.block_cache_init``: ``{"k", "v"}`` of attention blocks in the
-        compute dtype, the recurrent blocks' ``conv`` in the compute dtype
-        and ``state`` in f32) with a leading axis of n layers."""
+        compute dtype, and ``{"xk", "xv"}`` of whisper's cross attention,
+        the recurrent blocks' ``conv`` in the compute dtype and ``state``
+        in f32) with a leading axis of n layers."""
         cfg, dtype = self.cfg, L.dt(self.cfg, "compute")
         cache = {}
         for i, (kind, n) in enumerate(self.program):
@@ -100,18 +147,22 @@ class Model:
         return cache
 
     def decode_step(self, params, cache, batch_t, t: int):
-        """One lockstep decode step. batch_t: ``{"tokens": (B, 1)}``; t:
-        the batch's position (an int). Writes the new KV and recurrent
-        states into ``cache`` in place; returns (logits (B, 1, vocab),
-        cache)."""
+        """One lockstep decode step. batch_t: ``{"tokens": (B, 1)}``, and
+        optionally a VLM's (B, 1) ``vision_embeds``/``vision_mask`` and the
+        token's ``positions`` ((3, B, 1) under M-RoPE; ``t`` in every
+        component by default); t: the batch's position (an int). Writes
+        the new KV and recurrent states into ``cache`` in place; returns
+        (logits (B, 1, vocab), cache)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch_t)
         pats = T._patterns(cfg)
         for i, (kind, n) in enumerate(self.program):
             key = f"seg{i}_{kind}"
-            x, cache[key] = T.segment_decode(params[key], cache[key], x, t,
-                                             cfg, kind,
-                                             pats.get(kind, pats["attn_mlp"]))
+            x, cache[key] = T.segment_decode(
+                params[key], cache[key], x, t, cfg, kind,
+                pats.get(kind, pats["attn_mlp"]),
+                positions=batch_t.get("positions", None),
+                mrope=cfg.mrope_sections)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
                                 cfg)

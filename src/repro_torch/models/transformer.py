@@ -17,7 +17,8 @@ Block kinds:
   griffin         (rec_mlp, rec_mlp, attn_mlp_local) supergroup, one unit
   attn_moe        attention + MoE FFN                (kimi)
   attn_moe_dense  attention + dense MLP + MoE in parallel (arctic)
-The cross-attention kind comes with its family.
+  xattn           self attention + cross attention + MLP (whisper's
+                  decoder; its encoder is an attn_mlp segment)
 
 A full-sequence block returns ``(x, aux)``: the MoE blocks' aux losses
 (:func:`repro_torch.models.moe.moe_apply`), ``{}`` for the other kinds;
@@ -63,24 +64,15 @@ MLP_KINDS = ("attn_mlp", "attn_mlp_local")
 # attention + an MoE FFN (arctic's with a dense MLP beside it)
 MOE_KINDS = ("attn_moe", "attn_moe_dense")
 # the attention block kinds: what the continuous engine serves (the
-# reference's ``ATTN_KINDS``)
+# reference's ``ATTN_KINDS``; whisper's ``xattn`` is not one of them)
 ATTN_KINDS = MLP_KINDS + MOE_KINDS
 
 
-def _not_ported_kind(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: ROADMAP 'other model "
-        "families'")
-
-
 def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """(block_kind, count) segments. Encoder-decoder and vision-language
-    programs are not ported yet and raise (a VLM config would otherwise
-    run as a text model, without its vision merge and M-RoPE)."""
-    if cfg.mrope_sections is not None or cfg.n_vision_tokens:
-        raise NotImplementedError(
-            "vision-language programs (M-RoPE, vision embeddings) are not "
-            "ported yet: ROADMAP 'other model families'")
+    """(block_kind, count) segments. An encoder-decoder program is its
+    decoder stack (the encoder is ``params["enc"]``, run by
+    ``Model._encode``); a VLM is a dense ``attn_mlp`` program (its vision
+    merge and M-RoPE live in ``Model``)."""
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -90,9 +82,7 @@ def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
             prog.append(("rec_mlp", rem))
         return prog
     if cfg.encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder programs are not ported yet: ROADMAP "
-            "'other model families'")
+        return [("xattn", cfg.n_layers)]
     if cfg.family == "moe":
         m = cfg.moe
         prog = [("attn_mlp", m.first_k_dense)] if m.first_k_dense else []
@@ -123,7 +113,14 @@ def block_init(gen, cfg: ModelConfig, kind: str, device):
         return {"r1": block_init(gen, cfg, "rec_mlp", device),
                 "r2": block_init(gen, cfg, "rec_mlp", device),
                 "a": block_init(gen, cfg, "attn_mlp_local", device)}
-    raise _not_ported_kind(kind)
+    if kind == "xattn":
+        return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                "attn": L.attn_init(gen, cfg, device),
+                "ln_x": L.rmsnorm_init(cfg.d_model, device),
+                "xattn": L.attn_init(gen, cfg, device),
+                "ln2": L.rmsnorm_init(cfg.d_model, device),
+                "mlp": L.mlp_init(gen, cfg, device)}
+    raise ValueError(kind)
 
 
 def segment_init(gen, cfg: ModelConfig, kind: str, n: int, device):
@@ -144,9 +141,18 @@ def _patterns(cfg: ModelConfig, causal: bool = True):
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
-                positions=None):
-    """Full-sequence block. Returns (x, aux): the MoE blocks' aux losses,
+                positions=None, mrope=None, enc_out=None):
+    """Full-sequence block. ``positions``/``mrope``: the RoPE positions
+    and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
+    block cross-attends. Returns (x, aux): the MoE blocks' aux losses,
     else ``{}``."""
+    if kind == "xattn":
+        x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                             cfg, pattern, positions=positions)
+        x = x + L.cross_attn_apply(
+            p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps), enc_out, cfg)
+        return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                               cfg), {}
     if kind == "griffin":
         pats = _patterns(cfg)
         x, _ = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions)
@@ -155,7 +161,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                            pats["attn_mlp_local"], positions)
     if kind in ATTN_KINDS:
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                         cfg, pattern, positions=positions)
+                         cfg, pattern, positions=positions, mrope=mrope)
         return _ffn_residual(p, x + h, cfg, kind)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
@@ -166,7 +172,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                                cfg)
         return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
                                cfg), {}
-    raise _not_ported_kind(kind)
+    raise ValueError(kind)
 
 
 # The products ``remat="dots"`` saves: unbatched matmuls.
@@ -179,9 +185,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                  pattern, positions=None):
+                  pattern, positions=None, mrope=None, enc_out=None):
     """Run one segment's layers (the reference's scan) under the config's
     remat policy ("none" | "full" | "dots"), a griffin group as one unit.
+    ``enc_out`` enters each checkpointed layer from outside it, so its
+    gradient flows back into the encoder (non-reentrant checkpoints).
     Returns (x, aux summed over the layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
@@ -189,7 +197,7 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,
-                           positions=positions)
+                           positions=positions, mrope=mrope, enc_out=enc_out)
 
     total = {}
     for layer_params in params:
@@ -318,8 +326,10 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     window + g)`` (SALO ring cache). SSM: ``{"conv"}`` (batch, W-1, d_inner
     + 2N) in ``dtype`` and ``{"state"}`` (batch, H, N, P) f32. RG-LRU:
     ``{"conv"}`` (batch, W-1, d_rnn) in ``dtype`` and ``{"state"}`` (batch,
-    d_rnn) f32. Griffin: ``{"r1", "r2", "a"}`` of those. The
-    cross-attention caches come with their family."""
+    d_rnn) f32. Griffin: ``{"r1", "r2", "a"}`` of those. ``xattn``: the
+    attention caches and the cross caches ``{"xk", "xv"}`` of (batch,
+    n_audio_frames, Hkv, hd), the encoder's K/V (zeros here: the lockstep
+    engine feeds tokens only and fills none, as the reference's)."""
     if cfg.salo.ring_cache:
         max_len = min(max_len, cfg.salo.window + cfg.salo.n_global)
     z = functools.partial(torch.zeros, device=device)
@@ -330,9 +340,13 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                        device),
                 "a": block_cache_init(cfg, "attn_mlp_local", batch, max_len,
                                       dtype, device)}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind == "xattn":
         shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
+        cache = {"k": z(shape, dtype=dtype), "v": z(shape, dtype=dtype)}
+        if kind == "xattn":
+            xshape = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
+            cache.update(xk=z(xshape, dtype=dtype), xv=z(xshape, dtype=dtype))
+        return cache
     if kind == "ssm":
         d_inner, H, N, P = SSM._dims(cfg)
         W = cfg.ssm.conv_width
@@ -343,14 +357,27 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         W = cfg.recurrent.conv_width
         return {"conv": z((batch, W - 1, dr), dtype=dtype),
                 "state": z((batch, dr), dtype=torch.float32)}
-    raise _not_ported_kind(kind)
+    raise ValueError(kind)
 
 
 def block_decode(p, cache, x_t, t: int, cfg: ModelConfig, kind: str,
-                 pattern):
+                 pattern, positions=None, mrope=None):
     """One-token lockstep decode through one block. Attention caches are
     written in place and returned; the recurrent blocks return new
-    ``conv``/``state`` tensors. Returns (x_t, cache)."""
+    ``conv``/``state`` tensors. ``positions``/``mrope``: the token's RoPE
+    positions and M-RoPE sections (``attn_decode``'s defaults when None).
+    Returns (x_t, cache)."""
+    if kind == "xattn":
+        h, _, _ = L.attn_decode(p["attn"],
+                                L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
+                                cache["k"], cache["v"], t, cfg, pattern,
+                                positions=positions)
+        x_t = x_t + h
+        x_t = x_t + L.cross_attn_decode(
+            p["xattn"], L.rmsnorm(p["ln_x"], x_t, cfg.norm_eps), cache["xk"],
+            cache["xv"], cfg)
+        h2 = L.rmsnorm(p["ln2"], x_t, cfg.norm_eps)
+        return x_t + L.mlp_apply(p["mlp"], h2, cfg), cache
     if kind == "griffin":
         pats = _patterns(cfg)
         x_t, c1 = block_decode(p["r1"], cache["r1"], x_t, t, cfg, "rec_mlp",
@@ -363,7 +390,8 @@ def block_decode(p, cache, x_t, t: int, cfg: ModelConfig, kind: str,
     if kind in ATTN_KINDS:
         h, _, _ = L.attn_decode(p["attn"],
                                 L.rmsnorm(p["ln1"], x_t, cfg.norm_eps),
-                                cache["k"], cache["v"], t, cfg, pattern)
+                                cache["k"], cache["v"], t, cfg, pattern,
+                                positions=positions, mrope=mrope)
         return _ffn_residual(p, x_t + h, cfg, kind)[0], cache
     if kind == "ssm":
         y, conv, st = SSM.ssm_decode(p["ssm"],
@@ -378,7 +406,7 @@ def block_decode(p, cache, x_t, t: int, cfg: ModelConfig, kind: str,
         x_t = x_t + L.mlp_apply(p["mlp"],
                                 L.rmsnorm(p["ln2"], x_t, cfg.norm_eps), cfg)
         return x_t, {"conv": conv, "state": st}
-    raise _not_ported_kind(kind)
+    raise ValueError(kind)
 
 
 def _write_back(row, new):
@@ -390,7 +418,7 @@ def _write_back(row, new):
 
 
 def segment_decode(params, caches, x_t, t: int, cfg: ModelConfig, kind: str,
-                   pattern):
+                   pattern, positions=None, mrope=None):
     """One lockstep decode step through a segment's layers (the
     reference's scan): layer ``i`` uses row ``i`` of every leaf of the
     stacked caches (leading axis n) and its new cache goes back into that
@@ -398,6 +426,6 @@ def segment_decode(params, caches, x_t, t: int, cfg: ModelConfig, kind: str,
     for i, layer_params in enumerate(params):
         rows = tree_map(lambda a: a[i], caches)
         x_t, new = block_decode(layer_params, rows, x_t, t, cfg, kind,
-                                pattern)
+                                pattern, positions=positions, mrope=mrope)
         tree_map(_write_back, rows, new)
     return x_t, caches

@@ -6,7 +6,9 @@ The port of :mod:`repro.train.trainer` for one device.
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
 ``make_eval_step(model)`` returns ``eval_step(params, batch) -> metrics``.
 Gradients are f32 on both microbatch paths, and metrics are averaged over
-the microbatches, as in the reference. The reference's fourth argument,
+the microbatches, as in the reference; the microbatches split every batch
+entry on its batch axis (axis 1 of M-RoPE ``positions``, (3, B, S); axis
+0 of the others). The reference's fourth argument,
 the error-feedback state of compressed gradients, has no counterpart:
 gradient compression is multi-GPU work (ROADMAP queue 1, 'multi-GPU') and
 raises.
@@ -29,6 +31,12 @@ class TrainConfig:
     schedule: Schedule = Schedule()
     microbatches: int = 1            # gradient accumulation
     compress_grads: bool = False     # int8 all-reduce (not ported)
+
+
+def _batch_axis(key: str) -> int:
+    """The batch axis of a batch entry: M-RoPE ``positions`` (3, B, S)
+    carry it second."""
+    return 1 if key == "positions" else 0
 
 
 def make_train_step(model, tcfg: TrainConfig) -> Callable:
@@ -56,7 +64,7 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
                        params)
         loss_sum, metric_sums = 0.0, {}
         for i in range(mb):
-            mbatch = {k: v.tensor_split(mb, dim=0)[i]
+            mbatch = {k: v.tensor_split(mb, dim=_batch_axis(k))[i]
                       for k, v in batch.items()}
             loss, metrics, grads = loss_and_grads(params, mbatch)
             acc = tree_map(torch.add, acc, grads)
@@ -69,7 +77,8 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v).to(model.device)
                  for k, v in batch.items()}
-        if any(v.shape[0] % tcfg.microbatches for v in batch.values()):
+        if any(v.shape[_batch_axis(k)] % tcfg.microbatches
+               for k, v in batch.items()):
             raise ValueError(f"batch axis must divide microbatches "
                              f"{tcfg.microbatches}")
         grads, loss, metrics = grads_and_metrics(params, batch)

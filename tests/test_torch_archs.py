@@ -79,11 +79,15 @@ def _models(arch, seed=0, amplify=False):
 
 
 def test_archs_list_the_dense_configs():
-    """The registry lists the ported configs, and each is the reference's
-    config field for field (CONFIG at its published shape, and SMOKE)."""
+    """The registry lists all 11 of the reference's archs, and each is the
+    reference's config field for field (CONFIG at its published shape, and
+    SMOKE)."""
+    from repro.configs import ARCHS as J_ARCHS
     from repro.configs import get_config as j_config
     assert TC.ARCHS == ("smollm-135m",) + DENSE + (
-        "recurrentgemma-9b", "mamba2-370m", "arctic-480b", "kimi-k2-1t-a32b")
+        "recurrentgemma-9b", "mamba2-370m", "arctic-480b", "kimi-k2-1t-a32b",
+        "qwen2-vl-2b", "whisper-base")
+    assert sorted(TC.ARCHS) == sorted(J_ARCHS) and len(TC.ARCHS) == 11
     for arch in TC.ARCHS:
         for jget, tget in ((j_config, t_config), (j_smoke, t_smoke)):
             assert dataclasses.asdict(tget(arch)) == \
@@ -184,24 +188,36 @@ def test_longformer_engine_matches_jax():
     assert dict(jeng.counters) == dict(teng.counters)
 
 
-def test_vlm_config_raises_until_ported():
-    """A vision-language config (qwen2-vl's smoke, built field by field
-    from the reference's) raises instead of running as a text model
-    without its vision merge and M-RoPE."""
-    from repro.configs import qwen2_vl_2b as JQ
-    from repro_torch.configs.base import ModelConfig, SALOConfig
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b",
+                                  "longformer-4k"])
+@pytest.mark.parametrize("shape", ["CONFIG", "SMOKE"])
+def test_salo_patterns_match_reference(arch, shape):
+    """The port's ``salo_pattern`` gives the reference's
+    ``HybridSparsePattern`` field for field: the causal decoder pattern
+    and the bidirectional encoder pattern (whisper's encoder:
+    ``longformer(window, n_global)``, global rows whatever
+    ``salo.global_rows`` says), and the same dense mask."""
+    from repro.configs import get_config as j_config
+    from repro_torch.models.layers import salo_pattern as t_pattern
 
-    fields = {f.name: getattr(JQ.SMOKE, f.name)
-              for f in dataclasses.fields(JQ.SMOKE)}
-    fields["salo"] = SALOConfig(**dataclasses.asdict(JQ.SMOKE.salo))
-    cfg = ModelConfig(**fields)
-    assert cfg.mrope_sections == (2, 3, 3) and cfg.n_vision_tokens == 16
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP 'other model families'"):
-        t_build(cfg, "cpu")
-    for extra in (dict(n_vision_tokens=0), dict(mrope_sections=None)):
-        with pytest.raises(NotImplementedError, match="vision-language"):
-            t_build(dataclasses.replace(cfg, **extra), "cpu")
+    jcfg = (j_config if shape == "CONFIG" else j_smoke)(arch)
+    tcfg = (t_config if shape == "CONFIG" else t_smoke)(arch)
+    fields = [f.name for f in dataclasses.fields(TP.HybridSparsePattern)]
+    for causal in (True, False):
+        kw = {} if causal else dict(salo=dataclasses.replace(
+            jcfg.salo, bidirectional=True))
+        tkw = {} if causal else dict(salo=dataclasses.replace(
+            tcfg.salo, bidirectional=True))
+        j = j_pattern(jcfg, causal=causal, **kw)
+        t = t_pattern(tcfg, causal=causal, **tkw)
+        assert {f: getattr(t, f) for f in fields} == \
+            {f: getattr(j, f) for f in fields}, (arch, causal)
+        np.testing.assert_array_equal(t.mask(40), j.mask(40))
+    if arch == "whisper-base":
+        enc = t_pattern(tcfg, causal=False, salo=dataclasses.replace(
+            tcfg.salo, bidirectional=True))
+        assert not tcfg.salo.global_rows and enc.global_rows
+        assert enc.n_global == tcfg.salo.n_global and not enc.causal
 
 
 @pytest.mark.parametrize("stage", ["VIL_STAGE1", "VIL_STAGE2"])

@@ -1169,3 +1169,151 @@ def test_moe_models_cuda_equal_cpu(arch):
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
     assert toks["cuda"] == toks["cpu"]
+
+
+# ------------ the last two families: qwen2-vl-2b, whisper-base ----------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_whisper_encoder(dtype):
+    """K1, K2, K3 at whisper-base's encoder attention (chip_smoke case
+    (m)): bidirectional window 512 with 4 global tokens and global rows,
+    n 1500 (padded to 1536), hd 64, block 256, 8 flat heads; dK/dV
+    bitwise over two calls, padded rows (0, NEG_INF, 0)."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        longformer(512, n_global=4), 1500, 8, 64, 256, 256, dtype, seed=15)
+    assert plan.n_pad == 1536
+    kw = dict(sched=sched, scale=64 ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, t.kv_blocks,
+                                        t.flags, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, t.kv_blocks,
+                                               t.flags, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, t.kv_blocks, t.flags, **kw)
+    dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    tol, gtol, ktol = KA.OUT_TOL[dtype], GTOL[dtype], KB.DKV_TOL[dtype]
+    stol = KA.STATS_TOL
+    for a, b, tl in ((out, ro, tol), (m, rm, stol), (l, rl, stol),
+                     (dq, rdq, gtol), (dk, rdk, ktol), (dv, rdv, ktol)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+    pad = t.pos >= sched.n
+    assert bool((m[:, pad] == -1e30).all() and (l[:, pad] == 0).all()
+                and (out[:, pad] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd,window", [(12, 2, 128, 1024),
+                                             (8, 8, 64, 512)])
+def test_contiguous_decode_qwen2_vl_and_whisper_heads(dtype, H, Hkv, hd,
+                                                      window):
+    """K5 at qwen2-vl-2b's decode heads (12 on 2 KV heads of hd 128, rep
+    6: row groups of 4 and 2) and whisper-base's (8 on 8 of hd 64, rep
+    1), B 8, the lockstep phases' 288 slots (chip_smoke cases (m), (n)):
+    within the plain version's tolerance, bitwise over repeated calls,
+    scalar and per-request t."""
+    _need_cuda()
+    from repro_torch.kernels.salo_decode import salo_decode, salo_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(H + hd)
+    B, S = 8, 288
+    pat = causal_sliding_window(window, n_sinks=4)
+    cache = torch.randn((2, B, S, Hkv, hd), generator=g,
+                        device="cuda").to(dtype)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda").to(dtype)
+    tv = torch.tensor([0, 3, 40, 100, 200, 255, 280, S - 1],
+                      dtype=torch.int32, device="cuda")
+    for t in (S - 1, tv):
+        out = salo_decode(q, k, v, None, t, pattern=pat)
+        ref = salo_decode_plain(q, k, v, None, t, pattern=pat)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        for _ in range(5):
+            assert torch.equal(out, salo_decode(q, k, v, None, t,
+                                                pattern=pat))
+
+
+def _family_cfg(arch):
+    """qwen2-vl narrowed to d 256 at its published hd 128, rep 6 and M-RoPE
+    sections; whisper to d 128 at its hd 64, rep 1 and 1500 audio frames
+    (chip_smoke's narrowed checks)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    if arch == "qwen2-vl-2b":
+        return dataclasses.replace(
+            get_smoke(arch), d_model=256, n_heads=6, n_kv_heads=1,
+            head_dim=128, d_ff=512, mrope_sections=full.mrope_sections)
+    return dataclasses.replace(get_smoke(arch), d_model=128, n_heads=2,
+                               n_kv_heads=2, d_ff=256,
+                               n_audio_frames=full.n_audio_frames)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-base"])
+def test_family_models_cuda_equal_cpu(arch):
+    """The VLM (vision extras, M-RoPE positions) and the encoder-decoder
+    (the encoder's 1500 frames through K1-K3), f32: two train steps (loss
+    and grad norm within 1e-4) and the lockstep engine's greedy tokens
+    (whisper's cross caches filled from the encoder on each device),
+    equal on the card and on the CPU."""
+    _need_cuda()
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import Schedule
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = _family_cfg(arch)
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                       schedule=Schedule(warmup_steps=1, total_steps=2))
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(2))
+    for path, leaf in tree_flatten_with_path(params)[0]:
+        if path[-1] in ("w_out", "wo") and "xattn" not in path:
+            leaf.mul_(6.0)                 # tokens that use every block
+    ds = SyntheticLM(cfg, DataConfig(128, 2, seed=2))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
+    audio = torch.randn((2, cfg.n_audio_frames, cfg.d_model),
+                        generator=torch.Generator().manual_seed(3))
+    hist, toks = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        p = _params_on(params, dev)
+        eng = ServeEngine(model, ServeConfig(max_len=48))
+        if cfg.encoder_decoder:
+            enc = model._encode(p, {"audio_embeds": audio.to(dev)})
+            init_cache = model.init_cache
+
+            def filled(B, L, enc=enc, p=p, init_cache=init_cache):
+                c = init_cache(B, L)
+                for i, layer in enumerate(p["seg0_xattn"]):
+                    for w, key in (("wk", "xk"), ("wv", "xv")):
+                        c["seg0_xattn"][key][i].copy_(
+                            (enc @ layer["xattn"][w]).reshape(
+                                B, cfg.n_audio_frames, cfg.n_kv_heads,
+                                cfg.hd))
+                return c
+            model.init_cache = filled
+        with torch.no_grad():
+            toks[dev] = eng.generate(p, prompts, 8).cpu().tolist()
+        step = make_train_step(model, tcfg)
+        opt = adamw.init(tcfg.optimizer, p)
+        hist[dev] = []
+        for i in range(2):
+            p, opt, met = step(p, opt, ds.batch(i))
+            hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
+    np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
+                               rtol=1e-4, atol=1e-4)
+    assert toks["cuda"] == toks["cpu"]

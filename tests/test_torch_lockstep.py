@@ -250,12 +250,20 @@ def test_kv_cache_helpers_match_jax():
 
 
 def test_block_cache_init_raises_for_unported_kinds():
+    """Every kind of the reference is ported (whisper's ``xattn`` gives
+    its self-attention and cross caches); a kind no package has raises the
+    reference's ``ValueError``."""
+    from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as T
 
     _, tcfg = _cfgs()
-    for kind in ("xattn",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.block_cache_init(tcfg, kind, 1, 8, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="bogus"):
+        T.block_cache_init(tcfg, "bogus", 1, 8, torch.float32, "cpu")
+    wcfg = get_smoke("whisper-base")
+    c = T.block_cache_init(wcfg, "xattn", 1, 8, torch.float32, "cpu")
+    assert {k: tuple(v.shape) for k, v in c.items()} == {
+        "k": (1, 8, 4, 16), "v": (1, 8, 4, 16), "xk": (1, 32, 4, 16),
+        "xv": (1, 32, 4, 16)}
 
 
 def test_serve_cli_lockstep_cpu(capsys):
