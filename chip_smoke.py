@@ -22,8 +22,14 @@ nonzero:
    decode), (g) gemma-7b's decode (16 heads of hd 256, no GQA) at the
    serve shapes in bf16, (l) arctic-480b's decode (56 query heads on 8 KV
    heads of hd 128, rep 7: one full row group of 4 and a partial one of
-   3) at the serve shapes in bf16. ``page_m`` must be equal where either
-   side is NEG_INF. K5
+   3) at the serve shapes in bf16, (s) ``return_state`` on each shard's own
+   slab at the serve shapes split over 2 shards (33 pages of 16 a shard;
+   shard 1 holds no slot of the rows at t = 5 and 300, which must give
+   exactly (0, NEG_INF, 0)), each against its plain version
+   (``salo_attention.OUT_TOL`` / ``STATS_TOL``), and the shards' partials
+   merged by ``masked_psum_merge`` (a ``StackedGroup`` on the card)
+   against unsharded K4 within ``OUT_TOL``. ``page_m`` must be equal where
+   either side is NEG_INF. K5
    (contiguous caches, read through the transposed view of the lockstep
    (B, S, Hkv, hd) cache): (a) the lockstep phase's cache in bf16, slot =
    position, (b) the same in f32, (c) the ring layout (window 512 + 4
@@ -91,6 +97,24 @@ nonzero:
    that the plain version never ran. Three decode-only steps, and then
    one prefill chunk of an extra request, run under ``torch.profiler``:
    device time by kernel name and the idle share.
+6b. **serve-sharded** — sequence-parallel serving: 2 ranks through
+   ``dist.group.run_ranks`` (NCCL with one card a rank where the machine
+   has the cards, else gloo ranks sharing cuda:0; the phase names its
+   backend). First serve-sharded-check: the serve-check's narrowed f32
+   model on the fp slab (window 24) and the int8 page-sparse slab (window
+   56; windows where a request's pages stripe over 2 shards with no
+   padding), greedy tokens and every counter equal to the unsharded
+   engine's on the card. Then the serve phase's weights and traffic at full
+   width on the bf16 slab, ``seq_shards=2``: every rank launches K4 30
+   times a decode step in ``return_state`` mode and never its plain
+   version; every layer of one decode step has its merged attention
+   checked against unsharded K4 on the whole logical view within
+   ``OUT_TOL``; the ranks' tokens and counters are equal and every first
+   token equals the serve phase's. Prints how many of the 8 x 64 tokens
+   agree (not gated), the decode step median, the prefill time, one
+   profiled decode step's collectives by name and the idle share.
+6c. **serve-sharded-int8** — the same at ``seq_shards=4`` on the int8
+   page-sparse slab (threshold -3, decay 0.3), against serve-int8.
 7. **serve-ft** — kill and resume: the serve phase's weights and requests
    under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
    every 16 engine steps under ``build/``, removed at the end), with two
@@ -408,11 +432,12 @@ def int8_slab(torch, gen, n_pages, page, Hkv, hd):
 
 
 def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
-                ts, pad_rows=(), int8=False, **_):
+                ts, pad_rows=(), int8=False, shards=1, **_):
     """Random slab/query/page tables/positions on the card for one
     kernel case; positions as the engine keeps them (every position <= t
-    written in its ring slot). Returns (pattern, operands, scales) —
-    scales (k_scale, v_scale) for an int8 slab, else (None, None)."""
+    written in its ring slot), in the layout of ``shards`` shards.
+    Returns (pattern, operands, scales) — scales (k_scale, v_scale) for an
+    int8 slab, else (None, None)."""
     import numpy as np
 
     from repro_torch.core.patterns import causal_sliding_window
@@ -420,7 +445,7 @@ def decode_case(torch, gen, *, dtype, B, H, Hkv, hd, page, window, g, dil,
     from repro_torch.serve.paged_cache import layout_for_pattern
 
     pat = causal_sliding_window(window, n_sinks=g, dilation=dil)
-    lay = layout_for_pattern(pat, page)
+    lay = layout_for_pattern(pat, page, shards=shards)
     npp = lay.pages_per_req
     n_pages = 1 + B * npp
     shape = (n_pages, page, Hkv, hd)
@@ -598,7 +623,138 @@ def phase_kernels(torch, timer, seed):
             f"hd={hd} page={page} npp={pt.shape[1]}: "
             + " ".join(f"{a}={b}" for a, b in rec.items()))
         records[name] = rec
+    records["s"] = k4_shard_case(torch, timer, seed + len(cases))
     return records
+
+
+def shard_views(torch, k, v, pt, pos, shards, pps, page):
+    """A paged view (slab ``k``/``v``, page tables ``pt`` (B, npp),
+    positions ``pos`` (B, npp * page)) split over ``shards`` shards as the
+    sequence-parallel engine stripes it: shard r gets its own slab of the
+    pages it owns (null page 0 first) and its stripe of the tables and
+    positions. Returns [(k_r, v_r, pt_r, pos_r)]."""
+    B = pt.shape[0]
+    out = []
+    for r in range(shards):
+        idx = pt[:, r * pps:(r + 1) * pps].reshape(-1).long()
+        pt_r = torch.arange(1, 1 + B * pps, dtype=torch.int32,
+                            device=pt.device).reshape(B, pps)
+        out.append((torch.cat([k[:1], k[idx]]), torch.cat([v[:1], v[idx]]),
+                    pt_r, pos[:, r * pps * page:(r + 1) * pps * page]
+                    .contiguous()))
+    return out
+
+
+def k4_shard_case(torch, timer, seed, shards=2):
+    """K4 case (s): ``return_state`` on one shard's slab, the serve phase's
+    shapes at 2 shards (8 rows, 9 query heads on 3 KV heads of hd 64,
+    bf16, ``pages_per_shard`` = 33 pages of 16; shard 1's ring has not
+    reached its slots on the rows at t = 5 and 300, so they are empty
+    there). Checks each shard against the plain version on its live rows
+    (``salo_attention.OUT_TOL`` / ``STATS_TOL``), the exact (NEG_INF, 0)
+    stats and a zero out on its empty rows, bitwise repeats, and the
+    shards' partials merged by ``masked_psum_merge`` (a ``StackedGroup``
+    on this card) against unsharded K4 on the same slab content within
+    ``OUT_TOL``. Times shard 1's call (the one with empty rows), its plain
+    version and SDPA on its gathered view; the bound counts its live
+    slots. Returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.dist.group import StackedGroup
+    from repro_torch.dist.sharded_plan import masked_psum_merge
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain,
+                                                 split_plan)
+    from repro_torch.serve.paged_cache import gather_view, layout_for_pattern
+
+    kw = dict(k4_cases(torch))["a"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the layout of 2 shards: 65 pages a request padded to 66
+    pat, (q, k, v, pt, pos, t), _ = decode_case(torch, gen, **kw,
+                                                shards=shards)
+    lay = layout_for_pattern(pat, kw["page"], shards=shards)
+    pps, page = lay.pages_per_shard, lay.page
+    views = shard_views(torch, k, v, pt, pos, shards, pps, page)
+    var = dict(pattern=pat, return_state=True)
+    dtype = q.dtype
+    parts, errs, empty_rows = [], {}, []
+    for r, (kr, vr, ptr, posr) in enumerate(views):
+        res = salo_paged_decode(q, kr, vr, ptr, posr, t, **var)
+        ref = salo_paged_decode_plain(q, kr, vr, ptr, posr, t, **var)
+        torch.cuda.synchronize()
+        check_repeats(torch, lambda: salo_paged_decode(q, kr, vr, ptr, posr,
+                                                       t, **var),
+                      res, f"K4 case s shard {r}")
+        live = live_mask(torch, pat, posr, t).any(dim=1)
+        empty_rows.append(int((~live).sum()))
+        for what, a, b, tol in (("out", res[0], ref[0], KA.OUT_TOL[dtype]),
+                                ("m", res[1], ref[1], KA.STATS_TOL),
+                                ("l", res[2], ref[2], KA.STATS_TOL)):
+            o, p_ = a[live], b[live]
+            errs[f"{what}{r}"] = float((o - p_).abs().max())
+            check(bool(torch.isfinite(a).all()),
+                  f"case s shard {r}: non-finite {what}")
+            check(bool(torch.allclose(o, p_, atol=tol, rtol=tol)),
+                  f"case s shard {r}: {what} vs plain max abs err "
+                  f"{errs[f'{what}{r}']} > {tol}")
+        check(bool((res[1][~live] == -1e30).all())
+              and bool((res[2][~live] == 0).all())
+              and bool((res[0][~live] == 0).all()),
+              f"case s shard {r}: an empty row must give exactly "
+              f"(0, NEG_INF, 0)")
+        parts.append(res)
+    check(empty_rows[0] == 0 and empty_rows[1] == 2,
+          f"case s: empty rows per shard {empty_rows}, want [0, 2]")
+    merged = masked_psum_merge(*(torch.stack([p_[i] for p_ in parts])
+                                 for i in range(3)),
+                               StackedGroup(shards))[0].to(dtype)
+    whole = salo_paged_decode(q, k, v, pt, pos, t, pattern=pat)
+    torch.cuda.synchronize()
+    errs["merged"] = float((merged.float() - whole.float()).abs().max())
+    tol = KA.OUT_TOL[dtype]
+    check(bool(torch.allclose(merged.float(), whole.float(), atol=tol,
+                              rtol=tol)),
+          f"case s: merged shards vs unsharded K4 max abs err "
+          f"{errs['merged']} > {tol}")
+
+    kr, vr, ptr, posr = views[1]
+    mask = live_mask(torch, pat, posr, t)
+    gk, gv = gather_view(kr, vr, ptr)
+    gk = gk.transpose(1, 2).contiguous()
+    gv = gv.transpose(1, 2).contiguous()
+
+    def lib():
+        return F.scaled_dot_product_attention(q, gk, gv,
+                                              attn_mask=mask[:, None, None],
+                                              enable_gqa=True)
+
+    kernel_ms = timer(lambda: salo_paged_decode(q, kr, vr, ptr, posr, t,
+                                                **var))
+    plain_ms = timer(lambda: salo_paged_decode_plain(q, kr, vr, ptr, posr,
+                                                     t, **var))
+    library_ms = timer(lib)
+    B, H, _, hd = q.shape
+    Hkv = k.shape[2]
+    live = int(mask.sum())
+    nbytes = (2 * live * Hkv * hd * kr.element_size()
+              + q.numel() * q.element_size() + q.numel() * 4 + 2 * B * H * 4
+              + (ptr.numel() + posr.numel() + t.numel()) * 4)
+    ops_ = 4 * live * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS["bfloat16"] * 1e3
+    n_split, split_len = split_plan(q.device, B, H, Hkv, posr.shape[1], page)
+    rec = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=max(errs.values()), errs=errs, bytes=nbytes,
+               live_slots=live, n_split=n_split, split_len=split_len)
+    whole_split = split_plan(q.device, B, H, Hkv, pos.shape[1], page)
+    log(f"[kernels] K4 case s bf16 state=True on shard 1 of {shards} "
+        f"(pages_per_shard {pps}, empty rows per shard {empty_rows}; "
+        f"unsharded split {whole_split}): "
+        + " ".join(f"{a}={b}" for a, b in rec.items()))
+    return rec
 
 
 LOCKSTEP_B, LOCKSTEP_PROMPT, LOCKSTEP_NEW = 8, 1088, 32
@@ -1028,9 +1184,11 @@ SERVE_CHECK = ("gemma-7b", "phi4-mini-3.8b", "granite-3-8b")
 TRAIN_CHECK = ("gemma-7b", "longformer-4k")
 
 
-def _serve_weights(torch, seed, arch="smollm-135m", n_layers=None):
+def _serve_weights(torch, seed, arch="smollm-135m", n_layers=None,
+                   device="cuda"):
     """``arch`` at full width and depth (unless ``n_layers`` cuts it) on
-    the card, bf16 weights from ``seed``. Returns (cfg, model, params)."""
+    the card (``device``), bf16 weights from ``seed``. Returns (cfg,
+    model, params)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1039,9 +1197,9 @@ def _serve_weights(torch, seed, arch="smollm-135m", n_layers=None):
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    model = build_model(cfg, "cuda")
+    model = build_model(cfg, device)
     return cfg, model, model.init(
-        torch.Generator(device="cuda").manual_seed(seed))
+        torch.Generator(device=device).manual_seed(seed))
 
 
 def _serve_lens(seed):
@@ -1056,13 +1214,14 @@ def _serve_lens(seed):
 
 
 def _serve_engine(torch, seed, what, arch="smollm-135m", weights=None,
-                  **extra):
+                  group=None, **extra):
     """``arch`` (smollm-135m by default) at full width and depth, bf16,
     random weights from ``seed`` (or ``weights``, ``_serve_weights``'s),
     on the continuous engine with the serve phases' 8 requests submitted
-    (prompts over 600-2000 tokens): n_pages from ``layout_for_pattern``, 8
-    rows. ``extra``: ContinuousConfig fields. Returns (cfg, engine,
-    params, prompt lengths, rng)."""
+    (prompts over 600-2000 tokens): n_pages from ``layout_for_pattern``
+    (per shard under a sequence ``group``, whose rank's device the
+    weights must be on), 8 rows. ``extra``: ContinuousConfig fields.
+    Returns (cfg, engine, params, prompt lengths, rng)."""
     from repro_torch.models.layers import salo_pattern
     from repro_torch.obs import Observability
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
@@ -1071,12 +1230,15 @@ def _serve_engine(torch, seed, what, arch="smollm-135m", weights=None,
 
     cfg, model, params = weights or _serve_weights(torch, seed, arch)
     R = SERVE_R
-    lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE)
-    check(lay.pages_per_req == 65, f"pages_per_req {lay.pages_per_req}")
-    ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_req,
+    S = 1 if group is None else group.size
+    lay = layout_for_pattern(salo_pattern(cfg), SERVE_PAGE, shards=S)
+    check(S > 1 or lay.pages_per_req == 65,
+          f"pages_per_req {lay.pages_per_req}")
+    ccfg = ContinuousConfig(n_pages=1 + R * lay.pages_per_shard,
                             page=SERVE_PAGE, chunk=SERVE_CHUNK, max_batch=R,
-                            **extra)
-    eng = ContinuousEngine(model, ccfg, device="cuda", obs=Observability())
+                            seq_shards=S, **extra)
+    eng = ContinuousEngine(model, ccfg, device=model.device,
+                           obs=Observability(), group=group)
     n_param = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"[{what}] {arch} bf16 {extra}: weights {n_param / 1e6:.1f} MB,"
         f" slab {eng.slab_resident_bytes()} bytes resident "
@@ -1261,6 +1423,313 @@ def phase_serve_int8(torch, seed):
         f"{c['prefill_pages_read']} of {c['prefill_pages_total']}; K4 "
         f"launches {launches}")
     return launches, res, c
+
+
+# ------------------- sequence-parallel serving phases ------------------- #
+# serve-sharded-check: serve-check's narrowed f32 model and workloads, the
+# window widened where needed so a request's pages stripe over 2 shards
+# with no alignment padding (then every counter, page counters included,
+# must equal the unsharded engine's): (name, window, prompt lengths, new
+# tokens, ContinuousConfig fields)
+SHARD_CHECK = (("fp", 24, (5, 9, 13, 26), 8, {}),
+               ("int8 page-sparse", 56, (24, 17, 9, 30), 24,
+                dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
+                     page_stat_decay=0.3)))
+SHARD_GATE_AT = 20       # serve-sharded: the decode-only step whose layers
+SHARD_PROFILE_AT = 40    # are checked, and the one profiled
+SHARD_TIMEOUT_S = 420.0  # run_ranks' deadline for a sharded phase
+INT8_SPARSE = dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
+                   page_stat_decay=0.3)
+
+
+def _shard_backend(torch, shards):
+    """NCCL with one rank per card where the machine has the cards, else
+    gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)."""
+    if torch.cuda.device_count() >= shards:
+        return "nccl", None
+    return "gloo", "cuda:0"
+
+
+def shard_check_run(torch, seed, window, lens, n_new, extra, device,
+                    group=None):
+    """One serve-sharded-check run: ``_serve_check_cfg(window)`` (2
+    layers, hd 64, f32), residuals amplified, on ``device``, unsharded
+    (``group`` None) or as one rank of ``group``: 4 rows, page 8, chunk 8.
+    Returns (tokens, counters)."""
+    import numpy as np
+
+    from repro_torch.models.layers import salo_pattern
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    cfg = _serve_check_cfg(window)
+    S = 1 if group is None else group.size
+    lay = layout_for_pattern(salo_pattern(cfg), 8, shards=S)
+    ccfg = ContinuousConfig(n_pages=1 + 4 * lay.pages_per_shard, page=8,
+                            chunk=8, max_batch=4, seq_shards=S, **extra)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    _amplify_residuals(params)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    eng = ContinuousEngine(build_model(cfg, device), ccfg, device=device,
+                           group=group)
+    rids = [eng.submit(x, n_new) for x in prompts]
+    res = eng.run(_to(params, device))
+    return [res[r].tolist() for r in rids], dict(eng.counters)
+
+
+def _merge_check(torch, group, k4, res, q, k_slab, v_slab, pt, pos, t, kw):
+    """One layer of a sharded decode step: this rank's K4 partial merged
+    across the group against unsharded K4 on the whole logical view (every
+    shard's stripe of the pages, dequantized for an int8 slab, and of the
+    positions, put together by a sum over the group in which the other
+    ranks add zeros). Returns (max abs err, within OUT_TOL)."""
+    from repro_torch.dist.sharded_plan import masked_psum_merge
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.serve.paged_cache import gather_view
+
+    merged = masked_psum_merge(*res[:3], group).to(q.dtype)
+    R, pps = pt.shape
+    page = k_slab.shape[1]
+    S, r, dev = group.size, group.index, q.device
+    quant = kw.get("k_scale") is not None
+    gk, gv = gather_view(k_slab, v_slab, pt,
+                         *((kw["k_scale"], kw["v_scale"], q.dtype) if quant
+                           else ()))
+    sps = pps * page
+    full = torch.zeros((2, R, S * sps, *gk.shape[2:]), dtype=q.dtype,
+                       device=dev)
+    full[0, :, r * sps:(r + 1) * sps] = gk
+    full[1, :, r * sps:(r + 1) * sps] = gv
+    fpos = torch.zeros((R, S * sps), dtype=torch.float64, device=dev)
+    fpos[:, r * sps:(r + 1) * sps] = pos.double()
+    group.psum_(full)
+    group.psum_(fpos)
+    n = R * S * pps
+    null = torch.zeros((1, page, *gk.shape[2:]), dtype=q.dtype, device=dev)
+    kf = torch.cat([null, full[0].reshape(n, page, *gk.shape[2:])])
+    vf = torch.cat([null, full[1].reshape(n, page, *gk.shape[2:])])
+    ptf = torch.arange(1, 1 + n, dtype=torch.int32,
+                       device=dev).reshape(R, S * pps)
+    whole = k4(q, kf, vf, ptf, fpos.to(torch.int32), t,
+               pattern=kw["pattern"])
+    tol = KA.OUT_TOL[q.dtype]
+    err = float((merged.float() - whole.float()).abs().max())
+    return err, bool(torch.allclose(merged.float(), whole.float(), atol=tol,
+                                    rtol=tol))
+
+
+def _collective_ms(prof) -> dict:
+    """Host time of the collectives by profiler event name: {name:
+    (calls, ms)} for every event whose name holds "all_reduce" or
+    "allreduce" (the process group's op and its backend's span nest, so
+    each name is a view of the same calls)."""
+    out: dict = {}
+    for e in prof.events():
+        name = e.name.lower()
+        if "all_reduce" not in name and "allreduce" not in name:
+            continue
+        n, t = out.get(e.name, (0, 0.0))
+        out[e.name] = (n + 1, t + e.cpu_time_total / 1e3)
+    return out
+
+
+def _serve_sharded(torch, seed, group, what, extra):
+    """One rank of a full-width serve-sharded run: the serve phase's
+    weights and requests on ``ContinuousEngine(seq_shards=S, group=...)``.
+    Counts this rank's K4 launches (each must run ``return_state``),
+    checks every layer of decode-only step ``SHARD_GATE_AT`` with
+    ``_merge_check`` (those launches kept out of the count), times the
+    decode-only steps before ``SHARD_PROFILE_AT`` (the checked one left
+    out) and the prefill, and profiles step ``SHARD_PROFILE_AT``. Returns
+    the rank's record."""
+    from repro_torch.kernels.salo_decode import (salo_paged_decode,
+                                                 salo_paged_decode_plain)
+    from repro_torch.models import layers as L
+
+    weights = _serve_weights(torch, seed, device=str(group.device))
+    cfg, eng, params, lens, _ = _serve_engine(
+        torch, seed, f"{what} rank {group.index}", weights=weights,
+        group=group, **extra)
+    real = L.salo_paged_decode
+    stats = dict(state_calls=0, check_launches=0, errs=[])
+    gate = dict(on=False)
+
+    def counted(q, k_slab, v_slab, pt, pos, t, **kw):
+        res = real(q, k_slab, v_slab, pt, pos, t, **kw)
+        stats["state_calls"] += bool(kw.get("return_state"))
+        if gate["on"]:
+            stats["errs"].append(_merge_check(torch, group, real, res, q,
+                                              k_slab, v_slab, pt, pos, t,
+                                              kw))
+            stats["check_launches"] += 1
+        return res
+
+    L.salo_paged_decode = counted
+    salo_paged_decode.launches = 0
+    salo_paged_decode_plain.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_done, decode_steps, n_dec = None, [], 0
+    prof, prof_wall = None, 0.0
+    while True:
+        pre, dec = eng.batcher.assemble()
+        decode_only = not pre and bool(dec)
+        gate["on"] = decode_only and n_dec == SHARD_GATE_AT
+        profiled = decode_only and n_dec == SHARD_PROFILE_AT
+        if profiled:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        ts = time.perf_counter()
+        more = eng.step(params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        if profiled:
+            prof.stop()
+            prof_wall = dt
+        elif decode_only and not gate["on"] and prof is None:
+            decode_steps.append(dt)
+        gate["on"] = False
+        n_dec += decode_only
+        if prefill_done is None and not any(
+                r is not None and r.state in ("waiting", "prefill")
+                for r in eng.batcher.rows) and not eng.batcher.queue \
+                and eng.counters["prefill_launches"]:
+            prefill_done = time.perf_counter() - t0
+        if not more:
+            break
+    wall = time.perf_counter() - t0
+    L.salo_paged_decode = real
+    launches = salo_paged_decode.launches - stats["check_launches"]
+    res, c = _check_serve_run(cfg, eng, lens, launches,
+                              salo_paged_decode_plain.calls,
+                              f"{what} rank {group.index}")
+    check(stats["state_calls"] == launches,
+          f"{what}: {stats['state_calls']} return_state calls of "
+          f"{launches} launches")
+    check(len(stats["errs"]) == cfg.n_layers,
+          f"{what}: {len(stats['errs'])} layers checked")
+    check(all(ok for _, ok in stats["errs"]),
+          f"{what} rank {group.index}: merged attention vs unsharded K4 "
+          f"errs {[e for e, _ in stats['errs']]}")
+    check(prof is not None and len(decode_steps) > 0,
+          f"{what}: {n_dec} decode-only steps")
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if group.index == 0:
+        report_profile(prof, prof_wall, 1, f"{what} decode step (rank 0)")
+    return dict(tokens={r: v.tolist() for r, v in res.items()}, counters=c,
+                launches=launches, lens=lens,
+                step_ms=sorted(decode_steps)[len(decode_steps) // 2] * 1e3,
+                n_steps=len(decode_steps), prefill_s=prefill_done,
+                wall_s=wall, merge_err=max(e for e, _ in stats["errs"]),
+                profiled_ms=prof_wall * 1e3,
+                idle=1 - busy_ms / (prof_wall * 1e3),
+                collectives=_collective_ms(prof),
+                slab_bytes=eng.slab_resident_bytes())
+
+
+def sharded_rank(group, seed, what, extra, with_check):
+    """A spawned rank of the sequence-parallel phases: serve-sharded-check
+    (``with_check``), then the full-width run."""
+    import torch
+
+    # what main() sets for itself
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    if with_check:
+        out["check"] = [shard_check_run(torch, seed, w, lens, n, ex,
+                                        str(group.device), group)
+                        for _, w, lens, n, ex in SHARD_CHECK]
+    out["serve"] = _serve_sharded(torch, seed, group, what, extra)
+    return out
+
+
+def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
+                        with_check=False):
+    """Sequence-parallel serving on the card: ``shards`` ranks through
+    ``dist.group.run_ranks`` (NCCL, one card a rank, where the machine has
+    the cards; else gloo ranks sharing cuda:0). With ``with_check`` the
+    ranks first run serve-sharded-check: greedy tokens and every counter
+    equal to the unsharded engine's on the card. Then the full-width run
+    (``_serve_sharded`` on every rank): the same tokens and counters on
+    every rank, 30 K4 launches a decode step in ``return_state`` mode on
+    each, every layer's merged attention within ``OUT_TOL`` of unsharded
+    K4, the first token of each request equal to the unsharded phase's
+    (``ref_tokens``); how many of the 8 x 64 tokens agree is printed, not
+    gated. Returns the K4 launch count over the ranks and rank 0's
+    record. A failed rank makes ``run_ranks`` raise: nothing here catches
+    it."""
+    from repro_torch.dist.group import run_ranks
+
+    backend, device = _shard_backend(torch, shards)
+    refs = []
+    if with_check:
+        refs = [shard_check_run(torch, seed, w, lens, n, ex, "cuda")
+                for _, w, lens, n, ex in SHARD_CHECK]
+    t0 = time.perf_counter()
+    out = run_ranks(sharded_rank, shards, backend=backend, device=device,
+                    timeout_s=SHARD_TIMEOUT_S,
+                    args=(seed, what, extra, with_check))
+    log(f"[{what}] {shards} ranks on backend {backend} "
+        f"({device or 'one card a rank'}): "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    if with_check:
+        for i, ((name, w, _, _, ex), (toks, c)) in enumerate(
+                zip(SHARD_CHECK, refs)):
+            for r, o in enumerate(out):
+                st, sc = o["check"][i]
+                check(st == toks, f"serve-sharded-check {name} rank {r}: "
+                      f"tokens {st} != unsharded {toks}")
+                check(sc == c, f"serve-sharded-check {name} rank {r}: "
+                      f"counters {sc} != unsharded {c}")
+            if ex:
+                check(0 < c["decode_pages_read"] < c["decode_pages_total"],
+                      f"serve-sharded-check {name}: no page skipped: {c}")
+            log(f"[serve-sharded-check] {name} (window {w}) at {shards} "
+                f"shards, backend {backend}: tokens and counters equal to "
+                f"the unsharded engine's on the card (decode pages read "
+                f"{c['decode_pages_read']} of {c['decode_pages_total']}): "
+                f"{toks}")
+    recs = [o["serve"] for o in out]
+    r0 = recs[0]
+    for r, rec in enumerate(recs[1:], 1):
+        check(rec["tokens"] == r0["tokens"] and
+              rec["counters"] == r0["counters"],
+              f"{what}: rank {r}'s tokens or counters differ from rank 0's")
+    toks = {int(k): v for k, v in r0["tokens"].items()}
+    first = sum(int(toks[rid][0] == ref_tokens[rid][0]) for rid in toks)
+    check(first == SERVE_R, f"{what}: first tokens equal to the unsharded "
+          f"phase's for {first} of {SERVE_R} requests")
+    agree = sum(int(a == b) for rid in toks
+                for a, b in zip(toks[rid], ref_tokens[rid].tolist()))
+    diverge = [next((i for i, (a, b) in enumerate(
+        zip(toks[rid], ref_tokens[rid].tolist())) if a != b), None)
+        for rid in sorted(toks)]
+    launches = sum(rec["launches"] for rec in recs)
+    coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
+                     sorted(r0["collectives"].items(), key=lambda x: -x[1][1]))
+    log(f"[{what}] {shards} shards, backend {backend}: decode step median "
+        f"{r0['step_ms']:.3f} ms over {r0['n_steps']} decode-only steps "
+        f"(rank 0); prefill {r0['prefill_s']:.3f} s; run {r0['wall_s']:.3f} "
+        f"s; slab {r0['slab_bytes']} bytes a rank; K4 launches a rank "
+        f"{[rec['launches'] for rec in recs]} (one a layer a decode step, "
+        f"{r0['counters']['decode_launches']} decode steps, return_state); "
+        f"merged attention vs "
+        f"unsharded K4 max abs err {max(rec['merge_err'] for rec in recs)}; "
+        f"first tokens equal to the unsharded phase's {first} of {SERVE_R}; "
+        f"tokens equal {agree} of {SERVE_R * SERVE_NEW} (first difference "
+        f"per request {diverge}; random weights, not gated); counters "
+        f"{r0['counters']}")
+    log(f"[{what}] profiled decode step (rank 0): host wall "
+        f"{r0['profiled_ms']:.3f} ms, device idle share {r0['idle']:.3f}, "
+        f"collectives by name: {coll}")
+    return launches, r0
 
 
 FT_EVERY = 16                     # serve-ft: engine steps between snapshots
@@ -2995,6 +3464,14 @@ def main(argv=None) -> int:
     log(f"[serve-int8] tokens equal to the bf16 slab's run: {agree} of "
         f"{SERVE_R * SERVE_NEW} (first tokens {first} of {SERVE_R}; random "
         f"weights, not gated)")
+    # sequence-parallel serving: 2 ranks (the narrowed check, then the
+    # bf16 slab at full width), then 4 ranks on the int8 page-sparse slab
+    launches_s2, _ = phase_serve_sharded(torch, args.seed, 2,
+                                         "serve-sharded", bf16_tokens, {},
+                                         with_check=True)
+    launches_s4, _ = phase_serve_sharded(torch, args.seed, 4,
+                                         "serve-sharded-int8", int8_tokens,
+                                         INT8_SPARSE)
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
     # kill and resume: the serve phases' runs under the supervisor, two
@@ -3092,6 +3569,8 @@ def main(argv=None) -> int:
     # (d) is the int8 serve phase's (int8 slab + page statistics), (e) the
     # f32 state variant and (f) one request with a long cache
     k4_paths = {"serve": launches, "serve_int8": launches_int8,
+                "serve_sharded": launches_s2,
+                "serve_sharded_int8": launches_s4,
                 "serve_ft": launches_ft, "serve_ft_int8": launches_ft8,
                 "serve_gemma_7b": launches_gemma,
                 **{f"serve_{MOE_TAGS[a]}": n for a, n in moe_k4.items()}}
@@ -3111,7 +3590,8 @@ def main(argv=None) -> int:
                      "state_page_stats_f32": row(k4["e"]),
                      "single_request_bf16": row(k4["f"]),
                      "gemma_7b_hd256_bf16": row(k4["g"]),
-                     "arctic_480b_rep7_hd128_bf16": row(k4["l"])}}, {
+                     "arctic_480b_rep7_hd128_bf16": row(k4["l"]),
+                     "shard_state_bf16": row(k4["s"])}}, {
         "name": "salo_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/salo_decode.cu",
         "replaces": "src/repro/kernels/salo_decode.py:173",

@@ -52,7 +52,7 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     see the DynamicConfig knobs ``dynamic_local_window`` /
     ``dynamic_pool_k``), on tables built on the device at run time.
     Dynamic plans need a table-driven engine (any ``impl`` but
-    ``dense_ref``). Sequence parallelism is not ported (the train CLI
+    ``dense_ref``). Sequence-parallel training is not ported (the train CLI
     raises for ``--data``/``--model`` > 1).
 
     GQA: KV heads are expanded to H by ``expand(...).reshape`` — a copy of
@@ -200,21 +200,30 @@ def hybrid_chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
                            pos_k: torch.Tensor, kv_blocks: torch.Tensor,
                            flags: torch.Tensor,
                            pattern: HybridSparsePattern, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           return_state: bool = False):
     """Chunked-prefill attention: one fused pass of a prompt chunk against
     the request's paged KV view + the chunk itself.
 
     q: (B, H, Cp, D); k_view/v_view: (B, Hkv, Vp, D); pos_q: (B, Cp);
     pos_k: (B, Vp) original positions; kv_blocks/flags: (nq, W) ChunkPlan
-    step tables. Returns (B, H, Cp, D).
+    step tables. Returns (B, H, Cp, D); with ``return_state=True`` the
+    partial ``(out, m, l)`` of one sequence shard instead: out (B, H, Cp,
+    D) in f32, unrounded, m and l (B, H, Cp), and the ``(0, NEG_INF, 0)``
+    identity on a row with no step.
     """
     B, H, Cp, D = q.shape
     Hkv = k_view.shape[1]
     rep = H // Hkv
     # GQA: K/V get a size-1 group axis that broadcasts against the rep
     # query heads (a stride-0 expand inside the matmuls, never a copy).
-    out = chunk_attention(q.reshape(B, Hkv, rep, Cp, D),
+    res = chunk_attention(q.reshape(B, Hkv, rep, Cp, D),
                           k_view[:, :, None], v_view[:, :, None],
                           pos_q[:, None, None], pos_k[:, None, None],
-                          kv_blocks, flags, pattern, scale=scale)
-    return out.reshape(B, H, Cp, D)
+                          kv_blocks, flags, pattern, scale=scale,
+                          return_state=return_state)
+    if return_state:
+        out, m, l = res
+        return (out.reshape(B, H, Cp, D), m.reshape(B, H, Cp),
+                l.reshape(B, H, Cp))
+    return res.reshape(B, H, Cp, D)

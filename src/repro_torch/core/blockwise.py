@@ -384,7 +384,8 @@ def chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
                     v_view: torch.Tensor, pos_q: torch.Tensor,
                     pos_k: torch.Tensor, kv_blocks: torch.Tensor,
                     flags: torch.Tensor, pattern: HybridSparsePattern, *,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_state: bool = False):
     """Plan-driven chunked-prefill attention: one table-driven pass.
 
     The port of :func:`repro.core.blockwise.chunk_attention`, an XLA
@@ -402,6 +403,12 @@ def chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
     tables. Leading dims broadcast between the query and KV operands
     (GQA passes a size-1 group axis on K/V — no KV copy). Returns
     (..., Cp, D) in q's dtype.
+
+    ``return_state=True`` returns the finalized partial ``(out, m, l)``
+    instead: out (..., Cp, D) in f32, unrounded, and the row stats m, l
+    (..., Cp) — what a sequence shard feeds the cross-shard merge (a row
+    whose every step is padding or masked on this shard carries the
+    ``(0, NEG_INF, 0)`` identity).
     """
     *lead, Cp, D = q.shape
     nq, W = kv_blocks.shape
@@ -429,5 +436,12 @@ def chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
                             pos_g[..., :, None, :], fl[:, None, :])
     state = renorm.empty_state(scores.shape[:-1], D, q.device)
     state = renorm.update(state, scores, v_g, mask)
+    if return_state:
+        # f32 partial: the cross-shard merge rounds to the compute dtype
+        # once, after combining
+        out = renorm.finalize(state)
+        return (out.reshape(*out.shape[:-3], Cp, D),
+                state.m.reshape(*state.m.shape[:-2], Cp),
+                state.l.reshape(*state.l.shape[:-2], Cp))
     out = renorm.finalize(state, q.dtype)
     return out.reshape(*out.shape[:-3], Cp, D)

@@ -8,7 +8,7 @@ A partial is the online-softmax triple over the keys folded so far:
 
 The port of :mod:`repro.core.renorm`: ``empty_state``, ``merge`` (two
 disjoint-key partials combined), ``update`` (one KV tile folded in) and
-``finalize``. ``weights`` comes with the sequence-parallel slice.
+``finalize``. ``weights`` comes with sequence-parallel training.
 """
 from __future__ import annotations
 

@@ -581,6 +581,56 @@ class ChunkPlan:
         validate_tables(kv, fl, nkb=self.nkb, name="ChunkPlan tables")
         return kv, fl
 
+    def sharded_tables(self, n_shards: int, nq: int, width: int,
+                       chunk_owner: Optional[int] = None):
+        """Per-shard step tables over the ``[sink | ring | chunk]`` view,
+        for sequence-parallel serving.
+
+        Context tiles are striped contiguously over the shards (tile ``t``
+        owned by ``t // tiles_per_shard``, as the paged layout stripes its
+        pages), so each shard executes only the steps whose KV it holds,
+        remapped onto its local view ``[owned ctx tiles | chunk]``. The
+        chunk's own tiles go to exactly ONE shard (``chunk_owner``, default
+        the last; the chunk KV is on every shard, so any owner is exact):
+        every (query, kv slot) pair is evaluated on exactly one shard, and
+        the per-shard ``(out, m, l)`` partials combine exactly under
+        :func:`repro_torch.dist.sharded_plan.masked_psum_merge`. A shard
+        with no step for a row keeps ``flags == 0`` padding, which gives
+        the empty identity ``(0, NEG_INF, 0)``.
+
+        Returns ``(kv, fl)`` stacked ``(n_shards, nq, width)`` int32."""
+        ctx_tiles = (self.n_sink + self.ring_cap) // self.block
+        if ctx_tiles % n_shards:
+            raise ValueError(f"ctx tiles {ctx_tiles} not divisible by "
+                             f"{n_shards} shards (use a shard-aligned "
+                             f"PagedLayout)")
+        tps = ctx_tiles // n_shards
+        if chunk_owner is None:
+            chunk_owner = n_shards - 1
+        local_tiles = tps + self.chunk_pad // self.block
+        if nq < self.nq or width < local_tiles:
+            raise ValueError(f"sharded_tables({n_shards}, {nq}, {width}) "
+                             f"is smaller than the plan's {self.nq} rows "
+                             f"of {local_tiles} local tiles")
+        kv = np.zeros((n_shards, nq, width), dtype=np.int32)
+        fl = np.zeros((n_shards, nq, width), dtype=np.int32)
+        fill = np.zeros((n_shards, nq), dtype=np.int64)
+        for i in range(self.nq):
+            for st in range(int(self.num_steps[i])):
+                t = int(self.kv_blocks[i, st])
+                if t < ctx_tiles:
+                    s, local = t // tps, t % tps
+                else:
+                    s, local = chunk_owner, tps + (t - ctx_tiles)
+                w = fill[s, i]
+                kv[s, i, w] = local
+                fl[s, i, w] = self.flags[i, st]
+                fill[s, i] = w + 1
+        for s in range(n_shards):
+            validate_tables(kv[s], fl[s], nkb=local_tiles,
+                            name=f"ChunkPlan shard {s} tables")
+        return kv, fl
+
     def stats(self) -> dict:
         """Tile accounting: what the fused chunk pass executes vs the
         token-by-token decode replay it replaces."""

@@ -1,0 +1,23 @@
+"""Distributed substrate of the port.
+
+The counterpart of :mod:`repro.dist`, on ``torch.distributed`` in SPMD
+style: one process per shard, every rank running the same replicated host
+control.
+
+* :mod:`repro_torch.dist.group` — :class:`~repro_torch.dist.group.SeqGroup`,
+  the port's counterpart of a 1-D "seq" mesh and ``shard_map``'s axis
+  index (the process group, this rank's shard, the size, the device) with
+  in-place ``pmax_``/``psum_`` collectives; ``StackedGroup``, the same
+  collectives over a leading shard axis on one device (``jax.vmap`` with
+  an axis name); and :func:`~repro_torch.dist.group.run_ranks`, which
+  starts ``n`` local ranks on an explicit backend and joins them under a
+  deadline.
+* :mod:`repro_torch.dist.sharded_plan` — ``masked_psum_merge``, the
+  cross-shard softmax merge of the sequence-parallel serving engine
+  (``ContinuousEngine(seq_shards > 1, group=...)``).
+
+Not ported yet (ROADMAP queue 1, item 3): the reference's logical-axis
+sharding rules (``repro.dist.sharding``), the training ``ShardedPlan``
+(``shard_plan``, the halo exchange and its reverse on the backward), and
+int8 gradient compression (``repro.dist.compression``).
+"""

@@ -1,0 +1,246 @@
+"""Sequence groups: the port's counterpart of a 1-D "seq" mesh.
+
+The reference runs its sequence-parallel serving engine as ONE program
+over a ``jax.make_mesh((S,), ("seq",))`` mesh, inside ``shard_map``, where
+``jax.lax.axis_index`` names the shard and ``pmax``/``psum`` reduce over
+the axis. The port runs S processes instead (SPMD: every rank runs the same
+host control on replicated state), joined by a ``torch.distributed``
+process group:
+
+* :class:`SeqGroup` — the process group, this rank's shard ``index``, the
+  ``size`` and the rank's ``device``, with in-place ``pmax_``/``psum_``
+  (``all_reduce`` MAX / SUM) and :meth:`SeqGroup.agree` (rank 0's scalar on
+  every rank).
+* :class:`StackedGroup` — the same collectives over a leading shard axis
+  of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
+  is to ``shard_map``. It holds every shard's partial in one process (the
+  merge checks on one card and the CPU tests use it).
+* :func:`run_ranks` — start ``n`` local ranks, call ``fn(group, *args)``
+  in each, join them under a deadline, and return every rank's result.
+
+The backend is always the caller's choice, never guessed: ``"nccl"`` puts
+rank ``r`` on ``cuda:r`` and needs that many cards; ``"gloo"`` puts every
+rank on the one device the caller names (``"cpu"``, or one ``cuda:0``
+that the ranks share; gloo's ``all_reduce`` takes CUDA tensors).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from pathlib import Path
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGroup:
+    """One rank's view of a sequence group. ``pg`` is the
+    ``torch.distributed`` process group (``None`` only for a group object
+    that never runs a collective, as in a constructor's argument checks);
+    ``index`` is this rank's shard, ``size`` the number of shards,
+    ``device`` the device this rank's tensors live on."""
+    pg: Any
+    index: int
+    size: int
+    device: torch.device
+    backend: str = "gloo"
+
+    def pmax_(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the ranks, in place; returns ``t``."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
+        return t
+
+    def psum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum over the ranks, in place; returns ``t``."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
+        return t
+
+    def agree(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank (an ``all_reduce`` MAX of one
+        f64 in which the other ranks put ``-inf``). The engine reads its
+        clock through this once a step, so a deadline expires on every
+        rank at the same step."""
+        t = torch.full((1,), float(value) if self.index == 0
+                       else float("-inf"), dtype=torch.float64,
+                       device=self.device)
+        return float(self.pmax_(t)[0])
+
+
+class StackedGroup:
+    """Every shard in one process: a tensor carries a leading shard axis
+    of ``size``, and ``pmax_``/``psum_`` reduce over that axis and write
+    the result into every shard's slice, as ``jax.vmap(...,
+    axis_name=...)`` runs the reference's collectives."""
+
+    def __init__(self, size: int):
+        if size < 1:
+            raise ValueError(f"a group needs at least one shard, got {size}")
+        self.size = size
+
+    def _check(self, t: torch.Tensor) -> None:
+        if t.dim() == 0 or t.shape[0] != self.size:
+            raise ValueError(f"a stacked tensor leads with the {self.size} "
+                             f"shards, got {tuple(t.shape)}")
+
+    def pmax_(self, t: torch.Tensor) -> torch.Tensor:
+        self._check(t)
+        return t.copy_(t.amax(dim=0, keepdim=True).expand_as(t))
+
+    def psum_(self, t: torch.Tensor) -> torch.Tensor:
+        self._check(t)
+        return t.copy_(t.sum(dim=0, keepdim=True).expand_as(t))
+
+
+def _rank_devices(n: int, backend: str, device) -> List[str]:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "nccl":
+        if device not in (None, "cuda"):
+            raise ValueError(f"backend='nccl' puts rank r on cuda:r; pass "
+                             f"no device, got {device!r}")
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise RuntimeError(
+                f"backend='nccl' runs one rank per card: {n} ranks need {n} "
+                f"CUDA devices and this machine has {have} (NCCL refuses two "
+                f"ranks on one card); ranks sharing one device run with "
+                f"backend='gloo' and device='cuda:0' (or 'cpu')")
+        return [f"cuda:{r}" for r in range(n)]
+    if device is None:
+        raise ValueError("backend='gloo' needs the device every rank uses: "
+                         "'cpu' or one CUDA device they share")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} needs a CUDA device and "
+                               f"torch.cuda.is_available() is False")
+        dev = torch.device("cuda", 0 if dev.index is None else dev.index)
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cpu or cuda, got {device!r}")
+    return [str(dev)] * n
+
+
+def _rank_main(fn, rank: int, n: int, backend: str, device: str, tmp: str,
+               timeout_s: float, args: Sequence) -> None:
+    """One rank: join the group, run ``fn``, leave its result (or its
+    traceback) in ``tmp``."""
+    out = Path(tmp)
+    try:
+        torch.set_num_threads(1)
+        # a local group talks over the loopback interface
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        store = dist.FileStore(str(out / "store"), n)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=n,
+                                timeout=timedelta(seconds=timeout_s))
+        group = SeqGroup(dist.group.WORLD, rank, n, dev, backend)
+        res = fn(group, *args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.destroy_process_group()
+        part = out / f"result{rank}.pkl.part"
+        part.write_bytes(pickle.dumps(res))
+        os.replace(part, out / f"result{rank}.pkl")
+    except BaseException:
+        (out / f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+    # The work is done and its result written. A spawned child would now
+    # run the interpreter's teardown, in which the C++ destructors of
+    # torch's distributed state sometimes abort ("terminate called without
+    # an active exception", seen under load with gloo); end the process
+    # here instead.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_ranks(fn: Callable, n: int, *, backend: str,
+              device: Optional[str] = None, timeout_s: float = 120.0,
+              args: Sequence = ()) -> List[Any]:
+    """Run ``fn(group, *args)`` on ``n`` local ranks and return the ``n``
+    results in rank order.
+
+    ``fn`` must be picklable by reference (a module-level function) and
+    return a picklable value (CPU tensors, numpy arrays, plain Python).
+    Each rank is a process started with ``spawn``; it calls
+    ``torch.set_num_threads(1)``, joins a process group through a
+    ``FileStore`` in a fresh temporary directory (no port to find) with a
+    collective timeout of ``timeout_s``, and gets a :class:`SeqGroup`.
+
+    ``backend="nccl"``: rank ``r`` on ``cuda:r``; raises if the machine has
+    fewer than ``n`` cards. ``backend="gloo"``: every rank on ``device``
+    (``"cpu"`` or one CUDA device, required).
+
+    Raises ``RuntimeError`` (with each failed rank's traceback) if any rank
+    fails or the ranks have not all finished within ``timeout_s``; every
+    rank still running is then killed."""
+    if n < 1:
+        raise ValueError(f"run_ranks needs n >= 1, got {n}")
+    devices = _rank_devices(n, backend, device)
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="seqgroup-")
+    procs = []
+    try:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, n, backend, devices[r], tmp,
+                                   timeout_s, tuple(args)),
+                             daemon=True, name=f"seq-rank{r}")
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        first_fail = None
+        while any(p.exitcode is None for p in procs):
+            now = time.monotonic()
+            if first_fail is None and any(p.exitcode not in (None, 0)
+                                          for p in procs):
+                first_fail = now
+            # a failed rank leaves the others in a collective that their
+            # timeout ends; give them a moment to report, then stop them
+            if now > deadline or (first_fail is not None
+                                  and now - first_fail > 10.0):
+                break
+            time.sleep(0.02)
+        late = [r for r, p in enumerate(procs) if p.exitcode is None]
+        for p in procs:
+            if p.exitcode is None:
+                p.kill()
+        for p in procs:
+            p.join()
+        errors = []
+        for r, p in enumerate(procs):
+            err = Path(tmp) / f"error{r}.txt"
+            if err.is_file():
+                errors.append(f"rank {r} failed:\n{err.read_text()}")
+            elif r in late:
+                errors.append(f"rank {r} was killed: the ranks had not all "
+                              f"finished within {timeout_s} s")
+            elif p.exitcode != 0:
+                errors.append(f"rank {r} exited with code {p.exitcode}")
+        if errors:
+            raise RuntimeError(f"run_ranks({n} ranks, backend={backend!r}): "
+                               + "\n".join(errors))
+        return [pickle.loads((Path(tmp) / f"result{r}.pkl").read_bytes())
+                for r in range(n)]
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)

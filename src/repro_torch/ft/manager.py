@@ -20,13 +20,18 @@ The port of :mod:`repro.ft.manager`, on one device:
   token output is exactly-once: a run killed at any step and resumed
   emits the tokens of an uninterrupted run
   (``tests/test_torch_serve_ft.py``). Work lost per restart is bounded by
-  the checkpoint interval.
+  the checkpoint interval. A sequence-parallel engine runs one supervisor
+  per rank (``group=``): each rank snapshots its own slabs to
+  ``ckpt_dir/rank{r}`` at the same step boundaries, and an injected fault
+  (a seeded :class:`~repro_torch.ft.injection.FaultPlan`, the same on
+  every rank) restarts every rank from the same snapshot step.
 
 Elastic rescale (``reshard``) is multi-GPU work and raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Optional
 
@@ -162,6 +167,10 @@ class ServeSupervisor:
     snapshot. ``run()`` returns ``(engine, history)``; completed tokens
     are ``engine.batcher.results()``, expired/failed requests
     ``engine.batcher.failures()``.
+
+    ``group``: the rank's :class:`~repro_torch.dist.group.SeqGroup` when
+    the engine is one rank of a sequence-parallel engine; its snapshots
+    then go to ``ckpt_dir/rank{index}``.
     """
 
     def __init__(self, make_engine: Callable, params, ckpt_dir: str, *,
@@ -171,9 +180,12 @@ class ServeSupervisor:
                  timer: Callable[[], float] = time.perf_counter,
                  max_steps: Optional[int] = None,
                  obs: Optional[Observability] = None,
-                 on_step: Optional[Callable[[Any, dict], None]] = None):
+                 on_step: Optional[Callable[[Any, dict], None]] = None,
+                 group=None):
         self.make_engine = make_engine
         self.params = params
+        if group is not None:      # one snapshot directory per rank
+            ckpt_dir = os.path.join(ckpt_dir, f"rank{group.index}")
         self.manager = CheckpointManager(ckpt_dir, keep=keep,
                                          async_write=False)
         self.checkpoint_every = checkpoint_every

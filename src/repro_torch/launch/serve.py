@@ -51,8 +51,18 @@ snapshot and restore events) as Chrome trace-event JSON at exit;
 ``--metrics-out`` dumps the metrics registry; ``--summary-every N`` prints
 a one-line stderr summary every N engine steps.
 
-The JAX CLI's sequence sharding (``--seq-shards``) is not ported yet
-(ROADMAP queue 1, 'multi-GPU').
+``--seq-shards N`` (continuous engine) serves sequence-parallel over N
+local ranks started by :func:`repro_torch.dist.group.run_ranks`, one
+engine per rank holding its shard of every request's KV; rank 0 prints
+the result lines. ``--dist-backend`` picks the ranks' backend: ``nccl``
+(the default with ``--device cuda``) puts rank r on ``cuda:r`` and needs N
+cards; ``gloo`` (the default with ``--device cpu``) puts every rank on the
+one device ``--device`` names, so N ranks can share one card. With fewer
+cards than shards, NCCL is an error that names ``--dist-backend gloo``; the
+backend is never switched silently. Greedy tokens equal ``--seq-shards 1``'s:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --device cpu --seq-shards 2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -64,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.dist.group import run_ranks
 from repro_torch.ft import FaultInjector, FaultPlan, ServeSupervisor
 from repro_torch.models.layers import salo_pattern
 from repro_torch.models.model import build_model
@@ -80,7 +91,7 @@ def _ragged_lengths(base: int, batch: int, rng) -> list:
             rng.integers(max(2, base // 2), base + 1, batch)]
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
@@ -132,7 +143,25 @@ def main(argv=None):
     ap.add_argument("--summary-every", type=int, default=0,
                     help="print a one-line metrics summary to stderr every "
                          "N engine steps (0 = off)")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="continuous engine: serve sequence-parallel over "
+                         "this many local ranks")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="the ranks' backend with --seq-shards > 1: nccl "
+                         "(one card per rank; default with --device cuda) "
+                         "or gloo (every rank on --device; default with "
+                         "--device cpu)")
+    ap.add_argument("--dist-timeout", type=float, default=3600.0,
+                    help="seconds the ranks of --seq-shards > 1 may take "
+                         "in all (and any collective may wait)")
     ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None):
+    ap = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -147,23 +176,54 @@ def main(argv=None):
                  "need --engine continuous (the instrumented engine)")
     if args.inject_crash_at and not args.snapshot_dir:
         ap.error("--inject-crash-at needs --snapshot-dir")
+    if args.engine == "continuous" and args.temperature != 0.0:
+        ap.error("--engine continuous is greedy-only "
+                 "(temperature sampling needs per-request RNG streams)")
+    if args.seq_shards < 1:
+        ap.error("--seq-shards must be >= 1")
+    if args.seq_shards == 1:
+        return _serve(args, None)
+    if args.engine != "continuous":
+        ap.error("--seq-shards > 1 needs --engine continuous")
+    backend = args.dist_backend or ("nccl" if args.device == "cuda"
+                                    else "gloo")
+    if backend == "nccl":
+        have = torch.cuda.device_count() if args.device == "cuda" else 0
+        if have < args.seq_shards:
+            ap.error(f"--dist-backend nccl puts one rank on each card: "
+                     f"--seq-shards {args.seq_shards} needs "
+                     f"{args.seq_shards} CUDA devices with --device cuda, "
+                     f"this run has {have}; pass --dist-backend gloo to run "
+                     f"the ranks on one shared --device")
+    return run_ranks(_serve_rank, args.seq_shards, backend=backend,
+                     device=None if backend == "nccl" else args.device,
+                     timeout_s=args.dist_timeout, args=(argv,))[0]
 
+
+def _serve_rank(group, argv):
+    """One rank of ``--seq-shards > 1``."""
+    return _serve(_parser().parse_args(argv), group)
+
+
+def _serve(args, group):
+    """Serve on one device (``group`` None) or as one rank of a sequence
+    group; only rank 0 prints and writes the trace and metrics."""
+    lead = group is None or group.index == 0
+    device = args.device if group is None else str(group.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, args.device)
+    model = build_model(cfg, device)
     params = model.init(torch.Generator().manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     if args.engine == "lockstep":
         return _lockstep(args, cfg, model, params, rng)
-    if args.temperature != 0.0:
-        ap.error("--engine continuous is greedy-only "
-                 "(temperature sampling needs per-request RNG streams)")
-
     require_attention_program(model)
     max_batch = args.max_batch or args.batch
-    lay = layout_for_pattern(salo_pattern(cfg, causal=True), args.page)
+    lay = layout_for_pattern(salo_pattern(cfg, causal=True), args.page,
+                             shards=args.seq_shards)
     ccfg = ContinuousConfig(
-        n_pages=1 + max_batch * lay.pages_per_req, page=args.page,
-        chunk=args.chunk, max_batch=max_batch, kv_dtype=args.kv_dtype,
+        n_pages=1 + max_batch * lay.pages_per_shard, page=args.page,
+        chunk=args.chunk, max_batch=max_batch, seq_shards=args.seq_shards,
+        kv_dtype=args.kv_dtype,
         page_sparsity_threshold=args.page_sparsity_threshold,
         page_stat_decay=args.page_stat_decay, max_queue=args.max_queue)
     lens = _ragged_lengths(args.prompt_len, args.batch, rng)
@@ -174,14 +234,15 @@ def main(argv=None):
     obs = Observability(tracing=bool(args.trace_out))
 
     def summarize():
-        if args.summary_every and \
+        if lead and args.summary_every and \
                 obs.registry.total("serve_engine_steps") \
                 % args.summary_every == 0:
             print(f"# {summary_line(obs.registry)}", file=sys.stderr,
                   flush=True)
 
     def make_engine():
-        eng = ContinuousEngine(model, ccfg, device=args.device, obs=obs)
+        eng = ContinuousEngine(model, ccfg, device=device, obs=obs,
+                               group=group)
         for p in prompts:
             eng.submit(p, args.new_tokens, deadline_s=args.deadline_s)
         return eng
@@ -196,10 +257,11 @@ def main(argv=None):
             make_engine, params, args.snapshot_dir,
             checkpoint_every=args.snapshot_every,
             max_restarts=args.max_restarts, injector=injector, obs=obs,
-            on_step=lambda eng, hist: summarize())
+            on_step=lambda eng, hist: summarize(), group=group)
         eng, history = sup.run()
-        print(f"# supervisor: {history}")
-        if eng.batcher.failures():
+        if lead:
+            print(f"# supervisor: {history}")
+        if lead and eng.batcher.failures():
             print(f"# failed: {eng.batcher.failures()}")
     else:
         eng = make_engine()
@@ -207,6 +269,8 @@ def main(argv=None):
             summarize()
     results = eng.batcher.results()
     dt = time.perf_counter() - t0
+    if not lead:
+        return results
     if args.trace_out:
         obs.write_trace(args.trace_out)
         print(f"# trace: {args.trace_out} ({len(obs.tracer)} events)",
@@ -217,8 +281,10 @@ def main(argv=None):
     total_new = sum(len(r) for r in results.values())
     print(f"# arch={cfg.name} engine=continuous device={args.device} "
           f"batch={args.batch} prompts={lens} new={args.new_tokens} "
-          f"chunk={args.chunk} page={args.page} kv_dtype={args.kv_dtype} "
-          f"page_thr={args.page_sparsity_threshold}")
+          f"chunk={args.chunk} page={args.page} "
+          f"seq_shards={args.seq_shards}"
+          f"{'' if group is None else f' backend={group.backend}'} "
+          f"kv_dtype={args.kv_dtype} page_thr={args.page_sparsity_threshold}")
     print(f"# {dt:.2f}s total, {total_new / dt:.1f} tok/s "
           f"(includes kernel build); counters={eng.counters}")
     for rid in sorted(results)[:2]:

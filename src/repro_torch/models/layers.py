@@ -36,6 +36,7 @@ from repro_torch.core.patterns import (HybridSparsePattern,
                                        causal_sliding_window, full,
                                        longformer)
 from repro_torch.core.scheduler import PAD_SENTINEL
+from repro_torch.dist.sharded_plan import masked_psum_merge
 from repro_torch.kernels.salo_decode import salo_decode, salo_paged_decode
 from repro_torch.serve.paged_cache import quant_slab_write, slab_write
 
@@ -188,23 +189,32 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
 # ------------------- continuous-batching serve paths -------------------- #
 def attn_chunk_prefill(p, x_chunk, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
                        flags, cfg: ModelConfig,
-                       pattern: HybridSparsePattern):
+                       pattern: HybridSparsePattern, group=None):
     """One prompt chunk through a layer's attention (plan-driven prefill).
 
     x_chunk: (1, Cp, d); ctx_k/ctx_v: (1, S_req, Hkv, hd) the request's
     paged KV view; ctx_pos: (1, S_req) live slot positions; pos_q: (1, Cp)
     chunk positions (PAD_SENTINEL on padded rows); kv_blocks/flags:
     (nq, W) ChunkPlan step tables. Returns (out, k_chunk, v_chunk) — the
-    fresh chunk KV for the caller's slab write-back."""
+    fresh chunk KV for the caller's slab write-back.
+
+    ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
+    parallel serving. The ctx view, its positions and the tables cover only
+    the slots this shard owns (and the chunk itself on the chunk-owner
+    shard); the f32 partial (out, m, l) is merged across the group and
+    rounded once to the compute dtype before the output projection."""
     B, Cp, _ = x_chunk.shape
     rope_pos = torch.where(pos_q < PAD_SENTINEL, pos_q, 0)
     q, k, v = attn_qkv(p, x_chunk, cfg, rope_pos)
     k_view = torch.cat([ctx_k.to(k.dtype), k], dim=1)
     v_view = torch.cat([ctx_v.to(v.dtype), v], dim=1)
     pos_k = torch.cat([ctx_pos, pos_q], dim=1)
-    out = hybrid_chunk_attention(
+    res = hybrid_chunk_attention(
         q.transpose(1, 2), k_view.transpose(1, 2), v_view.transpose(1, 2),
-        pos_q, pos_k, kv_blocks, flags, pattern)
+        pos_q, pos_k, kv_blocks, flags, pattern,
+        return_state=group is not None)
+    out = res if group is None else \
+        masked_psum_merge(*res, group).to(x_chunk.dtype)
     out = out.transpose(1, 2).reshape(B, Cp, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(x_chunk.dtype), k, v
 
@@ -212,7 +222,8 @@ def attn_chunk_prefill(p, x_chunk, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
 def attn_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
                       phys_w, off_w, cfg: ModelConfig,
                       pattern: HybridSparsePattern, k_scale=None,
-                      v_scale=None, want_page_stats: bool = False):
+                      v_scale=None, want_page_stats: bool = False,
+                      group=None):
     """Ragged one-token decode against ONE layer's pooled paged slab.
 
     x_t: (R, 1, d) — one token per engine row; k_slab/v_slab:
@@ -232,10 +243,19 @@ def attn_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
     masked score of each request against each of its logical pages
     (``NEG_INF`` where fully masked); otherwise it is ``None``.
 
+    ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
+    parallel serving (the reference's ``axis``). The slab, page tables and
+    slot positions are this shard's (npp = ``pages_per_shard``; writes of
+    slots owned elsewhere already routed to the null page through
+    ``phys_w``), so the one decode launch covers only the owned slots and
+    runs with ``return_state``; its f32 (out, m, l) is merged across the
+    group (:func:`~repro_torch.dist.sharded_plan.masked_psum_merge`) and
+    rounded once to the compute dtype. ``page_m`` then covers this shard's
+    pages.
+
     Returns the reference's ``(out, k_slab, v_slab, k_scale, v_scale,
     page_m)``; the slab and scale tensors are the ones passed in, updated
-    in place. (The reference's sequence-parallel ``axis`` comes with
-    multi-GPU serving.)"""
+    in place."""
     R = x_t.shape[0]
     q, k, v = attn_qkv(p, x_t, cfg, t_vec[:, None])
     if k_scale is not None:
@@ -246,9 +266,12 @@ def attn_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
     qt = q.transpose(1, 2).contiguous()                   # (R, H, 1, hd)
     res = salo_paged_decode(qt, k_slab, v_slab, page_tables, slot_pos,
                             t_vec, pattern=pattern, k_scale=k_scale,
-                            v_scale=v_scale,
+                            v_scale=v_scale, return_state=group is not None,
                             return_page_stats=want_page_stats)
-    out, page_m = res if want_page_stats else (res, None)
+    res = res if isinstance(res, tuple) else (res,)
+    page_m = res[-1] if want_page_stats else None
+    out = res[0] if group is None else \
+        masked_psum_merge(*res[:3], group).to(x_t.dtype)
     out = out.transpose(1, 2).reshape(R, 1, cfg.n_heads * cfg.hd)
     return (out @ p["wo"].to(x_t.dtype), k_slab, v_slab, k_scale, v_scale,
             page_m)

@@ -238,26 +238,29 @@ def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str):
 
 
 def block_chunk_prefill(p, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks,
-                        flags, cfg: ModelConfig, kind: str, pattern):
-    """One prompt chunk through one block. Returns (x, k_chunk, v_chunk)."""
+                        flags, cfg: ModelConfig, kind: str, pattern,
+                        group=None):
+    """One prompt chunk through one block. Returns (x, k_chunk, v_chunk).
+    ``group``: this shard's sequence group (sequence-parallel serving)."""
     h, k_c, v_c = L.attn_chunk_prefill(
         p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), ctx_k, ctx_v,
-        ctx_pos, pos_q, kv_blocks, flags, cfg, pattern)
+        ctx_pos, pos_q, kv_blocks, flags, cfg, pattern, group=group)
     return _ffn_residual(p, x + h, cfg, kind)[0], k_c, v_c
 
 
 def block_decode_paged(p, x_t, k_slab, v_slab, page_tables, slot_pos, t_vec,
                        phys_w, off_w, cfg: ModelConfig, kind: str, pattern,
                        k_scale=None, v_scale=None,
-                       want_page_stats: bool = False):
+                       want_page_stats: bool = False, group=None):
     """Ragged one-token decode through one block against its slab layer
     (written in place). Returns (x, k_slab, v_slab, k_scale, v_scale,
     page_m) — scales / stats ``None`` unless the slab is int8 / stats were
-    asked for."""
+    asked for. ``group``: this shard's sequence group."""
     h, k_slab, v_slab, k_scale, v_scale, page_m = L.attn_decode_paged(
         p["attn"], L.rmsnorm(p["ln1"], x_t, cfg.norm_eps), k_slab, v_slab,
         page_tables, slot_pos, t_vec, phys_w, off_w, cfg, pattern,
-        k_scale=k_scale, v_scale=v_scale, want_page_stats=want_page_stats)
+        k_scale=k_scale, v_scale=v_scale, want_page_stats=want_page_stats,
+        group=group)
     return (_ffn_residual(p, x_t + h, cfg, kind)[0], k_slab, v_slab, k_scale,
             v_scale, page_m)
 
@@ -271,7 +274,7 @@ def _layer_scales(slab: PagedSlab, i: int):
 
 def segment_chunk_prefill(params, slab: PagedSlab, x, page_table, ctx_pos,
                           pos_q, kv_blocks, flags, phys_w, off_w,
-                          cfg: ModelConfig, kind: str, pattern):
+                          cfg: ModelConfig, kind: str, pattern, group=None):
     """Run one segment's layers over a prompt chunk, writing the slab.
 
     ``slab``: the segment's :class:`PagedSlab` (leading layer axis);
@@ -281,7 +284,9 @@ def segment_chunk_prefill(params, slab: PagedSlab, x, page_table, ctx_pos,
     Each layer reads its context view before its chunk is written back.
     int8 slabs dequantize the context view at the gather and quantize the
     chunk KV at the write-back (monotone per-page scale growth), each
-    layer with its own scale row. Returns x."""
+    layer with its own scale row. Under a sequence ``group`` the slab,
+    ``page_table`` (npp = ``pages_per_shard``), ``ctx_pos``, the tables
+    and the write targets are this shard's. Returns x."""
     for i, layer_params in enumerate(params):
         k_l, v_l = slab.k[i], slab.v[i]
         ks_l, vs_l = _layer_scales(slab, i)
@@ -290,7 +295,7 @@ def segment_chunk_prefill(params, slab: PagedSlab, x, page_table, ctx_pos,
             *((ks_l, vs_l, x.dtype) if slab.quantized else ()))
         x, k_c, v_c = block_chunk_prefill(
             layer_params, x, ctx_k, ctx_v, ctx_pos, pos_q, kv_blocks, flags,
-            cfg, kind, pattern)
+            cfg, kind, pattern, group=group)
         if slab.quantized:
             quant_slab_write(k_l, v_l, ks_l, vs_l, phys_w, off_w, k_c[0],
                              v_c[0])
@@ -301,18 +306,21 @@ def segment_chunk_prefill(params, slab: PagedSlab, x, page_table, ctx_pos,
 
 def segment_decode_paged(params, slab: PagedSlab, x_t, page_tables,
                          slot_pos, t_vec, phys_w, off_w, cfg: ModelConfig,
-                         kind: str, pattern, want_page_stats: bool = False):
+                         kind: str, pattern, want_page_stats: bool = False,
+                         group=None):
     """Run one segment's layers for one ragged decode step (slab written
     in place). Returns x_t — and, when ``want_page_stats``, ``page_m``
     (R, npp): the max masked score over the segment's layers per
-    (request, logical page)."""
+    (request, logical page). Under a sequence ``group`` the slab, page
+    tables and slot positions are this shard's, and so is ``page_m``
+    (npp = ``pages_per_shard``)."""
     pm = None
     for i, layer_params in enumerate(params):
         ks_l, vs_l = _layer_scales(slab, i)
         x_t, _, _, _, _, pm_l = block_decode_paged(
             layer_params, x_t, slab.k[i], slab.v[i], page_tables, slot_pos,
             t_vec, phys_w, off_w, cfg, kind, pattern, k_scale=ks_l,
-            v_scale=vs_l, want_page_stats=want_page_stats)
+            v_scale=vs_l, want_page_stats=want_page_stats, group=group)
         if want_page_stats:
             pm = pm_l if pm is None else torch.maximum(pm, pm_l)
     return (x_t, pm) if want_page_stats else x_t

@@ -1,5 +1,5 @@
-"""Serving engines on one device: the lockstep baseline and the
-continuous-batching engine.
+"""Serving engines: the lockstep baseline and the continuous-batching
+engine, on one device or sequence-parallel over a group of ranks.
 
 The port of :mod:`repro.serve.engine`.
 
@@ -28,9 +28,25 @@ version).
 
 ``ContinuousEngine.state_dict``/``load_state`` snapshot and restore the
 whole serving state (the fault-tolerant supervisor,
-:class:`repro_torch.ft.manager.ServeSupervisor`, drives them). Not ported
-yet, raising ``NotImplementedError``: sequence-parallel serving
-(``seq_shards > 1``).
+:class:`repro_torch.ft.manager.ServeSupervisor`, drives them).
+
+Sequence-parallel serving (``seq_shards = S > 1``) runs one engine per rank
+of a :class:`~repro_torch.dist.group.SeqGroup` of size S (the reference
+runs one program over a "seq" mesh under ``shard_map``). Every rank runs
+the same host control on replicated state (the batcher with one page pool
+per shard, the page tables, the page-stats history, the counters), and
+holds only its own shard's slabs and slot positions: a request's logical
+pages are striped over the shards (:class:`~repro_torch.serve.paged_cache
+.PagedLayout`). Each engine step runs, per layer, one chunk pass or one
+decode launch per rank over the slots that rank owns, with the f32
+partials merged across the group
+(:func:`~repro_torch.dist.sharded_plan.masked_psum_merge`) and rounded
+once; only a slot's owner writes its KV (:func:`sharded_write_target`).
+The ranks never diverge: the merged attention is the same bytes on every
+rank, so the logits and the greedy tokens are too, and the batcher's clock
+is read on rank 0 once a step and agreed by the group
+(:meth:`~repro_torch.dist.group.SeqGroup.agree`). Greedy tokens equal the
+single-device engine's.
 """
 from __future__ import annotations
 
@@ -43,6 +59,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.renorm import NEG_INF
 from repro_torch.core.scheduler import (BIG, PAD_SENTINEL, build_chunk_plan,
                                         ring_view_positions)
 from repro_torch.ft.faults import ResourceExhausted
@@ -180,9 +197,11 @@ class ContinuousConfig:
     statistics on but skips nothing. ``page_stat_decay`` is the per-step
     additive log-space decay (``hist = max(rel, hist - decay)``).
 
-    ``seq_shards`` keeps the reference's field; only 1 is served by the
-    port so far. There is no ``decode_impl``: the slab's device decides
-    kernel or plain version."""
+    ``seq_shards > 1``: sequence-parallel serving over a group of that many
+    ranks (``ContinuousEngine(..., group=...)``); ``n_pages`` then sizes
+    each shard's own pool (``1 + max_batch * layout.pages_per_shard``
+    holds every row). There is no ``decode_impl``: the slab's device
+    decides kernel or plain version."""
     n_pages: int
     page: int = 8
     chunk: int = 16
@@ -193,10 +212,6 @@ class ContinuousConfig:
     page_stat_decay: float = 0.0
     max_queue: Optional[int] = None
     preempt: bool = True
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 def require_attention_program(model: Model) -> None:
@@ -216,13 +231,18 @@ def require_attention_program(model: Model) -> None:
 
 class ContinuousEngine:
     """Continuous-batching serving over the paged ring-cache slab, on one
-    device. Greedy decoding only; attention-block architectures with a
-    causal 1-D SALO pattern."""
+    device or as one rank of a sequence group. Greedy decoding only;
+    attention-block architectures with a causal 1-D SALO pattern.
+
+    ``group``: this rank's :class:`~repro_torch.dist.group.SeqGroup`,
+    required with ``seq_shards > 1`` and of exactly that size (the
+    reference's ``mesh``/``seq_axis``); the engine's device must be the
+    group's."""
 
     def __init__(self, model: Model, ccfg: ContinuousConfig,
                  device="cuda",
                  clock: Optional[Callable[[], float]] = None,
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, group=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -232,9 +252,17 @@ class ContinuousEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        if ccfg.seq_shards != 1:
-            raise _not_ported("sequence-parallel serving (seq_shards > 1)",
-                              "'multi-GPU'")
+        S = ccfg.seq_shards
+        if S < 1:
+            raise ValueError(f"seq_shards must be >= 1, got {S}")
+        if (S > 1 or group is not None) and (group is None
+                                             or group.size != S):
+            raise ValueError(
+                f"seq_shards={S} needs a SeqGroup of that size, got "
+                f"{None if group is None else f'one of size {group.size}'}")
+        if group is not None and torch.device(group.device) != self.device:
+            raise ValueError(f"the group's rank lives on {group.device}, "
+                             f"the engine on {self.device}")
         if ccfg.kv_dtype not in ("compute", "int8"):
             raise ValueError(f"kv_dtype must be 'compute' or 'int8', got "
                              f"{ccfg.kv_dtype!r}")
@@ -242,6 +270,9 @@ class ContinuousEngine:
         cfg = model.cfg
         self.model = model
         self.ccfg = ccfg
+        self.group = group
+        self.n_shards = S
+        self.shard = 0 if group is None else group.index
         self.quantized = ccfg.kv_dtype == "int8"
         self.track_stats = ccfg.page_sparsity_threshold is not None
         self.pattern = L.salo_pattern(cfg, causal=True)
@@ -250,18 +281,27 @@ class ContinuousEngine:
         self.obs = obs if obs is not None else Observability()
         self.tracer = self.obs.tracer
         self.registry = self.obs.registry
-        self.layout = layout_for_pattern(self.pattern, ccfg.page)
+        self.layout = layout_for_pattern(self.pattern, ccfg.page, shards=S)
+        # Under a group the batcher reads the clock agreed at the start of
+        # the step (or submit), so every rank takes the same decisions.
+        self._clock = clock or time.monotonic
+        self._now = None
+        if group is not None:
+            self._agree_clock()
         self.batcher = Batcher(self.layout, ccfg.n_pages, ccfg.max_batch,
                                max_queue=ccfg.max_queue,
-                               clock=clock or time.monotonic, obs=self.obs)
+                               clock=(self._clock if group is None
+                                      else lambda: self._now),
+                               obs=self.obs)
         self.batcher.on_finish = self._release_hook
 
         lay = self.layout
         self.chunk_pad = -(-max(ccfg.chunk, 1) // ccfg.page) * ccfg.page
         self.nq = self.chunk_pad // ccfg.page
         self.ctx_len = lay.n_sink + lay.ring_cap
-        # step-table width: the full view, so every chunk has one shape
-        self.table_w = (self.ctx_len + self.chunk_pad) // ccfg.page
+        # step-table width: this shard's ctx tiles + the chunk (the full
+        # view on one device), so every chunk has one shape
+        self.table_w = (self.ctx_len // S + self.chunk_pad) // ccfg.page
 
         dtype = L.dt(cfg, "compute")
         self.slabs = {
@@ -295,6 +335,16 @@ class ContinuousEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _stripe(self, a, width: int):
+        """This shard's stripe of the last axis of ``a``, whose
+        ``n_shards * width`` entries stripe contiguously over the shards
+        (all of it on one device)."""
+        lo = self.shard * width
+        return a[..., lo:lo + width]
+
+    def _agree_clock(self) -> None:
+        self._now = self.group.agree(self._clock())
+
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm + logits head."""
         cfg = self.model.cfg
@@ -312,30 +362,36 @@ class ContinuousEngine:
             x = T.segment_chunk_prefill(
                 params[key], self.slabs[key], x, page_table, ctx_pos[None],
                 pos_q[None], kv_blocks, flags, phys_w, off_w, cfg, kind,
-                self.pattern)
+                self.pattern, group=self.group)
         return x
 
     def _decode_fn(self, params, page_tables, tokens, t_vec, active,
                    page_keep=None):
         """Every in-flight request advances one token at its own position.
         Inactive rows write to the null page; their logits are discarded.
+        ``page_tables`` (R, pages_per_shard): this shard's stripe (all of
+        them on one device); only the owner of the slot a token lands in
+        writes its KV (:func:`sharded_write_target`).
 
-        ``page_keep`` (R, npp) bool (page-sparsity mode only): pages the
-        stats history says to read this step. Dropped pages are routed to
-        the null page AND their slots' read positions masked to PAD; the
-        persisted ``slot_pos`` and page tables are untouched, so a page
-        whose history comes back above threshold is simply read again.
+        ``page_keep`` (R, pages_per_shard) bool (page-sparsity mode only):
+        pages the stats history says to read this step, striped like the
+        page tables. Dropped pages are routed to the null page AND their
+        slots' read positions masked to PAD; the persisted ``slot_pos`` and
+        page tables are untouched, so a page whose history comes back above
+        threshold is simply read again.
 
         Returns (logits (R, V), page_m) — ``page_m`` (R, npp), the max
-        per-(request, page) score over all layers, when page stats are
-        tracked, else ``None``."""
+        per-(request, logical page) score over all layers (every shard's
+        stripe, put together by one ``all_reduce`` MAX), when page stats
+        are tracked, else ``None``."""
         lay = self.layout
         R = tokens.shape[0]
-        slot = lay.slot(t_vec).long()
-        phys_w, off_w = lay.write_target(page_tables, t_vec, keep=active)
+        keep, slot, phys_w, off_w = sharded_write_target(
+            lay, page_tables, t_vec, active, self.shard)
+        slot = slot.long()
         rows = torch.arange(R, device=self.device)
         self.slot_pos[rows, slot] = torch.where(
-            active, t_vec, self.slot_pos[rows, slot])
+            keep, t_vec, self.slot_pos[rows, slot])
         pt_read, pos_read = page_tables, self.slot_pos
         if page_keep is not None:
             pt_read = torch.where(page_keep, page_tables, 0)
@@ -349,29 +405,38 @@ class ContinuousEngine:
             res = T.segment_decode_paged(
                 params[key], self.slabs[key], x, pt_read, pos_read, t_vec,
                 phys_w, off_w, self.model.cfg, kind, self.pattern,
-                want_page_stats=self.track_stats)
+                want_page_stats=self.track_stats, group=self.group)
             if self.track_stats:
                 x, pm = res
                 page_m = pm if page_m is None else torch.maximum(page_m, pm)
             else:
                 x = res
+        if page_m is not None and self.group is not None:
+            full = torch.full((R, lay.pages_per_req), NEG_INF,
+                              dtype=torch.float32, device=self.device)
+            self._stripe(full, lay.pages_per_shard).copy_(page_m)
+            page_m = self.group.pmax_(full)
         return self._head(params, x)[:, 0, :], page_m
 
     # --------------------------- host driving -------------------------- #
     def submit(self, prompt, max_new: int, priority: int = 0,
                deadline_s: Optional[float] = None) -> int:
+        if self.group is not None:
+            self._agree_clock()
         return self.batcher.submit(prompt, max_new, priority=priority,
                                    deadline_s=deadline_s)
 
     def _release_hook(self, row: int, pages: np.ndarray):
         """Batcher completion callback: retire the row's page stats and
-        (int8 slabs) zero the recycled pages' scales in every slab, so a
-        reused page starts from a fresh quantization grid."""
+        (int8 slabs) zero the recycled pages' scales in every slab of this
+        shard's pool, so a reused page starts from a fresh quantization
+        grid. ``pages``: the request's (pages_per_req,) table image."""
         self.page_hist[row] = 0.0
         if self.quantized:
+            own = self._stripe(pages, self.layout.pages_per_shard)
             for s in self.slabs.values():
-                reset_page_scales(s.k_scale, pages)
-                reset_page_scales(s.v_scale, pages)
+                reset_page_scales(s.k_scale, own)
+                reset_page_scales(s.v_scale, own)
 
     def _admit(self):
         for req in self.batcher.admit():
@@ -380,7 +445,8 @@ class ContinuousEngine:
             self.slot_pos[req.row] = PAD_SENTINEL
 
     def _advance_prefill(self, params, req):
-        """Run the request's next chunk: ONE fused table-driven pass.
+        """Run the request's next chunk: ONE fused table-driven pass (on
+        each rank, over the slots its shard owns).
 
         A fresh request prefills its prompt; a preemption-resumed request
         prefills ``prompt + out[:-1]`` (``req.prefill_tokens``) through this
@@ -425,10 +491,20 @@ class ContinuousEngine:
             pt_read = np.where(rkeep, req.pages, 0).astype(np.int32)
             ctx_read = np.where(np.repeat(rkeep, page), ctx_pos,
                                 BIG).astype(np.int32)
-        kv, fl = plan.padded_tables(self.nq, self.table_w)
-        phys = np.where(keep, req.pages[slot // page], 0).astype(np.int32)
-        off = np.where(keep, slot % page, 0).astype(np.int32)
-        x = self._chunk_fn(params, self._dev(pt_read), self._dev(ctx_read),
+        pps, sps = lay.pages_per_shard, lay.slots_per_shard
+        if self.n_shards == 1:
+            kv, fl = plan.padded_tables(self.nq, self.table_w)
+        else:
+            kv, fl = (a[self.shard] for a in plan.sharded_tables(
+                self.n_shards, self.nq, self.table_w))
+        # this shard writes the chunk positions whose slots it owns
+        own = keep & (lay.slot_owner(slot) == self.shard)
+        local = lay.slot_local(slot)
+        phys = np.where(own, req.pages[self.shard * pps + local // page],
+                        0).astype(np.int32)
+        off = np.where(own, local % page, 0).astype(np.int32)
+        x = self._chunk_fn(params, self._dev(self._stripe(pt_read, pps)),
+                           self._dev(self._stripe(ctx_read, sps)),
                            self._dev(pos_q), self._dev(tokens),
                            self._dev(kv), self._dev(fl), self._dev(phys),
                            self._dev(off))
@@ -447,7 +523,7 @@ class ContinuousEngine:
             first = int(np.argmax(logits.float().cpu().numpy()))
             rvp = ring_view_positions(P, lay.n_sink, lay.ring_cap,
                                       lay.n_global)
-            self.slot_pos[req.row] = self._dev(rvp)
+            self.slot_pos[req.row] = self._dev(self._stripe(rvp, sps))
             self.batcher.to_decode(req, first)
 
     def _page_keep_mask(self, t_vec, active) -> np.ndarray:
@@ -491,11 +567,12 @@ class ContinuousEngine:
             active[req.row] = True
         keep = (self._page_keep_mask(t_vec, active) if self.track_stats
                 else None)
+        pps = lay.pages_per_shard
         with self.tracer.span("ragged_decode", cohort=len(reqs)):
             logits, page_m = self._decode_fn(
-                params, self._dev(self.page_tables), self._dev(tokens),
-                self._dev(t_vec), self._dev(active),
-                None if keep is None else self._dev(keep))
+                params, self._dev(self._stripe(self.page_tables, pps)),
+                self._dev(tokens), self._dev(t_vec), self._dev(active),
+                None if keep is None else self._dev(self._stripe(keep, pps)))
             logits = logits.float().cpu().numpy()   # span covers the sync
         if self.track_stats:
             with self.tracer.span("page_stats_fold"):
@@ -515,8 +592,8 @@ class ContinuousEngine:
                                           int(np.argmax(logits[req.row])))
 
     def slab_resident_bytes(self) -> int:
-        """Actual bytes of the pooled KV slabs (all segments, K+V, plus the
-        per-(layer, page) scales of int8 slabs)."""
+        """Actual bytes of this rank's pooled KV slabs (all segments, K+V,
+        plus the per-(layer, page) scales of int8 slabs)."""
         return sum(a.numel() * a.element_size()
                    for s in self.slabs.values() for a in s.tensors())
 
@@ -530,6 +607,8 @@ class ContinuousEngine:
         raises the recoverable :class:`~repro_torch.ft.faults
         .ResourceExhausted`."""
         trc = self.tracer
+        if self.group is not None:
+            self._agree_clock()
         with trc.span("engine.step", step=self.counters["engine_steps"]):
             with trc.span("assemble"):
                 self.batcher.expire()
@@ -565,13 +644,14 @@ class ContinuousEngine:
     # --------------------------- snapshotting --------------------------- #
     def state_dict(self) -> dict:
         """Full serving state as a checkpointable tree, as the reference
-        builds it: the KV slabs (payload + int8 scales), the slot map, the
-        host page tables and page-stats history, and ONE variable-length
-        uint8 leaf of JSON bytes carrying the control plane (the metrics
-        registry, engine counters included, and the batcher's request
-        lifecycle, ``Batcher.state_dict``). Encoding the control plane as
-        bytes keeps the tree STRUCTURE fixed while its length tracks queue
-        depth.
+        builds it: the KV slabs (payload + int8 scales) and the slot map
+        (under a group this rank's own, so each rank snapshots its own
+        tree), the host page tables and page-stats history, and ONE
+        variable-length uint8 leaf of JSON bytes carrying the control plane
+        (the metrics registry, engine counters included, and the batcher's
+        request lifecycle, ``Batcher.state_dict``). Encoding the control
+        plane as bytes keeps the tree STRUCTURE fixed while its length
+        tracks queue depth.
 
         The device tensors are CLONES: the engine updates its slabs and
         slot map in place, where the reference's arrays were immutable,
@@ -632,3 +712,22 @@ def _copy_into(dst: torch.Tensor, src, what: str) -> None:
         raise ValueError(f"snapshot {what}: {tuple(src.shape)} {src.dtype},"
                          f" engine {tuple(dst.shape)} {dst.dtype}")
     dst.copy_(src)
+
+
+def sharded_write_target(lay, page_tables: torch.Tensor, t_vec: torch.Tensor,
+                         active: torch.Tensor, idx: int):
+    """Per-shard decode write target: each new token's KV lands on shard
+    ``idx`` ONLY if that shard owns the token's logical slot; every other
+    shard (and every inactive row) routes the write to the null page 0.
+    ``page_tables``: (R, pages_per_shard) int32, this shard's stripe;
+    ``t_vec``: (R,) int32 positions; ``active``: (R,) bool. Returns
+    ``(keep, local_slot, phys, off)``, the last three int32. With one shard
+    this is :meth:`PagedLayout.write_target` with ``keep=active``."""
+    slot = lay.slot(t_vec)
+    keep = active & (lay.slot_owner(slot) == idx)
+    local_slot = lay.slot_local(slot)
+    phys = torch.gather(page_tables, 1,
+                        (local_slot // lay.page)[:, None].long())[:, 0]
+    phys = torch.where(keep, phys, 0).to(torch.int32)
+    off = torch.where(keep, local_slot % lay.page, 0).to(torch.int32)
+    return keep, local_slot.to(torch.int32), phys, off

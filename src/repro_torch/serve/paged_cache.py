@@ -1,6 +1,6 @@
 """Paged ring-cache slab: ONE pooled KV allocation shared by all requests.
 
-The port of :mod:`repro.serve.paged_cache`, on one device:
+The port of :mod:`repro.serve.paged_cache`:
 
 * **One slab per model segment** — ``(n_layers, n_pages, page, Hkv, hd)``
   for K and V. Admission hands out pages, completion recycles them.
@@ -27,8 +27,13 @@ Reads dequantize per page: :func:`gather_view` for the plain path, the
 paged-decode kernel in its loads. Recycled pages get their scales reset to
 0 (:func:`reset_page_scales`).
 
-The sequence-parallel layout (``shards > 1``) is not served by the port
-yet.
+**Sequence-parallel layout** (``shards > 1``): a request's logical pages
+are striped contiguously over the shards, logical page ``j`` (and every
+slot in it) owned by shard ``j // pages_per_shard``
+(:meth:`PagedLayout.slot_owner`, :meth:`PagedLayout.slot_local`). Each
+rank of a :class:`~repro_torch.dist.group.SeqGroup` allocates only its own
+shard's pool of ``n_pages`` pages (:func:`slab_init` as on one device);
+its page tables and slot positions are its stripe of the request's.
 """
 from __future__ import annotations
 
@@ -50,8 +55,13 @@ def _ceil_div(a: int, b: int) -> int:
 class PagedLayout:
     """Static per-request geometry of the paged ring cache.
 
-    ``shards`` is kept for the reference's field set; only ``shards == 1``
-    is served by the port so far.
+    ``shards > 1`` is the sequence-parallel layout: logical page ``j`` is
+    owned by shard ``j // pages_per_shard``, so the sink pages land on the
+    shards covering their positions and the ring pages are striped over
+    the rest. ``ring_pages`` absorbs the alignment padding (a ring longer
+    than the dilated lookback changes nothing: positions older than the
+    lookback are masked by the window whether or not a slot still holds
+    them).
     """
     page: int
     window: int
@@ -108,6 +118,14 @@ class PagedLayout:
     @property
     def slots_per_shard(self) -> int:
         return self.pages_per_shard * self.page
+
+    def slot_owner(self, s):
+        """Shard owning logical slot ``s`` (an int or an integer tensor)."""
+        return s // self.slots_per_shard
+
+    def slot_local(self, s):
+        """Shard-local index of logical slot ``s``."""
+        return s % self.slots_per_shard
 
     def pages_needed(self, total_positions: int) -> int:
         """Physical pages a request writing positions ``[0, total)`` ever
@@ -310,8 +328,9 @@ def gather_view(k_slab: torch.Tensor, v_slab: torch.Tensor,
 
 def empty_positions(n_requests: int, layout: PagedLayout,
                     device) -> torch.Tensor:
-    """Per-request slot->position table, all-empty (PAD_SENTINEL)."""
-    return torch.full((n_requests, layout.slots_per_req), PAD_SENTINEL,
+    """Per-request slot->position table of one shard's slots (every slot
+    when ``layout.shards == 1``), all-empty (PAD_SENTINEL)."""
+    return torch.full((n_requests, layout.slots_per_shard), PAD_SENTINEL,
                       dtype=torch.int32, device=device)
 
 

@@ -1317,3 +1317,107 @@ def test_family_models_cuda_equal_cpu(arch):
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
     assert toks["cuda"] == toks["cpu"]
+
+
+# ------------------------- sequence-parallel serving ----------------------- #
+def test_paged_decode_state_per_shard_and_merge():
+    """K4 with return_state on each shard's own slab (the serve shapes at 2
+    shards: 8 rows, 9/3 heads of hd 64, bf16, 33 pages of 16 a shard): the
+    live rows against the plain version (OUT_TOL / STATS_TOL), the rows
+    the shard holds no slot of give exactly (0, NEG_INF, 0), and the two
+    shards' partials merged (StackedGroup) equal unsharded K4 within
+    OUT_TOL."""
+    _need_cuda()
+    from repro_torch.dist.group import StackedGroup
+    from repro_torch.dist.sharded_plan import masked_psum_merge
+    from repro_torch.kernels.salo_attention import OUT_TOL, STATS_TOL
+
+    S, page, B, H, Hkv, hd = 2, 16, 8, 9, 3, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pat = causal_sliding_window(1024, n_sinks=4)
+    lay = layout_for_pattern(pat, page, shards=S)
+    npp, pps = lay.pages_per_req, lay.pages_per_shard
+    n_pages = 1 + B * npp
+    k = torch.randn((n_pages, page, Hkv, hd), generator=g,
+                    device="cuda").bfloat16()
+    v = torch.randn((n_pages, page, Hkv, hd), generator=g,
+                    device="cuda").bfloat16()
+    q = torch.randn((B, H, 1, hd), generator=g, device="cuda").bfloat16()
+    pt = (torch.randperm(n_pages - 1, generator=g, device="cuda") + 1)
+    pt = pt.reshape(B, npp).to(torch.int32)
+    ts = [5, 300, 700, 1027, 1028, 1500, 2047, 3000]
+    pos = torch.from_numpy(np.stack([
+        ring_view_positions(t + 1, lay.n_sink, lay.ring_cap, lay.n_global)
+        for t in ts]).astype(np.int32)).cuda()
+    t = torch.tensor(ts, dtype=torch.int32, device="cuda")
+    parts = []
+    for r in range(S):
+        idx = pt[:, r * pps:(r + 1) * pps].reshape(-1).long()
+        kr, vr = torch.cat([k[:1], k[idx]]), torch.cat([v[:1], v[idx]])
+        ptr = torch.arange(1, 1 + B * pps, dtype=torch.int32,
+                           device="cuda").reshape(B, pps)
+        posr = pos[:, r * pps * page:(r + 1) * pps * page].contiguous()
+        res = salo_paged_decode(q, kr, vr, ptr, posr, t, pattern=pat,
+                                return_state=True)
+        ref = salo_paged_decode_plain(q, kr, vr, ptr, posr, t, pattern=pat,
+                                      return_state=True)
+        live = causal_step_mask(pat, t[:, None], posr,
+                                STEP_WINDOW | STEP_GLOBAL).any(dim=1)
+        assert int((~live).sum()) == (2 if r == 1 else 0)
+        for a, b, tol in zip(res, ref, (OUT_TOL[torch.bfloat16], STATS_TOL,
+                                        STATS_TOL)):
+            torch.testing.assert_close(a[live], b[live], atol=tol, rtol=tol)
+            assert torch.equal(a[~live], b[~live])      # (0, NEG_INF, 0)
+        parts.append(res)
+    merged = masked_psum_merge(*(torch.stack([p[i] for p in parts])
+                                 for i in range(3)), StackedGroup(S))[0]
+    whole = salo_paged_decode(q, k, v, pt, pos, t, pattern=pat)
+    tol = OUT_TOL[torch.bfloat16]
+    torch.testing.assert_close(merged.bfloat16().float(), whole.float(),
+                               atol=tol, rtol=tol)
+
+
+def _sharded_rank_tokens(group, cfg, params, prompts, n_new, extra):
+    lay = layout_for_pattern(salo_pattern(cfg), 8, shards=group.size)
+    eng = ContinuousEngine(
+        build_model(cfg, str(group.device)),
+        ContinuousConfig(n_pages=1 + 4 * lay.pages_per_shard, page=8,
+                         chunk=8, max_batch=4, seq_shards=group.size,
+                         **extra),
+        device=str(group.device), group=group)
+    rids = [eng.submit(p, n_new) for p in prompts]
+    res = eng.run(_params_on(params, str(group.device)))
+    return [res[r].tolist() for r in rids], dict(eng.counters)
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
+             page_stat_decay=0.3)])
+def test_sharded_engine_gloo_on_one_card_equals_unsharded(extra):
+    """2 gloo ranks sharing cuda:0 (K4 in return_state mode on each, the
+    merge over gloo's all_reduce of CUDA tensors), a narrowed f32 model
+    with window 24 (4 pages a request: no shard padding): greedy tokens
+    and every counter equal to the unsharded engine's on the card."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+
+    cfg = dataclasses.replace(get_smoke("smollm-135m"), d_model=192,
+                              n_heads=3, n_kv_heads=1, d_ff=256,
+                              salo=SALOConfig(window=24, n_global=2))
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(4))
+    for layer in params["seg0_attn_mlp"]:
+        layer["attn"]["wo"].mul_(6.0)
+        layer["mlp"]["w_out"].mul_(6.0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 9, 13, 26)]
+    lay = layout_for_pattern(salo_pattern(cfg), 8)
+    eng = ContinuousEngine(build_model(cfg, "cuda"), ContinuousConfig(
+        n_pages=1 + 4 * lay.pages_per_req, page=8, chunk=8, max_batch=4,
+        **extra), device="cuda")
+    rids = [eng.submit(p, 16) for p in prompts]
+    res = eng.run(_params_on(params, "cuda"))
+    want = ([res[r].tolist() for r in rids], dict(eng.counters))
+    out = run_ranks(_sharded_rank_tokens, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0, args=(cfg, params, prompts, 16, extra))
+    for got in out:
+        assert got == want

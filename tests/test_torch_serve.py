@@ -18,6 +18,7 @@ from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.paged_cache import layout_for_pattern
 from repro_torch.configs import get_smoke as t_smoke
 from repro_torch.convert import params_from_jax
+from repro_torch.dist.group import SeqGroup
 from repro_torch.kernels.salo_decode import salo_paged_decode_plain
 from repro_torch.models.model import build_model as t_build
 from repro_torch.serve.engine import ContinuousConfig as TConfig
@@ -155,14 +156,15 @@ def test_slab_state_equal_outside_null_page():
         -(-n // 8) for n in (5, 9, 13, 26))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(seq_shards=2),
-    # the single-device int8 slab and page sparsity are served; their
-    # sequence-parallel forms are not yet
-    dict(seq_shards=2, kv_dtype="int8"),
-    dict(seq_shards=4, page_sparsity_threshold=-1.0)])
-def test_unported_engine_options_raise(kw):
+@pytest.mark.parametrize("shards,group_size", [(2, None), (2, 4), (4, 2)])
+def test_seq_shards_needs_matching_group(shards, group_size):
+    """seq_shards > 1 needs a SeqGroup of exactly that size (the
+    reference's mesh check); sharded serving itself is
+    tests/test_torch_dist_serve.py."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(t_build(tcfg, "cpu"), TConfig(n_pages=9, **kw),
-                device="cpu")
+    group = None if group_size is None else SeqGroup(
+        None, 0, group_size, torch.device("cpu"))
+    with pytest.raises(ValueError, match=f"seq_shards={shards} needs a "
+                                         f"SeqGroup of that size"):
+        TEngine(t_build(tcfg, "cpu"), TConfig(n_pages=9, seq_shards=shards),
+                device="cpu", group=group)
