@@ -176,7 +176,13 @@ nonzero:
    (64 query heads from 8 KV heads, batch 1, n 4096, hd 128, window 1024,
    4 sinks, block 256, bf16), (m) whisper-base's encoder attention
    (bidirectional window 512 with 4 global tokens, global rows too, 8 x 8
-   heads, n 1500 padded to 1536, hd 64, block 256, bf16). Tolerances: out
+   heads, n 1500 padded to 1536, hd 64, block 256, bf16), (t) one
+   sequence shard's view tables (``dist.sharded_plan.shard_plan``: shard 1
+   of 2 at smollm-135m's train shapes, 8 x 9 flat heads, window 1024 + 4
+   sinks, 128-blocks: q on its 16 local blocks, K/V on its view of 16
+   local tiles, 8 + 1 halo slots (distances -1 and +1, the +1 slot padding
+   on this shard) and 1 global tile, bf16; timed, SDPA with the mask the
+   view tables imply). Tolerances: out
    8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
@@ -275,16 +281,50 @@ nonzero:
     printed first) fits 92 % of the card, seq 4096, batch 1, 10 steps,
     lr 1e-3, warmup 3; the same checks and lines as the train phase.
 18. **train longformer-4k** — at full width and depth (12 layers, d
-    768), seq 4096, batch 8, 20 steps, as the train phase: the
-    bidirectional band and the global-rows epilogue on the card.
+    768), seq 4096, batch 8, 20 steps, as the train phase. Its LM trains
+    on the causal form of its pattern (window 512 + 1 sink), as the
+    reference's model does; the bidirectional band with its global row is
+    train-kernels case (h).
+18b. **train-sharded-check** — sequence-parallel training
+    (``dist.sharded_plan``): the narrowed f32 smollm of train-check and
+    the narrowed longformer (hd 64) trained 3 steps on 2 ranks
+    (``dist.group.run_ranks``: NCCL with one card a rank where the machine
+    has the cards, else gloo ranks sharing cuda:0; the phase names its
+    backend) and unsharded on the card from the same parameters and
+    batches: losses within 1e-4, parameters and optimizer state bitwise
+    equal on both ranks (sha256 of their bytes), K1-K3 launched on each.
+18c. **train-sharded** — smollm-135m at full width and depth, bf16, remat
+    full, seq 4096 split over 2 ranks, global batch 8, the train phase's
+    first 6 steps (same seed, weights, batches and 20-step schedule). On
+    every rank first one layer's ``sharded_attention`` (the halo exchange,
+    K1-K3 on the view) forward and backward against unsharded
+    ``salo_attention`` on the whole sequence within ``OUT_TOL`` /
+    ``GRAD_TOL``. Gates: step-0 loss within 5e-3 of the train phase's
+    step 0, every step within 2e-2, the loss falling; parameters and
+    optimizer state bitwise equal on both ranks; per rank and step 60 K1,
+    30 K2 and 30 K3 calls (60 kernels), no plain call. Prints
+    ``ShardedPlan.stats`` first (the exchange's bytes against an
+    all-gather's, as counted), then the step median beside the train
+    phase's, the peak per rank, and one more step profiled on rank 0:
+    device time by kernel, the idle share and the collectives' host time
+    by profiler name. On one card the ranks are gloo processes sharing
+    cuda:0, whose point-to-point sends stage through host tensors (gloo's
+    send/recv take host memory only): the phase times the path, not
+    NCCL's transport.
+18d. **train-sharded longformer-4k** — the same at longformer-4k's full
+    size (its causal LM: one-sided halos), 4 steps, against train
+    longformer-4k; its one-layer gate runs the paper's bidirectional
+    Longformer layer (window 512, one global token with its global row:
+    halos on both sides and the global-row epilogue over the group).
 19. **train recurrentgemma-9b** — every published width, the depth cut
     to the deepest multiple of 3 (whole griffin groups) whose reckoned
     peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
     recomputed f32 scan temporaries counted) fits 92 % of the card, seq
     4096, batch 1, 10 steps, lr 1e-3, warmup 3; per step and group K1 2
     (remat full replays it), K2 1, K3 2 (two kernels a call).
-20. **train mamba2-370m** — at full size, seq 4096, batch 4, 10 steps,
-    lr 1e-3, warmup 3: no kernel launches; the loss falls.
+20. **train mamba2-370m** — at full width, 24 of its 48 layers, seq
+    4096, batch 4, 10 steps, lr 1e-3, warmup 3: no kernel launches; the
+    loss falls.
 Each phase added for the recurrent and MoE families prints its wall time,
 and the script its own before the ``kernels`` line.
 
@@ -318,7 +358,10 @@ PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
 # (recurrentgemma-9b trains the same way, whole griffin groups)
-MAMBA_BATCH = 4                    # mamba2-370m train: full size
+# mamba2-370m train: full width at batch 4, 24 of its 48 layers (depth
+# cut to keep the script near 900 s with the sharded train phases; its
+# plain recurrent scans are the slowest train step a layer)
+MAMBA_BATCH, MAMBA_TRAIN_LAYERS = 4, 24
 # the MoE family: served at full width, depth cut to fit (serve_depth);
 # their names in the kernels line's launch paths
 MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
@@ -1520,15 +1563,15 @@ def _merge_check(torch, group, k4, res, q, k_slab, v_slab, pt, pos, t, kw):
                                     rtol=tol))
 
 
-def _collective_ms(prof) -> dict:
+def _collective_ms(prof, keys=("all_reduce", "allreduce")) -> dict:
     """Host time of the collectives by profiler event name: {name:
-    (calls, ms)} for every event whose name holds "all_reduce" or
-    "allreduce" (the process group's op and its backend's span nest, so
-    each name is a view of the same calls)."""
+    (calls, ms)} for every event whose name holds one of ``keys`` (by
+    default "all_reduce" or "allreduce"; the process group's op and its
+    backend's span nest, so each name is a view of the same calls)."""
     out: dict = {}
     for e in prof.events():
         name = e.name.lower()
-        if "all_reduce" not in name and "allreduce" not in name:
+        if not any(k in name for k in keys):
             continue
         n, t = out.get(e.name, (0, 0.0))
         out[e.name] = (n + 1, t + e.cpu_time_total / 1e3)
@@ -2311,7 +2354,158 @@ def phase_train_kernels(torch, timer, seed):
             log(f"[train-kernels] case {name} {kname}: "
                 + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
         out_records[name] = recs
+    out_records["t"] = train_kernels_shard(torch, timer, seed)
     return out_records
+
+
+# K1-K3 case (t): one sequence shard's view, shard 1 of 2 at smollm-135m's
+# train shapes (8 x 9 flat heads, n 4096, hd 64, window 1024 + 4 sinks,
+# 128-blocks as the sharded op picks them): q on the shard's 16 local
+# blocks, K/V on its view of 16 local tiles, 8 halo tiles from shard 0
+# (distance -1), 1 halo slot at distance +1 and 1 global tile; bf16. The
+# +1 slot exists because the band walk of shard 0's last query block
+# lists the first tile of shard 1 (causally masked whole, as in the
+# reference's plan); on shard 1 it is padding, which no table reads.
+SHARD_T = dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
+               hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1))
+
+
+def _view_mask(torch, sched, pos_q, pos_k, kvb, flags):
+    """The dense (n_q, n_kv) mask that step tables imply over a view: the
+    pairs K1 attends."""
+    nq, bq = pos_q.shape
+    nkb, bk = pos_k.shape
+    mask = torch.zeros((nq, bq, nkb, bk), dtype=torch.bool,
+                       device=pos_q.device)
+    rows = torch.arange(nq, device=pos_q.device)
+    for s in range(kvb.shape[1]):
+        tile = kvb[:, s].long()
+        live = sched.step_mask(pos_q[:, :, None],
+                               pos_k.index_select(0, kvb[:, s])[:, None, :],
+                               flags[:, s, None, None])
+        mask[rows, :, tile, :] |= live
+    return mask.reshape(nq * bq, nkb * bk)
+
+
+def train_kernels_shard(torch, timer, seed):
+    """Case (t): K1, K2 and K3 on one shard's view tables
+    (``dist.sharded_plan.shard_plan``), held against their plain versions
+    within the train-kernels tolerances, dK/dV bitwise over two calls,
+    timed beside the bound, the plain versions and SDPA with the mask the
+    view tables imply. Returns {kernel: record}."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.dist.sharded_plan import shard_plan, shard_tables
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    c = SHARD_T
+    dtype = getattr(torch, c["dtype"])
+    sched = schedule(_case_pattern(c["pat"]), c["n"])
+    S, r, blk = c["shards"], c["shard"], c["blk"]
+    sp = shard_plan(sched.plan(blk, blk, S * blk), S)
+    check((sp.nkb_l, sp.halo_counts, sp.n_gt) == c["view"],
+          f"case t: view {sp.nkb_l} local + {sp.halo_counts} halo + "
+          f"{sp.n_gt} global tiles, expected {c['view']}")
+    t = shard_tables(sp, torch.device("cuda", 0))
+    pos_q, pos_k, kvb, flg = t.pos_q[r], t.pos_k[r], t.tables[r], t.flags[r]
+    dkv_t = (t.row_tile[r], t.q_blocks[r], t.pk_flags[r])
+    BH, D = c["bh"], c["hd"]
+    nQ, nK = sp.nq_l * blk, sp.view_tiles * blk
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+    q = torch.randn((BH, nQ, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((BH, nK, D), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    dout = torch.randn((BH, nQ, D), generator=gen, device="cuda")
+    kw = dict(sched=sched, scale=D ** -0.5)
+    fwd_args = (q, k, v, pos_q, pos_k, kvb, flg)
+    out, m, l = KA.salo_table_attention(*fwd_args, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(*fwd_args, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd_in = (dout, delta, rm, rl, q, k, v, pos_q, pos_k)
+    dq = KB.salo_table_backward_dq(*bwd_in, kvb, flg, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd_in, kvb, flg, **kw)
+    dk, dv = KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    ktol = KB.DKV_TOL[dtype]
+    errs = {}
+    for what, a, b, tl in (("out", out, ro, KA.OUT_TOL[dtype]),
+                           ("m", m, rm, KA.STATS_TOL),
+                           ("l", l, rl, KA.STATS_TOL),
+                           ("dq", dq, rdq, GRAD_TOL[c["dtype"]]),
+                           ("dk", dk, rdk, ktol), ("dv", dv, rdv, ktol)):
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"case t: non-finite {what}")
+        errs[what] = float((a - b).abs().max())
+        check(bool(torch.allclose(a, b, atol=tl, rtol=tl)),
+              f"case t: kernel {what} vs plain max abs err {errs[what]} "
+              f"> {tl}")
+    errs["dq_off_share"] = KB.dq_off_share(dq, rdq)
+    check(errs["dq_off_share"] <= KB.DQ_OFF_SHARE,
+          f"case t: dq off share {errs['dq_off_share']}")
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          "case t: dK/dV differ between two runs on one input")
+    pairs = BH * _attended_pairs(torch, sched, pos_q, pos_k, kvb, flg)
+    log(f"[train-kernels] case t {c['dtype']} shard {r} of {S}, "
+        f"{sched.pattern} n={c['n']}: q {nQ} rows, view {nK} keys "
+        f"({sp.nkb_l} local + {sum(sp.halo_counts)} halo + {sp.n_gt} global "
+        f"tiles of {blk}), B*H={BH} hd={D}: steps={kvb.shape[1]} "
+        f"packed rows={dkv_t[0].numel()} pairs={pairs} max abs err {errs}; "
+        f"dK/dV bitwise equal over two runs")
+
+    # bytes: each input read once, each output written once; operations as
+    # _k12_io and the K3 count of phase_train_kernels, at the bf16 rate
+    item, pk16 = q.element_size(), PEAK_OPS[c["dtype"]]
+    qb, kvb_bytes = BH * nQ * D * item, 2 * BH * nK * D * item
+    stats = 3 * BH * nQ * 4
+    tables = 4 * (pos_q.numel() + pos_k.numel() + kvb.numel() + flg.numel())
+    ttables = 4 * (pos_q.numel() + pos_k.numel()
+                   + sum(x.numel() for x in dkv_t))
+    io = {K1: (qb + kvb_bytes + qb + 2 * BH * nQ * 4 + tables,
+               [(4 * D * pairs, pk16)]),
+          K2: (qb + kvb_bytes + BH * nQ * D * 4 + stats + qb + tables,
+               [(6 * D * pairs, pk16)]),
+          K3: (qb + kvb_bytes + BH * nQ * D * 4 + stats
+               + 2 * BH * nK * D * 4 + ttables, [(8 * D * pairs, pk16)])}
+    calls = {
+        K1: (lambda: KA.salo_table_attention(*fwd_args, **kw),
+             lambda: KA.salo_table_attention_plain(*fwd_args, **kw)),
+        K2: (lambda: KB.salo_table_backward_dq(*bwd_in, kvb, flg, **kw),
+             lambda: KB.salo_table_backward_dq_plain(*bwd_in, kvb, flg,
+                                                     **kw)),
+        K3: (lambda: KB.salo_table_backward_dkv(*bwd_in, *dkv_t, **kw),
+             lambda: KB.salo_table_backward_dkv_plain(*bwd_in, *dkv_t,
+                                                      **kw))}
+    mask = _view_mask(torch, sched, pos_q, pos_k, kvb, flg)
+    qs, kss, vs = (x[None].detach().requires_grad_() for x in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qs, kss, vs, attn_mask=mask)
+
+    lib_out = lib_fwd()
+    g_lib = dout[None].to(dtype)
+    lib_ms = {K1: timer(lib_fwd), "backward": timer(
+        lambda: torch.autograd.grad(lib_out, (qs, kss, vs), g_lib,
+                                    retain_graph=True))}
+    del lib_out
+    recs = {}
+    for name, (kfn, pfn) in calls.items():
+        nbytes, parts = io[name]
+        bound_ms, bound_by = _bound(nbytes, parts)
+        recs[name] = dict(
+            kernel_ms=timer(kfn),
+            plain_ms=timer(pfn, iters=2, sleep_cycles=4_000_000_000),
+            library_ms=lib_ms[K1 if name == K1 else "backward"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=(errs["out"] if name == K1 else errs["dq"]
+                         if name == K2 else max(errs["dk"], errs["dv"])),
+            bytes=nbytes, ops=sum(o for o, _ in parts))
+        log(f"[train-kernels] case t {name}: "
+            + " ".join(f"{a}={b}" for a, b in recs[name].items()))
+    return recs
 
 
 # --------------------------------------------------------------------- #
@@ -2660,7 +2854,8 @@ def _train_cfg(smoke: bool):
     return get_config("smollm-135m")
 
 
-def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed):
+def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
+             group=None):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -2672,7 +2867,8 @@ def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed):
                        schedule=Schedule(warmup_steps=warmup,
                                          total_steps=steps))
     ds = SyntheticLM(cfg, DataConfig(seq, batch, seed=seed))
-    return make_train_step(model, tcfg), adamw.init(tcfg.optimizer, params), ds
+    return (make_train_step(model, tcfg, group=group),
+            adamw.init(tcfg.optimizer, params), ds)
 
 
 def _counters(reset: bool = False):
@@ -3373,6 +3569,310 @@ def phase_train_ft(torch, seed, ft) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- #
+# Sequence-parallel training (dist/sharded_plan.py): S ranks through
+# dist.group.run_ranks, each holding one contiguous slice of every
+# sequence; the halo exchange feeds K1-K3 on each shard's view tables.
+TRAIN_SHARDS = 2
+SHARDED_STEPS = {"smollm-135m": 6, "longformer-4k": 4}
+# the one-layer gate's pattern per arch: the model's own (None), or the
+# paper's bidirectional Longformer layer with its global row (the
+# longformer-4k LM trains on its causal form, as the reference's does)
+SHARDED_GATE = {"smollm-135m": None, "longformer-4k": ("lf", 512, 1)}
+TRAIN_SHARD_TIMEOUT_S = 600.0
+# the collectives of a sharded train step by profiler name: the point-to-
+# point halo sends and receives and the all_reduces
+P2P_KEYS = ("all_reduce", "allreduce", "send", "recv")
+
+
+def _digest(torch, *trees) -> str:
+    """sha256 of every leaf's bytes, in tree order: equal digests on two
+    ranks mean bitwise-equal state."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for tree in trees:
+        for x in tree_leaves(tree):
+            h.update(x.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_prelude(torch) -> None:
+    """What main() sets for itself, in a spawned rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def sharded_check_rank(group, seed, cfg, params):
+    """A spawned rank of train-sharded-check: ``cfg`` trained 3 steps
+    under the group from ``params`` (seq 128, batch 2, as train_check).
+    Returns the losses, the rank's launch counts and the digest of its
+    parameters and optimizer state."""
+    import torch
+
+    _rank_prelude(torch)
+    dev = str(group.device)
+    p = _to(params, dev)
+    step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                             lr=3e-3, warmup=1, seed=seed, group=group)
+    _counters(reset=True)
+    losses = []
+    for i in range(3):
+        p, opt, met = step(p, opt, ds.batch(i))
+        losses.append(float(met["loss"]))
+    launches, plain = _counters()
+    return dict(losses=losses, launches=launches, plain=plain,
+                digest=_digest(torch, p, opt.m, opt.v))
+
+
+def train_sharded_check(torch, seed):
+    """train-sharded-check: the narrowed f32 smollm (train_check's) and
+    longformer (hd 64) trained 3 steps on ``TRAIN_SHARDS`` ranks
+    (``_shard_backend``) and unsharded on the card from the same
+    parameters and batches: losses within 1e-4, parameters and optimizer
+    state bitwise equal across the ranks, K1-K3 launched on every rank
+    and no plain version. Returns {path: launches summed over the
+    ranks}."""
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models.model import build_model
+
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    cfgs = {"smollm-135m": _train_cfg(smoke=True),
+            "longformer-4k": _check_cfgs()["longformer-4k"]}
+    out = {}
+    for arch, cfg in cfgs.items():
+        params = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        p = _to(params, "cuda")
+        step, opt, ds = _trainer(cfg, "cuda", p, seq=128, batch=2, steps=3,
+                                 lr=3e-3, warmup=1, seed=seed)
+        ref = []
+        for i in range(3):
+            p, opt, met = step(p, opt, ds.batch(i))
+            ref.append(float(met["loss"]))
+        t0 = time.perf_counter()
+        res = run_ranks(sharded_check_rank, TRAIN_SHARDS, backend=backend,
+                        device=device, timeout_s=TRAIN_SHARD_TIMEOUT_S,
+                        args=(seed, cfg, params))
+        for r, rec in enumerate(res):
+            check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
+                      for a, b in zip(rec["losses"], ref)),
+                  f"train-sharded-check {arch} rank {r}: losses "
+                  f"{rec['losses']} != unsharded {ref} (1e-4)")
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"train-sharded-check {arch} rank {r}: launches "
+                  f"{rec['launches']}, plain {rec['plain']}")
+        check(len({rec["digest"] for rec in res}) == 1,
+              f"train-sharded-check {arch}: parameters or optimizer state "
+              f"differ across the ranks")
+        launches = {k: sum(rec["launches"][k] for rec in res)
+                    for k in ("K1", "K2", "K3")}
+        log(f"[train-sharded-check] {arch} d {cfg.d_model} hd {cfg.hd} "
+            f"f32, {TRAIN_SHARDS} ranks on backend {backend} "
+            f"({device or 'one card a rank'}), "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start: losses "
+            f"{res[0]['losses']} vs unsharded {ref} (within 1e-4); state "
+            f"bitwise equal across the ranks; launches a rank "
+            f"{res[0]['launches']}")
+        out[f"train-sharded-check-{arch}"] = launches
+    return out
+
+
+def _layer_gate(torch, group, cfg, seed, spec=None):
+    """One layer's attention at the train shapes (8 x H flat heads, n 4096,
+    bf16): ``sharded_attention`` forward and backward on this rank's
+    slice — the exchange and K1-K3 on the view — against unsharded
+    ``salo_attention`` on the whole sequence, this rank's slice of out and
+    of dq/dk/dv within ``OUT_TOL`` / ``GRAD_TOL``. ``spec``: a
+    ``_case_pattern`` spec, else the model's pattern. Returns (errs, ok)."""
+    from repro_torch.dist.sharded_plan import sharded_attention
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels.ops import salo_attention
+    from repro_torch.models.layers import salo_pattern
+
+    dev = group.device
+    pat = salo_pattern(cfg) if spec is None else _case_pattern(spec)
+    BH, N, D = TRAIN_BATCH * cfg.n_heads, 4096, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(seed + 400)
+    full = [torch.randn((BH, N, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(4)]
+    n = N // group.size
+    sl = slice(group.index * n, (group.index + 1) * n)
+    bq, bk = cfg.salo.block_q, cfg.salo.block_k
+    q, k, v = (x[:, sl].contiguous().requires_grad_() for x in full[:3])
+    out = sharded_attention(q, k, v, pat, group, block_q=bq, block_k=bk)
+    grads = torch.autograd.grad(out, (q, k, v), full[3][:, sl].contiguous())
+    qf, kf, vf = (x.detach().requires_grad_() for x in full[:3])
+    ref = salo_attention(qf, kf, vf, pat, bq, bk)
+    rgrads = torch.autograd.grad(ref, (qf, kf, vf), full[3])
+    tol, gtol = KA.OUT_TOL[torch.bfloat16], GRAD_TOL["bfloat16"]
+    errs, ok = {}, True
+    for what, a, b, tl in (("out", out, ref[:, sl], tol),
+                           *((f"d{w}", g, rg[:, sl], gtol) for w, g, rg in
+                             zip("qkv", grads, rgrads))):
+        a, b = a.detach().float(), b.detach().float()
+        errs[what] = float((a - b).abs().max())
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            torch.allclose(a, b, atol=tl, rtol=tl))
+    return errs, ok
+
+
+def train_sharded_rank(group, seed, arch, steps):
+    """A spawned rank of a full-size train-sharded phase: the one-layer
+    gate, then ``arch`` at full width and depth, bf16, remat full, seq
+    4096, global batch ``TRAIN_BATCH``, ``steps`` steps of the train
+    phase's schedule (20 steps, lr 3e-3, warmup 10) from the same seed,
+    then one more step, profiled on rank 0. Returns the rank's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    _rank_prelude(torch)
+    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    dev = str(group.device)
+    cfg = get_config(arch)
+    gate_errs, gate_ok = _layer_gate(torch, group, cfg, seed,
+                                     SHARDED_GATE[arch])
+    torch.cuda.empty_cache()
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=TRAIN_BATCH,
+                             steps=TRAIN_STEPS, lr=3e-3, warmup=10,
+                             seed=seed, group=group)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, times = [], []
+    for i in range(steps):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        if group.index == 0:
+            log(f"[{tag}] rank 0 step {i} loss {losses[-1]:.4f} grad norm "
+                f"{float(met['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(losses=losses, times=times, launches=launches, plain=plain,
+               peak=peak, gate_errs=gate_errs, gate_ok=gate_ok,
+               digest=_digest(torch, params, opt.m, opt.v))
+    batch = ds.batch(steps)
+    torch.cuda.synchronize()
+    prof = None
+    if group.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met = step(params, opt, batch)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    if prof is not None:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, f"{tag} step (rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, P2P_KEYS))
+    return rec
+
+
+def phase_train_sharded(torch, seed, arch, ref):
+    """train-sharded (smollm-135m) and train-sharded longformer-4k:
+    ``TRAIN_SHARDS`` ranks (``_shard_backend``) train ``arch`` at full
+    width and depth (``train_sharded_rank``). ``ref``: the unsharded train
+    phase's stats (same seed, weights, batches and schedule). Gates: every
+    rank's one-layer gate; the step-0 loss within 5e-3 of the unsharded
+    phase's step 0 and every step within 2e-2 of it, the loss falling;
+    equal losses and bitwise-equal parameters and optimizer state on every
+    rank; per rank and step 2 K1 (the forward and remat full's replay), 1
+    K2 and 1 K3 call (2 kernels) an attention layer, no plain version.
+    Prints first ``ShardedPlan.stats``: the exchange's bytes against an
+    all-gather's, as counted. Returns the launches summed over the
+    ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import build_plan, schedule
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.dist.sharded_plan import _auto_block, shard_plan
+    from repro_torch.models.layers import salo_pattern
+
+    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    steps, S = SHARDED_STEPS[arch], TRAIN_SHARDS
+    cfg = get_config(arch)
+    for what, pat in (("model", salo_pattern(cfg)),
+                      ("gate", salo_pattern(cfg) if SHARDED_GATE[arch] is None
+                       else _case_pattern(SHARDED_GATE[arch]))):
+        sched = schedule(pat, 4096)
+        b = _auto_block(sched.n_work, S, cfg.salo.block_q)
+        sp = shard_plan(build_plan(sched, b, b, S * b), S)
+        st = sp.stats(cfg.hd)
+        heads = TRAIN_BATCH * cfg.n_heads
+        log(f"[{tag}] ShardedPlan.stats({cfg.hd}) of the {what}'s attention "
+            f"{pat} at n 4096, {S} shards, blocks {b}: view {sp.nkb_l} "
+            f"local + {sp.halo_counts} halo (distances {sp.halo_dists}) + "
+            f"{sp.n_gt} global tiles; per flat head and layer {st}; per "
+            f"layer over {heads} flat heads: exchange "
+            f"{st['exchange_bytes'] * heads} bytes vs all-gather "
+            f"{st['allgather_bytes'] * heads} (counted, not timed)")
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    backend, device = _shard_backend(torch, S)
+    t0 = time.perf_counter()
+    recs = run_ranks(train_sharded_rank, S, backend=backend, device=device,
+                     timeout_s=TRAIN_SHARD_TIMEOUT_S,
+                     args=(seed, arch, steps))
+    wall = time.perf_counter() - t0
+    want_l = ref["losses"][:steps]
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
+            "K3": 2 * n_attn * steps}
+    r0 = recs[0]
+    for r, rec in enumerate(recs):
+        check(rec["gate_ok"], f"{tag} rank {r}: one layer's sharded "
+              f"attention vs unsharded salo_attention: errs "
+              f"{rec['gate_errs']} (OUT_TOL / GRAD_TOL bf16)")
+        check(rec["losses"] == r0["losses"],
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(abs(losses[0] - want_l[0]) <= 5e-3,
+          f"{tag}: step-0 loss {losses[0]} vs unsharded {want_l[0]} (5e-3)")
+    check(all(abs(a - b) <= 2e-2 for a, b in zip(losses, want_l)),
+          f"{tag}: losses {losses} vs unsharded {want_l} (2e-2)")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    check(len({rec["digest"] for rec in recs}) == 1,
+          f"{tag}: parameters or optimizer state differ across the ranks")
+    med = sorted(r0["times"][1:])[(steps - 1) // 2] * 1e3
+    coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    log(f"[{tag}] {arch} bf16 remat full, {S} ranks on backend {backend} "
+        f"({device or 'one card a rank'}), seq 4096 = {S} x {4096 // S}, "
+        f"global batch {TRAIN_BATCH}, {steps} steps of a {TRAIN_STEPS}-step "
+        f"schedule: {wall:.1f} s with the ranks' start; one-layer gate errs "
+        f"{[rec['gate_errs'] for rec in recs]}; losses {losses} vs "
+        f"unsharded {want_l} (max diff "
+        f"{max(abs(a - b) for a, b in zip(losses, want_l))}); state "
+        f"bitwise equal across the ranks; launches a rank {r0['launches']}")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{steps - 1} "
+        f"(rank 0; unsharded {ref['median_ms']:.3f} ms); peak per rank "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in recs]} GiB "
+        f"(unsharded {ref['peak'] / 2**30:.3f} GiB); profiled step (rank "
+        f"0): host wall {r0['profiled_ms']:.3f} ms, device idle share "
+        f"{r0['idle']:.3f}, collectives by name (host time): {coll}")
+    return {k: sum(rec["launches"][k] for rec in recs)
+            for k in ("K1", "K2", "K3")}
+
+
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
     """Device time by kernel name over the profiled engine steps, and the
     device's idle share (1 - kernel time / host wall time of the steps;
@@ -3547,16 +4047,24 @@ def main(argv=None) -> int:
         n_layers=train_depth(torch, "gemma-7b", 4096, GEMMA_BATCH),
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    tl["longformer-4k"], _, _ = phase_train(torch, args.seed,
-                                            "longformer-4k")
+    tl["longformer-4k"], _, lf_stats = phase_train(torch, args.seed,
+                                                   "longformer-4k")
+    torch.cuda.empty_cache()
+    # sequence-parallel training: the narrowed check, then smollm-135m and
+    # longformer-4k at full size against the unsharded train phases
+    tl.update(train_sharded_check(torch, args.seed))
+    tl["train-sharded"] = phase_train_sharded(torch, args.seed,
+                                              "smollm-135m", full)
+    tl["train-sharded-longformer-4k"] = phase_train_sharded(
+        torch, args.seed, "longformer-4k", lf_stats)
     torch.cuda.empty_cache()
     tl["train-recurrentgemma-9b"], _, _ = phase_train(
         torch, args.seed, "recurrentgemma-9b",
         n_layers=train_depth(torch, "recurrentgemma-9b", 4096, GEMMA_BATCH),
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    phase_train(torch, args.seed, "mamba2-370m", steps=GEMMA_STEPS,
-                batch=MAMBA_BATCH, lr=1e-3, warmup=3)
+    phase_train(torch, args.seed, "mamba2-370m", n_layers=MAMBA_TRAIN_LAYERS,
+                steps=GEMMA_STEPS, batch=MAMBA_BATCH, lr=1e-3, warmup=3)
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -3613,7 +4121,8 @@ def main(argv=None) -> int:
                 "i": "vil_stage1_bf16", "j": "vil_stage2_bf16",
                 "k": "recurrentgemma_9b_local_hd256_mqa_bf16",
                 "l": "kimi_k2_hd128_gqa8_bf16",
-                "m": "whisper_base_encoder_n1500_global_rows_bf16"}
+                "m": "whisper_base_encoder_n1500_global_rows_bf16",
+                "t": "shard_view_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

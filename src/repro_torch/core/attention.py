@@ -36,7 +36,8 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      plan: str = "static",
                      dynamic_keep: Optional[int] = None,
                      dynamic_local_window: Optional[int] = None,
-                     dynamic_pool_k: Optional[int] = None) -> torch.Tensor:
+                     dynamic_pool_k: Optional[int] = None,
+                     group=None) -> torch.Tensor:
     """Hybrid sparse attention (training / full sequence). q: (B, H, N, D);
     k/v: (B, Hkv, N, D). Differentiable.
 
@@ -52,8 +53,15 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     see the DynamicConfig knobs ``dynamic_local_window`` /
     ``dynamic_pool_k``), on tables built on the device at run time.
     Dynamic plans need a table-driven engine (any ``impl`` but
-    ``dense_ref``). Sequence-parallel training is not ported (the train CLI
-    raises for ``--data``/``--model`` > 1).
+    ``dense_ref``).
+
+    ``group`` (a :class:`~repro_torch.dist.group.SeqGroup` of size > 1):
+    sequence parallelism, the reference's "seq" rule. q/k/v are then this
+    rank's contiguous slice (B, H, N / S, D) of the sequence, and the op
+    routes, after the GQA expand, to
+    :func:`repro_torch.dist.sharded_plan.sharded_attention` (the static or
+    the dynamic plan; the halo exchange feeds K1–K3 on each shard's view).
+    ``impl="dense_ref"`` under such a group raises.
 
     GQA: KV heads are expanded to H by ``expand(...).reshape`` — a copy of
     K/V ``rep`` times in torch (the reference's broadcast is free in XLA).
@@ -84,7 +92,15 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.reshape(B * H, N, D)
     kf = k.reshape(B * H, N, D)
     vf = v.reshape(B * H, N, D)
-    if dcfg is not None:
+    if group is not None and group.size > 1:
+        if impl == "dense_ref":
+            raise ValueError("impl='dense_ref' has no sequence-parallel "
+                             "form; under a group use a table-driven "
+                             "engine")
+        from repro_torch.dist.sharded_plan import sharded_attention
+        out = sharded_attention(qf, kf, vf, pattern, group, block_q=block_q,
+                                block_k=block_k, scale=scale, dynamic=dcfg)
+    elif dcfg is not None:
         from repro_torch.core.dynamic import dynamic_attention
         out = dynamic_attention(qf, kf, vf, pattern, dcfg, block_q=block_q,
                                 block_k=block_k, scale=scale, impl=impl)

@@ -329,8 +329,21 @@ def table_dkv_scatter_scan(dout, delta, m, l, q, k, v, pos_q, pos_k,
     return dk.reshape(B, nkb * bk, D), dv.reshape(B, nkb * bk, D)
 
 
+def _dense_rows_vjp(q, k, v, sched: BandSchedule, scale: float, g):
+    """The global-rows epilogue's VJP on whole-sequence tensors: the
+    forward overwrote rows [:g] with the dense g-row pass on
+    ORIGINAL-order tensors; its VJP is dense but tiny (g rows), and those
+    rows' main-path cotangent is zeroed. Returns ``(g, (dq, dk, dv))``."""
+    ng = sched.n_global
+    with torch.enable_grad():
+        qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
+        rows = _global_rows(qe, ke, ve, sched, scale, g.dtype)
+        extra = torch.autograd.grad(rows, (qe, ke, ve), g[:, :ng])
+    return torch.cat([torch.zeros_like(g[:, :ng]), g[:, ng:]], dim=1), extra
+
+
 def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,
-                  dq_engine, dkv_engine):
+                  dq_engine, dkv_engine, *, rows_vjp=None, working=None):
     """THE backward contract of every engine: host-step adjoints around two
     plan-walking gradient passes.
 
@@ -338,42 +351,42 @@ def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,
     working layout and return working-layout gradients. Everything else —
     the global-rows epilogue VJP, cotangent reorder/pad, the ``delta``
     precompute, gradient un-reordering — is this one code path.
+
+    A sequence shard (:func:`repro_torch.dist.sharded_plan
+    .sharded_attention`) passes its own pieces: ``rows_vjp(g) -> (g,
+    (dq, dk, dv) or None)``, the global rows' VJP over the group, and
+    ``working = (to_work, from_work, pos)``, the working-stream transforms
+    of its slice and the ``pos`` its engines get. The defaults are the
+    whole sequence's: :func:`_dense_rows_vjp` where the pattern has global
+    rows, :func:`working_stream` / :func:`undo_working` and the plan's
+    positions.
     """
     sched = plan.sched
     B, N, D = q.shape
-    # 1. Global-rows epilogue: the forward overwrote rows [:g] with the
-    #    dense g-row pass on ORIGINAL-order tensors; its VJP is dense but
-    #    tiny (g rows), and those rows' main-path cotangent is zeroed.
-    if sched.n_global > 0 and sched.global_rows:
-        ng = sched.n_global
-        with torch.enable_grad():
-            qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
-            rows = _global_rows(qe, ke, ve, sched, scale, g.dtype)
-            dq_rows, dk_rows, dv_rows = torch.autograd.grad(
-                rows, (qe, ke, ve), g[:, :ng])
-        g = torch.cat([torch.zeros_like(g[:, :ng]), g[:, ng:]], dim=1)
-    else:
-        dq_rows = dk_rows = dv_rows = None
+    # 1. Global-rows epilogue VJP (its rows' main-path cotangent zeroed).
+    if rows_vjp is None and sched.n_global > 0 and sched.global_rows:
+        rows_vjp = functools.partial(_dense_rows_vjp, q, k, v, sched, scale)
+    g, extra = rows_vjp(g) if rows_vjp is not None else (g, None)
+    if working is None:
+        working = (lambda x: working_stream(x, sched, plan),
+                   lambda x: undo_working(x, sched, N, plan),
+                   plan_tables(plan, q.device).pos)
+    to_work, from_work, pos = working
     # 2. The output reorder is a permutation: the cotangent takes the SAME
     #    working-stream transform as the inputs did.
-    dout = working_stream(g, sched, plan).float()
-    qw = working_stream(q, sched, plan)
-    kw = working_stream(k, sched, plan)
-    vw = working_stream(v, sched, plan)
-    pos = plan_tables(plan, q.device).pos
+    dout = to_work(g).float()
+    qw, kw, vw = to_work(q), to_work(k), to_work(v)
     # 3. delta = rowwise dout . out — the flash-backward precompute.
     delta = (dout * out_w.float()).sum(dim=-1)
     # 4. The two plan walks.
     dq_w = dq_engine(dout, delta, m, l, qw, kw, vw, pos)
     dk_w, dv_w = dkv_engine(dout, delta, m, l, qw, kw, vw, pos)
     # 5. Back to original order (+ the epilogue contributions).
-    dq = undo_working(dq_w, sched, N, plan)
-    dk = undo_working(dk_w, sched, N, plan)
-    dv = undo_working(dv_w, sched, N, plan)
-    if dq_rows is not None:
-        dq = dq + dq_rows
-        dk = dk + dk_rows
-        dv = dv + dv_rows
+    dq, dk, dv = from_work(dq_w), from_work(dk_w), from_work(dv_w)
+    if extra is not None:
+        dq = dq + extra[0]
+        dk = dk + extra[1]
+        dv = dv + extra[2]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

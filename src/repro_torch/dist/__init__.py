@@ -7,17 +7,23 @@ control.
 * :mod:`repro_torch.dist.group` — :class:`~repro_torch.dist.group.SeqGroup`,
   the port's counterpart of a 1-D "seq" mesh and ``shard_map``'s axis
   index (the process group, this rank's shard, the size, the device) with
-  in-place ``pmax_``/``psum_`` collectives; ``StackedGroup``, the same
-  collectives over a leading shard axis on one device (``jax.vmap`` with
-  an axis name); and :func:`~repro_torch.dist.group.run_ranks`, which
-  starts ``n`` local ranks on an explicit backend and joins them under a
-  deadline.
-* :mod:`repro_torch.dist.sharded_plan` — ``masked_psum_merge``, the
-  cross-shard softmax merge of the sequence-parallel serving engine
-  (``ContinuousEngine(seq_shards > 1, group=...)``).
+  in-place ``pmax_``/``psum_`` collectives and ``ppermute``;
+  ``StackedGroup``, the same collectives over a leading shard axis on one
+  device (``jax.vmap`` with an axis name); and
+  :func:`~repro_torch.dist.group.run_ranks`, which starts ``n`` local ranks
+  on an explicit backend and joins them under a deadline.
+* :mod:`repro_torch.dist.sharded_plan` — sequence-parallel training
+  (``ShardedPlan``/``shard_plan``: per-shard step tables over a ``[local |
+  halo | global]`` view; the halo exchange and its exact reverse; K1–K3
+  per shard; ``sharded_attention``, which ``hybrid_attention``,
+  ``Model.loss`` and ``make_train_step`` reach under ``group=``), and
+  ``masked_psum_merge``, the cross-shard softmax merge of the
+  sequence-parallel serving engine (``ContinuousEngine(seq_shards > 1,
+  group=...)``) and of training's global rows.
 
 Not ported yet (ROADMAP queue 1, item 3): the reference's logical-axis
-sharding rules (``repro.dist.sharding``), the training ``ShardedPlan``
-(``shard_plan``, the halo exchange and its reverse on the backward), and
-int8 gradient compression (``repro.dist.compression``).
+sharding rules (``repro.dist.sharding``, the data- and tensor-parallel
+axes), int8 gradient compression (``repro.dist.compression``), and the
+sharded op on reordered schedules (dilation > 1, dilated sinks: a global
+stride permutation across shards).
 """

@@ -9,11 +9,12 @@ process group:
 
 * :class:`SeqGroup` — the process group, this rank's shard ``index``, the
   ``size`` and the rank's ``device``, with in-place ``pmax_``/``psum_``
-  (``all_reduce`` MAX / SUM) and :meth:`SeqGroup.agree` (rank 0's scalar on
-  every rank).
+  (``all_reduce`` MAX / SUM), :meth:`SeqGroup.ppermute` (``jax.lax
+  .ppermute``: the halo exchange of sequence-parallel training) and
+  :meth:`SeqGroup.agree` (rank 0's scalar on every rank).
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
-  is to ``shard_map``. It holds every shard's partial in one process (the
+  is to ``shard_map``. It holds every shard's tensors in one process (the
   merge checks on one card and the CPU tests use it).
 * :func:`run_ranks` — start ``n`` local ranks, call ``fn(group, *args)``
   in each, join them under a deadline, and return every rank's result.
@@ -21,7 +22,12 @@ process group:
 The backend is always the caller's choice, never guessed: ``"nccl"`` puts
 rank ``r`` on ``cuda:r`` and needs that many cards; ``"gloo"`` puts every
 rank on the one device the caller names (``"cpu"``, or one ``cuda:0``
-that the ranks share; gloo's ``all_reduce`` takes CUDA tensors).
+that the ranks share). Gloo's ``all_reduce`` takes CUDA tensors; its
+point-to-point ``send``/``recv`` take host memory only (given a CUDA
+tensor it fails with "writev: Bad address", ``tools/gloo_p2p_probe.py``),
+so :meth:`SeqGroup.ppermute` on a gloo group on a CUDA device copies its
+buffers through host tensors (:attr:`SeqGroup.host_p2p`), a transport
+step named by the backend, never taken on NCCL.
 """
 from __future__ import annotations
 
@@ -66,6 +72,48 @@ class SeqGroup:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return t
 
+    @property
+    def host_p2p(self) -> bool:
+        """Whether :meth:`ppermute` stages its buffers through host memory:
+        on a gloo group whose tensors live on a CUDA device (gloo's
+        point-to-point ``send``/``recv`` take host tensors only). NCCL and
+        gloo on the CPU send the tensors as they are."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def ppermute(self, buf: torch.Tensor, perm) -> torch.Tensor:
+        """``jax.lax.ppermute``: ``perm`` lists ``(src, dst)`` pairs, each
+        rank at most once as a source and once as a destination. This rank
+        sends ``buf`` to the ``dst`` of its pair and returns the buffer it
+        receives (zeros where no pair names it as the destination). Every
+        rank passes the same ``perm`` and a ``buf`` of the same shape and
+        type; the sends and receives go out together through
+        ``dist.batch_isend_irecv``. On a gloo group on a CUDA device
+        (:attr:`host_p2p`) both buffers are copied through pinned host
+        tensors."""
+        dst = [d for s, d in perm if s == self.index]
+        src = [s for s, d in perm if d == self.index]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"perm {perm} names rank {self.index} more "
+                             f"than once as a source or a destination")
+        stage = self.host_p2p
+        send = buf.contiguous()
+        if stage:       # through pinned host buffers (cached by torch)
+            send = torch.empty(buf.shape, dtype=buf.dtype,
+                               pin_memory=True).copy_(send)
+        recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                           pin_memory=stage)
+        if not src:
+            recv.zero_()
+        ops = []
+        if dst:
+            ops.append(dist.P2POp(dist.isend, send, dst[0], group=self.pg))
+        if src:
+            ops.append(dist.P2POp(dist.irecv, recv, src[0], group=self.pg))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return recv.to(self.device) if stage else recv
+
     def agree(self, value: float) -> float:
         """Rank 0's ``value`` on every rank (an ``all_reduce`` MAX of one
         f64 in which the other ranks put ``-inf``). The engine reads its
@@ -100,6 +148,16 @@ class StackedGroup:
     def psum_(self, t: torch.Tensor) -> torch.Tensor:
         self._check(t)
         return t.copy_(t.sum(dim=0, keepdim=True).expand_as(t))
+
+    def ppermute(self, buf: torch.Tensor, perm) -> torch.Tensor:
+        """``jax.lax.ppermute`` over the leading shard axis: slice ``dst``
+        of the result is slice ``src`` of ``buf`` for each ``(src, dst)``
+        pair, zeros where no pair names the shard as the destination."""
+        self._check(buf)
+        out = torch.zeros_like(buf)
+        for s, d in perm:
+            out[d] = buf[s]
+        return out
 
 
 def _rank_devices(n: int, backend: str, device) -> List[str]:

@@ -165,23 +165,31 @@ def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
                pattern: HybridSparsePattern,
-               positions: Optional[torch.Tensor] = None, mrope=None):
+               positions: Optional[torch.Tensor] = None, mrope=None,
+               group=None):
     """Full-sequence attention (train). x: (B, S, d); positions (B, S), or
     (3, B, S) under M-RoPE (``mrope``: the sections); returns (B, S, d).
     (The reference also returns (k, v) for its prefill-to-cache path; the
     port prefills through :func:`attn_chunk_prefill`. Its ``kv`` argument
     has no caller: cross attention is :func:`cross_attn_apply`.)
 
+    ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
+    parallel training. x is this rank's slice of S tokens of the
+    sequence, the default positions are its global ones (``group.index *
+    S + arange(S)``) and the attention runs sharded.
+
     The (B, S, H, hd) -> (B*H, S, hd) layout change is a copy in torch
     (a free transpose in XLA)."""
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        start = 0 if group is None else group.index * S
+        positions = torch.arange(start, start + S,
+                                 device=x.device).expand(B, S)
     q, k, v = attn_qkv(p, x, cfg, positions, mrope)
     out = hybrid_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pattern,
         impl=cfg.salo.impl, block_q=cfg.salo.block_q,
-        block_k=cfg.salo.block_k)
+        block_k=cfg.salo.block_k, group=group)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(x.dtype)
 
@@ -419,13 +427,23 @@ def logits_apply(p_embed, p_head, x: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits (B, S, V), targets (B, S) int. Mean NLL over mask, in f32."""
+                  mask: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
+    """logits (B, S, V), targets (B, S) int. Mean NLL over mask, in f32.
+
+    Under a sequence ``group`` the tokens are this rank's slice: the
+    result is the local sum of token losses over the group's total token
+    count (one ``all_reduce`` of the count, which carries no gradient), so
+    the ranks' results add up to the whole sequence's mean."""
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     nll = logz - gold
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if group is None:
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    count = group.psum_(mask.sum().detach().reshape(1))
+    return (nll * mask).sum() / torch.clamp(count[0], min=1.0)

@@ -89,13 +89,21 @@ class Model:
                                "attn_mlp", pattern)
         return L.rmsnorm(params["enc"]["ln_f"], x, cfg.norm_eps)
 
-    def forward(self, params, batch, return_aux: bool = False):
+    def forward(self, params, batch, return_aux: bool = False, group=None):
         """Logits (B, S, vocab) of the full sequence; with ``return_aux``,
         (logits, aux): the MoE aux losses (``load_balance``, ``router_z``,
         ``dropped_frac``) summed over the segments' layers, ``{}`` for
         the other families. Under M-RoPE the positions default to
-        ``arange(S)`` in all three components, (3, B, S)."""
+        ``arange(S)`` in all three components, (3, B, S).
+
+        ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
+        parallel training; ``batch`` holds this rank's slice of every
+        sequence and the logits are that slice's. Only the dense
+        families' ``attn_mlp`` programs run under a group of more than
+        one shard (``transformer.check_sequence_parallel``)."""
         cfg = self.cfg
+        for kind, _ in self.program:
+            T.check_sequence_parallel(cfg, kind, group)
         x = self._embed_inputs(params, batch)
         positions = batch.get("positions", None)
         mrope = cfg.mrope_sections
@@ -109,19 +117,30 @@ class Model:
             x, aux = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
                                      pats.get(kind, pats["attn_mlp"]),
                                      positions=positions, mrope=mrope,
-                                     enc_out=enc_out)
+                                     enc_out=enc_out, group=group)
             T.add_aux(aux_total, aux)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
                                 cfg)
         return (logits, aux_total) if return_aux else logits
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, group=None):
         """Mean next-token NLL plus the MoE aux losses ``load_balance`` and
         ``router_z``; returns ``(loss, metrics)`` as the reference does:
-        ``nll``, every aux term (``dropped_frac`` too) and ``loss``."""
-        logits, aux = self.forward(params, batch, return_aux=True)
-        nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+        ``nll``, every aux term (``dropped_frac`` too) and ``loss``.
+
+        Under a sequence ``group`` (``batch`` this rank's slice) ``loss``
+        is this rank's share — the local sum of token losses over the
+        group's token count — whose gradients summed over the ranks are
+        the whole sequence's; the metrics ``nll`` and ``loss`` are the
+        group's totals (one ``all_reduce``, detached)."""
+        logits, aux = self.forward(params, batch, return_aux=True,
+                                   group=group)
+        nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"),
+                              group=group)
+        if group is not None:
+            total = group.psum_(nll.detach().reshape(1).clone())[0]
+            return nll, {"nll": total, "loss": total}
         loss, metrics = nll, {"nll": nll}
         for key, v in aux.items():
             if key in ("load_balance", "router_z"):

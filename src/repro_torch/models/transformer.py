@@ -141,11 +141,12 @@ def _patterns(cfg: ModelConfig, causal: bool = True):
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
-                positions=None, mrope=None, enc_out=None):
+                positions=None, mrope=None, enc_out=None, group=None):
     """Full-sequence block. ``positions``/``mrope``: the RoPE positions
     and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
-    block cross-attends. Returns (x, aux): the MoE blocks' aux losses,
-    else ``{}``."""
+    block cross-attends; ``group``: the sequence group of an ``attn_mlp``
+    block's attention (:func:`check_sequence_parallel`). Returns (x, aux):
+    the MoE blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                              cfg, pattern, positions=positions)
@@ -161,7 +162,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                            pats["attn_mlp_local"], positions)
     if kind in ATTN_KINDS:
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                         cfg, pattern, positions=positions, mrope=mrope)
+                         cfg, pattern, positions=positions, mrope=mrope,
+                         group=group)
         return _ffn_residual(p, x + h, cfg, kind)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
@@ -184,20 +186,43 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
+    """Which blocks run under a sequence group of more than one shard: the
+    ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
+    granite, longformer). The recurrent blocks' scans, the MoE dispatch,
+    the VLM's vision merge and M-RoPE and the encoder-decoder would need
+    cross-shard work of their own; they raise."""
+    if group is None or group.size == 1:
+        return
+    if kind != "attn_mlp" or cfg.mrope_sections is not None \
+            or cfg.n_vision_tokens or cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"sequence-parallel training runs the attn_mlp blocks of the "
+            f"dense families; {cfg.name}'s {kind!r} blocks under a group "
+            f"of {group.size} are not ported yet: ROADMAP queue 1, "
+            f"'multi-GPU'")
+
+
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                  pattern, positions=None, mrope=None, enc_out=None):
+                  pattern, positions=None, mrope=None, enc_out=None,
+                  group=None):
     """Run one segment's layers (the reference's scan) under the config's
     remat policy ("none" | "full" | "dots"), a griffin group as one unit.
     ``enc_out`` enters each checkpointed layer from outside it, so its
     gradient flows back into the encoder (non-reentrant checkpoints).
-    Returns (x, aux summed over the layers)."""
+    ``group``: sequence-parallel training, x this rank's slice of the
+    sequence (``Model.forward`` checks the kinds first:
+    :func:`check_sequence_parallel`; a remat replay runs the attention's
+    exchange again, on every rank alike). Returns (x, aux summed over the
+    layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
 
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,
-                           positions=positions, mrope=mrope, enc_out=enc_out)
+                           positions=positions, mrope=mrope, enc_out=enc_out,
+                           group=group)
 
     total = {}
     for layer_params in params:

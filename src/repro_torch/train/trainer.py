@@ -1,14 +1,19 @@
 """Training step factory: loss -> grads -> AdamW, with microbatch gradient
 accumulation and the LR schedule.
 
-The port of :mod:`repro.train.trainer` for one device.
-``make_train_step(model, tcfg)`` returns
+The port of :mod:`repro.train.trainer`.
+``make_train_step(model, tcfg, group=None)`` returns
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
 ``make_eval_step(model)`` returns ``eval_step(params, batch) -> metrics``.
 Gradients are f32 on both microbatch paths, and metrics are averaged over
 the microbatches, as in the reference; the microbatches split every batch
 entry on its batch axis (axis 1 of M-RoPE ``positions``, (3, B, S); axis
-0 of the others). The reference's fourth argument,
+0 of the others). Under a sequence ``group`` (a
+:class:`~repro_torch.dist.group.SeqGroup`) each rank takes its slice of
+the replicated batch along the sequence axis, and the f32 gradients are
+summed over the group by one ``all_reduce`` of a flat buffer before
+AdamW's clip and update, so the parameters and the optimizer state stay
+bitwise equal on every rank. The reference's fourth argument,
 the error-feedback state of compressed gradients, has no counterpart:
 gradient compression is multi-GPU work (ROADMAP queue 1, 'multi-GPU') and
 raises.
@@ -39,7 +44,37 @@ def _batch_axis(key: str) -> int:
     return 1 if key == "positions" else 0
 
 
-def make_train_step(model, tcfg: TrainConfig) -> Callable:
+def _seq_slice(batch, group):
+    """This rank's slice of every batch entry along its sequence axis
+    (axis 1 of the (B, S) entries; the ranks' slices are contiguous and in
+    rank order)."""
+    out = {}
+    for k, v in batch.items():
+        S = v.shape[1]
+        if S % group.size:
+            raise ValueError(f"batch entry {k!r}: sequence length {S} is not "
+                             f"divisible by the group's {group.size} shards")
+        n = S // group.size
+        out[k] = v[:, group.index * n:(group.index + 1) * n].contiguous()
+    return out
+
+
+def _psum_flat_(grads, group):
+    """Sum f32 gradients over the group in place: ONE ``all_reduce`` of
+    their concatenation."""
+    leaves = tree_leaves(grads)
+    flat = group.psum_(torch.cat([g.reshape(-1) for g in leaves]))
+    off = 0
+    for g in leaves:
+        g.copy_(flat[off: off + g.numel()].view_as(g))
+        off += g.numel()
+    return grads
+
+
+def make_train_step(model, tcfg: TrainConfig, group=None) -> Callable:
+    """``group``: sequence-parallel training over a
+    :class:`~repro_torch.dist.group.SeqGroup` (every rank calls the step
+    with the same replicated batch)."""
     if tcfg.compress_grads:
         raise NotImplementedError(
             "compress_grads is multi-GPU work and is not ported yet: "
@@ -47,10 +82,11 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
 
     def loss_and_grads(params, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = model.loss(leaves, batch)
+        loss, metrics = model.loss(leaves, batch, group=group)
         grads = torch.autograd.grad(loss, tree_leaves(leaves))
         it = iter(grads)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        return (metrics["loss"].detach(),
+                {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(it), params))
 
     def grads_and_metrics(params, batch):
@@ -77,11 +113,15 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v).to(model.device)
                  for k, v in batch.items()}
+        if group is not None:
+            batch = _seq_slice(batch, group)
         if any(v.shape[_batch_axis(k)] % tcfg.microbatches
                for k, v in batch.items()):
             raise ValueError(f"batch axis must divide microbatches "
                              f"{tcfg.microbatches}")
         grads, loss, metrics = grads_and_metrics(params, batch)
+        if group is not None:
+            grads = _psum_flat_(grads, group)
         lr_scale = tcfg.schedule(opt_state.step)
         params, opt_state, opt_metrics = adamw.update(
             tcfg.optimizer, opt_state, params, grads, lr_scale)

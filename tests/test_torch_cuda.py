@@ -1421,3 +1421,153 @@ def test_sharded_engine_gloo_on_one_card_equals_unsharded(extra):
                     timeout_s=120.0, args=(cfg, params, prompts, 16, extra))
     for got in out:
         assert got == want
+
+
+# ------------------------- sequence-parallel training -------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pname,n,S,r", [("lf", 1024, 2, 0), ("lf", 1024, 4, 2),
+                                        ("csw", 1024, 2, 1)])
+def test_training_kernels_on_view_tables_match_plain(dtype, pname, n, S, r):
+    """K1, K2 and K3 on one shard's view tables (q on its local blocks,
+    K/V on its [local | halo | global] view, 64-blocks, hd 64): against
+    their plain versions within the train-kernels tolerances, dK/dV
+    bitwise over two calls. Bidirectional (halos on both sides, a global
+    row) and causal with sinks."""
+    _need_cuda()
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.dist.sharded_plan import shard_plan, shard_tables
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    pat = (longformer(256, n_global=2) if pname == "lf"
+           else causal_sliding_window(200, n_sinks=4))
+    sched = schedule(pat, n)
+    sp = shard_plan(sched.plan(64, 64, S * 64), S)
+    assert sum(sp.halo_counts) > 0 and sp.n_gt == 1
+    t = shard_tables(sp, torch.device("cuda"))
+    pq, pk, kvb, flg = t.pos_q[r], t.pos_k[r], t.tables[r], t.flags[r]
+    dkv_t = (t.row_tile[r], t.q_blocks[r], t.pk_flags[r])
+    g = torch.Generator(device="cuda").manual_seed(r)
+    BH, D = 6, 64
+    q = torch.randn((BH, sp.nq_l * 64, D), generator=g, device="cuda")
+    k, v = (torch.randn((BH, sp.view_tiles * 64, D), generator=g,
+                        device="cuda") for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    dout = torch.randn(q.shape, generator=g, device="cuda")
+    kw = dict(sched=sched, scale=D ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, kvb, flg, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, kvb, flg,
+                                               **kw)
+    tol = KA.OUT_TOL[dtype]
+    torch.testing.assert_close(out.float(), ro.float(), atol=tol, rtol=tol)
+    for a, b in ((m, rm), (l, rl)):
+        torch.testing.assert_close(a, b, atol=KA.STATS_TOL,
+                                   rtol=KA.STATS_TOL)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, kvb, flg, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, kvb, flg, **kw)
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dq.float(), rdq, atol=gtol, rtol=gtol)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    ktol = KB.DKV_TOL[dtype]
+    torch.testing.assert_close(dk, rdk, atol=ktol, rtol=ktol)
+    torch.testing.assert_close(dv, rdv, atol=ktol, rtol=ktol)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def _sharded_op_rank(group, pname, n, dtype, seed):
+    """One rank of the gloo sharded-attention test: its slice through
+    sharded_attention, fwd and the three gradients, and the K1-K3 launch
+    counts of that call."""
+    from repro_torch.dist.sharded_plan import sharded_attention
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    pat = (longformer(256, n_global=2) if pname == "lf"
+           else causal_sliding_window(200, n_sinks=4))
+    g = torch.Generator(device=group.device).manual_seed(seed)
+    full = [torch.randn((6, n, 64), generator=g, device=group.device)
+            .to(dtype) for _ in range(4)]
+    m = n // group.size
+    sl = slice(group.index * m, (group.index + 1) * m)
+    q, k, v = (x[:, sl].contiguous().requires_grad_() for x in full[:3])
+    before = (KA.salo_table_attention.launches,
+              KB.salo_table_backward_dq.launches,
+              KB.salo_table_backward_dkv.launches,
+              KA.salo_table_attention_plain.calls)
+    out = sharded_attention(q, k, v, pat, group, block_q=64, block_k=64)
+    grads = torch.autograd.grad(out, (q, k, v), full[3][:, sl].contiguous())
+    after = (KA.salo_table_attention.launches,
+             KB.salo_table_backward_dq.launches,
+             KB.salo_table_backward_dkv.launches,
+             KA.salo_table_attention_plain.calls)
+    return ([x.detach().float().cpu() for x in (out, *grads)],
+            [a - b for a, b in zip(after, before)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pname", ["lf", "csw"])
+def test_sharded_attention_gloo_on_one_card_matches_unsharded(dtype, pname):
+    """2 gloo ranks sharing cuda:0 (the halo ppermute staged through host
+    tensors, gloo's send/recv taking host memory only): each rank's slice
+    of sharded_attention's output and gradients equals unsharded
+    salo_attention's on the whole sequence (f32 1e-4; bf16 the train
+    phases' OUT_TOL / 2e-2), with 1 K1, 1 K2 and 1 K3 call (2 kernels) a
+    rank and no plain call."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels.ops import salo_attention
+
+    n, seed = 1024, 5
+    pat = (longformer(256, n_global=2) if pname == "lf"
+           else causal_sliding_window(200, n_sinks=4))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = [torch.randn((6, n, 64), generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+    q, k, v = (x.detach().requires_grad_() for x in full[:3])
+    ref = salo_attention(q, k, v, pat, 64, 64)
+    want = [ref] + list(torch.autograd.grad(ref, (q, k, v), full[3]))
+    res = run_ranks(_sharded_op_rank, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0, args=(pname, n, dtype, seed))
+    otol = KA.OUT_TOL[dtype]
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for r, (got, launches) in enumerate(res):
+        assert launches == [1, 1, 2, 0], launches
+        sl = slice(r * n // 2, (r + 1) * n // 2)
+        for i, (a, b) in enumerate(zip(got, want)):
+            tl = otol if i == 0 else gtol
+            torch.testing.assert_close(a, b[:, sl].float().cpu(), atol=tl,
+                                       rtol=tl)
+
+
+def test_gloo_ppermute_on_one_card():
+    """What tools/gloo_p2p_probe.py found, held: gloo's send/recv take host
+    memory only (a CUDA tensor's pointer fails with "writev: Bad
+    address"), so SeqGroup.ppermute on a gloo group on the card stages
+    through host tensors; 2 ranks on cuda:0 swap f32 and bf16 buffers and
+    get the peer's values back on the card."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+
+    res = run_ranks(_ppermute_rank, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0)
+    for r in res:
+        assert r["host_p2p"] is True
+        assert r["torch.float32"] == (True, "cuda:0")
+        assert r["torch.bfloat16"] == (True, "cuda:0")
+
+
+def _ppermute_rank(group):
+    out = {"host_p2p": group.host_p2p}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((3, 5), float(group.index + 1), dtype=dt,
+                       device=group.device)
+        y = group.ppermute(x, [(0, 1), (1, 0)])
+        out[str(dt)] = (bool((y == 2 - group.index).all()), str(y.device))
+    return out

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""The sequence-parallel training phases of ``chip_smoke.py`` alone.
+
+    python3 tools/train_sharded.py [--seed N]
+
+Run from the root of a checkout on a machine with a CUDA device. Builds the
+kernels, runs the narrowed train-sharded-check, the unsharded references
+(smollm-135m and longformer-4k trained at full size, 20 steps each, as
+``chip_smoke.py``'s train phases, without the checkpoint), then
+``chip_smoke.phase_train_sharded`` for both. The ranks use NCCL, one card
+each, where the machine has the cards, else gloo ranks sharing cuda:0;
+every line names the backend. Prints the card's name and power limit
+last. Any failed check raises, so the exit code is nonzero.
+"""
+import argparse
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as C  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    C.log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    C.phase_build()
+    C.train_sharded_check(torch, args.seed)
+    refs = {}
+    for arch in ("smollm-135m", "longformer-4k"):
+        _, _, refs[arch] = C.phase_train(torch, args.seed, arch)
+        torch.cuda.empty_cache()
+    for arch, ref in refs.items():
+        C.phase_train_sharded(torch, args.seed, arch, ref)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    C.log(f"[wall] {time.perf_counter() - t0:.1f} s")
+    print(smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
