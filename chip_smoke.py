@@ -245,9 +245,10 @@ nonzero:
    whisper-base (the encoder's K1-K3 over 1500 frames).
 13b. **train qwen2-vl-2b** — every published width at the largest batch
    of 8, 4, 2, 1 whose full depth's reckoned peak fits 92 % of the card
-   (``train_shape``, printed), seq 4096 with 1024 vision slots, 10 steps,
-   lr 1e-3, warmup 3; **train whisper-base** at full size, batch 8, 1500
-   audio frames a sample; per step and attention layer K1 2, K2 1, K3 2
+   (``train_shape``, printed), seq 4096 with 1024 vision slots, 6 steps,
+   lr 1e-3, warmup 3; **train whisper-base** at full size, 10 steps,
+   batch 8, 1500 audio frames a sample; per step and attention layer K1
+   2, K2 1, K3 2
    (whisper's 6 decoder and 6 encoder layers); the loss falls.
 14. **train** — smollm-135m at full width and depth, bf16, remat full,
    random weights from ``--seed``, ``SyntheticLM`` at seq 4096, batch 8,
@@ -295,7 +296,7 @@ nonzero:
     equal on both ranks (sha256 of their bytes), K1-K3 launched on each.
 18c. **train-sharded** — smollm-135m at full width and depth, bf16, remat
     full, seq 4096 split over 2 ranks, global batch 8, the train phase's
-    first 6 steps (same seed, weights, batches and 20-step schedule). On
+    first 4 steps (same seed, weights, batches and 20-step schedule). On
     every rank first one layer's ``sharded_attention`` (the halo exchange,
     K1-K3 on the view) forward and backward against unsharded
     ``salo_attention`` on the whole sequence within ``OUT_TOL`` /
@@ -316,13 +317,43 @@ nonzero:
     longformer-4k; its one-layer gate runs the paper's bidirectional
     Longformer layer (window 512, one global token with its global row:
     halos on both sides and the global-row epilogue over the group).
+18e. **train-dp-check** — data-parallel training (``make_train_step(...,
+    data=DataGroup)``): the narrowed f32 smollm of train-check trained 3
+    steps on 2 ranks, each on its rows of the global batch (NCCL with one
+    card a rank where the machine has the cards, else gloo ranks sharing
+    cuda:0), and unsharded on the card from the same parameters and
+    batches: losses and parameters within 1e-4; then with
+    ``compress_grads`` (the int8 wire with error feedback): the step-0 loss
+    the uncompressed one's within 1e-4, ``ef_state`` finite and each rank's
+    the residual of its own last wire input within 1e-6. Both: state
+    bitwise equal on the ranks (sha256), K1-K3 launched on each.
+18f. **train-dp** — smollm-135m at full width and depth, bf16, remat
+    full, seq 4096, the global batch 8 split over 2 ranks (4 rows each),
+    the train phase's first 6 steps (same seed, weights, batches and
+    20-step schedule), the f32 gradients summed by one all_reduce a step.
+    Gates: step-0 loss within 1e-3 of the train phase's step 0, every step
+    within 1e-2; state bitwise equal on the ranks; per rank and step 60
+    K1, 30 K2 and 30 K3 calls (60 kernels), no plain call. Prints the
+    bytes a rank receives a step (ring f32 all_reduce against the int8
+    wire, counted), the step median beside the train phase's, tokens/s
+    over the ranks, the peak per rank, and one more step profiled on rank
+    0: device time by kernel, the idle share and the collectives' host
+    time by profiler name.
+18g. **train-dp-int8** — the same global batch on 4 ranks (2 rows each)
+    with ``compress_grads``: the gradient goes out as int8 values and one
+    f32 scale a tensor (one all_gather each), each rank keeps its own
+    residual. Gates: step-0 loss within 1e-3 of train-dp's (the loss is
+    computed before the reduce), the loss falling, ``ef_state`` finite,
+    state bitwise equal on the ranks, the launch counts. Prints as
+    train-dp, and the wire's quantize and dequantize-sum kernels' device
+    time on rank 0 (CUDA events).
 19. **train recurrentgemma-9b** — every published width, the depth cut
     to the deepest multiple of 3 (whole griffin groups) whose reckoned
     peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
     recomputed f32 scan temporaries counted) fits 92 % of the card, seq
     4096, batch 1, 10 steps, lr 1e-3, warmup 3; per step and group K1 2
     (remat full replays it), K2 1, K3 2 (two kernels a call).
-20. **train mamba2-370m** — at full width, 24 of its 48 layers, seq
+20. **train mamba2-370m** — at full width, 12 of its 48 layers, seq
     4096, batch 4, 10 steps, lr 1e-3, warmup 3: no kernel launches; the
     loss falls.
 Each phase added for the recurrent and MoE families prints its wall time,
@@ -357,11 +388,13 @@ REPEATS = 10                     # calls a decode case must repeat bitwise
 PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
+QWEN_STEPS = 6                     # train qwen2-vl-2b: cut from 10 for time
 # (recurrentgemma-9b trains the same way, whole griffin groups)
-# mamba2-370m train: full width at batch 4, 24 of its 48 layers (depth
-# cut to keep the script near 900 s with the sharded train phases; its
-# plain recurrent scans are the slowest train step a layer)
-MAMBA_BATCH, MAMBA_TRAIN_LAYERS = 4, 24
+# mamba2-370m train: full width at batch 4, 12 of its 48 layers (depth
+# cut to keep the script near 950 s with the sharded and data-parallel
+# train phases; its plain recurrent scans are the slowest train step a
+# layer)
+MAMBA_BATCH, MAMBA_TRAIN_LAYERS = 4, 12
 # the MoE family: served at full width, depth cut to fit (serve_depth);
 # their names in the kernels line's launch paths
 MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
@@ -2855,7 +2888,7 @@ def _train_cfg(smoke: bool):
 
 
 def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
-             group=None):
+             group=None, data=None, compress=False):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -2865,9 +2898,10 @@ def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
     model = build_model(cfg, dev)
     tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=lr),
                        schedule=Schedule(warmup_steps=warmup,
-                                         total_steps=steps))
+                                         total_steps=steps),
+                       compress_grads=compress)
     ds = SyntheticLM(cfg, DataConfig(seq, batch, seed=seed))
-    return (make_train_step(model, tcfg, group=group),
+    return (make_train_step(model, tcfg, group=group, data=data),
             adamw.init(tcfg.optimizer, params), ds)
 
 
@@ -2913,7 +2947,7 @@ def train_check(torch, seed, cfg=None, what="smollm-135m hd 64"):
         _counters(reset=True)
         hist[dev] = []
         for i in range(3):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             hist[dev].append(tuple(float(met[k]) for k in (
                 "loss", "grad_norm", *(a for a in AUX if a in met))))
         launches, plain = _counters()
@@ -3389,7 +3423,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         batch_np = ds.batch(i)
         draws.append(time.perf_counter() - td)
         t0 = time.perf_counter()
-        params, opt, met = step(params, opt, batch_np)
+        params, opt, met, _ = step(params, opt, batch_np)
         loss = float(met["loss"])                   # syncs the card
         times.append(time.perf_counter() - t0)
         losses.append(loss)
@@ -3454,7 +3488,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     torch.cuda.synchronize()
     prof.start()
     ts = time.perf_counter()
-    params, opt, met = step(params, opt, batch_np)
+    params, opt, met, _ = step(params, opt, batch_np)
     float(met["loss"])
     dt = time.perf_counter() - ts
     prof.stop()
@@ -3552,7 +3586,7 @@ def phase_train_ft(torch, seed, ft) -> dict:
     _counters(reset=True)
     replay = {}
     for i in (at, at + 1):
-        params, opt, met = ft["step_fn"](params, opt, ft["ds"].batch(i))
+        params, opt, met, _ = ft["step_fn"](params, opt, ft["ds"].batch(i))
         replay[i] = (float(met["loss"]), float(met["grad_norm"]))
     launches, plain = _counters()
     check(plain == 0 and min(launches.values()) > 0,
@@ -3574,7 +3608,7 @@ def phase_train_ft(torch, seed, ft) -> dict:
 # dist.group.run_ranks, each holding one contiguous slice of every
 # sequence; the halo exchange feeds K1-K3 on each shard's view tables.
 TRAIN_SHARDS = 2
-SHARDED_STEPS = {"smollm-135m": 6, "longformer-4k": 4}
+SHARDED_STEPS = {"smollm-135m": 4, "longformer-4k": 4}
 # the one-layer gate's pattern per arch: the model's own (None), or the
 # paper's bidirectional Longformer layer with its global row (the
 # longformer-4k LM trains on its causal form, as the reference's does)
@@ -3621,7 +3655,7 @@ def sharded_check_rank(group, seed, cfg, params):
     _counters(reset=True)
     losses = []
     for i in range(3):
-        p, opt, met = step(p, opt, ds.batch(i))
+        p, opt, met, _ = step(p, opt, ds.batch(i))
         losses.append(float(met["loss"]))
     launches, plain = _counters()
     return dict(losses=losses, launches=launches, plain=plain,
@@ -3651,7 +3685,7 @@ def train_sharded_check(torch, seed):
                                  lr=3e-3, warmup=1, seed=seed)
         ref = []
         for i in range(3):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             ref.append(float(met["loss"]))
         t0 = time.perf_counter()
         res = run_ranks(sharded_check_rank, TRAIN_SHARDS, backend=backend,
@@ -3751,7 +3785,7 @@ def train_sharded_rank(group, seed, arch, steps):
     for i in range(steps):
         batch = ds.batch(i)
         t0 = time.perf_counter()
-        params, opt, met = step(params, opt, batch)
+        params, opt, met, _ = step(params, opt, batch)
         losses.append(float(met["loss"]))         # syncs the card
         times.append(time.perf_counter() - t0)
         if group.index == 0:
@@ -3771,7 +3805,7 @@ def train_sharded_rank(group, seed, arch, steps):
             torch.profiler.ProfilerActivity.CUDA])
         prof.start()
     ts = time.perf_counter()
-    params, opt, met = step(params, opt, batch)
+    params, opt, met, _ = step(params, opt, batch)
     float(met["loss"])
     dt = time.perf_counter() - ts
     if prof is not None:
@@ -3871,6 +3905,354 @@ def phase_train_sharded(torch, seed, arch, ref):
         f"{r0['idle']:.3f}, collectives by name (host time): {coll}")
     return {k: sum(rec["launches"][k] for rec in recs)
             for k in ("K1", "K2", "K3")}
+
+
+DP_STEPS = 6             # train-dp phases: the train phase's first steps
+# phase -> (ranks, compress_grads); the global batch is TRAIN_BATCH
+DP_PHASES = {"train-dp": (2, False), "train-dp-int8": (4, True)}
+# the collectives of a data-parallel step by profiler name
+DP_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather")
+
+
+def _flat_cpu(torch, tree):
+    from repro_torch.tree import tree_leaves
+    return torch.cat([x.detach().float().reshape(-1).cpu()
+                      for x in tree_leaves(tree)])
+
+
+def dp_check_rank(group, seed, cfg, params):
+    """A spawned rank of train-dp-check: ``cfg`` trained 3 steps on this
+    rank's rows of the global batch (seq 128, batch 2, as train_check),
+    uncompressed, then again from ``params`` with ``compress_grads``,
+    where the wire's last input x = g + ef is kept: the residual the step
+    returns must be x - dq(q8(x)) computed on this rank alone
+    (``compression.compress_decompress``). Returns both runs' losses,
+    launch counts, final parameters and state digest."""
+    import torch
+
+    from repro_torch.dist import compression
+    from repro_torch.dist.group import DataGroup
+    from repro_torch.tree import tree_leaves
+
+    _rank_prelude(torch)
+    data = DataGroup.of(group)
+    dev = str(group.device)
+    out = {}
+    for compress in (False, True):
+        p = _to(params, dev)
+        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                                 lr=3e-3, warmup=1, seed=seed, data=data,
+                                 compress=compress)
+        seen, real = [], compression.compressed_psum_with_residual
+
+        def spy(x, g):
+            seen.append(x)
+            return real(x, g)
+
+        compression.compressed_psum_with_residual = spy
+        _counters(reset=True)
+        losses, ef = [], None
+        for i in range(3):
+            p, opt, met, ef = step(p, opt, ds.batch(i), ef)
+            losses.append(float(met["loss"]))
+        compression.compressed_psum_with_residual = real
+        launches, plain = _counters()
+        rec = dict(losses=losses, launches=launches, plain=plain,
+                   params=_flat_cpu(torch, p),
+                   digest=_digest(torch, p, opt.m, opt.v))
+        if compress:
+            want = compression.compress_decompress(seen[-1])[1]
+            got = tree_leaves(ef)
+            rec.update(ef_finite=all(bool(torch.isfinite(e).all())
+                                     for e in got),
+                       ef_err=max(float((a - b).abs().max()) for a, b in
+                                  zip(got, tree_leaves(want))),
+                       wire_calls=len(seen))
+        out[compress] = rec
+    return out
+
+
+def train_dp_check(torch, seed):
+    """train-dp-check: the narrowed f32 smollm of train_check trained 3
+    steps on 2 data-parallel ranks (``_shard_backend``: gloo ranks sharing
+    cuda:0 on one card) and unsharded on the card from the same
+    parameters and global batches. Uncompressed: losses and parameters
+    within 1e-4 of the unsharded run's. With ``compress_grads``: the
+    step-0 loss the uncompressed one's within 1e-4 (it is computed before
+    the reduce), ``ef_state`` finite and each rank's the residual of its
+    own wire input within 1e-6. Both: the state bitwise equal across the
+    ranks, K1-K3 launched and no plain version. Returns {path: launches
+    summed over the ranks}."""
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models.model import build_model
+
+    n = 2
+    backend, device = _shard_backend(torch, n)
+    cfg = _train_cfg(smoke=True)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    p = _to(params, "cuda")
+    step, opt, ds = _trainer(cfg, "cuda", p, seq=128, batch=2, steps=3,
+                             lr=3e-3, warmup=1, seed=seed)
+    ref = []
+    for i in range(3):
+        p, opt, met, _ = step(p, opt, ds.batch(i))
+        ref.append(float(met["loss"]))
+    ref_p = _flat_cpu(torch, p)
+    t0 = time.perf_counter()
+    res = run_ranks(dp_check_rank, n, backend=backend, device=device,
+                    timeout_s=TRAIN_SHARD_TIMEOUT_S, args=(seed, cfg, params))
+    out = {}
+    for compress, what in ((False, "train-dp-check"),
+                           (True, "train-dp-check-int8")):
+        recs = [r[compress] for r in res]
+        for r, rec in enumerate(recs):
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"{what} rank {r}: launches {rec['launches']}, plain "
+                  f"{rec['plain']}")
+            if not compress:
+                perr = float((rec["params"] - ref_p).abs().max())
+                check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
+                          for a, b in zip(rec["losses"], ref)) and
+                      perr <= 1e-4,
+                      f"{what} rank {r}: losses {rec['losses']} vs "
+                      f"unsharded {ref}, parameters off by {perr} (1e-4)")
+            else:
+                check(abs(rec["losses"][0] - ref[0]) <= 1e-4,
+                      f"{what} rank {r}: step-0 loss {rec['losses'][0]} "
+                      f"vs {ref[0]} (1e-4)")
+                check(rec["ef_finite"] and rec["ef_err"] <= 1e-6
+                      and rec["wire_calls"] == 3,
+                      f"{what} rank {r}: ef finite {rec['ef_finite']}, "
+                      f"off its own residual by {rec['ef_err']}, "
+                      f"{rec['wire_calls']} wire calls")
+        check(len({rec["digest"] for rec in recs}) == 1,
+              f"{what}: parameters or optimizer state differ across the "
+              f"ranks")
+        extra = ("" if not compress else
+                 f"; ef_state finite, off each rank's own residual by "
+                 f"{[rec['ef_err'] for rec in recs]}")
+        log(f"[{what}] smollm d {cfg.d_model} hd {cfg.hd} f32, {n} ranks on "
+            f"backend {backend} ({device or 'one card a rank'}), global "
+            f"batch 2: losses {recs[0]['losses']} vs unsharded {ref}; "
+            f"parameters off by "
+            f"{float((recs[0]['params'] - ref_p).abs().max())}; state "
+            f"bitwise equal across the ranks{extra}; launches a rank "
+            f"{recs[0]['launches']}")
+        out[what] = {k: sum(rec["launches"][k] for rec in recs)
+                     for k in ("K1", "K2", "K3")}
+    log(f"[train-dp-check] {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start")
+    return out
+
+
+def _wire_kernels_ms(torch, grads, n: int) -> dict:
+    """Device time (CUDA events, 5 runs after a warm-up) of the
+    compressed wire's own kernels on ``grads``: the flat quantization of
+    every tensor, and the dequantize-and-sum of ``n`` gathered parts (the
+    gather itself left out: the parts are this rank's, repeated)."""
+    from repro_torch.dist import compression as CP
+    from repro_torch.tree import tree_leaves
+
+    class _Local:                   # n parts, no collective
+        size = n
+
+        @staticmethod
+        def all_gather(t):
+            return t.expand(n, *t.shape)
+
+    leaves = tree_leaves(grads)
+    ids, n_groups = CP.scale_groups(grads)
+    gid = torch.tensor(ids, device=leaves[0].device)
+    sizes = CP._sizes(leaves)
+
+    def quantize():
+        return CP._q8_flat(leaves, gid, n_groups)
+
+    _, q, scales, _ = quantize()
+    out = {}
+    for what, fn in (("quantize", quantize),
+                     ("dequantize_sum", lambda: CP._gathered_sum(
+                         _Local, q, scales, gid, sizes))):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[what] = start.elapsed_time(end) / 5
+    return out
+
+
+def train_dp_rank(group, seed, steps, compress, arch="smollm-135m"):
+    """A spawned rank of a full-size train-dp phase: ``arch`` at full
+    width and depth, bf16, remat full, seq 4096, this rank's rows of the
+    global batch ``TRAIN_BATCH``, ``steps`` steps of the train phase's
+    schedule (20 steps, lr 3e-3, warmup 10) from the same seed, then one
+    more step, profiled on rank 0, where the wire's quantize and sum
+    kernels are then timed on that step's gradient shapes. Returns the
+    rank's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import compression
+    from repro_torch.dist.group import DataGroup
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    _rank_prelude(torch)
+    data = DataGroup.of(group)
+    dev = str(group.device)
+    cfg = get_config(arch)
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=TRAIN_BATCH,
+                             steps=TRAIN_STEPS, lr=3e-3, warmup=10,
+                             seed=seed, data=data, compress=compress)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, times, ef = [], [], None
+    for i in range(steps):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, ef = step(params, opt, batch, ef)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        if data.index == 0:
+            log(f"[train-dp{'-int8' if compress else ''} {arch} x{data.size}"
+                f"] rank 0 step {i} loss {losses[-1]:.4f} grad norm "
+                f"{float(met['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(losses=losses, times=times, launches=launches, plain=plain,
+               peak=peak, digest=_digest(torch, params, opt.m, opt.v),
+               ef_finite=ef is None or all(bool(torch.isfinite(e).all())
+                                           for e in tree_leaves(ef)),
+               grad_size=(sum(x.numel() for x in tree_leaves(params)),
+                          compression.scale_groups(params)[1]))
+    batch = ds.batch(steps)
+    torch.cuda.synchronize()
+    if data.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met, ef = step(params, opt, batch, ef)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    if data.index == 0:
+        prof.stop()
+        what = (f"train-dp{'-int8' if compress else ''} {arch} "
+                f"x{data.size} step (rank 0)")
+        by_name = report_profile(prof, dt, 1, what)
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, DP_KEYS))
+        if compress:
+            rec["wire_ms"] = _wire_kernels_ms(torch, ef, data.size)
+    return rec
+
+
+def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
+                   n=None, compress=None):
+    """train-dp and train-dp-int8: ``DP_PHASES[what]`` ranks
+    (``_shard_backend``; or ``n`` ranks, ``compress``) train ``arch`` at
+    full width and depth on the train phase's global batch, split by rows
+    (``train_dp_rank``). ``ref``: the unsharded train phase's stats (same
+    seed, weights, batches and schedule); ``ref_dp``: the uncompressed
+    run's losses, for a compressed one.
+    Gates: uncompressed, the step-0 loss within 1e-3 of the unsharded
+    phase's and every step within 1e-2; compressed, the step-0 loss
+    within 1e-3 of train-dp's (it is computed before the reduce) and the
+    loss falling, ``ef_state`` finite; both: equal losses and bitwise-
+    equal parameters and optimizer state on every rank, per rank and step
+    2 K1, 1 K2 and 1 K3 call (2 kernels) an attention layer, no plain
+    version. Prints the bytes a rank receives a step (counted), the step
+    median beside the unsharded phase's, the peak per rank, the profiled
+    step's idle share and collectives (rank 0), and for the int8 wire its
+    quantize and sum kernels' device time. Returns (the launches summed
+    over the ranks, rank 0's losses)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import compression
+    from repro_torch.dist.group import run_ranks
+
+    if n is None:
+        n, compress = DP_PHASES[what]
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    backend, device = _shard_backend(torch, n)
+    t0 = time.perf_counter()
+    recs = run_ranks(train_dp_rank, n, backend=backend, device=device,
+                     timeout_s=TRAIN_SHARD_TIMEOUT_S,
+                     args=(seed, DP_STEPS, compress, arch))
+    wall = time.perf_counter() - t0
+    want_l = ref["losses"][:DP_STEPS]
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * DP_STEPS, "K2": n_attn * DP_STEPS,
+            "K3": 2 * n_attn * DP_STEPS}
+    r0 = recs[0]
+    for r, rec in enumerate(recs):
+        check(rec["losses"] == r0["losses"],
+              f"{what}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{what} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+        check(rec["ef_finite"], f"{what} rank {r}: ef_state not finite")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
+    check(len({rec["digest"] for rec in recs}) == 1,
+          f"{what}: parameters or optimizer state differ across the ranks")
+    if not compress:
+        check(abs(losses[0] - want_l[0]) <= 1e-3,
+              f"{what}: step-0 loss {losses[0]} vs unsharded {want_l[0]} "
+              f"(1e-3)")
+        check(all(abs(a - b) <= 1e-2 for a, b in zip(losses, want_l)),
+              f"{what}: losses {losses} vs unsharded {want_l} (1e-2)")
+    else:
+        check(abs(losses[0] - ref_dp[0]) <= 1e-3,
+              f"{what}: step-0 loss {losses[0]} vs train-dp's {ref_dp[0]} "
+              f"(1e-3)")
+        check(losses[-1] < losses[0], f"{what}: the loss did not fall: "
+              f"{losses}")
+    med = sorted(r0["times"][1:])[(DP_STEPS - 1) // 2] * 1e3
+    coll = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    n_val, n_tensors = r0["grad_size"]
+    wb = compression.wire_bytes(n_val, n_tensors, n)
+    log(f"[{what}] the gradient: {n_val} f32 values in {n_tensors} tensors "
+        f"(the reference's stacked leaves); a rank receives a step "
+        f"{wb['f32_ring_all_reduce']} bytes on a ring f32 all_reduce and "
+        f"{wb['int8_gather']} on the int8 wire (int8 values + f32 scales of "
+        f"the {n - 1} other ranks; counted, not timed); this phase runs "
+        f"the {'int8 wire' if compress else 'f32 all_reduce'}")
+    log(f"[{what}] {arch} bf16 remat full, {n} ranks on backend "
+        f"{backend} ({device or 'one card a rank'}), global batch "
+        f"{TRAIN_BATCH} = {n} x {TRAIN_BATCH // n} at seq 4096, "
+        f"{'int8 wire (compress_grads)' if compress else 'f32 all_reduce'},"
+        f" {DP_STEPS} steps of a {TRAIN_STEPS}-step schedule: {wall:.1f} s "
+        f"with the ranks' start; losses {losses} vs unsharded {want_l} "
+        f"(max diff {max(abs(a - b) for a, b in zip(losses, want_l))}); "
+        f"state bitwise equal across the ranks; launches a rank "
+        f"{r0['launches']}")
+    log(f"[{what}] step median {med:.3f} ms over steps 1..{DP_STEPS - 1} "
+        f"(rank 0; unsharded {ref['median_ms']:.3f} ms; "
+        f"{TRAIN_BATCH * 4096 / med * 1e3:.1f} tokens/s over the ranks); "
+        f"peak per rank {[round(rec['peak'] / 2**30, 3) for rec in recs]} "
+        f"GiB (unsharded {ref['peak'] / 2**30:.3f} GiB); profiled step "
+        f"(rank 0): host wall {r0['profiled_ms']:.3f} ms, device idle share "
+        f"{r0['idle']:.3f}, collectives by name (host time): {coll}")
+    if compress:
+        log(f"[{what}] the wire's own kernels on rank 0 (CUDA events, "
+            f"device time): quantize {r0['wire_ms']['quantize']:.3f} ms, "
+            f"dequantize and sum of {n} parts "
+            f"{r0['wire_ms']['dequantize_sum']:.3f} ms a step")
+    return ({k: sum(rec["launches"][k] for rec in recs)
+             for k in ("K1", "K2", "K3")}, losses)
 
 
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
@@ -4025,7 +4407,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     batch, depth = train_shape(torch, "qwen2-vl-2b", 4096)
     tl["train-qwen2-vl-2b"], _, _ = phase_train(
-        torch, args.seed, "qwen2-vl-2b", n_layers=depth, steps=GEMMA_STEPS,
+        torch, args.seed, "qwen2-vl-2b", n_layers=depth, steps=QWEN_STEPS,
         batch=batch, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
     tl["train-whisper-base"], _, _ = phase_train(
@@ -4057,6 +4439,15 @@ def main(argv=None) -> int:
                                               "smollm-135m", full)
     tl["train-sharded-longformer-4k"] = phase_train_sharded(
         torch, args.seed, "longformer-4k", lf_stats)
+    torch.cuda.empty_cache()
+    # data-parallel training: the narrowed check (f32 and int8 wires),
+    # then smollm-135m at full size on 2 ranks (f32 all_reduce) and 4
+    # (int8 wire) against the unsharded train phase
+    tl.update(train_dp_check(torch, args.seed))
+    tl["train-dp"], dp_losses = phase_train_dp(torch, args.seed, "train-dp",
+                                               full)
+    tl["train-dp-int8"], _ = phase_train_dp(torch, args.seed,
+                                            "train-dp-int8", full, dp_losses)
     torch.cuda.empty_cache()
     tl["train-recurrentgemma-9b"], _, _ = phase_train(
         torch, args.seed, "recurrentgemma-9b",

@@ -8,10 +8,17 @@ control.
   the port's counterpart of a 1-D "seq" mesh and ``shard_map``'s axis
   index (the process group, this rank's shard, the size, the device) with
   in-place ``pmax_``/``psum_`` collectives and ``ppermute``;
-  ``StackedGroup``, the same collectives over a leading shard axis on one
-  device (``jax.vmap`` with an axis name); and
+  :class:`~repro_torch.dist.group.DataGroup`, the same for the "data"
+  axis (each rank holds its rows of the global batch) with ``psum_`` and
+  ``all_gather``; ``StackedGroup``, the collectives over a leading shard
+  axis on one device (``jax.vmap`` with an axis name); and
   :func:`~repro_torch.dist.group.run_ranks`, which starts ``n`` local ranks
   on an explicit backend and joins them under a deadline.
+* :mod:`repro_torch.dist.compression` — int8 gradient compression with
+  error feedback: ``compress_decompress`` (one participant) and
+  ``compressed_psum``/``compressed_psum_with_residual``, whose wire is one
+  ``all_gather`` of every tensor's int8 values and one of the scales; the
+  train step's ``compress_grads`` over a data group.
 * :mod:`repro_torch.dist.sharded_plan` — sequence-parallel training
   (``ShardedPlan``/``shard_plan``: per-shard step tables over a ``[local |
   halo | global]`` view; the halo exchange and its exact reverse; K1–K3
@@ -21,9 +28,13 @@ control.
   sequence-parallel serving engine (``ContinuousEngine(seq_shards > 1,
   group=...)``) and of training's global rows.
 
-Not ported yet (ROADMAP queue 1, item 3): the reference's logical-axis
-sharding rules (``repro.dist.sharding``, the data- and tensor-parallel
-axes), int8 gradient compression (``repro.dist.compression``), and the
-sharded op on reordered schedules (dilation > 1, dilated sinks: a global
-stride permutation across shards).
+Data parallelism (``make_train_step(..., data=DataGroup)``, the train
+CLI's ``--data``) maps the reference's ``batch`` logical axis onto the
+ranks; the port passes the groups explicitly rather than through the
+reference's logical-axis rules (``repro.dist.sharding``). Not ported yet
+(ROADMAP queue 1, item 3): the tensor-parallel axis (``--model``:
+``heads``, ``ffn`` and ``vocab`` sharded), split placements of a
+checkpoint, expert parallelism, and the sharded op on reordered schedules
+(dilation > 1, dilated sinks: a global stride permutation across
+shards).
 """

@@ -1,4 +1,4 @@
-"""Sequence groups: the port's counterpart of a 1-D "seq" mesh.
+"""Groups of ranks: the port's counterpart of a 1-D "seq" or "data" mesh.
 
 The reference runs its sequence-parallel serving engine as ONE program
 over a ``jax.make_mesh((S,), ("seq",))`` mesh, inside ``shard_map``, where
@@ -12,6 +12,11 @@ process group:
   (``all_reduce`` MAX / SUM), :meth:`SeqGroup.ppermute` (``jax.lax
   .ppermute``: the halo exchange of sequence-parallel training) and
   :meth:`SeqGroup.agree` (rank 0's scalar on every rank).
+* :class:`DataGroup` — the data-parallel counterpart (the reference's
+  ``batch`` -> ``data`` axis): the same fields, ``psum_`` and
+  :meth:`DataGroup.all_gather` (the int8 gradient wire of
+  :mod:`repro_torch.dist.compression`). Each rank holds whole sequences,
+  its rows of the global batch.
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
   is to ``shard_map``. It holds every shard's tensors in one process (the
@@ -50,26 +55,32 @@ BACKENDS = ("nccl", "gloo")
 
 
 @dataclasses.dataclass(frozen=True)
-class SeqGroup:
-    """One rank's view of a sequence group. ``pg`` is the
-    ``torch.distributed`` process group (``None`` only for a group object
-    that never runs a collective, as in a constructor's argument checks);
-    ``index`` is this rank's shard, ``size`` the number of shards,
-    ``device`` the device this rank's tensors live on."""
+class _Ranks:
+    """What every group of ranks holds: ``pg``, the ``torch.distributed``
+    process group (``None`` only for a group object that never runs a
+    collective, as in a constructor's argument checks); ``index``, this
+    rank's place; ``size``, the number of ranks; ``device``, the device
+    this rank's tensors live on; ``backend``."""
     pg: Any
     index: int
     size: int
     device: torch.device
     backend: str = "gloo"
 
-    def pmax_(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise max over the ranks, in place; returns ``t``."""
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
-        return t
-
     def psum_(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over the ranks, in place; returns ``t``."""
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
+        return t
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGroup(_Ranks):
+    """One rank's view of a sequence group: ``index`` is this rank's
+    shard of every sequence, ``size`` the number of shards."""
+
+    def pmax_(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the ranks, in place; returns ``t``."""
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.pg)
         return t
 
     @property
@@ -123,6 +134,33 @@ class SeqGroup:
                        else float("-inf"), dtype=torch.float64,
                        device=self.device)
         return float(self.pmax_(t)[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class DataGroup(_Ranks):
+    """One rank's view of a data-parallel group, the reference's ``data``
+    mesh axis: ``index`` is this rank's place in the batch split, ``size``
+    the number of ranks. Every rank holds whole sequences (its rows of the
+    global batch), so a data group is never a :class:`SeqGroup`: the
+    ``group=`` of the attention op, the model and the train step takes
+    the sequence group alone."""
+
+    @classmethod
+    def of(cls, group: _Ranks) -> "DataGroup":
+        """The data group over the ranks of ``group`` (what
+        :func:`run_ranks` hands each rank)."""
+        return cls(group.pg, group.index, group.size, group.device,
+                   group.backend)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t``, stacked in rank order: ``(size, *t.shape)``
+        (one ``all_gather`` of the flat tensor; gloo takes CUDA tensors
+        here, ``tools/gloo_allgather_probe.py``)."""
+        out = torch.empty(self.size * t.numel(), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
+                                    group=self.pg)
+        return out.view(self.size, *t.shape)
 
 
 class StackedGroup:

@@ -1,6 +1,6 @@
 """Checkpointing: atomic, keep-k, async.
 
-The port of :mod:`repro.ft.checkpoint`, on one device, with the
+The port of :mod:`repro.ft.checkpoint`, with the
 reference's on-disk layout, so a checkpoint written by either package
 restores in the other:
 
@@ -27,8 +27,14 @@ JAX writes its step. :func:`restore` takes dtype and device from the
 leaf is restored onto its ``like`` leaf's device, an ``int`` comes back as
 an ``int``.
 
-Re-placing a checkpoint onto another device layout (the reference's
-``shardings``) is multi-GPU work (ROADMAP queue 1, 'multi-GPU').
+``restore(..., shardings=)`` places the leaves onto another layout (the
+reference's elastic rescale). Under data parallelism the state is
+replicated, so a placement is a device: one for the whole tree, or a tree
+of devices matched to the leaves by path (:func:`placements`). A
+checkpoint written by rank 0 of an n-rank data-parallel run restores on
+any rank count. A placement that splits a leaf's dims over ranks
+(``torch.distributed.tensor.Shard``) is tensor parallelism, not ported
+yet, and raises (ROADMAP queue 1, 'multi-GPU').
 """
 from __future__ import annotations
 
@@ -138,12 +144,47 @@ def latest_step(path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _restore_leaf(arr: np.ndarray, like):
+def _device(placement) -> Optional[torch.device]:
+    """The device of one placement: ``None`` (stay where the leaf is), a
+    ``torch.device`` or a device string. A ``Shard`` placement (the
+    leaf's dims split over ranks) raises."""
+    if placement is None or isinstance(placement, torch.device):
+        return placement
+    if isinstance(placement, str):
+        return torch.device(placement)
+    from torch.distributed.tensor import Shard
+    if isinstance(placement, Shard):
+        raise NotImplementedError(
+            f"placement {placement}: a leaf split over ranks is tensor "
+            f"parallelism, not ported yet: ROADMAP queue 1, 'multi-GPU'")
+    raise TypeError(f"a placement is a device, a device string or None, "
+                    f"got {placement!r}")
+
+
+def placements(shardings, paths) -> list:
+    """The device each leaf at ``paths`` goes to (``None``: where it is):
+    ``shardings`` is one placement for every leaf, or a tree of them
+    whose placement at a node holds for every leaf under it (a prefix
+    tree, as a JAX sharding tree may be); a leaf no node covers stays
+    where it is."""
+    flat, _ = tree_flatten_with_path(shardings)
+    by_path = {p: _device(s) for p, s in flat}
+    out = []
+    for path in paths:
+        cover = [path[:i] for i in range(len(path), -1, -1)
+                 if path[:i] in by_path]
+        out.append(by_path[cover[0]] if cover else None)
+    return out
+
+
+def _restore_leaf(arr: np.ndarray, like, device=None):
     """One leaf from its array, as the ``like`` leaf: a tensor of its
-    dtype on its device, an array of its dtype, or an ``int``."""
+    dtype on its device (or on ``device``), an array of its dtype, or an
+    ``int``."""
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=like.device, dtype=like.dtype)
+            device=like.device if device is None else device,
+            dtype=like.dtype)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     if isinstance(like, (int, np.integer)) and not isinstance(like, bool):
@@ -151,9 +192,12 @@ def _restore_leaf(arr: np.ndarray, like):
     raise TypeError(f"restore: unsupported leaf type {type(like)}")
 
 
-def restore(path, like: Any, step: Optional[int] = None) -> Any:
+def restore(path, like: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (its dtypes and devices; not
-    its shapes). ``step`` defaults to the latest."""
+    its shapes). ``step`` defaults to the latest. ``shardings``: where the
+    tensor leaves go instead of their ``like`` leaf's device — one
+    placement, or a tree of them (:func:`placements`)."""
     path = os.fspath(path)
     if step is None:
         step = latest_step(path)
@@ -162,13 +206,14 @@ def restore(path, like: Any, step: Optional[int] = None) -> Any:
     d = os.path.join(path, f"step_{step:08d}")
     flat_like, treedef = tree_flatten_with_path(like)
     keys = [_SEP.join(p) for p, _ in flat_like]
+    devices = placements(shardings, [p for p, _ in flat_like])
     with np.load(os.path.join(d, "arrays.npz")) as data:
         missing = set(keys) - set(data.files)
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]}...")
-        leaves = [_restore_leaf(data[k], leaf)
-                  for k, (_, leaf) in zip(keys, flat_like)]
+        leaves = [_restore_leaf(data[k], leaf, dev) for k, (_, leaf), dev
+                  in zip(keys, flat_like, devices)]
     return tree_unflatten(treedef, leaves)
 
 
@@ -230,9 +275,9 @@ class CheckpointManager:
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, shardings: Any = None):
         self.wait()
         step = latest_step(self.path)
         if step is None:
             return None, None
-        return restore(self.path, like, step), step
+        return restore(self.path, like, step, shardings), step

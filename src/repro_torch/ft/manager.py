@@ -1,7 +1,7 @@
 """Run manager: straggler watchdog, the restart loop, the serving
 supervisor.
 
-The port of :mod:`repro.ft.manager`, on one device:
+The port of :mod:`repro.ft.manager`:
 
 * **StragglerWatchdog** — per-step wall-time EWMA; a step exceeding
   ``threshold x`` the EWMA is flagged. The train loop feeds it train
@@ -26,7 +26,9 @@ The port of :mod:`repro.ft.manager`, on one device:
   (a seeded :class:`~repro_torch.ft.injection.FaultPlan`, the same on
   every rank) restarts every rank from the same snapshot step.
 
-Elastic rescale (``reshard``) is multi-GPU work and raises.
+* **reshard** — elastic rescale: a live tree re-placed onto other devices
+  (a data-parallel state is replicated, so a placement is a device; a
+  split placement is tensor parallelism and raises).
 """
 from __future__ import annotations
 
@@ -35,9 +37,12 @@ import os
 import time
 from typing import Any, Callable, Optional
 
-from repro_torch.ft.checkpoint import CheckpointManager
+import torch
+
+from repro_torch.ft.checkpoint import CheckpointManager, placements
 from repro_torch.ft.faults import RECOVERABLE, RestartsExhausted, StepCrash
 from repro_torch.obs import Observability
+from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 _BACKOFF_CAP_S = 30.0
 
@@ -68,11 +73,18 @@ class StragglerWatchdog:
 
 
 def reshard(tree: Any, shardings: Any) -> Any:
-    """Re-placing a live tree onto another device layout (elastic
-    rescale) is not ported yet."""
-    raise NotImplementedError(
-        "reshard (elastic rescale) is not ported yet: ROADMAP queue 1, "
-        "'multi-GPU'")
+    """Re-place a live tree onto new placements (elastic rescale): under
+    data parallelism the state is replicated, so ``shardings`` is one
+    device for every leaf or a tree of devices matched by path
+    (:func:`repro_torch.ft.checkpoint.placements`); each tensor leaf moves
+    there, other leaves (the optimizer's ``int`` step) stay as they are. A
+    placement that splits a leaf over ranks raises
+    (``NotImplementedError``: tensor parallelism)."""
+    flat, treedef = tree_flatten_with_path(tree)
+    devices = placements(shardings, [p for p, _ in flat])
+    return tree_unflatten(treedef, [
+        x.to(dev) if dev is not None and isinstance(x, torch.Tensor) else x
+        for (_, x), dev in zip(flat, devices)])
 
 
 def _backoff_sleep(backoff: float, n_restarts: int, sleep=time.sleep):

@@ -2,10 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --seq 4096 --batch 8 [--smoke] [--device cuda|cpu] \\
-      [--ckpt DIR [--ckpt-every N] [--resume]]
+      [--ckpt DIR [--ckpt-every N] [--resume]] \\
+      [--data N [--dist-backend nccl|gloo]] [--compress-grads]
 
-One device. ``--device cuda`` (the default) runs the attention kernels and
-raises without a CUDA device; ``--device cpu`` runs their plain versions.
+``--device cuda`` (the default) runs the attention kernels and raises
+without a CUDA device; ``--device cpu`` runs their plain versions.
 SALO attention, grad clip + schedule, straggler watchdog, restart-safe
 data stream (stateless in the step). ``--ckpt DIR`` saves ``{"params",
 "opt"}`` every ``--ckpt-every`` steps and at the end through the atomic,
@@ -23,8 +24,27 @@ dropped (token, expert) entries beside the loss. Every arch of the registry
 trains here, the VLM with its vision extras and M-RoPE positions and
 whisper with its audio frames (``SyntheticLM``).
 
-Not ported yet, and raising ``NotImplementedError``: ``--compress-grads``
-and ``--data``/``--model`` > 1 (ROADMAP queue 1, 'multi-GPU').
+``--data N`` trains data-parallel over N local ranks started by
+:func:`repro_torch.dist.group.run_ranks`: every rank draws the global
+batch of the step and trains on its ``--batch / N`` rows, the f32
+gradients summed by one ``all_reduce`` a step, so the losses equal
+``--data 1``'s. ``--compress-grads`` sends the gradient as int8 with
+per-rank error feedback instead (:mod:`repro_torch.dist.compression`;
+with ``--data 1`` it quantize-dequantizes locally). ``--dist-backend``
+picks the ranks' backend: ``nccl`` (the default with ``--device cuda``)
+puts rank r on ``cuda:r`` and needs N cards, ``gloo`` (the default with
+``--device cpu``) puts every rank on the one device ``--device`` names.
+With fewer cards than ranks, NCCL is an error that names ``--dist-backend
+gloo``. Rank 0 alone prints and writes the checkpoint, the trace and the
+metrics; every rank resumes from the same checkpoint, so a checkpoint of
+an N-rank run resumes on any rank count. The error-feedback residual is
+not checkpointed (nor is it in the reference's CLI):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --device cpu --data 2 --dist-backend gloo --steps 3
+
+Not ported yet, and raising ``NotImplementedError``: ``--model`` > 1,
+tensor parallelism (ROADMAP queue 1, 'multi-GPU').
 """
 from __future__ import annotations
 
@@ -37,7 +57,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import checkpoint_from_jax, is_jax_checkpoint
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.ft.checkpoint import CheckpointManager, latest_step
+from repro_torch.dist.group import BACKENDS, DataGroup, run_ranks
+from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.ft.manager import StragglerWatchdog
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability
@@ -53,7 +74,7 @@ _AUX_LOG = (("load_balance", "lb"), ("router_z", "z"),
             ("dropped_frac", "dropped"))
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true",
@@ -62,12 +83,24 @@ def main(argv=None):
                     help="cuda runs the kernels; cpu their plain versions")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=512)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="the global batch (split over --data ranks)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradients with error feedback on the "
+                         "data-parallel wire")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks")
     ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                    help="the ranks' backend with --data > 1: nccl (one "
+                         "card per rank; default with --device cuda) or "
+                         "gloo (every rank on --device; default with "
+                         "--device cpu)")
+    ap.add_argument("--dist-timeout", type=float, default=3600.0,
+                    help="seconds the ranks of --data > 1 may take in all "
+                         "(and any collective may wait)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
@@ -80,61 +113,98 @@ def main(argv=None):
                          "timeline here at exit")
     ap.add_argument("--metrics-out", default=None,
                     help="write the full metrics-registry JSON here at exit")
+    return ap
+
+
+def main(argv=None):
+    ap = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
     if args.resume and not args.ckpt:
         ap.error("--resume needs --ckpt")
-    if args.compress_grads or args.data > 1 or args.model > 1:
+    if args.model > 1:
         raise NotImplementedError(
-            "--compress-grads and --data/--model > 1 are not ported yet: "
-            "ROADMAP queue 1, 'multi-GPU'")
+            "--model > 1 (tensor parallelism: sharded projections and their "
+            "collectives) is not ported yet: ROADMAP queue 1, 'multi-GPU'")
+    if args.data < 1:
+        ap.error("--data must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device and "
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to run the plain versions")
+    if args.data == 1:
+        return _train(args, None)
+    backend = args.dist_backend or ("nccl" if args.device == "cuda"
+                                    else "gloo")
+    if backend == "nccl":
+        have = torch.cuda.device_count() if args.device == "cuda" else 0
+        if have < args.data:
+            ap.error(f"--dist-backend nccl puts one rank on each card: "
+                     f"--data {args.data} needs {args.data} CUDA devices "
+                     f"with --device cuda, this run has {have}; pass "
+                     f"--dist-backend gloo to run the ranks on one shared "
+                     f"--device")
+    return run_ranks(_train_rank, args.data, backend=backend,
+                     device=None if backend == "nccl" else args.device,
+                     timeout_s=args.dist_timeout, args=(argv,))[0]
 
+
+def _train_rank(group, argv):
+    """One rank of ``--data > 1``."""
+    return _train(_parser().parse_args(argv), DataGroup.of(group))
+
+
+def _train(args, data):
+    """Train on one device (``data`` None) or as one rank of a data
+    group; only rank 0 prints and writes the checkpoint, the trace and
+    the metrics. Returns the final loss."""
+    lead = data is None or data.index == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = args.device if data is None else str(data.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, args.device)
+    model = build_model(cfg, device)
     tcfg = TrainConfig(
         optimizer=adamw.AdamWConfig(lr=args.lr),
         schedule=Schedule(warmup_steps=max(10, args.steps // 20),
                           total_steps=args.steps),
-        microbatches=args.microbatches)
+        microbatches=args.microbatches, compress_grads=args.compress_grads)
     params = model.init(torch.Generator().manual_seed(args.seed))
     opt = adamw.init(tcfg.optimizer, params)
     n_par = sum(x.numel() for x in tree_leaves(params))
-    print(f"# arch={cfg.name} params={n_par / 1e6:.1f}M device={args.device}"
-          f" window={cfg.salo.window} sinks={cfg.salo.n_global}")
+    say(f"# arch={cfg.name} params={n_par / 1e6:.1f}M device={device}"
+        f" window={cfg.salo.window} sinks={cfg.salo.n_global}"
+        + ("" if data is None else f" data={data.size} ({data.backend})")
+        + (" compress_grads" if args.compress_grads else ""))
 
-    mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt else None
     start = 0
-    if mgr and args.resume:
+    if args.resume:
         like = {"params": params, "opt": opt}
         step0 = latest_step(args.ckpt)
-        if step0 is None:
-            restored = None
-        elif is_jax_checkpoint(args.ckpt, step0):
-            restored, _ = checkpoint_from_jax(args.ckpt, like, step0)
-        else:
-            restored, _ = mgr.restore_latest(like)
-        if restored is not None:
+        if step0 is not None:
+            if is_jax_checkpoint(args.ckpt, step0):
+                restored, _ = checkpoint_from_jax(args.ckpt, like, step0)
+            else:
+                restored = restore(args.ckpt, like, step0)
             params, opt = restored["params"], restored["opt"]
             start = step0
-            print(f"# resumed from step {start}")
+            say(f"# resumed from step {start}")
+    mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt and lead \
+        else None
 
-    step = make_train_step(model, tcfg)
+    step = make_train_step(model, tcfg, data=data)
     ds = SyntheticLM(cfg, DataConfig(args.seq, args.batch, seed=args.seed,
                                      branch=args.data_branch,
                                      n_docs=args.data_docs))
     wd = StragglerWatchdog()
-    obs = Observability(tracing=bool(args.trace_out))
+    obs = Observability(tracing=bool(args.trace_out) and lead)
     reg = obs.registry
-    loss = float("nan")
+    loss, ef = float("nan"), None
     try:
         for i in range(start, args.steps):
             t0 = time.perf_counter()
             with obs.tracer.span("train.step", track="train", step=i):
-                params, opt, metrics = step(params, opt, ds.batch(i))
+                params, opt, metrics, ef = step(params, opt, ds.batch(i), ef)
                 loss = float(metrics["loss"])   # host sync inside the span
             dt = time.perf_counter() - t0
             reg.inc("train_steps")
@@ -149,10 +219,10 @@ def main(argv=None):
                 toks = args.batch * args.seq / dt
                 aux = "".join(f" {name} {float(metrics[key]):.4g}"
                               for key, name in _AUX_LOG if key in metrics)
-                print(f"step {i:5d} loss {loss:8.4f} "
-                      f"gnorm {float(metrics['grad_norm']):7.3f}{aux} "
-                      f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
-                      + (" [straggler]" if straggler else ""), flush=True)
+                say(f"step {i:5d} loss {loss:8.4f} "
+                    f"gnorm {float(metrics['grad_norm']):7.3f}{aux} "
+                    f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
+                    + (" [straggler]" if straggler else ""), flush=True)
             if mgr and (i + 1) % args.ckpt_every == 0:
                 mgr.save({"params": params, "opt": opt}, i + 1)
                 obs.tracer.instant("ft.snapshot", track="ft", step=i + 1)
@@ -161,17 +231,17 @@ def main(argv=None):
     finally:
         if mgr:   # a checkpoint in flight lands even when a step raised
             mgr.wait()
-    if args.trace_out:
+    if args.trace_out and lead:
         obs.write_trace(args.trace_out)
         print(f"# trace: {args.trace_out} ({len(obs.tracer)} events)",
               file=sys.stderr)
-    if args.metrics_out:
+    if args.metrics_out and lead:
         reg.merge(global_registry().snapshot())
         obs.write_metrics(args.metrics_out)
         print(f"# metrics: {args.metrics_out}", file=sys.stderr)
     st = reg.percentiles("train_step_s")
-    print(f"# done: final loss {loss:.4f}, straggler events {wd.events}, "
-          f"step p50 {st['p50'] * 1e3:.1f} ms")
+    say(f"# done: final loss {loss:.4f}, straggler events {wd.events}, "
+        f"step p50 {st['p50'] * 1e3:.1f} ms", flush=True)
     return loss
 
 

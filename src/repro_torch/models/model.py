@@ -11,7 +11,7 @@
 * ``forward(params, batch, return_aux=False) -> logits`` (train / full
   sequence; with ``return_aux``, ``(logits, aux)``: the MoE aux losses
   summed over every layer);
-* ``loss(params, batch) -> (loss, metrics)``;
+* ``loss(params, batch, group=None, data=None) -> (loss, metrics)``;
 * ``init_cache(batch_size, max_len) -> cache`` and
   ``decode_step(params, cache, batch_t, t) -> (logits, cache)`` — the
   lockstep decode (the cache is updated in place and returned);
@@ -89,7 +89,8 @@ class Model:
                                "attn_mlp", pattern)
         return L.rmsnorm(params["enc"]["ln_f"], x, cfg.norm_eps)
 
-    def forward(self, params, batch, return_aux: bool = False, group=None):
+    def forward(self, params, batch, return_aux: bool = False, group=None,
+                data=None):
         """Logits (B, S, vocab) of the full sequence; with ``return_aux``,
         (logits, aux): the MoE aux losses (``load_balance``, ``router_z``,
         ``dropped_frac``) summed over the segments' layers, ``{}`` for
@@ -100,7 +101,12 @@ class Model:
         parallel training; ``batch`` holds this rank's slice of every
         sequence and the logits are that slice's. Only the dense
         families' ``attn_mlp`` programs run under a group of more than
-        one shard (``transformer.check_sequence_parallel``)."""
+        one shard (``transformer.check_sequence_parallel``).
+
+        ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
+        parallel training; ``batch`` holds this rank's rows of the global
+        batch, and the MoE blocks route over the group
+        (:func:`repro_torch.models.moe.moe_apply`)."""
         cfg = self.cfg
         for kind, _ in self.program:
             T.check_sequence_parallel(cfg, kind, group)
@@ -117,14 +123,15 @@ class Model:
             x, aux = T.segment_apply(params[f"seg{i}_{kind}"], x, cfg, kind,
                                      pats.get(kind, pats["attn_mlp"]),
                                      positions=positions, mrope=mrope,
-                                     enc_out=enc_out, group=group)
+                                     enc_out=enc_out, group=group,
+                                     data=data)
             T.add_aux(aux_total, aux)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
                                 cfg)
         return (logits, aux_total) if return_aux else logits
 
-    def loss(self, params, batch, group=None):
+    def loss(self, params, batch, group=None, data=None):
         """Mean next-token NLL plus the MoE aux losses ``load_balance`` and
         ``router_z``; returns ``(loss, metrics)`` as the reference does:
         ``nll``, every aux term (``dropped_frac`` too) and ``loss``.
@@ -133,11 +140,18 @@ class Model:
         is this rank's share — the local sum of token losses over the
         group's token count — whose gradients summed over the ranks are
         the whole sequence's; the metrics ``nll`` and ``loss`` are the
-        group's totals (one ``all_reduce``, detached)."""
+        group's totals (one ``all_reduce``, detached). Under a ``data``
+        group (``batch`` this rank's rows) every term is this rank's share
+        of the global batch's, the NLL's as under a sequence group and the
+        aux terms' as :func:`repro_torch.models.moe.moe_apply` takes them,
+        and the metrics are their totals (one ``all_reduce``, detached)."""
+        if group is not None and data is not None:
+            raise ValueError("a rank is in a sequence group or a data "
+                             "group, not both")
         logits, aux = self.forward(params, batch, return_aux=True,
-                                   group=group)
+                                   group=group, data=data)
         nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"),
-                              group=group)
+                              group=group if data is None else data)
         if group is not None:
             total = group.psum_(nll.detach().reshape(1).clone())[0]
             return nll, {"nll": total, "loss": total}
@@ -147,6 +161,11 @@ class Model:
                 loss = loss + v
             metrics[key] = v
         metrics["loss"] = loss
+        if data is not None:
+            keys = list(metrics)
+            totals = data.psum_(torch.stack([metrics[k].detach()
+                                             for k in keys]))
+            metrics = dict(zip(keys, totals.unbind()))
         return loss, metrics
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:

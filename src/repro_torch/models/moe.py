@@ -124,7 +124,7 @@ def _slots(probs: torch.Tensor, k: int, C: int):
             torch.empty_like(keep).scatter_(-1, order, keep))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None):
     """x: (B, S, d) -> (y, aux). ``aux``: ``load_balance``, ``router_z``
     (both scaled by their coefficients) and ``dropped_frac``, f32 scalars.
 
@@ -132,17 +132,33 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
     ties flip experts). The kept entries are written into their slots of
     a zeroed ``(E·G·C + 1, d)`` buffer, the dropped ones into its last
     row, which the experts never read: the buffer holds exactly the
-    reference's ``.at[e, pos].add`` of the kept rows plus zeros."""
+    reference's ``.at[e, pos].add`` of the kept rows plus zeros.
+
+    ``data`` (a :class:`~repro_torch.dist.group.DataGroup` of n ranks):
+    x is this rank's rows of the global batch, and the groups are aligned
+    with the batch split, as the reference's: the G dispatch groups are
+    :func:`n_groups` of the GLOBAL token count, and this rank runs its
+    G / n of them (raises unless n divides G), so every group routes as
+    on one device. The aux terms are this rank's shares, which add up over
+    the ranks to the global batch's: the top-1 counts are summed over the
+    group (one ``all_reduce`` a layer, no gradient) and the load balance
+    weighs this rank's prob sums by them; the router z and the dropped
+    share are this rank's sums over the global counts."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
     T = B * S
+    n = 1 if data is None else data.size
     xt = x.reshape(T, d)
 
     logits = xt.float() @ p["router"]                         # (T, E)
     probs = torch.softmax(logits, dim=-1)
 
-    G = n_groups(cfg, T)
+    G = n_groups(cfg, T * n)
+    if G % n:
+        raise ValueError(f"{G} dispatch groups of {T * n} tokens do not "
+                         f"split over the data group's {n} ranks")
+    G //= n
     Tg = T // G
     C = capacity(cfg, Tg)
     gates, slot, keep = _slots(probs.reshape(G, Tg, E), k, C)
@@ -159,13 +175,16 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
 
     # Switch load balance: E * sum_e (share routed to e) * (mean prob e)
     top1 = torch.argmax(probs, dim=-1)
-    frac = torch.zeros(E, device=x.device).index_add_(
-        0, top1, torch.ones(T, device=x.device)) / T     # exact counts
-    lb = E * torch.sum(frac * probs.mean(0))
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    counts = torch.zeros(E, device=x.device).index_add_(
+        0, top1, torch.ones(T, device=x.device))        # exact counts
+    if data is not None:
+        data.psum_(counts)
+    frac = counts / (T * n)
+    lb = E * torch.sum(frac * probs.mean(0)) / n
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) / n
     aux = {"load_balance": m.load_balance_coef * lb,
            "router_z": m.router_z_coef * z,
-           "dropped_frac": 1.0 - keep.float().mean()}
+           "dropped_frac": (1.0 - keep.float().mean()) / n}
 
     y = y.reshape(B, S, d)
     if m.n_shared_experts:

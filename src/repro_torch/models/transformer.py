@@ -141,12 +141,14 @@ def _patterns(cfg: ModelConfig, causal: bool = True):
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
-                positions=None, mrope=None, enc_out=None, group=None):
+                positions=None, mrope=None, enc_out=None, group=None,
+                data=None):
     """Full-sequence block. ``positions``/``mrope``: the RoPE positions
     and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
     block cross-attends; ``group``: the sequence group of an ``attn_mlp``
-    block's attention (:func:`check_sequence_parallel`). Returns (x, aux):
-    the MoE blocks' aux losses, else ``{}``."""
+    block's attention (:func:`check_sequence_parallel`); ``data``: the
+    data group of an MoE block's routing. Returns (x, aux): the MoE
+    blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                              cfg, pattern, positions=positions)
@@ -164,7 +166,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                          cfg, pattern, positions=positions, mrope=mrope,
                          group=group)
-        return _ffn_residual(p, x + h, cfg, kind)
+        return _ffn_residual(p, x + h, cfg, kind, data)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
                                  L.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -205,7 +207,7 @@ def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   pattern, positions=None, mrope=None, enc_out=None,
-                  group=None):
+                  group=None, data=None):
     """Run one segment's layers (the reference's scan) under the config's
     remat policy ("none" | "full" | "dots"), a griffin group as one unit.
     ``enc_out`` enters each checkpointed layer from outside it, so its
@@ -213,8 +215,10 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``group``: sequence-parallel training, x this rank's slice of the
     sequence (``Model.forward`` checks the kinds first:
     :func:`check_sequence_parallel`; a remat replay runs the attention's
-    exchange again, on every rank alike). Returns (x, aux summed over the
-    layers)."""
+    exchange again, on every rank alike). ``data``: data-parallel training,
+    x this rank's rows of the global batch (the MoE blocks route over the
+    group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
+    Returns (x, aux summed over the layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
@@ -222,7 +226,7 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,
                            positions=positions, mrope=mrope, enc_out=enc_out,
-                           group=group)
+                           group=group, data=data)
 
     total = {}
     for layer_params in params:
@@ -246,17 +250,19 @@ def add_aux(total: dict, aux: dict) -> dict:
     return total
 
 
-def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str):
+def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                  data=None):
     """The post-attention FFN residual of an attention block. Returns (x,
     aux): the MoE aux losses, else ``{}`` (the serving paths drop them:
-    serving never backprops)."""
+    serving never backprops). ``data``: the data group an MoE block
+    routes over (training)."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"continuous serving supports attention block kinds "
                          f"{ATTN_KINDS}, got {kind!r}")
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MLP_KINDS:
         return x + L.mlp_apply(p["mlp"], h2, cfg), {}
-    y, aux = MOE.moe_apply(p["moe"], h2, cfg)
+    y, aux = MOE.moe_apply(p["moe"], h2, cfg, data)
     if kind == "attn_moe_dense":    # arctic: the dense MLP beside the MoE
         return x + y + L.mlp_apply(p["mlp"], h2, cfg), aux
     return x + y, aux

@@ -963,7 +963,7 @@ def test_dots_train_step_cuda_equals_cpu():
         opt = adamw.init(tcfg.optimizer, p)
         hist[dev] = []
         for i in range(2):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
@@ -1101,7 +1101,7 @@ def test_recurrent_models_cuda_equal_cpu(arch):
         opt = adamw.init(tcfg.optimizer, p)
         hist[dev] = []
         for i in range(2):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)
@@ -1162,7 +1162,7 @@ def test_moe_models_cuda_equal_cpu(arch):
         opt = adamw.init(tcfg.optimizer, p)
         hist[dev] = []
         for i in range(2):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             hist[dev].append([float(met[k]) for k in (
                 "loss", "grad_norm", "load_balance", "router_z",
                 "dropped_frac")])
@@ -1312,7 +1312,7 @@ def test_family_models_cuda_equal_cpu(arch):
         opt = adamw.init(tcfg.optimizer, p)
         hist[dev] = []
         for i in range(2):
-            p, opt, met = step(p, opt, ds.batch(i))
+            p, opt, met, _ = step(p, opt, ds.batch(i))
             hist[dev].append((float(met["loss"]), float(met["grad_norm"])))
     np.testing.assert_allclose(np.array(hist["cuda"]), np.array(hist["cpu"]),
                                rtol=1e-4, atol=1e-4)

@@ -429,7 +429,7 @@ def _model_rank(group, arch, params):
     step = make_train_step(model, tt, group=group)
     p, o, losses = params, adamw.init(tt.optimizer, params), []
     for i in range(STEPS):
-        p, o, met = step(p, o, _batch(arch, i))
+        p, o, met, _ = step(p, o, _batch(arch, i))
         losses.append(float(met["loss"]))
     state = torch.cat([x.reshape(-1) for x in tree_leaves(p)]
                       + [x.reshape(-1) for x in tree_leaves(o.m)]

@@ -300,8 +300,14 @@ def test_run_with_restarts_events(tmp_path):
 
 
 def test_reshard_is_multi_gpu_work():
+    """A placement that splits a leaf over ranks is tensor parallelism,
+    still multi-GPU work: it raises. (Devices re-place:
+    ``tests/test_torch_dist_data.py``.)"""
+    from torch.distributed.tensor import Shard
     with pytest.raises(NotImplementedError, match="'multi-GPU'"):
-        reshard({"x": torch.zeros(2)}, None)
+        reshard({"x": torch.zeros(2)}, Shard(0))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        reshard({"x": torch.zeros(2)}, {"x": Shard(0)})
 
 
 # ============================ eval + CLI ================================ #
@@ -335,16 +341,17 @@ def test_cli_kill_and_resume_bit_equal(tmp_path, capsys, monkeypatch):
     seen = {}                       # step -> (loss, grad norm), as floats
 
     def recording(kill_at=None):
-        def make(model, tcfg):
-            step = real(model, tcfg)
+        def make(model, tcfg, **kw):
+            step = real(model, tcfg, **kw)
 
-            def run(params, opt, batch):
+            def run(params, opt, batch, ef_state=None):
                 if opt.step == kill_at:
                     raise StepCrash(f"killed at step {kill_at}")
                 i = opt.step
-                params, opt, met = step(params, opt, batch)
+                params, opt, met, ef_state = step(params, opt, batch,
+                                                  ef_state)
                 seen[i] = (float(met["loss"]), float(met["grad_norm"]))
-                return params, opt, met
+                return params, opt, met, ef_state
             return run
         return make
 

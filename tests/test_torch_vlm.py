@@ -271,7 +271,7 @@ def test_microbatched_train_step_matches_jax():
     topt = t_adamw.init(t_adamw.AdamWConfig(), tp)
     for b in batches:
         jp, jopt, jmet = jstep(jp, jopt, b)[:3]
-        tp, topt, tmet = tstep(tp, topt, b)
+        tp, topt, tmet, _ = tstep(tp, topt, b)
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
                                        rtol=1e-4, atol=1e-4, err_msg=key)
