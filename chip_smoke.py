@@ -110,11 +110,13 @@ nonzero:
    version; every layer of one decode step has its merged attention
    checked against unsharded K4 on the whole logical view within
    ``OUT_TOL``; the ranks' tokens and counters are equal and every first
-   token equals the serve phase's. Prints how many of the 8 x 64 tokens
+   token equals the serve phase's. Prints how many of the served tokens
    agree (not gated), the decode step median, the prefill time, one
    profiled decode step's collectives by name and the idle share.
 6c. **serve-sharded-int8** — the same at ``seq_shards=4`` on the int8
-   page-sparse slab (threshold -3, decay 0.3), against serve-int8.
+   page-sparse slab (threshold -3, decay 0.3), against serve-int8. Both
+   sharded phases serve the first 4 of the 8 requests (prompts 634-1210;
+   cut for time).
 7. **serve-ft** — kill and resume: the serve phase's weights and requests
    under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
    every 16 engine steps under ``build/``, removed at the end), with two
@@ -182,7 +184,9 @@ nonzero:
    sinks, 128-blocks: q on its 16 local blocks, K/V on its view of 16
    local tiles, 8 + 1 halo slots (distances -1 and +1, the +1 slot padding
    on this shard) and 1 global tile, bf16; timed, SDPA with the mask the
-   view tables imply). Tolerances: out
+   view tables imply), (tp) one model rank's heads of gemma-7b's train
+   attention at 2 ranks (batch 1 x 8 of its 16 heads of hd 256, bf16: what
+   each rank of train-tp launches). Tolerances: out
    8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
@@ -195,7 +199,7 @@ nonzero:
    two K3 runs give bitwise-equal dK/dV. Prints for (a), (b), (f), (g),
    (h), (k), (l), (m) each kernel's, and for (i), (j) K1's, the plain
    version's and the
-   bound's time (16-bit K2/K3: each
+   bound's time (and the same for (tp); 16-bit K2/K3: each
    product once at the 16-bit tensor rate, 6 and 8 x hd flops per
    attended pair; f32: all but q.k^T at the f32 rate), the flops the
    kernel runs and their rate (K1: 4 x hd per pair of the sub-tiles it
@@ -296,7 +300,7 @@ nonzero:
     equal on both ranks (sha256 of their bytes), K1-K3 launched on each.
 18c. **train-sharded** — smollm-135m at full width and depth, bf16, remat
     full, seq 4096 split over 2 ranks, global batch 8, the train phase's
-    first 4 steps (same seed, weights, batches and 20-step schedule). On
+    first 3 steps (same seed, weights, batches and 20-step schedule). On
     every rank first one layer's ``sharded_attention`` (the halo exchange,
     K1-K3 on the view) forward and backward against unsharded
     ``salo_attention`` on the whole sequence within ``OUT_TOL`` /
@@ -329,7 +333,7 @@ nonzero:
     bitwise equal on the ranks (sha256), K1-K3 launched on each.
 18f. **train-dp** — smollm-135m at full width and depth, bf16, remat
     full, seq 4096, the global batch 8 split over 2 ranks (4 rows each),
-    the train phase's first 6 steps (same seed, weights, batches and
+    the train phase's first 4 steps (same seed, weights, batches and
     20-step schedule), the f32 gradients summed by one all_reduce a step.
     Gates: step-0 loss within 1e-3 of the train phase's step 0, every step
     within 1e-2; state bitwise equal on the ranks; per rank and step 60
@@ -347,6 +351,32 @@ nonzero:
     state bitwise equal on the ranks, the launch counts. Prints as
     train-dp, and the wire's quantize and dequantize-sum kernels' device
     time on rank 0 (CUDA events).
+18h. **train-tp-check** — tensor-parallel training (``make_train_step(
+    ..., model_group=ModelGroup)``, heads, ffn and vocab split by
+    ``dist.sharding.param_placements``): two narrowed f32 configs trained
+    3 steps on 2 model ranks (NCCL with one card a rank where the machine
+    has the cards, else gloo ranks sharing cuda:0), each from the same
+    parameters cut into the ranks' slices, against one rank on the card:
+    gemma-like (2 / 2 heads of hd 256, ffn 512, vocab 256: every
+    placement split) and smollm-like (3 / 1 heads: the attention whole on
+    every rank). Gates: losses and gathered parameters within 1e-4, grad
+    norms within 1e-5, the leaves a rank holds whole and the optimizer
+    step bitwise equal across the ranks (sha256), K1-K3 launched on each.
+18i. **train-tp** — gemma-7b at every published width (d 3072, 16 heads
+    of hd 256, ffn 24576, vocab 256000 tied, softcap 30), bf16, remat
+    full, seq 4096, batch 1, on 2 model ranks (the same spawn as the
+    check), the depth the deepest whose reckoned peak of one rank
+    (``train_bytes_tp``) times the ranks sharing the card fits 92 % of it
+    (printed first), the first 4 steps of the gemma train phase's
+    schedule; each rank draws its slices layer by layer from the
+    single-device draw of the seed (``trainer.init_shards``). Gates:
+    every loss within 1e-2 of the unsharded gemma train phase's at the
+    same depth (bf16 partials summed in bf16), the loss falling, the
+    leaves held whole bitwise equal across the ranks, per rank and step
+    2 K1, 1 K2 and 1 K3 call an attention layer, no plain version.
+    Prints the placements once, rank 0's step median, tokens/s, the peak
+    per rank, one profiled step's idle share and collectives by name, and
+    the bytes a rank sends a step (``tp_step_bytes``, counted).
 19. **train recurrentgemma-9b** — every published width, the depth cut
     to the deepest multiple of 3 (whole griffin groups) whose reckoned
     peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
@@ -1290,14 +1320,15 @@ def _serve_lens(seed):
 
 
 def _serve_engine(torch, seed, what, arch="smollm-135m", weights=None,
-                  group=None, **extra):
+                  group=None, n_req=SERVE_R, **extra):
     """``arch`` (smollm-135m by default) at full width and depth, bf16,
     random weights from ``seed`` (or ``weights``, ``_serve_weights``'s),
     on the continuous engine with the serve phases' 8 requests submitted
-    (prompts over 600-2000 tokens): n_pages from ``layout_for_pattern``
-    (per shard under a sequence ``group``, whose rank's device the
-    weights must be on), 8 rows. ``extra``: ContinuousConfig fields.
-    Returns (cfg, engine, params, prompt lengths, rng)."""
+    (prompts over 600-2000 tokens; the first ``n_req`` of them where a
+    phase is cut for time): n_pages from ``layout_for_pattern`` (per
+    shard under a sequence ``group``, whose rank's device the weights must
+    be on), 8 rows. ``extra``: ContinuousConfig fields. Returns (cfg,
+    engine, params, the submitted prompts' lengths, rng)."""
     from repro_torch.models.layers import salo_pattern
     from repro_torch.obs import Observability
     from repro_torch.serve.engine import ContinuousConfig, ContinuousEngine
@@ -1321,6 +1352,7 @@ def _serve_engine(torch, seed, what, arch="smollm-135m", weights=None,
         f"({eng.slab_resident_bytes() / 1e6:.1f} MB), "
         f"n_pages={ccfg.n_pages}")
     lens, rng = _serve_lens(seed)
+    lens = lens[:n_req]
     for n in lens:
         eng.submit(rng.integers(0, cfg.vocab_size, (n,)), SERVE_NEW)
 
@@ -1341,7 +1373,8 @@ def _check_serve_run(cfg, eng, lens, launches, plain, what):
     res = eng.batcher.results()
     c = dict(eng.counters)
     log(f"[{what}] prompts={lens} new={SERVE_NEW} counters={c}")
-    check(len(res) == SERVE_R, f"{len(res)} of {SERVE_R} requests finished")
+    check(len(res) == len(lens), f"{len(res)} of {len(lens)} requests "
+          f"finished")
     for rid, toks in res.items():
         check(len(toks) == SERVE_NEW, f"request {rid}: {len(toks)} tokens")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -1516,6 +1549,11 @@ SHARD_PROFILE_AT = 40    # are checked, and the one profiled
 SHARD_TIMEOUT_S = 420.0  # run_ranks' deadline for a sharded phase
 INT8_SPARSE = dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
                    page_stat_decay=0.3)
+# serve-sharded and serve-sharded-int8 serve the first 4 of the 8
+# requests (prompts 634 to 1210): their ranks' prefill took 21 and 64 s
+# of the script's time, cut to make room for the tensor-parallel train
+# phases
+SHARD_REQS = 4
 
 
 def _shard_backend(torch, shards):
@@ -1611,7 +1649,7 @@ def _collective_ms(prof, keys=("all_reduce", "allreduce")) -> dict:
     return out
 
 
-def _serve_sharded(torch, seed, group, what, extra):
+def _serve_sharded(torch, seed, group, what, extra, n_req=SERVE_R):
     """One rank of a full-width serve-sharded run: the serve phase's
     weights and requests on ``ContinuousEngine(seq_shards=S, group=...)``.
     Counts this rank's K4 launches (each must run ``return_state``),
@@ -1619,7 +1657,8 @@ def _serve_sharded(torch, seed, group, what, extra):
     ``_merge_check`` (those launches kept out of the count), times the
     decode-only steps before ``SHARD_PROFILE_AT`` (the checked one left
     out) and the prefill, and profiles step ``SHARD_PROFILE_AT``. Returns
-    the rank's record."""
+    the rank's record. ``n_req``: the serve phases' first requests
+    served."""
     from repro_torch.kernels.salo_decode import (salo_paged_decode,
                                                  salo_paged_decode_plain)
     from repro_torch.models import layers as L
@@ -1627,7 +1666,7 @@ def _serve_sharded(torch, seed, group, what, extra):
     weights = _serve_weights(torch, seed, device=str(group.device))
     cfg, eng, params, lens, _ = _serve_engine(
         torch, seed, f"{what} rank {group.index}", weights=weights,
-        group=group, **extra)
+        group=group, n_req=n_req, **extra)
     real = L.salo_paged_decode
     stats = dict(state_calls=0, check_launches=0, errs=[])
     gate = dict(on=False)
@@ -1709,7 +1748,7 @@ def _serve_sharded(torch, seed, group, what, extra):
                 slab_bytes=eng.slab_resident_bytes())
 
 
-def sharded_rank(group, seed, what, extra, with_check):
+def sharded_rank(group, seed, what, extra, with_check, n_req=SERVE_R):
     """A spawned rank of the sequence-parallel phases: serve-sharded-check
     (``with_check``), then the full-width run."""
     import torch
@@ -1722,12 +1761,12 @@ def sharded_rank(group, seed, what, extra, with_check):
         out["check"] = [shard_check_run(torch, seed, w, lens, n, ex,
                                         str(group.device), group)
                         for _, w, lens, n, ex in SHARD_CHECK]
-    out["serve"] = _serve_sharded(torch, seed, group, what, extra)
+    out["serve"] = _serve_sharded(torch, seed, group, what, extra, n_req)
     return out
 
 
 def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
-                        with_check=False):
+                        with_check=False, n_req=SERVE_R):
     """Sequence-parallel serving on the card: ``shards`` ranks through
     ``dist.group.run_ranks`` (NCCL, one card a rank, where the machine has
     the cards; else gloo ranks sharing cuda:0). With ``with_check`` the
@@ -1737,10 +1776,11 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
     every rank, 30 K4 launches a decode step in ``return_state`` mode on
     each, every layer's merged attention within ``OUT_TOL`` of unsharded
     K4, the first token of each request equal to the unsharded phase's
-    (``ref_tokens``); how many of the 8 x 64 tokens agree is printed, not
-    gated. Returns the K4 launch count over the ranks and rank 0's
-    record. A failed rank makes ``run_ranks`` raise: nothing here catches
-    it."""
+    (``ref_tokens``); how many of the served tokens agree is printed, not
+    gated. ``n_req``: the first requests of the 8 served (a cut for
+    time; the gates cover those). Returns the K4 launch count over the
+    ranks and rank 0's record. A failed rank makes ``run_ranks`` raise:
+    nothing here catches it."""
     from repro_torch.dist.group import run_ranks
 
     backend, device = _shard_backend(torch, shards)
@@ -1751,7 +1791,7 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
     t0 = time.perf_counter()
     out = run_ranks(sharded_rank, shards, backend=backend, device=device,
                     timeout_s=SHARD_TIMEOUT_S,
-                    args=(seed, what, extra, with_check))
+                    args=(seed, what, extra, with_check, n_req))
     log(f"[{what}] {shards} ranks on backend {backend} "
         f"({device or 'one card a rank'}): "
         f"{time.perf_counter() - t0:.1f} s with the ranks' start")
@@ -1780,8 +1820,8 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
               f"{what}: rank {r}'s tokens or counters differ from rank 0's")
     toks = {int(k): v for k, v in r0["tokens"].items()}
     first = sum(int(toks[rid][0] == ref_tokens[rid][0]) for rid in toks)
-    check(first == SERVE_R, f"{what}: first tokens equal to the unsharded "
-          f"phase's for {first} of {SERVE_R} requests")
+    check(first == n_req, f"{what}: first tokens equal to the unsharded "
+          f"phase's for {first} of {n_req} requests")
     agree = sum(int(a == b) for rid in toks
                 for a, b in zip(toks[rid], ref_tokens[rid].tolist()))
     diverge = [next((i for i, (a, b) in enumerate(
@@ -1798,8 +1838,8 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
         f"{r0['counters']['decode_launches']} decode steps, return_state); "
         f"merged attention vs "
         f"unsharded K4 max abs err {max(rec['merge_err'] for rec in recs)}; "
-        f"first tokens equal to the unsharded phase's {first} of {SERVE_R}; "
-        f"tokens equal {agree} of {SERVE_R * SERVE_NEW} (first difference "
+        f"first tokens equal to the unsharded phase's {first} of {n_req}; "
+        f"tokens equal {agree} of {n_req * SERVE_NEW} (first difference "
         f"per request {diverge}; random weights, not gated); counters "
         f"{r0['counters']}")
     log(f"[{what}] profiled decode step (rank 0): host wall "
@@ -2104,13 +2144,18 @@ TRAIN_CASES = {
               bk=256, dtype="bfloat16"),
     "m": dict(pat=("lf", 512, 4), n=1500, bh=64, hd=64, bq=256, bk=256,
               dtype="bfloat16"),
+    # one rank's heads of gemma-7b's train attention at 2 model ranks:
+    # batch 1 x 8 of the 16 heads
+    "tp": dict(pat=("csw", 1024, 4, 1), n=4096, bh=8, hd=256, bq=256,
+               bk=256, dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
 # the cases whose kernels are timed (the ViL stages: K1 only)
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
          "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
-         "k": (K1, K2, K3), "l": (K1, K2, K3), "m": (K1, K2, K3)}
+         "k": (K1, K2, K3), "l": (K1, K2, K3), "m": (K1, K2, K3),
+         "tp": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -2888,7 +2933,7 @@ def _train_cfg(smoke: bool):
 
 
 def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
-             group=None, data=None, compress=False):
+             group=None, data=None, compress=False, model_group=None):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -2901,7 +2946,8 @@ def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
                                          total_steps=steps),
                        compress_grads=compress)
     ds = SyntheticLM(cfg, DataConfig(seq, batch, seed=seed))
-    return (make_train_step(model, tcfg, group=group, data=data),
+    return (make_train_step(model, tcfg, group=group, data=data,
+                            model_group=model_group),
             adamw.init(tcfg.optimizer, params), ds)
 
 
@@ -3608,7 +3654,9 @@ def phase_train_ft(torch, seed, ft) -> dict:
 # dist.group.run_ranks, each holding one contiguous slice of every
 # sequence; the halo exchange feeds K1-K3 on each shard's view tables.
 TRAIN_SHARDS = 2
-SHARDED_STEPS = {"smollm-135m": 4, "longformer-4k": 4}
+# train-sharded smollm-135m: 3 of the train phase's steps, cut for time
+# with the tensor-parallel phases
+SHARDED_STEPS = {"smollm-135m": 3, "longformer-4k": 4}
 # the one-layer gate's pattern per arch: the model's own (None), or the
 # paper's bidirectional Longformer layer with its global row (the
 # longformer-4k LM trains on its causal form, as the reference's does)
@@ -3907,7 +3955,9 @@ def phase_train_sharded(torch, seed, arch, ref):
             for k in ("K1", "K2", "K3")}
 
 
-DP_STEPS = 6             # train-dp phases: the train phase's first steps
+# train-dp phases: the train phase's first steps (cut to 4 for time with
+# the tensor-parallel phases)
+DP_STEPS = 4
 # phase -> (ranks, compress_grads); the global batch is TRAIN_BATCH
 DP_PHASES = {"train-dp": (2, False), "train-dp-int8": (4, True)}
 # the collectives of a data-parallel step by profiler name
@@ -4255,6 +4305,416 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
              for k in ("K1", "K2", "K3")}, losses)
 
 
+TP_RANKS = 2             # train-tp phases: the model group's ranks
+# train-tp: the unsharded train phase's first steps, compared with it
+TP_STEPS = 4
+# the collectives of a tensor-parallel step by profiler name
+TP_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather")
+
+
+def _tp_shares(cfg, n: int) -> dict:
+    """One rank's share of a dense ``attn_mlp`` program's parameters under
+    a model group of ``n`` (``dist.sharding.split_axes``): its embedding
+    rows (and LM head's), its slice of each layer (the query and output
+    projections by heads, the KV projections by KV heads, the MLP by
+    ffn; the norms whole) and its vocab rows."""
+    from repro_torch.dist.sharding import split_axes
+
+    s = split_axes(cfg, n)
+    d, hd = cfg.d_model, cfg.hd
+
+    def part(count, axis):
+        return count // n if axis in s else count
+
+    vocab = part(cfg.vocab_size, "vocab")
+    embed = vocab * d * (1 if cfg.tie_embeddings else 2)
+    mults = 3 if cfg.act in ("swiglu", "geglu") else 2
+    layer = (2 * d * hd * part(cfg.n_heads, "heads")
+             + 2 * d * hd * part(cfg.n_kv_heads, "kv_heads")
+             + mults * d * part(cfg.d_ff, "ffn") + 2 * d)
+    return dict(embedding=embed, per_layer=layer, vocab=vocab,
+                params=embed + cfg.n_layers * layer + d)
+
+
+def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
+    """``train_bytes`` for one rank of a model group of ``n``: the same
+    reckoning on the rank's parameters (``_tp_shares``) and its vocab
+    slice of the f32 logits; the activations a layer saves are whole on
+    every rank."""
+    whole = train_bytes(cfg, seq, batch)
+    sh = _tp_shares(cfg, n)
+    params = sh["params"]
+    update = max(32 * params, 18 * params + 20 * sh["embedding"])
+    loss = (16 * seq * batch * sh["vocab"] + 10 * params + whole["saved"]
+            + whole["recompute"])
+    return dict(params=params, per_layer=sh["per_layer"],
+                embedding=sh["embedding"], resident=10 * params,
+                update_peak=update, loss_peak=loss, saved=whole["saved"],
+                peak=max(update, loss))
+
+
+def train_tp_depth(torch, arch: str, seq: int, batch: int, n: int,
+                   share: bool = True) -> int:
+    """The deepest ``arch`` (every published width kept) whose reckoned
+    train-step peak of one rank of a model group of ``n``
+    (``train_bytes_tp``), times the ``n`` ranks that share the card
+    (``share``; else one rank a card), fits in 92 % of a card's memory.
+    Prints the reckoning."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = 0.92 * total
+    k = n if share else 1
+    depth = 0
+    for layers in range(1, full.n_layers + 1):
+        b = train_bytes_tp(dataclasses.replace(full, n_layers=layers), seq,
+                           batch, n)
+        if k * b["peak"] > budget:
+            break
+        depth = layers
+    check(depth > 0, f"no layer of {arch} fits the card at {n} ranks")
+    b = train_bytes_tp(dataclasses.replace(full, n_layers=depth), seq,
+                       batch, n)
+    nxt = train_bytes_tp(dataclasses.replace(full, n_layers=depth + 1), seq,
+                         batch, n)
+    log(f"[train-tp {arch}] reckoned bytes a rank at {n} model ranks, seq "
+        f"{seq} batch {batch}: embedding {b['embedding'] / 1e6:.1f}M params "
+        f"a rank, {b['per_layer'] / 1e6:.1f}M a layer; {depth} of "
+        f"{full.n_layers} layers fit {budget / 1e9:.2f} GB (92 % of "
+        f"{total / 1e9:.2f}) with {k} rank(s) on a card: "
+        f"{b['params'] / 1e6:.1f}M params a rank, resident "
+        f"{b['resident'] / 1e9:.2f} GB, update peak "
+        f"{b['update_peak'] / 1e9:.2f} GB, loss peak "
+        f"{b['loss_peak'] / 1e9:.2f} GB a rank (x {k}: "
+        f"{k * b['peak'] / 1e9:.2f} GB)" + (
+            f"; {depth + 1} layers would peak at "
+            f"{k * nxt['peak'] / 1e9:.2f} GB" if depth < full.n_layers
+            else ""))
+    return depth
+
+
+def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
+    """The collectives of one train step (remat full) of one rank of a
+    model group of ``n``, counted from the shapes. Where the group splits
+    the heads, each attention sums its (batch, seq, d) output over the
+    group forward and again in the remat replay, and its input's gradient
+    backward; where it splits the ffn, each MLP sums its output forward
+    and its input's gradient backward (the replay stops at the layer's
+    last saved tensor, before the MLP's sum: torch's checkpoint stops
+    early). Replicated ``wk``/``wv`` under split heads sum their
+    gradients; a split vocabulary sums the embedding lookup forward and
+    the head's input gradient backward, and the loss runs three (batch,
+    seq) f32 collectives (max, sum of exp, gold logit); the clip sums one
+    f32. Returns the all_reduce calls, their payload bytes and the bytes
+    a rank sends on a ring all_reduce (2 (n - 1) / n of the payload)."""
+    import torch
+
+    from repro_torch.dist.sharding import split_axes
+    from repro_torch.models.transformer import make_program
+
+    s = split_axes(cfg, n)
+    act = seq * batch * cfg.d_model * torch.finfo(
+        getattr(torch, cfg.compute_dtype)).bits // 8
+    w = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    layers = sum(k for kind, k in make_program(cfg) if kind == "attn_mlp")
+    calls = payload = 0
+    if "heads" in s:
+        calls, payload = calls + 3 * layers, payload + 3 * layers * act
+        if "kv_heads" not in s:
+            calls += 2 * layers
+            payload += 2 * layers * cfg.d_model * cfg.n_kv_heads * cfg.hd * w
+    if "ffn" in s:
+        calls, payload = calls + 2 * layers, payload + 2 * layers * act
+    if "vocab" in s:
+        calls, payload = calls + 5, payload + 2 * act + 3 * seq * batch * 4
+    calls, payload = calls + 1, payload + 4
+    return dict(all_reduces=calls, payload=payload,
+                ring_sent=int(2 * (n - 1) / n * payload))
+
+
+def _tp_check_cfgs():
+    """train-tp-check's narrowed f32 configs at 2 ranks: gemma-like (2 / 2
+    heads of hd 256, ffn 512, vocab 256: every placement split) and
+    smollm-like (3 / 1 heads: the attention whole on every rank; ffn and
+    vocab split)."""
+    return {"gemma-7b": _check_cfgs()["gemma-7b"],
+            "smollm-135m": _train_cfg(smoke=True)}
+
+
+def _whole_digest(torch, params, opt, placements):
+    """sha256 of the leaves a rank holds whole (parameters and moments of
+    the replicated leaves) and of the optimizer's step."""
+    from repro_torch.tree import tree_leaves
+
+    dims = tree_leaves(placements)
+    whole = [x for t in (params, opt.m, opt.v)
+             for x, d in zip(tree_leaves(t), dims) if d is None]
+    return _digest(torch, whole) + f":{opt.step}"
+
+
+# a train-tp phase's schedule per arch: (batch, schedule steps, lr,
+# warmup), the unsharded train phase's
+TP_SCHED = {"gemma-7b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3)}
+TP_SCHED_DEFAULT = (TRAIN_BATCH, TRAIN_STEPS, 3e-3, 10)
+
+
+def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps):
+    """A spawned rank of the tensor-parallel phases. train-tp-check: each
+    ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
+    train_check) from ``check_params`` cut to this rank's slices. Then
+    train-tp gemma-7b: full width at ``depth`` layers, bf16, remat full,
+    seq 4096, batch ``GEMMA_BATCH``, ``n_steps`` steps of the gemma train
+    phase's schedule, this rank's slices drawn layer by layer from the
+    single-device draw of ``seed`` (``trainer.init_shards``), then one
+    more step, profiled on rank 0 (``arch`` another dense arch: its own
+    train phase's schedule, ``TP_SCHED``). Returns the rank's records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import describe, param_placements
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import (gather_params, init_shards,
+                                           shard_params)
+
+    _rank_prelude(torch)
+    mg = mesh.model
+    dev = str(mg.device)
+    out = {}
+    for check_arch, cfg in _tp_check_cfgs().items():
+        if check_arch not in check_params:
+            continue
+        full = _to(check_params[check_arch], dev)
+        pl = param_placements(full, cfg, mg.size)
+        p = shard_params(full, pl, mg)
+        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                                 lr=3e-3, warmup=1, seed=seed,
+                                 model_group=mg)
+        _counters(reset=True)
+        hist = []
+        for i in range(3):
+            p, opt, met, _ = step(p, opt, ds.batch(i))
+            hist.append((float(met["loss"]), float(met["grad_norm"])))
+        launches, plain = _counters()
+        out[check_arch] = dict(
+            hist=hist, launches=launches, plain=plain,
+            params=_flat_cpu(torch, gather_params(p, pl, mg)),
+            whole=_whole_digest(torch, p, opt, pl))
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
+    torch.cuda.empty_cache()
+    params = init_shards(build_model(cfg, dev),
+                         torch.Generator(device=dev).manual_seed(seed), mg)
+    pl = param_placements(params, cfg, mg.size)
+    if mg.index == 0:
+        log(f"[train-tp] {arch} placements over {mg.size} ranks: "
+            f"{describe(params, pl)}")
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
+                             steps=sched_steps, lr=lr, warmup=warmup,
+                             seed=seed, model_group=mg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, times = [], []
+    for i in range(n_steps):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, _ = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        if mg.index == 0:
+            log(f"[train-tp] rank 0 step {i} loss {losses[-1]:.4f} grad "
+                f"norm {float(met['grad_norm']):.4f} "
+                f"{times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    rec = dict(losses=losses, times=times, launches=launches, plain=plain,
+               peak=torch.cuda.max_memory_allocated(),
+               whole=_whole_digest(torch, params, opt, pl))
+    batch = ds.batch(n_steps)
+    torch.cuda.synchronize()
+    if mg.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met, _ = step(params, opt, batch)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    if mg.index == 0:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, f"train-tp {arch} step "
+                                 f"(rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, TP_KEYS))
+    out["main"] = rec
+    return out
+
+
+def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
+                   n=TP_RANKS, with_check=True):
+    """train-tp-check and train-tp ``arch`` on ``n`` model ranks
+    (``_shard_backend``; one spawn runs both: ``train_tp_rank``).
+
+    train-tp-check (``with_check``), against the port's one-rank step on
+    the card from the same parameters and batches: losses and gathered
+    parameters within 1e-4, grad norms within 1e-5, the leaves a rank
+    holds whole and the optimizer step bitwise equal across the ranks,
+    K1-K3 launched on each rank and no plain version.
+
+    train-tp ``arch`` at the depth ``train_tp_depth`` picks, against the
+    unsharded train phase of ``arch`` (``ref``, run at ``ref_depth``
+    layers; where the depth differs and fits one card unsharded, the
+    unsharded steps run here): its first ``TP_STEPS`` steps, every loss
+    within 1e-2 (bf16 partials summed in bf16) and the loss falling.
+    Where the depth does not fit one card there is no unsharded
+    reference: the whole schedule runs, gated as an unsharded train
+    phase is (the mean of the last 5 losses below the first). Both: the
+    leaves a rank holds whole bitwise equal across the ranks, per rank
+    and step 2 K1, 1 K2 and 1 K3 call an attention layer, no plain
+    version. Prints rank 0's
+    step median, tokens/s, idle share, the peak per rank, the
+    collectives by profiler name and the bytes a rank sends a step
+    (``tp_step_bytes``). Returns {path: launches summed over the ranks}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    backend, device = _shard_backend(torch, n)
+    check_params, check_ref = {}, {}
+    for carch, cfg in (_tp_check_cfgs().items() if with_check else ()):
+        check_params[carch] = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        p = _to(check_params[carch], "cuda")
+        step, opt, ds = _trainer(cfg, "cuda", p, seq=128, batch=2, steps=3,
+                                 lr=3e-3, warmup=1, seed=seed)
+        hist = []
+        for i in range(3):
+            p, opt, met, _ = step(p, opt, ds.batch(i))
+            hist.append((float(met["loss"]), float(met["grad_norm"])))
+        check_ref[carch] = (hist, _flat_cpu(torch, p))
+    batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
+    depth = train_tp_depth(torch, arch, 4096, batch_n, n,
+                           share=device is not None)
+    full = get_config(arch)
+    if depth != ref_depth:
+        ref = None
+        fits = _fit_depth(full, 4096, batch_n, 0.92 * torch.cuda
+                          .get_device_properties(0).total_memory)
+        if depth <= fits:
+            torch.cuda.empty_cache()
+            _, _, ref = phase_train(
+                torch, seed, arch, n_layers=depth, steps=sched_steps,
+                batch=batch_n, lr=lr, warmup=warmup)
+    n_steps = TP_STEPS if ref is not None else sched_steps
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    t0 = time.perf_counter()
+    recs = run_ranks(train_tp_rank, n, backend=backend, device=device,
+                     timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
+                     args=(seed, check_params, arch, depth, n_steps))
+    wall = time.perf_counter() - t0
+    out = {}
+    for carch, cfg in _tp_check_cfgs().items():
+        if carch not in check_ref:
+            continue
+        what = f"train-tp-check {carch}"
+        want_h, want_p = check_ref[carch]
+        rs = [r[carch] for r in recs]
+        for r, rec in enumerate(rs):
+            perr = float((rec["params"] - want_p).abs().max())
+            check(all(abs(a[0] - b[0]) <= 1e-4 and abs(a[1] - b[1]) <= 1e-5
+                      for a, b in zip(rec["hist"], want_h)) and perr <= 1e-4,
+                  f"{what} rank {r}: (loss, grad norm) {rec['hist']} vs one "
+                  f"rank's {want_h} (1e-4, 1e-5); parameters off by {perr} "
+                  f"(1e-4)")
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"{what} rank {r}: launches {rec['launches']}, plain "
+                  f"{rec['plain']}")
+        check(len({rec["whole"] for rec in rs}) == 1,
+              f"{what}: the leaves held whole or the step differ across the "
+              f"ranks")
+        log(f"[{what}] d {cfg.d_model} H {cfg.n_heads}/{cfg.n_kv_heads} hd "
+            f"{cfg.hd} ffn {cfg.d_ff} vocab {cfg.vocab_size} f32, {n} ranks "
+            f"on backend {backend} ({device or 'one card a rank'}): (loss, "
+            f"grad norm) {rs[0]['hist']} vs one rank {want_h}; gathered "
+            f"parameters off by "
+            f"{max(float((rec['params'] - want_p).abs().max()) for rec in rs)}"
+            f"; whole leaves and step bitwise equal across the ranks; "
+            f"launches a rank {rs[0]['launches']}")
+        out[f"train-tp-check-{carch}"] = {
+            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
+                                                               "K3")}
+    tag = "train-tp" + ("" if arch == "gemma-7b" else f" {arch}") + (
+        "" if n == TP_RANKS else f" x{n}")
+    cfg = dataclasses.replace(full, n_layers=depth)
+    rs = [r["main"] for r in recs]
+    r0 = rs[0]
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * n_steps, "K2": n_attn * n_steps,
+            "K3": 2 * n_attn * n_steps}
+    for r, rec in enumerate(rs):
+        check(rec["losses"] == r0["losses"],
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(len({rec["whole"] for rec in rs}) == 1,
+          f"{tag}: the leaves held whole or the step differ across the ranks")
+    if ref is not None:
+        check(losses[-1] < losses[0],
+              f"{tag}: the loss did not fall: {losses}")
+        want_l = ref["losses"][:TP_STEPS]
+        check(all(abs(a - b) <= 1e-2 for a, b in zip(losses, want_l)),
+              f"{tag}: losses {losses} vs unsharded {want_l} (1e-2)")
+        vs = (f"vs unsharded {want_l} (max diff "
+              f"{max(abs(a - b) for a, b in zip(losses, want_l))})")
+        unsh = (f"unsharded {ref['median_ms']:.3f} ms; peak "
+                f"{ref['peak'] / 2**30:.3f} GiB")
+    else:
+        check(sum(losses[-5:]) / 5 < losses[0],
+              f"{tag}: the loss did not fall: {losses}")
+        vs = (f"(no unsharded reference: {depth} layers of {arch} do not "
+              f"fit one card)")
+        unsh = "no unsharded run"
+    med = sorted(r0["times"][1:])[(n_steps - 1) // 2] * 1e3
+    coll = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    sb = tp_step_bytes(cfg, 4096, batch_n, n)
+    log(f"[{tag}] {arch} bf16 remat full, {depth} of {full.n_layers} layers,"
+        f" {n} model ranks on backend {backend} "
+        f"({device or 'one card a rank'}), seq 4096 batch {batch_n}, "
+        f"{n_steps} steps of a {sched_steps}-step schedule: {wall:.1f} s "
+        f"with the ranks' start (and train-tp-check); losses {losses} {vs}; "
+        f"whole leaves and step bitwise equal across the ranks; launches a "
+        f"rank {r0['launches']}")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{n_steps - 1} "
+        f"(rank 0; {unsh}); {batch_n * 4096 / med * 1e3:.1f} tokens/s; peak "
+        f"per rank {[round(rec['peak'] / 2**30, 3) for rec in rs]} GiB; "
+        f"profiled step (rank 0): host wall {r0['profiled_ms']:.3f} ms, "
+        f"device idle share {r0['idle']:.3f}, collectives by name (host "
+        f"time): {coll}")
+    log(f"[{tag}] a rank's collectives a step (counted from the shapes): "
+        f"{sb['all_reduces']} all_reduces of {sb['payload']} bytes, "
+        f"{sb['ring_sent']} bytes sent on a ring; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out[tag.replace(" ", "-")] = {k: sum(rec["launches"][k] for rec in rs)
+                                  for k in ("K1", "K2", "K3")}
+    return out
+
+
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
     """Device time by kernel name over the profiled engine steps, and the
     device's idle share (1 - kernel time / host wall time of the steps;
@@ -4350,10 +4810,10 @@ def main(argv=None) -> int:
     # bf16 slab at full width), then 4 ranks on the int8 page-sparse slab
     launches_s2, _ = phase_serve_sharded(torch, args.seed, 2,
                                          "serve-sharded", bf16_tokens, {},
-                                         with_check=True)
+                                         with_check=True, n_req=SHARD_REQS)
     launches_s4, _ = phase_serve_sharded(torch, args.seed, 4,
                                          "serve-sharded-int8", int8_tokens,
-                                         INT8_SPARSE)
+                                         INT8_SPARSE, n_req=SHARD_REQS)
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
     # kill and resume: the serve phases' runs under the supervisor, two
@@ -4424,9 +4884,9 @@ def main(argv=None) -> int:
         torch, args.seed, remat="dots",
         ref={**full, "losses": full["losses"][:DOTS_STEPS]})
     torch.cuda.empty_cache()
-    tl["gemma-7b"], _, _ = phase_train(
-        torch, args.seed, "gemma-7b",
-        n_layers=train_depth(torch, "gemma-7b", 4096, GEMMA_BATCH),
+    gemma_depth = train_depth(torch, "gemma-7b", 4096, GEMMA_BATCH)
+    tl["gemma-7b"], _, gemma_stats = phase_train(
+        torch, args.seed, "gemma-7b", n_layers=gemma_depth,
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
     tl["longformer-4k"], _, lf_stats = phase_train(torch, args.seed,
@@ -4448,6 +4908,11 @@ def main(argv=None) -> int:
                                                full)
     tl["train-dp-int8"], _ = phase_train_dp(torch, args.seed,
                                             "train-dp-int8", full, dp_losses)
+    torch.cuda.empty_cache()
+    # tensor-parallel training: the narrowed check, then gemma-7b at full
+    # width on 2 model ranks against the unsharded gemma-7b train phase
+    tl.update(phase_train_tp(torch, args.seed, "gemma-7b", gemma_stats,
+                             gemma_depth))
     torch.cuda.empty_cache()
     tl["train-recurrentgemma-9b"], _, _ = phase_train(
         torch, args.seed, "recurrentgemma-9b",
@@ -4513,7 +4978,7 @@ def main(argv=None) -> int:
                 "k": "recurrentgemma_9b_local_hd256_mqa_bf16",
                 "l": "kimi_k2_hd128_gqa8_bf16",
                 "m": "whisper_base_encoder_n1500_global_rows_bf16",
-                "t": "shard_view_bf16"}
+                "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

@@ -10,10 +10,13 @@ control.
   in-place ``pmax_``/``psum_`` collectives and ``ppermute``;
   :class:`~repro_torch.dist.group.DataGroup`, the same for the "data"
   axis (each rank holds its rows of the global batch) with ``psum_`` and
-  ``all_gather``; ``StackedGroup``, the collectives over a leading shard
-  axis on one device (``jax.vmap`` with an axis name); and
-  :func:`~repro_torch.dist.group.run_ranks`, which starts ``n`` local ranks
-  on an explicit backend and joins them under a deadline.
+  ``all_gather``; :class:`~repro_torch.dist.group.ModelGroup`, the "model"
+  axis (every rank the same batch, its slices of the split weights) with
+  the autograd collectives of a split product; ``StackedGroup``, the
+  collectives over a leading shard axis on one device (``jax.vmap`` with
+  an axis name); and :func:`~repro_torch.dist.group.run_ranks`, which
+  starts ``n`` local ranks on an explicit backend (as a ``(data, model)``
+  mesh with ``model=``) and joins them under a deadline.
 * :mod:`repro_torch.dist.compression` — int8 gradient compression with
   error feedback: ``compress_decompress`` (one participant) and
   ``compressed_psum``/``compressed_psum_with_residual``, whose wire is one
@@ -28,13 +31,19 @@ control.
   sequence-parallel serving engine (``ContinuousEngine(seq_shards > 1,
   group=...)``) and of training's global rows.
 
+* :mod:`repro_torch.dist.sharding` — the reference's placement rules
+  for the "model" axis without JAX (``PARAM_RULES``,
+  ``logical_axes_for``, the divisibility rules of ``cell_rules`` and
+  ``_mesh_clean``): ``param_placements`` gives each parameter leaf the
+  dim it splits on over a model group, or ``None``.
+
 Data parallelism (``make_train_step(..., data=DataGroup)``, the train
 CLI's ``--data``) maps the reference's ``batch`` logical axis onto the
-ranks; the port passes the groups explicitly rather than through the
-reference's logical-axis rules (``repro.dist.sharding``). Not ported yet
-(ROADMAP queue 1, item 3): the tensor-parallel axis (``--model``:
-``heads``, ``ffn`` and ``vocab`` sharded), split placements of a
-checkpoint, expert parallelism, and the sharded op on reordered schedules
-(dilation > 1, dilated sinks: a global stride permutation across
-shards).
+ranks, tensor parallelism (``model_group=ModelGroup``, ``--model``) its
+``heads``, ``kv_heads``, ``ffn`` and ``vocab`` axes; the two compose as
+the reference's ``(data, model)`` mesh (``group.mesh_groups``). The port
+passes the groups explicitly; only the parameter placements come from
+the rules. Not ported yet (ROADMAP queue 1, item 3): expert parallelism,
+FSDP, and the sharded op on reordered schedules (dilation > 1, dilated
+sinks: a global stride permutation across shards).
 """

@@ -17,12 +17,22 @@ process group:
   :meth:`DataGroup.all_gather` (the int8 gradient wire of
   :mod:`repro_torch.dist.compression`). Each rank holds whole sequences,
   its rows of the global batch.
+* :class:`ModelGroup` — the tensor-parallel counterpart (the reference's
+  "model" mesh axis: ``heads``, ``kv_heads``, ``ffn`` and ``vocab``
+  split, :mod:`repro_torch.dist.sharding`): ``psum_``, ``pmax_``,
+  :meth:`ModelGroup.all_gather`, and the two autograd collectives of a
+  split product, :meth:`ModelGroup.enter` (identity forward, ``all_reduce``
+  backward: the input of a column-split product) and
+  :meth:`ModelGroup.reduce` (``all_reduce`` forward, identity backward:
+  the output of a row-split product). Every rank holds the same batch.
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
   is to ``shard_map``. It holds every shard's tensors in one process (the
   merge checks on one card and the CPU tests use it).
 * :func:`run_ranks` — start ``n`` local ranks, call ``fn(group, *args)``
-  in each, join them under a deadline, and return every rank's result.
+  in each, join them under a deadline, and return every rank's result;
+  with ``model=M`` the ranks form the reference's ``(data, model)`` mesh
+  (:func:`mesh_groups`) and ``fn`` gets a :class:`Mesh2D`.
 
 The backend is always the caller's choice, never guessed: ``"nccl"`` puts
 rank ``r`` on ``cuda:r`` and needs that many cards; ``"gloo"`` puts every
@@ -163,6 +173,112 @@ class DataGroup(_Ranks):
         return out.view(self.size, *t.shape)
 
 
+class _Enter(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward.
+    Placed on the input of a column-split product, whose backward leaves
+    each rank only its columns' share of the input's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group.pg)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    """The partial outputs summed over the group forward; identity
+    backward. Placed after a row-split product: every rank's output, and
+    so every rank's gradient of it, is the whole sum. (Not
+    ``torch.distributed.nn.functional.all_reduce``, whose backward is an
+    ``all_reduce`` too and multiplies this gradient by the group's
+    size.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup(_Ranks):
+    """One rank's view of a tensor-parallel group, the reference's
+    ``model`` mesh axis: ``index`` is this rank's slice of every split
+    dim (:func:`repro_torch.dist.sharding.param_placements`), ``size`` the
+    number of slices. Every rank of the group holds the same batch."""
+
+    pmax_ = SeqGroup.pmax_
+    all_gather = DataGroup.all_gather
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` unchanged; its gradient summed over the group (the input
+        of a column-split product, or a replicated weight that feeds one
+        rank's slice of the work)."""
+        return _Enter.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``; the gradient passes unchanged
+        (the output of a row-split product)."""
+        return _Reduce.apply(x, self)
+
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous slice of the whole ``x`` along ``dim``
+        (a copy, so the whole tensor can be freed)."""
+        return x.chunk(self.size, dim)[self.index].clone(
+            memory_format=torch.contiguous_format)
+
+    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor from every rank's slice ``x`` along ``dim``
+        (one ``all_gather``, joined in rank order); every rank calls it."""
+        return torch.cat(self.all_gather(x).unbind(0), dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's groups in the reference's ``(data, model)`` mesh: its
+    data group (``None`` when the data axis has one rank) and its model
+    group (``None`` when the model axis has one rank)."""
+    data: Optional[DataGroup]
+    model: Optional[ModelGroup]
+
+
+def mesh_groups(world: _Ranks, model: int) -> Mesh2D:
+    """Split the ``world`` ranks into the ``(data, model)`` mesh with
+    ``model`` as the fast axis: rank ``r`` has data index ``r // model``
+    and model index ``r % model``. Every rank calls ``dist.new_group``
+    for every group, in the same order (the collective contract of
+    ``new_group``), and keeps its own two."""
+    n = world.size
+    if model < 1 or n % model:
+        raise ValueError(f"the model axis ({model}) must divide the "
+                         f"{n} ranks")
+    D = n // model
+    r = world.index
+    mine = {"data": None, "model": None}
+    if model > 1:                           # the model groups: one a row
+        for d in range(D):
+            pg = dist.new_group([d * model + m for m in range(model)])
+            if d == r // model:
+                mine["model"] = ModelGroup(pg, r % model, model,
+                                           world.device, world.backend)
+    if D > 1:                               # the data groups: one a column
+        for m in range(model):
+            pg = dist.new_group([d * model + m for d in range(D)])
+            if m == r % model:
+                mine["data"] = DataGroup(pg, r // model, D, world.device,
+                                         world.backend)
+    return Mesh2D(**mine)
+
+
 class StackedGroup:
     """Every shard in one process: a tensor carries a leading shard axis
     of ``size``, and ``pmax_``/``psum_`` reduce over that axis and write
@@ -229,7 +345,8 @@ def _rank_devices(n: int, backend: str, device) -> List[str]:
 
 
 def _rank_main(fn, rank: int, n: int, backend: str, device: str, tmp: str,
-               timeout_s: float, args: Sequence) -> None:
+               timeout_s: float, args: Sequence,
+               model: Optional[int] = None) -> None:
     """One rank: join the group, run ``fn``, leave its result (or its
     traceback) in ``tmp``."""
     out = Path(tmp)
@@ -246,6 +363,8 @@ def _rank_main(fn, rank: int, n: int, backend: str, device: str, tmp: str,
                                 world_size=n,
                                 timeout=timedelta(seconds=timeout_s))
         group = SeqGroup(dist.group.WORLD, rank, n, dev, backend)
+        if model is not None:
+            group = mesh_groups(group, model)
         res = fn(group, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -268,7 +387,7 @@ def _rank_main(fn, rank: int, n: int, backend: str, device: str, tmp: str,
 
 def run_ranks(fn: Callable, n: int, *, backend: str,
               device: Optional[str] = None, timeout_s: float = 120.0,
-              args: Sequence = ()) -> List[Any]:
+              args: Sequence = (), model: Optional[int] = None) -> List[Any]:
     """Run ``fn(group, *args)`` on ``n`` local ranks and return the ``n``
     results in rank order.
 
@@ -283,11 +402,18 @@ def run_ranks(fn: Callable, n: int, *, backend: str,
     fewer than ``n`` cards. ``backend="gloo"``: every rank on ``device``
     (``"cpu"`` or one CUDA device, required).
 
+    ``model=M`` (M dividing n): the ranks form the reference's ``(data,
+    model)`` mesh of n / M x M, model the fast axis (:func:`mesh_groups`),
+    and ``fn`` gets the rank's :class:`Mesh2D` in place of the group.
+
     Raises ``RuntimeError`` (with each failed rank's traceback) if any rank
     fails or the ranks have not all finished within ``timeout_s``; every
     rank still running is then killed."""
     if n < 1:
         raise ValueError(f"run_ranks needs n >= 1, got {n}")
+    if model is not None and (model < 1 or n % model):
+        raise ValueError(f"run_ranks: the model axis ({model}) must divide "
+                         f"the {n} ranks")
     devices = _rank_devices(n, backend, device)
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="seqgroup-")
@@ -295,7 +421,7 @@ def run_ranks(fn: Callable, n: int, *, backend: str,
     try:
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, n, backend, devices[r], tmp,
-                                   timeout_s, tuple(args)),
+                                   timeout_s, tuple(args), model),
                              daemon=True, name=f"seq-rank{r}")
                  for r in range(n)]
         for p in procs:

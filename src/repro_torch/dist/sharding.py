@@ -1,0 +1,130 @@
+"""Tensor-parallel placements: the port's copy of the reference's
+logical-axis rules for the "model" mesh axis.
+
+The reference (``repro.dist.sharding``) names a logical axis for every dim
+of a parameter by matching its tree path against :data:`PARAM_RULES`
+(:func:`logical_axes_for`), maps the logical axes onto mesh axes through
+:data:`DEFAULT_RULES`, and drops a mesh axis where it does not divide the
+dim or was used by an earlier dim (``_mesh_clean``); the launcher's
+``cell_rules`` first replicates ``kv_heads``, ``heads`` and ``vocab`` when
+their count does not divide the model axis. The port holds the same rules
+without JAX and answers one question per leaf: the dim it splits on over a
+model group of ``n`` ranks, or ``None`` (replicated).
+
+One difference, on purpose. The reference stacks a segment's layers on a
+leading axis, so a dense MLP's ``w_in`` is ``(L, d, f)``; being 3-D with a
+``w_`` name, :func:`logical_axes_for` labels that leading axis
+``experts``, which maps onto "model" first, and the MLP splits over its
+layers where ``L`` divides ``n`` (ffn stays whole). The port's layers are
+list nodes, so a dense ``w_in`` is the 2-D ``(d, f)`` and the rules split
+it over ffn, the placement :data:`PARAM_RULES` states for it.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, FrozenSet, Optional, Tuple
+
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                              tree_unflatten)
+
+MODEL = "model"
+
+# logical axis -> mesh axes, as the reference's production meshes map them
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "cache_seq": None,
+    "embed": None,
+    "ffn": (MODEL,),
+    "heads": (MODEL,),
+    "kv_heads": (MODEL,),
+    "head_dim": None,
+    "vocab": (MODEL,),
+    "experts": (MODEL,),
+    "expert_cap": None,
+    "fsdp": ("data",),
+}
+
+# path regex over '/'-joined tree keys -> logical axis per dim; the first
+# match wins, an unmatched leaf is replicated
+PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"(^|/)(embed|lm_head)/w$", ("vocab", "embed")),
+    (r"(^|/)wq$", ("embed", "heads")),
+    (r"(^|/)w[kv]$", ("embed", "kv_heads")),
+    (r"(^|/)wo$", ("heads", "embed")),
+    (r"(^|/)(w_in|w_gate|w_gate_branch)$", ("embed", "ffn")),
+    (r"(^|/)w_out$", ("ffn", "embed")),
+    (r"(^|/)router$", ("embed", "experts")),
+    (r"(^|/)(scale|bias)$", (None,)),
+)
+
+
+def logical_axes_for(path: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """The logical axis of each of a leaf's ``ndim`` dims, from its path
+    (the reference's function, rule for rule)."""
+    for pat, axes in PARAM_RULES:
+        if re.search(pat, path):
+            # leading (stacked-layer / expert) dims stay unsharded unless
+            # the leaf is the expert-stationary 3-D tensor
+            if ndim == len(axes) + 1:
+                lead = ("experts",) if "w_" in path.rsplit("/", 1)[-1] \
+                    and ndim == 3 else (None,)
+                return lead + axes
+            if ndim >= len(axes):
+                return (None,) * (ndim - len(axes)) + axes
+            return axes[:ndim]
+    return (None,) * ndim
+
+
+def _counts(cfg) -> Dict[str, int]:
+    """The size of each logical axis a dense block's leaves split on."""
+    return {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "ffn": cfg.d_ff, "vocab": cfg.vocab_size}
+
+
+def split_axes(cfg, n: int) -> FrozenSet[str]:
+    """The logical axes of ``cfg`` that split over a model group of ``n``
+    ranks: the reference's ``cell_rules`` replicate ``kv_heads``,
+    ``heads`` and ``vocab`` when the count does not divide ``n``, and
+    ``_mesh_clean`` keeps a dim whole when ``n`` does not divide it (the
+    ffn dim is ``d_ff``). A query head count that ``n`` divides while the
+    KV head count does not leaves ``wk``/``wv`` replicated."""
+    if n <= 1:
+        return frozenset()
+    return frozenset(a for a, c in _counts(cfg).items() if c % n == 0)
+
+
+def leaf_placement(path: str, ndim: int, cfg, n: int) -> Optional[int]:
+    """The dim of the leaf at ``path`` (``'/'``-joined, the port's per-layer
+    path: no stacked layer axis) that splits over ``n`` ranks, or None."""
+    split = split_axes(cfg, n)
+    for i, axis in enumerate(logical_axes_for(path, ndim)):
+        if axis in split and DEFAULT_RULES.get(axis) == (MODEL,):
+            return i        # a mesh axis shards at most one dim
+    return None
+
+
+def param_placements(params, cfg, n: int, prefix: Tuple[str, ...] = ()):
+    """For each leaf of ``params`` (the port's per-layer tree: the full
+    single-device parameters, one rank's shards, or any tree of that
+    structure; only the paths and each leaf's ``dim()`` are read) the dim
+    it splits on over a model group of ``n`` ranks, or ``None``; the same
+    tree structure. ``prefix``: the path of ``params`` inside the whole
+    tree (a subtree of it)."""
+    flat, treedef = tree_flatten_with_path(params)
+    return tree_unflatten(treedef, [
+        leaf_placement("/".join(prefix + path), leaf.dim(), cfg, n)
+        for path, leaf in flat])
+
+
+def describe(params, placements) -> str:
+    """One entry per distinct leaf path of ``params`` (the layer index as
+    ``*``) with its placement from ``placements``: what a run prints
+    once."""
+    flat, _ = tree_flatten_with_path(params)
+    seen: Dict[str, Optional[int]] = {}
+    for (path, _), dim in zip(flat, tree_leaves(placements)):
+        key = "/".join("*" if p.isdigit() else p for p in path)
+        seen.setdefault(key, dim)
+    return "; ".join(f"{k}: {'whole' if d is None else f'split dim {d}'}"
+                     for k, d in seen.items())

@@ -28,13 +28,18 @@ leaf is restored onto its ``like`` leaf's device, an ``int`` comes back as
 an ``int``.
 
 ``restore(..., shardings=)`` places the leaves onto another layout (the
-reference's elastic rescale). Under data parallelism the state is
-replicated, so a placement is a device: one for the whole tree, or a tree
-of devices matched to the leaves by path (:func:`placements`). A
-checkpoint written by rank 0 of an n-rank data-parallel run restores on
-any rank count. A placement that splits a leaf's dims over ranks
-(``torch.distributed.tensor.Shard``) is tensor parallelism, not ported
-yet, and raises (ROADMAP queue 1, 'multi-GPU').
+reference's elastic rescale): one placement for the whole tree, or a tree
+of placements matched to the leaves by path (:func:`placements`). A
+placement is a device (a data-parallel state is replicated; a checkpoint
+written by rank 0 of an n-rank data-parallel run restores on any rank
+count) or ``torch.distributed.tensor.Shard(dim)``: the leaf split along
+``dim`` over the ranks of a ``model_group``
+(:class:`~repro_torch.dist.group.ModelGroup`, tensor parallelism), of
+which this rank keeps its contiguous slice. ``save(..., shardings=,
+model_group=)`` of such a state gathers each split leaf over the group
+first and writes the whole leaf, so the file is the single-device
+checkpoint of the same state, byte for byte, and restores onto any
+layout (and in the reference). A ``Shard`` without a group raises.
 """
 from __future__ import annotations
 
@@ -118,8 +123,45 @@ def _flatten(tree) -> dict:
     return {_SEP.join(path): _array(leaf) for path, leaf in flat}
 
 
-def save(path, tree: Any, step: int) -> str:
-    """Atomic checkpoint write. Returns the final directory."""
+def gather_tree(tree: Any, shardings: Any, model_group) -> Any:
+    """The whole leaves of a tensor-parallel rank's ``tree``: each leaf
+    placed ``Shard(dim)`` by ``shardings`` (:func:`placements`) is
+    gathered over ``model_group`` (one ``all_gather``, joined in rank
+    order along ``dim``), every other leaf kept. Every rank of the group
+    calls it."""
+    from torch.distributed.tensor import Shard
+
+    flat, treedef = tree_flatten_with_path(tree)
+    where = placements(shardings, [p for p, _ in flat])
+    if any(isinstance(w, Shard) for w in where) and model_group is None:
+        raise ValueError("a Shard placement splits a leaf over the ranks "
+                         "of a model group: pass model_group=")
+    return tree_unflatten(treedef, [
+        model_group.unshard(x, w.dim) if isinstance(w, Shard) else x
+        for (_, x), w in zip(flat, where)])
+
+
+def _to_write(tree: Any, shardings: Any, model_group) -> Any:
+    """What this rank writes of ``tree``: the tree itself, or under
+    ``shardings`` its whole leaves (:func:`gather_tree`) on the group's
+    rank 0 and None on the other ranks."""
+    if shardings is None:
+        return tree
+    tree = gather_tree(tree, shardings, model_group)
+    return tree if model_group is None or model_group.index == 0 else None
+
+
+def save(path, tree: Any, step: int, shardings: Any = None,
+         model_group=None) -> Optional[str]:
+    """Atomic checkpoint write. Returns the final directory.
+
+    ``shardings``/``model_group``: ``tree`` is a tensor-parallel rank's
+    (:func:`gather_tree`); every rank of the group calls ``save``, the
+    split leaves are gathered, and the group's rank 0 alone writes (the
+    others return None)."""
+    tree = _to_write(tree, shardings, model_group)
+    if tree is None:
+        return None
     path = os.fspath(path)
     final = os.path.join(path, f"step_{step:08d}")
     sweep_stale_tmp(path)
@@ -144,31 +186,29 @@ def latest_step(path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _device(placement) -> Optional[torch.device]:
-    """The device of one placement: ``None`` (stay where the leaf is), a
-    ``torch.device`` or a device string. A ``Shard`` placement (the
-    leaf's dims split over ranks) raises."""
+def _placement(placement):
+    """One placement: ``None`` (stay where the leaf is), a
+    ``torch.device``, a device string (as a device), or a ``Shard`` (the
+    leaf split along its dim over a model group's ranks)."""
     if placement is None or isinstance(placement, torch.device):
         return placement
     if isinstance(placement, str):
         return torch.device(placement)
     from torch.distributed.tensor import Shard
     if isinstance(placement, Shard):
-        raise NotImplementedError(
-            f"placement {placement}: a leaf split over ranks is tensor "
-            f"parallelism, not ported yet: ROADMAP queue 1, 'multi-GPU'")
-    raise TypeError(f"a placement is a device, a device string or None, "
-                    f"got {placement!r}")
+        return placement
+    raise TypeError(f"a placement is a device, a device string, a Shard or "
+                    f"None, got {placement!r}")
 
 
 def placements(shardings, paths) -> list:
-    """The device each leaf at ``paths`` goes to (``None``: where it is):
-    ``shardings`` is one placement for every leaf, or a tree of them
-    whose placement at a node holds for every leaf under it (a prefix
-    tree, as a JAX sharding tree may be); a leaf no node covers stays
-    where it is."""
+    """The placement of each leaf at ``paths`` (``None``: stay where it
+    is; a device; or a ``Shard``): ``shardings`` is one placement for
+    every leaf, or a tree of them whose placement at a node holds for
+    every leaf under it (a prefix tree, as a JAX sharding tree may be); a
+    leaf no node covers stays where it is."""
     flat, _ = tree_flatten_with_path(shardings)
-    by_path = {p: _device(s) for p, s in flat}
+    by_path = {p: _placement(s) for p, s in flat}
     out = []
     for path in paths:
         cover = [path[:i] for i in range(len(path), -1, -1)
@@ -177,14 +217,28 @@ def placements(shardings, paths) -> list:
     return out
 
 
-def _restore_leaf(arr: np.ndarray, like, device=None):
+def _slice(x, where, model_group):
+    """This rank's slice of the whole leaf ``x`` under a ``Shard``
+    placement (a copy), else ``x``."""
+    from torch.distributed.tensor import Shard
+
+    if not isinstance(where, Shard):
+        return x
+    if model_group is None:
+        raise ValueError(f"placement {where} splits a leaf over the ranks "
+                         f"of a model group: pass model_group=")
+    return model_group.shard(x, where.dim)
+
+
+def _restore_leaf(arr: np.ndarray, like, where=None, model_group=None):
     """One leaf from its array, as the ``like`` leaf: a tensor of its
-    dtype on its device (or on ``device``), an array of its dtype, or an
-    ``int``."""
+    dtype on its device (or on the device ``where``; under a ``Shard``
+    placement this rank's slice), an array of its dtype, or an ``int``."""
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=like.device if device is None else device,
-            dtype=like.dtype)
+        x = _slice(torch.from_numpy(np.ascontiguousarray(arr)), where,
+                   model_group)
+        return x.to(device=where if isinstance(where, torch.device)
+                    else like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     if isinstance(like, (int, np.integer)) and not isinstance(like, bool):
@@ -193,11 +247,13 @@ def _restore_leaf(arr: np.ndarray, like, device=None):
 
 
 def restore(path, like: Any, step: Optional[int] = None,
-            shardings: Any = None) -> Any:
+            shardings: Any = None, model_group=None) -> Any:
     """Restore into the structure of ``like`` (its dtypes and devices; not
     its shapes). ``step`` defaults to the latest. ``shardings``: where the
     tensor leaves go instead of their ``like`` leaf's device — one
-    placement, or a tree of them (:func:`placements`)."""
+    placement, or a tree of them (:func:`placements`); under a
+    ``Shard(dim)`` placement the whole leaf is read and this rank of
+    ``model_group`` keeps its slice."""
     path = os.fspath(path)
     if step is None:
         step = latest_step(path)
@@ -206,14 +262,14 @@ def restore(path, like: Any, step: Optional[int] = None,
     d = os.path.join(path, f"step_{step:08d}")
     flat_like, treedef = tree_flatten_with_path(like)
     keys = [_SEP.join(p) for p, _ in flat_like]
-    devices = placements(shardings, [p for p, _ in flat_like])
+    where = placements(shardings, [p for p, _ in flat_like])
     with np.load(os.path.join(d, "arrays.npz")) as data:
         missing = set(keys) - set(data.files)
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]}...")
-        leaves = [_restore_leaf(data[k], leaf, dev) for k, (_, leaf), dev
-                  in zip(keys, flat_like, devices)]
+        leaves = [_restore_leaf(data[k], leaf, w, model_group)
+                  for k, (_, leaf), w in zip(keys, flat_like, where)]
     return tree_unflatten(treedef, leaves)
 
 
@@ -250,8 +306,16 @@ class CheckpointManager:
         """True while a background write is still running."""
         return self._thread is not None and self._thread.is_alive()
 
-    def save(self, tree: Any, step: int):
+    def save(self, tree: Any, step: int, shardings: Any = None,
+             model_group=None):
+        """Snapshot ``tree`` now and write it (in the background when
+        async). ``shardings``/``model_group``: a tensor-parallel rank's
+        tree (:func:`gather_tree`); every rank of the group calls
+        ``save``, and the group's rank 0 alone writes."""
         self.wait()
+        tree = _to_write(tree, shardings, model_group)
+        if tree is None:
+            return
         # Synchronous device->host snapshot (consistent view), async write.
         flat, treedef = tree_flatten_with_path(tree)
         host_tree = tree_unflatten(treedef, [_host(x) for _, x in flat])
@@ -275,9 +339,10 @@ class CheckpointManager:
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, like: Any, shardings: Any = None):
+    def restore_latest(self, like: Any, shardings: Any = None,
+                       model_group=None):
         self.wait()
         step = latest_step(self.path)
         if step is None:
             return None, None
-        return restore(self.path, like, step, shardings), step
+        return restore(self.path, like, step, shardings, model_group), step

@@ -27,8 +27,9 @@ The port of :mod:`repro.ft.manager`:
   every rank) restarts every rank from the same snapshot step.
 
 * **reshard** — elastic rescale: a live tree re-placed onto other devices
-  (a data-parallel state is replicated, so a placement is a device; a
-  split placement is tensor parallelism and raises).
+  (a data-parallel state is replicated, so a placement is a device) or
+  between tensor-parallel layouts (``Shard`` placements over model groups:
+  1 -> n, n -> m, n -> 1).
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.ft.checkpoint import CheckpointManager, placements
+from repro_torch.ft.checkpoint import (CheckpointManager, _slice,
+                                      gather_tree, placements)
 from repro_torch.ft.faults import RECOVERABLE, RestartsExhausted, StepCrash
 from repro_torch.obs import Observability
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
@@ -72,19 +74,34 @@ class StragglerWatchdog:
         return flagged
 
 
-def reshard(tree: Any, shardings: Any) -> Any:
-    """Re-place a live tree onto new placements (elastic rescale): under
-    data parallelism the state is replicated, so ``shardings`` is one
-    device for every leaf or a tree of devices matched by path
-    (:func:`repro_torch.ft.checkpoint.placements`); each tensor leaf moves
-    there, other leaves (the optimizer's ``int`` step) stay as they are. A
-    placement that splits a leaf over ranks raises
-    (``NotImplementedError``: tensor parallelism)."""
+def reshard(tree: Any, shardings: Any, model_group=None, *,
+            current: Any = None, current_group=None) -> Any:
+    """Re-place a live tree onto new placements (elastic rescale).
+    ``shardings`` is one placement for every leaf or a tree of them
+    matched by path (:func:`repro_torch.ft.checkpoint.placements`): a
+    device, where the tensor leaf moves (a data-parallel state is
+    replicated), or ``Shard(dim)``, this rank's slice of the leaf over
+    ``model_group``. ``current``/``current_group``: the layout the tree
+    is in now, if it holds slices: they are gathered over
+    ``current_group`` first. So 1 -> n is ``shardings`` alone, n -> 1 is
+    ``current`` with a device (or None) as ``shardings``, n -> m both,
+    ``m`` dividing the leaves as ``n`` does. Other leaves (the
+    optimizer's ``int`` step) stay as they are. Every rank of a group
+    that gathers calls it."""
+    from torch.distributed.tensor import Shard
+
+    if current is not None:
+        tree = gather_tree(tree, current, current_group)
     flat, treedef = tree_flatten_with_path(tree)
-    devices = placements(shardings, [p for p, _ in flat])
-    return tree_unflatten(treedef, [
-        x.to(dev) if dev is not None and isinstance(x, torch.Tensor) else x
-        for (_, x), dev in zip(flat, devices)])
+    where = placements(shardings, [p for p, _ in flat])
+
+    def place(x, w):
+        if not isinstance(x, torch.Tensor) or w is None:
+            return x
+        return _slice(x, w, model_group) if isinstance(w, Shard) \
+            else x.to(w)
+    return tree_unflatten(treedef, [place(x, w)
+                                    for (_, x), w in zip(flat, where)])
 
 
 def _backoff_sleep(backoff: float, n_restarts: int, sleep=time.sleep):

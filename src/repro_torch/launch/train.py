@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --seq 4096 --batch 8 [--smoke] [--device cuda|cpu] \\
       [--ckpt DIR [--ckpt-every N] [--resume]] \\
-      [--data N [--dist-backend nccl|gloo]] [--compress-grads]
+      [--data N] [--model M] [--dist-backend nccl|gloo] [--compress-grads]
 
 ``--device cuda`` (the default) runs the attention kernels and raises
 without a CUDA device; ``--device cpu`` runs their plain versions.
@@ -43,8 +43,20 @@ not checkpointed (nor is it in the reference's CLI):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --device cpu --data 2 --dist-backend gloo --steps 3
 
-Not ported yet, and raising ``NotImplementedError``: ``--model`` > 1,
-tensor parallelism (ROADMAP queue 1, 'multi-GPU').
+``--model M`` trains tensor-parallel (the reference's "model" mesh axis)
+over M ranks, alone or with ``--data D`` on D x M ranks (the ``(data,
+model)`` mesh, model the fast axis): each rank holds its slices of the
+attention heads, the MLP's ffn and the vocabulary
+(:func:`repro_torch.dist.sharding.param_placements`, printed once), cut
+from the single-device draw of ``--seed``, so the losses equal ``--model
+1``'s. The dense families run so (smollm, gemma, phi4-mini, granite,
+longformer); the others and ``--compress-grads`` with ``--model`` raise
+``NotImplementedError`` (ROADMAP queue 1, 'multi-GPU'). The checkpoint
+holds the whole leaves, gathered over the model group, so it is the
+single-device checkpoint of the same state and resumes on any layout:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --device cpu --dist-backend gloo --model 2 [--data 2]
 """
 from __future__ import annotations
 
@@ -57,15 +69,18 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import checkpoint_from_jax, is_jax_checkpoint
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.dist.group import BACKENDS, DataGroup, run_ranks
+from repro_torch.dist.group import BACKENDS, run_ranks
+from repro_torch.dist.sharding import describe, param_placements
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
-from repro_torch.ft.manager import StragglerWatchdog
+from repro_torch.ft.manager import StragglerWatchdog, reshard
 from repro_torch.models.model import build_model
 from repro_torch.obs import Observability
 from repro_torch.obs.metrics import global_registry
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
-from repro_torch.train.trainer import TrainConfig, make_train_step
+from repro_torch.train.trainer import (TrainConfig, check_tensor_parallel,
+                                       init_shards, make_train_step,
+                                       state_shardings)
 from repro_torch.tree import tree_leaves
 
 
@@ -92,15 +107,17 @@ def _parser():
                          "data-parallel wire")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks")
-    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks (heads, ffn and vocab "
+                         "split)")
     ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
-                    help="the ranks' backend with --data > 1: nccl (one "
-                         "card per rank; default with --device cuda) or "
-                         "gloo (every rank on --device; default with "
-                         "--device cpu)")
+                    help="the ranks' backend with --data or --model > 1: "
+                         "nccl (one card per rank; default with --device "
+                         "cuda) or gloo (every rank on --device; default "
+                         "with --device cpu)")
     ap.add_argument("--dist-timeout", type=float, default=3600.0,
-                    help="seconds the ranks of --data > 1 may take in all "
-                         "(and any collective may wait)")
+                    help="seconds the ranks of --data or --model > 1 may "
+                         "take in all (and any collective may wait)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
@@ -123,45 +140,51 @@ def main(argv=None):
 
     if args.resume and not args.ckpt:
         ap.error("--resume needs --ckpt")
-    if args.model > 1:
-        raise NotImplementedError(
-            "--model > 1 (tensor parallelism: sharded projections and their "
-            "collectives) is not ported yet: ROADMAP queue 1, 'multi-GPU'")
-    if args.data < 1:
-        ap.error("--data must be >= 1")
+    if args.data < 1 or args.model < 1:
+        ap.error("--data and --model must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device and "
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to run the plain versions")
-    if args.data == 1:
-        return _train(args, None)
+    n = args.data * args.model
+    check_tensor_parallel(get_smoke(args.arch) if args.smoke
+                          else get_config(args.arch),
+                          TrainConfig(compress_grads=args.compress_grads),
+                          args.model)
+    if n == 1:
+        return _train(args, None, None)
     backend = args.dist_backend or ("nccl" if args.device == "cuda"
                                     else "gloo")
     if backend == "nccl":
         have = torch.cuda.device_count() if args.device == "cuda" else 0
-        if have < args.data:
+        if have < n:
             ap.error(f"--dist-backend nccl puts one rank on each card: "
-                     f"--data {args.data} needs {args.data} CUDA devices "
-                     f"with --device cuda, this run has {have}; pass "
-                     f"--dist-backend gloo to run the ranks on one shared "
-                     f"--device")
-    return run_ranks(_train_rank, args.data, backend=backend,
+                     f"--data {args.data} x --model {args.model} needs {n} "
+                     f"CUDA devices with --device cuda, this run has "
+                     f"{have}; pass --dist-backend gloo to run the ranks on "
+                     f"one shared --device")
+    return run_ranks(_train_rank, n, backend=backend,
                      device=None if backend == "nccl" else args.device,
-                     timeout_s=args.dist_timeout, args=(argv,))[0]
+                     timeout_s=args.dist_timeout, args=(argv,),
+                     model=args.model)[0]
 
 
-def _train_rank(group, argv):
-    """One rank of ``--data > 1``."""
-    return _train(_parser().parse_args(argv), DataGroup.of(group))
+def _train_rank(mesh, argv):
+    """One rank of ``--data`` or ``--model > 1``."""
+    return _train(_parser().parse_args(argv), mesh.data, mesh.model)
 
 
-def _train(args, data):
-    """Train on one device (``data`` None) or as one rank of a data
-    group; only rank 0 prints and writes the checkpoint, the trace and
-    the metrics. Returns the final loss."""
-    lead = data is None or data.index == 0
+def _train(args, data, mg):
+    """Train on one device (``data`` and ``mg`` None) or as one rank of
+    the ``(data, model)`` mesh; only rank 0 prints and writes the trace
+    and the metrics, and the ranks of data index 0 write the checkpoint
+    (its model group gathers, its rank 0 writes). Returns the final
+    loss."""
+    lead = (data is None or data.index == 0) and (mg is None
+                                                  or mg.index == 0)
     say = print if lead else (lambda *a, **k: None)
-    device = args.device if data is None else str(data.device)
+    rank = data or mg
+    device = args.device if rank is None else str(rank.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device)
     tcfg = TrainConfig(
@@ -169,13 +192,24 @@ def _train(args, data):
         schedule=Schedule(warmup_steps=max(10, args.steps // 20),
                           total_steps=args.steps),
         microbatches=args.microbatches, compress_grads=args.compress_grads)
-    params = model.init(torch.Generator().manual_seed(args.seed))
+    step = make_train_step(model, tcfg, data=data, model_group=mg)
+    gen = torch.Generator().manual_seed(args.seed)
+    params = model.init(gen) if mg is None else init_shards(model, gen, mg)
     opt = adamw.init(tcfg.optimizer, params)
     n_par = sum(x.numel() for x in tree_leaves(params))
-    say(f"# arch={cfg.name} params={n_par / 1e6:.1f}M device={device}"
-        f" window={cfg.salo.window} sinks={cfg.salo.n_global}"
+    say(f"# arch={cfg.name} params={n_par / 1e6:.1f}M"
+        + ("" if mg is None else " (rank 0's slices)")
+        + f" device={device} window={cfg.salo.window} "
+        f"sinks={cfg.salo.n_global}"
         + ("" if data is None else f" data={data.size} ({data.backend})")
+        + ("" if mg is None else f" model={mg.size} ({mg.backend})")
         + (" compress_grads" if args.compress_grads else ""))
+    shards = None
+    if mg is not None:
+        placements = param_placements(params, cfg, mg.size)
+        say(f"# placements over {mg.size} model ranks: "
+            f"{describe(params, placements)}")
+        shards = state_shardings(placements, opt)
 
     start = 0
     if args.resume:
@@ -184,15 +218,17 @@ def _train(args, data):
         if step0 is not None:
             if is_jax_checkpoint(args.ckpt, step0):
                 restored, _ = checkpoint_from_jax(args.ckpt, like, step0)
+                if shards is not None:
+                    restored = reshard(restored, shards, mg)
             else:
-                restored = restore(args.ckpt, like, step0)
+                restored = restore(args.ckpt, like, step0, shards, mg)
             params, opt = restored["params"], restored["opt"]
             start = step0
             say(f"# resumed from step {start}")
-    mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt and lead \
-        else None
+    # the ranks of data index 0 hold the whole state between them
+    mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt and (
+        data is None or data.index == 0) else None
 
-    step = make_train_step(model, tcfg, data=data)
     ds = SyntheticLM(cfg, DataConfig(args.seq, args.batch, seed=args.seed,
                                      branch=args.data_branch,
                                      n_docs=args.data_docs))
@@ -224,10 +260,10 @@ def _train(args, data):
                     f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
                     + (" [straggler]" if straggler else ""), flush=True)
             if mgr and (i + 1) % args.ckpt_every == 0:
-                mgr.save({"params": params, "opt": opt}, i + 1)
+                mgr.save({"params": params, "opt": opt}, i + 1, shards, mg)
                 obs.tracer.instant("ft.snapshot", track="ft", step=i + 1)
         if mgr:
-            mgr.save({"params": params, "opt": opt}, args.steps)
+            mgr.save({"params": params, "opt": opt}, args.steps, shards, mg)
     finally:
         if mgr:   # a checkpoint in flight lands even when a step raised
             mgr.wait()

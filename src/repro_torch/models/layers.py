@@ -18,6 +18,15 @@ lockstep decode on contiguous caches (always through
 picks kernel or plain version. Whisper's cross attention (dense over the
 encoder output) and sinusoidal positions are plain torch, as the
 reference's are plain XLA.
+
+Tensor parallelism (``model=``, a :class:`~repro_torch.dist.group
+.ModelGroup`, the reference's "model" mesh axis): the attention and MLP
+products, the embedding and the LM head take the split weights of
+:func:`repro_torch.dist.sharding.param_placements`, Megatron-style. A
+column-split product's input passes ``model.enter`` (its gradient summed
+over the group); a row-split product's partial outputs are summed by
+``model.reduce``. The sums run in the activations' dtype, as GSPMD sums a
+bf16 dot's partials. ``model=None`` is the single-device code.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.core.patterns import (HybridSparsePattern,
                                        causal_sliding_window, full,
                                        longformer)
 from repro_torch.core.scheduler import PAD_SENTINEL
+from repro_torch.dist.sharding import split_axes
 from repro_torch.dist.sharded_plan import masked_psum_merge
 from repro_torch.kernels.salo_decode import salo_decode, salo_paged_decode
 from repro_torch.serve.paged_cache import quant_slab_write, slab_write
@@ -44,6 +54,11 @@ from repro_torch.serve.paged_cache import quant_slab_write, slab_write
 def dt(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
     name = cfg.param_dtype if kind == "param" else cfg.compute_dtype
     return getattr(torch, name)
+
+
+def _split(cfg: ModelConfig, model) -> frozenset:
+    """The logical axes split over the model group (none without one)."""
+    return frozenset() if model is None else split_axes(cfg, model.size)
 
 
 # --------------------------- init helpers ------------------------------ #
@@ -118,7 +133,15 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
     return p
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              model=None) -> torch.Tensor:
+    """The MLP. Under a ``model`` group whose size divides ``d_ff``,
+    ``w_in``/``w_gate`` hold this rank's ffn columns and ``w_out`` its
+    rows: the rank's partial output is summed over the group (one
+    ``all_reduce`` in the activations' dtype)."""
+    split = "ffn" in _split(cfg, model)
+    if split:
+        x = model.enter(x)
     # GELU is tanh-approximate, as the reference's jax.nn.gelu defaults to
     h = x @ p["w_in"].to(x.dtype)
     if cfg.act == "swiglu":
@@ -127,7 +150,8 @@ def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_out"].to(x.dtype)
+    out = h @ p["w_out"].to(x.dtype)
+    return model.reduce(out) if split else out
 
 
 # ---------------------------- attention --------------------------------- #
@@ -152,21 +176,41 @@ def attn_init(gen, cfg: ModelConfig, device):
 
 
 def attn_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-             mrope=None):
+             mrope=None, model=None):
+    """q (B, S, H, hd), k and v (B, S, Hkv, hd), RoPE applied. Under a
+    ``model`` group that splits the heads, the rank's H / n query heads
+    and the KV heads they read: its Hkv / n own where the group splits
+    the KV heads too, else the replicated ``wk``/``wv`` (their gradient
+    summed over the group, each rank's holding only its query heads'
+    share) give all Hkv heads, of which query head ``j`` of rank ``r``
+    reads head ``(r * H / n + j) // rep``: k and v come back with H / n
+    heads then."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    wk, wv = p["wk"], p["wv"]
+    split = _split(cfg, model)
+    if "heads" in split:
+        H //= model.size
+        if "kv_heads" in split:
+            Hkv //= model.size
+        else:
+            wk, wv = model.enter(wk), model.enter(wv)
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    k = (x @ wk.to(x.dtype)).reshape(B, S, Hkv, hd)
+    v = (x @ wv.to(x.dtype)).reshape(B, S, Hkv, hd)
     q = rope(q, positions, cfg.rope_theta, mrope)
     k = rope(k, positions, cfg.rope_theta, mrope)
+    if "heads" in split and "kv_heads" not in split:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        idx = (model.index * H + torch.arange(H, device=x.device)) // rep
+        k, v = k[:, :, idx], v[:, :, idx]
     return q, k, v
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
                pattern: HybridSparsePattern,
                positions: Optional[torch.Tensor] = None, mrope=None,
-               group=None):
+               group=None, model=None):
     """Full-sequence attention (train). x: (B, S, d); positions (B, S), or
     (3, B, S) under M-RoPE (``mrope``: the sections); returns (B, S, d).
     (The reference also returns (k, v) for its prefill-to-cache path; the
@@ -178,20 +222,31 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
     sequence, the default positions are its global ones (``group.index *
     S + arange(S)``) and the attention runs sharded.
 
+    ``model`` (a :class:`~repro_torch.dist.group.ModelGroup`): tensor-
+    parallel training. Where the group's size divides the heads, the
+    rank runs its H / n heads (:func:`attn_qkv`) through the same op,
+    then its rows of ``wo``, and the partial outputs are summed over the
+    group (one ``all_reduce`` of (B, S, d) in the activations' dtype);
+    otherwise the attention runs whole on every rank, with no collective.
+
     The (B, S, H, hd) -> (B*H, S, hd) layout change is a copy in torch
     (a free transpose in XLA)."""
     B, S, _ = x.shape
+    split = "heads" in _split(cfg, model)
+    if split:
+        x = model.enter(x)
     if positions is None:
         start = 0 if group is None else group.index * S
         positions = torch.arange(start, start + S,
                                  device=x.device).expand(B, S)
-    q, k, v = attn_qkv(p, x, cfg, positions, mrope)
+    q, k, v = attn_qkv(p, x, cfg, positions, mrope, model=model)
     out = hybrid_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pattern,
         impl=cfg.salo.impl, block_q=cfg.salo.block_q,
         block_k=cfg.salo.block_k, group=group)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(x.dtype)
+    out = out.transpose(1, 2).reshape(B, S, q.shape[2] * cfg.hd)
+    out = out @ p["wo"].to(x.dtype)
+    return model.reduce(out) if split else out
 
 
 # ------------------- continuous-batching serve paths -------------------- #
@@ -410,14 +465,32 @@ def embed_init(gen, cfg: ModelConfig, device):
     return {"w": w.to(device=device, dtype=dt(cfg))}
 
 
-def embed_apply(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p["w"][tokens].to(dt(cfg, "compute"))
+def embed_apply(p, tokens: torch.Tensor, cfg: ModelConfig,
+                model=None) -> torch.Tensor:
+    """Token embedding, scaled by sqrt(d). Under a ``model`` group whose
+    size divides the vocabulary, ``p["w"]`` holds this rank's contiguous
+    vocab rows: the rank looks up the tokens in its range, writes zeros
+    elsewhere, and the group sums (exact: one rank holds each row)."""
+    if "vocab" in _split(cfg, model):
+        rows = p["w"].shape[0]
+        local = tokens - model.index * rows
+        inside = (local >= 0) & (local < rows)
+        x = p["w"][local.clamp(0, rows - 1)]
+        x = model.reduce(torch.where(inside[..., None], x, 0.0).to(
+            dt(cfg, "compute")))
+    else:
+        x = p["w"][tokens].to(dt(cfg, "compute"))
     # a Python float keeps bf16 activations bf16 (gemma-style scaling)
     return x * float(math.sqrt(cfg.d_model))
 
 
-def logits_apply(p_embed, p_head, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def logits_apply(p_embed, p_head, x: torch.Tensor, cfg: ModelConfig,
+                 model=None) -> torch.Tensor:
+    """The LM head's logits (B, S, V), soft-capped if the arch says so.
+    Under a ``model`` group that splits the vocabulary, this rank's
+    vocab slice (B, S, V / n); the softcap is elementwise."""
+    if "vocab" in _split(cfg, model):
+        x = model.enter(x)
     w = (p_embed["w"] if cfg.tie_embeddings else p_head["w"]).to(x.dtype)
     logits = x @ w.T
     if cfg.logit_softcap:
@@ -428,16 +501,33 @@ def logits_apply(p_embed, p_head, x: torch.Tensor,
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  group=None) -> torch.Tensor:
+                  group=None, model=None) -> torch.Tensor:
     """logits (B, S, V), targets (B, S) int. Mean NLL over mask, in f32.
 
     Under a sequence ``group`` the tokens are this rank's slice: the
     result is the local sum of token losses over the group's total token
     count (one ``all_reduce`` of the count, which carries no gradient), so
-    the ranks' results add up to the whole sequence's mean."""
+    the ranks' results add up to the whole sequence's mean.
+
+    ``model`` (a :class:`~repro_torch.dist.group.ModelGroup`): the logits
+    are this rank's contiguous vocab slice (B, S, V / n), vocab-parallel
+    in f32: the row max over the group (``pmax_``, no gradient), the sum
+    of exp over the group, and the gold logit from the rank whose slice
+    holds the target (zeros elsewhere, summed). Every rank runs every
+    collective, with or without gold tokens, and gets the same loss."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if model is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        rows = lf.shape[-1]
+        m = model.pmax_(lf.detach().amax(dim=-1).contiguous())
+        logz = m + torch.log(model.reduce(
+            torch.exp(lf - m[..., None]).sum(dim=-1)))
+        local = targets.long() - model.index * rows
+        inside = (local >= 0) & (local < rows)
+        gold = torch.gather(lf, -1, local.clamp(0, rows - 1)[..., None])
+        gold = model.reduce(torch.where(inside, gold[..., 0], 0.0))
     nll = logz - gold
     if group is None:
         if mask is None:

@@ -11,7 +11,8 @@
 * ``forward(params, batch, return_aux=False) -> logits`` (train / full
   sequence; with ``return_aux``, ``(logits, aux)``: the MoE aux losses
   summed over every layer);
-* ``loss(params, batch, group=None, data=None) -> (loss, metrics)``;
+* ``loss(params, batch, group=None, data=None, model=None) -> (loss,
+  metrics)``;
 * ``init_cache(batch_size, max_len) -> cache`` and
   ``decode_step(params, cache, batch_t, t) -> (logits, cache)`` — the
   lockstep decode (the cache is updated in place and returned);
@@ -30,6 +31,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import split_axes
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
@@ -41,15 +43,27 @@ class Model:
         self.device = torch.device(device)
         self.program = T.make_program(cfg)
 
-    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, keep=None) -> Dict[str, Any]:
+        """The parameters, drawn from ``generator``. ``keep(path, subtree)
+        -> subtree``, if given, takes each top-level entry and each layer
+        of a segment as soon as it is drawn (``path``: its key path, a
+        tuple of strings): a tensor-parallel rank keeps its slices that
+        way (:func:`repro_torch.train.trainer.init_shards`), so it never
+        holds more than one whole layer (or the embedding) beside them.
+        The draws are the same with or without ``keep``."""
         cfg, dev = self.cfg, self.device
-        params: Dict[str, Any] = {"embed": L.embed_init(generator, cfg, dev),
-                                  "ln_f": L.rmsnorm_init(cfg.d_model, dev)}
+        keep = keep or (lambda path, sub: sub)
+        params: Dict[str, Any] = {
+            "embed": keep(("embed",), L.embed_init(generator, cfg, dev)),
+            "ln_f": keep(("ln_f",), L.rmsnorm_init(cfg.d_model, dev))}
         if not cfg.tie_embeddings:
-            params["lm_head"] = {"w": L.embed_init(generator, cfg, dev)["w"]}
+            params["lm_head"] = keep(("lm_head",), {
+                "w": L.embed_init(generator, cfg, dev)["w"]})
         for i, (kind, n) in enumerate(self.program):
-            params[f"seg{i}_{kind}"] = T.segment_init(generator, cfg, kind, n,
-                                                      dev)
+            key = f"seg{i}_{kind}"
+            params[key] = [keep((key, str(j)),
+                                T.block_init(generator, cfg, kind, dev))
+                           for j in range(n)]
         if cfg.encoder_decoder:
             params["enc"] = {
                 "seg0_attn_mlp": T.segment_init(generator, cfg, "attn_mlp",
@@ -60,13 +74,13 @@ class Model:
                 generator, cfg.d_model, cfg.d_model, L.dt(cfg), dev)}
         return params
 
-    def _embed_inputs(self, params, batch) -> torch.Tensor:
+    def _embed_inputs(self, params, batch, model=None) -> torch.Tensor:
         """Token embeddings; a VLM batch's ``vision_embeds`` (B, S, d),
         projected by ``vision_proj``, replace them where ``vision_mask``
         (B, S) is set (the vision frontend is stubbed: the embeddings come
         aligned to token slots)."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], batch["tokens"], cfg)
+        x = L.embed_apply(params["embed"], batch["tokens"], cfg, model)
         if cfg.n_vision_tokens and "vision_embeds" in batch:
             vis = batch["vision_embeds"].to(x.dtype) @ \
                 params["vision_proj"]["w"].to(x.dtype)
@@ -90,7 +104,7 @@ class Model:
         return L.rmsnorm(params["enc"]["ln_f"], x, cfg.norm_eps)
 
     def forward(self, params, batch, return_aux: bool = False, group=None,
-                data=None):
+                data=None, model=None):
         """Logits (B, S, vocab) of the full sequence; with ``return_aux``,
         (logits, aux): the MoE aux losses (``load_balance``, ``router_z``,
         ``dropped_frac``) summed over the segments' layers, ``{}`` for
@@ -106,11 +120,26 @@ class Model:
         ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
         parallel training; ``batch`` holds this rank's rows of the global
         batch, and the MoE blocks route over the group
-        (:func:`repro_torch.models.moe.moe_apply`)."""
+        (:func:`repro_torch.models.moe.moe_apply`).
+
+        ``model`` (a :class:`~repro_torch.dist.group.ModelGroup`): tensor-
+        parallel training; ``params`` holds this rank's slices
+        (:func:`repro_torch.dist.sharding.param_placements`) and every
+        rank of the group the same ``batch``. Where the group splits the
+        vocabulary, the logits are this rank's vocab slice (B, S, V / n):
+        a caller that needs the whole logits gathers them. Only the dense
+        families' ``attn_mlp`` programs run under a model group of more
+        than one rank (``transformer.check_tensor_parallel``)."""
         cfg = self.cfg
+        if group is not None and model is not None:
+            raise ValueError("a rank is in a sequence group or a model "
+                             "group, not both (the reference never maps "
+                             "seq and model together in training)")
         for kind, _ in self.program:
             T.check_sequence_parallel(cfg, kind, group)
-        x = self._embed_inputs(params, batch)
+            T.check_tensor_parallel(cfg, kind,
+                                    1 if model is None else model.size)
+        x = self._embed_inputs(params, batch, model)
         positions = batch.get("positions", None)
         mrope = cfg.mrope_sections
         if mrope is not None and positions is None:
@@ -124,14 +153,14 @@ class Model:
                                      pats.get(kind, pats["attn_mlp"]),
                                      positions=positions, mrope=mrope,
                                      enc_out=enc_out, group=group,
-                                     data=data)
+                                     data=data, model=model)
             T.add_aux(aux_total, aux)
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
-                                cfg)
+                                cfg, model)
         return (logits, aux_total) if return_aux else logits
 
-    def loss(self, params, batch, group=None, data=None):
+    def loss(self, params, batch, group=None, data=None, model=None):
         """Mean next-token NLL plus the MoE aux losses ``load_balance`` and
         ``router_z``; returns ``(loss, metrics)`` as the reference does:
         ``nll``, every aux term (``dropped_frac`` too) and ``loss``.
@@ -144,14 +173,25 @@ class Model:
         group (``batch`` this rank's rows) every term is this rank's share
         of the global batch's, the NLL's as under a sequence group and the
         aux terms' as :func:`repro_torch.models.moe.moe_apply` takes them,
-        and the metrics are their totals (one ``all_reduce``, detached)."""
+        and the metrics are their totals (one ``all_reduce``, detached).
+
+        Under a ``model`` group (tensor parallelism, ``params`` this rank's
+        slices, the batch the same on every rank of the group) the loss is
+        the whole batch's on every rank (vocab-parallel where the group
+        splits the vocabulary: :func:`~repro_torch.models.layers
+        .cross_entropy`), and so are the metrics, with no sum over the
+        group. It composes with ``data``: the NLL's share and the metric
+        totals then go over the data group only."""
         if group is not None and data is not None:
             raise ValueError("a rank is in a sequence group or a data "
                              "group, not both")
         logits, aux = self.forward(params, batch, return_aux=True,
-                                   group=group, data=data)
+                                   group=group, data=data, model=model)
+        vocab = model if model is not None and "vocab" in split_axes(
+            self.cfg, model.size) else None
         nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"),
-                              group=group if data is None else data)
+                              group=group if data is None else data,
+                              model=vocab)
         if group is not None:
             total = group.psum_(nll.detach().reshape(1).clone())[0]
             return nll, {"nll": total, "loss": total}

@@ -142,13 +142,15 @@ def _patterns(cfg: ModelConfig, causal: bool = True):
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                 positions=None, mrope=None, enc_out=None, group=None,
-                data=None):
+                data=None, model=None):
     """Full-sequence block. ``positions``/``mrope``: the RoPE positions
     and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
     block cross-attends; ``group``: the sequence group of an ``attn_mlp``
     block's attention (:func:`check_sequence_parallel`); ``data``: the
-    data group of an MoE block's routing. Returns (x, aux): the MoE
-    blocks' aux losses, else ``{}``."""
+    data group of an MoE block's routing; ``model``: the tensor-parallel
+    group of an ``attn_mlp`` block's attention and MLP
+    (:func:`check_tensor_parallel`). Returns (x, aux): the MoE blocks' aux
+    losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                              cfg, pattern, positions=positions)
@@ -165,8 +167,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     if kind in ATTN_KINDS:
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                          cfg, pattern, positions=positions, mrope=mrope,
-                         group=group)
-        return _ffn_residual(p, x + h, cfg, kind, data)
+                         group=group, model=model)
+        return _ffn_residual(p, x + h, cfg, kind, data, model)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
                                  L.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -205,9 +207,28 @@ def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
             f"'multi-GPU'")
 
 
+def check_tensor_parallel(cfg: ModelConfig, kind: str, n: int) -> None:
+    """Which blocks run under a model group of ``n`` > 1 ranks: the
+    ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
+    granite, longformer), whose heads, ffn and vocab split by
+    :func:`repro_torch.dist.sharding.param_placements`. The recurrent
+    blocks, the MoE blocks (expert parallelism), the VLM and the
+    encoder-decoder raise."""
+    if n <= 1:
+        return
+    if kind != "attn_mlp" or cfg.family != "dense" \
+            or cfg.mrope_sections is not None or cfg.n_vision_tokens \
+            or cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"tensor-parallel training runs the attn_mlp blocks of the "
+            f"dense families; {cfg.name}'s {kind!r} blocks under a model "
+            f"group of {n} are not ported yet: ROADMAP queue 1, "
+            f"'multi-GPU'")
+
+
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                   pattern, positions=None, mrope=None, enc_out=None,
-                  group=None, data=None):
+                  group=None, data=None, model=None):
     """Run one segment's layers (the reference's scan) under the config's
     remat policy ("none" | "full" | "dots"), a griffin group as one unit.
     ``enc_out`` enters each checkpointed layer from outside it, so its
@@ -218,7 +239,12 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     exchange again, on every rank alike). ``data``: data-parallel training,
     x this rank's rows of the global batch (the MoE blocks route over the
     group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
-    Returns (x, aux summed over the layers)."""
+    ``model``: tensor-parallel training, x the whole activation on every
+    rank and the layers' weights this rank's slices (``Model.forward``
+    checks the kinds first: :func:`check_tensor_parallel`). A remat
+    replay reruns the layer's forward collectives inside the backward, in
+    the same order on every rank. Returns (x, aux summed over the
+    layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
@@ -226,7 +252,7 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     def body(layer_params, y):
         return block_apply(layer_params, y, cfg, kind, pattern,
                            positions=positions, mrope=mrope, enc_out=enc_out,
-                           group=group, data=data)
+                           group=group, data=data, model=model)
 
     total = {}
     for layer_params in params:
@@ -251,17 +277,18 @@ def add_aux(total: dict, aux: dict) -> dict:
 
 
 def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                  data=None):
+                  data=None, model=None):
     """The post-attention FFN residual of an attention block. Returns (x,
     aux): the MoE aux losses, else ``{}`` (the serving paths drop them:
     serving never backprops). ``data``: the data group an MoE block
-    routes over (training)."""
+    routes over (training); ``model``: the tensor-parallel group of a
+    dense MLP."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"continuous serving supports attention block kinds "
                          f"{ATTN_KINDS}, got {kind!r}")
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MLP_KINDS:
-        return x + L.mlp_apply(p["mlp"], h2, cfg), {}
+        return x + L.mlp_apply(p["mlp"], h2, cfg, model), {}
     y, aux = MOE.moe_apply(p["moe"], h2, cfg, data)
     if kind == "attn_moe_dense":    # arctic: the dense MLP beside the MoE
         return x + y + L.mlp_apply(p["mlp"], h2, cfg), aux

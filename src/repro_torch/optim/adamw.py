@@ -6,6 +6,11 @@ decoupled decay rounds differently from this update's
 by their global norm. ``moment_dtype`` sets the moments' storage type and
 ``use_master`` keeps an f32 copy of low-precision parameters. The update
 is functional (new tensors), as in the reference.
+
+Under tensor parallelism a rank holds slices of the split leaves; the
+global norm is then the whole model's: the squares of the split leaves
+summed over the model group (one ``all_reduce``), the replicated leaves
+counted once. The update itself is leafwise and needs no collective.
 """
 from __future__ import annotations
 
@@ -47,26 +52,42 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
         master=master)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, model=None, placements=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. ``model``/``placements``: a
+    tensor-parallel rank's slices (``placements`` the tree of split dims,
+    :func:`repro_torch.dist.sharding.param_placements`): the split leaves'
+    squares are summed over the group, the replicated ones counted once."""
+    if model is None or model.size == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    dims = tree_leaves(placements)
+    zero = torch.zeros((), device=sq[0].device)
+    split = model.psum_(sum((s for s, d in zip(sq, dims) if d is not None),
+                            zero).reshape(1))[0]
+    return torch.sqrt(split + sum((s for s, d in zip(sq, dims)
+                                   if d is None), zero))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, model=None,
+                        placements=None):
+    norm = global_norm(grads, model, placements)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, state: AdamWState, params, grads,
-           lr_scale: float = 1.0):
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
+           lr_scale: float = 1.0, model=None, placements=None):
+    """One AdamW step. Returns (new_params, new_state, metrics).
+    ``model``/``placements``: a tensor-parallel rank's slices
+    (:func:`global_norm`)."""
     grads = tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, model,
+                                           placements)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, model, placements)
     step = state.step + 1
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step

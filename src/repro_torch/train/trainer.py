@@ -3,8 +3,9 @@ over the ranks -> AdamW, with microbatch gradient accumulation and the LR
 schedule.
 
 The port of :mod:`repro.train.trainer`. ``make_train_step(model, tcfg,
-group=None, data=None)`` returns ``train_step(params, opt_state, batch,
-ef_state=None) -> (params, opt_state, metrics, ef_state)``, the
+group=None, data=None, model_group=None)`` returns ``train_step(params,
+opt_state, batch, ef_state=None) -> (params, opt_state, metrics,
+ef_state)``, the
 reference's fixed arity: ``ef_state`` (the int8 error-feedback residual)
 is threaded always, ``None`` unless ``compress_grads`` is on, so no caller
 switches shape on a flag. ``make_eval_step(model)`` returns
@@ -33,9 +34,20 @@ Every rank calls the step with the same global batch (``SyntheticLM
   Without a data group, or with one rank, ``compress_grads`` quantize-
   dequantizes locally (``compression.compress_decompress``).
 
+A ``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, the
+reference's "model" axis) is tensor parallelism: every rank of the group
+takes the same rows, its parameters and optimizer state are its slices of
+the split leaves (:func:`shard_params` by
+:func:`repro_torch.dist.sharding.param_placements`), its gradients of them
+its own, and the clip sees the whole model's norm. It composes with a
+``data`` group (the ``(data, model)`` mesh of
+:func:`repro_torch.dist.group.mesh_groups`): the one flat gradient
+``all_reduce`` then runs over the data group, each rank holding its own
+slices.
+
 Either way the parameters and the optimizer state stay bitwise equal on
-every rank. The reference never composes ``seq`` and ``batch`` on separate
-axes, so a step takes one group or the other.
+every rank that holds them. The reference never composes ``seq`` and
+``batch`` on separate axes, so a step takes one group or the other.
 """
 from __future__ import annotations
 
@@ -45,7 +57,9 @@ from typing import Callable
 import torch
 
 from repro_torch.dist import compression
-from repro_torch.dist.group import DataGroup, SeqGroup
+from repro_torch.dist.group import DataGroup, ModelGroup, SeqGroup
+from repro_torch.dist.sharding import param_placements
+from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
 from repro_torch.tree import tree_leaves, tree_map
@@ -114,26 +128,101 @@ def _pmean(loss, metrics, data):
     return mean[0], dict(zip(keys, mean[1:].unbind()))
 
 
-def make_train_step(model, tcfg: TrainConfig, group=None,
-                    data=None) -> Callable:
+def shard_params(full, placements, model_group):
+    """This rank's slices of ``full`` (a tree of whole leaves): each leaf
+    whose placement is a dim is cut along it
+    (:meth:`~repro_torch.dist.group.ModelGroup.shard`); replicated leaves
+    (``None``) are kept as they are."""
+    return tree_map(lambda x, d: x if d is None else model_group.shard(x, d),
+                    full, placements)
+
+
+def gather_params(shards, placements, model_group):
+    """The whole leaves from every rank's slices
+    (:meth:`~repro_torch.dist.group.ModelGroup.unshard`); replicated
+    leaves as they are. Every rank of the group calls it."""
+    return tree_map(lambda x, d: x if d is None
+                    else model_group.unshard(x, d), shards, placements)
+
+
+def init_shards(model, generator, model_group):
+    """This rank's slices of ``model.init(generator)``, cut as each layer
+    (and the embedding) is drawn, so a rank never holds the whole model:
+    the same parameters a single-device run draws from the same
+    generator, as :func:`shard_params` would cut them."""
+    n = model_group.size
+
+    def keep(path, sub):
+        return shard_params(sub, param_placements(sub, model.cfg, n, path),
+                            model_group)
+    return model.init(generator, keep=keep)
+
+
+def state_shardings(placements, opt_state):
+    """The ``Shard`` placements of a train state ``{"params", "opt"}``
+    whose parameters split by ``placements``: the AdamW moments (and a
+    master copy) split as their parameters, the step count whole. What
+    :mod:`repro_torch.ft.checkpoint` takes as ``shardings``."""
+    from torch.distributed.tensor import Shard
+
+    sh = tree_map(lambda d: None if d is None else Shard(d), placements)
+    return {"params": sh, "opt": adamw.AdamWState(
+        step=None, m=sh, v=sh,
+        master=None if opt_state.master is None else sh)}
+
+
+def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
+    """What a train step over a model group of ``n`` ranks cannot run
+    yet raises ``NotImplementedError``: the non-dense blocks
+    (:func:`repro_torch.models.transformer.check_tensor_parallel`) and
+    ``compress_grads``."""
+    if n <= 1:
+        return
+    if tcfg.compress_grads:
+        raise NotImplementedError(
+            "compress_grads under a model group: the int8 wire's scale is "
+            "one per whole tensor (its absmax), and a rank's slice does not "
+            "hold the tensor's absmax; ROADMAP queue 1, 'multi-GPU'")
+    for kind, _ in T.make_program(cfg):
+        T.check_tensor_parallel(cfg, kind, n)
+
+
+def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
+                    model_group=None) -> Callable:
     """``group``: sequence-parallel training over a
     :class:`~repro_torch.dist.group.SeqGroup`; ``data``: data-parallel
     training over a :class:`~repro_torch.dist.group.DataGroup` (every
-    rank calls the step with the same global batch). Not both: raises."""
+    rank calls the step with the same global batch); ``model_group``:
+    tensor-parallel training over a
+    :class:`~repro_torch.dist.group.ModelGroup` (the parameters and the
+    optimizer state this rank's slices), alone or with ``data``. A
+    sequence group takes no other: raises."""
     if group is not None and data is not None:
         raise ValueError("make_train_step takes a sequence group or a data "
                          "group, not both (the reference maps seq onto the "
                          "data axis only when the batch is unsharded)")
+    if group is not None and model_group is not None:
+        raise ValueError("make_train_step takes a sequence group or a model "
+                         "group, not both (the reference never maps seq and "
+                         "model together in training)")
     if group is not None and not isinstance(group, SeqGroup):
         raise TypeError(f"group= takes a SeqGroup, got {type(group).__name__}")
     if data is not None and not isinstance(data, DataGroup):
         raise TypeError(f"data= takes a DataGroup, got {type(data).__name__}")
+    if model_group is not None and not isinstance(model_group, ModelGroup):
+        raise TypeError(f"model_group= takes a ModelGroup, got "
+                        f"{type(model_group).__name__}")
+    if model_group is not None and model_group.size == 1:
+        model_group = None
+    if model_group is not None:
+        check_tensor_parallel(model.cfg, tcfg, model_group.size)
     n = 1 if data is None else data.size
     wire = tcfg.compress_grads and n > 1
 
     def loss_and_grads(params, batch, share):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = model.loss(leaves, batch, group=group, data=share)
+        loss, metrics = model.loss(leaves, batch, group=group, data=share,
+                                   model=model_group)
         grads = torch.autograd.grad(loss, tree_leaves(leaves))
         it = iter(grads)
         return (metrics["loss"].detach(),
@@ -192,7 +281,9 @@ def make_train_step(model, tcfg: TrainConfig, group=None,
                     grads, ef_state)
         lr_scale = tcfg.schedule(opt_state.step)
         params, opt_state, opt_metrics = adamw.update(
-            tcfg.optimizer, opt_state, params, grads, lr_scale)
+            tcfg.optimizer, opt_state, params, grads, lr_scale,
+            model=model_group, placements=None if model_group is None
+            else param_placements(params, model.cfg, model_group.size))
         metrics = dict(metrics, **opt_metrics, loss=loss)
         return params, opt_state, metrics, ef_state
 

@@ -300,14 +300,114 @@ def test_run_with_restarts_events(tmp_path):
 
 
 def test_reshard_is_multi_gpu_work():
-    """A placement that splits a leaf over ranks is tensor parallelism,
-    still multi-GPU work: it raises. (Devices re-place:
-    ``tests/test_torch_dist_data.py``.)"""
+    """A placement that splits a leaf over ranks needs the ranks' model
+    group: without one it raises. (Devices re-place:
+    ``tests/test_torch_dist_data.py``; split placements across groups:
+    ``test_tensor_parallel_checkpoint_*`` below.)"""
     from torch.distributed.tensor import Shard
-    with pytest.raises(NotImplementedError, match="'multi-GPU'"):
+    with pytest.raises(ValueError, match="model_group"):
         reshard({"x": torch.zeros(2)}, Shard(0))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="model_group"):
         reshard({"x": torch.zeros(2)}, {"x": Shard(0)})
+    with pytest.raises(ValueError, match="model_group"):
+        save("unused", {"x": torch.zeros(2)}, 1, shardings=Shard(0))
+
+
+# ===================== tensor-parallel checkpoints ===================== #
+def _tp_state():
+    """A gemma-smoke train state on one device: the parameters from a
+    seed, the moments random, step 3."""
+    cfg = t_smoke("gemma-7b")
+    params = t_build(cfg, "cpu").init(torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    rnd = lambda p: torch.randn(p.shape, generator=gen)  # noqa: E731
+    from repro_torch.tree import tree_map
+    opt = t_adamw.AdamWState(step=3, m=tree_map(rnd, params),
+                             v=tree_map(rnd, params), master=None)
+    return cfg, {"params": params, "opt": opt}
+
+
+def _tp_rank(world, state, path_tp):
+    """One rank of a 4-rank world holding two layouts of the gemma-smoke
+    state: one model group of 4, and a (data 2, model 2) mesh. Writes the
+    4-way state's checkpoint (gathered, rank 0 writes), then checks every
+    move between layouts against slices cut from the whole state, bit
+    for bit: restore onto 2 and onto 4 ranks, reshard 4 -> 2, 2 -> 4,
+    2 -> 1."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.group import mesh_groups
+    from repro_torch.dist.sharding import param_placements
+    from repro_torch.train.trainer import state_shardings
+
+    cfg = t_smoke("gemma-7b")
+    mg4 = mesh_groups(world, 4).model
+    mg2 = mesh_groups(world, 2).model
+    sh = {n: state_shardings(param_placements(state["params"], cfg, n),
+                             state["opt"]) for n in (2, 4)}
+    local4 = reshard(state, sh[4], mg4)
+    local2 = reshard(state, sh[2], mg2)
+    save(path_tp, local4, 3, shardings=sh[4], model_group=mg4)
+    dist.barrier()
+    out = {}
+
+    def same(a, b):
+        try:
+            _assert_bits_equal(a, b)
+            return True
+        except AssertionError:
+            return False
+
+    out["restore_2"] = same(restore(path_tp, local2, shardings=sh[2],
+                                    model_group=mg2), local2)
+    out["restore_4"] = same(restore(path_tp, local4, shardings=sh[4],
+                                    model_group=mg4), local4)
+    out["reshard_4_2"] = same(reshard(local4, sh[2], mg2, current=sh[4],
+                                      current_group=mg4), local2)
+    out["reshard_2_4"] = same(reshard(local2, sh[4], mg4, current=sh[2],
+                                      current_group=mg2), local4)
+    out["reshard_2_1"] = same(reshard(local2, None, current=sh[2],
+                                      current_group=mg2), state)
+    out["split"] = (local4["params"]["embed"]["w"].shape[0],
+                    local2["opt"].m["seg0_attn_mlp"][0]["mlp"]["w_in"]
+                    .shape[1])
+    return out
+
+
+def test_tensor_parallel_checkpoint_is_the_single_device_one(tmp_path):
+    """A 4-way tensor-parallel state's checkpoint holds the whole leaves:
+    its keys and every array equal a single-device checkpoint of the same
+    state bit for bit. It restores onto 1 rank (here), 2 and 4 (on the
+    ranks), and ``reshard`` moves the live state 4 -> 2, 2 -> 4 and
+    2 -> 1, all bit-equal to slices of the whole state; the reference's
+    ``restore`` reads it."""
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.tree import tree_map
+
+    cfg, state = _tp_state()
+    save(tmp_path / "single", state, 3)
+    res = run_ranks(_tp_rank, 4, backend="gloo", device="cpu",
+                    timeout_s=120.0, args=(state, str(tmp_path / "tp")))
+    for r, rec in enumerate(res):
+        assert rec.pop("split") == (cfg.vocab_size // 4, cfg.d_ff // 2)
+        assert all(rec.values()), (r, rec)
+    a = np.load(tmp_path / "single" / "step_00000003" / "arrays.npz")
+    b = np.load(tmp_path / "tp" / "step_00000003" / "arrays.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+    assert open(tmp_path / "single" / "step_00000003" / "meta.json").read() \
+        == open(tmp_path / "tp" / "step_00000003" / "meta.json").read()
+    _assert_bits_equal(restore(tmp_path / "tp", state), state)
+    jlike = {"params": tree_map(lambda x: jnp.asarray(x.numpy()),
+                                state["params"])}
+    jlike["opt"] = j_adamw.init(j_adamw.AdamWConfig(), jlike["params"])
+    back = j_ck.restore(str(tmp_path / "tp"), jlike)
+    assert int(back["opt"].step) == 3
+    got, want = j_ck._flatten(back)[0], t_ck._flatten(state)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k])
 
 
 # ============================ eval + CLI ================================ #

@@ -184,11 +184,14 @@ def test_cli_smoke_loss_drops(capsys):
 
 
 def test_cli_unported_options_raise():
-    """``--model`` > 1 (tensor parallelism) is the one multi-GPU option
-    left to port; ``--data`` and ``--compress-grads`` run
-    (``tests/test_torch_dist_data.py``)."""
+    """``--model`` > 1 (tensor parallelism) runs the dense families
+    (``tests/test_torch_tp.py``), ``--data`` and ``--compress-grads`` run
+    (``tests/test_torch_dist_data.py``); ``--model`` > 1 for the other
+    families is multi-GPU work left to port, and raises before any rank
+    starts."""
     from repro_torch.launch.train import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                        "'multi-GPU'"):
-        main(["--smoke", "--device", "cpu", "--steps", "1", "--model", "2"])
+        main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
+              "--steps", "1", "--model", "2"])
