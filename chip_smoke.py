@@ -114,9 +114,9 @@ nonzero:
    agree (not gated), the decode step median, the prefill time, one
    profiled decode step's collectives by name and the idle share.
 6c. **serve-sharded-int8** — the same at ``seq_shards=4`` on the int8
-   page-sparse slab (threshold -3, decay 0.3), against serve-int8. Both
-   sharded phases serve the first 4 of the 8 requests (prompts 634-1210;
-   cut for time).
+   page-sparse slab (threshold -3, decay 0.3), against serve-int8.
+   serve-sharded serves the first 4 of the 8 requests (prompts 634-1210),
+   serve-sharded-int8 the first 2 (634 and 825; cuts for time).
 7. **serve-ft** — kill and resume: the serve phase's weights and requests
    under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
    every 16 engine steps under ``build/``, removed at the end), with two
@@ -186,7 +186,10 @@ nonzero:
    on this shard) and 1 global tile, bf16; timed, SDPA with the mask the
    view tables imply), (tp) one model rank's heads of gemma-7b's train
    attention at 2 ranks (batch 1 x 8 of its 16 heads of hd 256, bf16: what
-   each rank of train-tp launches). Tolerances: out
+   each rank of train-tp launches), (ep) one model rank's heads of
+   arctic-480b's train attention at 2 ranks (batch 1 x 28 of its 56 query
+   heads on 4 of its 8 KV heads, hd 128, bf16: what each rank of train-ep
+   launches). Tolerances: out
    8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
    padded rows must give (0, NEG_INF, 0); dk/dv 1e-3 (bf16) and 1e-4
@@ -377,6 +380,37 @@ nonzero:
     Prints the placements once, rank 0's step median, tokens/s, the peak
     per rank, one profiled step's idle share and collectives by name, and
     the bytes a rank sends a step (``tp_step_bytes``, counted).
+18j. **train-ep-check** — expert-parallel MoE training (``moe_apply(...,
+    model=ModelGroup)``: E / N experts a rank, the router's columns, the
+    logits gathered and routed alike on every rank, one ``all_reduce`` of
+    the expert rows a layer): serve-check (4)'s narrowed f32 arctic-480b
+    and kimi-k2 (128 experts top-2 with the dense residual; 384 top-8 with
+    the shared expert and the leading dense layer) trained 3 steps on 2
+    model ranks (the train-tp spawn, after train-tp) against one rank on
+    the card (``prepare_train_ep``, before the spawn). Gates: losses within
+    1e-6, grad norms and aux metrics within 1e-5, gathered parameters
+    within 1e-5, every routing call's slot and keep tensors hashed and
+    bitwise equal across the ranks, the leaves held whole and the step
+    bitwise equal, K1-K3 launched on each rank.
+18k. **train-ep** — arctic-480b at every published width (d 7168, 56 / 8
+    heads of hd 128, ffn 4864, experts of 4864 top-2, vocab 32000, window
+    1024 + 4 sinks), bf16, remat full, seq 4096, batch 1, 1 of 35 layers,
+    the expert count the largest multiple of 2 whose reckoned peak
+    (``train_bytes_tp``: a rank's parameters and state, its largest leaf's
+    update temporaries, its logits' vocab slice and one MoE layer's
+    dispatch) for the two ranks sharing the card, and unsharded, fits
+    ``EP_BUDGET`` (75 %) of it (printed first; 12 of 128). First the
+    unsharded run of that config from the seed, the gemma train phase's
+    10-step schedule (its loss must fall); then on the 2 model ranks (the
+    train-tp spawn, each rank drawing only its experts) the same 10 steps.
+    Gates: the first 4 losses within 1e-2 of the unsharded run's (the
+    router saturates from step 4 in both, and the runs part), the mean of
+    the last 5 below the first, the leaves held
+    whole bitwise equal across the ranks, per rank and step 2 K1, 1 K2 and
+    1 K3 call, no plain version. Prints the dropped share of every step
+    beside the unsharded run's, rank 0's step median, tokens/s, idle
+    share, the peak per rank, the collectives by name and the bytes a rank
+    sends a step (``tp_step_bytes``, counted).
 19. **train recurrentgemma-9b** — every published width, the depth cut
     to the deepest multiple of 3 (whole griffin groups) whose reckoned
     peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
@@ -451,8 +485,14 @@ class Timer:
     issue a call. Slow-to-issue calls (the plain versions, which launch
     many small kernels each) take fewer iterations and a longer sleep; a
     run whose calls outlast the sleep is repeated behind a longer one, and
-    calls that read from the card themselves (so never queue) are timed on
-    the host clock."""
+    calls that wait on the card themselves (a host read inside, or the
+    caching allocator freeing blocks, which synchronizes) are timed on the
+    host clock. Such a call is known by the sleep ending inside it: the
+    call that returns after the sleep has ended took more than half the
+    time since the sleep was queued, where a call that never waits issues
+    in a small share of it. Then no longer sleep is tried (each retry
+    behind the 4x sleep of a plain version cost ~8 s of the card's
+    time)."""
 
     SLEEP_CYCLES = 200_000_000      # ~0.1 s: longer than issuing all calls
 
@@ -475,18 +515,27 @@ class Timer:
             slept = torch.cuda.Event()
             slept.record()
             pairs = []
+            waited = False
+            queued = time.perf_counter()
             for _ in range(iters):
                 self.flush.zero_()
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
                 s.record()
+                t0 = time.perf_counter()
                 fn()
                 e.record()
                 pairs.append((s, e))
-            issued = not slept.query()
+                t1 = time.perf_counter()
+                if slept.query() and t1 - t0 > 0.5 * (t1 - queued):
+                    waited = True       # the sleep ended inside this call
+                    break
+            issued = not waited and not slept.query()
             torch.cuda.synchronize()
             if issued:
                 return sum(s.elapsed_time(e) for s, e in pairs) / iters
+            if waited:
+                break
             sleep *= 4
         # a call that waits on the card itself (a host read inside) cannot
         # queue behind a sleep: its time is the host's, synchronized
@@ -1552,8 +1601,11 @@ INT8_SPARSE = dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
 # serve-sharded and serve-sharded-int8 serve the first 4 of the 8
 # requests (prompts 634 to 1210): their ranks' prefill took 21 and 64 s
 # of the script's time, cut to make room for the tensor-parallel train
-# phases
+# phases; serve-sharded-int8 the first 2 (prompts 634 and 825; its 4-rank
+# prefill of 4 took 28.5 s), cut to make room for the expert-parallel
+# ones
 SHARD_REQS = 4
+SHARD_INT8_REQS = 2
 
 
 def _shard_backend(torch, shards):
@@ -2148,6 +2200,10 @@ TRAIN_CASES = {
     # batch 1 x 8 of the 16 heads
     "tp": dict(pat=("csw", 1024, 4, 1), n=4096, bh=8, hd=256, bq=256,
                bk=256, dtype="bfloat16"),
+    # one rank's heads of arctic-480b's train attention at 2 model ranks:
+    # batch 1 x 28 of the 56 query heads (on 4 of the 8 KV heads)
+    "ep": dict(pat=("csw", 1024, 4, 1), n=4096, bh=28, hd=128, bq=256,
+               bk=256, dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
@@ -2155,7 +2211,7 @@ K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
          "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
          "k": (K1, K2, K3), "l": (K1, K2, K3), "m": (K1, K2, K3),
-         "tp": (K1, K2, K3)}
+         "tp": (K1, K2, K3), "ep": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -3099,7 +3155,9 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     parameters (2): 32 B a parameter at its end. A leaf's own f32
     temporaries (~5 x 4 B each) come on top while it is updated; the
     embedding, the largest, is the first leaf, so they meet only the 18 B
-    a parameter held when the update starts. The loss holds the f32
+    a parameter held when the update starts; an MoE program's largest
+    leaf may be an expert stack (E x d x d_ff_expert), whose temporaries
+    are counted instead where it is the larger. The loss holds the f32
     logits, their soft-capped and log-softmax copies and their gradient
     (4 x 4 B a logit), beside what the forward saved for the backward:
     under remat "full" each segment element's input (d values a token an
@@ -3123,7 +3181,10 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     params = embed + sum(n * _block_params(cfg, kind)
                          for kind, n in program) + d + enc
     params += d * d if cfg.n_vision_tokens else 0
-    update = max(32 * params, 18 * params + 20 * embed)
+    largest = embed
+    if cfg.moe is not None:
+        largest = max(largest, cfg.moe.n_experts * d * cfg.moe.d_ff_expert)
+    update = max(32 * params, 18 * params + 20 * largest)
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"train_bytes reckons remat full and dots, got "
                          f"{cfg.remat!r}")
@@ -3413,7 +3474,7 @@ def dots_reckoning(seq: int, batch: int) -> None:
 
 def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
                 steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10,
-                ft_save_at=None, remat="full", ref=None):
+                ft_save_at=None, remat="full", ref=None, cfg=None):
     """``arch`` at full width (and depth unless ``n_layers`` cuts it),
     bf16, remat ``remat``, trained on the card at seq 4096. With
     ``ft_save_at``, {"params", "opt"} after that many steps go to
@@ -3424,14 +3485,17 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     ``steps``-step schedule run, their losses must equal ``ref``'s within
     1e-4 instead of falling. Returns the launch counts of the run,
     what ``phase_train_ft`` needs (None without ``ft_save_at``) and the
-    run's stats (losses, median step ms, peak bytes)."""
+    run's stats (losses, median step ms, peak bytes, an MoE program's
+    dropped share per step). ``cfg``: the
+    config to run in place of ``arch``'s published one (train-ep's cut
+    expert count)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     check(cfg.remat == "full", f"config {cfg}")
     cfg = dataclasses.replace(cfg, remat=remat)
     if n_layers is not None:
@@ -3460,7 +3524,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     _counters(reset=True)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     losses, norms, times, overlapped, ft = [], [], [], [], None
-    draws = []
+    draws, dropped = [], []
     for i in range(run):
         if ft is not None and ft["mgr"].writing():
             overlapped.append(i)
@@ -3474,8 +3538,11 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         times.append(time.perf_counter() - t0)
         losses.append(loss)
         norms.append(float(met["grad_norm"]))
+        if "dropped_frac" in met:
+            dropped.append(float(met["dropped_frac"]))
         log(f"[{tag}] step {i:3d} loss {loss:.4f} grad norm "
-            f"{norms[-1]:.4f} {times[-1] * 1e3:.1f} ms"
+            f"{norms[-1]:.4f}" + (f" dropped {dropped[-1]:.4f}" if dropped
+                                  else "") + f" {times[-1] * 1e3:.1f} ms"
             + (" (overlaps the checkpoint write)" if overlapped
                and overlapped[-1] == i else ""))
         if i + 1 == ft_save_at:
@@ -3519,7 +3586,8 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
         f"{sorted(draws)[run // 2] * 1e3:.3f} ms; caching-allocator "
         f"retries (cached blocks freed, the device synchronized) "
         f"{retries} over the {run} steps")
-    stats = dict(losses=losses, median_ms=med * 1e3, peak=peak)
+    stats = dict(losses=losses, median_ms=med * 1e3, peak=peak,
+                 dropped=dropped)
     if ref is not None:
         log(f"[{tag}] step median {med * 1e3:.3f} ms against remat full's "
             f"{ref['median_ms']:.3f}; peak {peak / 2**30:.3f} GiB against "
@@ -4313,44 +4381,78 @@ TP_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather")
 
 
 def _tp_shares(cfg, n: int) -> dict:
-    """One rank's share of a dense ``attn_mlp`` program's parameters under
-    a model group of ``n`` (``dist.sharding.split_axes``): its embedding
-    rows (and LM head's), its slice of each layer (the query and output
-    projections by heads, the KV projections by KV heads, the MLP by
-    ffn; the norms whole) and its vocab rows."""
+    """One rank's share of a program's parameters under a model group of
+    ``n`` (``dist.sharding.split_axes``, each leaf split on its own
+    width): its embedding rows (and LM head's), its slice of each layer
+    (the query and output projections by heads, the KV projections by KV
+    heads, a dense or shared MLP by ffn, an MoE layer's expert stacks and
+    router columns by experts, ``moe.expert_span``; the norms whole) and
+    its vocab rows. Also its experts a layer and the leaf whose update
+    temporaries ``train_bytes`` counts: the embedding, or one expert stack
+    where that is the larger."""
     from repro_torch.dist.sharding import split_axes
+    from repro_torch.models.transformer import make_program
 
     s = split_axes(cfg, n)
     d, hd = cfg.d_model, cfg.hd
 
-    def part(count, axis):
-        return count // n if axis in s else count
+    def part(count, axis, split=s):
+        return count // n if axis in split else count
 
     vocab = part(cfg.vocab_size, "vocab")
     embed = vocab * d * (1 if cfg.tie_embeddings else 2)
     mults = 3 if cfg.act in ("swiglu", "geglu") else 2
-    layer = (2 * d * hd * part(cfg.n_heads, "heads")
-             + 2 * d * hd * part(cfg.n_kv_heads, "kv_heads")
-             + mults * d * part(cfg.d_ff, "ffn") + 2 * d)
-    return dict(embedding=embed, per_layer=layer, vocab=vocab,
-                params=embed + cfg.n_layers * layer + d)
+    attn = (2 * d * hd * part(cfg.n_heads, "heads")
+            + 2 * d * hd * part(cfg.n_kv_heads, "kv_heads") + 2 * d)
+    mlp = mults * d * part(cfg.d_ff, "ffn")
+    experts = moe = stack = 0
+    if cfg.moe is not None:
+        f, shared_w = cfg.moe.d_ff_expert, (cfg.moe.d_ff_expert
+                                            * cfg.moe.n_shared_experts)
+        experts = part(cfg.moe.n_experts, "experts")
+        stack = experts * d * f
+        moe = (d * experts + mults * stack
+               + mults * d * part(shared_w, "ffn",
+                                  split_axes(cfg, n, shared_w)))
+    layer = {"attn_mlp": attn + mlp, "attn_moe": attn + moe,
+             "attn_moe_dense": attn + mlp + moe}
+    program = make_program(cfg)
+    return dict(embedding=embed, per_layer=layer[program[-1][0]],
+                vocab=vocab, experts=experts, largest=max(embed, stack),
+                params=embed + sum(k * layer[kind] for kind, k in program)
+                + d)
 
 
 def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
     """``train_bytes`` for one rank of a model group of ``n``: the same
-    reckoning on the rank's parameters (``_tp_shares``) and its vocab
-    slice of the f32 logits; the activations a layer saves are whole on
+    reckoning on the rank's parameters (``_tp_shares``), the update's
+    temporaries of its largest leaf and its vocab slice of the f32
+    logits; on an MoE program also one MoE layer's dispatch in its
+    backward: the bf16 buffer, expert products and output rows of its
+    E / n experts' slots and the (T·k, d) rows before and after the sum,
+    each with its gradient. The activations a layer saves are whole on
     every rank."""
     whole = train_bytes(cfg, seq, batch)
     sh = _tp_shares(cfg, n)
     params = sh["params"]
-    update = max(32 * params, 18 * params + 20 * sh["embedding"])
-    loss = (16 * seq * batch * sh["vocab"] + 10 * params + whole["saved"]
-            + whole["recompute"])
+    T = seq * batch
+    dispatch = 0
+    if cfg.moe is not None:
+        from repro_torch.models.moe import capacity, n_groups
+
+        m = cfg.moe
+        G = n_groups(cfg, T)
+        slots = sh["experts"] * G * capacity(cfg, T // G)
+        dispatch = 2 * 2 * (slots * (2 * cfg.d_model + 3 * m.d_ff_expert)
+                            + 2 * T * m.top_k * cfg.d_model)
+    update = max(32 * params, 18 * params + 20 * sh["largest"])
+    loss = (16 * T * sh["vocab"] + 10 * params + whole["saved"]
+            + whole["recompute"] + dispatch)
     return dict(params=params, per_layer=sh["per_layer"],
-                embedding=sh["embedding"], resident=10 * params,
+                experts=sh["experts"], embedding=sh["embedding"],
+                largest=sh["largest"], resident=10 * params,
                 update_peak=update, loss_peak=loss, saved=whole["saved"],
-                peak=max(update, loss))
+                dispatch=dispatch, peak=max(update, loss))
 
 
 def train_tp_depth(torch, arch: str, seq: int, batch: int, n: int,
@@ -4401,38 +4503,65 @@ def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
     model group of ``n``, counted from the shapes. Where the group splits
     the heads, each attention sums its (batch, seq, d) output over the
     group forward and again in the remat replay, and its input's gradient
-    backward; where it splits the ffn, each MLP sums its output forward
-    and its input's gradient backward (the replay stops at the layer's
-    last saved tensor, before the MLP's sum: torch's checkpoint stops
-    early). Replicated ``wk``/``wv`` under split heads sum their
-    gradients; a split vocabulary sums the embedding lookup forward and
-    the head's input gradient backward, and the loss runs three (batch,
-    seq) f32 collectives (max, sum of exp, gold logit); the clip sums one
-    f32. Returns the all_reduce calls, their payload bytes and the bytes
-    a rank sends on a ring all_reduce (2 (n - 1) / n of the payload)."""
+    backward (3 all_reduces); where it splits a dense or shared MLP's
+    ffn, the MLP sums its output forward and its input's gradient
+    backward (2: the replay stops at the layer's last saved tensor,
+    before the MLP's sum; torch's checkpoint stops early); an MoE layer
+    sums its input's gradient backward (1), gathers its f32 router logits
+    (T, E) forward and in the replay (2 all_gathers) and sums its
+    (T·k, d) expert rows forward and in the replay (2). Replicated
+    ``wk``/``wv`` under split heads sum their gradients; a split
+    vocabulary sums the embedding lookup forward and the head's input
+    gradient backward, and the loss runs three (batch, seq) f32
+    collectives (max, sum of exp, gold logit); the clip sums one f32.
+    Returns the calls and payload bytes of each kind and the bytes a rank
+    sends on a ring (all_reduce 2 (n - 1) / n of the payload, all_gather
+    (n - 1) / n of the gathered tensor)."""
     import torch
 
     from repro_torch.dist.sharding import split_axes
-    from repro_torch.models.transformer import make_program
+    from repro_torch.models.transformer import MOE_KINDS, make_program
 
+    m = cfg.moe
     s = split_axes(cfg, n)
-    act = seq * batch * cfg.d_model * torch.finfo(
-        getattr(torch, cfg.compute_dtype)).bits // 8
+    cb = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
     w = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
-    layers = sum(k for kind, k in make_program(cfg) if kind == "attn_mlp")
-    calls = payload = 0
-    if "heads" in s:
-        calls, payload = calls + 3 * layers, payload + 3 * layers * act
-        if "kv_heads" not in s:
-            calls += 2 * layers
-            payload += 2 * layers * cfg.d_model * cfg.n_kv_heads * cfg.hd * w
-    if "ffn" in s:
-        calls, payload = calls + 2 * layers, payload + 2 * layers * act
+    T = seq * batch
+    act = T * cfg.d_model * cb
+    shared_split = m is not None and m.n_shared_experts and "ffn" in \
+        split_axes(cfg, n, m.d_ff_expert * m.n_shared_experts)
+    red = gat = red_b = gat_b = 0
+    for kind, layers in make_program(cfg):
+        if "heads" in s:
+            red, red_b = red + 3 * layers, red_b + 3 * layers * act
+            if "kv_heads" not in s:
+                red += 2 * layers
+                red_b += 2 * layers * cfg.d_model * cfg.n_kv_heads * cfg.hd \
+                    * w
+        mlp = kind != "attn_moe" and "ffn" in s
+        if kind in MOE_KINDS:
+            red += 3 * layers
+            red_b += layers * (act + 2 * T * m.top_k * cfg.d_model * cb)
+            gat, gat_b = gat + 2 * layers, gat_b + 2 * layers * T \
+                * m.n_experts * 4
+            mlp = mlp or (kind == "attn_moe" and shared_split)
+        if mlp:
+            red, red_b = red + 2 * layers, red_b + 2 * layers * act
     if "vocab" in s:
-        calls, payload = calls + 5, payload + 2 * act + 3 * seq * batch * 4
-    calls, payload = calls + 1, payload + 4
-    return dict(all_reduces=calls, payload=payload,
-                ring_sent=int(2 * (n - 1) / n * payload))
+        red, red_b = red + 5, red_b + 2 * act + 3 * T * 4
+    red, red_b = red + 1, red_b + 4
+    return dict(all_reduces=red, all_reduce_payload=red_b, all_gathers=gat,
+                all_gather_payload=gat_b,
+                ring_sent=int(2 * (n - 1) / n * red_b + (n - 1) / n * gat_b))
+
+
+def _step_bytes_line(sb) -> str:
+    """``tp_step_bytes``' count as a log line's words."""
+    return (f"a rank's collectives a step (counted from the shapes): "
+            f"{sb['all_reduces']} all_reduces of {sb['all_reduce_payload']} "
+            f"bytes, {sb['all_gathers']} all_gathers of "
+            f"{sb['all_gather_payload']} bytes, {sb['ring_sent']} bytes sent "
+            f"on a ring")
 
 
 def _tp_check_cfgs():
@@ -4455,13 +4584,28 @@ def _whole_digest(torch, params, opt, placements):
     return _digest(torch, whole) + f":{opt.step}"
 
 
+def _check_steps(cfg, dev, p, seed, keys, model_group=None):
+    """The 3 steps of a split-training check (seq 128, batch 2, lr 3e-3,
+    warmup 1, as train_check) from ``p`` on ``dev``, one rank or this
+    rank of ``model_group``: the metrics ``keys`` of each step, the final
+    parameters and optimizer state."""
+    step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                             lr=3e-3, warmup=1, seed=seed,
+                             model_group=model_group)
+    hist = []
+    for i in range(3):
+        p, opt, met, _ = step(p, opt, ds.batch(i))
+        hist.append(tuple(float(met[k]) for k in keys))
+    return hist, p, opt
+
+
 # a train-tp phase's schedule per arch: (batch, schedule steps, lr,
 # warmup), the unsharded train phase's
 TP_SCHED = {"gemma-7b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3)}
 TP_SCHED_DEFAULT = (TRAIN_BATCH, TRAIN_STEPS, 3e-3, 10)
 
 
-def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps):
+def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps, ep=None):
     """A spawned rank of the tensor-parallel phases. train-tp-check: each
     ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
     train_check) from ``check_params`` cut to this rank's slices. Then
@@ -4470,7 +4614,10 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps):
     phase's schedule, this rank's slices drawn layer by layer from the
     single-device draw of ``seed`` (``trainer.init_shards``), then one
     more step, profiled on rank 0 (``arch`` another dense arch: its own
-    train phase's schedule, ``TP_SCHED``). Returns the rank's records."""
+    train phase's schedule, ``TP_SCHED``). Then, with ``ep`` (the ranks'
+    arguments of ``prepare_train_ep``), the expert-parallel phases in the
+    same ranks once gemma's state is freed (``train_ep_rank``, its records
+    under "ep"). Returns the rank's records."""
     import dataclasses
 
     import torch
@@ -4490,15 +4637,9 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps):
             continue
         full = _to(check_params[check_arch], dev)
         pl = param_placements(full, cfg, mg.size)
-        p = shard_params(full, pl, mg)
-        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
-                                 lr=3e-3, warmup=1, seed=seed,
-                                 model_group=mg)
         _counters(reset=True)
-        hist = []
-        for i in range(3):
-            p, opt, met, _ = step(p, opt, ds.batch(i))
-            hist.append((float(met["loss"]), float(met["grad_norm"])))
+        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, mg),
+                                    seed, ("loss", "grad_norm"), mg)
         launches, plain = _counters()
         out[check_arch] = dict(
             hist=hist, launches=launches, plain=plain,
@@ -4553,14 +4694,20 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps):
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
                    collectives=_collective_ms(prof, TP_KEYS))
+        del prof
     out["main"] = rec
+    if ep is not None:
+        del params, opt, step, met, batch
+        out["ep"] = train_ep_rank(mesh, seed, ep)
     return out
 
 
 def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
-                   n=TP_RANKS, with_check=True):
+                   n=TP_RANKS, with_check=True, ep=None):
     """train-tp-check and train-tp ``arch`` on ``n`` model ranks
-    (``_shard_backend``; one spawn runs both: ``train_tp_rank``).
+    (``_shard_backend``; one spawn runs both: ``train_tp_rank``), and with
+    ``ep`` (``prepare_train_ep``'s plan for as many ranks) train-ep-check
+    and train-ep in the same spawn after them (``report_train_ep``).
 
     train-tp-check (``with_check``), against the port's one-rank step on
     the card from the same parameters and batches: losses and gathered
@@ -4594,13 +4741,9 @@ def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
     for carch, cfg in (_tp_check_cfgs().items() if with_check else ()):
         check_params[carch] = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(seed))
-        p = _to(check_params[carch], "cuda")
-        step, opt, ds = _trainer(cfg, "cuda", p, seq=128, batch=2, steps=3,
-                                 lr=3e-3, warmup=1, seed=seed)
-        hist = []
-        for i in range(3):
-            p, opt, met, _ = step(p, opt, ds.batch(i))
-            hist.append((float(met["loss"]), float(met["grad_norm"])))
+        hist, p, _ = _check_steps(cfg, "cuda", _to(check_params[carch],
+                                                   "cuda"), seed,
+                                  ("loss", "grad_norm"))
         check_ref[carch] = (hist, _flat_cpu(torch, p))
     batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
     depth = train_tp_depth(torch, arch, 4096, batch_n, n,
@@ -4619,9 +4762,12 @@ def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
     gc.collect()
     torch.cuda.empty_cache()       # the ranks' allocators cannot see it
     t0 = time.perf_counter()
+    if ep is not None:
+        check(ep["n"] == n, f"train-ep's {ep['n']} ranks in train-tp's {n}")
     recs = run_ranks(train_tp_rank, n, backend=backend, device=device,
                      timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
-                     args=(seed, check_params, arch, depth, n_steps))
+                     args=(seed, check_params, arch, depth, n_steps,
+                           None if ep is None else ep["rank_args"]))
     wall = time.perf_counter() - t0
     out = {}
     for carch, cfg in _tp_check_cfgs().items():
@@ -4706,13 +4852,412 @@ def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
         f"profiled step (rank 0): host wall {r0['profiled_ms']:.3f} ms, "
         f"device idle share {r0['idle']:.3f}, collectives by name (host "
         f"time): {coll}")
-    log(f"[{tag}] a rank's collectives a step (counted from the shapes): "
-        f"{sb['all_reduces']} all_reduces of {sb['payload']} bytes, "
-        f"{sb['ring_sent']} bytes sent on a ring; phase "
+    log(f"[{tag}] {_step_bytes_line(sb)}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     out[tag.replace(" ", "-")] = {k: sum(rec["launches"][k] for rec in rs)
                                   for k in ("K1", "K2", "K3")}
+    if ep is not None:
+        out.update(report_train_ep(torch, [r["ep"] for r in recs], ep))
     return out
+
+
+EP_RANKS = 2             # train-ep phases: the model group's ranks
+EP_ARCH = "arctic-480b"  # train-ep: the arch trained at every published width
+# train-ep: the layers kept (arctic: one MoE layer of 35; kimi: its leading
+# dense layer and one MoE layer of 60)
+EP_DEPTH = {"arctic-480b": 1, "kimi-k2-1t-a32b": 2}
+# train-ep: the share of the card the reckoning may fill with the ranks'
+# parameters, state and activations. The rest is for what it does not
+# count: each process's CUDA context, gloo's buffers, the allocator's slack
+EP_BUDGET = 0.75
+# a train-ep phase's schedule: (batch, schedule steps, lr, warmup), the
+# gemma-7b train phase's
+EP_SCHED = (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3)
+# train-ep-check: the limit of its gathered parameters against one rank's,
+# by model ranks (1e-4 beyond 2). f32 rounding moves them that far: on the
+# CPU (tools/ep_rounding.py) the one-rank step with its sums reordered
+# reads up to 9.5e-6, 2 and 4 model ranks up to 3.5e-5, and a planted
+# wrong gradient 9.3e-3; on the card 2 ranks read 9.4e-6, 4 NCCL ranks
+# 1.25e-5
+EP_CHECK_PARAMS_TOL = {2: 1e-5}
+
+
+def _ep_cfg(arch: str, experts: int):
+    """``arch`` at every published width, ``EP_DEPTH`` layers and
+    ``experts`` experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return dataclasses.replace(full, n_layers=EP_DEPTH[arch],
+                               moe=dataclasses.replace(full.moe,
+                                                       n_experts=experts))
+
+
+def train_ep_experts(torch, arch: str, seq: int, batch: int, n: int,
+                     share: bool = True, experts=None) -> int:
+    """The expert count of a train-ep phase of ``arch`` (every published
+    width, ``EP_DEPTH`` layers): the largest multiple of ``n`` up to the
+    published count whose reckoned peak of one rank (``train_bytes_tp``),
+    times the ``n`` ranks that share the card (``share``; else one rank a
+    card), fits ``EP_BUDGET`` of it, and where the ranks share one card
+    whose unsharded config fits it too (the phase's reference). The
+    expert count is cut as the depth is: to what the reckoning fits.
+    ``experts``: take that count instead (it must fit). Prints the
+    reckoning."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = EP_BUDGET * total
+    k = n if share else 1
+
+    def fits(E):
+        ok = k * train_bytes_tp(_ep_cfg(arch, E), seq, batch, n)["peak"] \
+            <= budget
+        return ok and (not share or train_bytes(_ep_cfg(arch, E), seq,
+                                                batch)["peak"] <= budget)
+    pick = 0
+    for E in range(n, full.moe.n_experts + 1, n):
+        if not fits(E):
+            break
+        pick = E
+    if experts is not None:
+        check(experts % n == 0 and fits(experts),
+              f"train-ep {arch}: {experts} experts over {n} ranks do not fit "
+              f"{budget / 1e9:.2f} GB (the reckoning's pick: {pick})")
+        pick = experts
+    check(pick > 0, f"no expert count of {arch} fits the card at {n} ranks")
+    b = train_bytes_tp(_ep_cfg(arch, pick), seq, batch, n)
+    one = train_bytes(_ep_cfg(arch, pick), seq, batch)
+    nxt = train_bytes_tp(_ep_cfg(arch, pick + n), seq, batch, n)
+    log(f"[train-ep {arch}] reckoned bytes a rank at {n} model ranks, "
+        f"{EP_DEPTH[arch]} of {full.n_layers} layers, seq {seq} batch "
+        f"{batch}: {pick} of {full.moe.n_experts} experts fit "
+        f"{budget / 1e9:.2f} GB ({EP_BUDGET:.0%} of {total / 1e9:.2f}) "
+        f"with {k} rank(s) on a card: {b['experts']} experts a rank, "
+        f"{b['params'] / 1e6:.1f}M params a rank (its largest leaf "
+        f"{b['largest'] / 1e6:.1f}M), resident {b['resident'] / 1e9:.2f} "
+        f"GB, update peak {b['update_peak'] / 1e9:.2f} GB, loss peak "
+        f"{b['loss_peak'] / 1e9:.2f} GB (the dispatch "
+        f"{b['dispatch'] / 1e9:.2f} GB) a rank (x {k}: "
+        f"{k * b['peak'] / 1e9:.2f} GB); unsharded {one['params'] / 1e6:.1f}"
+        f"M params, peak {one['peak'] / 1e9:.2f} GB; {pick + n} experts "
+        f"would peak at {k * nxt['peak'] / 1e9:.2f} GB")
+    return pick
+
+
+def train_ep_rank(mesh, seed, ep):
+    """The expert-parallel phases on one rank of a model group (spawned:
+    alone by ``phase_train_ep``, or at the end of ``train_tp_rank``).
+    train-ep-check: each ``_moe_check_cfgs`` config in ``ep["check_params"]``
+    trained 3 steps (seq 128, batch 2, as train_check) from those
+    parameters cut to this rank's slices, ``moe._slots`` wrapped to hash
+    every slot and keep tensor it returns. Then train-ep: ``ep["cfg"]``
+    (every published width, the cut depth and expert count), bf16, remat
+    full, seq 4096, batch 1, ``ep["n_steps"]`` steps of ``EP_SCHED``, this
+    rank's slices and experts drawn from the single-device draw of
+    ``seed`` (``trainer.init_shards``), then one more step, profiled on
+    rank 0. Returns the rank's records."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.dist.sharding import describe, param_placements
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import (gather_params, init_shards,
+                                           shard_params)
+
+    t_ep = time.perf_counter()
+    _rank_prelude(torch)
+    mg = mesh.model
+    dev = str(mg.device)
+    out = {}
+    hashes = []
+    plain_slots = M._slots
+
+    def hashed_slots(probs, k, C):
+        res = plain_slots(probs, k, C)
+        hashes.append(_digest(torch, *res[1:]))
+        return res
+
+    M._slots = hashed_slots
+    try:
+        for arch, cfg in _moe_check_cfgs().items():
+            if arch not in ep["check_params"]:
+                continue
+            full = _to(ep["check_params"][arch], dev)
+            pl = param_placements(full, cfg, mg.size)
+            _counters(reset=True)
+            hashes.clear()
+            hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, mg),
+                                        seed, ("loss", "grad_norm", *AUX), mg)
+            launches, plain = _counters()
+            out[f"check-{arch}"] = dict(
+                hist=hist, launches=launches, plain=plain,
+                params=_flat_cpu(torch, gather_params(p, pl, mg)),
+                whole=_whole_digest(torch, p, opt, pl), slot_calls=len(hashes),
+                slots=hashlib.sha256("".join(hashes).encode()).hexdigest())
+    finally:
+        M._slots = plain_slots
+    cfg = ep["cfg"]
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_shards(build_model(cfg, dev),
+                         torch.Generator(device=dev).manual_seed(seed), mg)
+    pl = param_placements(params, cfg, mg.size)
+    if mg.index == 0:
+        log(f"[train-ep] {cfg.name} placements over {mg.size} ranks: "
+            f"{describe(params, pl)}")
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
+                             steps=sched_steps, lr=lr, warmup=warmup,
+                             seed=seed, model_group=mg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, dropped, times = [], [], []
+    for i in range(ep["n_steps"]):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, _ = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        dropped.append(float(met["dropped_frac"]))
+        if mg.index == 0:
+            log(f"[train-ep] rank 0 step {i} loss {losses[-1]:.4f} grad "
+                f"norm {float(met['grad_norm']):.4f} dropped "
+                f"{dropped[-1]:.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    rec = dict(losses=losses, dropped=dropped, times=times,
+               launches=launches, plain=plain,
+               peak=torch.cuda.max_memory_allocated(),
+               whole=_whole_digest(torch, params, opt, pl))
+    batch = ds.batch(ep["n_steps"])
+    torch.cuda.synchronize()
+    if mg.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met, _ = step(params, opt, batch)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    if mg.index == 0:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, f"train-ep {cfg.name} step "
+                                 f"(rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, TP_KEYS))
+    rec["wall"] = time.perf_counter() - t_ep
+    out["main"] = rec
+    return out
+
+
+def prepare_train_ep(torch, seed, n=EP_RANKS, arch=EP_ARCH, experts=None,
+                     with_check=True) -> dict:
+    """What the train-ep phases of ``arch`` on ``n`` model ranks compare
+    with, run here first on the card: each ``_moe_check_cfgs`` config
+    trained 3 steps on one rank (``with_check``), and where the ranks
+    share the card, ``arch`` unsharded at the train-ep config (every
+    published width, ``EP_DEPTH`` layers, the expert count
+    ``train_ep_experts`` picks, or ``experts``) from the same seed, the
+    whole ``EP_SCHED`` schedule (``phase_train``: the loss falls, the
+    launch counts). Returns the phases' plan: the config, the ranks'
+    arguments and the references."""
+    from repro_torch.models.model import build_model
+
+    backend, device = _shard_backend(torch, n)
+    check_params, check_ref = {}, {}
+    for carch, cfg in (_moe_check_cfgs().items() if with_check else ()):
+        check_params[carch] = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        hist, p, _ = _check_steps(cfg, "cuda", _to(check_params[carch],
+                                                   "cuda"), seed,
+                                  ("loss", "grad_norm", *AUX))
+        check_ref[carch] = (hist, _flat_cpu(torch, p))
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    E = train_ep_experts(torch, arch, 4096, batch_n, n,
+                         share=device is not None, experts=experts)
+    cfg = _ep_cfg(arch, E)
+    ref, ref_launches = None, None
+    if device is not None:       # the ranks share this card: so does this
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[train-ep {arch}] the unsharded reference: {E} experts, "
+            f"{cfg.n_layers} layer(s), the train-ep phase's seed and "
+            f"schedule")
+        ref_launches, _, ref = phase_train(
+            torch, seed, arch, cfg=cfg, steps=sched_steps, batch=batch_n,
+            lr=lr, warmup=warmup)
+    return dict(arch=arch, n=n, backend=backend, device=device, cfg=cfg,
+                check_ref=check_ref, ref=ref, ref_launches=ref_launches,
+                rank_args=dict(check_params=check_params, cfg=cfg,
+                               n_steps=sched_steps))
+
+
+def report_train_ep(torch, recs, ep, wall=None) -> dict:
+    """Gate and print the train-ep phases from every rank's records
+    (``train_ep_rank``'s).
+
+    train-ep-check, against the one-rank steps of ``prepare_train_ep``:
+    losses within 1e-6 (abs and rel), the grad norms and aux metrics
+    within 1e-5, gathered parameters within ``EP_CHECK_PARAMS_TOL`` (1e-5
+    at 2 ranks, 1e-4 at more), the slot and keep
+    tensors of every routing call bitwise equal across the ranks (one
+    hash of their hashes), the leaves a rank holds whole and the step
+    bitwise equal across the ranks, K1-K3 launched on each rank, no plain
+    version.
+
+    train-ep: every rank's losses equal, the leaves held whole bitwise
+    equal across the ranks, per rank and step 2 K1, 1 K2 and 1 K3 call an
+    attention layer, no plain version; against the unsharded reference
+    (where one ran, its loss falling over the whole schedule) the same
+    steps, the first ``TP_STEPS`` losses within 1e-2 (bf16 partials
+    summed in bf16, as train-tp's) and the mean of the last 5 below the
+    first; without one, that mean alone. Prints the
+    dropped share of every step (and the reference's), rank 0's step
+    median, tokens/s and idle share, the peak per rank, the collectives by
+    profiler name and ``tp_step_bytes``. Returns {path: launches summed
+    over the ranks}."""
+    arch, n, cfg = ep["arch"], ep["n"], ep["cfg"]
+    where = f"{n} ranks on backend {ep['backend']} " \
+        f"({ep['device'] or 'one card a rank'})"
+    out = {}
+    for carch, (want_h, want_p) in ep["check_ref"].items():
+        what = f"train-ep-check {carch}"
+        rs = [r[f"check-{carch}"] for r in recs]
+        ccfg = _moe_check_cfgs()[carch]
+        perr = max(float((rec["params"] - want_p).abs().max()) for rec in rs)
+        ptol = EP_CHECK_PARAMS_TOL.get(n, 1e-4)
+        lmax = max(abs(a[0] - b[0]) for rec in rs
+                   for a, b in zip(rec["hist"], want_h))
+        for r, rec in enumerate(rs):
+            lerr = max(abs(a[0] - b[0]) for a, b in zip(rec["hist"], want_h))
+            rest = max(abs(x - y) for a, b in zip(rec["hist"], want_h)
+                       for x, y in zip(a[1:], b[1:]))
+            check(all(math.isclose(a[0], b[0], rel_tol=1e-6, abs_tol=1e-6)
+                      for a, b in zip(rec["hist"], want_h)) and rest <= 1e-5
+                  and float((rec["params"] - want_p).abs().max()) <= ptol,
+                  f"{what} rank {r}: (loss, grad norm, aux) {rec['hist']} vs "
+                  f"one rank's {want_h} (loss 1e-6, the rest 1e-5; off by "
+                  f"{lerr}, {rest}); parameters off by {perr} ({ptol})")
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"{what} rank {r}: launches {rec['launches']}, plain "
+                  f"{rec['plain']}")
+            check(rec["slot_calls"] > 0, f"{what}: no routing call hashed")
+        check(len({rec["slots"] for rec in rs}) == 1,
+              f"{what}: the slot and keep tensors differ across the ranks")
+        check(len({rec["whole"] for rec in rs}) == 1,
+              f"{what}: the leaves held whole or the step differ across the "
+              f"ranks")
+        log(f"[{what}] d {ccfg.d_model} H {ccfg.n_heads}/{ccfg.n_kv_heads} hd "
+            f"{ccfg.hd}, {ccfg.moe.n_experts} experts top-{ccfg.moe.top_k} "
+            f"({ccfg.moe.n_experts // n} a rank), f32, {where}: (loss, grad "
+            f"norm, lb, z, dropped) {rs[0]['hist']} vs one rank {want_h}; "
+            f"loss off by at most {lmax}, gathered parameters by {perr} "
+            f"(limit {ptol}); {rs[0]['slot_calls']} routing calls a rank, "
+            f"their slots bitwise equal across the ranks; "
+            f"whole leaves and step bitwise equal; launches a rank "
+            f"{rs[0]['launches']}")
+        out[f"train-ep-check-{MOE_TAGS[carch]}"] = {
+            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
+                                                               "K3")}
+    tag = "train-ep" + ("" if arch == EP_ARCH else f" {arch}") + (
+        "" if n == EP_RANKS else f" x{n}")
+    rs = [r["main"] for r in recs]
+    r0 = rs[0]
+    n_steps = len(r0["losses"])
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * n_steps, "K2": n_attn * n_steps,
+            "K3": 2 * n_attn * n_steps}
+    for r, rec in enumerate(rs):
+        check(rec["losses"] == r0["losses"],
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, plain "
+              f"{rec['plain']}")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(len({rec["whole"] for rec in rs}) == 1,
+          f"{tag}: the leaves held whole or the step differ across the ranks")
+    ref = ep["ref"]
+    if ref is not None:
+        # the first step at the full lr (step 3) spikes the loss and the
+        # router then saturates (dropped share ~0.4 at step 4, ~0.78 from
+        # step 6), on one rank as on two; from there a saturated router's
+        # near-tied choices follow the rounding of the split attention's
+        # bf16 partial sums, and the runs part: the unsharded run against
+        # itself with its ffn sums reordered parts as far (2.0e-3 over
+        # steps 0-3, 0.24 after: tools/ep_rounding.py --card). The first
+        # TP_STEPS are held to the unsharded run's within 1e-2, as
+        # train-tp's are; the whole run must fall, as the unsharded one
+        # does (phase_train)
+        want_l = ref["losses"]
+        diff = [abs(a - b) for a, b in zip(losses, want_l)]
+        check(len(losses) == len(want_l)
+              and max(diff[:TP_STEPS]) <= 1e-2
+              and sum(losses[-5:]) / 5 < losses[0],
+              f"{tag}: losses {losses} vs unsharded {want_l} (the first "
+              f"{TP_STEPS} within 1e-2; the mean of the last 5 below the "
+              f"first); dropped share per step {r0['dropped']} vs unsharded "
+              f"{ref['dropped']}")
+        vs = (f"vs unsharded {want_l} (max diff {max(diff[:TP_STEPS])} "
+              f"over steps 0..{TP_STEPS - 1}, {max(diff[TP_STEPS:])} after);"
+              f" unsharded dropped share per step {ref['dropped']}")
+        unsh = (f"unsharded {ref['median_ms']:.3f} ms; peak "
+                f"{ref['peak'] / 2**30:.3f} GiB")
+    else:
+        check(sum(losses[-5:]) / 5 < losses[0],
+              f"{tag}: the loss did not fall: {losses}")
+        vs = f"(no unsharded reference: {cfg.moe.n_experts} experts over " \
+            f"{n} cards)"
+        unsh = "no unsharded run"
+    batch_n = EP_SCHED[0]
+    med = sorted(r0["times"][1:])[(n_steps - 1) // 2] * 1e3
+    coll = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    sb = tp_step_bytes(cfg, 4096, batch_n, n)
+    log(f"[{tag}] {arch} bf16 remat full, every published width, "
+        f"{cfg.n_layers} layer(s), {cfg.moe.n_experts} experts "
+        f"({cfg.moe.n_experts // n} a rank) top-{cfg.moe.top_k}, {where}, "
+        f"seq 4096 batch {batch_n}, {n_steps} steps of a {EP_SCHED[1]}-step "
+        f"schedule: {r0['wall']:.1f} s on rank 0"
+        + ("" if wall is None else f" ({wall:.1f} s with the ranks' start)")
+        + f"; losses {losses} {vs}; dropped share per step {r0['dropped']}; "
+        f"whole leaves and step bitwise equal across the ranks; launches a "
+        f"rank {r0['launches']}")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{n_steps - 1} "
+        f"(rank 0; {unsh}); {batch_n * 4096 / med * 1e3:.1f} tokens/s; peak "
+        f"per rank {[round(rec['peak'] / 2**30, 3) for rec in rs]} GiB; "
+        f"profiled step (rank 0): host wall {r0['profiled_ms']:.3f} ms, "
+        f"device idle share {r0['idle']:.3f}, collectives by name (host "
+        f"time): {coll}")
+    log(f"[{tag}] {_step_bytes_line(sb)}")
+    out[tag.replace(" ", "-")] = {k: sum(rec["launches"][k] for rec in rs)
+                                  for k in ("K1", "K2", "K3")}
+    return out
+
+
+def phase_train_ep(torch, seed, ep) -> dict:
+    """train-ep-check and train-ep in a spawn of their own (``ep`` from
+    ``prepare_train_ep``): ``train_ep_rank`` on ``ep["n"]`` model ranks,
+    then ``report_train_ep``."""
+    from repro_torch.dist.group import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    t0 = time.perf_counter()
+    recs = run_ranks(train_ep_rank, ep["n"], backend=ep["backend"],
+                     device=ep["device"], timeout_s=TRAIN_SHARD_TIMEOUT_S,
+                     model=ep["n"], args=(seed, ep["rank_args"]))
+    return report_train_ep(torch, recs, ep, time.perf_counter() - t0)
 
 
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
@@ -4813,7 +5358,7 @@ def main(argv=None) -> int:
                                          with_check=True, n_req=SHARD_REQS)
     launches_s4, _ = phase_serve_sharded(torch, args.seed, 4,
                                          "serve-sharded-int8", int8_tokens,
-                                         INT8_SPARSE, n_req=SHARD_REQS)
+                                         INT8_SPARSE, n_req=SHARD_INT8_REQS)
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
     # kill and resume: the serve phases' runs under the supervisor, two
@@ -4909,10 +5454,18 @@ def main(argv=None) -> int:
     tl["train-dp-int8"], _ = phase_train_dp(torch, args.seed,
                                             "train-dp-int8", full, dp_losses)
     torch.cuda.empty_cache()
-    # tensor-parallel training: the narrowed check, then gemma-7b at full
-    # width on 2 model ranks against the unsharded gemma-7b train phase
+    # expert-parallel training: its references on one rank first (the
+    # narrowed MoE checks, arctic-480b at every width and the picked expert
+    # count), then in one spawn of 2 model ranks: tensor-parallel training
+    # (the narrowed check, then gemma-7b at full width against the
+    # unsharded gemma-7b train phase) and expert-parallel training (the
+    # narrowed MoE check, then arctic-480b against its reference)
+    ep = prepare_train_ep(torch, args.seed)
+    tl["train-ep-unsharded-arctic-480b"] = ep["ref_launches"]
+    torch.cuda.empty_cache()
     tl.update(phase_train_tp(torch, args.seed, "gemma-7b", gemma_stats,
-                             gemma_depth))
+                             gemma_depth, ep=ep))
+    del ep
     torch.cuda.empty_cache()
     tl["train-recurrentgemma-9b"], _, _ = phase_train(
         torch, args.seed, "recurrentgemma-9b",
@@ -4978,7 +5531,8 @@ def main(argv=None) -> int:
                 "k": "recurrentgemma_9b_local_hd256_mqa_bf16",
                 "l": "kimi_k2_hd128_gqa8_bf16",
                 "m": "whisper_base_encoder_n1500_global_rows_bf16",
-                "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16"}
+                "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16",
+                "ep": "arctic_480b_ep2_rank_heads_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

@@ -24,7 +24,10 @@ process group:
   split product, :meth:`ModelGroup.enter` (identity forward, ``all_reduce``
   backward: the input of a column-split product) and
   :meth:`ModelGroup.reduce` (``all_reduce`` forward, identity backward:
-  the output of a row-split product). Every rank holds the same batch.
+  the output of a row-split product), and :meth:`ModelGroup.gather`
+  (``all_gather`` forward, this rank's slice of the gradient backward:
+  the whole of a column-split output that every rank then uses alike,
+  as an MoE router's logits). Every rank holds the same batch.
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
   is to ``shard_map``. It holds every shard's tensors in one process (the
@@ -209,6 +212,23 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Gather(torch.autograd.Function):
+    """Every rank's slice joined along ``dim`` in rank order forward;
+    this rank's slice of the gradient backward, with no sum: what follows
+    the gather runs alike on every rank, so every rank's gradient of the
+    whole is already the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.unshard(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.group.size, ctx.dim)[ctx.group.index]
+                .contiguous(), None, None)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelGroup(_Ranks):
     """One rank's view of a tensor-parallel group, the reference's
@@ -229,6 +249,12 @@ class ModelGroup(_Ranks):
         """The sum of every rank's ``x``; the gradient passes unchanged
         (the output of a row-split product)."""
         return _Reduce.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim`` in rank order (one
+        ``all_gather``); backward, this rank's slice of the gradient (the
+        whole of a column-split output, used alike on every rank)."""
+        return _Gather.apply(x, self, dim)
 
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's contiguous slice of the whole ``x`` along ``dim``

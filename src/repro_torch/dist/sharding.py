@@ -18,6 +18,18 @@ leading axis, so a dense MLP's ``w_in`` is ``(L, d, f)``; being 3-D with a
 layers where ``L`` divides ``n`` (ffn stays whole). The port's layers are
 list nodes, so a dense ``w_in`` is the 2-D ``(d, f)`` and the rules split
 it over ffn, the placement :data:`PARAM_RULES` states for it.
+
+The same holds for an MoE layer's expert stacks. The reference's are 4-D
+``(L, E, d, f)`` (layers stacked), which :func:`logical_axes_for` labels
+``(None, None, 'embed', 'ffn')``: it *stores* them split over ffn, though
+its dispatch *computes* them split over experts (``moe_apply`` constrains
+the buffer to ``"experts"``). The port's per-layer stack is the 3-D
+``(E, d, f)``, labelled ``('experts', 'embed', 'ffn')``, so it splits over
+experts: the placement the reference computes in. The router ``(d, E)``
+splits over its expert columns in both. Each leaf's split is judged on
+that leaf's own dim (``_mesh_clean``'s divisibility rule): an ffn dim is
+``d_ff`` in a dense MLP, ``d_ff_expert`` in an expert stack and
+``d_ff_expert · n_shared_experts`` in a shared expert.
 """
 from __future__ import annotations
 
@@ -76,45 +88,73 @@ def logical_axes_for(path: str, ndim: int) -> Tuple[Optional[str], ...]:
     return (None,) * ndim
 
 
-def _counts(cfg) -> Dict[str, int]:
-    """The size of each logical axis a dense block's leaves split on."""
-    return {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-            "ffn": cfg.d_ff, "vocab": cfg.vocab_size}
+def _counts(cfg, ffn: Optional[int] = None) -> Dict[str, int]:
+    """The size of each logical axis a block's leaves split on; ``ffn``:
+    the ffn width of the leaf at hand (``d_ff`` by default)."""
+    c = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+         "ffn": cfg.d_ff if ffn is None else ffn, "vocab": cfg.vocab_size}
+    if cfg.moe is not None:
+        c["experts"] = cfg.moe.n_experts
+    return c
 
 
-def split_axes(cfg, n: int) -> FrozenSet[str]:
+def ffn_width(cfg, path: str) -> int:
+    """The ffn width of the leaf at ``path``: a shared expert's
+    ``d_ff_expert · n_shared_experts``, an expert stack's ``d_ff_expert``,
+    else ``d_ff``."""
+    if cfg.moe is not None and re.search(r"(^|/)moe/", path):
+        m = cfg.moe
+        if re.search(r"(^|/)moe/shared/", path):
+            return m.d_ff_expert * m.n_shared_experts
+        return m.d_ff_expert
+    return cfg.d_ff
+
+
+def split_axes(cfg, n: int, ffn: Optional[int] = None) -> FrozenSet[str]:
     """The logical axes of ``cfg`` that split over a model group of ``n``
     ranks: the reference's ``cell_rules`` replicate ``kv_heads``,
     ``heads`` and ``vocab`` when the count does not divide ``n``, and
     ``_mesh_clean`` keeps a dim whole when ``n`` does not divide it (the
-    ffn dim is ``d_ff``). A query head count that ``n`` divides while the
-    KV head count does not leaves ``wk``/``wv`` replicated."""
+    ffn dim is ``ffn``, ``d_ff`` by default: :func:`ffn_width`; the
+    experts dim is ``n_experts``). A query head count that ``n`` divides
+    while the KV head count does not leaves ``wk``/``wv`` replicated."""
     if n <= 1:
         return frozenset()
-    return frozenset(a for a, c in _counts(cfg).items() if c % n == 0)
+    return frozenset(a for a, c in _counts(cfg, ffn).items() if c % n == 0)
+
+
+def is_expert_stack(path: str) -> bool:
+    """Whether the leaf at ``path`` is an MoE layer's expert stack
+    (``moe/w_in``, ``moe/w_gate`` or ``moe/w_out``: the port's 3-D
+    ``(E, d, f)`` / ``(E, f, d)``, split on its experts dim)."""
+    return re.search(r"(^|/)moe/w_(in|gate|out)$", path) is not None
 
 
 def leaf_placement(path: str, ndim: int, cfg, n: int) -> Optional[int]:
     """The dim of the leaf at ``path`` (``'/'``-joined, the port's per-layer
     path: no stacked layer axis) that splits over ``n`` ranks, or None."""
-    split = split_axes(cfg, n)
+    split = split_axes(cfg, n, ffn_width(cfg, path))
     for i, axis in enumerate(logical_axes_for(path, ndim)):
         if axis in split and DEFAULT_RULES.get(axis) == (MODEL,):
             return i        # a mesh axis shards at most one dim
     return None
 
 
-def param_placements(params, cfg, n: int, prefix: Tuple[str, ...] = ()):
+def param_placements(params, cfg, n: int, prefix: Tuple[str, ...] = (),
+                     experts_cut: bool = False):
     """For each leaf of ``params`` (the port's per-layer tree: the full
     single-device parameters, one rank's shards, or any tree of that
     structure; only the paths and each leaf's ``dim()`` are read) the dim
     it splits on over a model group of ``n`` ranks, or ``None``; the same
     tree structure. ``prefix``: the path of ``params`` inside the whole
-    tree (a subtree of it)."""
+    tree (a subtree of it). ``experts_cut``: the expert stacks of
+    ``params`` hold this rank's experts only (drawn so by
+    ``Model.init(span=)``), so they are not cut again: ``None``."""
     flat, treedef = tree_flatten_with_path(params)
     return tree_unflatten(treedef, [
-        leaf_placement("/".join(prefix + path), leaf.dim(), cfg, n)
-        for path, leaf in flat])
+        None if experts_cut and is_expert_stack(path)
+        else leaf_placement(path, leaf.dim(), cfg, n)
+        for path, leaf in (("/".join(prefix + p), x) for p, x in flat)])
 
 
 def describe(params, placements) -> str:

@@ -34,7 +34,8 @@ placement is a device (a data-parallel state is replicated; a checkpoint
 written by rank 0 of an n-rank data-parallel run restores on any rank
 count) or ``torch.distributed.tensor.Shard(dim)``: the leaf split along
 ``dim`` over the ranks of a ``model_group``
-(:class:`~repro_torch.dist.group.ModelGroup`, tensor parallelism), of
+(:class:`~repro_torch.dist.group.ModelGroup`, tensor parallelism; an
+MoE layer's expert stacks are ``Shard(0)``, its router ``Shard(1)``), of
 which this rank keeps its contiguous slice. ``save(..., shardings=,
 model_group=)`` of such a state gathers each split leaf over the group
 first and writes the whole leaf, so the file is the single-device

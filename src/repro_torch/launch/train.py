@@ -50,13 +50,19 @@ attention heads, the MLP's ffn and the vocabulary
 (:func:`repro_torch.dist.sharding.param_placements`, printed once), cut
 from the single-device draw of ``--seed``, so the losses equal ``--model
 1``'s. The dense families run so (smollm, gemma, phi4-mini, granite,
-longformer); the others and ``--compress-grads`` with ``--model`` raise
-``NotImplementedError`` (ROADMAP queue 1, 'multi-GPU'). The checkpoint
+longformer), and so do the MoE archs (arctic-480b, kimi-k2-1t-a32b), whose
+expert stacks split too, E / M experts a rank (expert parallelism; M must
+divide the expert count), each rank drawing only its own experts. The
+recurrent families, the VLM, whisper, an expert count M does not divide
+and ``--compress-grads`` with ``--model`` raise ``NotImplementedError``
+(ROADMAP queue 1, 'multi-GPU'). The checkpoint
 holds the whole leaves, gathered over the model group, so it is the
 single-device checkpoint of the same state and resumes on any layout:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --device cpu --dist-backend gloo --model 2 [--data 2]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
+      --smoke --device cpu --dist-backend gloo --model 2
 """
 from __future__ import annotations
 
@@ -109,7 +115,7 @@ def _parser():
                     help="data-parallel ranks")
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel ranks (heads, ffn and vocab "
-                         "split)")
+                         "split; an MoE arch's experts too)")
     ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
                     help="the ranks' backend with --data or --model > 1: "
                          "nccl (one card per rank; default with --device "

@@ -133,13 +133,15 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
     return p
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              model=None) -> torch.Tensor:
-    """The MLP. Under a ``model`` group whose size divides ``d_ff``,
-    ``w_in``/``w_gate`` hold this rank's ffn columns and ``w_out`` its
-    rows: the rank's partial output is summed over the group (one
-    ``all_reduce`` in the activations' dtype)."""
-    split = "ffn" in _split(cfg, model)
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig, model=None,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP (``d_ff``: its ffn width, as ``mlp_init``'s). Under a
+    ``model`` group whose size divides the width, ``w_in``/``w_gate``
+    hold this rank's ffn columns and ``w_out`` its rows: the rank's
+    partial output is summed over the group (one ``all_reduce`` in the
+    activations' dtype)."""
+    split = model is not None and "ffn" in split_axes(cfg, model.size,
+                                                      d_ff or cfg.d_ff)
     if split:
         x = model.enter(x)
     # GELU is tanh-approximate, as the reference's jax.nn.gelu defaults to

@@ -43,14 +43,18 @@ class Model:
         self.device = torch.device(device)
         self.program = T.make_program(cfg)
 
-    def init(self, generator: torch.Generator, keep=None) -> Dict[str, Any]:
+    def init(self, generator: torch.Generator, keep=None,
+             span=None) -> Dict[str, Any]:
         """The parameters, drawn from ``generator``. ``keep(path, subtree)
         -> subtree``, if given, takes each top-level entry and each layer
         of a segment as soon as it is drawn (``path``: its key path, a
         tuple of strings): a tensor-parallel rank keeps its slices that
         way (:func:`repro_torch.train.trainer.init_shards`), so it never
         holds more than one whole layer (or the embedding) beside them.
-        The draws are the same with or without ``keep``."""
+        ``span`` ``(lo, hi)``: every MoE layer's expert stacks hold only
+        those experts, drawn expert by expert (an expert-parallel rank's;
+        never a whole stack). The draws are the same with or without
+        ``keep`` and ``span``."""
         cfg, dev = self.cfg, self.device
         keep = keep or (lambda path, sub: sub)
         params: Dict[str, Any] = {
@@ -62,7 +66,8 @@ class Model:
         for i, (kind, n) in enumerate(self.program):
             key = f"seg{i}_{kind}"
             params[key] = [keep((key, str(j)),
-                                T.block_init(generator, cfg, kind, dev))
+                                T.block_init(generator, cfg, kind, dev,
+                                             span))
                            for j in range(n)]
         if cfg.encoder_decoder:
             params["enc"] = {
@@ -127,9 +132,10 @@ class Model:
         (:func:`repro_torch.dist.sharding.param_placements`) and every
         rank of the group the same ``batch``. Where the group splits the
         vocabulary, the logits are this rank's vocab slice (B, S, V / n):
-        a caller that needs the whole logits gathers them. Only the dense
-        families' ``attn_mlp`` programs run under a model group of more
-        than one rank (``transformer.check_tensor_parallel``)."""
+        a caller that needs the whole logits gathers them. The dense
+        families' ``attn_mlp`` programs and the MoE family's programs run
+        under a model group of more than one rank, the MoE layers'
+        experts split over it (``transformer.check_tensor_parallel``)."""
         cfg = self.cfg
         if group is not None and model is not None:
             raise ValueError("a rank is in a sequence group or a model "
@@ -180,7 +186,9 @@ class Model:
         the whole batch's on every rank (vocab-parallel where the group
         splits the vocabulary: :func:`~repro_torch.models.layers
         .cross_entropy`), and so are the metrics, with no sum over the
-        group. It composes with ``data``: the NLL's share and the metric
+        group: an MoE layer's aux terms come from the whole router probs
+        on every rank and are added once, as on one rank. It composes
+        with ``data``: the NLL's share and the metric
         totals then go over the data group only."""
         if group is not None and data is not None:
             raise ValueError("a rank is in a sequence group or a data "

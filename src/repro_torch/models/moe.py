@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity dispatch.
 
-The port of :mod:`repro.models.moe` on one device. Sort-based dispatch,
+The port of :mod:`repro.models.moe`, on one device or expert-parallel
+over a model group (:func:`moe_apply`'s ``model=``). Sort-based dispatch,
 dropless up to the capacity factor: tokens are split into
 ``dispatch_groups`` groups; per group each token picks its ``top_k``
 experts, the (token, expert) entries are sorted by expert (a stable sort,
@@ -37,24 +38,55 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, dt, mlp_apply, mlp_init
 
 
-def _experts(gen, E: int, d_in: int, d_out: int, dtype, device):
+def _experts(gen, E: int, d_in: int, d_out: int, dtype, device,
+             span=None):
     """An ``(E, d_in, d_out)`` stack of ``dense_init`` weights, drawn
     expert by expert into a stack preallocated in ``dtype`` (one expert's
-    f32 draw at a time, not the whole stack's)."""
-    w = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+    f32 draw at a time, not the whole stack's). ``span`` ``(lo, hi)``:
+    keep only experts ``lo..hi-1`` (an expert-parallel rank's), drawing
+    and dropping the others, so the generator's stream is the whole
+    stack's."""
+    lo, hi = (0, E) if span is None else span
+    w = torch.empty((hi - lo, d_in, d_out), dtype=dtype, device=device)
     for e in range(E):
-        w[e] = dense_init(gen, d_in, d_out, dtype, device)
+        one = dense_init(gen, d_in, d_out, dtype, device)
+        if lo <= e < hi:
+            w[e - lo] = one
     return w
 
 
-def moe_init(gen, cfg: ModelConfig, device):
+def check_expert_split(cfg: ModelConfig, n: int) -> None:
+    """Raises ``NotImplementedError`` unless a model group of ``n`` ranks
+    splits the experts evenly (``n`` divides ``E``)."""
+    E = cfg.moe.n_experts
+    if E % n:
+        raise NotImplementedError(
+            f"expert-parallel MoE splits {cfg.name}'s {E} experts evenly; a "
+            f"model group of {n} does not divide them: ROADMAP queue 1, "
+            f"'multi-GPU'")
+
+
+def expert_span(cfg: ModelConfig, model) -> tuple:
+    """The experts ``(lo, hi)`` a rank of the model group ``model`` holds:
+    ``E / n`` of them, contiguous, in rank order
+    (:func:`check_expert_split` first)."""
+    check_expert_split(cfg, model.size)
+    per = cfg.moe.n_experts // model.size
+    return model.index * per, (model.index + 1) * per
+
+
+def moe_init(gen, cfg: ModelConfig, device, span=None):
+    """The MoE parameters: the f32 router, the expert stacks in the param
+    dtype and kimi's shared expert. ``span`` ``(lo, hi)``: the expert
+    stacks hold only those experts (:func:`expert_span`), drawn from the
+    same stream as the whole stacks."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
     p = {"router": dense_init(gen, d, E, torch.float32, device),
-         "w_in": _experts(gen, E, d, f, dt(cfg), device),
-         "w_out": _experts(gen, E, f, d, dt(cfg), device)}
+         "w_in": _experts(gen, E, d, f, dt(cfg), device, span),
+         "w_out": _experts(gen, E, f, d, dt(cfg), device, span)}
     if cfg.act in ("swiglu", "geglu"):
-        p["w_gate"] = _experts(gen, E, d, f, dt(cfg), device)
+        p["w_gate"] = _experts(gen, E, d, f, dt(cfg), device, span)
     if m.n_shared_experts:
         p["shared"] = mlp_init(gen, cfg, device, d_ff=f * m.n_shared_experts)
     return p
@@ -124,7 +156,7 @@ def _slots(probs: torch.Tensor, k: int, C: int):
             torch.empty_like(keep).scatter_(-1, order, keep))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None):
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None, model=None):
     """x: (B, S, d) -> (y, aux). ``aux``: ``load_balance``, ``router_z``
     (both scaled by their coefficients) and ``dropped_frac``, f32 scalars.
 
@@ -143,15 +175,41 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None):
     the ranks to the global batch's: the top-1 counts are summed over the
     group (one ``all_reduce`` a layer, no gradient) and the load balance
     weighs this rank's prob sums by them; the router z and the dropped
-    share are this rank's sums over the global counts."""
+    share are this rank's sums over the global counts.
+
+    ``model`` (a :class:`~repro_torch.dist.group.ModelGroup` of N ranks,
+    N dividing E; expert parallelism): ``p`` holds this rank's E / N
+    experts (:func:`expert_span`), its router columns and its slice of a
+    shared expert's ffn; x is the same on every rank. Every rank routes
+    the same tokens alike: its logit columns are gathered into the whole
+    (T, E) logits (:meth:`~repro_torch.dist.group.ModelGroup.gather`),
+    so the softmax, top-k, slots and capacity run on the same bits
+    everywhere. A rank dispatches only the kept entries of its own
+    experts into an ``(E/N·G·C + 1, d)`` buffer, gathers its experts'
+    output rows into a (T·k, d) tensor whose other rows are zero, and the
+    group sums it (ONE ``all_reduce`` a layer forward, exact: each row is
+    nonzero on one rank). The gated combine then runs alike on every
+    rank, so the gates' gradient is whole everywhere (summing the gated
+    ``y`` instead would leave it partial, and the router's gradient
+    wrong). The aux terms come from the whole probs on every rank, with
+    no collective of their own."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
     T = B * S
     n = 1 if data is None else data.size
     xt = x.reshape(T, d)
+    if model is not None and model.size == 1:
+        model = None
+    lo, hi = (0, E) if model is None else expert_span(cfg, model)
+    if model is not None:
+        # every later use of xt is this rank's share of the work: its
+        # gradient is summed over the group once, here
+        xt = model.enter(xt)
 
     logits = xt.float() @ p["router"]                         # (T, E)
+    if model is not None:
+        logits = model.gather(logits, 1)
     probs = torch.softmax(logits, dim=-1)
 
     G = n_groups(cfg, T * n)
@@ -162,14 +220,21 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None):
     Tg = T // G
     C = capacity(cfg, Tg)
     gates, slot, keep = _slots(probs.reshape(G, Tg, E), k, C)
-    n_slots = E * G * C
-    target = torch.where(keep, slot, n_slots).reshape(-1)
     entries = xt[:, None, :].expand(T, k, d).reshape(T * k, d)
+    # this rank's experts' slots are [lo·G·C, hi·G·C) (on one device all)
+    n_slots = (hi - lo) * G * C
+    local = slot - lo * G * C
+    mine = keep & (local >= 0) & (local < n_slots)
+    local = local.clamp(0, n_slots - 1)
+    target = torch.where(mine, local, n_slots).reshape(-1)
     buf = xt.new_zeros((n_slots + 1, d)).index_copy(0, target, entries)
-    out = _expert_ffn(p, buf[:n_slots].view(E, G * C, d), cfg)
+    out = _expert_ffn(p, buf[:n_slots].view(n_slots // (G * C), G * C, d),
+                      cfg)
 
-    contrib = out.reshape(n_slots, d)[slot.reshape(-1)] \
-        * keep.reshape(-1, 1).to(x.dtype)
+    contrib = out.reshape(n_slots, d)[local.reshape(-1)] \
+        * mine.reshape(-1, 1).to(x.dtype)
+    if model is not None:
+        contrib = model.reduce(contrib)
     y = torch.einsum("tkd,tk->td", contrib.view(T, k, d),
                      gates.reshape(T, k).to(x.dtype))
 
@@ -188,5 +253,6 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None):
 
     y = y.reshape(B, S, d)
     if m.n_shared_experts:
-        y = y + mlp_apply(p["shared"], x, cfg)
+        y = y + mlp_apply(p["shared"], x, cfg, model,
+                          d_ff=m.d_ff_expert * m.n_shared_experts)
     return y, aux

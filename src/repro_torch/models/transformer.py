@@ -91,7 +91,9 @@ def make_program(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return [("attn_mlp", cfg.n_layers)]
 
 
-def block_init(gen, cfg: ModelConfig, kind: str, device):
+def block_init(gen, cfg: ModelConfig, kind: str, device, span=None):
+    """One block's parameters. ``span`` ``(lo, hi)``: an MoE block's
+    expert stacks hold only those experts (``moe.moe_init``)."""
     if kind in ATTN_KINDS:
         p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
              "attn": L.attn_init(gen, cfg, device),
@@ -99,7 +101,7 @@ def block_init(gen, cfg: ModelConfig, kind: str, device):
         if kind != "attn_moe":
             p["mlp"] = L.mlp_init(gen, cfg, device)
         if kind in MOE_KINDS:
-            p["moe"] = MOE.moe_init(gen, cfg, device)
+            p["moe"] = MOE.moe_init(gen, cfg, device, span)
         return p
     if kind == "ssm":
         return {"ln1": L.rmsnorm_init(cfg.d_model, device),
@@ -148,7 +150,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     block cross-attends; ``group``: the sequence group of an ``attn_mlp``
     block's attention (:func:`check_sequence_parallel`); ``data``: the
     data group of an MoE block's routing; ``model``: the tensor-parallel
-    group of an ``attn_mlp`` block's attention and MLP
+    group of an attention block's attention, MLP and experts
     (:func:`check_tensor_parallel`). Returns (x, aux): the MoE blocks' aux
     losses, else ``{}``."""
     if kind == "xattn":
@@ -211,19 +213,26 @@ def check_tensor_parallel(cfg: ModelConfig, kind: str, n: int) -> None:
     """Which blocks run under a model group of ``n`` > 1 ranks: the
     ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
     granite, longformer), whose heads, ffn and vocab split by
-    :func:`repro_torch.dist.sharding.param_placements`. The recurrent
-    blocks, the MoE blocks (expert parallelism), the VLM and the
-    encoder-decoder raise."""
+    :func:`repro_torch.dist.sharding.param_placements`, and the MoE
+    family's blocks (arctic's ``attn_moe_dense``, kimi's ``attn_moe`` and
+    its leading ``attn_mlp``), whose experts split as well where ``n``
+    divides their count (expert parallelism:
+    :func:`repro_torch.models.moe.moe_apply`). The recurrent blocks, the
+    VLM and the encoder-decoder raise, and so does an expert count that
+    ``n`` does not divide."""
     if n <= 1:
         return
-    if kind != "attn_mlp" or cfg.family != "dense" \
+    if cfg.family not in ("dense", "moe") \
+            or kind not in ("attn_mlp",) + MOE_KINDS \
             or cfg.mrope_sections is not None or cfg.n_vision_tokens \
             or cfg.encoder_decoder:
         raise NotImplementedError(
             f"tensor-parallel training runs the attn_mlp blocks of the "
-            f"dense families; {cfg.name}'s {kind!r} blocks under a model "
-            f"group of {n} are not ported yet: ROADMAP queue 1, "
-            f"'multi-GPU'")
+            f"dense families and the MoE family's blocks; {cfg.name}'s "
+            f"{kind!r} blocks under a model group of {n} are not ported "
+            f"yet: ROADMAP queue 1, 'multi-GPU'")
+    if kind in MOE_KINDS:
+        MOE.check_expert_split(cfg, n)
 
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -282,16 +291,16 @@ def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     aux): the MoE aux losses, else ``{}`` (the serving paths drop them:
     serving never backprops). ``data``: the data group an MoE block
     routes over (training); ``model``: the tensor-parallel group of a
-    dense MLP."""
+    dense MLP and of the experts (expert parallelism)."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"continuous serving supports attention block kinds "
                          f"{ATTN_KINDS}, got {kind!r}")
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MLP_KINDS:
         return x + L.mlp_apply(p["mlp"], h2, cfg, model), {}
-    y, aux = MOE.moe_apply(p["moe"], h2, cfg, data)
+    y, aux = MOE.moe_apply(p["moe"], h2, cfg, data, model)
     if kind == "attn_moe_dense":    # arctic: the dense MLP beside the MoE
-        return x + y + L.mlp_apply(p["mlp"], h2, cfg), aux
+        return x + y + L.mlp_apply(p["mlp"], h2, cfg, model), aux
     return x + y, aux
 
 

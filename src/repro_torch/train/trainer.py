@@ -35,7 +35,9 @@ Every rank calls the step with the same global batch (``SyntheticLM
   dequantizes locally (``compression.compress_decompress``).
 
 A ``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, the
-reference's "model" axis) is tensor parallelism: every rank of the group
+reference's "model" axis) is tensor parallelism (and, for the MoE family,
+expert parallelism: each rank holds E / N of every expert stack and its
+router columns): every rank of the group
 takes the same rows, its parameters and optimizer state are its slices of
 the split leaves (:func:`shard_params` by
 :func:`repro_torch.dist.sharding.param_placements`), its gradients of them
@@ -59,6 +61,7 @@ import torch
 from repro_torch.dist import compression
 from repro_torch.dist.group import DataGroup, ModelGroup, SeqGroup
 from repro_torch.dist.sharding import param_placements
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
@@ -149,13 +152,19 @@ def init_shards(model, generator, model_group):
     """This rank's slices of ``model.init(generator)``, cut as each layer
     (and the embedding) is drawn, so a rank never holds the whole model:
     the same parameters a single-device run draws from the same
-    generator, as :func:`shard_params` would cut them."""
-    n = model_group.size
+    generator, as :func:`shard_params` would cut them. An MoE layer's
+    expert stacks are drawn expert by expert and only this rank's experts
+    kept (``moe.expert_span``), so a rank's transient is one expert's
+    draw, not a whole stack."""
+    n, cfg = model_group.size, model.cfg
+    span = None
+    if cfg.moe is not None and n > 1:
+        span = MOE.expert_span(cfg, model_group)
 
     def keep(path, sub):
-        return shard_params(sub, param_placements(sub, model.cfg, n, path),
-                            model_group)
-    return model.init(generator, keep=keep)
+        return shard_params(sub, param_placements(
+            sub, cfg, n, path, experts_cut=span is not None), model_group)
+    return model.init(generator, keep=keep, span=span)
 
 
 def state_shardings(placements, opt_state):
@@ -173,7 +182,8 @@ def state_shardings(placements, opt_state):
 
 def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
     """What a train step over a model group of ``n`` ranks cannot run
-    yet raises ``NotImplementedError``: the non-dense blocks
+    yet raises ``NotImplementedError``: the blocks other than the dense
+    and MoE families', an expert count the group does not divide
     (:func:`repro_torch.models.transformer.check_tensor_parallel`) and
     ``compress_grads``."""
     if n <= 1:

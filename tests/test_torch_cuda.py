@@ -1571,3 +1571,96 @@ def _ppermute_rank(group):
         y = group.ppermute(x, [(0, 1), (1, 0)])
         out[str(dt)] = (bool((y == 2 - group.index).all()), str(y.device))
     return out
+
+
+# --------------- expert-parallel MoE training (model group) ------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_arctic_rank_heads(dtype):
+    """K1, K2, K3 at one model rank's heads of arctic-480b's train
+    attention at 2 ranks (chip_smoke case (ep)): batch 1 x 28 of its 56
+    query heads (on 4 of its 8 KV heads, expanded), n 4096, hd 128,
+    window 1024 + 4 sinks, block 256; dK/dV bitwise over two calls."""
+    _need_cuda()
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched, plan, t, (q, k, v, dout, pq, pk) = _train_case(
+        causal_sliding_window(1024, n_sinks=4), 4096, 28, 128, 256, 256,
+        dtype, seed=27)
+    kw = dict(sched=sched, scale=128 ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, t.kv_blocks,
+                                        t.flags, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, t.kv_blocks,
+                                               t.flags, **kw)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, t.kv_blocks, t.flags, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, t.kv_blocks, t.flags, **kw)
+    dkv_t = (t.row_tile, t.q_blocks, t.pk_flags)
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    torch.cuda.synchronize()
+    tol, gtol, ktol = KA.OUT_TOL[dtype], GTOL[dtype], KB.DKV_TOL[dtype]
+    stol = KA.STATS_TOL
+    for a, b, tl in ((out, ro, tol), (m, rm, stol), (l, rl, stol),
+                     (dq, rdq, gtol), (dk, rdk, ktol), (dv, rdv, ktol)):
+        torch.testing.assert_close(a.float(), b.float(), atol=tl, rtol=tl)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+
+
+def _moe_ep_rank(mesh, arch, params, x, cot):
+    """One model rank's ``moe_apply(model=)`` on cuda:0 from its slices of
+    the whole MoE parameters: y and the gathered gradients (CPU)."""
+    from repro_torch.dist.sharding import param_placements
+    from repro_torch.models import moe as M
+    from repro_torch.train.trainer import gather_params, shard_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mg, dev = mesh.model, mesh.model.device
+    cfg = get_smoke(arch)
+    whole = tree_map(lambda t: t.to(dev), params)
+    pl = param_placements(whole, cfg, mg.size, ("seg", "0", "moe"))
+    leaves = tree_map(lambda t: t.detach().requires_grad_(),
+                      shard_params(whole, pl, mg))
+    xx = x.to(dev).requires_grad_()
+    y, aux = M.moe_apply(leaves, xx, cfg, model=mg)
+    loss = (y * cot.to(dev)).sum() + aux["load_balance"] + aux["router_z"]
+    g = torch.autograd.grad(loss, tree_leaves(leaves) + [xx])
+    it = iter(g[:-1])
+    gp = gather_params(tree_map(lambda _: next(it), leaves), pl, mg)
+    return (y.detach().cpu(), float(aux["dropped_frac"]),
+            [t.cpu() for t in tree_leaves(gp)], g[-1].cpu())
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_apply_model_group_gloo_on_one_card_matches_cpu(arch):
+    """2 gloo ranks sharing cuda:0, each with half the experts and its
+    router columns: y (bitwise equal on both ranks), the dropped share and
+    the gathered gradients equal the port's single-device ``moe_apply`` on
+    the CPU within 1e-4 (f32; TF32 off)."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke(arch)
+    params = M.moe_init(torch.Generator().manual_seed(4), cfg, "cpu")
+    rng = np.random.default_rng(4)
+    x, cot = (torch.from_numpy(rng.normal(size=(4, 128, cfg.d_model))
+                               .astype(np.float32)) for _ in range(2))
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    xx = x.clone().requires_grad_()
+    y, aux = M.moe_apply(leaves, xx, cfg)
+    loss = (y * cot).sum() + aux["load_balance"] + aux["router_z"]
+    want = torch.autograd.grad(loss, tree_leaves(leaves) + [xx])
+    res = run_ranks(_moe_ep_rank, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0, model=2, args=(arch, params, x, cot))
+    for got_y, dropped, got_gp, got_gx in res:
+        torch.testing.assert_close(got_y, y.detach(), atol=1e-4, rtol=1e-4)
+        assert torch.equal(got_y, res[0][0])
+        assert dropped == float(aux["dropped_frac"])
+        for a, b in zip(got_gp + [got_gx], want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -423,7 +423,6 @@ def _fake(n=2):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m",
-                                  "arctic-480b", "kimi-k2-1t-a32b",
                                   "qwen2-vl-2b", "whisper-base"])
 def test_the_other_families_raise(arch):
     from repro_torch.models.model import build_model
@@ -433,6 +432,24 @@ def test_the_other_families_raise(arch):
     model = build_model(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                        "'multi-GPU'"):
+        model.loss(model.init(torch.Generator().manual_seed(0)), batch,
+                   model=_fake())
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_families_run_under_a_model_group(arch):
+    """The MoE families' blocks pass the checks a model group of 2 makes
+    (their experts split over it: ``tests/test_torch_ep.py`` holds them
+    against the reference), and the model builds its split forward up to
+    the first collective: a group with no process group behind it stops
+    there, not at a check."""
+    from repro_torch.models.model import build_model
+
+    cfg = _smoke(arch)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
+    model = build_model(cfg, "cpu")
+    with pytest.raises(ValueError, match="process group has not been "
+                       "initialized"):
         model.loss(model.init(torch.Generator().manual_seed(0)), batch,
                    model=_fake())
 
