@@ -346,6 +346,24 @@ nonzero:
     over the ranks, the peak per rank, and one more step profiled on rank
     0: device time by kernel, the idle share and the collectives' host
     time by profiler name.
+18f'. **train-fsdp-check**, **train-fsdp** — the FSDP fallback
+    (``make_train_step(..., data=, fsdp=True)``: each weight that no model
+    rule splits held as each rank's slice of its largest dim, gathered a
+    layer at a time inside the remat replay, its gradient reduce-scattered
+    in f32), in train-dp's 2-rank spawn after its data-parallel run: the
+    narrowed f32 smollm of train-dp-check, 3 steps from the same
+    parameters and batches (gates: losses within 1e-6 of train-dp-check's,
+    gathered parameters within 1e-4, the leaves held whole and the step
+    bitwise equal across the ranks, each slice bitwise the rank's shard of
+    the gathered leaf, K1-K3 launched); then smollm-135m at full size, the
+    train-dp run's first 3 steps (cut from 4 for time), each rank drawing
+    only its slices (gates: every loss within 1e-3 of train-dp's, the
+    leaves held whole bitwise equal across the ranks, per rank and step 2
+    K1, 1 K2 and 1 K3 call an attention layer, no plain version). Prints
+    the bytes a rank receives a step (gathers, f32 reduce-scatter, the
+    leaves held whole's all_reduce; counted), the state a rank holds, the
+    step median and the peak per rank beside train-dp's, and one more step
+    profiled on rank 0: idle share and collectives by name.
 18g. **train-dp-int8** — the same global batch on 4 ranks (2 rows each)
     with ``compress_grads``: the gradient goes out as int8 values and one
     f32 scale a tensor (one all_gather each), each rank keeps its own
@@ -356,7 +374,7 @@ nonzero:
     time on rank 0 (CUDA events).
 18h. **train-tp-check** — tensor-parallel training (``make_train_step(
     ..., model_group=ModelGroup)``, heads, ffn and vocab split by
-    ``dist.sharding.param_placements``): two narrowed f32 configs trained
+    ``dist.sharding.mesh_placements``): two narrowed f32 configs trained
     3 steps on 2 model ranks (NCCL with one card a rank where the machine
     has the cards, else gloo ranks sharing cuda:0), each from the same
     parameters cut into the ranks' slices, against one rank on the card:
@@ -434,6 +452,7 @@ import argparse
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1686,18 +1705,54 @@ def _merge_check(torch, group, k4, res, q, k_slab, v_slab, pt, pos, t, kw):
                                     rtol=tol))
 
 
+# the profiler's own bookkeeping ops, which ``prof.events()`` leaves out
+# (``torch.autograd.profiler_util._filter_name``)
+_PROFILER_OPS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def _events(prof) -> list:
+    """``(name, on the card, us)`` for each event of a stopped
+    ``torch.profiler`` run, as ``prof.events()`` reports it: the same
+    events (its filter), names (demangled) and times (a device event's
+    own time, 0 if async; a host event's span). Read from the raw kineto
+    results without building ``prof.events()``'s tree of host events,
+    whose Python parse took ~10 s after a profiled train step on the card
+    (~80 s a run). Computed once a profile."""
+    import torch
+    from torch.autograd import DeviceType
+
+    out = getattr(prof, "_smoke_events", None)
+    if out is None:
+        out = []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if name in _PROFILER_OPS or getattr(
+                    e, "is_hidden_event", lambda: False)():
+                continue
+            card = e.device_type() == DeviceType.CUDA
+            lag = e.is_async() or e.start_thread_id() != e.end_thread_id()
+            out.append((torch._C._demangle(name) if len(name) > 1 else name,
+                        card, 0.0 if card and lag else
+                        (e.end_ns() - e.start_ns()) / 1e3))
+        prof._smoke_events = out
+    return out
+
+
 def _collective_ms(prof, keys=("all_reduce", "allreduce")) -> dict:
     """Host time of the collectives by profiler event name: {name:
     (calls, ms)} for every event whose name holds one of ``keys`` (by
     default "all_reduce" or "allreduce"; the process group's op and its
-    backend's span nest, so each name is a view of the same calls)."""
+    backend's span nest, so each name is a view of the same calls; an
+    event on the card counts as a call of 0 ms)."""
     out: dict = {}
-    for e in prof.events():
-        name = e.name.lower()
-        if not any(k in name for k in keys):
+    for name, card, us in _events(prof):
+        if not any(k in name.lower() for k in keys):
             continue
-        n, t = out.get(e.name, (0, 0.0))
-        out[e.name] = (n + 1, t + e.cpu_time_total / 1e3)
+        n, t = out.get(name, (0, 0.0))
+        out[name] = (n + 1, t + (0.0 if card else us / 1e3))
     return out
 
 
@@ -1784,9 +1839,7 @@ def _serve_sharded(torch, seed, group, what, extra, n_req=SERVE_R):
           f"errs {[e for e, _ in stats['errs']]}")
     check(prof is not None and len(decode_steps) > 0,
           f"{what}: {n_dec} decode-only steps")
-    busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy_ms = sum(us for _, card, us in _events(prof) if card) / 1e3
     if group.index == 0:
         report_profile(prof, prof_wall, 1, f"{what} decode step (rank 0)")
     return dict(tokens={r: v.tolist() for r, v in res.items()}, counters=c,
@@ -2989,7 +3042,8 @@ def _train_cfg(smoke: bool):
 
 
 def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
-             group=None, data=None, compress=False, model_group=None):
+             group=None, data=None, compress=False, model_group=None,
+             fsdp=False):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -3003,7 +3057,7 @@ def _trainer(cfg, dev, params, *, seq, batch, steps, lr, warmup, seed,
                        compress_grads=compress)
     ds = SyntheticLM(cfg, DataConfig(seq, batch, seed=seed))
     return (make_train_step(model, tcfg, group=group, data=data,
-                            model_group=model_group),
+                            model_group=model_group, fsdp=fsdp),
             adamw.init(tcfg.optimizer, params), ds)
 
 
@@ -4099,8 +4153,9 @@ def train_dp_check(torch, seed):
     step-0 loss the uncompressed one's within 1e-4 (it is computed before
     the reduce), ``ef_state`` finite and each rank's the residual of its
     own wire input within 1e-6. Both: the state bitwise equal across the
-    ranks, K1-K3 launched and no plain version. Returns {path: launches
-    summed over the ranks}."""
+    ranks, K1-K3 launched and no plain version. Returns ({path: launches
+    summed over the ranks}, the uncompressed run's rank records: what
+    train-fsdp-check is held to)."""
     from repro_torch.dist.group import run_ranks
     from repro_torch.models.model import build_model
 
@@ -4160,7 +4215,7 @@ def train_dp_check(torch, seed):
                      for k in ("K1", "K2", "K3")}
     log(f"[train-dp-check] {time.perf_counter() - t0:.1f} s with the ranks' "
         f"start")
-    return out
+    return out, [r[False] for r in res]
 
 
 def _wire_kernels_ms(torch, grads, n: int) -> dict:
@@ -4202,14 +4257,20 @@ def _wire_kernels_ms(torch, grads, n: int) -> dict:
     return out
 
 
-def train_dp_rank(group, seed, steps, compress, arch="smollm-135m"):
+def train_dp_rank(group, seed, steps, compress, arch="smollm-135m",
+                  fsdp=None):
     """A spawned rank of a full-size train-dp phase: ``arch`` at full
     width and depth, bf16, remat full, seq 4096, this rank's rows of the
     global batch ``TRAIN_BATCH``, ``steps`` steps of the train phase's
     schedule (20 steps, lr 3e-3, warmup 10) from the same seed, then one
     more step, profiled on rank 0, where the wire's quantize and sum
-    kernels are then timed on that step's gradient shapes. Returns the
-    rank's record."""
+    kernels are then timed on that step's gradient shapes. ``fsdp`` (a
+    dict with the check's ``cfg``, None to leave it out, its ``params``
+    and train-fsdp's ``steps``): then, in the same spawn, train-fsdp-check
+    (``fsdp_check_run``) and train-fsdp
+    (``fsdp_full_run``) from the same seed and batches, under
+    ``rec["fsdp_check"]`` and ``rec["fsdp"]``. Returns the rank's
+    record."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4271,11 +4332,281 @@ def train_dp_rank(group, seed, steps, compress, arch="smollm-135m"):
                    collectives=_collective_ms(prof, DP_KEYS))
         if compress:
             rec["wire_ms"] = _wire_kernels_ms(torch, ef, data.size)
+    if fsdp is not None:
+        del params, opt, step, met, ef, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if fsdp["cfg"] is not None:
+            rec["fsdp_check"] = fsdp_check_run(torch, data, dev, seed,
+                                               fsdp["cfg"], fsdp["params"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["fsdp"] = fsdp_full_run(torch, data, dev, seed, fsdp["steps"],
+                                    arch)
     return rec
 
 
+# the collectives of an FSDP step by profiler name
+FSDP_KEYS = DP_KEYS + ("reduce_scatter", "reducescatter")
+# train-fsdp: train-dp's first steps, 2 timed and the profiled third
+# (3 of its 4, cut for time)
+FSDP_STEPS = 2
+
+
+def fsdp_inputs(torch, seed, dp_check, steps=FSDP_STEPS) -> dict:
+    """What the FSDP phases take into the train-dp spawn: the narrowed
+    f32 smollm of train-dp-check and its parameters from ``seed`` (on the
+    CPU), ``dp_check`` (train-dp-check's uncompressed rank records) and
+    train-fsdp's ``steps``."""
+    from repro_torch.models.model import build_model
+
+    cfg = _train_cfg(smoke=True)
+    return {"cfg": cfg, "dp_check": dp_check, "steps": steps,
+            "params": build_model(cfg, "cpu").init(
+                torch.Generator().manual_seed(seed))}
+
+
+def fsdp_step_bytes(whole, dims, n: int) -> dict:
+    """The bytes a rank receives in one FSDP step over ``n`` ranks,
+    counted from the placements (ring collectives; not timed): ``gather``,
+    the ``all_gather``s of the split weights in their stored type, a
+    layer's twice under remat full (the forward and the backward's
+    replay: a leaf under a segment, the encoder's too) and the others (the
+    embedding, the head) once;
+    ``reduce_scatter``, the split weights' f32 gradients once;
+    ``all_reduce``, the f32 gradients of the leaves held whole, twice.
+    ``whole``: the whole leaves (``Model.param_shapes``)."""
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+
+    flat, _ = tree_flatten_with_path(whole)
+    share = (n - 1) / n
+    out = {"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0}
+    for (path, x), s in zip(flat, tree_leaves(tree_map(lambda _, s: s,
+                                                       whole, dims))):
+        if s.data is None:
+            out["all_reduce"] += 2 * share * x.numel() * 4
+            continue
+        times = 2 if any(p.startswith("seg") for p in path) else 1
+        out["gather"] += times * share * x.numel() * x.element_size()
+        out["reduce_scatter"] += share * x.numel() * 4
+    return {k: int(v) for k, v in out.items()}
+
+
+def fsdp_check_run(torch, data, dev, seed, cfg, params):
+    """train-fsdp-check on one rank of the train-dp spawn: ``cfg`` (the
+    narrowed f32 smollm of ``dp_check_rank``) trained 3 steps under the
+    FSDP fallback from ``params`` cut into this rank's slices, on its rows
+    of the same global batches (seq 128, batch 2). Returns the losses,
+    the launch counts, the gathered parameters, the digest of the leaves
+    held whole and the step, and whether each split leaf is bitwise this
+    rank's ``shard`` of the gathered one."""
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import (gather_params, shard_params,
+                                           train_placements)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dims = train_placements(build_model(cfg, dev), data=data, fsdp=True)
+    mesh = Mesh2D(data, None)
+    p = shard_params(_to(params, dev), dims, mesh)
+    step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                             lr=3e-3, warmup=1, seed=seed, data=data,
+                             fsdp=True)
+    _counters(reset=True)
+    losses = []
+    for i in range(3):
+        p, opt, met, _ = step(p, opt, ds.batch(i))
+        losses.append(float(met["loss"]))
+    launches, plain = _counters()
+    whole = gather_params(p, dims, mesh)
+    sliced = all(tree_leaves(tree_map(
+        lambda x, w, s: s.data is None or torch.equal(x, data.shard(w,
+                                                                 s.data)),
+        p, whole, dims)))
+    return dict(losses=losses, launches=launches, plain=plain,
+                params=_flat_cpu(torch, whole), sliced=sliced,
+                digest=_whole_digest(torch, p, opt, dims),
+                n_split=sum(not s.whole for s in tree_leaves(dims)),
+                n_leaves=len(tree_leaves(p)))
+
+
+def fsdp_full_run(torch, data, dev, seed, steps, arch):
+    """train-fsdp on one rank of the train-dp spawn: ``arch`` at full
+    width and depth, bf16, remat full, seq 4096, the train-dp run's
+    schedule and batches, under the FSDP fallback: the rank draws its
+    slices layer by layer from the seed's single-device draw
+    (``trainer.init_shards``), ``steps`` timed steps, then one more,
+    profiled on rank 0, whose loss and launches count with theirs.
+    Returns the rank's record (as ``train_dp_rank``'s, with the bytes a
+    rank receives a step and the state a rank holds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import init_shards, train_placements
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    model = build_model(cfg, dev)
+    whole = model.param_shapes()
+    dims = train_placements(model, data=data, fsdp=True)
+    params = init_shards(model, torch.Generator(device=dev).manual_seed(seed),
+                         None, data, fsdp=True)
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=TRAIN_BATCH,
+                             steps=TRAIN_STEPS, lr=3e-3, warmup=10,
+                             seed=seed, data=data, fsdp=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, times = [], []
+    for i in range(steps):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, _ = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        if data.index == 0:
+            log(f"[train-fsdp {arch} x{data.size}] rank 0 step {i} loss "
+                f"{losses[-1]:.4f} grad norm {float(met['grad_norm']):.4f} "
+                f"{times[-1] * 1e3:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    batch = ds.batch(steps)
+    torch.cuda.synchronize()
+    if data.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met, _ = step(params, opt, batch)
+    losses.append(float(met["loss"]))
+    dt = time.perf_counter() - ts
+    launches, plain = _counters()
+    state = sum(x.numel() * x.element_size() for t in (params, opt.m, opt.v)
+                for x in tree_leaves(t))
+    rec = dict(losses=losses, times=times, launches=launches, plain=plain,
+               peak=peak, state_bytes=state,
+               digest=_whole_digest(torch, params, opt, dims),
+               bytes=fsdp_step_bytes(whole, dims, data.size))
+    if data.index == 0:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, f"train-fsdp {arch} "
+                                 f"x{data.size} step (rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, FSDP_KEYS))
+    return rec
+
+
+def _report_fsdp_check(chk, dp_check, what) -> dict:
+    """train-fsdp-check's gates and print (``report_train_fsdp``); returns
+    its launches summed over the ranks."""
+    n = len(chk)
+    ref_l, ref_p = dp_check[0]["losses"], dp_check[0]["params"]
+    for r, rec in enumerate(chk):
+        perr = float((rec["params"] - ref_p).abs().max())
+        lerr = max(abs(a - b) for a, b in zip(rec["losses"], ref_l))
+        check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+              f"{what}-check rank {r}: launches {rec['launches']}, plain "
+              f"{rec['plain']}")
+        check(lerr <= 1e-6 and perr <= 1e-4,
+              f"{what}-check rank {r}: losses {rec['losses']} vs "
+              f"train-dp-check's {ref_l} (1e-6), parameters off by {perr} "
+              f"(1e-4)")
+        check(rec["sliced"], f"{what}-check rank {r}: a split leaf is not "
+              f"the rank's slice of the gathered leaf")
+    check(len({rec["digest"] for rec in chk}) == 1,
+          f"{what}-check: the leaves held whole or the step differ across "
+          f"the ranks")
+    log(f"[{what}-check] narrowed smollm f32, {n} ranks, {chk[0]['n_split']}"
+        f" of {chk[0]['n_leaves']} leaves split over the data group: "
+        f"losses {chk[0]['losses']} vs train-dp-check's {ref_l} (max diff "
+        f"{max(abs(a - b) for a, b in zip(chk[0]['losses'], ref_l))}); "
+        f"gathered parameters off by "
+        f"{float((chk[0]['params'] - ref_p).abs().max())}; leaves held whole"
+        f" and the step bitwise equal across the ranks; each slice bitwise "
+        f"the rank's shard of the gathered leaf; launches a rank "
+        f"{chk[0]['launches']}")
+    return {k: sum(rec["launches"][k] for rec in chk)
+            for k in ("K1", "K2", "K3")}
+
+
+def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
+                      arch="smollm-135m") -> dict:
+    """The gates and prints of train-fsdp-check and train-fsdp, from the
+    train-dp spawn's records (``recs``: every rank's, with the train-dp
+    run's beside) and ``dp_check`` (train-dp-check's uncompressed rank
+    records). train-fsdp-check: losses within 1e-6 of train-dp-check's,
+    gathered parameters within 1e-4, the leaves held whole and the step
+    bitwise equal across the ranks, each split leaf bitwise the rank's
+    slice of the gathered one, K1-K3 launched and no plain version.
+    train-fsdp: every step's loss within 1e-3 of train-dp's, equal losses
+    and leaves held whole on every rank, per rank and step 2 K1, 1 K2 and
+    1 K3 call (2 kernels) an attention layer, no plain version. Prints the
+    bytes a rank receives a step (counted), the step median and the peak
+    per rank beside train-dp's, and rank 0's profiled step. Returns
+    {path: launches summed over the ranks}."""
+    from repro_torch.configs import get_config
+
+    n = len(recs)
+    out = {}
+    if "fsdp_check" in recs[0]:
+        out[f"{what}-check"] = _report_fsdp_check(
+            [r["fsdp_check"] for r in recs], dp_check, what)
+    fs = [r["fsdp"] for r in recs]
+    steps = len(fs[0]["losses"])
+    n_attn = _train_attention_layers(get_config(arch))
+    want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
+            "K3": 2 * n_attn * steps}
+    r0, dp0 = fs[0], recs[0]
+    for r, rec in enumerate(fs):
+        check(rec["losses"] == r0["losses"],
+              f"{what}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{what} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+    check(len({rec["digest"] for rec in fs}) == 1,
+          f"{what}: the leaves held whole or the step differ across the "
+          f"ranks")
+    diff = [abs(a - b) for a, b in zip(r0["losses"], dp0["losses"])]
+    dp_l = dp0["losses"][:steps]
+    check(all(math.isfinite(x) for x in r0["losses"]) and max(diff) <= 1e-3,
+          f"{what}: losses {r0['losses']} vs train-dp's {dp_l} (1e-3)")
+    med = statistics.median(r0["times"][1:]) * 1e3
+    dp_med = statistics.median(dp0["times"][1:]) * 1e3
+    coll = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    b = r0["bytes"]
+    n_val = dp0["grad_size"][0]
+    log(f"[{what}] {arch} bf16 remat full, {n} ranks, global batch "
+        f"{TRAIN_BATCH} = {n} x {TRAIN_BATCH // n} at seq 4096, the weights "
+        f"no model rule splits held as each rank's slice of their largest "
+        f"dim, {steps} steps of train-dp's schedule (the last profiled): "
+        f"losses "
+        f"{r0['losses']} vs train-dp's {dp_l} (max diff {max(diff)}); "
+        f"leaves held whole bitwise equal across the ranks; launches a rank "
+        f"{r0['launches']}")
+    log(f"[{what}] a rank receives a step (counted, not timed): gathers "
+        f"{b['gather']} bytes, f32 reduce_scatter {b['reduce_scatter']}, "
+        f"f32 all_reduce of the leaves held whole {b['all_reduce']}: "
+        f"{sum(b.values())} in all, against train-dp's f32 all_reduce "
+        f"{int(2 * (n - 1) / n * n_val * 4)}; parameters and AdamW moments "
+        f"a rank {r0['state_bytes']} bytes")
+    log(f"[{what}] step median {med:.3f} ms over steps "
+        f"1..{len(r0['times']) - 1} "
+        f"(rank 0; train-dp {dp_med:.3f} ms over 1..{DP_STEPS - 1}); peak "
+        f"per rank "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in fs]} GiB (train-dp "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in recs]} GiB); profiled "
+        f"step (rank 0): host wall {r0['profiled_ms']:.3f} ms, device idle "
+        f"share {r0['idle']:.3f}, collectives by name (host time): {coll}")
+    out[what] = {k: sum(rec["launches"][k] for rec in fs)
+                 for k in ("K1", "K2", "K3")}
+    return out
+
+
 def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
-                   n=None, compress=None):
+                   n=None, compress=None, fsdp=None):
     """train-dp and train-dp-int8: ``DP_PHASES[what]`` ranks
     (``_shard_backend``; or ``n`` ranks, ``compress``) train ``arch`` at
     full width and depth on the train phase's global batch, split by rows
@@ -4291,8 +4622,11 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
     version. Prints the bytes a rank receives a step (counted), the step
     median beside the unsharded phase's, the peak per rank, the profiled
     step's idle share and collectives (rank 0), and for the int8 wire its
-    quantize and sum kernels' device time. Returns (the launches summed
-    over the ranks, rank 0's losses)."""
+    quantize and sum kernels' device time. ``fsdp`` (a dict with the
+    check's ``cfg``, ``params`` and ``dp_check``, train-dp-check's
+    records): the same spawn then runs train-fsdp-check and train-fsdp
+    (``report_train_fsdp``). Returns (the launches summed over the ranks,
+    rank 0's losses, the FSDP phases' launches by path or {})."""
     from repro_torch.configs import get_config
     from repro_torch.dist import compression
     from repro_torch.dist.group import run_ranks
@@ -4306,7 +4640,9 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
     t0 = time.perf_counter()
     recs = run_ranks(train_dp_rank, n, backend=backend, device=device,
                      timeout_s=TRAIN_SHARD_TIMEOUT_S,
-                     args=(seed, DP_STEPS, compress, arch))
+                     args=(seed, DP_STEPS, compress, arch,
+                           None if fsdp is None else
+                           {k: fsdp[k] for k in ("cfg", "params", "steps")}))
     wall = time.perf_counter() - t0
     want_l = ref["losses"][:DP_STEPS]
     n_attn = _train_attention_layers(cfg)
@@ -4369,8 +4705,11 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
             f"device time): quantize {r0['wire_ms']['quantize']:.3f} ms, "
             f"dequantize and sum of {n} parts "
             f"{r0['wire_ms']['dequantize_sum']:.3f} ms a step")
+    extra = {} if fsdp is None else report_train_fsdp(
+        torch, recs, fsdp["dp_check"], what.replace("train-dp",
+                                                    "train-fsdp"), arch)
     return ({k: sum(rec["launches"][k] for rec in recs)
-             for k in ("K1", "K2", "K3")}, losses)
+             for k in ("K1", "K2", "K3")}, losses, extra)
 
 
 TP_RANKS = 2             # train-tp phases: the model group's ranks
@@ -4575,12 +4914,13 @@ def _tp_check_cfgs():
 
 def _whole_digest(torch, params, opt, placements):
     """sha256 of the leaves a rank holds whole (parameters and moments of
-    the replicated leaves) and of the optimizer's step."""
-    from repro_torch.tree import tree_leaves
+    the leaves ``placements``, a ``Split`` tree, keeps whole; matched by
+    key) and of the optimizer's step."""
+    from repro_torch.tree import tree_leaves, tree_map
 
-    dims = tree_leaves(placements)
+    held = tree_leaves(tree_map(lambda _, s: s.whole, params, placements))
     whole = [x for t in (params, opt.m, opt.v)
-             for x, d in zip(tree_leaves(t), dims) if d is None]
+             for x, h in zip(tree_leaves(t), held) if h]
     return _digest(torch, whole) + f":{opt.step}"
 
 
@@ -4623,34 +4963,36 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps, ep=None):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import describe, param_placements
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import describe, mesh_placements
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import (gather_params, init_shards,
                                            shard_params)
 
     _rank_prelude(torch)
     mg = mesh.model
+    on = Mesh2D(None, mg)       # the model axis alone
     dev = str(mg.device)
     out = {}
     for check_arch, cfg in _tp_check_cfgs().items():
         if check_arch not in check_params:
             continue
         full = _to(check_params[check_arch], dev)
-        pl = param_placements(full, cfg, mg.size)
+        pl = mesh_placements(full, cfg, model=mg.size)
         _counters(reset=True)
-        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, mg),
+        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, on),
                                     seed, ("loss", "grad_norm"), mg)
         launches, plain = _counters()
         out[check_arch] = dict(
             hist=hist, launches=launches, plain=plain,
-            params=_flat_cpu(torch, gather_params(p, pl, mg)),
+            params=_flat_cpu(torch, gather_params(p, pl, on)),
             whole=_whole_digest(torch, p, opt, pl))
     cfg = dataclasses.replace(get_config(arch), n_layers=depth)
     batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
     torch.cuda.empty_cache()
     params = init_shards(build_model(cfg, dev),
                          torch.Generator(device=dev).manual_seed(seed), mg)
-    pl = param_placements(params, cfg, mg.size)
+    pl = mesh_placements(params, cfg, model=mg.size)
     if mg.index == 0:
         log(f"[train-tp] {arch} placements over {mg.size} ranks: "
             f"{describe(params, pl)}")
@@ -4964,7 +5306,8 @@ def train_ep_rank(mesh, seed, ep):
 
     import torch
 
-    from repro_torch.dist.sharding import describe, param_placements
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import describe, mesh_placements
     from repro_torch.models import moe as M
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import (gather_params, init_shards,
@@ -4973,6 +5316,7 @@ def train_ep_rank(mesh, seed, ep):
     t_ep = time.perf_counter()
     _rank_prelude(torch)
     mg = mesh.model
+    on = Mesh2D(None, mg)       # the model axis alone
     dev = str(mg.device)
     out = {}
     hashes = []
@@ -4989,15 +5333,15 @@ def train_ep_rank(mesh, seed, ep):
             if arch not in ep["check_params"]:
                 continue
             full = _to(ep["check_params"][arch], dev)
-            pl = param_placements(full, cfg, mg.size)
+            pl = mesh_placements(full, cfg, model=mg.size)
             _counters(reset=True)
             hashes.clear()
-            hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, mg),
+            hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, on),
                                         seed, ("loss", "grad_norm", *AUX), mg)
             launches, plain = _counters()
             out[f"check-{arch}"] = dict(
                 hist=hist, launches=launches, plain=plain,
-                params=_flat_cpu(torch, gather_params(p, pl, mg)),
+                params=_flat_cpu(torch, gather_params(p, pl, on)),
                 whole=_whole_digest(torch, p, opt, pl), slot_calls=len(hashes),
                 slots=hashlib.sha256("".join(hashes).encode()).hexdigest())
     finally:
@@ -5008,7 +5352,7 @@ def train_ep_rank(mesh, seed, ep):
     torch.cuda.empty_cache()
     params = init_shards(build_model(cfg, dev),
                          torch.Generator(device=dev).manual_seed(seed), mg)
-    pl = param_placements(params, cfg, mg.size)
+    pl = mesh_placements(params, cfg, model=mg.size)
     if mg.index == 0:
         log(f"[train-ep] {cfg.name} placements over {mg.size} ranks: "
             f"{describe(params, pl)}")
@@ -5265,17 +5609,12 @@ def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
     device's idle share (1 - kernel time / host wall time of the steps;
     the profiler's own host overhead inflates the wall time, so this share
     is an upper bound). Returns {name: (launches, device us)}."""
-    from torch.autograd import DeviceType
-
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for name, card, us in _events(prof):
+        if not card:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us)
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
     if not by_name:
         log("[profile] the profiler recorded no device events")
@@ -5448,11 +5787,19 @@ def main(argv=None) -> int:
     # data-parallel training: the narrowed check (f32 and int8 wires),
     # then smollm-135m at full size on 2 ranks (f32 all_reduce) and 4
     # (int8 wire) against the unsharded train phase
-    tl.update(train_dp_check(torch, args.seed))
-    tl["train-dp"], dp_losses = phase_train_dp(torch, args.seed, "train-dp",
-                                               full)
-    tl["train-dp-int8"], _ = phase_train_dp(torch, args.seed,
-                                            "train-dp-int8", full, dp_losses)
+    dpc_launches, dp_check = train_dp_check(torch, args.seed)
+    tl.update(dpc_launches)
+    # the FSDP fallback in the train-dp spawn, after its data-parallel run:
+    # the narrowed check against train-dp-check's, then smollm-135m at
+    # full size against train-dp's
+    tl["train-dp"], dp_losses, fsdp_launches = phase_train_dp(
+        torch, args.seed, "train-dp", full,
+        fsdp=fsdp_inputs(torch, args.seed, dp_check))
+    tl.update(fsdp_launches)
+    del dp_check
+    tl["train-dp-int8"], _, _ = phase_train_dp(torch, args.seed,
+                                               "train-dp-int8", full,
+                                               dp_losses)
     torch.cuda.empty_cache()
     # expert-parallel training: its references on one rank first (the
     # narrowed MoE checks, arctic-480b at every width and the picked expert

@@ -34,8 +34,9 @@ control.
 * :mod:`repro_torch.dist.sharding` — the reference's placement rules
   for the "model" axis without JAX (``PARAM_RULES``,
   ``logical_axes_for``, the divisibility rules of ``cell_rules`` and
-  ``_mesh_clean``): ``param_placements`` gives each parameter leaf the
-  dim it splits on over a model group, or ``None``.
+  ``_mesh_clean``) and its FSDP fallback over the "data" axis:
+  ``mesh_placements`` gives each parameter leaf one ``Split``, the dim it
+  splits on over the model group and over the data group, or ``None``.
 
 Data parallelism (``make_train_step(..., data=DataGroup)``, the train
 CLI's ``--data``) maps the reference's ``batch`` logical axis onto the

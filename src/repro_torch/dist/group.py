@@ -16,7 +16,14 @@ process group:
   ``batch`` -> ``data`` axis): the same fields, ``psum_`` and
   :meth:`DataGroup.all_gather` (the int8 gradient wire of
   :mod:`repro_torch.dist.compression`). Each rank holds whole sequences,
-  its rows of the global batch.
+  its rows of the global batch. Under the FSDP fallback a rank also
+  holds only its slice of each weight the fallback splits
+  (:func:`repro_torch.dist.sharding.mesh_placements`):
+  :meth:`DataGroup.shard`/:meth:`DataGroup.unshard` move whole trees, and
+  :meth:`DataGroup.gather_weight` is the autograd collective of a layer's
+  weight (``all_gather`` forward; backward, the f32 sum of the ranks'
+  gradients, this rank's slice: one ``reduce_scatter``,
+  :meth:`DataGroup.reduce_scatter`).
 * :class:`ModelGroup` — the tensor-parallel counterpart (the reference's
   "model" mesh axis: ``heads``, ``kv_heads``, ``ffn`` and ``vocab``
   split, :mod:`repro_torch.dist.sharding`): ``psum_``, ``pmax_``,
@@ -45,7 +52,9 @@ point-to-point ``send``/``recv`` take host memory only (given a CUDA
 tensor it fails with "writev: Bad address", ``tools/gloo_p2p_probe.py``),
 so :meth:`SeqGroup.ppermute` on a gloo group on a CUDA device copies its
 buffers through host tensors (:attr:`SeqGroup.host_p2p`), a transport
-step named by the backend, never taken on NCCL.
+step named by the backend, never taken on NCCL. Gloo's
+``reduce_scatter`` takes CUDA tensors (``tools/gloo_reduce_scatter_probe.py``),
+so the FSDP gradient needs no such step.
 """
 from __future__ import annotations
 
@@ -63,6 +72,8 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.tree import tree_map
 
 BACKENDS = ("nccl", "gloo")
 
@@ -175,6 +186,84 @@ class DataGroup(_Ranks):
                                     group=self.pg)
         return out.view(self.size, *t.shape)
 
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous slice of the whole ``x`` along ``dim``
+        (a copy, so the whole tensor can be freed)."""
+        return x.chunk(self.size, dim)[self.index].clone(
+            memory_format=torch.contiguous_format)
+
+    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor from every rank's slice ``x`` along ``dim``
+        (one ``all_gather``, joined in rank order); every rank calls it."""
+        parts = self.all_gather(x)
+        if dim == 0:
+            return parts.view(self.size * x.shape[0], *x.shape[1:])
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The elementwise sum of every rank's whole ``t``, this rank's
+        contiguous slice of it along ``dim`` (one ``reduce_scatter``; gloo
+        takes CUDA tensors here, ``tools/gloo_reduce_scatter_probe.py``).
+        The sum is in ``t``'s type; two ranks' sums equal an
+        ``all_reduce``'s bit for bit."""
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                   group=self.pg)
+        return out.movedim(0, dim).contiguous()
+
+    def gather_weight(self, shard: torch.Tensor, dim: int,
+                      grad_to: torch.Tensor) -> torch.Tensor:
+        """The whole weight from every rank's slice ``shard`` along
+        ``dim`` (:meth:`unshard`, bitwise the whole tensor). Backward, the
+        gradient of the whole weight is cast to f32, summed over the group
+        and this rank's slice kept (:meth:`reduce_scatter`); it goes to
+        ``grad_to``, an f32 tensor of the slice's shape that the caller
+        differentiates against (autograd would round a gradient returned
+        to a bf16 ``shard`` to bf16 after the sum), not to ``shard``."""
+        return _GatherWeight.apply(shard, grad_to, self, dim)
+
+
+class _GatherWeight(torch.autograd.Function):
+    """A data-split weight: every rank's slice joined forward; the f32
+    sum of the ranks' gradients of the whole, this rank's slice,
+    backward, handed to ``grad_to``."""
+
+    @staticmethod
+    def forward(ctx, shard, grad_to, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.unshard(shard, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, ctx.group.reduce_scatter(g.float(), ctx.dim), None,
+                None)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitWeight:
+    """A weight split over a data group (the FSDP fallback), as the
+    forward takes it: this rank's slice ``shard`` along ``dim``, and the
+    f32 tensor ``grad_to`` its summed gradient goes to
+    (:meth:`DataGroup.gather_weight`). A leaf of a parameter tree: the
+    model gathers it where a layer uses it (:func:`gather_weights`)."""
+    shard: torch.Tensor
+    grad_to: torch.Tensor
+    dim: int
+    group: DataGroup
+
+    def whole(self) -> torch.Tensor:
+        return self.group.gather_weight(self.shard, self.dim, self.grad_to)
+
+
+def gather_weights(tree):
+    """``tree`` (a parameter subtree, or None) with every
+    :class:`SplitWeight` leaf gathered into the whole weight, the other
+    leaves as they are. Every rank of the data group calls it at the same
+    point of the forward (and of a remat replay)."""
+    return tree_map(lambda x: x.whole() if isinstance(x, SplitWeight)
+                    else x, tree)
+
 
 class _Enter(torch.autograd.Function):
     """Identity forward; the gradient summed over the group backward.
@@ -233,11 +322,13 @@ class _Gather(torch.autograd.Function):
 class ModelGroup(_Ranks):
     """One rank's view of a tensor-parallel group, the reference's
     ``model`` mesh axis: ``index`` is this rank's slice of every split
-    dim (:func:`repro_torch.dist.sharding.param_placements`), ``size`` the
+    dim (:func:`repro_torch.dist.sharding.mesh_placements`), ``size`` the
     number of slices. Every rank of the group holds the same batch."""
 
     pmax_ = SeqGroup.pmax_
     all_gather = DataGroup.all_gather
+    shard = DataGroup.shard
+    unshard = DataGroup.unshard
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` unchanged; its gradient summed over the group (the input
@@ -255,17 +346,6 @@ class ModelGroup(_Ranks):
         ``all_gather``); backward, this rank's slice of the gradient (the
         whole of a column-split output, used alike on every rank)."""
         return _Gather.apply(x, self, dim)
-
-    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's contiguous slice of the whole ``x`` along ``dim``
-        (a copy, so the whole tensor can be freed)."""
-        return x.chunk(self.size, dim)[self.index].clone(
-            memory_format=torch.contiguous_format)
-
-    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole tensor from every rank's slice ``x`` along ``dim``
-        (one ``all_gather``, joined in rank order); every rank calls it."""
-        return torch.cat(self.all_gather(x).unbind(0), dim=dim)
 
 
 @dataclasses.dataclass(frozen=True)

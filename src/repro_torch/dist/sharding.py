@@ -1,5 +1,6 @@
-"""Tensor-parallel placements: the port's copy of the reference's
-logical-axis rules for the "model" mesh axis.
+"""Placements over the ``(data, model)`` mesh: the port's copy of the
+reference's logical-axis rules for the "model" mesh axis, and of its FSDP
+fallback over the "data" axis.
 
 The reference (``repro.dist.sharding``) names a logical axis for every dim
 of a parameter by matching its tree path against :data:`PARAM_RULES`
@@ -30,16 +31,30 @@ splits over its expert columns in both. Each leaf's split is judged on
 that leaf's own dim (``_mesh_clean``'s divisibility rule): an ffn dim is
 ``d_ff`` in a dense MLP, ``d_ff_expert`` in an expert stack and
 ``d_ff_expert · n_shared_experts`` in a shared expert.
+
+The FSDP fallback (the reference's ``param_shardings``, ``"fsdp": ("data",)``
+in :data:`DEFAULT_RULES`): a leaf that no model rule splits and that has at
+least 2 dims splits its largest dim (the first on a tie) over the data
+group, where the group's size divides that dim; otherwise it stays whole
+(:func:`mesh_placements`). Each leaf is judged on its own per-layer shape,
+so two kinds of leaf differ from the reference's stacked tree: the 1-D
+per-layer leaves (norm scales, biases, the RG-LRU's ``lam``, the SSD's
+``A_log``/``D``/``dt_bias``) are ``(L, d)`` or ``(L, heads)`` there, 2-D,
+and split (on ``d``, or on the layer axis for mamba2-370m's ``(48, 32)``
+leaves); the port's are 1-D and stay whole. A leaf's split is over one
+mesh axis or none, never both.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Dict, FrozenSet, Optional, Tuple
 
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
-                              tree_unflatten)
+                              tree_map, tree_unflatten)
 
 MODEL = "model"
+DATA = "data"
 
 # logical axis -> mesh axes, as the reference's production meshes map them
 DEFAULT_RULES: Dict[str, Any] = {
@@ -54,7 +69,7 @@ DEFAULT_RULES: Dict[str, Any] = {
     "vocab": (MODEL,),
     "experts": (MODEL,),
     "expert_cap": None,
-    "fsdp": ("data",),
+    "fsdp": (DATA,),
 }
 
 # path regex over '/'-joined tree keys -> logical axis per dim; the first
@@ -140,31 +155,66 @@ def leaf_placement(path: str, ndim: int, cfg, n: int) -> Optional[int]:
     return None
 
 
-def param_placements(params, cfg, n: int, prefix: Tuple[str, ...] = (),
-                     experts_cut: bool = False):
-    """For each leaf of ``params`` (the port's per-layer tree: the full
-    single-device parameters, one rank's shards, or any tree of that
-    structure; only the paths and each leaf's ``dim()`` are read) the dim
-    it splits on over a model group of ``n`` ranks, or ``None``; the same
-    tree structure. ``prefix``: the path of ``params`` inside the whole
-    tree (a subtree of it). ``experts_cut``: the expert stacks of
-    ``params`` hold this rank's experts only (drawn so by
-    ``Model.init(span=)``), so they are not cut again: ``None``."""
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """One leaf's placement on the ``(data, model)`` mesh: the dim it
+    splits on over the data group (the FSDP fallback) and over the model
+    group, each ``None`` where the leaf is whole on that axis. A leaf
+    splits over one axis or none. A leaf of every tree walk."""
+    data: Optional[int] = None
+    model: Optional[int] = None
+
+    @property
+    def whole(self) -> bool:
+        return self.data is None and self.model is None
+
+
+def fsdp_dim(shape, data: int) -> Optional[int]:
+    """The reference's FSDP fallback for one leaf that no model rule
+    splits: its largest dim (the first on a tie) where the ``data`` ranks
+    divide it, for a leaf of at least 2 dims; else None."""
+    if data <= 1 or len(shape) < 2:
+        return None
+    dim = max(range(len(shape)), key=lambda i: shape[i])
+    return dim if shape[dim] % data == 0 else None
+
+
+def mesh_placements(params, cfg, data: int = 1, model: int = 1,
+                    prefix: Tuple[str, ...] = (), experts_cut: bool = False):
+    """For each leaf of ``params`` (the port's per-layer tree) its
+    :class:`Split` on a mesh of ``data`` x ``model`` ranks; the same tree
+    structure. The model dim is the reference's rules on the leaf's path
+    and ``dim()`` (sizes from the config: :func:`leaf_placement`). A leaf
+    the model group leaves whole takes the FSDP fallback's data dim
+    (:func:`fsdp_dim`, on its shape: so ``params`` holds whole leaves,
+    e.g. ``Model.param_shapes()``; ``data`` 1 is no FSDP). ``prefix``:
+    the path of ``params`` inside the whole tree. ``experts_cut``: the
+    expert stacks of ``params`` hold this rank's experts only (drawn so
+    by ``Model.init(span=)``), so they are not cut again: model ``None``,
+    and no data split."""
     flat, treedef = tree_flatten_with_path(params)
-    return tree_unflatten(treedef, [
-        None if experts_cut and is_expert_stack(path)
-        else leaf_placement(path, leaf.dim(), cfg, n)
-        for path, leaf in (("/".join(prefix + p), x) for p, x in flat)])
+    out = []
+    for path, leaf in (("/".join(prefix + p), x) for p, x in flat):
+        if experts_cut and is_expert_stack(path):
+            out.append(Split())
+            continue
+        dim = leaf_placement(path, leaf.dim(), cfg, model)
+        out.append(Split(model=dim) if dim is not None
+                   else Split(data=fsdp_dim(tuple(leaf.shape), data)))
+    return tree_unflatten(treedef, out)
 
 
 def describe(params, placements) -> str:
     """One entry per distinct leaf path of ``params`` (the layer index as
-    ``*``) with its placement from ``placements``: what a run prints
+    ``*``) with its :class:`Split` from ``placements``: what a run prints
     once."""
+    seen: Dict[str, str] = {}
     flat, _ = tree_flatten_with_path(params)
-    seen: Dict[str, Optional[int]] = {}
-    for (path, _), dim in zip(flat, tree_leaves(placements)):
+    for (path, _), s in zip(flat, tree_leaves(
+            tree_map(lambda _, s: s, params, placements))):  # params' order
         key = "/".join("*" if p.isdigit() else p for p in path)
-        seen.setdefault(key, dim)
-    return "; ".join(f"{k}: {'whole' if d is None else f'split dim {d}'}"
-                     for k, d in seen.items())
+        seen.setdefault(key, "whole" if s.whole else
+                        f"split dim {s.model} over {MODEL}"
+                        if s.model is not None else
+                        f"split dim {s.data} over {DATA}")
+    return "; ".join(f"{k}: {w}" for k, w in seen.items())

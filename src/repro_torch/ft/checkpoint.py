@@ -32,15 +32,20 @@ reference's elastic rescale): one placement for the whole tree, or a tree
 of placements matched to the leaves by path (:func:`placements`). A
 placement is a device (a data-parallel state is replicated; a checkpoint
 written by rank 0 of an n-rank data-parallel run restores on any rank
-count) or ``torch.distributed.tensor.Shard(dim)``: the leaf split along
-``dim`` over the ranks of a ``model_group``
-(:class:`~repro_torch.dist.group.ModelGroup`, tensor parallelism; an
-MoE layer's expert stacks are ``Shard(0)``, its router ``Shard(1)``), of
-which this rank keeps its contiguous slice. ``save(..., shardings=,
-model_group=)`` of such a state gathers each split leaf over the group
-first and writes the whole leaf, so the file is the single-device
-checkpoint of the same state, byte for byte, and restores onto any
-layout (and in the reference). A ``Shard`` without a group raises.
+count), or the leaf's placement on each axis of the ``(data, model)``
+mesh, ``torch.distributed.tensor``'s idiom: a tuple ``(data, model)``
+of ``Shard(dim)`` / ``Replicate()``
+(:func:`repro_torch.train.trainer.state_shardings`). ``Shard(dim)`` on
+the model axis splits the leaf along ``dim`` over the ranks of a
+``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, tensor
+parallelism; an MoE layer's expert stacks are ``Shard(0)``, its router
+``Shard(1)``), on the data axis over a ``data_group`` (the FSDP
+fallback); this rank keeps its contiguous slice. ``save(...,
+shardings=, model_group=, data_group=)`` of such a state gathers each
+split leaf over its group first, and the rank that is 0 in both groups
+writes the whole leaf, so the file is the single-device checkpoint of
+the same state, byte for byte, and restores onto any layout (and in the
+reference). A ``Shard`` without its group raises.
 """
 from __future__ import annotations
 
@@ -124,43 +129,62 @@ def _flatten(tree) -> dict:
     return {_SEP.join(path): _array(leaf) for path, leaf in flat}
 
 
-def gather_tree(tree: Any, shardings: Any, model_group) -> Any:
-    """The whole leaves of a tensor-parallel rank's ``tree``: each leaf
-    placed ``Shard(dim)`` by ``shardings`` (:func:`placements`) is
-    gathered over ``model_group`` (one ``all_gather``, joined in rank
-    order along ``dim``), every other leaf kept. Every rank of the group
-    calls it."""
+def _splits(where, model_group, data_group):
+    """The ``(group, dim)`` splits of one placement: each ``Shard`` of a
+    ``(data, model)`` tuple over its axis' group; none for a device or
+    ``None``."""
     from torch.distributed.tensor import Shard
 
+    if not isinstance(where, tuple):
+        return []
+    pairs = [(g, w, name) for g, w, name in zip(
+        (data_group, model_group), where, ("data_group", "model_group"))
+        if isinstance(w, Shard)]
+    for g, w, name in pairs:
+        if g is None:
+            raise ValueError(f"placement {w} splits a leaf over the ranks "
+                             f"of a group: pass {name}=")
+    return [(g, w.dim) for g, w, _ in pairs]
+
+
+def gather_tree(tree: Any, shardings: Any, model_group,
+                data_group=None) -> Any:
+    """The whole leaves of a split rank's ``tree``: each leaf whose
+    ``(data, model)`` placement in ``shardings`` (:func:`placements`) has
+    a ``Shard(dim)`` on an axis is gathered over that axis' group (one
+    ``all_gather``, joined in rank order along ``dim``); every other leaf
+    is kept. Every rank of the groups calls it."""
     flat, treedef = tree_flatten_with_path(tree)
     where = placements(shardings, [p for p, _ in flat])
-    if any(isinstance(w, Shard) for w in where) and model_group is None:
-        raise ValueError("a Shard placement splits a leaf over the ranks "
-                         "of a model group: pass model_group=")
-    return tree_unflatten(treedef, [
-        model_group.unshard(x, w.dim) if isinstance(w, Shard) else x
-        for (_, x), w in zip(flat, where)])
+    out = []
+    for (_, x), w in zip(flat, where):
+        for g, dim in _splits(w, model_group, data_group):
+            x = g.unshard(x, dim)
+        out.append(x)
+    return tree_unflatten(treedef, out)
 
 
-def _to_write(tree: Any, shardings: Any, model_group) -> Any:
+def _to_write(tree: Any, shardings: Any, model_group,
+              data_group=None) -> Any:
     """What this rank writes of ``tree``: the tree itself, or under
-    ``shardings`` its whole leaves (:func:`gather_tree`) on the group's
-    rank 0 and None on the other ranks."""
+    ``shardings`` its whole leaves (:func:`gather_tree`) on the rank that
+    is 0 in both groups and None on the other ranks."""
     if shardings is None:
         return tree
-    tree = gather_tree(tree, shardings, model_group)
-    return tree if model_group is None or model_group.index == 0 else None
+    tree = gather_tree(tree, shardings, model_group, data_group)
+    lead = all(g is None or g.index == 0 for g in (model_group, data_group))
+    return tree if lead else None
 
 
 def save(path, tree: Any, step: int, shardings: Any = None,
-         model_group=None) -> Optional[str]:
+         model_group=None, data_group=None) -> Optional[str]:
     """Atomic checkpoint write. Returns the final directory.
 
-    ``shardings``/``model_group``: ``tree`` is a tensor-parallel rank's
-    (:func:`gather_tree`); every rank of the group calls ``save``, the
-    split leaves are gathered, and the group's rank 0 alone writes (the
-    others return None)."""
-    tree = _to_write(tree, shardings, model_group)
+    ``shardings``/``model_group``/``data_group``: ``tree`` is a split
+    rank's (:func:`gather_tree`); every rank of the groups calls
+    ``save``, the split leaves are gathered, and the rank that is 0 in
+    both groups alone writes (the others return None)."""
+    tree = _to_write(tree, shardings, model_group, data_group)
     if tree is None:
         return None
     path = os.fspath(path)
@@ -187,28 +211,55 @@ def latest_step(path) -> Optional[int]:
     return max(steps) if steps else None
 
 
+class _OnMesh:
+    """A ``(data, model)`` placement tuple held as one leaf of a
+    shardings tree (whose walk would take a tuple for a node)."""
+
+    def __init__(self, axes):
+        self.axes = tuple(axes)
+
+
+def _mesh_leaves(tree):
+    """``tree`` with every tuple of ``torch.distributed.tensor``
+    placements wrapped as one leaf (:class:`_OnMesh`)."""
+    from torch.distributed.tensor import Placement
+
+    if isinstance(tree, dict):
+        return {k: _mesh_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_mesh_leaves(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        if tree and all(isinstance(p, Placement) for p in tree):
+            return _OnMesh(tree)
+        return type(tree)(_mesh_leaves(v) for v in tree)
+    return tree
+
+
 def _placement(placement):
     """One placement: ``None`` (stay where the leaf is), a
-    ``torch.device``, a device string (as a device), or a ``Shard`` (the
-    leaf split along its dim over a model group's ranks)."""
+    ``torch.device``, a device string (as a device), or a ``(data,
+    model)`` tuple of ``Shard`` / ``Replicate`` (returned as the tuple)."""
     if placement is None or isinstance(placement, torch.device):
         return placement
     if isinstance(placement, str):
         return torch.device(placement)
-    from torch.distributed.tensor import Shard
-    if isinstance(placement, Shard):
-        return placement
-    raise TypeError(f"a placement is a device, a device string, a Shard or "
-                    f"None, got {placement!r}")
+    from torch.distributed.tensor import Replicate, Shard
+    if isinstance(placement, _OnMesh) and len(placement.axes) == 2 and all(
+            isinstance(p, (Shard, Replicate)) for p in placement.axes):
+        return placement.axes
+    raise TypeError(f"a placement is a device, a device string, a (data, "
+                    f"model) tuple of Shard / Replicate or None, got "
+                    f"{getattr(placement, 'axes', placement)!r}")
 
 
 def placements(shardings, paths) -> list:
     """The placement of each leaf at ``paths`` (``None``: stay where it
-    is; a device; or a ``Shard``): ``shardings`` is one placement for
-    every leaf, or a tree of them whose placement at a node holds for
-    every leaf under it (a prefix tree, as a JAX sharding tree may be); a
-    leaf no node covers stays where it is."""
-    flat, _ = tree_flatten_with_path(shardings)
+    is; a device; or a ``(data, model)`` tuple):
+    ``shardings`` is one placement for every leaf, or a tree of them
+    whose placement at a node holds for every leaf under it (a prefix
+    tree, as a JAX sharding tree may be); a leaf no node covers stays
+    where it is."""
+    flat, _ = tree_flatten_with_path(_mesh_leaves(shardings))
     by_path = {p: _placement(s) for p, s in flat}
     out = []
     for path in paths:
@@ -218,26 +269,22 @@ def placements(shardings, paths) -> list:
     return out
 
 
-def _slice(x, where, model_group):
-    """This rank's slice of the whole leaf ``x`` under a ``Shard``
-    placement (a copy), else ``x``."""
-    from torch.distributed.tensor import Shard
-
-    if not isinstance(where, Shard):
-        return x
-    if model_group is None:
-        raise ValueError(f"placement {where} splits a leaf over the ranks "
-                         f"of a model group: pass model_group=")
-    return model_group.shard(x, where.dim)
+def _slice(x, where, model_group, data_group=None):
+    """This rank's slice of the whole leaf ``x`` under a ``(data,
+    model)`` placement that splits it (a copy), else ``x``."""
+    for g, dim in _splits(where, model_group, data_group):
+        x = g.shard(x, dim)
+    return x
 
 
-def _restore_leaf(arr: np.ndarray, like, where=None, model_group=None):
+def _restore_leaf(arr: np.ndarray, like, where=None, model_group=None,
+                  data_group=None):
     """One leaf from its array, as the ``like`` leaf: a tensor of its
-    dtype on its device (or on the device ``where``; under a ``Shard``
+    dtype on its device (or on the device ``where``; under a split
     placement this rank's slice), an array of its dtype, or an ``int``."""
     if isinstance(like, torch.Tensor):
         x = _slice(torch.from_numpy(np.ascontiguousarray(arr)), where,
-                   model_group)
+                   model_group, data_group)
         return x.to(device=where if isinstance(where, torch.device)
                     else like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):
@@ -248,13 +295,15 @@ def _restore_leaf(arr: np.ndarray, like, where=None, model_group=None):
 
 
 def restore(path, like: Any, step: Optional[int] = None,
-            shardings: Any = None, model_group=None) -> Any:
+            shardings: Any = None, model_group=None,
+            data_group=None) -> Any:
     """Restore into the structure of ``like`` (its dtypes and devices; not
     its shapes). ``step`` defaults to the latest. ``shardings``: where the
     tensor leaves go instead of their ``like`` leaf's device — one
-    placement, or a tree of them (:func:`placements`); under a
-    ``Shard(dim)`` placement the whole leaf is read and this rank of
-    ``model_group`` keeps its slice."""
+    placement, or a tree of them (:func:`placements`); under a ``(data,
+    model)`` tuple with a ``Shard`` the whole leaf is read and this rank
+    keeps its slice on each split axis (``data_group``,
+    ``model_group``)."""
     path = os.fspath(path)
     if step is None:
         step = latest_step(path)
@@ -269,7 +318,7 @@ def restore(path, like: Any, step: Optional[int] = None,
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]}...")
-        leaves = [_restore_leaf(data[k], leaf, w, model_group)
+        leaves = [_restore_leaf(data[k], leaf, w, model_group, data_group)
                   for k, (_, leaf), w in zip(keys, flat_like, where)]
     return tree_unflatten(treedef, leaves)
 
@@ -308,13 +357,13 @@ class CheckpointManager:
         return self._thread is not None and self._thread.is_alive()
 
     def save(self, tree: Any, step: int, shardings: Any = None,
-             model_group=None):
+             model_group=None, data_group=None):
         """Snapshot ``tree`` now and write it (in the background when
-        async). ``shardings``/``model_group``: a tensor-parallel rank's
-        tree (:func:`gather_tree`); every rank of the group calls
-        ``save``, and the group's rank 0 alone writes."""
+        async). ``shardings``/``model_group``/``data_group``: a split
+        rank's tree (:func:`gather_tree`); every rank of the groups calls
+        ``save``, and the rank that is 0 in both alone writes."""
         self.wait()
-        tree = _to_write(tree, shardings, model_group)
+        tree = _to_write(tree, shardings, model_group, data_group)
         if tree is None:
             return
         # Synchronous device->host snapshot (consistent view), async write.
@@ -341,9 +390,10 @@ class CheckpointManager:
         self._thread.start()
 
     def restore_latest(self, like: Any, shardings: Any = None,
-                       model_group=None):
+                       model_group=None, data_group=None):
         self.wait()
         step = latest_step(self.path)
         if step is None:
             return None, None
-        return restore(self.path, like, step, shardings, model_group), step
+        return restore(self.path, like, step, shardings, model_group,
+                       data_group), step

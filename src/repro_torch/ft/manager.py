@@ -28,8 +28,9 @@ The port of :mod:`repro.ft.manager`:
 
 * **reshard** — elastic rescale: a live tree re-placed onto other devices
   (a data-parallel state is replicated, so a placement is a device) or
-  between tensor-parallel layouts (``Shard`` placements over model groups:
-  1 -> n, n -> m, n -> 1).
+  between split layouts (``(data, model)`` placements of ``Shard`` /
+  ``Replicate`` over the axes of the mesh: tensor parallelism's model
+  splits, the FSDP fallback's data splits; 1 -> n, n -> m, n -> 1).
 """
 from __future__ import annotations
 
@@ -75,31 +76,33 @@ class StragglerWatchdog:
 
 
 def reshard(tree: Any, shardings: Any, model_group=None, *,
-            current: Any = None, current_group=None) -> Any:
+            current: Any = None, current_group=None, data_group=None,
+            current_data_group=None) -> Any:
     """Re-place a live tree onto new placements (elastic rescale).
     ``shardings`` is one placement for every leaf or a tree of them
     matched by path (:func:`repro_torch.ft.checkpoint.placements`): a
     device, where the tensor leaf moves (a data-parallel state is
-    replicated), or ``Shard(dim)``, this rank's slice of the leaf over
-    ``model_group``. ``current``/``current_group``: the layout the tree
-    is in now, if it holds slices: they are gathered over
-    ``current_group`` first. So 1 -> n is ``shardings`` alone, n -> 1 is
-    ``current`` with a device (or None) as ``shardings``, n -> m both,
-    ``m`` dividing the leaves as ``n`` does. Other leaves (the
-    optimizer's ``int`` step) stay as they are. Every rank of a group
-    that gathers calls it."""
-    from torch.distributed.tensor import Shard
-
+    replicated), or a ``(data, model)`` tuple of ``Shard`` /
+    ``Replicate``, this rank's slice on each split axis (``data_group``,
+    ``model_group``). ``current``/
+    ``current_group``/``current_data_group``: the layout the tree is in
+    now, if it holds slices: they are gathered over those groups first.
+    So 1 -> n is ``shardings`` alone, n -> 1 is ``current`` with a device
+    (or None) as ``shardings``, n -> m both, ``m`` dividing the leaves as
+    ``n`` does (FSDP D -> D', FSDP <-> plain ``--data``). Other leaves
+    (the optimizer's ``int`` step) stay as they are. Every rank of a
+    group that gathers calls it."""
     if current is not None:
-        tree = gather_tree(tree, current, current_group)
+        tree = gather_tree(tree, current, current_group, current_data_group)
     flat, treedef = tree_flatten_with_path(tree)
     where = placements(shardings, [p for p, _ in flat])
 
     def place(x, w):
         if not isinstance(x, torch.Tensor) or w is None:
             return x
-        return _slice(x, w, model_group) if isinstance(w, Shard) \
-            else x.to(w)
+        if isinstance(w, torch.device):
+            return x.to(w)
+        return _slice(x, w, model_group, data_group)
     return tree_unflatten(treedef, [place(x, w)
                                     for (_, x), w in zip(flat, where)])
 

@@ -28,6 +28,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Sources whose optimizer passes nvcc runs on every core
+# (``--split-compile=0``): the two slowest, which bound ``build_all``'s
+# time (``chip_smoke.py``'s [build] line), and whose ptxas report
+# (registers, spills, shared memory) is the same with it. The decode
+# sources build in a fraction of their time, and it moves their
+# register allocation.
+SPLIT_COMPILE = ("salo_table_attention", "salo_table_backward")
+
+
+def _flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (("--split-compile=0",) if name in SPLIT_COMPILE
+                         else ())
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -53,7 +67,8 @@ def _lib_path(name: str) -> Path:
     # the hash covers the shared headers too, which any source may include
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(_flags(name)).encode()
+    h = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -65,7 +80,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc

@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --seq 4096 --batch 8 [--smoke] [--device cuda|cpu] \\
       [--ckpt DIR [--ckpt-every N] [--resume]] \\
-      [--data N] [--model M] [--dist-backend nccl|gloo] [--compress-grads]
+      [--data N [--fsdp]] [--model M] [--dist-backend nccl|gloo] \\
+      [--compress-grads]
 
 ``--device cuda`` (the default) runs the attention kernels and raises
 without a CUDA device; ``--device cpu`` runs their plain versions.
@@ -47,7 +48,7 @@ not checkpointed (nor is it in the reference's CLI):
 over M ranks, alone or with ``--data D`` on D x M ranks (the ``(data,
 model)`` mesh, model the fast axis): each rank holds its slices of the
 attention heads, the MLP's ffn and the vocabulary
-(:func:`repro_torch.dist.sharding.param_placements`, printed once), cut
+(:func:`repro_torch.dist.sharding.mesh_placements`, printed once), cut
 from the single-device draw of ``--seed``, so the losses equal ``--model
 1``'s. The dense families run so (smollm, gemma, phi4-mini, granite,
 longformer), and so do the MoE archs (arctic-480b, kimi-k2-1t-a32b), whose
@@ -63,6 +64,20 @@ single-device checkpoint of the same state and resumes on any layout:
       --smoke --device cpu --dist-backend gloo --model 2 [--data 2]
   PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
       --smoke --device cpu --dist-backend gloo --model 2
+
+``--fsdp`` (with ``--data N``, alone or with ``--model M``) is the
+reference's FSDP fallback, ``DEFAULT_RULES["fsdp"]``, which the
+reference's own CLI turns off: each weight that no model rule splits and
+that has at least 2 dims is held as this rank's slice of its largest dim
+over the N data ranks (with its AdamW moments), gathered a layer at a
+time inside the remat replay, its gradient reduce-scattered in f32
+(:func:`repro_torch.dist.sharding.mesh_placements`, printed once). The
+losses equal ``--data N``'s; every rank takes part in a checkpoint's
+gather, whose file is the single-device one. With ``--data 1`` it changes
+nothing; ``--compress-grads`` with it raises ``NotImplementedError``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --device cpu --dist-backend gloo --data 2 --fsdp [--model 2]
 """
 from __future__ import annotations
 
@@ -76,7 +91,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import checkpoint_from_jax, is_jax_checkpoint
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dist.group import BACKENDS, run_ranks
-from repro_torch.dist.sharding import describe, param_placements
+from repro_torch.dist.sharding import describe
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.ft.manager import StragglerWatchdog, reshard
 from repro_torch.models.model import build_model
@@ -84,9 +99,10 @@ from repro_torch.obs import Observability
 from repro_torch.obs.metrics import global_registry
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
-from repro_torch.train.trainer import (TrainConfig, check_tensor_parallel,
-                                       init_shards, make_train_step,
-                                       state_shardings)
+from repro_torch.train.trainer import (TrainConfig, check_fsdp,
+                                       check_tensor_parallel, init_shards,
+                                       make_train_step, state_shardings,
+                                       train_placements)
 from repro_torch.tree import tree_leaves
 
 
@@ -113,6 +129,10 @@ def _parser():
                          "data-parallel wire")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --data: hold each weight no model rule "
+                         "splits as this rank's slice of its largest dim "
+                         "(the reference's FSDP fallback)")
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel ranks (heads, ffn and vocab "
                          "split; an MoE arch's experts too)")
@@ -157,6 +177,9 @@ def main(argv=None):
                           else get_config(args.arch),
                           TrainConfig(compress_grads=args.compress_grads),
                           args.model)
+    if args.fsdp:
+        check_fsdp(TrainConfig(compress_grads=args.compress_grads),
+                   args.data)
     if n == 1:
         return _train(args, None, None)
     backend = args.dist_backend or ("nccl" if args.device == "cuda"
@@ -198,24 +221,31 @@ def _train(args, data, mg):
         schedule=Schedule(warmup_steps=max(10, args.steps // 20),
                           total_steps=args.steps),
         microbatches=args.microbatches, compress_grads=args.compress_grads)
-    step = make_train_step(model, tcfg, data=data, model_group=mg)
+    fsdp = args.fsdp and data is not None
+    step = make_train_step(model, tcfg, data=data, model_group=mg,
+                           fsdp=fsdp)
     gen = torch.Generator().manual_seed(args.seed)
-    params = model.init(gen) if mg is None else init_shards(model, gen, mg)
+    params = model.init(gen) if mg is None and not fsdp else \
+        init_shards(model, gen, mg, data, fsdp)
     opt = adamw.init(tcfg.optimizer, params)
     n_par = sum(x.numel() for x in tree_leaves(params))
     say(f"# arch={cfg.name} params={n_par / 1e6:.1f}M"
-        + ("" if mg is None else " (rank 0's slices)")
+        + ("" if mg is None and not fsdp else " (rank 0's slices)")
         + f" device={device} window={cfg.salo.window} "
         f"sinks={cfg.salo.n_global}"
         + ("" if data is None else f" data={data.size} ({data.backend})")
         + ("" if mg is None else f" model={mg.size} ({mg.backend})")
+        + (" fsdp" if fsdp else "")
         + (" compress_grads" if args.compress_grads else ""))
     shards = None
-    if mg is not None:
-        placements = param_placements(params, cfg, mg.size)
-        say(f"# placements over {mg.size} model ranks: "
-            f"{describe(params, placements)}")
+    if mg is not None or fsdp:
+        n = 1 if mg is None else mg.size
+        placements = train_placements(model, mg, data, fsdp)
+        say(f"# placements over "
+            + (f"{data.size} data x {n} model ranks (fsdp): " if fsdp else
+               f"{n} model ranks: ") + describe(params, placements))
         shards = state_shardings(placements, opt)
+    dg = data if fsdp else None       # the group a checkpoint gathers over
 
     start = 0
     if args.resume:
@@ -225,15 +255,16 @@ def _train(args, data, mg):
             if is_jax_checkpoint(args.ckpt, step0):
                 restored, _ = checkpoint_from_jax(args.ckpt, like, step0)
                 if shards is not None:
-                    restored = reshard(restored, shards, mg)
+                    restored = reshard(restored, shards, mg, data_group=dg)
             else:
-                restored = restore(args.ckpt, like, step0, shards, mg)
+                restored = restore(args.ckpt, like, step0, shards, mg, dg)
             params, opt = restored["params"], restored["opt"]
             start = step0
             say(f"# resumed from step {start}")
-    # the ranks of data index 0 hold the whole state between them
+    # the ranks of data index 0 hold the whole state between them; under
+    # fsdp every rank holds a part of it, and every rank gathers
     mgr = CheckpointManager(args.ckpt, keep=3) if args.ckpt and (
-        data is None or data.index == 0) else None
+        data is None or data.index == 0 or fsdp) else None
 
     ds = SyntheticLM(cfg, DataConfig(args.seq, args.batch, seed=args.seed,
                                      branch=args.data_branch,
@@ -266,10 +297,12 @@ def _train(args, data, mg):
                     f"{dt * 1e3:7.1f} ms {toks / 1e3:7.1f} ktok/s"
                     + (" [straggler]" if straggler else ""), flush=True)
             if mgr and (i + 1) % args.ckpt_every == 0:
-                mgr.save({"params": params, "opt": opt}, i + 1, shards, mg)
+                mgr.save({"params": params, "opt": opt}, i + 1, shards, mg,
+                         dg)
                 obs.tracer.instant("ft.snapshot", track="ft", step=i + 1)
         if mgr:
-            mgr.save({"params": params, "opt": opt}, args.steps, shards, mg)
+            mgr.save({"params": params, "opt": opt}, args.steps, shards,
+                     mg, dg)
     finally:
         if mgr:   # a checkpoint in flight lands even when a step raised
             mgr.wait()

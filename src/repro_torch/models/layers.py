@@ -22,7 +22,7 @@ reference's are plain XLA.
 Tensor parallelism (``model=``, a :class:`~repro_torch.dist.group
 .ModelGroup`, the reference's "model" mesh axis): the attention and MLP
 products, the embedding and the LM head take the split weights of
-:func:`repro_torch.dist.sharding.param_placements`, Megatron-style. A
+:func:`repro_torch.dist.sharding.mesh_placements`, Megatron-style. A
 column-split product's input passes ``model.enter`` (its gradient summed
 over the group); a row-split product's partial outputs are summed by
 ``model.reduce``. The sums run in the activations' dtype, as GSPMD sums a

@@ -31,6 +31,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.group import gather_weights
 from repro_torch.dist.sharding import split_axes
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -70,14 +71,35 @@ class Model:
                                              span))
                            for j in range(n)]
         if cfg.encoder_decoder:
-            params["enc"] = {
+            params["enc"] = keep(("enc",), {
                 "seg0_attn_mlp": T.segment_init(generator, cfg, "attn_mlp",
                                                 cfg.n_layers, dev),
-                "ln_f": L.rmsnorm_init(cfg.d_model, dev)}
+                "ln_f": L.rmsnorm_init(cfg.d_model, dev)})
         if cfg.n_vision_tokens:
-            params["vision_proj"] = {"w": L.dense_init(
-                generator, cfg.d_model, cfg.d_model, L.dt(cfg), dev)}
+            params["vision_proj"] = keep(("vision_proj",), {
+                "w": L.dense_init(generator, cfg.d_model, cfg.d_model,
+                                  L.dt(cfg), dev)})
         return params
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The tree :meth:`init` returns, as ``meta`` tensors of the whole
+        leaves' shapes and dtypes, with nothing drawn (the reference's
+        ``jax.eval_shape(model.init)``): one layer of each segment is
+        traced under ``FakeTensorMode`` and stands for all of its layers.
+        What placements that read whole shapes take
+        (:func:`repro_torch.dist.sharding.mesh_placements`)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        one = Model(self.cfg, "cpu")
+        one.program = [(kind, 1) for kind, _ in self.program]
+        with FakeTensorMode():
+            fake = one.init(torch.Generator())
+        out = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                             device="meta"), fake)
+        for i, (kind, n) in enumerate(self.program):
+            key = f"seg{i}_{kind}"
+            out[key] = out[key] * n
+        return out
 
     def _embed_inputs(self, params, batch, model=None) -> torch.Tensor:
         """Token embeddings; a VLM batch's ``vision_embeds`` (B, S, d),
@@ -85,10 +107,11 @@ class Model:
         (B, S) is set (the vision frontend is stubbed: the embeddings come
         aligned to token slots)."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], batch["tokens"], cfg, model)
+        x = L.embed_apply(gather_weights(params["embed"]), batch["tokens"],
+                          cfg, model)
         if cfg.n_vision_tokens and "vision_embeds" in batch:
             vis = batch["vision_embeds"].to(x.dtype) @ \
-                params["vision_proj"]["w"].to(x.dtype)
+                gather_weights(params["vision_proj"])["w"].to(x.dtype)
             x = torch.where(batch["vision_mask"][..., None], vis, x)
         return x
 
@@ -106,7 +129,8 @@ class Model:
         x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)
         x, _ = T.segment_apply(params["enc"]["seg0_attn_mlp"], x, cfg,
                                "attn_mlp", pattern)
-        return L.rmsnorm(params["enc"]["ln_f"], x, cfg.norm_eps)
+        return L.rmsnorm(gather_weights(params["enc"]["ln_f"]), x,
+                         cfg.norm_eps)
 
     def forward(self, params, batch, return_aux: bool = False, group=None,
                 data=None, model=None):
@@ -125,11 +149,19 @@ class Model:
         ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
         parallel training; ``batch`` holds this rank's rows of the global
         batch, and the MoE blocks route over the group
-        (:func:`repro_torch.models.moe.moe_apply`).
+        (:func:`repro_torch.models.moe.moe_apply`). ``params`` holds whole
+        weights, or under the FSDP fallback this rank's slices of the
+        weights it splits, as
+        :class:`~repro_torch.dist.group.SplitWeight` leaves: a layer's are
+        gathered inside its (remat) body (``transformer.segment_apply``),
+        the others once at their first use (the embedding, so a tied
+        embedding's two uses meet in one gradient before its one
+        reduce-scatter; ``vision_proj``; ``lm_head`` after the
+        segments).
 
         ``model`` (a :class:`~repro_torch.dist.group.ModelGroup`): tensor-
         parallel training; ``params`` holds this rank's slices
-        (:func:`repro_torch.dist.sharding.param_placements`) and every
+        (:func:`repro_torch.dist.sharding.mesh_placements`) and every
         rank of the group the same ``batch``. Where the group splits the
         vocabulary, the logits are this rank's vocab slice (B, S, V / n):
         a caller that needs the whole logits gathers them. The dense
@@ -145,6 +177,7 @@ class Model:
             T.check_sequence_parallel(cfg, kind, group)
             T.check_tensor_parallel(cfg, kind,
                                     1 if model is None else model.size)
+        params = dict(params, embed=gather_weights(params["embed"]))
         x = self._embed_inputs(params, batch, model)
         positions = batch.get("positions", None)
         mrope = cfg.mrope_sections
@@ -161,8 +194,9 @@ class Model:
                                      enc_out=enc_out, group=group,
                                      data=data, model=model)
             T.add_aux(aux_total, aux)
-        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        logits = L.logits_apply(params["embed"], params.get("lm_head"), x,
+        x = L.rmsnorm(gather_weights(params["ln_f"]), x, cfg.norm_eps)
+        logits = L.logits_apply(params["embed"],
+                                gather_weights(params.get("lm_head")), x,
                                 cfg, model)
         return (logits, aux_total) if return_aux else logits
 

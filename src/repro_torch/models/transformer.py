@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.group import gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -213,7 +214,7 @@ def check_tensor_parallel(cfg: ModelConfig, kind: str, n: int) -> None:
     """Which blocks run under a model group of ``n`` > 1 ranks: the
     ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
     granite, longformer), whose heads, ffn and vocab split by
-    :func:`repro_torch.dist.sharding.param_placements`, and the MoE
+    :func:`repro_torch.dist.sharding.mesh_placements`, and the MoE
     family's blocks (arctic's ``attn_moe_dense``, kimi's ``attn_moe`` and
     its leading ``attn_mlp``), whose experts split as well where ``n``
     divides their count (expert parallelism:
@@ -250,16 +251,22 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
     ``model``: tensor-parallel training, x the whole activation on every
     rank and the layers' weights this rank's slices (``Model.forward``
-    checks the kinds first: :func:`check_tensor_parallel`). A remat
-    replay reruns the layer's forward collectives inside the backward, in
-    the same order on every rank. Returns (x, aux summed over the
-    layers)."""
+    checks the kinds first: :func:`check_tensor_parallel`). A layer's
+    weights split over the data group (the FSDP fallback:
+    :class:`~repro_torch.dist.group.SplitWeight` leaves) are gathered
+    inside the layer's body, so ``remat="full"``/``"dots"`` frees them
+    after the layer's forward and gathers them again in the backward's
+    replay; with ``remat="none"`` autograd keeps every gathered weight to
+    the backward (correct, with no memory saved). A remat replay reruns
+    the layer's forward collectives inside the backward, in the same
+    order on every rank. Returns (x, aux summed over the layers)."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}; choose none, full "
                          "or dots")
 
     def body(layer_params, y):
-        return block_apply(layer_params, y, cfg, kind, pattern,
+        return block_apply(gather_weights(layer_params), y, cfg, kind,
+                           pattern,
                            positions=positions, mrope=mrope, enc_out=enc_out,
                            group=group, data=data, model=model)
 

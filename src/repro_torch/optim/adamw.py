@@ -7,10 +7,14 @@ by their global norm. ``moment_dtype`` sets the moments' storage type and
 ``use_master`` keeps an f32 copy of low-precision parameters. The update
 is functional (new tensors), as in the reference.
 
-Under tensor parallelism a rank holds slices of the split leaves; the
-global norm is then the whole model's: the squares of the split leaves
-summed over the model group (one ``all_reduce``), the replicated leaves
-counted once. The update itself is leafwise and needs no collective.
+Under tensor parallelism a rank holds slices of the split leaves, and
+under the FSDP fallback slices of the leaves it splits over the data
+group; the global norm is then the whole model's: the squares of the
+model-split leaves summed over the model group and those of the
+data-split leaves over the data group (one ``all_reduce`` each), the
+leaves held whole counted once (a leaf splits over one axis or none).
+The update itself is leafwise and needs no collective; :func:`init` of
+slices gives sliced moments and master.
 """
 from __future__ import annotations
 
@@ -52,42 +56,47 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
         master=master)
 
 
-def global_norm(tree, model=None, placements=None) -> torch.Tensor:
-    """The L2 norm of every leaf of ``tree``. ``model``/``placements``: a
-    tensor-parallel rank's slices (``placements`` the tree of split dims,
-    :func:`repro_torch.dist.sharding.param_placements`): the split leaves'
-    squares are summed over the group, the replicated ones counted once."""
-    if model is None or model.size == 1:
+def global_norm(tree, placements=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. ``placements``/``mesh``: a
+    split rank's slices (``placements`` a tree of
+    :class:`~repro_torch.dist.sharding.Split`, ``mesh`` the rank's
+    :class:`~repro_torch.dist.group.Mesh2D`): the squares of the leaves
+    split over an axis are summed over that axis' group (one
+    ``all_reduce`` an axis that splits any), the leaves held whole
+    counted once."""
+    if placements is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for x in tree_leaves(tree)))
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    dims = tree_leaves(placements)
-    zero = torch.zeros((), device=sq[0].device)
-    split = model.psum_(sum((s for s, d in zip(sq, dims) if d is not None),
-                            zero).reshape(1))[0]
-    return torch.sqrt(split + sum((s for s, d in zip(sq, dims)
-                                   if d is None), zero))
+    sq = tree_leaves(tree_map(
+        lambda x, s: (torch.sum(torch.square(x.float())), s), tree,
+        placements))
+    total = zero = torch.zeros((), device=sq[0][0].device)
+    for axis in ("model", "data"):
+        mine = [x for x, s in sq if getattr(s, axis) is not None]
+        if mine:
+            total = total + getattr(mesh, axis).psum_(
+                sum(mine, zero).reshape(1))[0]
+    return torch.sqrt(total + sum((x for x, s in sq if s.whole), zero))
 
 
-def clip_by_global_norm(grads, max_norm: float, model=None,
-                        placements=None):
-    norm = global_norm(grads, model, placements)
+def clip_by_global_norm(grads, max_norm: float, placements=None,
+                        mesh=None):
+    norm = global_norm(grads, placements, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, state: AdamWState, params, grads,
-           lr_scale: float = 1.0, model=None, placements=None):
+           lr_scale: float = 1.0, placements=None, mesh=None):
     """One AdamW step. Returns (new_params, new_state, metrics).
-    ``model``/``placements``: a tensor-parallel rank's slices
-    (:func:`global_norm`)."""
+    ``placements``/``mesh``: a split rank's slices (:func:`global_norm`)."""
     grads = tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, model,
-                                           placements)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip,
+                                           placements, mesh)
     else:
-        gnorm = global_norm(grads, model, placements)
+        gnorm = global_norm(grads, placements, mesh)
     step = state.step + 1
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step

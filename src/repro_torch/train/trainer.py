@@ -3,7 +3,8 @@ over the ranks -> AdamW, with microbatch gradient accumulation and the LR
 schedule.
 
 The port of :mod:`repro.train.trainer`. ``make_train_step(model, tcfg,
-group=None, data=None, model_group=None)`` returns ``train_step(params,
+group=None, data=None, model_group=None, fsdp=False)`` returns
+``train_step(params,
 opt_state, batch, ef_state=None) -> (params, opt_state, metrics,
 ef_state)``, the
 reference's fixed arity: ``ef_state`` (the int8 error-feedback residual)
@@ -24,7 +25,20 @@ Every rank calls the step with the same global batch (``SyntheticLM
   rank order. Uncompressed, the step equals the global batch's on one
   device (pjit's data-parallel step): the loss is this rank's share
   (``Model.loss(data=...)``) and the f32 gradients are summed by one
-  ``all_reduce`` of a flat buffer, as under a sequence group. With
+  ``all_reduce`` of a flat buffer, as under a sequence group. Every rank
+  then holds every parameter whole, unless ``fsdp``: the reference's
+  FSDP fallback (ZeRO-3 under pjit), in which each weight that no model
+  rule splits and that has at least 2 dims is held as this rank's slice
+  of its largest dim, with its AdamW moments
+  (:func:`train_placements`, from the whole
+  shapes of ``Model.param_shapes``). The forward gathers each such
+  weight where a layer uses it
+  (:class:`~repro_torch.dist.group.SplitWeight`, inside the remat body),
+  and the backward sums its gradient in f32 straight into this rank's
+  slice (one ``reduce_scatter`` a weight, each microbatch's
+  accumulated); the flat ``all_reduce`` sums only the leaves that stay
+  whole (the 1-D ones, and the weights whose largest dim the group does
+  not divide). With
   ``compress_grads`` it keeps the reference's ``shard_map`` semantics
   instead: each rank's plain loss on its rows, the gradient sent as
   ``compression.compressed_psum_with_residual(g + ef)`` (int8 values and
@@ -40,12 +54,13 @@ expert parallelism: each rank holds E / N of every expert stack and its
 router columns): every rank of the group
 takes the same rows, its parameters and optimizer state are its slices of
 the split leaves (:func:`shard_params` by
-:func:`repro_torch.dist.sharding.param_placements`), its gradients of them
+:func:`train_placements`), its gradients of them
 its own, and the clip sees the whole model's norm. It composes with a
 ``data`` group (the ``(data, model)`` mesh of
 :func:`repro_torch.dist.group.mesh_groups`): the one flat gradient
 ``all_reduce`` then runs over the data group, each rank holding its own
-slices.
+slices; with ``fsdp`` the leaves the model group leaves whole split over
+the data group. A leaf splits over one axis or none.
 
 Either way the parameters and the optimizer state stay bitwise equal on
 every rank that holds them. The reference never composes ``seq`` and
@@ -59,8 +74,9 @@ from typing import Callable
 import torch
 
 from repro_torch.dist import compression
-from repro_torch.dist.group import DataGroup, ModelGroup, SeqGroup
-from repro_torch.dist.sharding import param_placements
+from repro_torch.dist.group import (DataGroup, Mesh2D, ModelGroup,
+                                    SeqGroup, SplitWeight)
+from repro_torch.dist.sharding import mesh_placements
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -110,10 +126,18 @@ def _rows(batch, data, compress: bool):
             for k, v in batch.items()}
 
 
-def _psum_flat_(grads, group):
+def _psum_flat_(grads, group, placements=None):
     """Sum f32 gradients over the group in place: ONE ``all_reduce`` of
-    their concatenation."""
-    leaves = tree_leaves(grads)
+    their concatenation. ``placements``: a tree of
+    :class:`~repro_torch.dist.sharding.Split`; the leaves it splits over
+    the data group (summed by their ``reduce_scatter`` already) are left
+    out."""
+    leaves = tree_leaves(grads) if placements is None else [
+        g for g in tree_leaves(tree_map(
+            lambda g, s: g if s.data is None else None, grads, placements))
+        if g is not None]
+    if not leaves:
+        return grads
     flat = group.psum_(torch.cat([g.reshape(-1) for g in leaves]))
     off = 0
     for g in leaves:
@@ -131,53 +155,104 @@ def _pmean(loss, metrics, data):
     return mean[0], dict(zip(keys, mean[1:].unbind()))
 
 
-def shard_params(full, placements, model_group):
+def _size(group) -> int:
+    return 1 if group is None else group.size
+
+
+def _axis(s, mesh):
+    """(the group, the dim) a leaf placed ``s`` splits on over ``mesh``,
+    or None for a whole leaf."""
+    if s.model is not None:
+        return mesh.model, s.model
+    if s.data is not None:
+        return mesh.data, s.data
+    return None
+
+
+def shard_params(full, placements, mesh):
     """This rank's slices of ``full`` (a tree of whole leaves): each leaf
-    whose placement is a dim is cut along it
-    (:meth:`~repro_torch.dist.group.ModelGroup.shard`); replicated leaves
-    (``None``) are kept as they are."""
-    return tree_map(lambda x, d: x if d is None else model_group.shard(x, d),
-                    full, placements)
+    cut along its :class:`~repro_torch.dist.sharding.Split` dim over that
+    axis' group of ``mesh`` (a :class:`~repro_torch.dist.group.Mesh2D`),
+    the whole leaves kept as they are."""
+    def one(x, s):
+        at = _axis(s, mesh)
+        return x if at is None else at[0].shard(x, at[1])
+    return tree_map(one, full, placements)
 
 
-def gather_params(shards, placements, model_group):
-    """The whole leaves from every rank's slices
-    (:meth:`~repro_torch.dist.group.ModelGroup.unshard`); replicated
-    leaves as they are. Every rank of the group calls it."""
-    return tree_map(lambda x, d: x if d is None
-                    else model_group.unshard(x, d), shards, placements)
+def gather_params(shards, placements, mesh):
+    """The whole leaves from every rank's slices (each split leaf
+    ``unshard``-ed over its axis' group of ``mesh``); whole leaves as they
+    are. Every rank of the groups calls it."""
+    def one(x, s):
+        at = _axis(s, mesh)
+        return x if at is None else at[0].unshard(x, at[1])
+    return tree_map(one, shards, placements)
 
 
-def init_shards(model, generator, model_group):
+def init_shards(model, generator, model_group=None, data=None,
+                fsdp: bool = False):
     """This rank's slices of ``model.init(generator)``, cut as each layer
     (and the embedding) is drawn, so a rank never holds the whole model:
     the same parameters a single-device run draws from the same
-    generator, as :func:`shard_params` would cut them. An MoE layer's
-    expert stacks are drawn expert by expert and only this rank's experts
-    kept (``moe.expert_span``), so a rank's transient is one expert's
-    draw, not a whole stack."""
-    n, cfg = model_group.size, model.cfg
+    generator, as :func:`shard_params` would cut them by
+    :func:`train_placements`. An MoE layer's expert stacks are drawn
+    expert by expert and only this rank's experts kept
+    (``moe.expert_span``), so a rank's transient is one expert's draw,
+    not a whole stack."""
+    mesh = Mesh2D(data if fsdp else None, model_group)
+    n, cfg = _size(model_group), model.cfg
     span = None
     if cfg.moe is not None and n > 1:
         span = MOE.expert_span(cfg, model_group)
 
     def keep(path, sub):
-        return shard_params(sub, param_placements(
-            sub, cfg, n, path, experts_cut=span is not None), model_group)
+        return shard_params(sub, mesh_placements(
+            sub, cfg, _size(mesh.data), n, path,
+            experts_cut=span is not None), mesh)
     return model.init(generator, keep=keep, span=span)
 
 
-def state_shardings(placements, opt_state):
-    """The ``Shard`` placements of a train state ``{"params", "opt"}``
-    whose parameters split by ``placements``: the AdamW moments (and a
-    master copy) split as their parameters, the step count whole. What
-    :mod:`repro_torch.ft.checkpoint` takes as ``shardings``."""
-    from torch.distributed.tensor import Shard
+def train_placements(model, model_group=None, data=None,
+                     fsdp: bool = False):
+    """The one :class:`~repro_torch.dist.sharding.Split` tree of
+    ``model``'s parameters on the mesh of ``model_group`` and, with
+    ``fsdp``, ``data`` (``mesh_placements`` of their whole shapes,
+    ``Model.param_shapes``): what :func:`make_train_step` splits, the
+    optimizer reads and :func:`state_shardings` turns into checkpoint
+    placements."""
+    return mesh_placements(model.param_shapes(), model.cfg,
+                           _size(data) if fsdp else 1, _size(model_group))
 
-    sh = tree_map(lambda d: None if d is None else Shard(d), placements)
+
+def state_shardings(placements, opt_state):
+    """The checkpoint placements of a train state ``{"params", "opt"}``
+    whose parameters split by ``placements`` (a
+    :class:`~repro_torch.dist.sharding.Split` tree): per leaf a ``(data,
+    model)`` tuple of ``Shard(dim)`` / ``Replicate()``,
+    ``torch.distributed.tensor``'s idiom for a 2-D mesh; the AdamW
+    moments (and a master copy) split as their parameters, the step count
+    whole. What :mod:`repro_torch.ft.checkpoint` takes as ``shardings``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def one(d):
+        return Replicate() if d is None else Shard(d)
+
+    sh = tree_map(lambda _, s: (one(s.data), one(s.model)), opt_state.m,
+                  placements)
     return {"params": sh, "opt": adamw.AdamWState(
         step=None, m=sh, v=sh,
         master=None if opt_state.master is None else sh)}
+
+
+def check_fsdp(tcfg: TrainConfig, data: int) -> None:
+    """What a train step under the FSDP fallback over ``data`` ranks
+    cannot run yet raises ``NotImplementedError``: ``compress_grads``."""
+    if data > 1 and tcfg.compress_grads:
+        raise NotImplementedError(
+            "compress_grads with fsdp: the reference's int8 wire runs "
+            "inside a shard_map with the parameters replicated, and a rank "
+            "here holds only its slices; ROADMAP queue 1, 'multi-GPU'")
 
 
 def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
@@ -198,15 +273,18 @@ def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
 
 
 def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
-                    model_group=None) -> Callable:
+                    model_group=None, fsdp: bool = False) -> Callable:
     """``group``: sequence-parallel training over a
     :class:`~repro_torch.dist.group.SeqGroup`; ``data``: data-parallel
     training over a :class:`~repro_torch.dist.group.DataGroup` (every
     rank calls the step with the same global batch); ``model_group``:
     tensor-parallel training over a
     :class:`~repro_torch.dist.group.ModelGroup` (the parameters and the
-    optimizer state this rank's slices), alone or with ``data``. A
-    sequence group takes no other: raises."""
+    optimizer state this rank's slices), alone or with ``data``;
+    ``fsdp``: with ``data``, the FSDP fallback (the parameters the
+    fallback splits and their optimizer state this rank's slices over
+    ``data``: :func:`init_shards`, :func:`shard_params`; a no-op with one
+    data rank). A sequence group takes no other: raises."""
     if group is not None and data is not None:
         raise ValueError("make_train_step takes a sequence group or a data "
                          "group, not both (the reference maps seq onto the "
@@ -227,13 +305,38 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
     if model_group is not None:
         check_tensor_parallel(model.cfg, tcfg, model_group.size)
     n = 1 if data is None else data.size
+    fsdp = fsdp and n > 1
+    if fsdp:
+        check_fsdp(tcfg, n)
     wire = tcfg.compress_grads and n > 1
+    place = train_placements(model, model_group, data, fsdp) \
+        if fsdp or model_group is not None else None
+    mesh = Mesh2D(data, model_group)
+
+    def inputs(params):
+        """(the tree the model takes, the tensors differentiated
+        against): each FSDP leaf as a ``SplitWeight`` whose gradient goes
+        to an f32 zero of its slice's shape (a scalar expanded: no
+        memory), the other leaves themselves."""
+        if not fsdp:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            return leaves, tree_leaves(leaves)
+
+        def one(p, s):
+            if s.data is None:
+                return p.detach().requires_grad_()
+            slot = torch.zeros((), dtype=torch.float32, device=p.device,
+                               requires_grad=True).expand(p.shape)
+            return SplitWeight(p.detach(), slot, s.data, data)
+        tree = tree_map(one, params, place)
+        return tree, [x.grad_to if isinstance(x, SplitWeight) else x
+                      for x in tree_leaves(tree)]
 
     def loss_and_grads(params, batch, share):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves, wrt = inputs(params)
         loss, metrics = model.loss(leaves, batch, group=group, data=share,
                                    model=model_group)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        grads = torch.autograd.grad(loss, wrt)
         it = iter(grads)
         return (metrics["loss"].detach(),
                 {k: v.detach() for k, v in metrics.items()},
@@ -285,15 +388,14 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
         else:
             grads, loss, metrics = grads_and_metrics(params, batch, data)
             if group is not None or data is not None:
-                grads = _psum_flat_(grads, group or data)
+                grads = _psum_flat_(grads, group or data, place)
             if tcfg.compress_grads:     # one participant: nothing to send
                 grads, ef_state = compression.compress_decompress(
                     grads, ef_state)
         lr_scale = tcfg.schedule(opt_state.step)
         params, opt_state, opt_metrics = adamw.update(
-            tcfg.optimizer, opt_state, params, grads, lr_scale,
-            model=model_group, placements=None if model_group is None
-            else param_placements(params, model.cfg, model_group.size))
+            tcfg.optimizer, opt_state, params, grads, lr_scale, place,
+            mesh)
         metrics = dict(metrics, **opt_metrics, loss=loss)
         return params, opt_state, metrics, ef_state
 

@@ -1614,7 +1614,8 @@ def test_training_kernels_match_plain_arctic_rank_heads(dtype):
 def _moe_ep_rank(mesh, arch, params, x, cot):
     """One model rank's ``moe_apply(model=)`` on cuda:0 from its slices of
     the whole MoE parameters: y and the gathered gradients (CPU)."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.models import moe as M
     from repro_torch.train.trainer import gather_params, shard_params
     from repro_torch.tree import tree_leaves, tree_map
@@ -1622,15 +1623,17 @@ def _moe_ep_rank(mesh, arch, params, x, cot):
     mg, dev = mesh.model, mesh.model.device
     cfg = get_smoke(arch)
     whole = tree_map(lambda t: t.to(dev), params)
-    pl = param_placements(whole, cfg, mg.size, ("seg", "0", "moe"))
+    pl = mesh_placements(whole, cfg, model=mg.size,
+                         prefix=("seg", "0", "moe"))
     leaves = tree_map(lambda t: t.detach().requires_grad_(),
-                      shard_params(whole, pl, mg))
+                      shard_params(whole, pl, Mesh2D(None, mg)))
     xx = x.to(dev).requires_grad_()
     y, aux = M.moe_apply(leaves, xx, cfg, model=mg)
     loss = (y * cot.to(dev)).sum() + aux["load_balance"] + aux["router_z"]
     g = torch.autograd.grad(loss, tree_leaves(leaves) + [xx])
     it = iter(g[:-1])
-    gp = gather_params(tree_map(lambda _: next(it), leaves), pl, mg)
+    gp = gather_params(tree_map(lambda _: next(it), leaves), pl,
+                       Mesh2D(None, mg))
     return (y.detach().cpu(), float(aux["dropped_frac"]),
             [t.cpu() for t in tree_leaves(gp)], g[-1].cpu())
 
@@ -1664,3 +1667,48 @@ def test_moe_apply_model_group_gloo_on_one_card_matches_cpu(arch):
         assert dropped == float(aux["dropped_frac"])
         for a, b in zip(got_gp + [got_gx], want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------- the FSDP fallback (data group) --------------------- #
+def _gather_weight_rank(group, whole, cots):
+    """One rank of the FSDP gather test: ``DataGroup.gather_weight`` of its
+    f32 slice of ``whole`` along each dim, and of a bf16 slice; returns
+    the gathered weights and the f32 gradients of ``sum(w * c_r)`` that
+    reach ``grad_to``."""
+    from repro_torch.dist.group import DataGroup
+
+    data = DataGroup.of(group)
+    w_all, cot = whole.to(data.device), cots[data.index].to(data.device)
+    out = []
+    for dim, dt in ((0, torch.float32), (1, torch.float32),
+                    (1, torch.bfloat16)):
+        shard = data.shard(w_all, dim).to(dt)
+        slot = torch.zeros((), device=data.device,
+                           requires_grad=True).expand(shard.shape)
+        w = data.gather_weight(shard, dim, slot)
+        (g,) = torch.autograd.grad((w * cot.to(dt)).sum(), (slot,))
+        out += [w.detach().cpu(), g.cpu()]
+    return out
+
+
+def test_fsdp_gather_weight_gloo_on_one_card_matches_cpu():
+    """2 gloo ranks sharing cuda:0 (gloo's all_gather and reduce_scatter
+    take CUDA tensors: tools/gloo_reduce_scatter_probe.py) give what 2
+    gloo CPU ranks give, bit for bit: the whole weight forward, and the
+    slice of the f32 sum of the ranks' gradients backward (f32 for the
+    bf16 slice too)."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+
+    rng = np.random.default_rng(8)
+    whole = torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32))
+    cots = [torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32))
+            for _ in range(2)]
+    want = run_ranks(_gather_weight_rank, 2, backend="gloo", device="cpu",
+                     timeout_s=120.0, args=(whole, cots))
+    got = run_ranks(_gather_weight_rank, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0, args=(whole, cots))
+    for a, b in zip(got, want):
+        assert a[-1].dtype == torch.float32
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y)

@@ -500,7 +500,7 @@ def test_elastic_resume_of_a_two_rank_checkpoint(tmp_path, capfd,
 
 
 def test_reshard_and_restore_onto_device_trees(tmp_path):
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.ft.checkpoint import restore, save
     from repro_torch.ft.manager import reshard
@@ -524,6 +524,6 @@ def test_reshard_and_restore_onto_device_trees(tmp_path):
         _flat(params, state["opt"].m).tobytes()
     with pytest.raises(ValueError, match="model_group"):
         restore(tmp_path, state, shardings={"params": {"embed": {
-            "w": Shard(0)}}})
+            "w": (Replicate(), Shard(0))}}})
     with pytest.raises(TypeError, match="placement"):
         reshard(state, 3)

@@ -2,7 +2,7 @@
 reference's "model" mesh axis) against the JAX package, on gloo CPU
 ranks, f32, at ``arctic_480b.SMOKE`` and ``kimi_k2_1t_a32b.SMOKE``.
 
-* Placements: ``dist.sharding.param_placements`` against the reference's
+* Placements: ``dist.sharding.mesh_placements`` (model dims) against the reference's
   rules for every leaf of both archs' full configs at 2 and 4 model ranks.
   The expert stacks split on their expert dim in the port (the 3-D
   ``(E, d, f)`` leaf, labelled ``('experts', 'embed', 'ffn')``) and on
@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.dist.group import ModelGroup, run_ranks
+from repro_torch.dist.group import Mesh2D, ModelGroup, run_ranks
 from test_torch_tp import _port_tree, _reference_dims
 
 DEADLINE_S = 120.0
@@ -89,13 +89,13 @@ def test_placements_split_the_experts(arch, n):
     from repro.configs import get_config as j_config
     from repro.dist.sharding import logical_axes_for as j_axes
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import logical_axes_for, param_placements
-    from repro_torch.tree import tree_flatten_with_path
+    from repro_torch.dist.sharding import logical_axes_for, mesh_placements
+    from repro_torch.tree import tree_flatten_with_path, tree_map
 
     cfg = get_config(arch)
     ref = _reference_dims(j_config(arch), n)
-    flat, _ = tree_flatten_with_path(param_placements(
-        _port_tree(ref), cfg, n))
+    flat, _ = tree_flatten_with_path(tree_map(
+        lambda s: s.model, mesh_placements(_port_tree(ref), cfg, model=n)))
     port = {}
     for path, dim in flat:
         port.setdefault("/".join(p for p in path if not p.isdigit()),
@@ -231,23 +231,25 @@ def _moe_rank(mg, arch, p, x, cot):
     """``moe_apply(model=mg)`` on this rank's slices of the whole MoE
     parameters ``p``: y, the aux terms and the gathered gradients of the
     parameters and of x, as numpy."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.models import moe as M
     from repro_torch.train.trainer import gather_params, shard_params
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = _smoke(arch)
     whole = tree_map(torch.from_numpy, p)
-    pl = param_placements(whole, cfg, mg.size, ("seg", "0", "moe"))
+    pl = mesh_placements(whole, cfg, model=mg.size,
+                         prefix=("seg", "0", "moe"))
     leaves = tree_map(lambda t: t.detach().requires_grad_(),
-                      shard_params(whole, pl, mg))
+                      shard_params(whole, pl, Mesh2D(None, mg)))
     xx = torch.from_numpy(x).requires_grad_()
     y, aux = M.moe_apply(leaves, xx, cfg, model=mg)
     loss = (y * torch.from_numpy(cot)).sum() + aux["load_balance"] \
         + aux["router_z"]
     g = torch.autograd.grad(loss, tree_leaves(leaves) + [xx])
     it = iter(g[:-1])
-    gp = gather_params(tree_map(lambda _: next(it), leaves), pl, mg)
+    gp = gather_params(tree_map(lambda _: next(it), leaves), pl,
+                       Mesh2D(None, mg))
     return (y.detach().numpy(), {k: float(v) for k, v in aux.items()},
             tree_map(lambda t: t.numpy(), gp), g[-1].numpy())
 
@@ -259,7 +261,7 @@ def _train(arch, params, mesh, ckpt=None):
     bytes of every leaf a rank holds whole and of the optimizer's step.
     ``ckpt``: a directory the final state is saved to (the model group
     gathers it, its rank 0 writes)."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.ft import checkpoint as ck
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -276,8 +278,8 @@ def _train(arch, params, mesh, ckpt=None):
     mg = None if mesh is None else mesh.model
     p = params
     if mg is not None:
-        pl = param_placements(params, cfg, mg.size)
-        p = shard_params(params, pl, mg)
+        pl = mesh_placements(params, cfg, model=mg.size)
+        p = shard_params(params, pl, Mesh2D(None, mg))
     step = make_train_step(build_model(cfg, "cpu"), tc, data=data,
                            model_group=mg)
     o = adamw.init(tc.optimizer, p)
@@ -290,18 +292,18 @@ def _train(arch, params, mesh, ckpt=None):
     if mg is not None:
         for t in (p, o.m, o.v):
             whole += b"".join(x.numpy().tobytes() for x, d in zip(
-                tree_leaves(t), tree_leaves(pl)) if d is None)
+                tree_leaves(t), tree_leaves(pl)) if d.whole)
         if ckpt is not None:
             ck.save(ckpt, {"params": p, "opt": o}, STEPS,
                     state_shardings(pl, o), mg)
-        p = gather_params(p, pl, mg)
+        p = gather_params(p, pl, Mesh2D(None, mg))
     return dict(losses=losses, norms=norms, params=_flat(p), whole=whole)
 
 
 def _restore_rank(mg, arch, ckpt):
     """Restore the checkpoint at ``ckpt`` onto this rank's slices (the
     rank's own ``init_shards`` tree as the structure) and gather it."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.ft import checkpoint as ck
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -311,12 +313,13 @@ def _restore_rank(mg, arch, ckpt):
     cfg = _smoke(arch)
     p = init_shards(build_model(cfg, "cpu"), torch.Generator().manual_seed(
         1), mg)
-    pl = param_placements(p, cfg, mg.size)
+    pl = mesh_placements(p, cfg, model=mg.size)
     o = adamw.init(adamw.AdamWConfig(), p)
     got = ck.restore(ckpt, {"params": p, "opt": o}, STEPS,
                      state_shardings(pl, o), mg)
-    return dict(params=_flat(gather_params(got["params"], pl, mg)),
-                m=_flat(gather_params(got["opt"].m, pl, mg)),
+    mesh = Mesh2D(None, mg)
+    return dict(params=_flat(gather_params(got["params"], pl, mesh)),
+                m=_flat(gather_params(got["opt"].m, pl, mesh)),
                 step=got["opt"].step,
                 shapes=[x.shape for x in _flat(got["params"]).values()])
 
@@ -491,7 +494,7 @@ def test_init_shards_draws_only_the_ranks_experts():
     """``Model.init(span=)`` draws the same stream as the whole model and
     keeps only experts lo..hi-1 of every stack; ``init_shards`` cuts
     everything else as ``shard_params`` of the whole draw would."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import init_shards, shard_params
     from repro_torch.tree import tree_leaves
@@ -500,11 +503,11 @@ def test_init_shards_draws_only_the_ranks_experts():
     model = build_model(cfg, "cpu")
     whole = model.init(torch.Generator().manual_seed(0))
     for n in (2, 4):
-        pl = param_placements(whole, cfg, n)
+        pl = mesh_placements(whole, cfg, model=n)
         for r in range(n):
             mg = ModelGroup(None, r, n, torch.device("cpu"))
             got = init_shards(model, torch.Generator().manual_seed(0), mg)
-            want = shard_params(whole, pl, mg)
+            want = shard_params(whole, pl, Mesh2D(None, mg))
             a, b = tree_leaves(got), tree_leaves(want)
             assert len(a) == len(b)
             for x, y in zip(a, b):

@@ -304,13 +304,14 @@ def test_reshard_is_multi_gpu_work():
     group: without one it raises. (Devices re-place:
     ``tests/test_torch_dist_data.py``; split placements across groups:
     ``test_tensor_parallel_checkpoint_*`` below.)"""
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
+    split = (Replicate(), Shard(0))     # (data, model)
     with pytest.raises(ValueError, match="model_group"):
-        reshard({"x": torch.zeros(2)}, Shard(0))
+        reshard({"x": torch.zeros(2)}, split)
     with pytest.raises(ValueError, match="model_group"):
-        reshard({"x": torch.zeros(2)}, {"x": Shard(0)})
+        reshard({"x": torch.zeros(2)}, {"x": split})
     with pytest.raises(ValueError, match="model_group"):
-        save("unused", {"x": torch.zeros(2)}, 1, shardings=Shard(0))
+        save("unused", {"x": torch.zeros(2)}, 1, shardings=split)
 
 
 # ===================== tensor-parallel checkpoints ===================== #
@@ -337,13 +338,14 @@ def _tp_rank(world, state, path_tp):
     import torch.distributed as dist
 
     from repro_torch.dist.group import mesh_groups
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.train.trainer import state_shardings
 
     cfg = t_smoke("gemma-7b")
     mg4 = mesh_groups(world, 4).model
     mg2 = mesh_groups(world, 2).model
-    sh = {n: state_shardings(param_placements(state["params"], cfg, n),
+    sh = {n: state_shardings(mesh_placements(state["params"], cfg,
+                                             model=n),
                              state["opt"]) for n in (2, 4)}
     local4 = reshard(state, sh[4], mg4)
     local2 = reshard(state, sh[2], mg2)

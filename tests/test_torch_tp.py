@@ -1,7 +1,7 @@
 """Tensor-parallel training of the port (the reference's "model" mesh
 axis) against the JAX package, on gloo CPU ranks, f32.
 
-* Placements: ``dist.sharding.param_placements`` against the reference's
+* Placements: ``dist.sharding.mesh_placements`` (model dims) against the reference's
   ``_mesh_clean(resolve(logical_axes_for(...)))`` under ``cell_rules``,
   for every leaf of the five dense archs' full configs at 2, 3 and 4
   model ranks (a stand-in mesh object). Equal everywhere but the dense
@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.dist.group import ModelGroup, run_ranks
+from repro_torch.dist.group import Mesh2D, ModelGroup, run_ranks
 
 DEADLINE_S = 120.0
 DENSE = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
@@ -127,13 +127,13 @@ def _port_tree(ref):
 def test_placements_are_the_references(arch, n):
     from repro.configs import get_config as j_config
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import param_placements
-    from repro_torch.tree import tree_flatten_with_path
+    from repro_torch.dist.sharding import mesh_placements
+    from repro_torch.tree import tree_flatten_with_path, tree_map
 
     cfg = get_config(arch)
     ref = _reference_dims(j_config(arch), n)
-    flat, _ = tree_flatten_with_path(param_placements(
-        _port_tree(ref), cfg, n))
+    flat, _ = tree_flatten_with_path(tree_map(
+        lambda s: s.model, mesh_placements(_port_tree(ref), cfg, model=n)))
     port = {}
     for path, dim in flat:
         key = "/".join(p for p in path if not p.isdigit())
@@ -213,7 +213,7 @@ def _train(arch, params, mesh):
     Returns the losses, the grad norms, the final parameters (gathered)
     and the bytes of every leaf a rank holds whole (replicated parameters
     and moments) and of the optimizer's step."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.optim.schedule import Schedule
@@ -228,8 +228,8 @@ def _train(arch, params, mesh):
     mg = None if mesh is None else mesh.model
     p = params
     if mg is not None:
-        pl = param_placements(params, cfg, mg.size)
-        p = shard_params(params, pl, mg)
+        pl = mesh_placements(params, cfg, model=mg.size)
+        p = shard_params(params, pl, Mesh2D(None, mg))
     step = make_train_step(build_model(cfg, "cpu"), tc, data=data,
                            model_group=mg)
     o = adamw.init(tc.optimizer, p)
@@ -242,8 +242,8 @@ def _train(arch, params, mesh):
     if mg is not None:
         for t in (p, o.m, o.v):
             whole += b"".join(x.numpy().tobytes() for x, d in zip(
-                tree_leaves(t), tree_leaves(pl)) if d is None)
-        p = gather_params(p, pl, mg)
+                tree_leaves(t), tree_leaves(pl)) if d.whole)
+        p = gather_params(p, pl, Mesh2D(None, mg))
     return dict(losses=losses, norms=norms, params=_flat(p), whole=whole)
 
 
@@ -251,7 +251,7 @@ def _rank_body(mesh, loss_cases, train_cases, vocab_args):
     """Every check of one mesh: the loss and gathered gradients of each
     ``loss_cases`` entry (its whole parameters), the vocab-parallel
     pieces, the train runs of ``train_cases``."""
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import gather_params, shard_params
 
@@ -260,12 +260,13 @@ def _rank_body(mesh, loss_cases, train_cases, vocab_args):
     for case, params in loss_cases.items():
         arch, _, fields = CASES[case]
         cfg = _smoke(arch, fields)
-        pl = param_placements(params, cfg, mg.size)
+        pl = mesh_placements(params, cfg, model=mg.size)
         loss, g = _grads(build_model(cfg, "cpu"),
-                         shard_params(params, pl, mg),
+                         shard_params(params, pl, Mesh2D(None, mg)),
                          {k: torch.as_tensor(v) for k, v in
                           _batch(cfg, 0).items()}, mg)
-        out[case] = (loss, _flat(gather_params(g, pl, mg)))
+        out[case] = (loss, _flat(gather_params(g, pl,
+                                               Mesh2D(None, mg))))
     if vocab_args is not None:
         out["vocab"] = _vocab_pieces(mg, *vocab_args)
     for case, params in train_cases.items():

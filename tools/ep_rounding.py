@@ -80,13 +80,14 @@ def _steps(cfg, params, seed, reorder=False, model_group=None):
     gathered."""
     import numpy as np
 
-    from repro_torch.dist.sharding import param_placements
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.train.trainer import gather_params, shard_params
 
     p, pl = _reverse_ffn(params) if reorder else params, None
     if model_group is not None:
-        pl = param_placements(params, cfg, model_group.size)
-        p = shard_params(params, pl, model_group)
+        pl = mesh_placements(params, cfg, model=model_group.size)
+        p = shard_params(params, pl, Mesh2D(None, model_group))
     step, opt, ds = C._trainer(cfg, "cpu", p, seq=128, batch=2, steps=3,
                                lr=3e-3, warmup=1, seed=seed,
                                model_group=model_group)
@@ -96,7 +97,7 @@ def _steps(cfg, params, seed, reorder=False, model_group=None):
             b = {k: np.ascontiguousarray(v[::-1]) for k, v in b.items()}
         p, opt, _, _ = step(p, opt, b)
     if model_group is not None:
-        p = gather_params(p, pl, model_group)
+        p = gather_params(p, pl, Mesh2D(None, model_group))
     return _flat(_reverse_ffn(p) if reorder else p)
 
 

@@ -56,11 +56,11 @@ def main(argv=None) -> int:
         _, _, ref = C.phase_train(torch, args.seed, arch)
         torch.cuda.empty_cache()
         if not args.matrix:
-            _, losses = C.phase_train_dp(torch, args.seed, "train-dp", ref)
+            _, losses, _ = C.phase_train_dp(torch, args.seed, "train-dp", ref)
             C.phase_train_dp(torch, args.seed, "train-dp-int8", ref, losses)
             continue
         for n in (2, 4):
-            _, losses = C.phase_train_dp(
+            _, losses, _ = C.phase_train_dp(
                 torch, args.seed, f"train-dp {arch} x{n}", ref, arch=arch,
                 n=n, compress=False)
             C.phase_train_dp(torch, args.seed, f"train-dp-int8 {arch} x{n}",
