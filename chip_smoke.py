@@ -113,10 +113,12 @@ nonzero:
    token equals the serve phase's. Prints how many of the served tokens
    agree (not gated), the decode step median, the prefill time, one
    profiled decode step's collectives by name and the idle share.
-6c. **serve-sharded-int8** — the same at ``seq_shards=4`` on the int8
-   page-sparse slab (threshold -3, decay 0.3), against serve-int8.
-   serve-sharded serves the first 4 of the 8 requests (prompts 634-1210),
-   serve-sharded-int8 the first 2 (634 and 825; cuts for time).
+6c. **serve-sharded-int8** — the same on the int8 page-sparse slab
+   (threshold -3, decay 0.3), against serve-int8, in serve-sharded's
+   spawn of 2 ranks after it. serve-sharded serves the first 4 of the 8
+   requests (prompts 634-1210), serve-sharded-int8 the first 2 (634 and
+   825) at 2 shards, not 4 in a spawn of its own (cuts for time;
+   ``tools/serve_sharded.py`` runs all 8 at 2 and 4 shards).
 7. **serve-ft** — kill and resume: the serve phase's weights and requests
    under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
    every 16 engine steps under ``build/``, removed at the end), with two
@@ -374,15 +376,21 @@ nonzero:
     time on rank 0 (CUDA events).
 18h. **train-tp-check** — tensor-parallel training (``make_train_step(
     ..., model_group=ModelGroup)``, heads, ffn and vocab split by
-    ``dist.sharding.mesh_placements``): two narrowed f32 configs trained
+    ``dist.sharding.mesh_placements``): six narrowed f32 configs trained
     3 steps on 2 model ranks (NCCL with one card a rank where the machine
     has the cards, else gloo ranks sharing cuda:0), each from the same
     parameters cut into the ranks' slices, against one rank on the card:
     gemma-like (2 / 2 heads of hd 256, ffn 512, vocab 256: every
-    placement split) and smollm-like (3 / 1 heads: the attention whole on
-    every rank). Gates: losses and gathered parameters within 1e-4, grad
-    norms within 1e-5, the leaves a rank holds whole and the optimizer
-    step bitwise equal across the ranks (sha256), K1-K3 launched on each.
+    placement split), smollm-like (3 / 1 heads: the attention whole on
+    every rank), and train-check's recurrentgemma (d_rnn 256 split: the
+    RG-LRU's gate input gathered, its whole gate and conv leaves' shares
+    summed), mamba2 (the SSD by heads, its norm's sum over the ranks; no
+    attention), qwen2-vl (M-RoPE, the vision merge, 6 query heads on one
+    KV head) and whisper (the encoder and the cross attention split).
+    Gates: losses and gathered parameters within 1e-4, grad norms within
+    1e-5, the leaves a rank holds whole and the optimizer step bitwise
+    equal across the ranks (sha256), K1-K3 launched on each (none in
+    mamba2), no plain version.
 18i. **train-tp** — gemma-7b at every published width (d 3072, 16 heads
     of hd 256, ffn 24576, vocab 256000 tied, softcap 30), bf16, remat
     full, seq 4096, batch 1, on 2 model ranks (the same spawn as the
@@ -398,6 +406,17 @@ nonzero:
     Prints the placements once, rank 0's step median, tokens/s, the peak
     per rank, one profiled step's idle share and collectives by name, and
     the bytes a rank sends a step (``tp_step_bytes``, counted).
+18i'. **train-tp recurrentgemma-9b** — the same for recurrentgemma-9b at
+    every published width (d 4096, d_rnn 4096, 16 query heads on one KV
+    head of hd 256, window 2048, ffn 12288, vocab 256000 tied), after
+    gemma-7b in the same spawn, at the depth of the unsharded
+    recurrentgemma train phase (19), which runs before the spawn as its
+    reference: the RG-LRU's products split on d_rnn (its f32 gate input
+    gathered forward, reduce-scattered backward; ``w_a``, ``w_i``, the
+    conv and ``lam`` whole, their gradients' shares summed in one flat
+    f32 all_reduce a step), the local attention by heads (its one KV head
+    replicated). The same gates and prints; ``tp_step_bytes`` counts the
+    gathers, reduce-scatters and the flat sum.
 18j. **train-ep-check** — expert-parallel MoE training (``moe_apply(...,
     model=ModelGroup)``: E / N experts a rank, the router's columns, the
     logits gathered and routed alike on every rank, one ``all_reduce`` of
@@ -429,12 +448,15 @@ nonzero:
     beside the unsharded run's, rank 0's step median, tokens/s, idle
     share, the peak per rank, the collectives by name and the bytes a rank
     sends a step (``tp_step_bytes``, counted).
-19. **train recurrentgemma-9b** — every published width, the depth cut
-    to the deepest multiple of 3 (whole griffin groups) whose reckoned
-    peak (``train_bytes``, printed first: RG-LRU and SSD blocks and their
-    recomputed f32 scan temporaries counted) fits 92 % of the card, seq
-    4096, batch 1, 10 steps, lr 1e-3, warmup 3; per step and group K1 2
-    (remat full replays it), K2 1, K3 2 (two kernels a call).
+19. **train recurrentgemma-9b** — (run before the train-tp spawn, as
+    train-tp recurrentgemma-9b's reference) every published width, the
+    depth cut to the deepest multiple of 3 (whole griffin groups) whose
+    reckoned peak (``train_bytes``, printed first: RG-LRU and SSD blocks
+    and their recomputed f32 scan temporaries counted) fits 92 % of the
+    card and whose train-tp reckoning (``train_bytes_tp``, the 2 ranks
+    sharing the card) fits too, seq 4096, batch 1, 10 steps, lr 1e-3,
+    warmup 3; per step and group K1 2 (remat full replays it), K2 1, K3 2
+    (two kernels a call).
 20. **train mamba2-370m** — at full width, 12 of its 48 layers, seq
     4096, batch 4, 10 steps, lr 1e-3, warmup 3: no kernel launches; the
     loss falls.
@@ -1622,7 +1644,9 @@ INT8_SPARSE = dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
 # of the script's time, cut to make room for the tensor-parallel train
 # phases; serve-sharded-int8 the first 2 (prompts 634 and 825; its 4-rank
 # prefill of 4 took 28.5 s), cut to make room for the expert-parallel
-# ones
+# ones, and on 2 shards in serve-sharded's spawn, not 4 in a spawn of its
+# own, to make room for the recurrent and family tensor-parallel phases
+# (tests/test_torch_dist_serve.py and tools/serve_sharded.py keep 4)
 SHARD_REQS = 4
 SHARD_INT8_REQS = 2
 
@@ -1853,9 +1877,10 @@ def _serve_sharded(torch, seed, group, what, extra, n_req=SERVE_R):
                 slab_bytes=eng.slab_resident_bytes())
 
 
-def sharded_rank(group, seed, what, extra, with_check, n_req=SERVE_R):
+def sharded_rank(group, seed, runs, with_check):
     """A spawned rank of the sequence-parallel phases: serve-sharded-check
-    (``with_check``), then the full-width run."""
+    (``with_check``), then each full-width run of ``runs`` (``(what,
+    extra, n_req)``: ``_serve_sharded``'s arguments) in turn."""
     import torch
 
     # what main() sets for itself
@@ -1866,26 +1891,29 @@ def sharded_rank(group, seed, what, extra, with_check, n_req=SERVE_R):
         out["check"] = [shard_check_run(torch, seed, w, lens, n, ex,
                                         str(group.device), group)
                         for _, w, lens, n, ex in SHARD_CHECK]
-    out["serve"] = _serve_sharded(torch, seed, group, what, extra, n_req)
+    for what, extra, n_req in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[what] = _serve_sharded(torch, seed, group, what, extra, n_req)
     return out
 
 
-def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
-                        with_check=False, n_req=SERVE_R):
+def phase_serve_sharded(torch, seed, shards, runs, with_check=False):
     """Sequence-parallel serving on the card: ``shards`` ranks through
     ``dist.group.run_ranks`` (NCCL, one card a rank, where the machine has
-    the cards; else gloo ranks sharing cuda:0). With ``with_check`` the
-    ranks first run serve-sharded-check: greedy tokens and every counter
-    equal to the unsharded engine's on the card. Then the full-width run
-    (``_serve_sharded`` on every rank): the same tokens and counters on
-    every rank, 30 K4 launches a decode step in ``return_state`` mode on
-    each, every layer's merged attention within ``OUT_TOL`` of unsharded
-    K4, the first token of each request equal to the unsharded phase's
-    (``ref_tokens``); how many of the served tokens agree is printed, not
-    gated. ``n_req``: the first requests of the 8 served (a cut for
-    time; the gates cover those). Returns the K4 launch count over the
-    ranks and rank 0's record. A failed rank makes ``run_ranks`` raise:
-    nothing here catches it."""
+    the cards; else gloo ranks sharing cuda:0), one spawn for every run.
+    With ``with_check`` the ranks first run serve-sharded-check: greedy
+    tokens and every counter equal to the unsharded engine's on the card.
+    Then each full-width run of ``runs``, ``(what, ref_tokens, extra,
+    n_req)`` (``_serve_sharded`` on every rank; ``extra``: the engine's
+    slab fields, ``n_req``: the first requests of the 8 served, a cut for
+    time): the same tokens and counters on every rank, 30 K4 launches a
+    decode step in ``return_state`` mode on each, every layer's merged
+    attention within ``OUT_TOL`` of unsharded K4, the first token of each
+    request equal to the unsharded phase's (``ref_tokens``); how many of
+    the served tokens agree is printed, not gated. Returns {what: (the K4
+    launch count over the ranks, rank 0's record)}. A failed rank makes
+    ``run_ranks`` raise: nothing here catches it."""
     from repro_torch.dist.group import run_ranks
 
     backend, device = _shard_backend(torch, shards)
@@ -1896,9 +1924,10 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
     t0 = time.perf_counter()
     out = run_ranks(sharded_rank, shards, backend=backend, device=device,
                     timeout_s=SHARD_TIMEOUT_S,
-                    args=(seed, what, extra, with_check, n_req))
-    log(f"[{what}] {shards} ranks on backend {backend} "
-        f"({device or 'one card a rank'}): "
+                    args=(seed, [(w, ex, k) for w, _, ex, k in runs],
+                          with_check))
+    log(f"[{'/'.join(w for w, *_ in runs)}] {shards} ranks on backend "
+        f"{backend} ({device or 'one card a rank'}): "
         f"{time.perf_counter() - t0:.1f} s with the ranks' start")
     if with_check:
         for i, ((name, w, _, _, ex), (toks, c)) in enumerate(
@@ -1917,7 +1946,14 @@ def phase_serve_sharded(torch, seed, shards, what, ref_tokens, extra,
                 f"the unsharded engine's on the card (decode pages read "
                 f"{c['decode_pages_read']} of {c['decode_pages_total']}): "
                 f"{toks}")
-    recs = [o["serve"] for o in out]
+    return {what: _report_serve_sharded([o[what] for o in out], what,
+                                        shards, backend, ref_tokens, n_req)
+            for what, ref_tokens, _, n_req in runs}
+
+
+def _report_serve_sharded(recs, what, shards, backend, ref_tokens, n_req):
+    """Gate and print one full-width serve-sharded run from every rank's
+    record; returns (the K4 launches over the ranks, rank 0's record)."""
     r0 = recs[0]
     for r, rec in enumerate(recs[1:], 1):
         check(rec["tokens"] == r0["tokens"] and
@@ -3262,7 +3298,7 @@ def train_bytes(cfg, seq: int, batch: int) -> dict:
     return dict(params=params, per_layer=per_layer, embedding=embed,
                 resident=10 * params, update_peak=update, loss_peak=loss,
                 saved=saved, saved_per_token_layer=per_token,
-                recompute=recompute, peak=max(update, loss))
+                recompute=recompute, extras=extras, peak=max(update, loss))
 
 
 def _fit_depth(full, seq: int, batch: int, budget: float) -> int:
@@ -4716,17 +4752,23 @@ TP_RANKS = 2             # train-tp phases: the model group's ranks
 # train-tp: the unsharded train phase's first steps, compared with it
 TP_STEPS = 4
 # the collectives of a tensor-parallel step by profiler name
-TP_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather")
+TP_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather",
+           "reduce_scatter", "reducescatter")
 
 
 def _tp_shares(cfg, n: int) -> dict:
     """One rank's share of a program's parameters under a model group of
-    ``n`` (``dist.sharding.split_axes``, each leaf split on its own
+    ``n`` (``dist.sharding.mesh_placements``: each leaf split on its own
     width): its embedding rows (and LM head's), its slice of each layer
     (the query and output projections by heads, the KV projections by KV
     heads, a dense or shared MLP by ffn, an MoE layer's expert stacks and
-    router columns by experts, ``moe.expert_span``; the norms whole) and
-    its vocab rows. Also its experts a layer and the leaf whose update
+    router columns by experts, ``moe.expert_span``; an RG-LRU block's
+    ``w_in``/``w_gate_branch``/``w_out`` by ``d_rnn`` with its gates
+    ``w_a``, ``w_i`` (d_rnn^2 each), conv and ``lam`` whole; an SSD
+    block's ``w_in`` and ``w_out`` by their widths with its conv and
+    per-head leaves whole; a whisper decoder block's two attentions; the
+    norms whole), an encoder's layers, a VLM's whole vision projection
+    and its vocab rows. Also its experts a layer and the leaf whose update
     temporaries ``train_bytes`` counts: the embedding, or one expert stack
     where that is the larger."""
     from repro_torch.dist.sharding import split_axes
@@ -4735,31 +4777,50 @@ def _tp_shares(cfg, n: int) -> dict:
     s = split_axes(cfg, n)
     d, hd = cfg.d_model, cfg.hd
 
-    def part(count, axis, split=s):
-        return count // n if axis in split else count
+    def part(count, axis="ffn"):
+        """``count`` on this rank: a head, KV head, vocab or expert count
+        split where ``cell_rules`` splits it; an ffn width where ``n``
+        divides it."""
+        ok = count % n == 0 if axis == "ffn" else axis in s
+        return count // n if ok else count
 
     vocab = part(cfg.vocab_size, "vocab")
     embed = vocab * d * (1 if cfg.tie_embeddings else 2)
     mults = 3 if cfg.act in ("swiglu", "geglu") else 2
-    attn = (2 * d * hd * part(cfg.n_heads, "heads")
-            + 2 * d * hd * part(cfg.n_kv_heads, "kv_heads") + 2 * d)
-    mlp = mults * d * part(cfg.d_ff, "ffn")
-    experts = moe = stack = 0
+    proj = (2 * d * hd * part(cfg.n_heads, "heads")
+            + 2 * d * hd * part(cfg.n_kv_heads, "kv_heads"))
+    attn = proj + 2 * d
+    mlp = mults * d * part(cfg.d_ff)
+    layer = {"attn_mlp": attn + mlp, "attn_mlp_local": attn + mlp,
+             "xattn": 2 * proj + 3 * d + mlp}
+    experts = stack = 0
     if cfg.moe is not None:
-        f, shared_w = cfg.moe.d_ff_expert, (cfg.moe.d_ff_expert
-                                            * cfg.moe.n_shared_experts)
+        f = cfg.moe.d_ff_expert
         experts = part(cfg.moe.n_experts, "experts")
         stack = experts * d * f
         moe = (d * experts + mults * stack
-               + mults * d * part(shared_w, "ffn",
-                                  split_axes(cfg, n, shared_w)))
-    layer = {"attn_mlp": attn + mlp, "attn_moe": attn + moe,
-             "attn_moe_dense": attn + mlp + moe}
+               + mults * d * part(f * cfg.moe.n_shared_experts))
+        layer.update(attn_moe=attn + moe, attn_moe_dense=attn + mlp + moe)
+    if cfg.recurrent is not None:
+        dr = cfg.recurrent.d_rnn or d
+        rec = (3 * d * part(dr) + 2 * dr * dr
+               + (cfg.recurrent.conv_width + 1) * dr)
+        layer["rec_mlp"] = rec + mlp + 2 * d
+        layer["griffin"] = 2 * layer["rec_mlp"] + attn + mlp
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        di = sc.expand * d
+        Hs = di // sc.head_dim
+        layer["ssm"] = (d * part(2 * di + 2 * sc.d_state + Hs)
+                        + part(di) * d + sc.conv_width * (di + 2 * sc.d_state)
+                        + 3 * Hs + di + d)
     program = make_program(cfg)
+    extra = (cfg.n_layers * (attn + mlp) + d if cfg.encoder_decoder else 0) \
+        + (d * d if cfg.n_vision_tokens else 0)
     return dict(embedding=embed, per_layer=layer[program[-1][0]],
                 vocab=vocab, experts=experts, largest=max(embed, stack),
                 params=embed + sum(k * layer[kind] for kind, k in program)
-                + d)
+                + d + extra)
 
 
 def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
@@ -4786,7 +4847,7 @@ def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
                             + 2 * T * m.top_k * cfg.d_model)
     update = max(32 * params, 18 * params + 20 * sh["largest"])
     loss = (16 * T * sh["vocab"] + 10 * params + whole["saved"]
-            + whole["recompute"] + dispatch)
+            + whole["recompute"] + whole["extras"] + dispatch)
     return dict(params=params, per_layer=sh["per_layer"],
                 experts=sh["experts"], embedding=sh["embedding"],
                 largest=sh["largest"], resident=10 * params,
@@ -4796,31 +4857,33 @@ def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
 
 def train_tp_depth(torch, arch: str, seq: int, batch: int, n: int,
                    share: bool = True) -> int:
-    """The deepest ``arch`` (every published width kept) whose reckoned
-    train-step peak of one rank of a model group of ``n``
-    (``train_bytes_tp``), times the ``n`` ranks that share the card
-    (``share``; else one rank a card), fits in 92 % of a card's memory.
-    Prints the reckoning."""
+    """The deepest ``arch`` (every published width kept; whole griffin
+    groups for a hybrid program) whose reckoned train-step peak of one
+    rank of a model group of ``n`` (``train_bytes_tp``), times the ``n``
+    ranks that share the card (``share``; else one rank a card), fits in
+    92 % of a card's memory. Prints the reckoning."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     full = get_config(arch)
+    unit = 3 if full.family == "hybrid" else 1
     total = torch.cuda.get_device_properties(0).total_memory
     budget = 0.92 * total
     k = n if share else 1
     depth = 0
-    for layers in range(1, full.n_layers + 1):
+    for layers in range(unit, full.n_layers + 1, unit):
         b = train_bytes_tp(dataclasses.replace(full, n_layers=layers), seq,
                            batch, n)
         if k * b["peak"] > budget:
             break
         depth = layers
-    check(depth > 0, f"no layer of {arch} fits the card at {n} ranks")
+    check(depth > 0, f"no {unit} layer(s) of {arch} fit the card at {n} "
+          f"ranks")
     b = train_bytes_tp(dataclasses.replace(full, n_layers=depth), seq,
                        batch, n)
-    nxt = train_bytes_tp(dataclasses.replace(full, n_layers=depth + 1), seq,
-                         batch, n)
+    nxt = train_bytes_tp(dataclasses.replace(full, n_layers=depth + unit),
+                         seq, batch, n)
     log(f"[train-tp {arch}] reckoned bytes a rank at {n} model ranks, seq "
         f"{seq} batch {batch}: embedding {b['embedding'] / 1e6:.1f}M params "
         f"a rank, {b['per_layer'] / 1e6:.1f}M a layer; {depth} of "
@@ -4831,31 +4894,45 @@ def train_tp_depth(torch, arch: str, seq: int, batch: int, n: int,
         f"{b['update_peak'] / 1e9:.2f} GB, loss peak "
         f"{b['loss_peak'] / 1e9:.2f} GB a rank (x {k}: "
         f"{k * b['peak'] / 1e9:.2f} GB)" + (
-            f"; {depth + 1} layers would peak at "
+            f"; {depth + unit} layers would peak at "
             f"{k * nxt['peak'] / 1e9:.2f} GB" if depth < full.n_layers
             else ""))
     return depth
 
 
 def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
-    """The collectives of one train step (remat full) of one rank of a
-    model group of ``n``, counted from the shapes. Where the group splits
-    the heads, each attention sums its (batch, seq, d) output over the
-    group forward and again in the remat replay, and its input's gradient
-    backward (3 all_reduces); where it splits a dense or shared MLP's
-    ffn, the MLP sums its output forward and its input's gradient
-    backward (2: the replay stops at the layer's last saved tensor,
-    before the MLP's sum; torch's checkpoint stops early); an MoE layer
-    sums its input's gradient backward (1), gathers its f32 router logits
-    (T, E) forward and in the replay (2 all_gathers) and sums its
-    (T·k, d) expert rows forward and in the replay (2). Replicated
-    ``wk``/``wv`` under split heads sum their gradients; a split
-    vocabulary sums the embedding lookup forward and the head's input
-    gradient backward, and the loss runs three (batch, seq) f32
-    collectives (max, sum of exp, gold logit); the clip sums one f32.
-    Returns the calls and payload bytes of each kind and the bytes a rank
-    sends on a ring (all_reduce 2 (n - 1) / n of the payload, all_gather
-    (n - 1) / n of the gathered tensor)."""
+    """The collectives of one train step (remat full: a layer, or a
+    griffin group, one checkpointed unit) of one rank of a model group of
+    ``n``, counted from the shapes. Where the group splits the heads,
+    each attention sums its (batch, seq, d) output over the group forward
+    and again in the remat replay, and its input's gradient backward (3
+    all_reduces); where it splits a dense or shared MLP's ffn, the MLP
+    sums its output forward and its input's gradient backward, and in the
+    replay too unless it ends its unit (the replay stops at the unit's
+    last saved tensor; torch's checkpoint stops early); an MoE layer sums
+    its input's gradient backward (1), gathers its f32 router logits (T,
+    E) forward and in the replay (2 all_gathers) and sums its (T·k, d)
+    expert rows forward and in the replay (2). Replicated ``wk``/``wv``
+    under split heads sum their gradients. An RG-LRU block whose
+    ``d_rnn`` splits sums its input's gradient (1) and its output forward
+    and in the replay (2), gathers its f32 (T, d_rnn) gate input forward
+    and in the replay (2 all_gathers) and reduce-scatters that gradient
+    (1). An SSD block gathers its (T, 2 d_inner + 2N + H) projection
+    where ``w_in`` splits (2; its gradient reduce-scattered where
+    ``w_out`` splits too), sums its input's gradient (1), its norm's f32
+    (T, 1) sum of squares where it runs by heads (3: forward, replay,
+    backward) and its output where ``w_out`` splits (1: it ends its
+    layer). Whisper's cross attention sums x's and the encoder output's
+    (batch, frames, d) gradients (2) and its output (2: forward and
+    replay), and its encoder's layers count as attention blocks over the
+    frames. A split vocabulary sums the embedding lookup forward and the
+    head's input gradient backward, and the loss runs three (batch, seq)
+    f32 collectives (max, sum of exp, gold logit); the whole leaves a rank
+    uses only its part of (``Split.model_sum``) sum their f32 gradients
+    in one all_reduce; the clip sums one f32. Returns the calls and
+    payload bytes of each kind and the bytes a rank sends on a ring
+    (all_reduce 2 (n - 1) / n of the payload, all_gather and
+    reduce_scatter (n - 1) / n of the whole tensor)."""
     import torch
 
     from repro_torch.dist.sharding import split_axes
@@ -4865,51 +4942,120 @@ def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
     s = split_axes(cfg, n)
     cb = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
     w = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
-    T = seq * batch
-    act = T * cfg.d_model * cb
-    shared_split = m is not None and m.n_shared_experts and "ffn" in \
-        split_axes(cfg, n, m.d_ff_expert * m.n_shared_experts)
-    red = gat = red_b = gat_b = 0
-    for kind, layers in make_program(cfg):
+    d, T = cfg.d_model, seq * batch
+    act = T * d * cb
+    calls = {"all_reduce": [0, 0], "all_gather": [0, 0],
+             "reduce_scatter": [0, 0]}
+
+    def add(kind, times, payload):
+        calls[kind][0] += times
+        calls[kind][1] += times * payload
+
+    def attention(k, a=act):
         if "heads" in s:
-            red, red_b = red + 3 * layers, red_b + 3 * layers * act
+            add("all_reduce", 3 * k, a)
             if "kv_heads" not in s:
-                red += 2 * layers
-                red_b += 2 * layers * cfg.d_model * cfg.n_kv_heads * cfg.hd \
-                    * w
-        mlp = kind != "attn_moe" and "ffn" in s
+                add("all_reduce", 2 * k, d * cfg.n_kv_heads * cfg.hd * w)
+
+    def mlp(k, last=True, width=cfg.d_ff, a=act):
+        if n > 1 and width and width % n == 0:
+            add("all_reduce", (2 if last else 3) * k, a)
+
+    summed = 0                      # the model_sum leaves' f32 values
+    for kind, k in make_program(cfg):
+        if kind in ("attn_mlp", "attn_mlp_local", "griffin"):
+            attention(k)
+            mlp(k)
         if kind in MOE_KINDS:
-            red += 3 * layers
-            red_b += layers * (act + 2 * T * m.top_k * cfg.d_model * cb)
-            gat, gat_b = gat + 2 * layers, gat_b + 2 * layers * T \
-                * m.n_experts * 4
-            mlp = mlp or (kind == "attn_moe" and shared_split)
-        if mlp:
-            red, red_b = red + 2 * layers, red_b + 2 * layers * act
+            attention(k)
+            add("all_reduce", k, act)
+            add("all_reduce", 2 * k, T * m.top_k * d * cb)
+            add("all_gather", 2 * k, T * m.n_experts * 4)
+            if kind == "attn_moe_dense":
+                mlp(k)
+            elif m.n_shared_experts:
+                mlp(k, width=m.d_ff_expert * m.n_shared_experts)
+        if kind in ("rec_mlp", "griffin"):
+            reps = k * (2 if kind == "griffin" else 1)
+            dr = cfg.recurrent.d_rnn or d
+            if dr % n == 0 and n > 1:
+                add("all_reduce", 3 * reps, act)
+                add("all_gather", 2 * reps, T * dr * 4)
+                add("reduce_scatter", reps, T * dr * 4)
+                summed += reps * (2 * dr * dr
+                                  + (cfg.recurrent.conv_width + 1) * dr)
+            mlp(reps, last=kind == "rec_mlp")
+        if kind == "ssm":
+            sc = cfg.ssm
+            di = sc.expand * d
+            Hs = di // sc.head_dim
+            wide = 2 * di + 2 * sc.d_state + Hs
+            cut_in = n > 1 and wide % n == 0
+            cut_out = n > 1 and di % n == 0
+            if cut_in or cut_out:
+                add("all_reduce", k, act)
+            if cut_in:
+                add("all_gather", 2 * k, T * wide * cb)
+            if cut_in and cut_out:
+                add("reduce_scatter", k, T * wide * cb)
+            if cut_out:
+                add("all_reduce", k, act)
+                if Hs % n == 0:
+                    add("all_reduce", 3 * k, T * 4)
+                summed += k * (sc.conv_width * (di + 2 * sc.d_state)
+                               + 3 * Hs + di + (0 if cut_in else d * wide))
+        if kind == "xattn":
+            attention(k)
+            if "heads" in s:
+                add("all_reduce", 3 * k, act)
+                add("all_reduce", k, batch * cfg.n_audio_frames * d * cb)
+                if "kv_heads" not in s:
+                    add("all_reduce", 2 * k,
+                        d * cfg.n_kv_heads * cfg.hd * w)
+            mlp(k)
+    if cfg.encoder_decoder:
+        frames = batch * cfg.n_audio_frames * d * cb
+        attention(cfg.n_layers, frames)
+        mlp(cfg.n_layers, a=frames)
     if "vocab" in s:
-        red, red_b = red + 5, red_b + 2 * act + 3 * T * 4
-    red, red_b = red + 1, red_b + 4
+        add("all_reduce", 5, 0)
+        calls["all_reduce"][1] += 2 * act + 3 * T * 4
+    if summed:
+        add("all_reduce", 1, 4 * summed)
+    add("all_reduce", 1, 4)
+    (red, red_b), (gat, gat_b), (rs, rs_b) = (
+        calls[k] for k in ("all_reduce", "all_gather", "reduce_scatter"))
     return dict(all_reduces=red, all_reduce_payload=red_b, all_gathers=gat,
-                all_gather_payload=gat_b,
-                ring_sent=int(2 * (n - 1) / n * red_b + (n - 1) / n * gat_b))
+                all_gather_payload=gat_b, reduce_scatters=rs,
+                reduce_scatter_payload=rs_b, model_sum_bytes=4 * summed,
+                ring_sent=int(2 * (n - 1) / n * red_b
+                              + (n - 1) / n * (gat_b + rs_b)))
 
 
 def _step_bytes_line(sb) -> str:
     """``tp_step_bytes``' count as a log line's words."""
     return (f"a rank's collectives a step (counted from the shapes): "
             f"{sb['all_reduces']} all_reduces of {sb['all_reduce_payload']} "
-            f"bytes, {sb['all_gathers']} all_gathers of "
-            f"{sb['all_gather_payload']} bytes, {sb['ring_sent']} bytes sent "
-            f"on a ring")
+            f"bytes (of them one of the whole leaves' summed f32 gradients, "
+            f"{sb['model_sum_bytes']} bytes), {sb['all_gathers']} "
+            f"all_gathers of {sb['all_gather_payload']} bytes, "
+            f"{sb['reduce_scatters']} reduce_scatters of "
+            f"{sb['reduce_scatter_payload']} bytes, {sb['ring_sent']} bytes "
+            f"sent on a ring")
 
 
 def _tp_check_cfgs():
     """train-tp-check's narrowed f32 configs at 2 ranks: gemma-like (2 / 2
-    heads of hd 256, ffn 512, vocab 256: every placement split) and
+    heads of hd 256, ffn 512, vocab 256: every placement split),
     smollm-like (3 / 1 heads: the attention whole on every rank; ffn and
-    vocab split)."""
+    vocab split), and the train-checks' recurrentgemma (d_rnn 256 split,
+    its gates' input gathered; 2 query heads on one KV head), mamba2 (the
+    SSD by heads: w_in 296 and w_out 128 split, no attention), qwen2-vl
+    (M-RoPE and the vision merge; 6 query heads on one KV head) and
+    whisper (the encoder and the cross attention split)."""
     return {"gemma-7b": _check_cfgs()["gemma-7b"],
-            "smollm-135m": _train_cfg(smoke=True)}
+            "smollm-135m": _train_cfg(smoke=True),
+            **_recurrent_check_cfgs(), **_family_check_cfgs()}
 
 
 def _whole_digest(torch, params, opt, placements):
@@ -4941,52 +5087,29 @@ def _check_steps(cfg, dev, p, seed, keys, model_group=None):
 
 # a train-tp phase's schedule per arch: (batch, schedule steps, lr,
 # warmup), the unsharded train phase's
-TP_SCHED = {"gemma-7b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3)}
+TP_SCHED = {"gemma-7b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3),
+            "recurrentgemma-9b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3),
+            "mamba2-370m": (MAMBA_BATCH, GEMMA_STEPS, 1e-3, 3)}
 TP_SCHED_DEFAULT = (TRAIN_BATCH, TRAIN_STEPS, 3e-3, 10)
 
 
-def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps, ep=None):
-    """A spawned rank of the tensor-parallel phases. train-tp-check: each
-    ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
-    train_check) from ``check_params`` cut to this rank's slices. Then
-    train-tp gemma-7b: full width at ``depth`` layers, bf16, remat full,
-    seq 4096, batch ``GEMMA_BATCH``, ``n_steps`` steps of the gemma train
-    phase's schedule, this rank's slices drawn layer by layer from the
-    single-device draw of ``seed`` (``trainer.init_shards``), then one
-    more step, profiled on rank 0 (``arch`` another dense arch: its own
-    train phase's schedule, ``TP_SCHED``). Then, with ``ep`` (the ranks'
-    arguments of ``prepare_train_ep``), the expert-parallel phases in the
-    same ranks once gemma's state is freed (``train_ep_rank``, its records
-    under "ep"). Returns the rank's records."""
+def _tp_main_run(mg, seed, arch, depth, n_steps):
+    """One train-tp run of ``arch`` on this rank of ``mg``: full width at
+    ``depth`` layers, bf16, remat full, seq 4096, ``n_steps`` steps of the
+    arch's train phase's schedule (``TP_SCHED``), this rank's slices drawn
+    layer by layer from the single-device draw of ``seed``
+    (``trainer.init_shards``), then one more step, profiled on rank 0.
+    Returns the rank's record."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.dist.group import Mesh2D
     from repro_torch.dist.sharding import describe, mesh_placements
     from repro_torch.models.model import build_model
-    from repro_torch.train.trainer import (gather_params, init_shards,
-                                           shard_params)
+    from repro_torch.train.trainer import init_shards
 
-    _rank_prelude(torch)
-    mg = mesh.model
-    on = Mesh2D(None, mg)       # the model axis alone
     dev = str(mg.device)
-    out = {}
-    for check_arch, cfg in _tp_check_cfgs().items():
-        if check_arch not in check_params:
-            continue
-        full = _to(check_params[check_arch], dev)
-        pl = mesh_placements(full, cfg, model=mg.size)
-        _counters(reset=True)
-        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, on),
-                                    seed, ("loss", "grad_norm"), mg)
-        launches, plain = _counters()
-        out[check_arch] = dict(
-            hist=hist, launches=launches, plain=plain,
-            params=_flat_cpu(torch, gather_params(p, pl, on)),
-            whole=_whole_digest(torch, p, opt, pl))
     cfg = dataclasses.replace(get_config(arch), n_layers=depth)
     batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
     torch.cuda.empty_cache()
@@ -5011,8 +5134,8 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps, ep=None):
         losses.append(float(met["loss"]))         # syncs the card
         times.append(time.perf_counter() - t0)
         if mg.index == 0:
-            log(f"[train-tp] rank 0 step {i} loss {losses[-1]:.4f} grad "
-                f"norm {float(met['grad_norm']):.4f} "
+            log(f"[train-tp] {arch} rank 0 step {i} loss {losses[-1]:.4f} "
+                f"grad norm {float(met['grad_norm']):.4f} "
                 f"{times[-1] * 1e3:.1f} ms")
     launches, plain = _counters()
     rec = dict(losses=losses, times=times, launches=launches, plain=plain,
@@ -5036,116 +5159,92 @@ def train_tp_rank(mesh, seed, check_params, arch, depth, n_steps, ep=None):
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
                    collectives=_collective_ms(prof, TP_KEYS))
-        del prof
-    out["main"] = rec
+    return rec
+
+
+def train_tp_rank(mesh, seed, check_params, runs, ep=None):
+    """A spawned rank of the tensor-parallel phases. train-tp-check: each
+    ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
+    train_check) from ``check_params`` cut to this rank's slices. Then
+    each ``(arch, depth, n_steps)`` of ``runs`` (``_tp_main_run``: train-tp
+    gemma-7b, train-tp recurrentgemma-9b), each run's state freed before
+    the next. Then, with ``ep`` (the ranks' arguments of
+    ``prepare_train_ep``), the expert-parallel phases in the same ranks
+    (``train_ep_rank``, its records under "ep"). Returns the rank's
+    records."""
+    import torch
+
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import mesh_placements
+    from repro_torch.train.trainer import gather_params, shard_params
+
+    _rank_prelude(torch)
+    mg = mesh.model
+    on = Mesh2D(None, mg)       # the model axis alone
+    dev = str(mg.device)
+    out = {}
+    for check_arch, cfg in _tp_check_cfgs().items():
+        if check_arch not in check_params:
+            continue
+        full = _to(check_params[check_arch], dev)
+        pl = mesh_placements(full, cfg, model=mg.size)
+        _counters(reset=True)
+        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, on),
+                                    seed, ("loss", "grad_norm"), mg)
+        launches, plain = _counters()
+        out[check_arch] = dict(
+            hist=hist, launches=launches, plain=plain,
+            params=_flat_cpu(torch, gather_params(p, pl, on)),
+            whole=_whole_digest(torch, p, opt, pl))
+        del full, p, opt
+    for arch, depth, n_steps in runs:
+        gc.collect()
+        out[f"main {arch}"] = _tp_main_run(mg, seed, arch, depth, n_steps)
     if ep is not None:
-        del params, opt, step, met, batch
+        gc.collect()
+        torch.cuda.empty_cache()
         out["ep"] = train_ep_rank(mesh, seed, ep)
     return out
 
 
-def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
-                   n=TP_RANKS, with_check=True, ep=None):
-    """train-tp-check and train-tp ``arch`` on ``n`` model ranks
-    (``_shard_backend``; one spawn runs both: ``train_tp_rank``), and with
-    ``ep`` (``prepare_train_ep``'s plan for as many ranks) train-ep-check
-    and train-ep in the same spawn after them (``report_train_ep``).
-
-    train-tp-check (``with_check``), against the port's one-rank step on
-    the card from the same parameters and batches: losses and gathered
-    parameters within 1e-4, grad norms within 1e-5, the leaves a rank
-    holds whole and the optimizer step bitwise equal across the ranks,
-    K1-K3 launched on each rank and no plain version.
-
-    train-tp ``arch`` at the depth ``train_tp_depth`` picks, against the
-    unsharded train phase of ``arch`` (``ref``, run at ``ref_depth``
-    layers; where the depth differs and fits one card unsharded, the
-    unsharded steps run here): its first ``TP_STEPS`` steps, every loss
-    within 1e-2 (bf16 partials summed in bf16) and the loss falling.
-    Where the depth does not fit one card there is no unsharded
-    reference: the whole schedule runs, gated as an unsharded train
-    phase is (the mean of the last 5 losses below the first). Both: the
-    leaves a rank holds whole bitwise equal across the ranks, per rank
-    and step 2 K1, 1 K2 and 1 K3 call an attention layer, no plain
-    version. Prints rank 0's
-    step median, tokens/s, idle share, the peak per rank, the
-    collectives by profiler name and the bytes a rank sends a step
-    (``tp_step_bytes``). Returns {path: launches summed over the ranks}."""
-    import dataclasses
-
+def _tp_plan(torch, seed, arch, ref, ref_depth, n, share, depth=None):
+    """(depth, the unsharded reference's stats or None, steps) of a
+    train-tp run of ``arch`` on ``n`` model ranks: ``depth``, or the one
+    ``train_tp_depth`` picks; where it is not ``ref_depth`` (the depth of
+    the unsharded phase ``ref``) and fits one card unsharded, the
+    unsharded phase runs here at that depth; with a reference the run
+    takes ``TP_STEPS`` steps, else the whole schedule."""
     from repro_torch.configs import get_config
-    from repro_torch.dist.group import run_ranks
-    from repro_torch.models.model import build_model
 
-    t_phase = time.perf_counter()
-    backend, device = _shard_backend(torch, n)
-    check_params, check_ref = {}, {}
-    for carch, cfg in (_tp_check_cfgs().items() if with_check else ()):
-        check_params[carch] = build_model(cfg, "cpu").init(
-            torch.Generator().manual_seed(seed))
-        hist, p, _ = _check_steps(cfg, "cuda", _to(check_params[carch],
-                                                   "cuda"), seed,
-                                  ("loss", "grad_norm"))
-        check_ref[carch] = (hist, _flat_cpu(torch, p))
     batch_n, sched_steps, lr, warmup = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
-    depth = train_tp_depth(torch, arch, 4096, batch_n, n,
-                           share=device is not None)
-    full = get_config(arch)
+    if depth is None:
+        depth = train_tp_depth(torch, arch, 4096, batch_n, n, share=share)
     if depth != ref_depth:
         ref = None
-        fits = _fit_depth(full, 4096, batch_n, 0.92 * torch.cuda
+        fits = _fit_depth(get_config(arch), 4096, batch_n, 0.92 * torch.cuda
                           .get_device_properties(0).total_memory)
         if depth <= fits:
             torch.cuda.empty_cache()
             _, _, ref = phase_train(
                 torch, seed, arch, n_layers=depth, steps=sched_steps,
                 batch=batch_n, lr=lr, warmup=warmup)
-    n_steps = TP_STEPS if ref is not None else sched_steps
-    gc.collect()
-    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
-    t0 = time.perf_counter()
-    if ep is not None:
-        check(ep["n"] == n, f"train-ep's {ep['n']} ranks in train-tp's {n}")
-    recs = run_ranks(train_tp_rank, n, backend=backend, device=device,
-                     timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
-                     args=(seed, check_params, arch, depth, n_steps,
-                           None if ep is None else ep["rank_args"]))
-    wall = time.perf_counter() - t0
-    out = {}
-    for carch, cfg in _tp_check_cfgs().items():
-        if carch not in check_ref:
-            continue
-        what = f"train-tp-check {carch}"
-        want_h, want_p = check_ref[carch]
-        rs = [r[carch] for r in recs]
-        for r, rec in enumerate(rs):
-            perr = float((rec["params"] - want_p).abs().max())
-            check(all(abs(a[0] - b[0]) <= 1e-4 and abs(a[1] - b[1]) <= 1e-5
-                      for a, b in zip(rec["hist"], want_h)) and perr <= 1e-4,
-                  f"{what} rank {r}: (loss, grad norm) {rec['hist']} vs one "
-                  f"rank's {want_h} (1e-4, 1e-5); parameters off by {perr} "
-                  f"(1e-4)")
-            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
-                  f"{what} rank {r}: launches {rec['launches']}, plain "
-                  f"{rec['plain']}")
-        check(len({rec["whole"] for rec in rs}) == 1,
-              f"{what}: the leaves held whole or the step differ across the "
-              f"ranks")
-        log(f"[{what}] d {cfg.d_model} H {cfg.n_heads}/{cfg.n_kv_heads} hd "
-            f"{cfg.hd} ffn {cfg.d_ff} vocab {cfg.vocab_size} f32, {n} ranks "
-            f"on backend {backend} ({device or 'one card a rank'}): (loss, "
-            f"grad norm) {rs[0]['hist']} vs one rank {want_h}; gathered "
-            f"parameters off by "
-            f"{max(float((rec['params'] - want_p).abs().max()) for rec in rs)}"
-            f"; whole leaves and step bitwise equal across the ranks; "
-            f"launches a rank {rs[0]['launches']}")
-        out[f"train-tp-check-{carch}"] = {
-            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
-                                                               "K3")}
+    return depth, ref, TP_STEPS if ref is not None else sched_steps
+
+
+def _report_train_tp(rec_list, arch, depth, n_steps, ref, n, backend,
+                     device, wall) -> dict:
+    """Gate and print one train-tp run from every rank's record
+    (``_tp_main_run``'s). Returns its launches summed over the ranks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    batch_n, sched_steps, _, _ = TP_SCHED.get(arch, TP_SCHED_DEFAULT)
     tag = "train-tp" + ("" if arch == "gemma-7b" else f" {arch}") + (
         "" if n == TP_RANKS else f" x{n}")
+    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=depth)
-    rs = [r["main"] for r in recs]
+    rs = rec_list
     r0 = rs[0]
     n_attn = _train_attention_layers(cfg)
     want = {"K1": 2 * n_attn * n_steps, "K2": n_attn * n_steps,
@@ -5184,22 +5283,122 @@ def phase_train_tp(torch, seed, arch="gemma-7b", ref=None, ref_depth=None,
     log(f"[{tag}] {arch} bf16 remat full, {depth} of {full.n_layers} layers,"
         f" {n} model ranks on backend {backend} "
         f"({device or 'one card a rank'}), seq 4096 batch {batch_n}, "
-        f"{n_steps} steps of a {sched_steps}-step schedule: {wall:.1f} s "
-        f"with the ranks' start (and train-tp-check); losses {losses} {vs}; "
-        f"whole leaves and step bitwise equal across the ranks; launches a "
-        f"rank {r0['launches']}")
+        f"{n_steps} steps of a {sched_steps}-step schedule: spawn {wall:.1f} "
+        f"s with the ranks' start and every phase in it; losses {losses} "
+        f"{vs}; whole leaves and step bitwise equal across the ranks; "
+        f"launches a rank {r0['launches']}")
     log(f"[{tag}] step median {med:.3f} ms over steps 1..{n_steps - 1} "
         f"(rank 0; {unsh}); {batch_n * 4096 / med * 1e3:.1f} tokens/s; peak "
         f"per rank {[round(rec['peak'] / 2**30, 3) for rec in rs]} GiB; "
         f"profiled step (rank 0): host wall {r0['profiled_ms']:.3f} ms, "
         f"device idle share {r0['idle']:.3f}, collectives by name (host "
         f"time): {coll}")
-    log(f"[{tag}] {_step_bytes_line(sb)}; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    out[tag.replace(" ", "-")] = {k: sum(rec["launches"][k] for rec in rs)
-                                  for k in ("K1", "K2", "K3")}
+    log(f"[{tag}] {_step_bytes_line(sb)}")
+    return {tag.replace(" ", "-"): {k: sum(rec["launches"][k] for rec in rs)
+                                    for k in ("K1", "K2", "K3")}}
+
+
+def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
+                   n=TP_RANKS, with_check=True, ep=None):
+    """train-tp-check and one train-tp run for each ``(arch, ref,
+    ref_depth, depth)`` of ``runs`` on ``n`` model ranks
+    (``_shard_backend``; one spawn runs them all: ``train_tp_rank``), and
+    with ``ep`` (``prepare_train_ep``'s plan for as many ranks)
+    train-ep-check and train-ep in the same spawn after them
+    (``report_train_ep``).
+
+    train-tp-check (``with_check``), against the port's one-rank step on
+    the card from the same parameters and batches: losses and gathered
+    parameters within 1e-4, grad norms within 1e-5, the leaves a rank
+    holds whole and the optimizer step bitwise equal across the ranks,
+    K1-K3 launched on each rank and no plain version (none launched in a
+    program without attention).
+
+    train-tp ``arch`` at ``depth`` (or the depth ``train_tp_depth`` picks),
+    against the unsharded train phase of ``arch`` (``ref``, run at
+    ``ref_depth`` layers; where the depth differs and fits one card
+    unsharded, the unsharded steps run here: ``_tp_plan``): its first
+    ``TP_STEPS`` steps, every loss within 1e-2 (bf16 partials summed in
+    bf16) and the loss falling. Where the depth does not fit one card
+    there is no unsharded reference: the whole schedule runs, gated as an
+    unsharded train phase is (the mean of the last 5 losses below the
+    first). Both: the leaves a rank holds whole bitwise equal across the
+    ranks, per rank and step 2 K1, 1 K2 and 1 K3 call an attention layer,
+    no plain version. Prints rank 0's step median, tokens/s, idle share,
+    the peak per rank, the collectives by profiler name and the bytes a
+    rank sends a step (``tp_step_bytes``). Returns {path: launches summed
+    over the ranks}."""
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    backend, device = _shard_backend(torch, n)
+    check_params, check_ref = {}, {}
+    for carch, cfg in (_tp_check_cfgs().items() if with_check else ()):
+        check_params[carch] = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        hist, p, _ = _check_steps(cfg, "cuda", _to(check_params[carch],
+                                                   "cuda"), seed,
+                                  ("loss", "grad_norm"))
+        check_ref[carch] = (hist, _flat_cpu(torch, p))
+    plans = [(arch, *_tp_plan(torch, seed, arch, ref, ref_depth, n,
+                              device is not None, depth))
+             for arch, ref, ref_depth, depth in runs]
+    log(f"[train-tp] before the spawn (the one-rank checks and any "
+        f"unsharded reference): {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    t0 = time.perf_counter()
+    if ep is not None:
+        check(ep["n"] == n, f"train-ep's {ep['n']} ranks in train-tp's {n}")
+    recs = run_ranks(train_tp_rank, n, backend=backend, device=device,
+                     timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
+                     args=(seed, check_params,
+                           [(a, d, k) for a, d, _, k in plans],
+                           None if ep is None else ep["rank_args"]))
+    wall = time.perf_counter() - t0
+    out = {}
+    for carch, cfg in _tp_check_cfgs().items():
+        if carch not in check_ref:
+            continue
+        what = f"train-tp-check {carch}"
+        want_h, want_p = check_ref[carch]
+        rs = [r[carch] for r in recs]
+        attends = _train_attention_layers(cfg) > 0
+        for r, rec in enumerate(rs):
+            perr = float((rec["params"] - want_p).abs().max())
+            check(all(abs(a[0] - b[0]) <= 1e-4 and abs(a[1] - b[1]) <= 1e-5
+                      for a, b in zip(rec["hist"], want_h)) and perr <= 1e-4,
+                  f"{what} rank {r}: (loss, grad norm) {rec['hist']} vs one "
+                  f"rank's {want_h} (1e-4, 1e-5); parameters off by {perr} "
+                  f"(1e-4)")
+            check(rec["plain"] == 0 and (
+                min(rec["launches"].values()) > 0 if attends
+                else max(rec["launches"].values()) == 0),
+                f"{what} rank {r}: launches {rec['launches']}, plain "
+                f"{rec['plain']}")
+        check(len({rec["whole"] for rec in rs}) == 1,
+              f"{what}: the leaves held whole or the step differ across the "
+              f"ranks")
+        log(f"[{what}] d {cfg.d_model} H {cfg.n_heads}/{cfg.n_kv_heads} hd "
+            f"{cfg.hd} ffn {cfg.d_ff} vocab {cfg.vocab_size} f32, {n} ranks "
+            f"on backend {backend} ({device or 'one card a rank'}): (loss, "
+            f"grad norm) {rs[0]['hist']} vs one rank {want_h}; gathered "
+            f"parameters off by "
+            f"{max(float((rec['params'] - want_p).abs().max()) for rec in rs)}"
+            f"; whole leaves and step bitwise equal across the ranks; "
+            f"launches a rank {rs[0]['launches']}")
+        out[f"train-tp-check-{carch}"] = {
+            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
+                                                               "K3")}
+    for arch, depth, ref, n_steps in plans:
+        out.update(_report_train_tp([r[f"main {arch}"] for r in recs], arch,
+                                    depth, n_steps, ref, n, backend, device,
+                                    wall))
     if ep is not None:
         out.update(report_train_ep(torch, [r["ep"] for r in recs], ep))
+    log(f"[train-tp] phase {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{wall:.1f} s)")
     return out
 
 
@@ -5690,14 +5889,15 @@ def main(argv=None) -> int:
     log(f"[serve-int8] tokens equal to the bf16 slab's run: {agree} of "
         f"{SERVE_R * SERVE_NEW} (first tokens {first} of {SERVE_R}; random "
         f"weights, not gated)")
-    # sequence-parallel serving: 2 ranks (the narrowed check, then the
-    # bf16 slab at full width), then 4 ranks on the int8 page-sparse slab
-    launches_s2, _ = phase_serve_sharded(torch, args.seed, 2,
-                                         "serve-sharded", bf16_tokens, {},
-                                         with_check=True, n_req=SHARD_REQS)
-    launches_s4, _ = phase_serve_sharded(torch, args.seed, 4,
-                                         "serve-sharded-int8", int8_tokens,
-                                         INT8_SPARSE, n_req=SHARD_INT8_REQS)
+    # sequence-parallel serving in one spawn of 2 ranks: the narrowed
+    # check, the bf16 slab at full width, then the int8 page-sparse slab
+    sharded = phase_serve_sharded(
+        torch, args.seed, 2,
+        (("serve-sharded", bf16_tokens, {}, SHARD_REQS),
+         ("serve-sharded-int8", int8_tokens, INT8_SPARSE, SHARD_INT8_REQS)),
+        with_check=True)
+    launches_s2, launches_s4 = (sharded[w][0] for w in (
+        "serve-sharded", "serve-sharded-int8"))
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
     # kill and resume: the serve phases' runs under the supervisor, two
@@ -5801,23 +6001,32 @@ def main(argv=None) -> int:
                                                "train-dp-int8", full,
                                                dp_losses)
     torch.cuda.empty_cache()
+    # recurrentgemma-9b at full width, at the depth both one card and the
+    # train-tp ranks sharing it hold: the unsharded phase, train-tp's
+    # reference
+    rg_depth = min(
+        train_depth(torch, "recurrentgemma-9b", 4096, GEMMA_BATCH),
+        train_tp_depth(torch, "recurrentgemma-9b", 4096, GEMMA_BATCH,
+                       TP_RANKS, share=_shard_backend(torch, TP_RANKS)[1]
+                       is not None))
+    tl["train-recurrentgemma-9b"], _, rg_stats = phase_train(
+        torch, args.seed, "recurrentgemma-9b", n_layers=rg_depth,
+        steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
     # expert-parallel training: its references on one rank first (the
     # narrowed MoE checks, arctic-480b at every width and the picked expert
     # count), then in one spawn of 2 model ranks: tensor-parallel training
-    # (the narrowed check, then gemma-7b at full width against the
-    # unsharded gemma-7b train phase) and expert-parallel training (the
-    # narrowed MoE check, then arctic-480b against its reference)
+    # (the narrowed checks of every family, then gemma-7b and
+    # recurrentgemma-9b at full width against their unsharded train
+    # phases) and expert-parallel training (the narrowed MoE check, then
+    # arctic-480b against its reference)
     ep = prepare_train_ep(torch, args.seed)
     tl["train-ep-unsharded-arctic-480b"] = ep["ref_launches"]
     torch.cuda.empty_cache()
-    tl.update(phase_train_tp(torch, args.seed, "gemma-7b", gemma_stats,
-                             gemma_depth, ep=ep))
+    tl.update(phase_train_tp(torch, args.seed, (
+        ("gemma-7b", gemma_stats, gemma_depth, None),
+        ("recurrentgemma-9b", rg_stats, rg_depth, rg_depth)), ep=ep))
     del ep
-    torch.cuda.empty_cache()
-    tl["train-recurrentgemma-9b"], _, _ = phase_train(
-        torch, args.seed, "recurrentgemma-9b",
-        n_layers=train_depth(torch, "recurrentgemma-9b", 4096, GEMMA_BATCH),
-        steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
     phase_train(torch, args.seed, "mamba2-370m", n_layers=MAMBA_TRAIN_LAYERS,
                 steps=GEMMA_STEPS, batch=MAMBA_BATCH, lr=1e-3, warmup=3)

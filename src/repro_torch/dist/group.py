@@ -31,10 +31,12 @@ process group:
   split product, :meth:`ModelGroup.enter` (identity forward, ``all_reduce``
   backward: the input of a column-split product) and
   :meth:`ModelGroup.reduce` (``all_reduce`` forward, identity backward:
-  the output of a row-split product), and :meth:`ModelGroup.gather`
+  the output of a row-split product), :meth:`ModelGroup.gather`
   (``all_gather`` forward, this rank's slice of the gradient backward:
   the whole of a column-split output that every rank then uses alike,
-  as an MoE router's logits). Every rank holds the same batch.
+  as an MoE router's logits; with ``summed``, the gradients' sum first,
+  a ``reduce_scatter``, where each rank uses the whole differently).
+  Every rank holds the same batch.
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
   is to ``shard_map``. It holds every shard's tensors in one process (the
@@ -302,20 +304,25 @@ class _Reduce(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """Every rank's slice joined along ``dim`` in rank order forward;
-    this rank's slice of the gradient backward, with no sum: what follows
-    the gather runs alike on every rank, so every rank's gradient of the
-    whole is already the whole gradient."""
+    """Every rank's slice joined along ``dim`` in rank order forward.
+    Backward, without ``summed``, this rank's slice of the gradient: what
+    follows the gather runs alike on every rank, so every rank's gradient
+    of the whole is already the whole gradient. With ``summed``, every
+    rank uses the whole differently (each its own columns of a weight),
+    so the ranks' gradients are shares: their sum, this rank's slice (one
+    ``reduce_scatter``)."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, x, group, dim, summed):
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
         return group.unshard(x, dim)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.summed:
+            return ctx.group.reduce_scatter(g, ctx.dim), None, None, None
         return (g.chunk(ctx.group.size, ctx.dim)[ctx.group.index]
-                .contiguous(), None, None)
+                .contiguous(), None, None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,6 +336,7 @@ class ModelGroup(_Ranks):
     all_gather = DataGroup.all_gather
     shard = DataGroup.shard
     unshard = DataGroup.unshard
+    reduce_scatter = DataGroup.reduce_scatter
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` unchanged; its gradient summed over the group (the input
@@ -341,11 +349,15 @@ class ModelGroup(_Ranks):
         (the output of a row-split product)."""
         return _Reduce.apply(x, self)
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int,
+               summed: bool = False) -> torch.Tensor:
         """Every rank's ``x`` joined along ``dim`` in rank order (one
         ``all_gather``); backward, this rank's slice of the gradient (the
-        whole of a column-split output, used alike on every rank)."""
-        return _Gather.apply(x, self, dim)
+        whole of a column-split output, used alike on every rank), or with
+        ``summed`` this rank's slice of the gradients' sum over the group
+        (one ``reduce_scatter``: the whole used differently on each rank,
+        as the RG-LRU's gates take their columns of the whole input)."""
+        return _Gather.apply(x, self, dim, summed)
 
 
 @dataclasses.dataclass(frozen=True)

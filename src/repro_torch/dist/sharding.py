@@ -29,8 +29,18 @@ the buffer to ``"experts"``). The port's per-layer stack is the 3-D
 experts: the placement the reference computes in. The router ``(d, E)``
 splits over its expert columns in both. Each leaf's split is judged on
 that leaf's own dim (``_mesh_clean``'s divisibility rule): an ffn dim is
-``d_ff`` in a dense MLP, ``d_ff_expert`` in an expert stack and
-``d_ff_expert · n_shared_experts`` in a shared expert.
+``d_ff`` wide in a dense MLP, ``d_ff_expert`` in an expert stack,
+``d_ff_expert · n_shared_experts`` in a shared expert, ``d_rnn`` in an
+RG-LRU block and ``2 d_inner + 2 N + H`` (``w_in``) or ``d_inner``
+(``w_out``) in an SSD block, so a group that divides one and not another
+splits the one alone.
+
+A block whose products split while some of its leaves stay whole (an
+RG-LRU block's ``conv_w``, ``w_a``, ``w_i``, ``lam``; an SSD block's
+``conv_w``, ``A_log``, ``D``, ``dt_bias``, ``norm_scale``) uses on each
+rank only its part of those leaves, so a rank's gradient of them is its
+share: :class:`Split` marks them ``model_sum`` and the trainer sums
+their gradients over the model group.
 
 The FSDP fallback (the reference's ``param_shardings``, ``"fsdp": ("data",)``
 in :data:`DEFAULT_RULES`): a leaf that no model rule splits and that has at
@@ -114,14 +124,26 @@ def _counts(cfg, ffn: Optional[int] = None) -> Dict[str, int]:
 
 
 def ffn_width(cfg, path: str) -> int:
-    """The ffn width of the leaf at ``path``: a shared expert's
-    ``d_ff_expert · n_shared_experts``, an expert stack's ``d_ff_expert``,
-    else ``d_ff``."""
+    """The whole ffn width of the leaf at ``path``: a shared expert's
+    ``d_ff_expert · n_shared_experts``, an expert stack's
+    ``d_ff_expert``, an RG-LRU block's ``d_rnn``, an SSD block's ``2
+    d_inner + 2 N + H`` (``w_in``) or ``d_inner`` (``w_out``), else
+    ``d_ff``: the size of the leaf's ffn dim in ``Model.param_shapes()``.
+    From the config, so a tree of a rank's slices is placed as the whole
+    tree it was cut from."""
     if cfg.moe is not None and re.search(r"(^|/)moe/", path):
         m = cfg.moe
         if re.search(r"(^|/)moe/shared/", path):
             return m.d_ff_expert * m.n_shared_experts
         return m.d_ff_expert
+    if re.search(r"(^|/)rec/", path):
+        return cfg.recurrent.d_rnn or cfg.d_model
+    if re.search(r"(^|/)ssm/", path):
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        if path.endswith("/w_in") or path == "w_in":
+            return 2 * d_inner + 2 * s.d_state + d_inner // s.head_dim
+        return d_inner
     return cfg.d_ff
 
 
@@ -147,7 +169,9 @@ def is_expert_stack(path: str) -> bool:
 
 def leaf_placement(path: str, ndim: int, cfg, n: int) -> Optional[int]:
     """The dim of the leaf at ``path`` (``'/'``-joined, the port's per-layer
-    path: no stacked layer axis) that splits over ``n`` ranks, or None."""
+    path: no stacked layer axis) that splits over ``n`` ranks, or None:
+    each dim judged on the leaf's own size, as ``_mesh_clean`` judges it
+    (its ffn dim on :func:`ffn_width`)."""
     split = split_axes(cfg, n, ffn_width(cfg, path))
     for i, axis in enumerate(logical_axes_for(path, ndim)):
         if axis in split and DEFAULT_RULES.get(axis) == (MODEL,):
@@ -160,13 +184,23 @@ class Split:
     """One leaf's placement on the ``(data, model)`` mesh: the dim it
     splits on over the data group (the FSDP fallback) and over the model
     group, each ``None`` where the leaf is whole on that axis. A leaf
-    splits over one axis or none. A leaf of every tree walk."""
+    splits over one axis or none. ``model_sum``: the leaf is whole over
+    the model group but each rank uses only its part of it (a recurrent
+    block whose ``w_out`` the group splits: :func:`mesh_placements`), so
+    a rank's gradient of it is its share, to be summed over the model
+    group. A leaf of every tree walk."""
     data: Optional[int] = None
     model: Optional[int] = None
+    model_sum: bool = False
 
     @property
     def whole(self) -> bool:
         return self.data is None and self.model is None
+
+
+# the recurrent blocks whose whole leaves feed a rank's slice of the work
+# where their ``w_out`` splits (``Split.model_sum``)
+_SUMMED_BLOCKS = ("rec", "ssm")
 
 
 def fsdp_dim(shape, data: int) -> Optional[int]:
@@ -184,23 +218,34 @@ def mesh_placements(params, cfg, data: int = 1, model: int = 1,
     """For each leaf of ``params`` (the port's per-layer tree) its
     :class:`Split` on a mesh of ``data`` x ``model`` ranks; the same tree
     structure. The model dim is the reference's rules on the leaf's path
-    and ``dim()`` (sizes from the config: :func:`leaf_placement`). A leaf
+    and ``dim()`` (sizes from the config: :func:`leaf_placement`, so
+    ``params`` may hold a rank's slices). A leaf
     the model group leaves whole takes the FSDP fallback's data dim
     (:func:`fsdp_dim`, on its shape: so ``params`` holds whole leaves,
     e.g. ``Model.param_shapes()``; ``data`` 1 is no FSDP). ``prefix``:
     the path of ``params`` inside the whole tree. ``experts_cut``: the
     expert stacks of ``params`` hold this rank's experts only (drawn so
     by ``Model.init(span=)``), so they are not cut again: model ``None``,
-    and no data split."""
+    and no data split. The whole leaves of an RG-LRU or SSD block
+    (``rec/``, ``ssm/``) whose ``w_out`` splits are marked ``model_sum``
+    (so ``params`` holds whole blocks, as a layer of ``Model.init``)."""
     flat, treedef = tree_flatten_with_path(params)
+    paths = ["/".join(prefix + p) for p, _ in flat]
+    dims = {}
+    for path, (_, leaf) in zip(paths, flat):
+        dims[path] = None if experts_cut and is_expert_stack(path) else \
+            leaf_placement(path, leaf.dim(), cfg, model)
     out = []
-    for path, leaf in (("/".join(prefix + p), x) for p, x in flat):
-        if experts_cut and is_expert_stack(path):
-            out.append(Split())
+    for path, (_, leaf) in zip(paths, flat):
+        if dims[path] is not None:
+            out.append(Split(model=dims[path]))
             continue
-        dim = leaf_placement(path, leaf.dim(), cfg, model)
-        out.append(Split(model=dim) if dim is not None
-                   else Split(data=fsdp_dim(tuple(leaf.shape), data)))
+        block = path.rsplit("/", 1)[0]
+        summed = block.rsplit("/", 1)[-1] in _SUMMED_BLOCKS and \
+            dims.get(block + "/w_out") is not None
+        out.append(Split(data=None if experts_cut and is_expert_stack(path)
+                         else fsdp_dim(tuple(leaf.shape), data),
+                         model_sum=summed))
     return tree_unflatten(treedef, out)
 
 
@@ -213,8 +258,8 @@ def describe(params, placements) -> str:
     for (path, _), s in zip(flat, tree_leaves(
             tree_map(lambda _, s: s, params, placements))):  # params' order
         key = "/".join("*" if p.isdigit() else p for p in path)
-        seen.setdefault(key, "whole" if s.whole else
-                        f"split dim {s.model} over {MODEL}"
-                        if s.model is not None else
-                        f"split dim {s.data} over {DATA}")
+        where = ("whole" if s.whole else f"split dim {s.model} over {MODEL}"
+                 if s.model is not None else f"split dim {s.data} over {DATA}")
+        seen.setdefault(key, where + (f", gradient summed over {MODEL}"
+                                      if s.model_sum else ""))
     return "; ".join(f"{k}: {w}" for k, w in seen.items())

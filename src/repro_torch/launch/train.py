@@ -50,13 +50,16 @@ model)`` mesh, model the fast axis): each rank holds its slices of the
 attention heads, the MLP's ffn and the vocabulary
 (:func:`repro_torch.dist.sharding.mesh_placements`, printed once), cut
 from the single-device draw of ``--seed``, so the losses equal ``--model
-1``'s. The dense families run so (smollm, gemma, phi4-mini, granite,
-longformer), and so do the MoE archs (arctic-480b, kimi-k2-1t-a32b), whose
-expert stacks split too, E / M experts a rank (expert parallelism; M must
-divide the expert count), each rank drawing only its own experts. The
-recurrent families, the VLM, whisper, an expert count M does not divide
-and ``--compress-grads`` with ``--model`` raise ``NotImplementedError``
-(ROADMAP queue 1, 'multi-GPU'). The checkpoint
+1``'s. Every arch runs so. The MoE archs (arctic-480b, kimi-k2-1t-a32b)
+split their expert stacks too, E / M experts a rank (expert parallelism;
+M must divide the expert count), each rank drawing only its own experts;
+recurrentgemma-9b and mamba2-370m split their RG-LRU and SSD blocks on
+``d_rnn`` and their heads, the whole gate and conv leaves' gradients
+summed over the model group once a step; qwen2-vl-2b merges its vision
+tokens after the vocab-parallel lookup, and whisper-base splits its
+encoder and its cross attention's heads as well. An expert count M does
+not divide and ``--compress-grads`` with ``--model`` raise
+``NotImplementedError`` (ROADMAP queue 1, 'multi-GPU'). The checkpoint
 holds the whole leaves, gathered over the model group, so it is the
 single-device checkpoint of the same state and resumes on any layout:
 
@@ -64,6 +67,9 @@ single-device checkpoint of the same state and resumes on any layout:
       --smoke --device cpu --dist-backend gloo --model 2 [--data 2]
   PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
       --smoke --device cpu --dist-backend gloo --model 2
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-9b --smoke --device cpu --dist-backend gloo \\
+      --model 2
 
 ``--fsdp`` (with ``--data N``, alone or with ``--model M``) is the
 reference's FSDP fallback, ``DEFAULT_RULES["fsdp"]``, which the

@@ -20,13 +20,16 @@ encoder output) and sinusoidal positions are plain torch, as the
 reference's are plain XLA.
 
 Tensor parallelism (``model=``, a :class:`~repro_torch.dist.group
-.ModelGroup`, the reference's "model" mesh axis): the attention and MLP
-products, the embedding and the LM head take the split weights of
-:func:`repro_torch.dist.sharding.mesh_placements`, Megatron-style. A
-column-split product's input passes ``model.enter`` (its gradient summed
-over the group); a row-split product's partial outputs are summed by
-``model.reduce``. The sums run in the activations' dtype, as GSPMD sums a
-bf16 dot's partials. ``model=None`` is the single-device code.
+.ModelGroup`, the reference's "model" mesh axis): the attention (self and
+cross) and MLP products, the embedding and the LM head take the split
+weights of :func:`repro_torch.dist.sharding.mesh_placements`,
+Megatron-style. A column-split product's input passes ``model.enter``
+(its gradient summed over the group); a row-split product's partial
+outputs are summed by ``model.reduce``. The sums run in the activations'
+dtype, as GSPMD sums a bf16 dot's partials. ``model=None`` is the
+single-device code. A model group runs every block kind of the 11
+archs; only an MoE expert count it does not divide raises
+(``models/transformer.check_tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -420,20 +423,38 @@ def _cross_attend(q, k, v, cfg: ModelConfig, dtype) -> torch.Tensor:
 
 
 def cross_attn_apply(p, x: torch.Tensor, enc_out: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, model=None) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper): x (B, S, d) attends the
     whole encoder output enc_out (B, Se, d), dense and rectangular (S !=
     Se), so plain torch rather than the square-pattern SALO engines, as in
     the reference (an einsum under XLA there). Returns (B, S, d). (The
     reference also returns the encoder's (k, v); the lockstep cache's
-    ``xk``/``xv`` are ``enc_out @ wk`` and ``enc_out @ wv``.)"""
+    ``xk``/``xv`` are ``enc_out @ wk`` and ``enc_out @ wv``.)
+
+    ``model``: the heads split as :func:`attn_apply` splits them. x and
+    enc_out, whole on every rank, feed each rank's heads, so both pass
+    ``model.enter``; the partial outputs are summed."""
     B, S, _ = x.shape
     Se = enc_out.shape[1]
-    Hkv, hd = cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
-    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, Se, Hkv, hd)
-    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, Se, Hkv, hd)
-    return _cross_attend(q, k, v, cfg, x.dtype) @ p["wo"].to(x.dtype)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    wk, wv = p["wk"], p["wv"]
+    split = _split(cfg, model)
+    if "heads" in split:
+        x, enc_out = model.enter(x), model.enter(enc_out)
+        H //= model.size
+        if "kv_heads" in split:
+            Hkv //= model.size
+        else:
+            wk, wv = model.enter(wk), model.enter(wv)
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (enc_out @ wk.to(x.dtype)).reshape(B, Se, Hkv, hd)
+    v = (enc_out @ wv.to(x.dtype)).reshape(B, Se, Hkv, hd)
+    if "heads" in split and "kv_heads" not in split:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        idx = (model.index * H + torch.arange(H, device=x.device)) // rep
+        k, v = k[:, :, idx], v[:, :, idx]
+    out = _cross_attend(q, k, v, cfg, x.dtype) @ p["wo"].to(x.dtype)
+    return model.reduce(out) if "heads" in split else out
 
 
 def cross_attn_decode(p, x_t: torch.Tensor, k_enc: torch.Tensor,

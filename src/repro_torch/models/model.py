@@ -105,7 +105,9 @@ class Model:
         """Token embeddings; a VLM batch's ``vision_embeds`` (B, S, d),
         projected by ``vision_proj``, replace them where ``vision_mask``
         (B, S) is set (the vision frontend is stubbed: the embeddings come
-        aligned to token slots)."""
+        aligned to token slots). Under a ``model`` group the merge follows
+        the vocab-parallel lookup's sum, alike on every rank (the whole
+        ``vision_proj`` on each)."""
         cfg = self.cfg
         x = L.embed_apply(gather_weights(params["embed"]), batch["tokens"],
                           cfg, model)
@@ -115,12 +117,13 @@ class Model:
             x = torch.where(batch["vision_mask"][..., None], vis, x)
         return x
 
-    def _encode(self, params, batch) -> torch.Tensor:
+    def _encode(self, params, batch, model=None) -> torch.Tensor:
         """Whisper's encoder over the stub audio-frame embeddings
         ``audio_embeds`` (B, n_frames, d) plus sinusoidal positions: the
         ``enc`` attn_mlp layers on the bidirectional SALO pattern
         (``longformer(window, n_global)``: global rows and columns), then
-        its final norm. Returns (B, n_frames, d)."""
+        its final norm. Returns (B, n_frames, d), whole on every rank of
+        a ``model`` group (its layers split as the decoder's)."""
         cfg = self.cfg
         pattern = L.salo_pattern(
             cfg, causal=False,
@@ -128,7 +131,7 @@ class Model:
         x = batch["audio_embeds"].to(L.dt(cfg, "compute"))
         x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)
         x, _ = T.segment_apply(params["enc"]["seg0_attn_mlp"], x, cfg,
-                               "attn_mlp", pattern)
+                               "attn_mlp", pattern, model=model)
         return L.rmsnorm(gather_weights(params["enc"]["ln_f"]), x,
                          cfg.norm_eps)
 
@@ -164,10 +167,9 @@ class Model:
         (:func:`repro_torch.dist.sharding.mesh_placements`) and every
         rank of the group the same ``batch``. Where the group splits the
         vocabulary, the logits are this rank's vocab slice (B, S, V / n):
-        a caller that needs the whole logits gathers them. The dense
-        families' ``attn_mlp`` programs and the MoE family's programs run
-        under a model group of more than one rank, the MoE layers'
-        experts split over it (``transformer.check_tensor_parallel``)."""
+        a caller that needs the whole logits gathers them. A model group
+        runs every block kind of the 11 archs, the MoE layers' experts
+        split over it (``transformer.check_tensor_parallel``)."""
         cfg = self.cfg
         if group is not None and model is not None:
             raise ValueError("a rank is in a sequence group or a model "
@@ -184,7 +186,8 @@ class Model:
         if mrope is not None and positions is None:
             B, S = batch["tokens"].shape
             positions = torch.arange(S, device=x.device).expand(3, B, S)
-        enc_out = self._encode(params, batch) if cfg.encoder_decoder else None
+        enc_out = self._encode(params, batch, model) \
+            if cfg.encoder_decoder else None
         pats = T._patterns(cfg)
         aux_total: Dict[str, torch.Tensor] = {}
         for i, (kind, n) in enumerate(self.program):

@@ -14,6 +14,16 @@ tanh-approximate, as ``jax.nn.gelu``.
 
 RecurrentGemma alternates (rec, rec, attn); the attention third runs local
 sliding-window attention through the SALO kernels.
+
+Tensor parallelism (``model=``): where the group divides ``d_rnn``, a rank
+holds its ``d_rnn / n`` columns of ``w_in`` and ``w_gate_branch`` and rows
+of ``w_out`` (the reference's "ffn" placements), and runs the conv, the
+scan and the gating on its channels. The gates ``r`` and ``i`` mix all
+``d_rnn`` channels, so the rank's f32 input of them is gathered (a
+summing gather: each rank takes its own columns of the whole ``w_a`` and
+``w_i``), and the whole ``conv_w``, ``w_a``, ``w_i`` and ``lam`` get on
+each rank only their columns' gradient, which the trainer sums over the
+group (``Split.model_sum``).
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import split_axes
 from repro_torch.models.layers import dense_init, dt
 from repro_torch.models.ssm import _causal_conv
 
@@ -67,12 +78,30 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rglru_core(p, xr: torch.Tensor, h0=None):
-    """xr: (B, T, dr) post-conv. Returns (h, h_last), f32."""
+def _own(cfg: ModelConfig, model) -> slice:
+    """This rank's ``d_rnn`` channels under ``model``; all of them where
+    the group does not split ``d_rnn`` (or there is none)."""
+    dr = _d_rnn(cfg)
+    if model is None or "ffn" not in split_axes(cfg, model.size, dr):
+        return slice(None)
+    n = dr // model.size
+    return slice(model.index * n, (model.index + 1) * n)
+
+
+def _rglru_core(p, xr: torch.Tensor, h0=None, model=None):
+    """xr: (B, T, dr) post-conv, or this rank's (B, T, dr / n) channels
+    under a ``model`` group that splits them. Returns (h, h_last), f32,
+    over xr's channels."""
     xf = xr.float()
-    r = torch.sigmoid(xf @ p["w_a"].float())
-    i = torch.sigmoid(xf @ p["w_i"].float())
-    log_a = -C_FACTOR * F.softplus(p["lam"]) * r          # (B,T,dr) <= 0
+    w_a, w_i, lam, xg = p["w_a"], p["w_i"], p["lam"], xf
+    if model is not None:         # the gates' columns of this rank
+        n = xr.shape[-1]
+        own = slice(model.index * n, (model.index + 1) * n)
+        w_a, w_i, lam = w_a[:, own], w_i[:, own], lam[own]
+        xg = model.gather(xf, -1, summed=True)
+    r = torch.sigmoid(xg @ w_a.float())
+    i = torch.sigmoid(xg @ w_i.float())
+    log_a = -C_FACTOR * F.softplus(lam) * r               # (B,T,dr) <= 0
     a = torch.exp(log_a)
     gated = i * xf
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
@@ -82,14 +111,23 @@ def _rglru_core(p, xr: torch.Tensor, h0=None):
     return h, h[:, -1]
 
 
-def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Griffin recurrent block, full sequence. x: (B,T,d) -> (B,T,d)."""
+def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                model=None) -> torch.Tensor:
+    """Griffin recurrent block, full sequence. x: (B,T,d) -> (B,T,d).
+    Under a ``model`` group that splits ``d_rnn`` the weights are the
+    rank's slices: x's gradient is summed over the group (``enter``) and
+    the rank's partial output too (``reduce``), each in x's dtype."""
+    own = _own(cfg, model)
+    split = own != slice(None)
+    if split:
+        x = model.enter(x)
     xr = x @ p["w_in"].to(x.dtype)
-    xr, _ = _causal_conv(xr, p["conv_w"].to(x.dtype), act=None)
-    h, _ = _rglru_core(p, xr)
+    xr, _ = _causal_conv(xr, p["conv_w"][:, own].to(x.dtype), act=None)
+    h, _ = _rglru_core(p, xr, model=model if split else None)
     gate = F.gelu(x @ p["w_gate_branch"].to(x.dtype), approximate="tanh")
     y = h.to(x.dtype) * gate
-    return y @ p["w_out"].to(x.dtype)
+    out = y @ p["w_out"].to(x.dtype)
+    return model.reduce(out) if split else out
 
 
 def rglru_decode(p, x_t: torch.Tensor, conv_state: torch.Tensor,

@@ -8,6 +8,23 @@ Attention-free: the paper's sparse attention does not apply to this
 family. Plain torch on both devices; the block has no kernel of its own.
 
 Decode carries (conv_state, ssd_state) and costs O(1) per token.
+
+Tensor parallelism (``model=``): the reference splits ``w_in`` (d, 2
+d_inner + 2N + H) on its columns and ``w_out`` (d_inner, d) on its rows
+where the group divides each. A rank's columns of ``w_in`` do not line up
+with the parts ``[z | x B C | dt]``, so the rank gathers the whole
+projection ``h``; where both split and the group divides the heads, the
+rank then runs the conv, the SSD and the gated norm for its ``H / n``
+heads with ``B`` and ``C`` whole (the norm's mean of squares summed over
+the group in f32), its rows of ``w_out`` on its channels, and the partial
+outputs summed. The gather's backward sums the gradient over the group
+(``B``, ``C`` and the whole leaves feed every rank's heads), and the
+whole ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` get on
+each rank only its share of their gradient, which the trainer sums
+(``Split.model_sum``). Where the group divides only one of the two
+widths, or not the heads, the SSD runs whole on every rank between the
+split products; where it divides neither, the block runs unsplit with no
+collective.
 """
 from __future__ import annotations
 
@@ -15,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import split_axes
 from repro_torch.models.layers import dense_init, dt
 
 
@@ -67,10 +85,19 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, state=None,
     return y, xp[:, -(W - 1):]
 
 
-def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, eps: float):
+def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, eps: float,
+                model=None, own: slice = slice(None)):
+    """RMS norm of ``y * silu(z)`` over the channels. Under ``model``, y
+    and z are this rank's channels ``own`` of them: the sum of squares is
+    summed over the group (f32) before the mean."""
     yf = y.float() * F.silu(z.float())
-    var = (yf * yf).mean(dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(var + eps) * (1 + p["norm_scale"])).to(y.dtype)
+    if model is None:
+        var = (yf * yf).mean(dim=-1, keepdim=True)
+    else:       # each rank's share of var's gradient is summed too
+        var = model.reduce(model.enter((yf * yf).sum(dim=-1, keepdim=True))) \
+            / (yf.shape[-1] * model.size)
+    return (yf * torch.rsqrt(var + eps)
+            * (1 + p["norm_scale"][own])).to(y.dtype)
 
 
 def ssd_chunked(x: torch.Tensor, B_mat: torch.Tensor, C_mat: torch.Tensor,
@@ -121,24 +148,48 @@ def ssd_chunked(x: torch.Tensor, B_mat: torch.Tensor, C_mat: torch.Tensor,
     return (y_intra + y_inter).reshape(Bsz, T, H, P)
 
 
-def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Train path. x: (B, T, d) -> (B, T, d)."""
+def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              model=None) -> torch.Tensor:
+    """Train path. x: (B, T, d) -> (B, T, d). ``model``: tensor
+    parallelism, the weights this rank's slices (the module's header)."""
     d_inner, H, N, P = _dims(cfg)
     B_, T, _ = x.shape
+    n = 1 if model is None else model.size
+    cut_in = n > 1 and "ffn" in split_axes(cfg, n, 2 * d_inner + 2 * N + H)
+    cut_out = n > 1 and "ffn" in split_axes(cfg, n, d_inner)
+    if cut_in or cut_out:
+        x = model.enter(x)
     h = x @ p["w_in"].to(x.dtype)
+    if cut_in:
+        h = model.gather(h, -1, summed=cut_out)
     z, xbc, dt_raw = _split(cfg, h)
-    xbc, _ = _causal_conv(xbc, p["conv_w"].to(x.dtype))
-    xi, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
-    delta = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])                         # (H,)
-    xh = xi.reshape(B_, T, H, P)
+    conv_w, lo, hi = p["conv_w"], 0, H
+    by_heads = cut_out and H % n == 0
+    if by_heads:            # this rank's heads; B and C whole
+        lo, hi = model.index * H // n, (model.index + 1) * H // n
+        ch = slice(lo * P, hi * P)
+        z, dt_raw = z[..., ch], dt_raw[..., lo:hi]
+        xbc = torch.cat([xbc[..., ch], xbc[..., d_inner:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, ch], conv_w[:, d_inner:]], dim=-1)
+    di = (hi - lo) * P
+    xbc, _ = _causal_conv(xbc, conv_w.to(x.dtype))
+    xi, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    delta = F.softplus(dt_raw.float() + p["dt_bias"][lo:hi])
+    A = -torch.exp(p["A_log"][lo:hi])                  # (H,)
+    xh = xi.reshape(B_, T, hi - lo, P)
     xdt = xh.float() * delta[..., None]
     a = delta * A                                      # (B,T,H) log decay
     y = ssd_chunked(xdt, Bm, Cm, a, cfg.ssm.chunk)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B_, T, d_inner)
-    y = _gated_norm(p, y, z, cfg.norm_eps).to(x.dtype)
-    return y @ p["w_out"].to(x.dtype)
+    y = y + p["D"][lo:hi][None, None, :, None] * xh.float()
+    y = y.reshape(B_, T, di)
+    if by_heads:
+        y = _gated_norm(p, y, z, cfg.norm_eps, model, ch).to(x.dtype)
+    else:
+        y = _gated_norm(p, y, z, cfg.norm_eps).to(x.dtype)
+        if cut_out:         # this rank's rows of w_out
+            y = y.chunk(n, dim=-1)[model.index]
+    out = y @ p["w_out"].to(x.dtype)
+    return model.reduce(out) if cut_out else out
 
 
 def ssm_decode(p, x_t: torch.Tensor, conv_state: torch.Tensor,

@@ -151,22 +151,24 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     block cross-attends; ``group``: the sequence group of an ``attn_mlp``
     block's attention (:func:`check_sequence_parallel`); ``data``: the
     data group of an MoE block's routing; ``model``: the tensor-parallel
-    group of an attention block's attention, MLP and experts
-    (:func:`check_tensor_parallel`). Returns (x, aux): the MoE blocks' aux
-    losses, else ``{}``."""
+    group of every block's products (:func:`check_tensor_parallel`).
+    Returns (x, aux): the MoE blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                             cfg, pattern, positions=positions)
+                             cfg, pattern, positions=positions, model=model)
         x = x + L.cross_attn_apply(
-            p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps), enc_out, cfg)
+            p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps), enc_out, cfg,
+            model)
         return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                               cfg), {}
+                               cfg, model), {}
     if kind == "griffin":
         pats = _patterns(cfg)
-        x, _ = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions)
-        x, _ = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions)
+        x, _ = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions,
+                           model=model)
+        x, _ = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions,
+                           model=model)
         return block_apply(p["a"], x, cfg, "attn_mlp_local",
-                           pats["attn_mlp_local"], positions)
+                           pats["attn_mlp_local"], positions, model=model)
     if kind in ATTN_KINDS:
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                          cfg, pattern, positions=positions, mrope=mrope,
@@ -175,12 +177,12 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
                                  L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 cfg), {}
+                                 cfg, model), {}
     if kind == "rec_mlp":
         x = x + RG.rglru_apply(p["rec"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg)
+                               cfg, model)
         return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                               cfg), {}
+                               cfg, model), {}
     raise ValueError(kind)
 
 
@@ -211,28 +213,14 @@ def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
 
 
 def check_tensor_parallel(cfg: ModelConfig, kind: str, n: int) -> None:
-    """Which blocks run under a model group of ``n`` > 1 ranks: the
-    ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
-    granite, longformer), whose heads, ffn and vocab split by
-    :func:`repro_torch.dist.sharding.mesh_placements`, and the MoE
-    family's blocks (arctic's ``attn_moe_dense``, kimi's ``attn_moe`` and
-    its leading ``attn_mlp``), whose experts split as well where ``n``
-    divides their count (expert parallelism:
-    :func:`repro_torch.models.moe.moe_apply`). The recurrent blocks, the
-    VLM and the encoder-decoder raise, and so does an expert count that
-    ``n`` does not divide."""
-    if n <= 1:
-        return
-    if cfg.family not in ("dense", "moe") \
-            or kind not in ("attn_mlp",) + MOE_KINDS \
-            or cfg.mrope_sections is not None or cfg.n_vision_tokens \
-            or cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"tensor-parallel training runs the attn_mlp blocks of the "
-            f"dense families and the MoE family's blocks; {cfg.name}'s "
-            f"{kind!r} blocks under a model group of {n} are not ported "
-            f"yet: ROADMAP queue 1, 'multi-GPU'")
-    if kind in MOE_KINDS:
+    """Which blocks run under a model group of ``n`` > 1 ranks. A model
+    group runs every block kind of the 11 archs; only an MoE expert count
+    it does not divide raises. The heads, ffn, vocab and experts split by
+    :func:`repro_torch.dist.sharding.mesh_placements` (attention, cross
+    attention and MLPs Megatron-style, the RG-LRU and SSD blocks on
+    ``d_rnn`` and their heads, the experts by
+    :func:`repro_torch.models.moe.moe_apply`)."""
+    if n > 1 and kind in MOE_KINDS:
         MOE.check_expert_split(cfg, n)
 
 
@@ -251,8 +239,8 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
     ``model``: tensor-parallel training, x the whole activation on every
     rank and the layers' weights this rank's slices (``Model.forward``
-    checks the kinds first: :func:`check_tensor_parallel`). A layer's
-    weights split over the data group (the FSDP fallback:
+    checks the expert counts first: :func:`check_tensor_parallel`). A
+    layer's weights split over the data group (the FSDP fallback:
     :class:`~repro_torch.dist.group.SplitWeight` leaves) are gathered
     inside the layer's body, so ``remat="full"``/``"dots"`` frees them
     after the layer's forward and gathers them again in the backward's

@@ -55,7 +55,11 @@ router columns): every rank of the group
 takes the same rows, its parameters and optimizer state are its slices of
 the split leaves (:func:`shard_params` by
 :func:`train_placements`), its gradients of them
-its own, and the clip sees the whole model's norm. It composes with a
+its own, and the clip sees the whole model's norm. The whole leaves of
+an RG-LRU or SSD block whose products split (``Split.model_sum``) get on
+each rank only its share of their gradient; one flat f32 ``all_reduce``
+over the model group sums them a step (:func:`sum_model_shares_`), before
+the data group's sum. It composes with a
 ``data`` group (the ``(data, model)`` mesh of
 :func:`repro_torch.dist.group.mesh_groups`): the one flat gradient
 ``all_reduce`` then runs over the data group, each rank holding its own
@@ -126,15 +130,16 @@ def _rows(batch, data, compress: bool):
             for k, v in batch.items()}
 
 
-def _psum_flat_(grads, group, placements=None):
+def _psum_flat_(grads, group, placements=None, which=None):
     """Sum f32 gradients over the group in place: ONE ``all_reduce`` of
     their concatenation. ``placements``: a tree of
-    :class:`~repro_torch.dist.sharding.Split`; the leaves it splits over
-    the data group (summed by their ``reduce_scatter`` already) are left
-    out."""
+    :class:`~repro_torch.dist.sharding.Split`; the leaves ``which(split)``
+    selects (by default those it does not split over the data group,
+    which their ``reduce_scatter`` summed already)."""
+    which = which or (lambda s: s.data is None)
     leaves = tree_leaves(grads) if placements is None else [
         g for g in tree_leaves(tree_map(
-            lambda g, s: g if s.data is None else None, grads, placements))
+            lambda g, s: g if which(s) else None, grads, placements))
         if g is not None]
     if not leaves:
         return grads
@@ -144,6 +149,19 @@ def _psum_flat_(grads, group, placements=None):
         g.copy_(flat[off: off + g.numel()].view_as(g))
         off += g.numel()
     return grads
+
+
+def sum_model_shares_(grads, placements, model_group):
+    """Sum over ``model_group``, in place, the f32 gradients of the leaves
+    ``placements`` marks ``model_sum`` (whole leaves of which each rank
+    uses only its part: its gradient is its share), in ONE ``all_reduce``
+    of their concatenation; the other leaves as they are. Returns
+    ``grads``."""
+    if model_group is None or not any(
+            s.model_sum for s in tree_leaves(placements)):
+        return grads
+    return _psum_flat_(grads, model_group, placements,
+                       lambda s: s.model_sum)
 
 
 def _pmean(loss, metrics, data):
@@ -257,10 +275,10 @@ def check_fsdp(tcfg: TrainConfig, data: int) -> None:
 
 def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
     """What a train step over a model group of ``n`` ranks cannot run
-    yet raises ``NotImplementedError``: the blocks other than the dense
-    and MoE families', an expert count the group does not divide
-    (:func:`repro_torch.models.transformer.check_tensor_parallel`) and
-    ``compress_grads``."""
+    yet raises ``NotImplementedError``: ``compress_grads``. A model group
+    runs every block kind of the 11 archs; only an MoE expert count it
+    does not divide raises
+    (:func:`repro_torch.models.transformer.check_tensor_parallel`)."""
     if n <= 1:
         return
     if tcfg.compress_grads:
@@ -387,6 +405,7 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
             loss, metrics = _pmean(loss, metrics, data)
         else:
             grads, loss, metrics = grads_and_metrics(params, batch, data)
+            grads = sum_model_shares_(grads, place, model_group)
             if group is not None or data is not None:
                 grads = _psum_flat_(grads, group or data, place)
             if tcfg.compress_grads:     # one participant: nothing to send

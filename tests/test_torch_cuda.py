@@ -1712,3 +1712,64 @@ def test_fsdp_gather_weight_gloo_on_one_card_matches_cpu():
         assert a[-1].dtype == torch.float32
         for x, y in zip(a, b):
             assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# --------------- tensor-parallel RG-LRU (model group) ------------------ #
+def _rglru_tp_rank(mesh, params, x, cot):
+    """One model rank's ``rglru_apply(model=)`` from its slices of the
+    whole RG-LRU parameters, on its group's device: the output and the
+    gathered gradients (the whole leaves' shares summed, as the trainer
+    sums them), on the CPU."""
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import mesh_placements
+    from repro_torch.models import rglru as RG
+    from repro_torch.train.trainer import (gather_params, shard_params,
+                                           sum_model_shares_)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mg, dev = mesh.model, mesh.model.device
+    on = Mesh2D(None, mg)
+    cfg = get_smoke("recurrentgemma-9b")
+    whole = tree_map(lambda t: t.to(dev), params)
+    pl = mesh_placements(whole, cfg, model=mg.size,
+                         prefix=("seg0_rec_mlp", "0", "rec"))
+    leaves = tree_map(lambda t: t.detach().requires_grad_(),
+                      shard_params(whole, pl, on))
+    xx = x.to(dev).requires_grad_()
+    y = RG.rglru_apply(leaves, xx, cfg, mg)
+    g = torch.autograd.grad((y * cot.to(dev)).sum(),
+                            tree_leaves(leaves) + [xx])
+    it = iter(g[:-1])
+    gp = sum_model_shares_(tree_map(lambda _: next(it), leaves), pl, mg)
+    return (y.detach().cpu(),
+            [t.cpu() for t in tree_leaves(gather_params(gp, pl, on))],
+            g[-1].cpu())
+
+
+def test_rglru_model_group_gloo_on_one_card_matches_cpu():
+    """2 gloo ranks sharing cuda:0, each with half of d_rnn (its gates'
+    f32 input gathered, the gradient reduce-scattered; the whole gate and
+    conv leaves' shares summed): the output (bitwise equal on both ranks)
+    and the gathered gradients equal the port's single-device
+    ``rglru_apply`` on the CPU within 1e-4 (f32; TF32 off)."""
+    _need_cuda()
+    from repro_torch.dist.group import run_ranks
+    from repro_torch.models import rglru as RG
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke("recurrentgemma-9b")
+    params = RG.rglru_init(torch.Generator().manual_seed(5), cfg, "cpu")
+    rng = np.random.default_rng(5)
+    x, cot = (torch.from_numpy(rng.normal(size=(2, 64, cfg.d_model))
+                               .astype(np.float32)) for _ in range(2))
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    xx = x.clone().requires_grad_()
+    y = RG.rglru_apply(leaves, xx, cfg)
+    want = torch.autograd.grad((y * cot).sum(), tree_leaves(leaves) + [xx])
+    res = run_ranks(_rglru_tp_rank, 2, backend="gloo", device="cuda:0",
+                    timeout_s=120.0, model=2, args=(params, x, cot))
+    for got_y, got_gp, got_gx in res:
+        torch.testing.assert_close(got_y, y.detach(), atol=1e-4, rtol=1e-4)
+        assert torch.equal(got_y, res[0][0])
+        for a, b in zip(got_gp + [got_gx], want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -3,11 +3,13 @@ axis) against the JAX package, on gloo CPU ranks, f32.
 
 * Placements: ``dist.sharding.mesh_placements`` (model dims) against the reference's
   ``_mesh_clean(resolve(logical_axes_for(...)))`` under ``cell_rules``,
-  for every leaf of the five dense archs' full configs at 2, 3 and 4
-  model ranks (a stand-in mesh object). Equal everywhere but the dense
-  MLP, where the reference puts "model" on the stacked layer axis
+  for every leaf of the full configs of the five dense archs,
+  recurrentgemma-9b, mamba2-370m, qwen2-vl-2b and whisper-base at 2, 3
+  and 4 model ranks (a stand-in mesh object). Equal everywhere but the
+  ffn-labelled leaves of a stacked segment (the MLP's, the RG-LRU's and
+  the SSD's), where the reference puts "model" on the stacked layer axis
   whenever the layer count divides it (this test asserts that labelling)
-  and the port splits ffn.
+  and the port splits the leaf's own ffn width where it divides.
 * Vocab-parallel ``embed_apply`` and ``cross_entropy`` (softcap, a mask,
   a rank holding no gold token) against the reference's single-device
   functions.
@@ -20,7 +22,12 @@ axis) against the JAX package, on gloo CPU ranks, f32.
   port's single-device steps: losses and gathered parameters within
   1e-4, ``grad_norm`` within 1e-5, replicated leaves and the optimizer
   step bitwise equal across the ranks.
-* What raises; the CLI at ``--model 2``.
+* What raises: ``compress_grads`` and a sequence group beside a model
+  group. A model group runs every block kind of the 11 archs; only an
+  MoE expert count it does not divide raises
+  (``tests/test_torch_tp_families.py`` holds the recurrent, VLM and
+  encoder-decoder families against the reference).
+* The CLI at ``--model 2``.
 
 The spawned ranks import this module, so it imports JAX only inside the
 functions that run it. Every spawn has a deadline of 120 s.
@@ -38,6 +45,9 @@ from repro_torch.dist.group import Mesh2D, ModelGroup, run_ranks
 DEADLINE_S = 120.0
 DENSE = ("smollm-135m", "gemma-7b", "phi4-mini-3.8b", "granite-3-8b",
          "longformer-4k")
+# the families whose placements the same test holds
+FAMILIES = ("recurrentgemma-9b", "mamba2-370m", "qwen2-vl-2b",
+            "whisper-base")
 SEQ, BATCH, STEPS = 64, 4, 3
 # case -> (arch, model ranks, fields replaced in the smoke config)
 CASES = {"gemma": ("gemma-7b", 2, {}), "phi4": ("phi4-mini-3.8b", 2, {}),
@@ -107,23 +117,27 @@ def _port_tree(ref):
     tree = {}
     for p, (shape, _) in ref.items():
         parts = p.split("/")
-        if parts[0].startswith("seg"):
-            layers = tree.setdefault(parts[0], [{} for _ in range(shape[0])])
-            for layer in layers:
-                node = layer
-                for k in parts[1:-1]:
-                    node = node.setdefault(k, {})
-                node[parts[-1]] = torch.empty(shape[1:], device="meta")
-        else:
-            node = tree
+        seg = next((i for i, k in enumerate(parts) if k.startswith("seg")),
+                   None)
+        node = tree
+        if seg is None:
             for k in parts[:-1]:
                 node = node.setdefault(k, {})
             node[parts[-1]] = torch.empty(shape, device="meta")
+            continue
+        for k in parts[:seg]:           # an encoder's segment: enc/seg0_...
+            node = node.setdefault(k, {})
+        for layer in node.setdefault(parts[seg],
+                                     [{} for _ in range(shape[0])]):
+            sub = layer
+            for k in parts[seg + 1:-1]:
+                sub = sub.setdefault(k, {})
+            sub[parts[-1]] = torch.empty(shape[1:], device="meta")
     return tree
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_placements_are_the_references(arch, n):
     from repro.configs import get_config as j_config
     from repro_torch.configs import get_config
@@ -138,31 +152,31 @@ def test_placements_are_the_references(arch, n):
     for path, dim in flat:
         key = "/".join(p for p in path if not p.isdigit())
         port.setdefault(key, set()).add(dim)
-    checked, layer_axis = 0, 0
+    checked = 0
     for p, (shape, rdim) in ref.items():
         # a leaf whose placement is None is an empty node of the port's
         # placements tree: it is missing from ``port``
         pdim = port.get(p, {None})
         assert len(pdim) == 1, (p, pdim)     # every layer alike
         pdim = pdim.pop()
-        stacked = p.startswith("seg")
+        stacked = any(k.startswith("seg") for k in p.split("/"))
         leaf = p.rsplit("/", 1)[-1]
-        if stacked and leaf in ("w_in", "w_gate", "w_out") and rdim == 0:
-            # the reference's labelling: the stacked layer axis
-            assert shape[0] % n == 0, (p, shape)
-            layer_axis += 1
+        if stacked and leaf in ("w_in", "w_gate", "w_gate_branch", "w_out"):
+            # the reference's labelling: the stacked layer axis exactly
+            # where the layer count divides the ranks; the port's: the
+            # leaf's own ffn width (its last dim, w_out's first)
+            assert (rdim == 0) == (shape[0] % n == 0), (p, shape, rdim)
             ffn = 1 if leaf != "w_out" else 0
-            want = ffn if cfg.d_ff % n == 0 else None
+            if rdim in (0, None):
+                want = ffn if shape[1 + ffn] % n == 0 else None
+            else:
+                want = rdim - 1
             assert pdim == want, (p, pdim, want)
         else:
             assert pdim == (rdim if rdim is None or not stacked
                             else rdim - 1), (p, shape, rdim, pdim)
         checked += 1
     assert checked == len(ref)
-    # the MLP leaves take the layer axis exactly where the layer count
-    # divides the ranks
-    n_mlp = 3 if cfg.act in ("swiglu", "geglu") else 2
-    assert layer_axis == (n_mlp if cfg.n_layers % n == 0 else 0)
 
 
 # ------------------------------------------------------------------ #
@@ -421,20 +435,6 @@ def test_train_steps_match_the_single_device_steps(ranks, case):
 def _fake(n=2):
     """A model group for the checks that raise before any collective."""
     return ModelGroup(None, 0, n, torch.device("cpu"))
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m",
-                                  "qwen2-vl-2b", "whisper-base"])
-def test_the_other_families_raise(arch):
-    from repro_torch.models.model import build_model
-
-    cfg = _smoke(arch)
-    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
-    model = build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                       "'multi-GPU'"):
-        model.loss(model.init(torch.Generator().manual_seed(0)), batch,
-                   model=_fake())
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])

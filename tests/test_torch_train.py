@@ -184,14 +184,17 @@ def test_cli_smoke_loss_drops(capsys):
 
 
 def test_cli_unported_options_raise():
-    """``--model`` > 1 (tensor parallelism) runs the dense families
-    (``tests/test_torch_tp.py``), ``--data`` and ``--compress-grads`` run
-    (``tests/test_torch_dist_data.py``); ``--model`` > 1 for the other
-    families is multi-GPU work left to port, and raises before any rank
-    starts."""
+    """``--model`` > 1 (tensor parallelism) runs every family
+    (``tests/test_torch_tp.py``, ``tests/test_torch_tp_families.py``),
+    ``--data`` and ``--compress-grads`` run
+    (``tests/test_torch_dist_data.py``); ``--compress-grads`` with
+    ``--model`` > 1, and an expert count the model group does not divide,
+    are multi-GPU work left to port, and raise before any rank starts."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                       "'multi-GPU'"):
-        main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
-              "--steps", "1", "--model", "2"])
+    for extra in (["--arch", "mamba2-370m", "--model", "2",
+                   "--compress-grads"],
+                  ["--arch", "arctic-480b", "--model", "3"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
+                           "'multi-GPU'"):
+            main(["--smoke", "--device", "cpu", "--steps", "1"] + extra)

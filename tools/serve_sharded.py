@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a CUDA device. Builds
 the paged-decode kernel, runs K4 case (s), serves the serve phases'
 traffic unsharded on the bf16 and the int8 page-sparse slabs (the
 references), then ``chip_smoke.phase_serve_sharded`` at 2 shards (with the
-narrowed serve-sharded-check) and at 4 shards on the int8 slab. The ranks
+narrowed serve-sharded-check) and at 4 shards on the int8 slab, all 8
+requests of each (``chip_smoke.py`` serves fewer, and the int8 slab on 2
+shards, for time). The ranks
 use NCCL, one card each, where the machine has the cards, else gloo ranks
 sharing cuda:0; every line names the backend. Prints the card's name and
 power limit last. Any failed check raises, so the exit code is nonzero.
@@ -55,10 +57,10 @@ def main(argv=None) -> int:
               f"counters {dict(eng.counters)}")
         del eng, params
         torch.cuda.empty_cache()
-    C.phase_serve_sharded(torch, args.seed, 2, "serve-sharded", refs["bf16"],
-                          {}, with_check=True)
-    C.phase_serve_sharded(torch, args.seed, 4, "serve-sharded-int8",
-                          refs["int8"], C.INT8_SPARSE)
+    C.phase_serve_sharded(torch, args.seed, 2, (
+        ("serve-sharded", refs["bf16"], {}, C.SERVE_R),), with_check=True)
+    C.phase_serve_sharded(torch, args.seed, 4, (
+        ("serve-sharded-int8", refs["int8"], C.INT8_SPARSE, C.SERVE_R),))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
