@@ -191,6 +191,9 @@ nonzero:
    each rank of train-tp launches), (ep) one model rank's heads of
    arctic-480b's train attention at 2 ranks (batch 1 x 28 of its 56 query
    heads on 4 of its 8 KV heads, hd 128, bf16: what each rank of train-ep
+   launches), (k-tp) one model rank of 2 of recurrentgemma-9b's local
+   attention (batch 1 x 8 of its 16 query heads on its one KV head, hd
+   256, window 2048, bf16: what each rank of train-tp recurrentgemma-9b
    launches). Tolerances: out
    8e-3 in 16 bits and
    1e-5 in f32, m and l 1e-5 (``salo_attention.OUT_TOL``, ``STATS_TOL``);
@@ -214,6 +217,12 @@ nonzero:
    each of its two blocks recomputes), and
    ``scaled_dot_product_attention`` with the dense mask (forward, and its
    backward beside K2 and K3) as a yardstick.
+10b. **analysis** — the launch contract of ``repro_torch.analysis
+    .launch_lint`` with CUDA tensors: for every registry target of the
+    plan prover (a block below the kernels' smallest raised to 32, head
+    dim 64, bf16) one forward of ``kernels.ops.salo_attention`` books 1
+    launch and launches K1 once, one forward + backward books 3 and
+    launches K1 and K2 once and K3's two kernels. Any finding fails.
 11. **dynamic** — runtime plans: ``hybrid_attention(plan="dynamic")``
    fwd + bwd with a seeded cotangent at smollm-135m's attention (its
    pattern, 8 x 9 query heads on 3 KV heads, n 4096, hd 64, block 256,
@@ -374,6 +383,29 @@ nonzero:
     state bitwise equal on the ranks, the launch counts. Prints as
     train-dp, and the wire's quantize and dequantize-sum kernels' device
     time on rank 0 (CUDA events).
+18g'. **train-fsdp-int8-check**, **train-fsdp-int8** — the int8 wire
+    under the FSDP fallback, in train-dp-int8's 4-rank spawn after its
+    data-parallel run: an FSDP weight's backward keeps the rank's whole
+    f32 gradient, quantized whole with the whole residual; one int8
+    ``all_to_all`` hands each rank the sum of its slices only. The
+    narrowed f32 smollm, 3 steps from the same parameters, beside the
+    data-parallel int8 steps of it in the same ranks (gates: losses and
+    every rank's slices bitwise the data-parallel int8 run's, the leaves
+    held whole and the step bitwise equal across the ranks, K1-K3
+    launched); then smollm-135m at full size, train-fsdp's schedule
+    (gates: every loss bitwise train-dp-int8's, the launch counts). Prints
+    the bytes a rank receives (the int8 ``all_to_all`` against the int8
+    ``all_gather``, counted), the whole residual's bytes, the peak per
+    rank beside train-fsdp's and train-dp-int8's, rank 0's step median
+    and one profiled step's idle share.
+18g''. **train-tp-int8-check (data 2, model 2)** — in the same spawn:
+    the gemma-like narrowed f32 config of train-tp-check on the int8 wire
+    at (data 2, model 2) (each scale group's absmax maxed over the model
+    group), against the (data 2) int8 steps of the same config and
+    batches. Gates: every loss within 1e-4 (TP reorders the gradients'
+    sums by ~1e-7, which moves a value on a rounding boundary by one int8
+    step), the model ranks' losses equal, K1-K3 launched. Prints the int8
+    values that differ from the data-2 run's slices, per rank and step.
 18h. **train-tp-check** — tensor-parallel training (``make_train_step(
     ..., model_group=ModelGroup)``, heads, ffn and vocab split by
     ``dist.sharding.mesh_placements``): six narrowed f32 configs trained
@@ -417,6 +449,18 @@ nonzero:
     f32 all_reduce a step), the local attention by heads (its one KV head
     replicated). The same gates and prints; ``tp_step_bytes`` counts the
     gathers, reduce-scatters and the flat sum.
+18i''. **train-tp-int8-check**, **train-tp-int8** — the int8 wire under a
+    model group of 2 in the same spawn: the gemma-like and the arctic-like
+    (expert stacks split over the ranks) narrowed f32 configs, 3 steps on
+    the int8 wire against one rank's int8 steps on the card (gates: losses
+    and grad norms within 1e-4, K1-K3 launched; prints the int8 values
+    that differ from the one-rank run's slices); then gemma-7b at full
+    width at train-tp's depth, the first 3 steps of train-tp's schedule
+    from the same weights on the int8 wire (gates: losses within 1e-2 of
+    train-tp's, which carry int8 noise on the update; equal on the ranks;
+    the launch counts). Prints the step median and idle share beside
+    train-tp's, the peak per rank and ``tp_step_bytes`` with the wire's
+    MAX of the scales.
 18j. **train-ep-check** — expert-parallel MoE training (``moe_apply(...,
     model=ModelGroup)``: E / N experts a rank, the router's columns, the
     logits gathered and routed alike on every rank, one ``all_reduce`` of
@@ -2293,6 +2337,11 @@ TRAIN_CASES = {
     # batch 1 x 28 of the 56 query heads (on 4 of the 8 KV heads)
     "ep": dict(pat=("csw", 1024, 4, 1), n=4096, bh=28, hd=128, bq=256,
                bk=256, dtype="bfloat16"),
+    # one model rank of 2 of recurrentgemma-9b's local attention: batch 1 x
+    # 8 of its 16 query heads on its one KV head, what each rank of
+    # train-tp recurrentgemma-9b launches
+    "k-tp": dict(pat=("csw", 2048, 4, 1), n=4096, bh=8, hd=256, bq=256,
+                 bk=256, dtype="bfloat16"),
 }
 K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
               "salo_table_backward_dkv")
@@ -2300,7 +2349,7 @@ K1, K2, K3 = ("salo_table_attention", "salo_table_backward_dq",
 TIMED = {"a": (K1, K2, K3), "b": (K1, K2, K3), "f": (K1, K2, K3),
          "g": (K1, K2, K3), "h": (K1, K2, K3), "i": (K1,), "j": (K1,),
          "k": (K1, K2, K3), "l": (K1, K2, K3), "m": (K1, K2, K3),
-         "tp": (K1, K2, K3), "ep": (K1, K2, K3)}
+         "tp": (K1, K2, K3), "ep": (K1, K2, K3), "k-tp": (K1, K2, K3)}
 # Tolerances (abs and rel). The forward's out and row stats within
 # salo_attention.OUT_TOL and STATS_TOL (f32 1e-5; 16-bit out 8e-3, two bf16
 # ulps at |out| near 0.5, as the kernel rounds p relative to a 64-key
@@ -2589,6 +2638,44 @@ def phase_train_kernels(torch, timer, seed):
 # +1 slot exists because the band walk of shard 0's last query block
 # lists the first tile of shard 1 (causally masked whole, as in the
 # reference's plan); on shard 1 it is padding, which no table reads.
+def phase_analysis(torch) -> dict:
+    """analysis: the launch contract of ``repro_torch.analysis
+    .launch_lint`` with CUDA tensors, so the counts are of real kernel
+    launches: for every registry target (``analysis.registry
+    .plan_targets``; a block below the kernels' smallest raised to it,
+    head dim 64, bf16) one forward of ``kernels.ops.salo_attention``
+    books ``LAUNCH_CONTRACT["forward"]`` launches and launches K1 once,
+    one forward + backward books ``LAUNCH_CONTRACT["grad"]`` and launches
+    K1, K2 once and K3's two kernels. Fails on any finding. Returns the
+    launches by kernel."""
+    from repro_torch.analysis import launch_lint as LL
+    from repro_torch.analysis import render
+    from repro_torch.analysis.registry import plan_targets
+    from repro_torch.kernels.salo_attention import BLOCKS
+
+    t0 = time.perf_counter()
+    findings, total, shown = [], {"K1": 0, "K2": 0, "K3": 0}, []
+    for t in plan_targets():
+        bq, bk = max(t.block_q, min(BLOCKS)), max(t.block_k, min(BLOCKS))
+        c = LL.count_launches(t.pattern, t.n, bq, bk, "cuda",
+                              torch.bfloat16, d=64)
+        findings += LL.check_launch_contract(
+            t.pattern, t.n, bq, bk, f"kernels.ops[{t.name}]", "cuda",
+            counts=c)
+        for k, a, b in zip(("K1", "K2", "K3"), c["forward_kernels"],
+                           c["grad_kernels"]):
+            total[k] += a + b
+        shown.append(f"{t.name} (n {t.n}, blocks {bq}/{bk}): forward "
+                     f"{c['forward']} booked {c['forward_kernels']}, grad "
+                     f"{c['grad']} booked {c['grad_kernels']}")
+    check(not findings, f"analysis: the launch contract fails:\n"
+          f"{render(findings)}")
+    log(f"[analysis] launch contract held with CUDA tensors, launches "
+        f"booked in the registry and (K1, K2, K3) kernel launches: "
+        f"{'; '.join(shown)}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 SHARD_T = dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
                hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1))
 
@@ -4140,7 +4227,7 @@ def dp_check_rank(group, seed, cfg, params):
 
     from repro_torch.dist import compression
     from repro_torch.dist.group import DataGroup
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     _rank_prelude(torch)
     data = DataGroup.of(group)
@@ -4153,9 +4240,9 @@ def dp_check_rank(group, seed, cfg, params):
                                  compress=compress)
         seen, real = [], compression.compressed_psum_with_residual
 
-        def spy(x, g):
+        def spy(x, g, *rest):
             seen.append(x)
-            return real(x, g)
+            return real(x, g, *rest)
 
         compression.compressed_psum_with_residual = spy
         _counters(reset=True)
@@ -4169,7 +4256,8 @@ def dp_check_rank(group, seed, cfg, params):
                    params=_flat_cpu(torch, p),
                    digest=_digest(torch, p, opt.m, opt.v))
         if compress:
-            want = compression.compress_decompress(seen[-1])[1]
+            want = compression.compress_decompress(
+                tree_map(torch.clone, seen[-1]))[1]
             got = tree_leaves(ef)
             rec.update(ef_finite=all(bool(torch.isfinite(e).all())
                                      for e in got),
@@ -4294,7 +4382,7 @@ def _wire_kernels_ms(torch, grads, n: int) -> dict:
 
 
 def train_dp_rank(group, seed, steps, compress, arch="smollm-135m",
-                  fsdp=None):
+                  fsdp=None, tp=None):
     """A spawned rank of a full-size train-dp phase: ``arch`` at full
     width and depth, bf16, remat full, seq 4096, this rank's rows of the
     global batch ``TRAIN_BATCH``, ``steps`` steps of the train phase's
@@ -4305,8 +4393,13 @@ def train_dp_rank(group, seed, steps, compress, arch="smollm-135m",
     and train-fsdp's ``steps``): then, in the same spawn, train-fsdp-check
     (``fsdp_check_run``) and train-fsdp
     (``fsdp_full_run``) from the same seed and batches, under
-    ``rec["fsdp_check"]`` and ``rec["fsdp"]``. Returns the rank's
-    record."""
+    ``rec["fsdp_check"]`` and ``rec["fsdp"]``; with ``compress`` they are
+    train-fsdp-int8-check (beside the data-parallel int8 check it is held
+    to, ``dp_int8_check_run``) and train-fsdp-int8. ``tp`` (a dict with a
+    narrowed config's ``cfg`` and ``params``, or None): then
+    train-tp-int8-check at (data 2, model 2) on these ranks
+    (``tp_int8_check_run``), under ``rec["tp_int8_check"]``. Returns the
+    rank's record."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4374,16 +4467,26 @@ def train_dp_rank(group, seed, steps, compress, arch="smollm-135m",
         torch.cuda.empty_cache()
         if fsdp["cfg"] is not None:
             rec["fsdp_check"] = fsdp_check_run(torch, data, dev, seed,
-                                               fsdp["cfg"], fsdp["params"])
+                                               fsdp["cfg"], fsdp["params"],
+                                               compress)
+            if compress:
+                rec["fsdp_check_dp"] = dp_int8_check_run(
+                    torch, data, dev, seed, fsdp["cfg"], fsdp["params"])
             gc.collect()
             torch.cuda.empty_cache()
         rec["fsdp"] = fsdp_full_run(torch, data, dev, seed, fsdp["steps"],
-                                    arch)
+                                    arch, compress)
+    if tp is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["tp_int8_check"] = tp_int8_check_run(torch, group, dev, seed,
+                                                 tp["cfg"], tp["params"])
     return rec
 
 
 # the collectives of an FSDP step by profiler name
-FSDP_KEYS = DP_KEYS + ("reduce_scatter", "reducescatter")
+FSDP_KEYS = DP_KEYS + ("reduce_scatter", "reducescatter", "all_to_all",
+                       "alltoall")
 # train-fsdp: train-dp's first steps, 2 timed and the profiled third
 # (3 of its 4, cut for time)
 FSDP_STEPS = 2
@@ -4428,14 +4531,16 @@ def fsdp_step_bytes(whole, dims, n: int) -> dict:
     return {k: int(v) for k, v in out.items()}
 
 
-def fsdp_check_run(torch, data, dev, seed, cfg, params):
+def fsdp_check_run(torch, data, dev, seed, cfg, params, compress=False):
     """train-fsdp-check on one rank of the train-dp spawn: ``cfg`` (the
     narrowed f32 smollm of ``dp_check_rank``) trained 3 steps under the
     FSDP fallback from ``params`` cut into this rank's slices, on its rows
-    of the same global batches (seq 128, batch 2). Returns the losses,
-    the launch counts, the gathered parameters, the digest of the leaves
-    held whole and the step, and whether each split leaf is bitwise this
-    rank's ``shard`` of the gathered one."""
+    of the same global batches (seq 128, batch 2, or one row a rank on
+    more ranks); on the int8 wire with
+    ``compress`` (train-fsdp-int8-check). Returns the losses, the launch
+    counts, the gathered parameters, this rank's slices, the digest of the
+    leaves held whole and the step, and whether each split leaf is bitwise
+    this rank's ``shard`` of the gathered one."""
     from repro_torch.dist.group import Mesh2D
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import (gather_params, shard_params,
@@ -4445,13 +4550,14 @@ def fsdp_check_run(torch, data, dev, seed, cfg, params):
     dims = train_placements(build_model(cfg, dev), data=data, fsdp=True)
     mesh = Mesh2D(data, None)
     p = shard_params(_to(params, dev), dims, mesh)
-    step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
-                             lr=3e-3, warmup=1, seed=seed, data=data,
-                             fsdp=True)
+    step, opt, ds = _trainer(cfg, dev, p, seq=128,
+                             batch=max(2, data.size), steps=3, lr=3e-3,
+                             warmup=1, seed=seed, data=data, fsdp=True,
+                             compress=compress)
     _counters(reset=True)
-    losses = []
+    losses, ef = [], None
     for i in range(3):
-        p, opt, met, _ = step(p, opt, ds.batch(i))
+        p, opt, met, ef = step(p, opt, ds.batch(i), ef)
         losses.append(float(met["loss"]))
     launches, plain = _counters()
     whole = gather_params(p, dims, mesh)
@@ -4461,24 +4567,83 @@ def fsdp_check_run(torch, data, dev, seed, cfg, params):
         p, whole, dims)))
     return dict(losses=losses, launches=launches, plain=plain,
                 params=_flat_cpu(torch, whole), sliced=sliced,
+                slices=_flat_cpu(torch, p),
                 digest=_whole_digest(torch, p, opt, dims),
                 n_split=sum(not s.whole for s in tree_leaves(dims)),
                 n_leaves=len(tree_leaves(p)))
 
 
-def fsdp_full_run(torch, data, dev, seed, steps, arch):
+def dp_int8_check_run(torch, data, dev, seed, cfg, params):
+    """train-fsdp-int8-check's reference on one rank of the same spawn:
+    ``cfg`` trained 3 steps data-parallel on the int8 wire from the whole
+    ``params``, on the same rows and batches as ``fsdp_check_run``.
+    Returns the losses and this rank's FSDP slices of the final
+    parameters."""
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import shard_params, train_placements
+
+    dims = train_placements(build_model(cfg, dev), data=data, fsdp=True)
+    p = _to(params, dev)
+    step, opt, ds = _trainer(cfg, dev, p, seq=128,
+                             batch=max(2, data.size), steps=3, lr=3e-3,
+                             warmup=1, seed=seed, data=data, compress=True)
+    losses, ef = [], None
+    for i in range(3):
+        p, opt, met, ef = step(p, opt, ds.batch(i), ef)
+        losses.append(float(met["loss"]))
+    return dict(losses=losses, slices=_flat_cpu(
+        torch, shard_params(p, dims, Mesh2D(data, None))))
+
+
+def tp_int8_check_run(torch, world, dev, seed, cfg, params):
+    """train-tp-int8-check at (data 2, model 2) on one rank of a 4-rank
+    spawn (``mesh_groups(world, 2)``): ``cfg`` trained 3 steps on the
+    int8 wire from ``params`` cut into this rank's model slices, and the
+    same 3 steps over the data group alone from the whole ``params`` (the
+    data-2 int8 run it is held to). Returns both runs' losses, the int8
+    values of each step that differ between this rank's and its slices of
+    the data-2 run's (``_int8_flips``), and the split run's launches."""
+    from repro_torch.dist.group import Mesh2D, mesh_groups
+    from repro_torch.dist.sharding import mesh_placements
+    from repro_torch.train.trainer import shard_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = mesh_groups(world, 2)
+    full = _to(params, dev)
+    pl = mesh_placements(full, cfg, model=2)
+    q_tp, q_dp = [], []
+    _counters(reset=True)
+    hist_tp, _, _ = _check_steps(
+        cfg, dev, shard_params(full, pl, Mesh2D(None, mesh.model)), seed,
+        ("loss",), mesh.model, compress=True, data=mesh.data, qs=q_tp)
+    launches, plain = _counters()
+    hist_dp, _, _ = _check_steps(cfg, dev, full, seed, ("loss",),
+                                 compress=True, data=mesh.data, qs=q_dp)
+    shapes = [tuple(x.shape) for x in tree_leaves(full)]
+    dims = tree_leaves(tree_map(lambda _, s: s.model, full, pl))
+    return dict(hist=hist_tp, ref=hist_dp, launches=launches, plain=plain,
+                flips=_int8_flips(q_dp, q_tp, shapes, dims,
+                                  mesh.model.index, 2),
+                values=[q.numel() for q in q_tp],
+                index=(mesh.data.index, mesh.model.index))
+
+
+def fsdp_full_run(torch, data, dev, seed, steps, arch, compress=False):
     """train-fsdp on one rank of the train-dp spawn: ``arch`` at full
     width and depth, bf16, remat full, seq 4096, the train-dp run's
     schedule and batches, under the FSDP fallback: the rank draws its
     slices layer by layer from the seed's single-device draw
     (``trainer.init_shards``), ``steps`` timed steps, then one more,
-    profiled on rank 0, whose loss and launches count with theirs.
-    Returns the rank's record (as ``train_dp_rank``'s, with the bytes a
-    rank receives a step and the state a rank holds)."""
+    profiled on rank 0, whose loss and launches count with theirs; on the
+    int8 wire with ``compress`` (train-fsdp-int8, in train-dp-int8's
+    spawn). Returns the rank's record (as ``train_dp_rank``'s, with the
+    bytes a rank receives a step and the state a rank holds)."""
     from repro_torch.configs import get_config
+    from repro_torch.dist import compression
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import init_shards, train_placements
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg = get_config(arch)
     model = build_model(cfg, dev)
@@ -4488,20 +4653,22 @@ def fsdp_full_run(torch, data, dev, seed, steps, arch):
                          None, data, fsdp=True)
     step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=TRAIN_BATCH,
                              steps=TRAIN_STEPS, lr=3e-3, warmup=10,
-                             seed=seed, data=data, fsdp=True)
+                             seed=seed, data=data, fsdp=True,
+                             compress=compress)
+    tag = "train-fsdp" + ("-int8" if compress else "")
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _counters(reset=True)
-    losses, times = [], []
+    losses, times, ef = [], [], None
     for i in range(steps):
         batch = ds.batch(i)
         t0 = time.perf_counter()
-        params, opt, met, _ = step(params, opt, batch)
+        params, opt, met, ef = step(params, opt, batch, ef)
         losses.append(float(met["loss"]))         # syncs the card
         times.append(time.perf_counter() - t0)
         if data.index == 0:
-            log(f"[train-fsdp {arch} x{data.size}] rank 0 step {i} loss "
+            log(f"[{tag} {arch} x{data.size}] rank 0 step {i} loss "
                 f"{losses[-1]:.4f} grad norm {float(met['grad_norm']):.4f} "
                 f"{times[-1] * 1e3:.1f} ms")
     peak = torch.cuda.max_memory_allocated()
@@ -4513,19 +4680,26 @@ def fsdp_full_run(torch, data, dev, seed, steps, arch):
             torch.profiler.ProfilerActivity.CUDA])
         prof.start()
     ts = time.perf_counter()
-    params, opt, met, _ = step(params, opt, batch)
+    params, opt, met, ef = step(params, opt, batch, ef)
     losses.append(float(met["loss"]))
     dt = time.perf_counter() - ts
     launches, plain = _counters()
     state = sum(x.numel() * x.element_size() for t in (params, opt.m, opt.v)
                 for x in tree_leaves(t))
+    split = sum(x.numel() for x in tree_leaves(tree_map(
+        lambda x, s: x if s.data is not None else None, whole, dims))
+        if x is not None)
     rec = dict(losses=losses, times=times, launches=launches, plain=plain,
                peak=peak, state_bytes=state,
                digest=_whole_digest(torch, params, opt, dims),
-               bytes=fsdp_step_bytes(whole, dims, data.size))
+               bytes=fsdp_step_bytes(whole, dims, data.size),
+               wire=(sum(x.numel() for x in tree_leaves(whole)),
+                     compression.scale_groups(whole)[1], split),
+               ef_bytes=0 if ef is None else sum(
+                   x.numel() * x.element_size() for x in tree_leaves(ef)))
     if data.index == 0:
         prof.stop()
-        by_name = report_profile(prof, dt, 1, f"train-fsdp {arch} "
+        by_name = report_profile(prof, dt, 1, f"{tag} {arch} "
                                  f"x{data.size} step (rank 0)")
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
@@ -4566,8 +4740,49 @@ def _report_fsdp_check(chk, dp_check, what) -> dict:
             for k in ("K1", "K2", "K3")}
 
 
+def _report_fsdp_int8_check(recs, what) -> dict:
+    """train-fsdp-int8-check's gates and print: on every rank the losses
+    and this rank's slices of the parameters bitwise the data-parallel
+    int8 check's (``dp_int8_check_run``, the same spawn), the leaves held
+    whole and the step bitwise equal across the ranks, each split leaf
+    bitwise the rank's slice of the gathered one, K1-K3 launched and no
+    plain version. Returns its launches summed over the ranks."""
+    chk = [r["fsdp_check"] for r in recs]
+    for r, (rec, ref) in enumerate(zip(chk, (r["fsdp_check_dp"]
+                                             for r in recs))):
+        check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+              f"{what}-check rank {r}: launches {rec['launches']}, plain "
+              f"{rec['plain']}")
+        check(rec["losses"] == ref["losses"],
+              f"{what}-check rank {r}: losses {rec['losses']} vs the "
+              f"data-parallel int8 check's {ref['losses']} (bitwise)")
+        check(bool((rec["slices"] == ref["slices"]).all()),
+              f"{what}-check rank {r}: its slices differ from the data-"
+              f"parallel int8 check's (max "
+              f"{float((rec['slices'] - ref['slices']).abs().max())})")
+        check(rec["sliced"], f"{what}-check rank {r}: a split leaf is not "
+              f"the rank's slice of the gathered leaf")
+    check(len({rec["digest"] for rec in chk}) == 1,
+          f"{what}-check: the leaves held whole or the step differ across "
+          f"the ranks")
+    log(f"[{what}-check] narrowed smollm f32, {len(chk)} ranks, "
+        f"{chk[0]['n_split']} of {chk[0]['n_leaves']} leaves split over the "
+        f"data group, int8 wire: losses {chk[0]['losses']} bitwise the "
+        f"data-parallel int8 check's on every rank; every rank's slices "
+        f"bitwise its slices of that run's parameters; leaves held whole "
+        f"and the step bitwise equal across the ranks; launches a rank "
+        f"{chk[0]['launches']}")
+    return {k: sum(rec["launches"][k] for rec in chk)
+            for k in ("K1", "K2", "K3")}
+
+
+# the peak per rank of the train-dp spawns' phases, by phase (printed
+# beside each other)
+PEAKS = {}
+
+
 def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
-                      arch="smollm-135m") -> dict:
+                      arch="smollm-135m", compress=False) -> dict:
     """The gates and prints of train-fsdp-check and train-fsdp, from the
     train-dp spawn's records (``recs``: every rank's, with the train-dp
     run's beside) and ``dp_check`` (train-dp-check's uncompressed rank
@@ -4579,15 +4794,23 @@ def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
     and leaves held whole on every rank, per rank and step 2 K1, 1 K2 and
     1 K3 call (2 kernels) an attention layer, no plain version. Prints the
     bytes a rank receives a step (counted), the step median and the peak
-    per rank beside train-dp's, and rank 0's profiled step. Returns
-    {path: launches summed over the ranks}."""
+    per rank beside train-dp's, and rank 0's profiled step. With
+    ``compress`` (train-fsdp-int8-check and train-fsdp-int8, in
+    train-dp-int8's spawn): the check by ``_report_fsdp_int8_check``, and
+    every loss bitwise train-dp-int8's; the bytes of the int8
+    ``all_to_all`` beside the int8 ``all_gather``, and the peak per rank
+    beside train-fsdp's and train-dp-int8's. Returns {path: launches
+    summed over the ranks}."""
     from repro_torch.configs import get_config
+    from repro_torch.dist import compression
 
     n = len(recs)
     out = {}
     if "fsdp_check" in recs[0]:
-        out[f"{what}-check"] = _report_fsdp_check(
-            [r["fsdp_check"] for r in recs], dp_check, what)
+        out[f"{what}-check"] = (
+            _report_fsdp_int8_check(recs, what) if compress else
+            _report_fsdp_check([r["fsdp_check"] for r in recs], dp_check,
+                               what))
     fs = [r["fsdp"] for r in recs]
     steps = len(fs[0]["losses"])
     n_attn = _train_attention_layers(get_config(arch))
@@ -4605,8 +4828,13 @@ def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
           f"ranks")
     diff = [abs(a - b) for a, b in zip(r0["losses"], dp0["losses"])]
     dp_l = dp0["losses"][:steps]
-    check(all(math.isfinite(x) for x in r0["losses"]) and max(diff) <= 1e-3,
-          f"{what}: losses {r0['losses']} vs train-dp's {dp_l} (1e-3)")
+    dp_what = "train-dp-int8" if compress else "train-dp"
+    check(all(math.isfinite(x) for x in r0["losses"]) and (
+        r0["losses"] == dp_l if compress else max(diff) <= 1e-3),
+        f"{what}: losses {r0['losses']} vs {dp_what}'s {dp_l} "
+        f"({'bitwise' if compress else '1e-3'})")
+    PEAKS[what] = [rec["peak"] for rec in fs]
+    PEAKS[dp_what] = [rec["peak"] for rec in recs]
     med = statistics.median(r0["times"][1:]) * 1e3
     dp_med = statistics.median(dp0["times"][1:]) * 1e3
     coll = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
@@ -4617,23 +4845,36 @@ def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
     log(f"[{what}] {arch} bf16 remat full, {n} ranks, global batch "
         f"{TRAIN_BATCH} = {n} x {TRAIN_BATCH // n} at seq 4096, the weights "
         f"no model rule splits held as each rank's slice of their largest "
-        f"dim, {steps} steps of train-dp's schedule (the last profiled): "
-        f"losses "
-        f"{r0['losses']} vs train-dp's {dp_l} (max diff {max(diff)}); "
+        f"dim{', int8 wire (compress_grads)' if compress else ''}, {steps} "
+        f"steps of {dp_what}'s schedule (the last profiled): losses "
+        f"{r0['losses']} vs {dp_what}'s {dp_l} (max diff {max(diff)}); "
         f"leaves held whole bitwise equal across the ranks; launches a rank "
         f"{r0['launches']}")
-    log(f"[{what}] a rank receives a step (counted, not timed): gathers "
-        f"{b['gather']} bytes, f32 reduce_scatter {b['reduce_scatter']}, "
-        f"f32 all_reduce of the leaves held whole {b['all_reduce']}: "
-        f"{sum(b.values())} in all, against train-dp's f32 all_reduce "
-        f"{int(2 * (n - 1) / n * n_val * 4)}; parameters and AdamW moments "
-        f"a rank {r0['state_bytes']} bytes")
+    if compress:
+        nv, ng, split = r0["wire"]
+        wb = compression.wire_bytes(nv, ng, n, split_values=split)
+        log(f"[{what}] a rank receives a step (counted, not timed): gathers "
+            f"of the split weights {b['gather']} bytes, the int8 all_to_all"
+            f" of its slices of the {split} split values and the {nv - split}"
+            f" whole ones, with the f32 scales, {wb['int8_all_to_all']} "
+            f"bytes, against train-dp-int8's int8 all_gather "
+            f"{wb['int8_gather']} and a ring f32 all_reduce "
+            f"{wb['f32_ring_all_reduce']}; parameters and AdamW moments a "
+            f"rank {r0['state_bytes']} bytes, the whole f32 residual "
+            f"{r0['ef_bytes']} bytes")
+    else:
+        log(f"[{what}] a rank receives a step (counted, not timed): gathers "
+            f"{b['gather']} bytes, f32 reduce_scatter {b['reduce_scatter']}"
+            f", f32 all_reduce of the leaves held whole {b['all_reduce']}: "
+            f"{sum(b.values())} in all, against train-dp's f32 all_reduce "
+            f"{int(2 * (n - 1) / n * n_val * 4)}; parameters and AdamW "
+            f"moments a rank {r0['state_bytes']} bytes")
+    gib = {k: [round(x / 2**30, 3) for x in v] for k, v in PEAKS.items()}
+    peers = ", ".join(f"{k} {v} GiB" for k, v in gib.items() if k != what)
     log(f"[{what}] step median {med:.3f} ms over steps "
         f"1..{len(r0['times']) - 1} "
-        f"(rank 0; train-dp {dp_med:.3f} ms over 1..{DP_STEPS - 1}); peak "
-        f"per rank "
-        f"{[round(rec['peak'] / 2**30, 3) for rec in fs]} GiB (train-dp "
-        f"{[round(rec['peak'] / 2**30, 3) for rec in recs]} GiB); profiled "
+        f"(rank 0; {dp_what} {dp_med:.3f} ms over 1..{DP_STEPS - 1}); peak "
+        f"per rank {gib[what]} GiB ({peers}); profiled "
         f"step (rank 0): host wall {r0['profiled_ms']:.3f} ms, device idle "
         f"share {r0['idle']:.3f}, collectives by name (host time): {coll}")
     out[what] = {k: sum(rec["launches"][k] for rec in fs)
@@ -4641,8 +4882,54 @@ def report_train_fsdp(torch, recs, dp_check, what="train-fsdp",
     return out
 
 
+def report_tp_int8_dp(recs, what="train-tp-int8-check") -> dict:
+    """train-tp-int8-check at (data 2, model 2), from the 4-rank spawn's
+    records (``tp_int8_check_run``): on every rank each step's loss
+    within 1e-4 of the data-2 int8 run's (TP reorders the gradients' sums
+    by ~1e-7, which can move a value on a rounding boundary by one int8
+    step), the int8 values that differ from the data-2 run's slices
+    within ``_check_flips``' shares, the model ranks' losses equal, K1-K3
+    launched and no plain version; prints the int8 values that differ a
+    step. Returns its launches summed over the ranks."""
+    rs = [r["tp_int8_check"] for r in recs]
+    for r, rec in enumerate(rs):
+        diff = max(abs(a[0] - b[0]) for a, b in zip(rec["hist"], rec["ref"]))
+        check(diff <= 1e-4, f"{what} (data 2, model 2) rank {r}: losses "
+              f"{rec['hist']} vs the data-2 int8 run's {rec['ref']} (1e-4)")
+        check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+              f"{what} rank {r}: launches {rec['launches']}, plain "
+              f"{rec['plain']}")
+        _check_flips(f"{what} (data 2, model 2) rank {r}", rec["flips"],
+                     rec["values"])
+    for d in (0, 1):
+        pair = [rec["hist"] for rec in rs if rec["index"][0] == d]
+        check(pair[0] == pair[1], f"{what}: the model ranks of data rank "
+              f"{d} disagree: {pair}")
+    log(f"[{what}] (data 2, model 2) narrowed gemma f32 on the int8 wire "
+        f"(scales maxed over the model group), 3 steps: losses "
+        f"{[h[0] for h in rs[0]['hist']]} vs the data-2 int8 run's "
+        f"{[h[0] for h in rs[0]['ref']]} (max diff "
+        f"{max(abs(a[0] - b[0]) for rec in rs for a, b in zip(rec['hist'], rec['ref']))}"
+        f"); int8 values differing from the data-2 run's slices, per rank "
+        f"and step: {[rec['flips'] for rec in rs]} of "
+        f"{rs[0]['values']}; launches a rank {rs[0]['launches']}")
+    return {k: sum(rec["launches"][k] for rec in rs)
+            for k in ("K1", "K2", "K3")}
+
+
+def tp_int8_inputs(torch, seed) -> dict:
+    """What train-tp-int8-check at (data 2, model 2) takes into
+    train-dp-int8's spawn: the gemma-like narrowed f32 config of
+    ``_tp_check_cfgs`` and its parameters from ``seed`` (on the CPU)."""
+    from repro_torch.models.model import build_model
+
+    cfg = _tp_check_cfgs()["gemma-7b"]
+    return {"cfg": cfg, "params": build_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(seed))}
+
+
 def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
-                   n=None, compress=None, fsdp=None):
+                   n=None, compress=None, fsdp=None, tp=None):
     """train-dp and train-dp-int8: ``DP_PHASES[what]`` ranks
     (``_shard_backend``; or ``n`` ranks, ``compress``) train ``arch`` at
     full width and depth on the train phase's global batch, split by rows
@@ -4661,8 +4948,11 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
     quantize and sum kernels' device time. ``fsdp`` (a dict with the
     check's ``cfg``, ``params`` and ``dp_check``, train-dp-check's
     records): the same spawn then runs train-fsdp-check and train-fsdp
-    (``report_train_fsdp``). Returns (the launches summed over the ranks,
-    rank 0's losses, the FSDP phases' launches by path or {})."""
+    (``report_train_fsdp``; train-fsdp-int8-check and train-fsdp-int8
+    in a compressed phase). ``tp`` (``tp_int8_inputs``; 4 ranks): then
+    train-tp-int8-check at (data 2, model 2) in the same spawn
+    (``report_tp_int8_dp``). Returns (the launches summed over the ranks,
+    rank 0's losses, the FSDP and TP phases' launches by path or {})."""
     from repro_torch.configs import get_config
     from repro_torch.dist import compression
     from repro_torch.dist.group import run_ranks
@@ -4678,7 +4968,8 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
                      timeout_s=TRAIN_SHARD_TIMEOUT_S,
                      args=(seed, DP_STEPS, compress, arch,
                            None if fsdp is None else
-                           {k: fsdp[k] for k in ("cfg", "params", "steps")}))
+                           {k: fsdp[k] for k in ("cfg", "params", "steps")},
+                           tp))
     wall = time.perf_counter() - t0
     want_l = ref["losses"][:DP_STEPS]
     n_attn = _train_attention_layers(cfg)
@@ -4743,7 +5034,10 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
             f"{r0['wire_ms']['dequantize_sum']:.3f} ms a step")
     extra = {} if fsdp is None else report_train_fsdp(
         torch, recs, fsdp["dp_check"], what.replace("train-dp",
-                                                    "train-fsdp"), arch)
+                                                    "train-fsdp"), arch,
+        compress)
+    if tp is not None:
+        extra["train-tp-int8-check-data2-model2"] = report_tp_int8_dp(recs)
     return ({k: sum(rec["launches"][k] for rec in recs)
              for k in ("K1", "K2", "K3")}, losses, extra)
 
@@ -4900,7 +5194,8 @@ def train_tp_depth(torch, arch: str, seq: int, batch: int, n: int,
     return depth
 
 
-def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
+def tp_step_bytes(cfg, seq: int, batch: int, n: int,
+                  scale_groups: int = 0) -> dict:
     """The collectives of one train step (remat full: a layer, or a
     griffin group, one checkpointed unit) of one rank of a model group of
     ``n``, counted from the shapes. Where the group splits the heads,
@@ -4929,7 +5224,9 @@ def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
     head's input gradient backward, and the loss runs three (batch, seq)
     f32 collectives (max, sum of exp, gold logit); the whole leaves a rank
     uses only its part of (``Split.model_sum``) sum their f32 gradients
-    in one all_reduce; the clip sums one f32. Returns the calls and
+    in one all_reduce; the clip sums one f32; on the int8 wire
+    (``scale_groups`` > 0) the scales' absmax is maxed over the group in
+    one all_reduce of ``scale_groups`` f32. Returns the calls and
     payload bytes of each kind and the bytes a rank sends on a ring
     (all_reduce 2 (n - 1) / n of the payload, all_gather and
     reduce_scatter (n - 1) / n of the whole tensor)."""
@@ -5023,6 +5320,8 @@ def tp_step_bytes(cfg, seq: int, batch: int, n: int) -> dict:
     if summed:
         add("all_reduce", 1, 4 * summed)
     add("all_reduce", 1, 4)
+    if scale_groups:
+        add("all_reduce", 1, 4 * scale_groups)
     (red, red_b), (gat, gat_b), (rs, rs_b) = (
         calls[k] for k in ("all_reduce", "all_gather", "reduce_scatter"))
     return dict(all_reduces=red, all_reduce_payload=red_b, all_gathers=gat,
@@ -5070,19 +5369,102 @@ def _whole_digest(torch, params, opt, placements):
     return _digest(torch, whole) + f":{opt.step}"
 
 
-def _check_steps(cfg, dev, p, seed, keys, model_group=None):
+def _check_steps(cfg, dev, p, seed, keys, model_group=None,
+                 compress=False, data=None, qs=None):
     """The 3 steps of a split-training check (seq 128, batch 2, lr 3e-3,
     warmup 1, as train_check) from ``p`` on ``dev``, one rank or this
-    rank of ``model_group``: the metrics ``keys`` of each step, the final
-    parameters and optimizer state."""
+    rank of ``model_group`` (and of ``data``), on the int8 wire with
+    ``compress``: the metrics ``keys`` of each step, the final parameters
+    and optimizer state. ``qs``: a list that gets each step's int8 values
+    (``_Int8Tap``)."""
     step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
                              lr=3e-3, warmup=1, seed=seed,
-                             model_group=model_group)
-    hist = []
+                             model_group=model_group, compress=compress,
+                             data=data)
+    hist, ef = [], None
     for i in range(3):
-        p, opt, met, _ = step(p, opt, ds.batch(i))
+        with _Int8Tap(qs):
+            p, opt, met, ef = step(p, opt, ds.batch(i), ef)
         hist.append(tuple(float(met[k]) for k in keys))
     return hist, p, opt
+
+
+class _Int8Tap:
+    """Within the block, every int8 value the compressed wire quantizes
+    (``compression._quantize``) is kept; at its end ``qs`` (a list, or
+    None to keep nothing) gets them end to end, one flat CPU int8 tensor:
+    what a rank put on the wire in one step."""
+
+    def __init__(self, qs):
+        self.qs, self.parts = qs, []
+
+    def __enter__(self):
+        from repro_torch.dist import compression as CP
+        self.real = CP._quantize
+        if self.qs is not None:
+            def tap(x, s):
+                q = self.real(x, s)
+                self.parts.append(q.reshape(-1).cpu())
+                return q
+            CP._quantize = tap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import compression as CP
+        CP._quantize = self.real
+        if self.qs is not None and exc[0] is None:
+            import torch
+            self.qs.append(torch.cat(self.parts))
+        return False
+
+
+# the int8 values a rank of a split run may put on the wire differently
+# from its slices of the one-rank run's, as a share of its values: at
+# step 0 (the same parameters; only the gradients' summation order
+# differs) and at every step (the earlier flips move the parameters).
+# Correct runs on the H100 flipped at most 1.3e-5 at step 0 and 6.6e-4
+# at step 2; a rank that quantized with its own slice's absmax would move
+# most of its nonzero values.
+FLIPS_STEP0 = 1e-4
+FLIPS_ANY = 2e-3
+
+
+def _check_flips(what, flips, values) -> None:
+    """Fails unless each step's ``flips`` of a rank's ``values`` int8
+    values stay within ``FLIPS_STEP0`` (step 0) and ``FLIPS_ANY``."""
+    check(flips[0] <= FLIPS_STEP0 * values[0]
+          and all(f <= FLIPS_ANY * v for f, v in zip(flips, values)),
+          f"{what}: int8 values differing from the reference's slices a "
+          f"step {flips} of {values} (at most {FLIPS_STEP0} of them at "
+          f"step 0, {FLIPS_ANY} at any)")
+
+
+def _int8_flips(ref, got, shapes, dims, index, n) -> list:
+    """Per step, how many of this rank's int8 values (``got``: one flat
+    tensor a step) differ from its slices of the whole run's (``ref``:
+    the whole leaves end to end, ``shapes`` their shapes in leaf order,
+    ``dims`` each leaf's split dim over the ``n`` model ranks or None):
+    values on a rounding boundary that a reordered sum moved by one int8
+    step."""
+    import math
+
+    import torch
+
+    out = []
+    for r, g in zip(ref, got):
+        parts, off = [], 0
+        for sh, d in zip(shapes, dims):
+            k = math.prod(sh)
+            leaf = r[off: off + k].view(sh)
+            off += k
+            parts.append((leaf if d is None else
+                          leaf.chunk(n, d)[index]).reshape(-1))
+        want = torch.cat(parts)
+        if want.numel() != g.numel():
+            raise RuntimeError(f"the int8 values of a step: {g.numel()} on "
+                               f"the rank, {want.numel()} in its slices")
+        out.append(int((want != g).sum()))
+    return out
 
 
 # a train-tp phase's schedule per arch: (batch, schedule steps, lr,
@@ -5093,18 +5475,20 @@ TP_SCHED = {"gemma-7b": (GEMMA_BATCH, GEMMA_STEPS, 1e-3, 3),
 TP_SCHED_DEFAULT = (TRAIN_BATCH, TRAIN_STEPS, 3e-3, 10)
 
 
-def _tp_main_run(mg, seed, arch, depth, n_steps):
+def _tp_main_run(mg, seed, arch, depth, n_steps, compress=False):
     """One train-tp run of ``arch`` on this rank of ``mg``: full width at
     ``depth`` layers, bf16, remat full, seq 4096, ``n_steps`` steps of the
     arch's train phase's schedule (``TP_SCHED``), this rank's slices drawn
     layer by layer from the single-device draw of ``seed``
-    (``trainer.init_shards``), then one more step, profiled on rank 0.
-    Returns the rank's record."""
+    (``trainer.init_shards``), then one more step, profiled on rank 0; on
+    the int8 wire with ``compress`` (train-tp-int8). Returns the rank's
+    record."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.dist import compression
     from repro_torch.dist.sharding import describe, mesh_placements
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import init_shards
@@ -5116,31 +5500,33 @@ def _tp_main_run(mg, seed, arch, depth, n_steps):
     params = init_shards(build_model(cfg, dev),
                          torch.Generator(device=dev).manual_seed(seed), mg)
     pl = mesh_placements(params, cfg, model=mg.size)
-    if mg.index == 0:
+    tag = "train-tp-int8" if compress else "train-tp"
+    if mg.index == 0 and not compress:
         log(f"[train-tp] {arch} placements over {mg.size} ranks: "
             f"{describe(params, pl)}")
     step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
                              steps=sched_steps, lr=lr, warmup=warmup,
-                             seed=seed, model_group=mg)
+                             seed=seed, model_group=mg, compress=compress)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _counters(reset=True)
-    losses, times = [], []
+    losses, times, ef = [], [], None
     for i in range(n_steps):
         batch = ds.batch(i)
         t0 = time.perf_counter()
-        params, opt, met, _ = step(params, opt, batch)
+        params, opt, met, ef = step(params, opt, batch, ef)
         losses.append(float(met["loss"]))         # syncs the card
         times.append(time.perf_counter() - t0)
         if mg.index == 0:
-            log(f"[train-tp] {arch} rank 0 step {i} loss {losses[-1]:.4f} "
+            log(f"[{tag}] {arch} rank 0 step {i} loss {losses[-1]:.4f} "
                 f"grad norm {float(met['grad_norm']):.4f} "
                 f"{times[-1] * 1e3:.1f} ms")
     launches, plain = _counters()
     rec = dict(losses=losses, times=times, launches=launches, plain=plain,
                peak=torch.cuda.max_memory_allocated(),
-               whole=_whole_digest(torch, params, opt, pl))
+               whole=_whole_digest(torch, params, opt, pl),
+               n_groups=compression.scale_groups(params)[1])
     batch = ds.batch(n_steps)
     torch.cuda.synchronize()
     if mg.index == 0:
@@ -5149,12 +5535,12 @@ def _tp_main_run(mg, seed, arch, depth, n_steps):
             torch.profiler.ProfilerActivity.CUDA])
         prof.start()
     ts = time.perf_counter()
-    params, opt, met, _ = step(params, opt, batch)
+    params, opt, met, ef = step(params, opt, batch, ef)
     float(met["loss"])
     dt = time.perf_counter() - ts
     if mg.index == 0:
         prof.stop()
-        by_name = report_profile(prof, dt, 1, f"train-tp {arch} step "
+        by_name = report_profile(prof, dt, 1, f"{tag} {arch} step "
                                  f"(rank 0)")
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
@@ -5162,13 +5548,27 @@ def _tp_main_run(mg, seed, arch, depth, n_steps):
     return rec
 
 
-def train_tp_rank(mesh, seed, check_params, runs, ep=None):
+def _tp_int8_check_cfgs():
+    """train-tp-int8-check's narrowed f32 configs at (model 2): the
+    gemma-like one of ``_tp_check_cfgs`` and the arctic-like MoE check
+    config (expert stacks split over the ranks, so their scale groups
+    span them)."""
+    return {"gemma-7b": _tp_check_cfgs()["gemma-7b"],
+            "arctic-480b": _moe_check_cfgs()["arctic-480b"]}
+
+
+def train_tp_rank(mesh, seed, check_params, runs, ep=None, int8=None):
     """A spawned rank of the tensor-parallel phases. train-tp-check: each
     ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
     train_check) from ``check_params`` cut to this rank's slices. Then
     each ``(arch, depth, n_steps)`` of ``runs`` (``_tp_main_run``: train-tp
     gemma-7b, train-tp recurrentgemma-9b), each run's state freed before
-    the next. Then, with ``ep`` (the ranks' arguments of
+    the next. With ``int8`` (``{"checks": {arch: whole parameters},
+    "run": (arch, depth, n_steps)}``): train-tp-int8-check, each
+    ``_tp_int8_check_cfgs`` config's 3 steps on the int8 wire (the int8
+    values of each step kept, under "int8 <arch>"), and train-tp-int8,
+    the run on the int8 wire (``_tp_main_run``, under "main-int8
+    <arch>"). Then, with ``ep`` (the ranks' arguments of
     ``prepare_train_ep``), the expert-parallel phases in the same ranks
     (``train_ep_rank``, its records under "ep"). Returns the rank's
     records."""
@@ -5197,9 +5597,29 @@ def train_tp_rank(mesh, seed, check_params, runs, ep=None):
             params=_flat_cpu(torch, gather_params(p, pl, on)),
             whole=_whole_digest(torch, p, opt, pl))
         del full, p, opt
+    for check_arch, cfg in _tp_int8_check_cfgs().items():
+        if int8 is None or check_arch not in int8["checks"]:
+            continue
+        full = _to(int8["checks"][check_arch], dev)
+        pl = mesh_placements(full, cfg, model=mg.size)
+        qs = []
+        _counters(reset=True)
+        hist, _, _ = _check_steps(cfg, dev, shard_params(full, pl, on),
+                                  seed, ("loss", "grad_norm"), mg,
+                                  compress=True, qs=qs)
+        launches, plain = _counters()
+        out[f"int8 {check_arch}"] = dict(hist=hist, q=qs, launches=launches,
+                                         plain=plain)
+        del full
     for arch, depth, n_steps in runs:
         gc.collect()
         out[f"main {arch}"] = _tp_main_run(mg, seed, arch, depth, n_steps)
+    if int8 is not None and int8["run"] is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        arch, depth, n_steps = int8["run"]
+        out[f"main-int8 {arch}"] = _tp_main_run(mg, seed, arch, depth,
+                                                n_steps, compress=True)
     if ep is not None:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5298,8 +5718,110 @@ def _report_train_tp(rec_list, arch, depth, n_steps, ref, n, backend,
                                     for k in ("K1", "K2", "K3")}}
 
 
+# train-tp-int8: the arch run on the int8 wire in train-tp's spawn, at
+# its train-tp run's depth, and the steps (the first of train-tp's)
+TP_INT8 = ("gemma-7b", 3)
+
+
+def _report_tp_int8_checks(recs, refs, n, backend, device) -> dict:
+    """train-tp-int8-check at (model ``n``), from every rank's records
+    against the one-rank compressed steps (``refs``: arch -> (hist, the
+    int8 values of each step, the whole leaves' shapes, their split dims
+    over the model group)): each step's loss within 1e-4 and grad norm
+    within 1e-4, the int8 values each rank's differ from its slices of
+    the one-rank run's within ``_check_flips``' shares (printed), K1-K3
+    launched on each rank (none in a program without attention) and no
+    plain version. Returns {path: launches}."""
+    out = {}
+    for carch, (want_h, want_q, shapes, dims) in refs.items():
+        what = f"train-tp-int8-check {carch}"
+        rs = [r[f"int8 {carch}"] for r in recs]
+        flips = [_int8_flips(want_q, rec["q"], shapes, dims, r, n)
+                 for r, rec in enumerate(rs)]
+        for r, rec in enumerate(rs):
+            check(all(abs(a[0] - b[0]) <= 1e-4 and abs(a[1] - b[1]) <= 1e-4
+                      for a, b in zip(rec["hist"], want_h)),
+                  f"{what} rank {r}: (loss, grad norm) {rec['hist']} vs one "
+                  f"rank's int8 steps {want_h} (1e-4)")
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"{what} rank {r}: launches {rec['launches']}, plain "
+                  f"{rec['plain']}")
+            _check_flips(f"{what} rank {r}", flips[r],
+                         [q.numel() for q in rec["q"]])
+        log(f"[{what}] (model {n}) f32 on the int8 wire (scales maxed over "
+            f"the model group), {n} ranks on backend {backend} "
+            f"({device or 'one card a rank'}): (loss, grad norm) "
+            f"{rs[0]['hist']} vs one rank's int8 steps {want_h} (max loss "
+            f"diff {max(abs(a[0] - b[0]) for rec in rs for a, b in zip(rec['hist'], want_h))}"
+            f"); int8 values differing from the one-rank run's slices, per "
+            f"rank and step: {flips} of {[q.numel() for q in rs[0]['q']]}; "
+            f"launches a rank {rs[0]['launches']}")
+        out[f"train-tp-int8-check-{carch}"] = {
+            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
+                                                               "K3")}
+    return out
+
+
+def _report_train_tp_int8(rs, tp_rs, arch, depth, n, backend, device):
+    """train-tp-int8 from every rank's record (``_tp_main_run`` with
+    ``compress``) against the same spawn's train-tp run of ``arch``
+    (``tp_rs``): every loss within 1e-2 of train-tp's (the int8 wire's
+    noise on the update), equal on the ranks, the whole leaves and the
+    step bitwise equal across them, per rank and step 2 K1, 1 K2 and 1 K3
+    call an attention layer, no plain version. Prints the step median
+    and idle share beside train-tp's and the collectives counted with
+    the wire's MAX of the scales. Returns {path: launches}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    batch_n = TP_SCHED.get(arch, TP_SCHED_DEFAULT)[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    r0, t0 = rs[0], tp_rs[0]
+    n_steps = len(r0["times"])
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * n_steps, "K2": n_attn * n_steps,
+            "K3": 2 * n_attn * n_steps}
+    for r, rec in enumerate(rs):
+        check(rec["losses"] == r0["losses"],
+              f"train-tp-int8: rank {r}'s losses {rec['losses']} != rank "
+              f"0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"train-tp-int8 rank {r}: launches {rec['launches']} != "
+              f"{want}, plain {rec['plain']}")
+    check(len({rec["whole"] for rec in rs}) == 1,
+          "train-tp-int8: the leaves held whole or the step differ across "
+          "the ranks")
+    want_l = t0["losses"][:n_steps]
+    diff = max(abs(a - b) for a, b in zip(r0["losses"], want_l))
+    check(all(math.isfinite(x) for x in r0["losses"]) and diff <= 1e-2,
+          f"train-tp-int8: losses {r0['losses']} vs train-tp's {want_l} "
+          f"(1e-2)")
+    med = sorted(r0["times"][1:])[(n_steps - 1) // 2] * 1e3
+    tp_med = sorted(t0["times"][1:n_steps])[(n_steps - 1) // 2] * 1e3
+    sb = tp_step_bytes(cfg, 4096, batch_n, n, scale_groups=r0["n_groups"])
+    log(f"[train-tp-int8] {arch} bf16 remat full, {depth} layers, {n} "
+        f"model ranks on backend {backend} ({device or 'one card a rank'}),"
+        f" int8 wire (compress_grads; one scale a stacked tensor, maxed "
+        f"over the model group), the first {n_steps} steps of train-tp's "
+        f"schedule from the same weights: losses {r0['losses']} vs "
+        f"train-tp's {want_l} (max diff {diff}); whole leaves and step "
+        f"bitwise equal across the ranks; launches a rank {r0['launches']}")
+    log(f"[train-tp-int8] step median {med:.3f} ms over steps 1..{n_steps - 1}"
+        f" (rank 0; train-tp {tp_med:.3f} ms over the same steps); peak per "
+        f"rank {[round(rec['peak'] / 2**30, 3) for rec in rs]} GiB "
+        f"(train-tp {[round(rec['peak'] / 2**30, 3) for rec in tp_rs]} "
+        f"GiB); profiled step (rank 0): host wall {r0['profiled_ms']:.3f} "
+        f"ms, device idle share {r0['idle']:.3f} (train-tp "
+        f"{t0['idle']:.3f})")
+    log(f"[train-tp-int8] {_step_bytes_line(sb)} (with the int8 wire's MAX "
+        f"of {r0['n_groups']} f32 scales over the model group)")
+    return {"train-tp-int8": {k: sum(rec["launches"][k] for rec in rs)
+                              for k in ("K1", "K2", "K3")}}
+
+
 def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
-                   n=TP_RANKS, with_check=True, ep=None):
+                   n=TP_RANKS, with_check=True, ep=None, int8=TP_INT8):
     """train-tp-check and one train-tp run for each ``(arch, ref,
     ref_depth, depth)`` of ``runs`` on ``n`` model ranks
     (``_shard_backend``; one spawn runs them all: ``train_tp_rank``), and
@@ -5326,10 +5848,19 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
     ranks, per rank and step 2 K1, 1 K2 and 1 K3 call an attention layer,
     no plain version. Prints rank 0's step median, tokens/s, idle share,
     the peak per rank, the collectives by profiler name and the bytes a
-    rank sends a step (``tp_step_bytes``). Returns {path: launches summed
-    over the ranks}."""
+    rank sends a step (``tp_step_bytes``).
+
+    ``int8`` (``(arch, steps)`` or None; ``arch`` among ``runs``):
+    train-tp-int8-check (``with_check``; ``_report_tp_int8_checks``,
+    against the one-rank int8 steps run here first) and train-tp-int8,
+    ``arch``'s first
+    ``steps`` steps on the int8 wire at its train-tp run's depth
+    (``_report_train_tp_int8``), in the same spawn. Returns {path:
+    launches summed over the ranks}."""
+    from repro_torch.dist.sharding import mesh_placements
     from repro_torch.dist.group import run_ranks
     from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     backend, device = _shard_backend(torch, n)
@@ -5341,9 +5872,29 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
                                                    "cuda"), seed,
                                   ("loss", "grad_norm"))
         check_ref[carch] = (hist, _flat_cpu(torch, p))
+    int8_params, int8_ref = {}, {}
+    for carch, cfg in (_tp_int8_check_cfgs().items() if int8 and with_check
+                       else ()):
+        int8_params[carch] = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        qs = []
+        hist, _, _ = _check_steps(cfg, "cuda", _to(int8_params[carch],
+                                                   "cuda"), seed,
+                                  ("loss", "grad_norm"), compress=True,
+                                  qs=qs)
+        full = int8_params[carch]
+        pl = mesh_placements(full, cfg, model=n)
+        int8_ref[carch] = (hist, qs, [tuple(x.shape)
+                                      for x in tree_leaves(full)],
+                           tree_leaves(tree_map(lambda _, s: s.model, full,
+                                                pl)))
     plans = [(arch, *_tp_plan(torch, seed, arch, ref, ref_depth, n,
                               device is not None, depth))
              for arch, ref, ref_depth, depth in runs]
+    int8_run = None
+    if int8:
+        int8_run = (int8[0], next(d for a, d, _, _ in plans
+                                  if a == int8[0]), int8[1])
     log(f"[train-tp] before the spawn (the one-rank checks and any "
         f"unsharded reference): {time.perf_counter() - t_phase:.1f} s")
     gc.collect()
@@ -5355,7 +5906,9 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
                      timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
                      args=(seed, check_params,
                            [(a, d, k) for a, d, _, k in plans],
-                           None if ep is None else ep["rank_args"]))
+                           None if ep is None else ep["rank_args"],
+                           None if not int8 else {"checks": int8_params,
+                                                  "run": int8_run}))
     wall = time.perf_counter() - t0
     out = {}
     for carch, cfg in _tp_check_cfgs().items():
@@ -5395,6 +5948,14 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
         out.update(_report_train_tp([r[f"main {arch}"] for r in recs], arch,
                                     depth, n_steps, ref, n, backend, device,
                                     wall))
+    if int8:
+        out.update(_report_tp_int8_checks(recs, int8_ref, n, backend,
+                                          device))
+        arch = int8_run[0]
+        out.update(_report_train_tp_int8(
+            [r[f"main-int8 {arch}"] for r in recs],
+            [r[f"main {arch}"] for r in recs], arch, int8_run[1], n,
+            backend, device))
     if ep is not None:
         out.update(report_train_ep(torch, [r["ep"] for r in recs], ep))
     log(f"[train-tp] phase {time.perf_counter() - t_phase:.1f} s (the spawn "
@@ -5929,7 +6490,8 @@ def main(argv=None) -> int:
         fam_k1[arch] = _counters()[0]
         torch.cuda.empty_cache()
     trec = phase_train_kernels(torch, timer, args.seed)
-    tl = {"lockstep-whisper-base": fam_k1["whisper-base"]}
+    tl = {"lockstep-whisper-base": fam_k1["whisper-base"],
+          "analysis": phase_analysis(torch)}
     tl["dynamic"], drec = phase_dynamic(torch, timer, args.seed)
     dynamic_check(torch, args.seed)
     torch.cuda.empty_cache()
@@ -5997,9 +6559,14 @@ def main(argv=None) -> int:
         fsdp=fsdp_inputs(torch, args.seed, dp_check))
     tl.update(fsdp_launches)
     del dp_check
-    tl["train-dp-int8"], _, _ = phase_train_dp(torch, args.seed,
-                                               "train-dp-int8", full,
-                                               dp_losses)
+    # the int8 wire under the FSDP fallback and at (data 2, model 2) in
+    # the train-dp-int8 spawn, after its data-parallel run: the narrowed
+    # checks, then smollm-135m at full size against train-dp-int8's losses
+    tl["train-dp-int8"], _, int8_launches = phase_train_dp(
+        torch, args.seed, "train-dp-int8", full, dp_losses,
+        fsdp=fsdp_inputs(torch, args.seed, None),
+        tp=tp_int8_inputs(torch, args.seed))
+    tl.update(int8_launches)
     torch.cuda.empty_cache()
     # recurrentgemma-9b at full width, at the depth both one card and the
     # train-tp ranks sharing it hold: the unsharded phase, train-tp's
@@ -6088,7 +6655,8 @@ def main(argv=None) -> int:
                 "l": "kimi_k2_hd128_gqa8_bf16",
                 "m": "whisper_base_encoder_n1500_global_rows_bf16",
                 "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16",
-                "ep": "arctic_480b_ep2_rank_heads_bf16"}
+                "ep": "arctic_480b_ep2_rank_heads_bf16",
+                "k-tp": "recurrentgemma_9b_tp2_rank_heads_hd256_mqa_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

@@ -60,6 +60,17 @@ STEP_GLOBAL = 2   # the KV tile holds global-prefix keys
 VALID_FLAGS = STEP_WINDOW | STEP_GLOBAL
 
 
+def iter_real_steps(kv_blocks, flags):
+    """Yield ``(row, step, tile, flag)`` for every real (``flags != 0``)
+    step of a contract table pair: the one walk order every pass of
+    :mod:`repro_torch.analysis.plan_verify` builds its coverage counts
+    and visit multisets from."""
+    kv = _concrete(kv_blocks)
+    fl = _concrete(flags)
+    for i, s in zip(*np.nonzero(fl)):
+        yield int(i), int(s), int(kv[i, s]), int(fl[i, s])
+
+
 def _concrete(a) -> np.ndarray:
     """numpy view of ``a`` (a numpy array, or a torch tensor, which is
     copied to the host)."""

@@ -23,7 +23,9 @@ process group:
   :meth:`DataGroup.gather_weight` is the autograd collective of a layer's
   weight (``all_gather`` forward; backward, the f32 sum of the ranks'
   gradients, this rank's slice: one ``reduce_scatter``,
-  :meth:`DataGroup.reduce_scatter`).
+  :meth:`DataGroup.reduce_scatter`; on the int8 wire, this rank's whole
+  gradient, which :meth:`DataGroup.all_to_all` later sums slice by
+  slice).
 * :class:`ModelGroup` — the tensor-parallel counterpart (the reference's
   "model" mesh axis: ``heads``, ``kv_heads``, ``ffn`` and ``vocab``
   split, :mod:`repro_torch.dist.sharding`): ``psum_``, ``pmax_``,
@@ -55,8 +57,9 @@ tensor it fails with "writev: Bad address", ``tools/gloo_p2p_probe.py``),
 so :meth:`SeqGroup.ppermute` on a gloo group on a CUDA device copies its
 buffers through host tensors (:attr:`SeqGroup.host_p2p`), a transport
 step named by the backend, never taken on NCCL. Gloo's
-``reduce_scatter`` takes CUDA tensors (``tools/gloo_reduce_scatter_probe.py``),
-so the FSDP gradient needs no such step.
+``reduce_scatter`` and ``all_to_all_single`` take CUDA tensors
+(``tools/gloo_reduce_scatter_probe.py``, ``tools/gloo_all_to_all_probe.py``),
+so the FSDP gradient and its int8 wire need no such step.
 """
 from __future__ import annotations
 
@@ -188,6 +191,20 @@ class DataGroup(_Ranks):
                                     group=self.pg)
         return out.view(self.size, *t.shape)
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The flat ``t`` cut into ``size`` equal parts, part j sent to
+        rank j: returns ``(size, t.numel() // size)``, row r the part
+        rank r sent this rank (one ``all_to_all_single``: the FSDP int8
+        gradient wire of :mod:`repro_torch.dist.compression`; gloo takes
+        CUDA tensors here, ``tools/gloo_all_to_all_probe.py``)."""
+        if t.numel() % self.size:
+            raise ValueError(f"all_to_all: {t.numel()} values do not split "
+                             f"into {self.size} equal parts")
+        send = t.contiguous().view(-1)
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=self.pg)
+        return out.view(self.size, -1)
+
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's contiguous slice of the whole ``x`` along ``dim``
         (a copy, so the whole tensor can be freed)."""
@@ -215,31 +232,37 @@ class DataGroup(_Ranks):
         return out.movedim(0, dim).contiguous()
 
     def gather_weight(self, shard: torch.Tensor, dim: int,
-                      grad_to: torch.Tensor) -> torch.Tensor:
+                      grad_to: torch.Tensor,
+                      summed: bool = True) -> torch.Tensor:
         """The whole weight from every rank's slice ``shard`` along
         ``dim`` (:meth:`unshard`, bitwise the whole tensor). Backward, the
         gradient of the whole weight is cast to f32, summed over the group
         and this rank's slice kept (:meth:`reduce_scatter`); it goes to
         ``grad_to``, an f32 tensor of the slice's shape that the caller
         differentiates against (autograd would round a gradient returned
-        to a bf16 ``shard`` to bf16 after the sum), not to ``shard``."""
-        return _GatherWeight.apply(shard, grad_to, self, dim)
+        to a bf16 ``shard`` to bf16 after the sum), not to ``shard``.
+        Without ``summed``, ``grad_to`` has the whole weight's shape and
+        takes this rank's own f32 gradient of it, unsummed (the int8 wire
+        quantizes that whole gradient before anything is summed)."""
+        return _GatherWeight.apply(shard, grad_to, self, dim, summed)
 
 
 class _GatherWeight(torch.autograd.Function):
     """A data-split weight: every rank's slice joined forward; the f32
-    sum of the ranks' gradients of the whole, this rank's slice,
+    sum of the ranks' gradients of the whole, this rank's slice (or,
+    without ``summed``, this rank's own gradient of the whole),
     backward, handed to ``grad_to``."""
 
     @staticmethod
-    def forward(ctx, shard, grad_to, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, shard, grad_to, group, dim, summed):
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
         return group.unshard(shard, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (None, ctx.group.reduce_scatter(g.float(), ctx.dim), None,
-                None)
+        g = (ctx.group.reduce_scatter(g.float(), ctx.dim) if ctx.summed
+             else g.float())
+        return None, g, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,15 +270,19 @@ class SplitWeight:
     """A weight split over a data group (the FSDP fallback), as the
     forward takes it: this rank's slice ``shard`` along ``dim``, and the
     f32 tensor ``grad_to`` its summed gradient goes to
-    (:meth:`DataGroup.gather_weight`). A leaf of a parameter tree: the
-    model gathers it where a layer uses it (:func:`gather_weights`)."""
+    (:meth:`DataGroup.gather_weight`; without ``summed``, the whole
+    weight's shape and this rank's own gradient). A leaf of a parameter
+    tree: the model gathers it where a layer uses it
+    (:func:`gather_weights`)."""
     shard: torch.Tensor
     grad_to: torch.Tensor
     dim: int
     group: DataGroup
+    summed: bool = True
 
     def whole(self) -> torch.Tensor:
-        return self.group.gather_weight(self.shard, self.dim, self.grad_to)
+        return self.group.gather_weight(self.shard, self.dim, self.grad_to,
+                                        self.summed)
 
 
 def gather_weights(tree):
@@ -279,9 +306,7 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group.pg)
-        return g, None
+        return ctx.group.psum_(g.contiguous().clone()), None
 
 
 class _Reduce(torch.autograd.Function):
@@ -294,9 +319,7 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
-        return out
+        return group.psum_(x.contiguous().clone())
 
     @staticmethod
     def backward(ctx, g):

@@ -58,8 +58,10 @@ recurrentgemma-9b and mamba2-370m split their RG-LRU and SSD blocks on
 summed over the model group once a step; qwen2-vl-2b merges its vision
 tokens after the vocab-parallel lookup, and whisper-base splits its
 encoder and its cross attention's heads as well. An expert count M does
-not divide and ``--compress-grads`` with ``--model`` raise
-``NotImplementedError`` (ROADMAP queue 1, 'multi-GPU'). The checkpoint
+not divide raises ``NotImplementedError`` (ROADMAP queue 1,
+'multi-GPU'). ``--compress-grads`` runs with it: each int8 scale is the
+whole tensor's (the ranks' absmax maxed over the model group), so a
+rank's int8 values are its slices of ``--model 1``'s. The checkpoint
 holds the whole leaves, gathered over the model group, so it is the
 single-device checkpoint of the same state and resumes on any layout:
 
@@ -80,10 +82,16 @@ time inside the remat replay, its gradient reduce-scattered in f32
 (:func:`repro_torch.dist.sharding.mesh_placements`, printed once). The
 losses equal ``--data N``'s; every rank takes part in a checkpoint's
 gather, whose file is the single-device one. With ``--data 1`` it changes
-nothing; ``--compress-grads`` with it raises ``NotImplementedError``:
+nothing. With ``--compress-grads`` each rank quantizes its whole
+gradient of a split weight and receives only its slice's sum (one
+``all_to_all`` of int8 values), so the losses and the slices equal
+``--data N --compress-grads``'s; the residual stays whole on every rank:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --device cpu --dist-backend gloo --data 2 --fsdp [--model 2]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --smoke --device cpu --dist-backend gloo --data 2 --fsdp \\
+      --compress-grads
 """
 from __future__ import annotations
 
@@ -105,8 +113,8 @@ from repro_torch.obs import Observability
 from repro_torch.obs.metrics import global_registry
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
-from repro_torch.train.trainer import (TrainConfig, check_fsdp,
-                                       check_tensor_parallel, init_shards,
+from repro_torch.train.trainer import (TrainConfig, check_tensor_parallel,
+                                       init_shards,
                                        make_train_step, state_shardings,
                                        train_placements)
 from repro_torch.tree import tree_leaves
@@ -132,7 +140,8 @@ def _parser():
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true",
                     help="int8 gradients with error feedback on the "
-                         "data-parallel wire")
+                         "data-parallel wire (with --model and --fsdp "
+                         "too)")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks")
     ap.add_argument("--fsdp", action="store_true",
@@ -180,12 +189,7 @@ def main(argv=None):
                            "--device cpu to run the plain versions")
     n = args.data * args.model
     check_tensor_parallel(get_smoke(args.arch) if args.smoke
-                          else get_config(args.arch),
-                          TrainConfig(compress_grads=args.compress_grads),
-                          args.model)
-    if args.fsdp:
-        check_fsdp(TrainConfig(compress_grads=args.compress_grads),
-                   args.data)
+                          else get_config(args.arch), args.model)
     if n == 1:
         return _train(args, None, None)
     backend = args.dist_backend or ("nccl" if args.device == "cuda"

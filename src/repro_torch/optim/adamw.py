@@ -10,9 +10,10 @@ is functional (new tensors), as in the reference.
 Under tensor parallelism a rank holds slices of the split leaves, and
 under the FSDP fallback slices of the leaves it splits over the data
 group; the global norm is then the whole model's: the squares of the
-model-split leaves summed over the model group and those of the
-data-split leaves over the data group (one ``all_reduce`` each), the
-leaves held whole counted once (a leaf splits over one axis or none).
+model-split leaves summed over the model group (one ``all_reduce``) and
+those of the data-split leaves gathered over the data group (one
+``all_gather``), the leaves held whole counted once (a leaf splits over
+one axis or none).
 The update itself is leafwise and needs no collective; :func:`init` of
 slices gives sliced moments and master.
 """
@@ -23,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import Split, fsdp_dim
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -59,24 +61,47 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
 def global_norm(tree, placements=None, mesh=None) -> torch.Tensor:
     """The L2 norm of every leaf of ``tree``. ``placements``/``mesh``: a
     split rank's slices (``placements`` a tree of
-    :class:`~repro_torch.dist.sharding.Split`, ``mesh`` the rank's
-    :class:`~repro_torch.dist.group.Mesh2D`): the squares of the leaves
-    split over an axis are summed over that axis' group (one
-    ``all_reduce`` an axis that splits any), the leaves held whole
-    counted once."""
-    if placements is None:
-        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                              for x in tree_leaves(tree)))
-    sq = tree_leaves(tree_map(
-        lambda x, s: (torch.sum(torch.square(x.float())), s), tree,
-        placements))
-    total = zero = torch.zeros((), device=sq[0][0].device)
-    for axis in ("model", "data"):
-        mine = [x for x, s in sq if getattr(s, axis) is not None]
-        if mine:
-            total = total + getattr(mesh, axis).psum_(
-                sum(mine, zero).reshape(1))[0]
-    return torch.sqrt(total + sum((x for x, s in sq if s.whole), zero))
+    :class:`~repro_torch.dist.sharding.Split`, or None for whole leaves;
+    ``mesh`` the rank's :class:`~repro_torch.dist.group.Mesh2D`).
+
+    The squares of the leaves split over the model group are summed over
+    it (one ``all_reduce``). Over a data group of ``n`` ranks each leaf
+    the FSDP fallback splits (:func:`~repro_torch.dist.sharding.fsdp_dim`)
+    has its squares summed in its ``n`` chunks along that dim, the chunks'
+    sums added in rank order: a rank's slices' sums cross in one
+    ``all_gather``, and a leaf held whole is cut into the same chunks
+    here. So the norm is the same number bit for bit whether the data
+    group splits those leaves or not (an FSDP step's update is the plain
+    data-parallel step's slice)."""
+    leaves = tree_leaves(tree)
+    splits = [Split()] * len(leaves) if placements is None else [
+        s for _, s in tree_leaves(tree_map(lambda x, s: (x, s), tree,
+                                           placements))]
+    data = None if mesh is None else mesh.data
+    n = 1 if data is None else data.size
+    sq = lambda x: torch.sum(torch.square(x.float()))  # noqa: E731
+    mine = [sq(x) for x, s in zip(leaves, splits) if s.data is not None]
+    gathered = iter(data.all_gather(torch.stack(mine)).unbind(1)) \
+        if mine else None
+    model_part = rest = torch.zeros((), device=leaves[0].device)
+    for x, s in zip(leaves, splits):
+        if s.data is not None:
+            parts = next(gathered)
+        elif s.model is None and fsdp_dim(x.shape, n) is not None:
+            parts = [sq(c.contiguous())
+                     for c in x.chunk(n, fsdp_dim(x.shape, n))]
+        else:
+            parts = [sq(x)]
+        v = parts[0]
+        for p in parts[1:]:
+            v = v + p
+        if s.model is not None:
+            model_part = model_part + v
+        else:
+            rest = rest + v
+    if any(s.model is not None for s in splits):
+        model_part = mesh.model.psum_(model_part.reshape(1))[0]
+    return torch.sqrt(model_part + rest)
 
 
 def clip_by_global_norm(grads, max_norm: float, placements=None,

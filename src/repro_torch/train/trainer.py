@@ -9,8 +9,9 @@ opt_state, batch, ef_state=None) -> (params, opt_state, metrics,
 ef_state)``, the
 reference's fixed arity: ``ef_state`` (the int8 error-feedback residual)
 is threaded always, ``None`` unless ``compress_grads`` is on, so no caller
-switches shape on a flag. ``make_eval_step(model)`` returns
-``eval_step(params, batch) -> metrics``. Gradients are f32 on both
+switches shape on a flag (with one participant the step overwrites the
+given ``ef_state``'s tensors and returns them). ``make_eval_step(model)``
+returns ``eval_step(params, batch) -> metrics``. Gradients are f32 on both
 microbatch paths, and metrics are averaged over the microbatches, as in
 the reference; the microbatches split every batch entry on its batch axis
 (axis 1 of M-RoPE ``positions``, (3, B, S); axis 0 of the others).
@@ -46,7 +47,15 @@ Every rank calls the step with the same global batch (``SyntheticLM
   over the ranks, and ``ef_state`` this rank's own residual, shaped like
   ``params`` (its row of the reference's leading participant axis).
   Without a data group, or with one rank, ``compress_grads`` quantize-
-  dequantizes locally (``compression.compress_decompress``).
+  dequantizes locally (``compression.compress_decompress``). Under a
+  model group the scales are the whole tensors' (each scale group's
+  absmax maxed over the model group, after ``sum_model_shares_``), so a
+  rank's int8 values and residual are its slices of the whole run's.
+  Under ``fsdp`` an FSDP leaf's backward keeps this rank's WHOLE f32
+  gradient (no ``reduce_scatter``), which is quantized whole with the
+  whole residual; the wire then hands each rank the sum of its slice
+  only (one ``all_to_all``), and AdamW runs on the slices. The residual
+  stays whole-shape on every rank, as the reference's.
 
 A ``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, the
 reference's "model" axis) is tensor parallelism (and, for the MoE family,
@@ -263,29 +272,14 @@ def state_shardings(placements, opt_state):
         master=None if opt_state.master is None else sh)}
 
 
-def check_fsdp(tcfg: TrainConfig, data: int) -> None:
-    """What a train step under the FSDP fallback over ``data`` ranks
-    cannot run yet raises ``NotImplementedError``: ``compress_grads``."""
-    if data > 1 and tcfg.compress_grads:
-        raise NotImplementedError(
-            "compress_grads with fsdp: the reference's int8 wire runs "
-            "inside a shard_map with the parameters replicated, and a rank "
-            "here holds only its slices; ROADMAP queue 1, 'multi-GPU'")
-
-
-def check_tensor_parallel(cfg, tcfg: TrainConfig, n: int) -> None:
+def check_tensor_parallel(cfg, n: int) -> None:
     """What a train step over a model group of ``n`` ranks cannot run
-    yet raises ``NotImplementedError``: ``compress_grads``. A model group
-    runs every block kind of the 11 archs; only an MoE expert count it
+    raises ``NotImplementedError``. A model group runs every block kind
+    of the 11 archs, on either gradient wire; only an MoE expert count it
     does not divide raises
     (:func:`repro_torch.models.transformer.check_tensor_parallel`)."""
     if n <= 1:
         return
-    if tcfg.compress_grads:
-        raise NotImplementedError(
-            "compress_grads under a model group: the int8 wire's scale is "
-            "one per whole tensor (its absmax), and a rank's slice does not "
-            "hold the tensor's absmax; ROADMAP queue 1, 'multi-GPU'")
     for kind, _ in T.make_program(cfg):
         T.check_tensor_parallel(cfg, kind, n)
 
@@ -321,21 +315,22 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
     if model_group is not None and model_group.size == 1:
         model_group = None
     if model_group is not None:
-        check_tensor_parallel(model.cfg, tcfg, model_group.size)
+        check_tensor_parallel(model.cfg, model_group.size)
     n = 1 if data is None else data.size
     fsdp = fsdp and n > 1
-    if fsdp:
-        check_fsdp(tcfg, n)
     wire = tcfg.compress_grads and n > 1
     place = train_placements(model, model_group, data, fsdp) \
         if fsdp or model_group is not None else None
     mesh = Mesh2D(data, model_group)
+    split = tree_map(lambda s: s.data, place) if wire and fsdp else None
 
     def inputs(params):
         """(the tree the model takes, the tensors differentiated
         against): each FSDP leaf as a ``SplitWeight`` whose gradient goes
         to an f32 zero of its slice's shape (a scalar expanded: no
-        memory), the other leaves themselves."""
+        memory), or on the int8 wire of the whole weight's shape (the
+        rank's own gradient, quantized whole before the sum), the other
+        leaves themselves."""
         if not fsdp:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
             return leaves, tree_leaves(leaves)
@@ -343,9 +338,13 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
         def one(p, s):
             if s.data is None:
                 return p.detach().requires_grad_()
+            shape = list(p.shape)
+            if wire:
+                shape[s.data] *= n
             slot = torch.zeros((), dtype=torch.float32, device=p.device,
-                               requires_grad=True).expand(p.shape)
-            return SplitWeight(p.detach(), slot, s.data, data)
+                               requires_grad=True).expand(shape)
+            return SplitWeight(p.detach(), slot, s.data, data,
+                               summed=not wire)
         tree = tree_map(one, params, place)
         return tree, [x.grad_to if isinstance(x, SplitWeight) else x
                       for x in tree_leaves(tree)]
@@ -368,14 +367,14 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
         if mb == 1:
             loss, metrics, grads = loss_and_grads(params, batch, share)
             return tree_map(lambda g: g.float(), grads), loss, metrics
-        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                       params)
+        acc = None
         loss_sum, metric_sums = 0.0, {}
         for i in range(mb):
             mbatch = {k: v.tensor_split(mb, dim=_batch_axis(k))[i]
                       for k, v in batch.items()}
             loss, metrics, grads = loss_and_grads(params, mbatch, share)
-            acc = tree_map(torch.add, acc, grads)
+            acc = tree_map(lambda g: g.float(), grads) if acc is None \
+                else tree_map(torch.add, acc, grads)
             loss_sum = loss_sum + loss
             for k, v in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + v
@@ -395,12 +394,16 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
                              f"{tcfg.microbatches}")
         if wire:
             # the reference's shard_map region: the plain per-rank loss,
-            # the gradient on the int8 wire, the metrics averaged
+            # the gradient on the int8 wire (scales over the model group,
+            # FSDP leaves quantized whole and summed into this rank's
+            # slice), the metrics averaged
             grads, loss, metrics = grads_and_metrics(params, batch, None)
+            grads = sum_model_shares_(grads, place, model_group)
             if ef_state is None:
                 ef_state = tree_map(torch.zeros_like, grads)
             total, ef_state = compression.compressed_psum_with_residual(
-                tree_map(torch.add, grads, ef_state), data)
+                tree_map(torch.add, grads, ef_state), data, model_group,
+                split)
             grads = tree_map(lambda t: t / n, total)
             loss, metrics = _pmean(loss, metrics, data)
         else:
@@ -410,7 +413,7 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
                 grads = _psum_flat_(grads, group or data, place)
             if tcfg.compress_grads:     # one participant: nothing to send
                 grads, ef_state = compression.compress_decompress(
-                    grads, ef_state)
+                    grads, ef_state, model_group)
         lr_scale = tcfg.schedule(opt_state.step)
         params, opt_state, opt_metrics = adamw.update(
             tcfg.optimizer, opt_state, params, grads, lr_scale, place,

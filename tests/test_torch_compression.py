@@ -45,9 +45,9 @@ def _arrays(seed, rank=0):
     return out
 
 
-def _tree(arrs, cast=torch.from_numpy):
+def _tree(arrs, cast=torch.tensor):
     """The port's tree: the top-level leaves and a list of per-layer
-    dicts."""
+    dicts (copies: ``compress_decompress`` overwrites its inputs)."""
     return {"w": cast(arrs[0]), "b": cast(arrs[1]),
             "layers": [{"k": cast(arrs[2][i]), "z": cast(arrs[3][i])}
                        for i in range(LAYERS)]}
@@ -138,7 +138,7 @@ def test_int8_error_feedback_unbiased():
     g_true = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
     ef, total = None, torch.zeros(64)
     for _ in range(50):
-        out, ef = C.compress_decompress({"g": g_true}, ef)
+        out, ef = C.compress_decompress({"g": g_true.clone()}, ef)
         total = total + out["g"]
     np.testing.assert_allclose((total / 50).numpy(), g_true.numpy(),
                                atol=2e-2)

@@ -234,9 +234,9 @@ def _rank_body(group, params):
                          state=_flat(p, o.m, o.v).tobytes())
     wire_in, real = [], compression.compressed_psum_with_residual
 
-    def spy(x, group):
+    def spy(x, group, *rest):
         wire_in.append(_flat(x))
-        return real(x, group)
+        return real(x, group, *rest)
 
     compression.compressed_psum_with_residual = spy
     p, o, ef, losses = _train(data, "smollm-135m", params["smollm-135m"],
@@ -459,11 +459,13 @@ def test_cli_data_parallel_prints_the_single_rank_losses(capfd):
     out = capfd.readouterr().out
     assert "compress_grads" in out and np.isfinite(c)
     assert abs(_losses(out)[0] - l1[0]) <= 1e-4   # step 0 is pre-reduce
-    # --data with --model runs (tests/test_torch_tp.py); the int8 wire
-    # under a model group does not
-    with pytest.raises(NotImplementedError, match="under a model group"):
-        main(CLI + ["--steps", "1", "--data", "2", "--model", "2",
-                    "--compress-grads"])
+    # --data with --model runs (tests/test_torch_tp.py), on the int8 wire
+    # too (tests/test_torch_compress_split.py)
+    main(CLI + ["--steps", "1", "--data", "2", "--model", "2",
+                "--compress-grads"])
+    out = capfd.readouterr().out
+    assert "compress_grads" in out
+    assert abs(_losses(out)[0] - l1[0]) <= 1e-4
 
 
 def test_cli_nccl_without_the_cards_names_gloo(capfd):

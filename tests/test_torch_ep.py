@@ -519,19 +519,17 @@ def test_init_shards_draws_only_the_ranks_experts():
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
 def test_moe_families_run_under_a_model_group(arch):
     """The MoE families pass the tensor-parallel checks a model group of
-    2 makes (the recurrent, VLM and encoder-decoder ones still raise:
-    ``tests/test_torch_tp.py::test_the_other_families_raise``)."""
+    2 makes, with ``compress_grads`` too (their expert stacks' scale
+    groups span the ranks: the absmax is maxed over the group)."""
     from repro_torch.models import transformer as T
-    from repro_torch.train.trainer import TrainConfig, check_tensor_parallel
+    from repro_torch.train.trainer import check_tensor_parallel
 
     cfg = _smoke(arch)
     kinds = [kind for kind, _ in T.make_program(cfg)]
     assert any(k in T.MOE_KINDS for k in kinds)
     for kind in kinds:
         T.check_tensor_parallel(cfg, kind, 2)
-    check_tensor_parallel(cfg, TrainConfig(), 2)
-    with pytest.raises(NotImplementedError, match="absmax"):
-        check_tensor_parallel(cfg, TrainConfig(compress_grads=True), 2)
+    check_tensor_parallel(cfg, 2)
 
 
 # ------------------------------------------------------------------ #

@@ -29,7 +29,8 @@ data-parallel step, on gloo CPU ranks, f32.
 * Checkpoints: saved at FSDP data 2, bit-equal to the plain ``--data 2``
   file of the same state; restored onto FSDP data 4, plain data and one
   device; a resumed run continues with the uninterrupted run's losses.
-* What raises; the CLI at ``--data 2 --fsdp`` (and with ``--model 2``).
+* What raises (``compress_grads`` with it no longer does); the CLI at
+  ``--data 2 --fsdp`` (and with ``--model 2``).
 
 Two spawns run every rank case, at once, beside the reference's
 compiles: 2 ranks (the data-2 cases) and 4 (its data group of 4, its
@@ -663,24 +664,26 @@ def test_fsdp_resume_continues_the_uninterrupted_losses(ranks):
 # ------------------------------------------------------------------ #
 # what raises, the CLI
 # ------------------------------------------------------------------ #
-def test_compress_grads_with_fsdp_raises():
-    from repro_torch.launch.train import main
+def test_compress_grads_with_fsdp_builds_and_a_seq_group_raises():
+    """Nothing raises any more for ``compress_grads`` with ``fsdp``: the
+    step builds at data 2 (its int8 wire sums each rank's slices, held
+    bitwise to the plain data-parallel int8 step in
+    ``tests/test_torch_compress_split.py``), and with one data rank fsdp
+    is a no-op, the plain step. A sequence group with a data group still
+    raises."""
+    from repro_torch.dist.group import SeqGroup
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import make_train_step
 
     model = build_model(_smoke("smollm-135m"), "cpu")
     data = DataGroup(None, 0, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                       "'multi-GPU'"):
-        make_train_step(model, _tcfg(compress=True), data=data, fsdp=True)
-    with pytest.raises(NotImplementedError, match="compress_grads with "
-                       "fsdp"):
-        main(CLI + ["--steps", "1", "--data", "2", "--fsdp",
-                    "--compress-grads"])
-    # one data rank: fsdp is a no-op, the plain step
+    make_train_step(model, _tcfg(compress=True), data=data, fsdp=True)
     make_train_step(model, _tcfg(compress=True),
                     data=DataGroup(None, 0, 1, torch.device("cpu")),
                     fsdp=True)
+    with pytest.raises(ValueError, match="not both"):
+        make_train_step(model, _tcfg(compress=True), data=data, fsdp=True,
+                        group=SeqGroup(None, 0, 2, torch.device("cpu")))
 
 
 CLI = ["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--seq", "32",

@@ -37,6 +37,7 @@ assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.launch.train" in names, names
 assert "repro_torch.core.quant" in names, names
 assert "repro_torch.serve.kv_cache" in names, names
+assert "repro_torch.analysis.lint" in names, names
 assert not bad, bad
 print(len(names))
 """

@@ -22,7 +22,7 @@ axis) against the JAX package, on gloo CPU ranks, f32.
   port's single-device steps: losses and gathered parameters within
   1e-4, ``grad_norm`` within 1e-5, replicated leaves and the optimizer
   step bitwise equal across the ranks.
-* What raises: ``compress_grads`` and a sequence group beside a model
+* What raises: a sequence group beside a model
   group. A model group runs every block kind of the 11 archs; only an
   MoE expert count it does not divide raises
   (``tests/test_torch_tp_families.py`` holds the recurrent, VLM and
@@ -456,15 +456,21 @@ def test_moe_families_run_under_a_model_group(arch):
 
 
 def test_compress_grads_and_a_sequence_group_with_a_model_group_raise():
-    from repro_torch.dist.group import SeqGroup
+    """A sequence group with a model group raises; compress_grads under
+    a model group (alone and with a data group) no longer does."""
+    from repro_torch.dist.group import DataGroup, SeqGroup
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import TrainConfig, make_train_step
 
     model = build_model(_smoke("smollm-135m"), "cpu")
-    with pytest.raises(NotImplementedError, match="absmax"):
-        make_train_step(model, TrainConfig(compress_grads=True),
-                        model_group=_fake())
+    # compress_grads under a model group builds (its scales are maxed over
+    # the group: tests/test_torch_compress_split.py), with a data group too
+    make_train_step(model, TrainConfig(compress_grads=True),
+                    model_group=_fake())
+    make_train_step(model, TrainConfig(compress_grads=True),
+                    data=DataGroup(None, 0, 2, torch.device("cpu")),
+                    model_group=_fake())
     seq = SeqGroup(None, 0, 2, torch.device("cpu"))
     with pytest.raises(ValueError, match="not both"):
         make_train_step(model, TrainConfig(), group=seq, model_group=_fake())

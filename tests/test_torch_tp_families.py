@@ -540,17 +540,14 @@ def test_only_an_expert_count_the_group_does_not_divide_raises():
     divide still raises."""
     from repro_torch.configs import ARCHS as ALL
     from repro_torch.configs import get_smoke
-    from repro_torch.optim import adamw
-    from repro_torch.train.trainer import TrainConfig, check_tensor_parallel
+    from repro_torch.train.trainer import check_tensor_parallel
 
     for arch in ALL:
-        check_tensor_parallel(get_smoke(arch),
-                              TrainConfig(adamw.AdamWConfig()), 2)
+        check_tensor_parallel(get_smoke(arch), 2)
     kimi = get_smoke("kimi-k2-1t-a32b")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                        "'multi-GPU'"):
-        check_tensor_parallel(kimi, TrainConfig(),
-                              kimi.moe.n_experts + 1)
+        check_tensor_parallel(kimi, kimi.moe.n_experts + 1)
 
 
 # ------------------------------------------------------------------ #

@@ -187,14 +187,13 @@ def test_cli_unported_options_raise():
     """``--model`` > 1 (tensor parallelism) runs every family
     (``tests/test_torch_tp.py``, ``tests/test_torch_tp_families.py``),
     ``--data`` and ``--compress-grads`` run
-    (``tests/test_torch_dist_data.py``); ``--compress-grads`` with
-    ``--model`` > 1, and an expert count the model group does not divide,
-    are multi-GPU work left to port, and raise before any rank starts."""
+    (``tests/test_torch_dist_data.py``), with ``--model`` > 1 and
+    ``--fsdp`` too (``tests/test_torch_compress_split.py``); an expert
+    count the model group does not divide is multi-GPU work left to port,
+    and raises before any rank starts."""
     from repro_torch.launch.train import main
 
-    for extra in (["--arch", "mamba2-370m", "--model", "2",
-                   "--compress-grads"],
-                  ["--arch", "arctic-480b", "--model", "3"]):
+    for extra in (["--arch", "arctic-480b", "--model", "3"],):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                            "'multi-GPU'"):
             main(["--smoke", "--device", "cpu", "--steps", "1"] + extra)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The tensor-parallel training phases of ``chip_smoke.py`` alone.
 
-    python3 tools/train_tensor.py [--seed N] [--matrix]
+    python3 tools/train_tensor.py [--seed N] [--matrix] [--compress-grads]
     python3 tools/train_tensor.py --arch recurrentgemma-9b [--full]
     python3 tools/train_tensor.py --arch mamba2-370m
 
@@ -22,8 +22,14 @@ ranks' reckoned peak allows; with ``--full`` also recurrentgemma-9b at
 all 38 layers on 4 ranks if one rank's reckoned peak fits a card (the
 reckoning printed first). The ranks use NCCL, one card each, where the
 machine has the cards, else gloo ranks sharing cuda:0; every line names
-the backend. Prints the card's name and power limit last. Any failed check
-raises, so the exit code is nonzero.
+the backend. With ``--compress-grads`` every gemma-7b spawn also runs
+train-tp-int8 (``chip_smoke.TP_INT8``: its first 3 steps on the int8
+wire at the same depth, against the run beside it), and the 2-rank one
+train-tp-int8-check (the narrowed gemma-like and arctic-like configs on
+the int8 wire against one rank's); under ``--matrix`` on a 4-card call
+that is gemma-7b at ``--model 4``, a card a rank, at the depth its
+reckoning allows. Prints the card's name and power limit last. Any failed
+check raises, so the exit code is nonzero.
 """
 import argparse
 import os
@@ -68,7 +74,7 @@ def run_arch(torch, args):
                   f"{torch.cuda.device_count()} here: not run")
             continue
         C.phase_train_tp(torch, args.seed, ((arch, ref, depth, None),), n=n,
-                         with_check=False)
+                         with_check=False, int8=None)
         torch.cuda.empty_cache()
     if args.full and arch == "recurrentgemma-9b":
         full = get_config(arch)
@@ -83,7 +89,7 @@ def run_arch(torch, args):
         if fits and torch.cuda.device_count() >= 4:
             C.phase_train_tp(torch, args.seed,
                              ((arch, None, None, full.n_layers),), n=4,
-                             with_check=False)
+                             with_check=False, int8=None)
 
 
 def main(argv=None) -> int:
@@ -99,7 +105,11 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="with --arch recurrentgemma-9b: all 38 layers on "
                          "4 ranks if the reckoning fits")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="gemma-7b's spawns also run train-tp-int8 (and "
+                         "the 2-rank one its checks)")
     args = ap.parse_args(argv)
+    int8 = C.TP_INT8 if args.compress_grads else None
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     import torch
@@ -119,19 +129,20 @@ def main(argv=None) -> int:
         run_arch(torch, args)
     elif not args.matrix:
         depth, ref = unsharded(torch, args.seed, "gemma-7b")
-        C.phase_train_tp(torch, args.seed, (("gemma-7b", ref, depth, None),))
+        C.phase_train_tp(torch, args.seed, (("gemma-7b", ref, depth, None),),
+                         int8=int8)
     else:
         depth, ref = unsharded(torch, args.seed, "gemma-7b")
         for n in (2, 4):
             C.phase_train_tp(torch, args.seed,
                              (("gemma-7b", ref, depth, None),), n=n,
-                             with_check=n == 2)
+                             with_check=n == 2, int8=int8)
             torch.cuda.empty_cache()
         _, _, lf = C.phase_train(torch, args.seed, "longformer-4k")
         torch.cuda.empty_cache()
         C.phase_train_tp(torch, args.seed, (
             ("longformer-4k", lf, get_config("longformer-4k").n_layers,
-             None),), with_check=False)
+             None),), with_check=False, int8=None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
