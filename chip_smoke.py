@@ -9,7 +9,10 @@ JAX. Phases, in order; any failed check raises, so the exit code is
 nonzero:
 
 1. **build** — compile every CUDA kernel in ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` each, all at once) and print the build time.
+   (one ``nvcc`` each, all at once) and print the build time; the phases
+   through the lockstep ones need only the decode kernels, so they run
+   while the training kernels still compile (their ptxas report prints
+   before train-kernels).
 2. **kernels** — hold each decode kernel against its plain PyTorch
    version on the card, on rows that attend at least one slot. K4 (paged
    slab): (a) the serve phase's shapes in bf16 with ragged ``t`` past the
@@ -100,10 +103,12 @@ nonzero:
 6b. **serve-sharded** — sequence-parallel serving: 2 ranks through
    ``dist.group.run_ranks`` (NCCL with one card a rank where the machine
    has the cards, else gloo ranks sharing cuda:0; the phase names its
-   backend). First serve-sharded-check: the serve-check's narrowed f32
-   model on the fp slab (window 24) and the int8 page-sparse slab (window
-   56; windows where a request's pages stripe over 2 shards with no
-   padding), greedy tokens and every counter equal to the unsharded
+   backend), in the one spawn of 2 ranks that also runs 18b-18f and
+   18h-18l (after phase 19, ``spawn_jobs``: a spawn's ranks take ~20 s
+   to start and warm up). First serve-sharded-check: the serve-check's
+   narrowed f32 model on the fp slab (window 24) and the int8 page-sparse
+   slab (window 56; windows where a request's pages stripe over 2 shards
+   with no padding), greedy tokens and every counter equal to the unsharded
    engine's on the card. Then the serve phase's weights and traffic at full
    width on the bf16 slab, ``seq_shards=2``: every rank launches K4 30
    times a decode step in ``return_state`` mode and never its plain
@@ -115,9 +120,8 @@ nonzero:
    profiled decode step's collectives by name and the idle share.
 6c. **serve-sharded-int8** — the same on the int8 page-sparse slab
    (threshold -3, decay 0.3), against serve-int8, in serve-sharded's
-   spawn of 2 ranks after it. serve-sharded serves the first 4 of the 8
-   requests (prompts 634-1210), serve-sharded-int8 the first 2 (634 and
-   825) at 2 shards, not 4 in a spawn of its own (cuts for time;
+   spawn of 2 ranks after it. Both serve the first 2 of the 8 requests
+   (prompts 634 and 825) at 2 shards (cuts for time;
    ``tools/serve_sharded.py`` runs all 8 at 2 and 4 shards).
 7. **serve-ft** — kill and resume: the serve phase's weights and requests
    under ``ft.ServeSupervisor`` (a fresh engine every boot, a snapshot
@@ -146,7 +150,7 @@ nonzero:
    first: bf16 weights, slab, lockstep caches, a prefill chunk's MoE
    dispatch temporaries, the logits) fits 92 % of the card; one set of
    bf16 weights drawn on the card serves the lockstep phase's traffic
-   (batch 8, prompt 256, 32 new; one K5 launch a layer a step) and then
+   (batch 8, prompt 128, 32 new; one K5 launch a layer a step) and then
    the serve phase's on the continuous engine (the serve checks, one K4
    launch a layer a decode step, one decode step profiled). Then the
    decode step split: one MoE layer's ``moe_apply`` on 8 rows timed
@@ -155,7 +159,7 @@ nonzero:
 9d. **lockstep qwen2-vl-2b**, **lockstep whisper-base** — full width and
    depth (qwen2-vl: 28 layers, d 1536, 12 query heads on 2 KV heads of hd
    128, M-RoPE text decode; whisper: 6 decoder layers, d 512, 8 heads of
-   hd 64), bf16, batch 8, prompt 256, 32 new: one K5 launch a layer a
+   hd 64), bf16, batch 8, prompt 128, 32 new: one K5 launch a layer a
    step. For whisper the phase first fills every layer's cross caches
    from ``Model._encode`` over seeded audio frames (8 x 1500 x 512; one
    K1 launch an encoder layer) through the layer's cross-attention
@@ -222,7 +226,13 @@ nonzero:
     plan prover (a block below the kernels' smallest raised to 32, head
     dim 64, bf16) one forward of ``kernels.ops.salo_attention`` books 1
     launch and launches K1 once, one forward + backward books 3 and
-    launches K1 and K2 once and K3's two kernels. Any finding fails.
+    launches K1 and K2 once and K3's two kernels. Then the shared-memory
+    budget (``phase_smem``): every instantiation's bytes as its ``.cu``
+    file exports them (the launchers' dynamic sizes; the decode kernels'
+    and the owner sum's static bytes as compiled) equal
+    ``analysis/smem_budget.py``'s mirror, and no launch of any registry
+    target at hd 64-256 in f32/bf16/f16 is over the card's limit. Any
+    finding or difference fails.
 11. **dynamic** — runtime plans: ``hybrid_attention(plan="dynamic")``
    fwd + bwd with a seeded cotangent at smollm-135m's attention (its
    pattern, 8 x 9 query heads on 3 KV heads, n 4096, hd 64, block 256,
@@ -263,7 +273,7 @@ nonzero:
    whisper-base (the encoder's K1-K3 over 1500 frames).
 13b. **train qwen2-vl-2b** — every published width at the largest batch
    of 8, 4, 2, 1 whose full depth's reckoned peak fits 92 % of the card
-   (``train_shape``, printed), seq 4096 with 1024 vision slots, 6 steps,
+   (``train_shape``, printed), seq 4096 with 1024 vision slots, 4 steps,
    lr 1e-3, warmup 3; **train whisper-base** at full size, 10 steps,
    batch 8, 1500 audio frames a sample; per step and attention layer K1
    2, K2 1, K3 2
@@ -305,16 +315,21 @@ nonzero:
     reference's model does; the bidirectional band with its global row is
     train-kernels case (h).
 18b. **train-sharded-check** — sequence-parallel training
-    (``dist.sharded_plan``): the narrowed f32 smollm of train-check and
-    the narrowed longformer (hd 64) trained 3 steps on 2 ranks
-    (``dist.group.run_ranks``: NCCL with one card a rank where the machine
-    has the cards, else gloo ranks sharing cuda:0; the phase names its
-    backend) and unsharded on the card from the same parameters and
-    batches: losses within 1e-4, parameters and optimizer state bitwise
-    equal on both ranks (sha256 of their bytes), K1-K3 launched on each.
+    (``dist.sharded_plan``), 18b-18d2 each a job of the shared spawn
+    (``train_sharded_parts``): the narrowed f32 smollm of
+    train-check and the narrowed longformer (hd 64) trained 3 steps on 2
+    ranks (``dist.group.run_ranks``: NCCL with one card a rank where the
+    machine has the cards, else gloo ranks sharing cuda:0; the phase names
+    its backend) and unsharded on the card from the same parameters and
+    batches, and the narrowed f32 kimi-k2 of the MoE checks with 2
+    dispatch groups (each one sequence split over both shards: the router
+    logits gathered, every group routed on every rank) against its
+    unsharded run on the CPU (cuda == cpu): losses (and the MoE's aux
+    metrics) within 1e-4, parameters and optimizer state bitwise equal on
+    both ranks (sha256 of their bytes), K1-K3 launched on each.
 18c. **train-sharded** — smollm-135m at full width and depth, bf16, remat
     full, seq 4096 split over 2 ranks, global batch 8, the train phase's
-    first 3 steps (same seed, weights, batches and 20-step schedule). On
+    first 2 steps (same seed, weights, batches and 20-step schedule). On
     every rank first one layer's ``sharded_attention`` (the halo exchange,
     K1-K3 on the view) forward and backward against unsharded
     ``salo_attention`` on the whole sequence within ``OUT_TOL`` /
@@ -331,12 +346,27 @@ nonzero:
     send/recv take host memory only): the phase times the path, not
     NCCL's transport.
 18d. **train-sharded longformer-4k** — the same at longformer-4k's full
-    size (its causal LM: one-sided halos), 4 steps, against train
+    size (its causal LM: one-sided halos), 3 steps, against train
     longformer-4k; its one-layer gate runs the paper's bidirectional
     Longformer layer (window 512, one global token with its global row:
     halos on both sides and the global-row epilogue over the group).
+18d2. **train-sharded-moe** — arctic-480b at every published width, 1 of
+    35 layers, bf16, remat full, seq 4096 split over the 2 ranks, batch 1
+    (16 dispatch groups of 256 tokens, each on one shard), with the
+    expert count ``seq_moe_experts`` picks: every rank holds every weight,
+    so the largest count whose 2 copies' reckoned peak fits ``EP_BUDGET``
+    (printed first; 3 of 128). First its unsharded run on the card over
+    the same first 2 steps of the train-ep schedule; then on the ranks
+    those 2 steps and a profiled third. Gates: the step-0 loss within
+    5e-3 of the unsharded run's and every step within 2e-2, equal losses
+    and bitwise-equal state on both ranks, per rank and step 2 K1, 1 K2
+    and 1 K3 call, no plain version. Prints the step median beside the
+    unsharded run's, the peak per rank, the idle share and collectives
+    by name of the profiled step, and the router logits' gather bytes
+    (counted from the shapes).
 18e. **train-dp-check** — data-parallel training (``make_train_step(...,
-    data=DataGroup)``): the narrowed f32 smollm of train-check trained 3
+    data=DataGroup)``), in the shared spawn after 18d2 (18f after it): the
+    narrowed f32 smollm of train-check trained 3
     steps on 2 ranks, each on its rows of the global batch (NCCL with one
     card a rank where the machine has the cards, else gloo ranks sharing
     cuda:0), and unsharded on the card from the same parameters and
@@ -410,7 +440,9 @@ nonzero:
     ..., model_group=ModelGroup)``, heads, ffn and vocab split by
     ``dist.sharding.mesh_placements``): six narrowed f32 configs trained
     3 steps on 2 model ranks (NCCL with one card a rank where the machine
-    has the cards, else gloo ranks sharing cuda:0), each from the same
+    has the cards, else gloo ranks sharing cuda:0; the shared 2-rank
+    spawn's, after train-dp, as the model axis of a (1, 2) mesh), each
+    from the same
     parameters cut into the ranks' slices, against one rank on the card:
     gemma-like (2 / 2 heads of hd 256, ffn 512, vocab 256: every
     placement split), smollm-like (3 / 1 heads: the attention whole on
@@ -492,6 +524,22 @@ nonzero:
     beside the unsharded run's, rank 0's step median, tokens/s, idle
     share, the peak per rank, the collectives by name and the bytes a rank
     sends a step (``tp_step_bytes``, counted).
+18l. **train-ep-uneven-check**, **train-ep-uneven** — an expert count the
+    model group does not divide (the train-tp spawn, after train-ep): the
+    narrowed f32 arctic-480b of train-ep-check with 3 experts of width 64
+    (the 2 ranks split each expert's ffn, the router whole) and of width
+    63 (the MoE whole on every rank) trained 3 steps against one rank on
+    the card (losses within 1e-4, grad norms and aux metrics within 1e-5,
+    gathered parameters within ``EP_UNEVEN_PARAMS_TOL``, whole leaves and
+    step bitwise equal); then arctic-480b at every published width, 1
+    layer, the largest expert count 2 does not divide that
+    ``train_ep_experts`` fits (11: every rank routes all 11, their ffn
+    split), the first 3 steps of the train-ep schedule against the
+    unsharded run of that cut (within 1e-2), equal losses and whole
+    leaves on the ranks, the launch counts; prints the step median and
+    the peak per rank. (At 3 ranks arctic splits nothing at full width,
+    and 3 whole copies do not fit the card: the 3-rank case runs on the
+    CPU, ``tests/test_torch_ep.py``.)
 19. **train recurrentgemma-9b** — (run before the train-tp spawn, as
     train-tp recurrentgemma-9b's reference) every published width, the
     depth cut to the deepest multiple of 3 (whole griffin groups) whose
@@ -537,7 +585,7 @@ REPEATS = 10                     # calls a decode case must repeat bitwise
 PROFILE_FROM, PROFILE_TO = 40, 43
 TRAIN_STEPS, TRAIN_BATCH = 20, 8
 GEMMA_STEPS, GEMMA_BATCH = 10, 1   # gemma-7b train: depth cut to fit the card
-QWEN_STEPS = 6                     # train qwen2-vl-2b: cut from 10 for time
+QWEN_STEPS = 4                     # train qwen2-vl-2b: cut from 10 for time
 # (recurrentgemma-9b trains the same way, whole griffin groups)
 # mamba2-370m train: full width at batch 4, 12 of its 48 layers (depth
 # cut to keep the script near 950 s with the sharded and data-parallel
@@ -634,20 +682,50 @@ class Timer:
 
 
 # --------------------------------------------------------------------- #
-def phase_build():
+# the sources the first phases need (K4, K5: the decode and serve phases)
+DECODE_SOURCES = ("salo_decode", "salo_paged_decode")
+
+
+def _log_ptxas(names) -> None:
     from repro_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    secs = _build.build_all()
-    log(f"[build] {len(secs)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.1f} s: {secs}")
-    for name in secs:
+    for name in names:
         fn = ""
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {fn}: {line.strip()}")
+
+
+def phase_build(wait_all: bool = True):
+    """build: one nvcc per CUDA source, all started at once. With
+    ``wait_all`` it waits for every one; else for the decode kernels'
+    alone (``DECODE_SOURCES``), and the training kernels' builds go on
+    beside the phases that need none of them (``finish_build``; a load
+    waits for its own build)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    started = _build.start_all()
+    names = _build.sources() if wait_all else DECODE_SOURCES
+    secs = _build.wait(names)
+    log(f"[build] {len(started)} kernel source(s) started at once; "
+        f"{'all' if wait_all else 'the decode kernels'} built in "
+        f"{time.perf_counter() - t0:.1f} s: {secs}")
+    _log_ptxas(names)
+
+
+def finish_build() -> None:
+    """The rest of ``phase_build(wait_all=False)``: wait for the training
+    kernels' builds and print their ptxas report."""
+    from repro_torch.kernels import _build
+
+    rest = [n for n in _build.sources() if n not in DECODE_SOURCES]
+    secs = _build.wait(rest)
+    log(f"[build] the training kernels built in {secs} s (nvcc's start to "
+        f"its library; 0.0 where a phase's load waited for it)")
+    _log_ptxas(rest)
 
 
 def int8_slab(torch, gen, n_pages, page, Hkv, hd):
@@ -1690,8 +1768,10 @@ INT8_SPARSE = dict(kv_dtype="int8", page_sparsity_threshold=-3.0,
 # prefill of 4 took 28.5 s), cut to make room for the expert-parallel
 # ones, and on 2 shards in serve-sharded's spawn, not 4 in a spawn of its
 # own, to make room for the recurrent and family tensor-parallel phases
-# (tests/test_torch_dist_serve.py and tools/serve_sharded.py keep 4)
-SHARD_REQS = 4
+# (tests/test_torch_dist_serve.py and tools/serve_sharded.py keep 4);
+# serve-sharded the first 2 too since, cut for the MoE sequence-parallel
+# and uneven expert-parallel train phases
+SHARD_REQS = 2
 SHARD_INT8_REQS = 2
 
 
@@ -1701,6 +1781,66 @@ def _shard_backend(torch, shards):
     if torch.cuda.device_count() >= shards:
         return "nccl", None
     return "gloo", "cuda:0"
+
+
+def jobs_rank(group, seed, jobs):
+    """One rank of a spawn that runs several phases: each ``(name, (rank
+    function, its arguments))`` of ``jobs`` in order, as
+    ``fn(group, seed, *args)``, each one's state freed before the next.
+    Returns {name: the rank's record} and {name + " wall": its
+    seconds}."""
+    import torch
+
+    out = {}
+    for name, (fn, args) in jobs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn(group, seed, *args)
+        out[f"{name} wall"] = time.perf_counter() - t0
+    return out
+
+
+def spawn_jobs(torch, seed, parts, n=2, timeout_s=1200.0) -> dict:
+    """Several phases' ranks in ONE spawn of ``n`` ranks
+    (``_shard_backend``; each spawn's ranks take ~15-25 s to start and
+    warm up on the card): ``parts`` is ``(name, (job, report, state))``
+    for each, the halves a phase's ``*_job`` function returns; the ranks
+    run every job in order (``jobs_rank``). Returns {name: (every rank's
+    record, rank 0's seconds)}, what each report reads beside its
+    state."""
+    from repro_torch.dist.group import run_ranks
+
+    backend, device = _shard_backend(torch, n)
+    gc.collect()
+    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    t0 = time.perf_counter()
+    recs = run_ranks(jobs_rank, n, backend=backend, device=device,
+                     timeout_s=timeout_s,
+                     args=(seed, [(name, job) for name, (job, _, _)
+                                  in parts]))
+    log(f"[spawn] {', '.join(name for name, _ in parts)}: {n} ranks on "
+        f"backend {backend} ({device or 'one card a rank'}), "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start; on rank "
+        f"0: " + ", ".join(f"{name} {recs[0][name + ' wall']:.1f} s"
+                           for name, _ in parts))
+    return {name: ([r[name] for r in recs], recs[0][name + " wall"])
+            for name, _ in parts}
+
+
+def phase_two_ranks(torch, seed, parts, n=2, timeout_s=1200.0) -> dict:
+    """``spawn_jobs``, then each part's report on its records. Returns
+    {name: what its report returned}."""
+    got = spawn_jobs(torch, seed, parts, n, timeout_s)
+    return {name: report(got[name][0], st, got[name][1])
+            for name, (_, report, st) in parts}
+
+
+def _run_alone(torch, seed, n, part, timeout_s):
+    """One phase's job on ``n`` ranks in a spawn of its own, and its
+    report (``part``: its ``*_job`` function's result)."""
+    return phase_two_ranks(torch, seed, [("alone", part)], n,
+                           timeout_s)["alone"]
 
 
 def shard_check_run(torch, seed, window, lens, n_new, extra, device,
@@ -1957,29 +2097,44 @@ def phase_serve_sharded(torch, seed, shards, runs, with_check=False):
     request equal to the unsharded phase's (``ref_tokens``); how many of
     the served tokens agree is printed, not gated. Returns {what: (the K4
     launch count over the ranks, rank 0's record)}. A failed rank makes
-    ``run_ranks`` raise: nothing here catches it."""
-    from repro_torch.dist.group import run_ranks
+    ``run_ranks`` raise: nothing here catches it. ``serve_sharded_job``
+    and ``report_serve_sharded`` are its two halves, for a spawn shared
+    with other phases (``phase_two_ranks``)."""
+    return _run_alone(torch, seed, shards, serve_sharded_job(
+        torch, seed, shards, runs, with_check), SHARD_TIMEOUT_S)
 
+
+def serve_sharded_job(torch, seed, shards, runs, with_check=False):
+    """The half of ``phase_serve_sharded`` before its ranks: the
+    unsharded engine's checks on the card, and the ranks' job
+    (``sharded_rank``) with what ``report_serve_sharded`` reads."""
     backend, device = _shard_backend(torch, shards)
     refs = []
     if with_check:
         refs = [shard_check_run(torch, seed, w, lens, n, ex, "cuda")
                 for _, w, lens, n, ex in SHARD_CHECK]
-    t0 = time.perf_counter()
-    out = run_ranks(sharded_rank, shards, backend=backend, device=device,
-                    timeout_s=SHARD_TIMEOUT_S,
-                    args=(seed, [(w, ex, k) for w, _, ex, k in runs],
+    job = (sharded_rank, ([(w, ex, k) for w, _, ex, k in runs],
                           with_check))
+    return job, report_serve_sharded, dict(
+        shards=shards, runs=runs, refs=refs, backend=backend, device=device,
+        with_check=with_check)
+
+
+def report_serve_sharded(out, st, wall):
+    """The half of ``phase_serve_sharded`` after its ranks: ``out`` every
+    rank's record, ``st`` what ``serve_sharded_job`` returned beside the
+    job."""
+    shards, runs, backend = st["shards"], st["runs"], st["backend"]
     log(f"[{'/'.join(w for w, *_ in runs)}] {shards} ranks on backend "
-        f"{backend} ({device or 'one card a rank'}): "
-        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
-    if with_check:
+        f"{backend} ({st['device'] or 'one card a rank'}): {wall:.1f} s on "
+        f"rank 0")
+    if st["with_check"]:
         for i, ((name, w, _, _, ex), (toks, c)) in enumerate(
-                zip(SHARD_CHECK, refs)):
+                zip(SHARD_CHECK, st["refs"])):
             for r, o in enumerate(out):
-                st, sc = o["check"][i]
-                check(st == toks, f"serve-sharded-check {name} rank {r}: "
-                      f"tokens {st} != unsharded {toks}")
+                sto, sc = o["check"][i]
+                check(sto == toks, f"serve-sharded-check {name} rank {r}: "
+                      f"tokens {sto} != unsharded {toks}")
                 check(sc == c, f"serve-sharded-check {name} rank {r}: "
                       f"counters {sc} != unsharded {c}")
             if ex:
@@ -2673,7 +2828,49 @@ def phase_analysis(torch) -> dict:
     log(f"[analysis] launch contract held with CUDA tensors, launches "
         f"booked in the registry and (K1, K2, K3) kernel launches: "
         f"{'; '.join(shown)}; {time.perf_counter() - t0:.1f} s")
+    phase_smem(torch)
     return total
+
+
+def phase_smem(torch) -> None:
+    """analysis, the shared-memory budget: for every instantiation of the
+    CUDA sources (``analysis.smem_budget.instantiations``: K1-K3 by dtype,
+    head dim and warps, the owner sum, K4/K5 by dtype, cache type and head
+    dim) the bytes its ``.cu`` file exports (the launchers' dynamic sizes;
+    the decode kernels' and the owner sum's static bytes as compiled, read
+    with ``cudaFuncGetAttributes``) equal the Python mirror's; the card's
+    opt-in per-block limit is at least the one the budget holds launches
+    to; and the budget finds no launch over its limit for any registry
+    target or decode instantiation. Fails on any difference."""
+    from repro_torch.analysis import render
+    from repro_torch.analysis import smem_budget as SB
+    from repro_torch.analysis.registry import plan_targets
+
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    check(optin is None or optin >= SB.OPTIN_LIMIT,
+          f"analysis: the card's opt-in shared memory a block {optin} is "
+          f"below the budget's {SB.OPTIN_LIMIT}")
+    inst = SB.instantiations()
+    got = {x.name(): SB.exported(x) for x in inst}
+    bad = [f"{x.name()}: exported {got[x.name()]}, mirror {x.total}"
+           for x in inst if got[x.name()] != x.total]
+    check(not bad, "analysis: the .cu files' shared memory differs from "
+          "analysis/smem_budget.py's mirror: " + "; ".join(bad))
+    findings, _ = SB.check_budget(plan_targets(), with_max_n=False)
+    check(not findings, f"analysis: shared-memory budget:\n"
+          f"{render(findings)}")
+    big = max(inst, key=lambda x: x.total if x.opt_in else 0)
+    log(f"[analysis] shared memory: the .cu exports equal the mirror for "
+        f"all {len(inst)} instantiations (largest dynamic {big.name()} "
+        f"{big.total} bytes of the card's {optin} opt-in; decode static "
+        f"{min(x.total for x in inst if x.kernel in ('K4', 'K5'))}-"
+        f"{max(x.total for x in inst if x.kernel in ('K4', 'K5'))} bytes; "
+        f"the owner sum's static {got['K3-owner-sum[float32, hd 64]']}); no "
+        f"launch of the {len(plan_targets())} registry targets at hd 64, "
+        f"128, 256 in f32, bf16, f16 over its limit; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 SHARD_T = dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
@@ -3651,7 +3848,8 @@ def dots_reckoning(seq: int, batch: int) -> None:
 
 def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
                 steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=3e-3, warmup=10,
-                ft_save_at=None, remat="full", ref=None, cfg=None):
+                ft_save_at=None, remat="full", ref=None, cfg=None,
+                run=None):
     """``arch`` at full width (and depth unless ``n_layers`` cuts it),
     bf16, remat ``remat``, trained on the card at seq 4096. With
     ``ft_save_at``, {"params", "opt"} after that many steps go to
@@ -3665,7 +3863,8 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     run's stats (losses, median step ms, peak bytes, an MoE program's
     dropped share per step). ``cfg``: the
     config to run in place of ``arch``'s published one (train-ep's cut
-    expert count)."""
+    expert count). ``run``: only the first ``run`` steps of the schedule
+    (a split phase's reference), whose loss is not held to fall."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3681,7 +3880,7 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     if remat != "full":
         tag = f"train-{remat}"
     t_phase = time.perf_counter()
-    run = steps if ref is None else len(ref["losses"])
+    run = run or (steps if ref is None else len(ref["losses"]))
     seq = 4096
     params = build_model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(seed))
@@ -3728,10 +3927,10 @@ def phase_train(torch, seed, arch="smollm-135m", n_layers=None,
     peak = torch.cuda.max_memory_allocated()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    if ref is None:
+    if ref is None and run == steps:
         check(sum(losses[-5:]) / 5 < losses[0],
               f"the loss did not fall: {losses}")
-    else:
+    elif ref is not None:
         want_l = ref["losses"][:run]
         check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
                   for a, b in zip(losses, want_l)),
@@ -3899,9 +4098,10 @@ def phase_train_ft(torch, seed, ft) -> dict:
 # dist.group.run_ranks, each holding one contiguous slice of every
 # sequence; the halo exchange feeds K1-K3 on each shard's view tables.
 TRAIN_SHARDS = 2
-# train-sharded smollm-135m: 3 of the train phase's steps, cut for time
-# with the tensor-parallel phases
-SHARDED_STEPS = {"smollm-135m": 3, "longformer-4k": 4}
+# train-sharded smollm-135m and longformer-4k: the train phase's first 2
+# and 3 steps (cut for time from 3 and 4 with the MoE phases; ROADMAP
+# item 1 undoes it)
+SHARDED_STEPS = {"smollm-135m": 2, "longformer-4k": 3}
 # the one-layer gate's pattern per arch: the model's own (None), or the
 # paper's bidirectional Longformer layer with its global row (the
 # longformer-4k LM trains on its causal form, as the reference's does)
@@ -3910,6 +4110,11 @@ TRAIN_SHARD_TIMEOUT_S = 600.0
 # the collectives of a sharded train step by profiler name: the point-to-
 # point halo sends and receives and the all_reduces
 P2P_KEYS = ("all_reduce", "allreduce", "send", "recv")
+# train-sharded-moe: the first steps of EP_SCHED's schedule it runs
+# against the unsharded run of its cut, and its collectives by profiler
+# name (the halo's, the all_reduces and the router logits' all_gathers)
+SEQ_MOE_STEPS = 2
+SEQ_MOE_KEYS = P2P_KEYS + ("all_gather", "allgather")
 
 
 def _digest(torch, *trees) -> str:
@@ -3933,11 +4138,23 @@ def _rank_prelude(torch) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def sharded_check_rank(group, seed, cfg, params):
-    """A spawned rank of train-sharded-check: ``cfg`` trained 3 steps
-    under the group from ``params`` (seq 128, batch 2, as train_check).
-    Returns the losses, the rank's launch counts and the digest of its
-    parameters and optimizer state."""
+def _seq_moe_check_cfg():
+    """train-sharded-check's MoE config: the narrowed f32 kimi-k2 of the
+    MoE checks (384 experts top-8, the shared expert, the leading dense
+    layer) with 2 dispatch groups, so at seq 128, batch 2 on 2 shards
+    each group is one sequence split over both shards."""
+    import dataclasses
+
+    cfg = _moe_check_cfgs()["kimi-k2-1t-a32b"]
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=2))
+
+
+def sharded_check_rank(group, seed, cfg, params, keys=("loss",)):
+    """A rank of train-sharded-check: ``cfg`` trained 3 steps under the
+    group from ``params`` (seq 128, batch 2, as train_check). Returns the
+    metrics ``keys`` of each step, the rank's launch counts and the digest
+    of its parameters and optimizer state."""
     import torch
 
     _rank_prelude(torch)
@@ -3946,65 +4163,100 @@ def sharded_check_rank(group, seed, cfg, params):
     step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
                              lr=3e-3, warmup=1, seed=seed, group=group)
     _counters(reset=True)
-    losses = []
+    hist = []
     for i in range(3):
         p, opt, met, _ = step(p, opt, ds.batch(i))
-        losses.append(float(met["loss"]))
+        hist.append(tuple(float(met[k]) for k in keys))
     launches, plain = _counters()
-    return dict(losses=losses, launches=launches, plain=plain,
+    return dict(hist=hist, launches=launches, plain=plain,
                 digest=_digest(torch, p, opt.m, opt.v))
 
 
-def train_sharded_check(torch, seed):
-    """train-sharded-check: the narrowed f32 smollm (train_check's) and
-    longformer (hd 64) trained 3 steps on ``TRAIN_SHARDS`` ranks
-    (``_shard_backend``) and unsharded on the card from the same
-    parameters and batches: losses within 1e-4, parameters and optimizer
-    state bitwise equal across the ranks, K1-K3 launched on every rank
-    and no plain version. Returns {path: launches summed over the
-    ranks}."""
-    from repro_torch.dist.group import run_ranks
+def _sharded_check_inputs(torch, seed) -> dict:
+    """train-sharded-check's configs, their parameters (on the CPU, from
+    ``seed``), the metrics each step keeps and the unsharded run they are
+    held to: the narrowed f32 smollm (train_check's) and longformer (hd
+    64) unsharded on the card, and the MoE config of
+    ``_seq_moe_check_cfg`` unsharded on the CPU (the plain versions:
+    cuda == cpu). {name: (cfg, params, keys, reference steps, where)}."""
     from repro_torch.models.model import build_model
 
-    backend, device = _shard_backend(torch, TRAIN_SHARDS)
-    cfgs = {"smollm-135m": _train_cfg(smoke=True),
-            "longformer-4k": _check_cfgs()["longformer-4k"]}
     out = {}
-    for arch, cfg in cfgs.items():
+    for name, cfg, dev in (
+            ("smollm-135m", _train_cfg(smoke=True), "cuda"),
+            ("longformer-4k", _check_cfgs()["longformer-4k"], "cuda"),
+            ("kimi-k2-1t-a32b", _seq_moe_check_cfg(), "cpu")):
+        keys = ("loss",) + (AUX if cfg.moe is not None else ())
         params = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(seed))
-        p = _to(params, "cuda")
-        step, opt, ds = _trainer(cfg, "cuda", p, seq=128, batch=2, steps=3,
+        p = _to(params, dev)
+        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
                                  lr=3e-3, warmup=1, seed=seed)
         ref = []
         for i in range(3):
             p, opt, met, _ = step(p, opt, ds.batch(i))
-            ref.append(float(met["loss"]))
-        t0 = time.perf_counter()
-        res = run_ranks(sharded_check_rank, TRAIN_SHARDS, backend=backend,
-                        device=device, timeout_s=TRAIN_SHARD_TIMEOUT_S,
-                        args=(seed, cfg, params))
+            ref.append(tuple(float(met[k]) for k in keys))
+        out[name] = (cfg, params, keys, ref, dev)
+    return out
+
+
+def sharded_checks_rank(group, seed, checks):
+    """A rank of train-sharded-check: ``sharded_check_rank`` for each of
+    ``checks`` ({name: (cfg, params, keys)}). Returns {name: its
+    record}."""
+    return {name: sharded_check_rank(group, seed, cfg, params, keys)
+            for name, (cfg, params, keys) in checks.items()}
+
+
+def sharded_check_job(torch, seed):
+    """train-sharded-check's half before its ranks: the unsharded runs
+    (``_sharded_check_inputs``) and the ranks' job
+    (``sharded_checks_rank``), with what ``report_sharded_checks``
+    reads."""
+    checks = _sharded_check_inputs(torch, seed)
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    return ((sharded_checks_rank, ({name: c[:3]
+                                    for name, c in checks.items()},)),
+            report_sharded_checks,
+            dict(checks=checks, backend=backend, device=device))
+
+
+def report_sharded_checks(recs, st, wall) -> dict:
+    """Gate and print train-sharded-check: every rank's losses (and an
+    MoE config's aux metrics) within 1e-4 of the unsharded run's,
+    parameters and optimizer state bitwise equal across the ranks, K1-K3
+    launched on every rank and no plain version. Returns {path: launches
+    summed over the ranks}."""
+    backend, device = st["backend"], st["device"]
+    out = {}
+    for name, (cfg, _, keys, ref, dev) in st["checks"].items():
+        res = [r[name] for r in recs]
         for r, rec in enumerate(res):
             check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
-                      for a, b in zip(rec["losses"], ref)),
-                  f"train-sharded-check {arch} rank {r}: losses "
-                  f"{rec['losses']} != unsharded {ref} (1e-4)")
+                      for h, w in zip(rec["hist"], ref)
+                      for a, b in zip(h, w)),
+                  f"train-sharded-check {name} rank {r}: {keys} "
+                  f"{rec['hist']} != unsharded {ref} on the {dev} (1e-4)")
             check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
-                  f"train-sharded-check {arch} rank {r}: launches "
+                  f"train-sharded-check {name} rank {r}: launches "
                   f"{rec['launches']}, plain {rec['plain']}")
         check(len({rec["digest"] for rec in res}) == 1,
-              f"train-sharded-check {arch}: parameters or optimizer state "
+              f"train-sharded-check {name}: parameters or optimizer state "
               f"differ across the ranks")
-        launches = {k: sum(rec["launches"][k] for rec in res)
-                    for k in ("K1", "K2", "K3")}
-        log(f"[train-sharded-check] {arch} d {cfg.d_model} hd {cfg.hd} "
-            f"f32, {TRAIN_SHARDS} ranks on backend {backend} "
-            f"({device or 'one card a rank'}), "
-            f"{time.perf_counter() - t0:.1f} s with the ranks' start: losses "
-            f"{res[0]['losses']} vs unsharded {ref} (within 1e-4); state "
-            f"bitwise equal across the ranks; launches a rank "
+        extra = "" if cfg.moe is None else (
+            f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+            f"{cfg.moe.dispatch_groups} dispatch groups of 128 tokens, "
+            f"each split over the {TRAIN_SHARDS} shards")
+        log(f"[train-sharded-check] {name} d {cfg.d_model} hd {cfg.hd} "
+            f"f32{extra}, {TRAIN_SHARDS} ranks on backend {backend} "
+            f"({device or 'one card a rank'}): {keys} per step "
+            f"{res[0]['hist']} vs unsharded on the {dev} {ref} (within "
+            f"1e-4); state bitwise equal across the ranks; launches a rank "
             f"{res[0]['launches']}")
-        out[f"train-sharded-check-{arch}"] = launches
+        out[f"train-sharded-check-{name}"] = {
+            k: sum(rec["launches"][k] for rec in res) for k in ("K1", "K2",
+                                                               "K3")}
+    log(f"[train-sharded-check] {wall:.1f} s on rank 0")
     return out
 
 
@@ -4110,27 +4362,81 @@ def train_sharded_rank(group, seed, arch, steps):
     return rec
 
 
-def phase_train_sharded(torch, seed, arch, ref):
-    """train-sharded (smollm-135m) and train-sharded longformer-4k:
-    ``TRAIN_SHARDS`` ranks (``_shard_backend``) train ``arch`` at full
-    width and depth (``train_sharded_rank``). ``ref``: the unsharded train
-    phase's stats (same seed, weights, batches and schedule). Gates: every
-    rank's one-layer gate; the step-0 loss within 5e-3 of the unsharded
-    phase's step 0 and every step within 2e-2 of it, the loss falling;
-    equal losses and bitwise-equal parameters and optimizer state on every
-    rank; per rank and step 2 K1 (the forward and remat full's replay), 1
-    K2 and 1 K3 call (2 kernels) an attention layer, no plain version.
-    Prints first ``ShardedPlan.stats``: the exchange's bytes against an
-    all-gather's, as counted. Returns the launches summed over the
-    ranks."""
+def seq_moe_rank(group, seed, moe):
+    """train-sharded-moe on one rank of the sequence group: ``moe["cfg"]``
+    (arctic-480b at every published width, ``EP_DEPTH`` layers, the cut
+    expert count: every rank holds every weight), bf16, remat full, this
+    rank's half of every sequence at seq 4096, batch ``EP_SCHED``'s, the
+    first ``SEQ_MOE_STEPS`` steps of ``EP_SCHED``'s schedule from the
+    seed, then one more step, profiled on rank 0. Returns the rank's
+    record."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    _rank_prelude(torch)
+    dev = str(group.device)
+    cfg = moe["cfg"]
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    params = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
+                             steps=sched_steps, lr=lr, warmup=warmup,
+                             seed=seed, group=group)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, dropped, times = [], [], []
+    for i in range(SEQ_MOE_STEPS):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, _ = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        dropped.append(float(met["dropped_frac"]))
+        if group.index == 0:
+            log(f"[train-sharded-moe] rank 0 step {i} loss {losses[-1]:.4f} "
+                f"grad norm {float(met['grad_norm']):.4f} dropped "
+                f"{dropped[-1]:.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    rec = dict(losses=losses, dropped=dropped, times=times,
+               launches=launches, plain=plain,
+               peak=torch.cuda.max_memory_allocated(),
+               digest=_digest(torch, params, opt.m, opt.v))
+    batch = ds.batch(SEQ_MOE_STEPS)
+    torch.cuda.synchronize()
+    prof = None
+    if group.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    params, opt, met, _ = step(params, opt, batch)
+    float(met["loss"])
+    dt = time.perf_counter() - ts
+    if prof is not None:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, f"train-sharded-moe "
+                                 f"{cfg.name} step (rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, SEQ_MOE_KEYS))
+    return rec
+
+
+def _log_sharded_stats(arch) -> None:
+    """``ShardedPlan.stats`` of ``arch``'s attention and of its one-layer
+    gate's at n 4096 over ``TRAIN_SHARDS``: the exchange's bytes against
+    an all-gather's, as counted."""
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import build_plan, schedule
-    from repro_torch.dist.group import run_ranks
     from repro_torch.dist.sharded_plan import _auto_block, shard_plan
     from repro_torch.models.layers import salo_pattern
 
     tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
-    steps, S = SHARDED_STEPS[arch], TRAIN_SHARDS
+    S = TRAIN_SHARDS
     cfg = get_config(arch)
     for what, pat in (("model", salo_pattern(cfg)),
                       ("gate", salo_pattern(cfg) if SHARDED_GATE[arch] is None
@@ -4147,14 +4453,38 @@ def phase_train_sharded(torch, seed, arch, ref):
             f"layer over {heads} flat heads: exchange "
             f"{st['exchange_bytes'] * heads} bytes vs all-gather "
             f"{st['allgather_bytes'] * heads} (counted, not timed)")
-    gc.collect()
-    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
-    backend, device = _shard_backend(torch, S)
-    t0 = time.perf_counter()
-    recs = run_ranks(train_sharded_rank, S, backend=backend, device=device,
-                     timeout_s=TRAIN_SHARD_TIMEOUT_S,
-                     args=(seed, arch, steps))
-    wall = time.perf_counter() - t0
+
+
+def train_sharded_job(torch, seed, arch, ref):
+    """One train-sharded run's half before its ranks: ``arch``'s
+    ``ShardedPlan.stats`` and the ranks' job (``train_sharded_rank``),
+    with what ``report_train_sharded`` reads (``ref``: the unsharded
+    train phase's stats)."""
+    _log_sharded_stats(arch)
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    return ((train_sharded_rank, (arch, SHARDED_STEPS[arch])),
+            report_train_sharded,
+            dict(arch=arch, ref=ref, backend=backend, device=device))
+
+
+def report_train_sharded(recs, st, wall) -> dict:
+    """Gate and print one train-sharded run (``train_sharded_rank``'s
+    records). ``st["ref"]``: the unsharded train phase's stats (same
+    seed, weights, batches and schedule). Gates: every rank's one-layer gate;
+    the step-0 loss within 5e-3 of the unsharded phase's step 0 and every
+    step within 2e-2 of it, the loss falling; equal losses and bitwise-
+    equal parameters and optimizer state on every rank; per rank and step
+    2 K1 (the forward and remat full's replay), 1 K2 and 1 K3 call (2
+    kernels) an attention layer, no plain version. Returns {path: the
+    launches summed over the ranks}."""
+    from repro_torch.configs import get_config
+
+    arch, ref = st["arch"], st["ref"]
+    backend, device = st["backend"], st["device"]
+    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    S = TRAIN_SHARDS
+    cfg = get_config(arch)
+    steps = len(recs[0]["losses"])
     want_l = ref["losses"][:steps]
     n_attn = _train_attention_layers(cfg)
     want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
@@ -4185,7 +4515,7 @@ def phase_train_sharded(torch, seed, arch, ref):
     log(f"[{tag}] {arch} bf16 remat full, {S} ranks on backend {backend} "
         f"({device or 'one card a rank'}), seq 4096 = {S} x {4096 // S}, "
         f"global batch {TRAIN_BATCH}, {steps} steps of a {TRAIN_STEPS}-step "
-        f"schedule: {wall:.1f} s with the ranks' start; one-layer gate errs "
+        f"schedule: {wall:.1f} s on rank 0; one-layer gate errs "
         f"{[rec['gate_errs'] for rec in recs]}; losses {losses} vs "
         f"unsharded {want_l} (max diff "
         f"{max(abs(a - b) for a, b in zip(losses, want_l))}); state "
@@ -4196,8 +4526,182 @@ def phase_train_sharded(torch, seed, arch, ref):
         f"(unsharded {ref['peak'] / 2**30:.3f} GiB); profiled step (rank "
         f"0): host wall {r0['profiled_ms']:.3f} ms, device idle share "
         f"{r0['idle']:.3f}, collectives by name (host time): {coll}")
-    return {k: sum(rec["launches"][k] for rec in recs)
-            for k in ("K1", "K2", "K3")}
+    return {tag.replace(" ", "-"): {k: sum(rec["launches"][k] for rec in recs)
+                                    for k in ("K1", "K2", "K3")}}
+
+
+def seq_moe_experts(torch, arch: str, n: int = TRAIN_SHARDS) -> int:
+    """train-sharded-moe's expert count: every rank of a sequence group
+    holds every weight, so the largest count (at least top-k, at most the
+    published one) whose reckoned peak (``train_bytes`` at the rank's
+    4096 / n tokens, ``EP_DEPTH`` layers), times the ``n`` ranks sharing
+    the card, fits ``EP_BUDGET`` of it, and whose unsharded run (the
+    phase's reference) fits it too. Prints the reckoning."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = EP_BUDGET * total
+    batch_n = EP_SCHED[0]
+
+    def peaks(E):
+        cfg = _ep_cfg(arch, E)
+        return (n * train_bytes(cfg, 4096 // n, batch_n)["peak"],
+                train_bytes(cfg, 4096, batch_n)["peak"])
+    pick = 0
+    for E in range(full.moe.top_k, full.moe.n_experts + 1):
+        if max(peaks(E)) > budget:
+            break
+        pick = E
+    check(pick > 0, f"no expert count of {arch} fits {n} whole copies on "
+          f"the card")
+    got, one = peaks(pick)
+    log(f"[train-sharded-moe {arch}] reckoned: every rank of a sequence "
+        f"group of {n} holds every weight, so {pick} of "
+        f"{full.moe.n_experts} experts fit {budget / 1e9:.2f} GB "
+        f"({EP_BUDGET:.0%} of {total / 1e9:.2f}): {n} ranks at "
+        f"{4096 // n} tokens each peak at {got / 1e9:.2f} GB, the unsharded "
+        f"run at {one / 1e9:.2f} GB; {pick + 1} experts would take "
+        f"{max(peaks(pick + 1)) / 1e9:.2f} GB; {EP_DEPTH[arch]} of "
+        f"{full.n_layers} layers")
+    return pick
+
+
+def seq_moe_inputs(torch, seed, arch="arctic-480b") -> dict:
+    """What train-sharded-moe compares with, run here first: ``arch`` at
+    every published width, ``EP_DEPTH`` layers and the expert count
+    ``seq_moe_experts`` picks, unsharded on the card over the phase's
+    first ``SEQ_MOE_STEPS`` steps of ``EP_SCHED``'s schedule from the
+    same seed (``phase_train``: the launch counts). Returns the phase's
+    plan."""
+    E = seq_moe_experts(torch, arch)
+    cfg = _ep_cfg(arch, E)
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-sharded-moe {arch}] the unsharded reference: {E} experts, "
+        f"{cfg.n_layers} layer(s), seq 4096 batch {batch_n}, the phase's "
+        f"seed, schedule and steps")
+    ref_launches, _, ref = phase_train(
+        torch, seed, arch, cfg=cfg, steps=sched_steps, batch=batch_n, lr=lr,
+        warmup=warmup, run=SEQ_MOE_STEPS)
+    return dict(arch=arch, cfg=cfg, ref=ref, ref_launches=ref_launches,
+                rank_args=dict(cfg=cfg))
+
+
+def seq_moe_job(torch, seed, moe):
+    """train-sharded-moe's half before its ranks: the ranks' job
+    (``seq_moe_rank``) with what ``report_seq_moe`` reads (``moe``:
+    ``seq_moe_inputs``'s plan)."""
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    return ((seq_moe_rank, (moe["rank_args"],)), report_seq_moe,
+            dict(moe=moe, backend=backend, device=device))
+
+
+def report_seq_moe(recs, st, wall) -> dict:
+    """Gate and print train-sharded-moe (``seq_moe_rank``'s records)
+    against the unsharded run of the same cut: the step-0 loss within
+    5e-3 and every step within 2e-2 (train-sharded's limits), equal
+    losses and bitwise-equal parameters and optimizer state on every
+    rank, per rank and step 2 K1, 1 K2 and 1 K3 call an attention layer,
+    no plain version. Prints rank 0's step median and idle share, the
+    peak per rank, the collectives by profiler name and the router
+    logits' gather bytes, counted from the shapes. Returns {path: the
+    launches summed over the ranks}."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import MOE_KINDS, make_program
+
+    moe, backend, device = st["moe"], st["backend"], st["device"]
+    tag = "train-sharded-moe"
+    cfg, ref, S = moe["cfg"], moe["ref"], TRAIN_SHARDS
+    r0 = recs[0]
+    losses = r0["losses"]
+    steps = len(losses)
+    want_l = ref["losses"][:steps]
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
+            "K3": 2 * n_attn * steps}
+    for r, rec in enumerate(recs):
+        check(rec["losses"] == losses,
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(abs(losses[0] - want_l[0]) <= 5e-3,
+          f"{tag}: step-0 loss {losses[0]} vs unsharded {want_l[0]} (5e-3)")
+    check(all(abs(a - b) <= 2e-2 for a, b in zip(losses, want_l)),
+          f"{tag}: losses {losses} vs unsharded {want_l} (2e-2)")
+    check(len({rec["digest"] for rec in recs}) == 1,
+          f"{tag}: parameters or optimizer state differ across the ranks")
+    batch_n = EP_SCHED[0]
+    T = 4096 * batch_n
+    E = cfg.moe.n_experts
+    G = M.n_groups(cfg, T)
+    layers = sum(k for kind, k in make_program(cfg) if kind in MOE_KINDS)
+    # each MoE layer gathers the (T / S, E) f32 logits of every rank, in
+    # its forward and again in remat full's replay
+    gather = (S - 1) * (T // S) * E * 4
+    layout = ("some split over the shards" if batch_n * S > G
+              else "each on one shard")
+    med = sorted(r0["times"][1:])[(steps - 1) // 2] * 1e3
+    coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    log(f"[{tag}] {moe['arch']} bf16 remat full, every published width, "
+        f"{cfg.n_layers} layer(s), {E} experts top-{cfg.moe.top_k} (every "
+        f"rank holds all), {S} ranks on backend {backend} "
+        f"({device or 'one card a rank'}), seq 4096 = {S} x {4096 // S}, "
+        f"batch {batch_n}: {G} dispatch groups of {T // G} tokens, "
+        f"{layout}; "
+        f"{steps} steps of a {EP_SCHED[1]}-step schedule: "
+        f"{wall:.1f} s on rank 0; losses {losses} vs unsharded "
+        f"{want_l} (max diff {max(abs(a - b) for a, b in zip(losses, want_l))}"
+        f"); dropped share per step {r0['dropped']} (unsharded "
+        f"{ref['dropped'][:steps]}); state bitwise equal across the ranks; "
+        f"launches a rank {r0['launches']}")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{steps - 1} (rank "
+        f"0; unsharded {ref['median_ms']:.3f} ms); peak per rank "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in recs]} GiB (unsharded "
+        f"{ref['peak'] / 2**30:.3f} GiB); profiled step (rank 0): host wall "
+        f"{r0['profiled_ms']:.3f} ms, device idle share {r0['idle']:.3f}, "
+        f"collectives by name (host time): {coll}")
+    log(f"[{tag}] the router logits' all_gather: a rank receives {gather} "
+        f"bytes a layer ({S - 1} x {T // S} tokens x {E} f32 logits), "
+        f"{2 * layers * gather} a step over its {layers} MoE layer(s) (the "
+        f"forward and remat full's replay; counted, not timed)")
+    return {tag: {k: sum(rec["launches"][k] for rec in recs)
+                  for k in ("K1", "K2", "K3")}}
+
+
+def train_sharded_parts(torch, seed, runs, moe=None, with_check=True):
+    """The sequence-parallel training phases as parts of a spawn
+    (``phase_two_ranks``, ``spawn_jobs``), each its own job and report:
+    train-sharded-check (``with_check``; ``sharded_check_job``),
+    train-sharded for each ``(arch, ref)`` of ``runs`` at full width and
+    depth (``train_sharded_job``; ``ref`` the unsharded train phase's
+    stats) and train-sharded-moe (``moe``: ``seq_moe_inputs``'s plan;
+    ``seq_moe_job``)."""
+    parts = [("train-sharded-check", sharded_check_job(torch, seed))
+             ] if with_check else []
+    parts += [(f"train-sharded {arch}", train_sharded_job(torch, seed, arch,
+                                                          ref))
+              for arch, ref in runs]
+    if moe is not None:
+        parts.append(("train-sharded-moe", seq_moe_job(torch, seed, moe)))
+    return parts
+
+
+def phase_train_sharded(torch, seed, runs, moe=None, with_check=True):
+    """``train_sharded_parts`` in one spawn of ``TRAIN_SHARDS`` ranks.
+    Returns {path: launches summed over the ranks}."""
+    out = {}
+    for launches in phase_two_ranks(
+            torch, seed, train_sharded_parts(torch, seed, runs, moe,
+                                             with_check),
+            TRAIN_SHARDS, TRAIN_SHARD_TIMEOUT_S).values():
+        out.update(launches)
+    return out
 
 
 # train-dp phases: the train phase's first steps (cut to 4 for time with
@@ -4279,8 +4783,16 @@ def train_dp_check(torch, seed):
     own wire input within 1e-6. Both: the state bitwise equal across the
     ranks, K1-K3 launched and no plain version. Returns ({path: launches
     summed over the ranks}, the uncompressed run's rank records: what
-    train-fsdp-check is held to)."""
-    from repro_torch.dist.group import run_ranks
+    train-fsdp-check is held to). ``dp_check_job`` and
+    ``report_dp_check`` are its two halves, for a spawn shared with other
+    phases (``phase_two_ranks``)."""
+    return _run_alone(torch, seed, 2, dp_check_job(torch, seed),
+                      TRAIN_SHARD_TIMEOUT_S)
+
+
+def dp_check_job(torch, seed):
+    """The half of ``train_dp_check`` before its ranks: the unsharded run
+    on the card and the ranks' job (``dp_check_rank``)."""
     from repro_torch.models.model import build_model
 
     n = 2
@@ -4294,10 +4806,15 @@ def train_dp_check(torch, seed):
     for i in range(3):
         p, opt, met, _ = step(p, opt, ds.batch(i))
         ref.append(float(met["loss"]))
-    ref_p = _flat_cpu(torch, p)
-    t0 = time.perf_counter()
-    res = run_ranks(dp_check_rank, n, backend=backend, device=device,
-                    timeout_s=TRAIN_SHARD_TIMEOUT_S, args=(seed, cfg, params))
+    return (dp_check_rank, (cfg, params)), report_dp_check, dict(
+        n=n, cfg=cfg, ref=ref, ref_p=_flat_cpu(torch, p), backend=backend,
+        device=device)
+
+
+def report_dp_check(res, st, wall):
+    """The half of ``train_dp_check`` after its ranks."""
+    n, cfg, ref, ref_p = st["n"], st["cfg"], st["ref"], st["ref_p"]
+    backend, device = st["backend"], st["device"]
     out = {}
     for compress, what in ((False, "train-dp-check"),
                            (True, "train-dp-check-int8")):
@@ -4337,8 +4854,7 @@ def train_dp_check(torch, seed):
             f"{recs[0]['launches']}")
         out[what] = {k: sum(rec["launches"][k] for rec in recs)
                      for k in ("K1", "K2", "K3")}
-    log(f"[train-dp-check] {time.perf_counter() - t0:.1f} s with the ranks' "
-        f"start")
+    log(f"[train-dp-check] {wall:.1f} s on rank 0")
     return out, [r[False] for r in res]
 
 
@@ -4952,25 +5468,45 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
     in a compressed phase). ``tp`` (``tp_int8_inputs``; 4 ranks): then
     train-tp-int8-check at (data 2, model 2) in the same spawn
     (``report_tp_int8_dp``). Returns (the launches summed over the ranks,
-    rank 0's losses, the FSDP and TP phases' launches by path or {})."""
-    from repro_torch.configs import get_config
-    from repro_torch.dist import compression
-    from repro_torch.dist.group import run_ranks
-
+    rank 0's losses, the FSDP and TP phases' launches by path or {}).
+    ``train_dp_job`` and ``report_train_dp`` are its two halves, for a
+    spawn shared with other phases (``phase_two_ranks``)."""
     if n is None:
         n, compress = DP_PHASES[what]
-    cfg = get_config(arch)
-    gc.collect()
-    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
+    return _run_alone(torch, seed, n, train_dp_job(
+        torch, seed, what, ref, ref_dp, arch, n, compress, fsdp, tp),
+        TRAIN_SHARD_TIMEOUT_S)
+
+
+def train_dp_job(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
+                 n=None, compress=None, fsdp=None, tp=None):
+    """The half of ``phase_train_dp`` before its ranks: the ranks' job
+    (``train_dp_rank``) with what ``report_train_dp`` reads."""
+    if n is None:
+        n, compress = DP_PHASES[what]
     backend, device = _shard_backend(torch, n)
-    t0 = time.perf_counter()
-    recs = run_ranks(train_dp_rank, n, backend=backend, device=device,
-                     timeout_s=TRAIN_SHARD_TIMEOUT_S,
-                     args=(seed, DP_STEPS, compress, arch,
+    job = (train_dp_rank, (DP_STEPS, compress, arch,
                            None if fsdp is None else
                            {k: fsdp[k] for k in ("cfg", "params", "steps")},
                            tp))
-    wall = time.perf_counter() - t0
+    return job, report_train_dp, dict(
+        what=what, ref=ref, ref_dp=ref_dp, arch=arch, n=n, compress=compress,
+        fsdp=fsdp, tp=tp, backend=backend, device=device)
+
+
+def report_train_dp(recs, st, wall, dp_check=None):
+    """The half of ``phase_train_dp`` after its ranks. ``dp_check``:
+    train-dp-check's uncompressed rank records, where they came from the
+    same spawn (else ``st["fsdp"]["dp_check"]``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import compression
+
+    what, ref, ref_dp, arch = st["what"], st["ref"], st["ref_dp"], st["arch"]
+    n, compress, fsdp, tp = st["n"], st["compress"], st["fsdp"], st["tp"]
+    backend, device = st["backend"], st["device"]
+    cfg = get_config(arch)
     want_l = ref["losses"][:DP_STEPS]
     n_attn = _train_attention_layers(cfg)
     want = {"K1": 2 * n_attn * DP_STEPS, "K2": n_attn * DP_STEPS,
@@ -5016,7 +5552,7 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
         f"{TRAIN_BATCH} = {n} x {TRAIN_BATCH // n} at seq 4096, "
         f"{'int8 wire (compress_grads)' if compress else 'f32 all_reduce'},"
         f" {DP_STEPS} steps of a {TRAIN_STEPS}-step schedule: {wall:.1f} s "
-        f"with the ranks' start; losses {losses} vs unsharded {want_l} "
+        f"on rank 0; losses {losses} vs unsharded {want_l} "
         f"(max diff {max(abs(a - b) for a, b in zip(losses, want_l))}); "
         f"state bitwise equal across the ranks; launches a rank "
         f"{r0['launches']}")
@@ -5032,8 +5568,10 @@ def phase_train_dp(torch, seed, what, ref, ref_dp=None, arch="smollm-135m",
             f"device time): quantize {r0['wire_ms']['quantize']:.3f} ms, "
             f"dequantize and sum of {n} parts "
             f"{r0['wire_ms']['dequantize_sum']:.3f} ms a step")
+    if fsdp is not None and dp_check is None:
+        dp_check = fsdp["dp_check"]
     extra = {} if fsdp is None else report_train_fsdp(
-        torch, recs, fsdp["dp_check"], what.replace("train-dp",
+        torch, recs, dp_check, what.replace("train-dp",
                                                     "train-fsdp"), arch,
         compress)
     if tp is not None:
@@ -5056,7 +5594,9 @@ def _tp_shares(cfg, n: int) -> dict:
     width): its embedding rows (and LM head's), its slice of each layer
     (the query and output projections by heads, the KV projections by KV
     heads, a dense or shared MLP by ffn, an MoE layer's expert stacks and
-    router columns by experts, ``moe.expert_span``; an RG-LRU block's
+    router columns by experts, ``moe.expert_span``, or where the group
+    does not divide the experts every expert with its ffn split where the
+    group divides it, the router whole; an RG-LRU block's
     ``w_in``/``w_gate_branch``/``w_out`` by ``d_rnn`` with its gates
     ``w_a``, ``w_i`` (d_rnn^2 each), conv and ``lam`` whole; an SSD
     block's ``w_in`` and ``w_out`` by their widths with its conv and
@@ -5087,11 +5627,14 @@ def _tp_shares(cfg, n: int) -> dict:
     mlp = mults * d * part(cfg.d_ff)
     layer = {"attn_mlp": attn + mlp, "attn_mlp_local": attn + mlp,
              "xattn": 2 * proj + 3 * d + mlp}
-    experts = stack = 0
+    experts = stack = expert_ffn = 0
     if cfg.moe is not None:
         f = cfg.moe.d_ff_expert
         experts = part(cfg.moe.n_experts, "experts")
-        stack = experts * d * f
+        # a group that does not divide the experts splits their ffn where
+        # it divides it (moe.expert_split)
+        expert_ffn = f if "experts" in s else part(f)
+        stack = experts * d * expert_ffn
         moe = (d * experts + mults * stack
                + mults * d * part(f * cfg.moe.n_shared_experts))
         layer.update(attn_moe=attn + moe, attn_moe_dense=attn + mlp + moe)
@@ -5112,7 +5655,8 @@ def _tp_shares(cfg, n: int) -> dict:
     extra = (cfg.n_layers * (attn + mlp) + d if cfg.encoder_decoder else 0) \
         + (d * d if cfg.n_vision_tokens else 0)
     return dict(embedding=embed, per_layer=layer[program[-1][0]],
-                vocab=vocab, experts=experts, largest=max(embed, stack),
+                vocab=vocab, experts=experts, expert_ffn=expert_ffn,
+                largest=max(embed, stack),
                 params=embed + sum(k * layer[kind] for kind, k in program)
                 + d + extra)
 
@@ -5137,7 +5681,7 @@ def train_bytes_tp(cfg, seq: int, batch: int, n: int) -> dict:
         m = cfg.moe
         G = n_groups(cfg, T)
         slots = sh["experts"] * G * capacity(cfg, T // G)
-        dispatch = 2 * 2 * (slots * (2 * cfg.d_model + 3 * m.d_ff_expert)
+        dispatch = 2 * 2 * (slots * (2 * cfg.d_model + 3 * sh["expert_ffn"])
                             + 2 * T * m.top_k * cfg.d_model)
     update = max(32 * params, 18 * params + 20 * sh["largest"])
     loss = (16 * T * sh["vocab"] + 10 * params + whole["saved"]
@@ -5557,7 +6101,8 @@ def _tp_int8_check_cfgs():
             "arctic-480b": _moe_check_cfgs()["arctic-480b"]}
 
 
-def train_tp_rank(mesh, seed, check_params, runs, ep=None, int8=None):
+def train_tp_rank(mesh, seed, check_params, runs, ep=None, int8=None,
+                  epu=None):
     """A spawned rank of the tensor-parallel phases. train-tp-check: each
     ``_tp_check_cfgs`` config trained 3 steps (seq 128, batch 2, as
     train_check) from ``check_params`` cut to this rank's slices. Then
@@ -5570,7 +6115,9 @@ def train_tp_rank(mesh, seed, check_params, runs, ep=None, int8=None):
     the run on the int8 wire (``_tp_main_run``, under "main-int8
     <arch>"). Then, with ``ep`` (the ranks' arguments of
     ``prepare_train_ep``), the expert-parallel phases in the same ranks
-    (``train_ep_rank``, its records under "ep"). Returns the rank's
+    (``train_ep_rank``, its records under "ep"), and with ``epu``
+    (``prepare_train_ep_uneven``'s) the uneven ones
+    (``train_ep_uneven_rank``, under "ep-uneven"). Returns the rank's
     records."""
     import torch
 
@@ -5624,6 +6171,10 @@ def train_tp_rank(mesh, seed, check_params, runs, ep=None, int8=None):
         gc.collect()
         torch.cuda.empty_cache()
         out["ep"] = train_ep_rank(mesh, seed, ep)
+    if epu is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ep-uneven"] = train_ep_uneven_rank(mesh, seed, epu)
     return out
 
 
@@ -5703,8 +6254,8 @@ def _report_train_tp(rec_list, arch, depth, n_steps, ref, n, backend,
     log(f"[{tag}] {arch} bf16 remat full, {depth} of {full.n_layers} layers,"
         f" {n} model ranks on backend {backend} "
         f"({device or 'one card a rank'}), seq 4096 batch {batch_n}, "
-        f"{n_steps} steps of a {sched_steps}-step schedule: spawn {wall:.1f} "
-        f"s with the ranks' start and every phase in it; losses {losses} "
+        f"{n_steps} steps of a {sched_steps}-step schedule: {wall:.1f} s "
+        f"on rank 0 with every tensor-parallel phase; losses {losses} "
         f"{vs}; whole leaves and step bitwise equal across the ranks; "
         f"launches a rank {r0['launches']}")
     log(f"[{tag}] step median {med:.3f} ms over steps 1..{n_steps - 1} "
@@ -5821,13 +6372,16 @@ def _report_train_tp_int8(rs, tp_rs, arch, depth, n, backend, device):
 
 
 def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
-                   n=TP_RANKS, with_check=True, ep=None, int8=TP_INT8):
+                   n=TP_RANKS, with_check=True, ep=None, int8=TP_INT8,
+                   epu=None):
     """train-tp-check and one train-tp run for each ``(arch, ref,
     ref_depth, depth)`` of ``runs`` on ``n`` model ranks
     (``_shard_backend``; one spawn runs them all: ``train_tp_rank``), and
     with ``ep`` (``prepare_train_ep``'s plan for as many ranks)
     train-ep-check and train-ep in the same spawn after them
-    (``report_train_ep``).
+    (``report_train_ep``); with ``epu`` (``prepare_train_ep_uneven``'s)
+    train-ep-uneven-check and train-ep-uneven after those
+    (``report_train_ep_uneven``).
 
     train-tp-check (``with_check``), against the port's one-rank step on
     the card from the same parameters and batches: losses and gathered
@@ -5856,9 +6410,33 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
     ``arch``'s first
     ``steps`` steps on the int8 wire at its train-tp run's depth
     (``_report_train_tp_int8``), in the same spawn. Returns {path:
-    launches summed over the ranks}."""
+    launches summed over the ranks}. ``train_tp_job`` and
+    ``report_train_tp_phases`` are its two halves, for a spawn shared with
+    other phases (``phase_two_ranks``: its ranks are then the model axis
+    of a (1, n) mesh, ``train_tp_group_rank``)."""
+    return _run_alone(torch, seed, n, train_tp_job(
+        torch, seed, runs, n, with_check, ep, int8, epu),
+        TRAIN_SHARD_TIMEOUT_S)
+
+
+def train_tp_group_rank(group, seed, *args):
+    """``train_tp_rank`` on the ranks of a shared spawn: its group as the
+    model axis of a (1, n) mesh."""
+    from repro_torch.dist.group import Mesh2D, ModelGroup
+
+    mg = ModelGroup(group.pg, group.index, group.size, group.device,
+                    group.backend)
+    return train_tp_rank(Mesh2D(None, mg), seed, *args)
+
+
+def train_tp_job(torch, seed, runs=(("gemma-7b", None, None, None),),
+                 n=TP_RANKS, with_check=True, ep=None, int8=TP_INT8,
+                 epu=None):
+    """The half of ``phase_train_tp`` before its ranks: the one-rank
+    checks, any unsharded reference, and the ranks' job
+    (``train_tp_group_rank``) with what ``report_train_tp_phases``
+    reads."""
     from repro_torch.dist.sharding import mesh_placements
-    from repro_torch.dist.group import run_ranks
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -5897,19 +6475,29 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
                                   if a == int8[0]), int8[1])
     log(f"[train-tp] before the spawn (the one-rank checks and any "
         f"unsharded reference): {time.perf_counter() - t_phase:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()       # the ranks' allocators cannot see it
-    t0 = time.perf_counter()
-    if ep is not None:
-        check(ep["n"] == n, f"train-ep's {ep['n']} ranks in train-tp's {n}")
-    recs = run_ranks(train_tp_rank, n, backend=backend, device=device,
-                     timeout_s=TRAIN_SHARD_TIMEOUT_S, model=n,
-                     args=(seed, check_params,
-                           [(a, d, k) for a, d, _, k in plans],
-                           None if ep is None else ep["rank_args"],
-                           None if not int8 else {"checks": int8_params,
-                                                  "run": int8_run}))
-    wall = time.perf_counter() - t0
+    for plan in (ep, epu):
+        if plan is not None:
+            check(plan["n"] == n, f"train-ep's {plan['n']} ranks in "
+                  f"train-tp's {n}")
+    job = (train_tp_group_rank, (
+        check_params, [(a, d, k) for a, d, _, k in plans],
+        None if ep is None else ep["rank_args"],
+        None if not int8 else {"checks": int8_params, "run": int8_run},
+        None if epu is None else epu["rank_args"]))
+    return job, report_train_tp_phases, dict(
+        n=n, backend=backend, device=device, check_ref=check_ref,
+        plans=plans, int8=int8, int8_ref=int8_ref, int8_run=int8_run, ep=ep,
+        epu=epu, t_phase=t_phase)
+
+
+def report_train_tp_phases(recs, st, wall) -> dict:
+    """The half of ``phase_train_tp`` after its ranks."""
+    import torch
+
+    n, backend, device = st["n"], st["backend"], st["device"]
+    check_ref, plans, int8 = st["check_ref"], st["plans"], st["int8"]
+    int8_ref, int8_run = st["int8_ref"], st["int8_run"]
+    ep, epu, t_phase = st["ep"], st["epu"], st["t_phase"]
     out = {}
     for carch, cfg in _tp_check_cfgs().items():
         if carch not in check_ref:
@@ -5958,8 +6546,11 @@ def phase_train_tp(torch, seed, runs=(("gemma-7b", None, None, None),),
             backend, device))
     if ep is not None:
         out.update(report_train_ep(torch, [r["ep"] for r in recs], ep))
-    log(f"[train-tp] phase {time.perf_counter() - t_phase:.1f} s (the spawn "
-        f"{wall:.1f} s)")
+    if epu is not None:
+        out.update(report_train_ep_uneven([r["ep-uneven"] for r in recs],
+                                          epu))
+    log(f"[train-tp] phase {time.perf_counter() - t_phase:.1f} s ({wall:.1f} "
+        f"s of it on rank 0)")
     return out
 
 
@@ -5998,16 +6589,18 @@ def _ep_cfg(arch: str, experts: int):
 
 
 def train_ep_experts(torch, arch: str, seq: int, batch: int, n: int,
-                     share: bool = True, experts=None) -> int:
+                     share: bool = True, experts=None,
+                     uneven: bool = False) -> int:
     """The expert count of a train-ep phase of ``arch`` (every published
-    width, ``EP_DEPTH`` layers): the largest multiple of ``n`` up to the
-    published count whose reckoned peak of one rank (``train_bytes_tp``),
-    times the ``n`` ranks that share the card (``share``; else one rank a
-    card), fits ``EP_BUDGET`` of it, and where the ranks share one card
-    whose unsharded config fits it too (the phase's reference). The
-    expert count is cut as the depth is: to what the reckoning fits.
-    ``experts``: take that count instead (it must fit). Prints the
-    reckoning."""
+    width, ``EP_DEPTH`` layers): the largest multiple of ``n`` (with
+    ``uneven``, the largest count of at least top-k that ``n`` does not
+    divide) up to the published count whose reckoned peak of one rank
+    (``train_bytes_tp``), times the ``n`` ranks that share the card
+    (``share``; else one rank a card), fits ``EP_BUDGET`` of it, and where
+    the ranks share one card whose unsharded config fits it too (the
+    phase's reference). The expert count is cut as the depth is: to what
+    the reckoning fits. ``experts``: take that count instead (it must
+    fit). Prints the reckoning."""
     from repro_torch.configs import get_config
 
     full = get_config(arch)
@@ -6020,20 +6613,23 @@ def train_ep_experts(torch, arch: str, seq: int, batch: int, n: int,
             <= budget
         return ok and (not share or train_bytes(_ep_cfg(arch, E), seq,
                                                 batch)["peak"] <= budget)
+    counts = [E for E in range(full.moe.top_k, full.moe.n_experts + 1)
+              if (E % n != 0) == uneven]
     pick = 0
-    for E in range(n, full.moe.n_experts + 1, n):
+    for E in counts:
         if not fits(E):
             break
         pick = E
     if experts is not None:
-        check(experts % n == 0 and fits(experts),
+        check((experts % n != 0) == uneven and fits(experts),
               f"train-ep {arch}: {experts} experts over {n} ranks do not fit "
               f"{budget / 1e9:.2f} GB (the reckoning's pick: {pick})")
         pick = experts
     check(pick > 0, f"no expert count of {arch} fits the card at {n} ranks")
     b = train_bytes_tp(_ep_cfg(arch, pick), seq, batch, n)
     one = train_bytes(_ep_cfg(arch, pick), seq, batch)
-    nxt = train_bytes_tp(_ep_cfg(arch, pick + n), seq, batch, n)
+    after = next((E for E in counts if E > pick), pick + n)
+    nxt = train_bytes_tp(_ep_cfg(arch, after), seq, batch, n)
     log(f"[train-ep {arch}] reckoned bytes a rank at {n} model ranks, "
         f"{EP_DEPTH[arch]} of {full.n_layers} layers, seq {seq} batch "
         f"{batch}: {pick} of {full.moe.n_experts} experts fit "
@@ -6045,7 +6641,7 @@ def train_ep_experts(torch, arch: str, seq: int, batch: int, n: int,
         f"{b['loss_peak'] / 1e9:.2f} GB (the dispatch "
         f"{b['dispatch'] / 1e9:.2f} GB) a rank (x {k}: "
         f"{k * b['peak'] / 1e9:.2f} GB); unsharded {one['params'] / 1e6:.1f}"
-        f"M params, peak {one['peak'] / 1e9:.2f} GB; {pick + n} experts "
+        f"M params, peak {one['peak'] / 1e9:.2f} GB; {after} experts "
         f"would peak at {k * nxt['peak'] / 1e9:.2f} GB")
     return pick
 
@@ -6364,6 +6960,259 @@ def phase_train_ep(torch, seed, ep) -> dict:
     return report_train_ep(torch, recs, ep, time.perf_counter() - t0)
 
 
+# train-ep-uneven: an expert count the model group does not divide, at
+# every published width: arctic-480b, EP_DEPTH layers and the largest
+# count EP_RANKS does not divide that train_ep_experts fits (the stacks
+# split over their ffn, the router whole, every rank routing all the
+# experts), its first EP_UNEVEN_STEPS steps of EP_SCHED's schedule
+# against the unsharded run of the same cut. At 3 ranks arctic splits
+# nothing (56 heads, 8 KV heads, ffn 4864 and vocab 32000 are not
+# multiples of 3), so three whole copies share the card: 85.4 GB reckoned
+# for even 2 experts, more than the card holds; the phase runs EP_RANKS
+# ranks, and the whole branch runs in its check (and at 3 ranks in the
+# CPU tests)
+EP_UNEVEN_STEPS = 3
+# train-ep-uneven-check: the limit of the gathered parameters against one
+# rank's, by branch. The ffn split sums each expert row's halves, so its
+# gradients differ in the last bits and AdamW moves an entry whose
+# gradient is at the rounding floor by up to the learning rate (on the
+# CPU, tests/test_torch_ep.py: 7.9e-4 on one of 16384 entries); the whole
+# branch runs one device's arithmetic
+EP_UNEVEN_PARAMS_TOL = {"ffn": 1e-3, "whole": 1e-4}
+
+
+def _ep_uneven_check_cfgs():
+    """train-ep-uneven-check's configs: train-ep-check's narrowed f32
+    arctic-480b (d 256, 7 query heads on one KV head of hd 128) with 3
+    experts, of width 64 (the ``EP_RANKS`` ranks split their ffn) and of
+    width 63 (they split nothing of the MoE: the whole branch)."""
+    import dataclasses
+
+    base = _moe_check_cfgs()["arctic-480b"]
+    return {branch: dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, n_experts=3, d_ff_expert=f))
+        for branch, f in (("ffn", 64), ("whole", 63))}
+
+
+def prepare_train_ep_uneven(torch, seed, n=EP_RANKS, arch=EP_ARCH) -> dict:
+    """What the train-ep-uneven phases on ``n`` model ranks compare with,
+    run here first on the card: each ``_ep_uneven_check_cfgs`` config
+    trained 3 steps on one rank, and where the ranks share the card,
+    ``arch`` unsharded at the phase's cut (every published width,
+    ``EP_DEPTH`` layers, the largest expert count ``n`` does not divide
+    that ``train_ep_experts`` fits) over the phase's first
+    ``EP_UNEVEN_STEPS`` steps of ``EP_SCHED``'s schedule from the same
+    seed (``phase_train``: the launch counts; over the whole schedule its
+    router collapses, as train-ep's does at 2 ranks, and its loss need
+    not fall). Returns the phases' plan."""
+    from repro_torch.models.model import build_model
+
+    backend, device = _shard_backend(torch, n)
+    check_params, check_ref = {}, {}
+    for branch, cfg in _ep_uneven_check_cfgs().items():
+        check_params[branch] = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(seed))
+        hist, p, _ = _check_steps(cfg, "cuda", _to(check_params[branch],
+                                                   "cuda"), seed,
+                                  ("loss", "grad_norm", *AUX))
+        check_ref[branch] = (hist, _flat_cpu(torch, p))
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    E = train_ep_experts(torch, arch, 4096, batch_n, n,
+                         share=device is not None, uneven=True)
+    cfg = _ep_cfg(arch, E)
+    ref, ref_launches = None, None
+    if device is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[train-ep-uneven {arch}] the unsharded reference: {E} "
+            f"experts, {cfg.n_layers} layer(s), the phase's seed, schedule "
+            f"and steps")
+        ref_launches, _, ref = phase_train(
+            torch, seed, arch, cfg=cfg, steps=sched_steps, batch=batch_n,
+            lr=lr, warmup=warmup, run=EP_UNEVEN_STEPS)
+    return dict(arch=arch, n=n, backend=backend, device=device, cfg=cfg,
+                check_ref=check_ref, ref=ref, ref_launches=ref_launches,
+                rank_args=dict(check_params=check_params, cfg=cfg))
+
+
+def train_ep_uneven_rank(mesh, seed, epu):
+    """The uneven expert-parallel phases on one rank of a model group (at
+    the end of ``train_tp_rank``). train-ep-uneven-check: each
+    ``_ep_uneven_check_cfgs`` config trained 3 steps (seq 128, batch 2,
+    as train_check) from ``epu["check_params"]`` cut to this rank's
+    slices. Then train-ep-uneven: ``epu["cfg"]``, bf16, remat full, seq
+    4096, the first ``EP_UNEVEN_STEPS`` steps of ``EP_SCHED``, this rank's
+    slices drawn from the single-device draw of ``seed``
+    (``trainer.init_shards``: every expert, each stack's ffn columns).
+    Returns the rank's records."""
+    import torch
+
+    from repro_torch.dist.group import Mesh2D
+    from repro_torch.dist.sharding import describe, mesh_placements
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import (gather_params, init_shards,
+                                           shard_params)
+
+    t_ep = time.perf_counter()
+    _rank_prelude(torch)
+    mg = mesh.model
+    on = Mesh2D(None, mg)
+    dev = str(mg.device)
+    out = {}
+    for branch, cfg in _ep_uneven_check_cfgs().items():
+        full = _to(epu["check_params"][branch], dev)
+        pl = mesh_placements(full, cfg, model=mg.size)
+        _counters(reset=True)
+        hist, p, opt = _check_steps(cfg, dev, shard_params(full, pl, on),
+                                    seed, ("loss", "grad_norm", *AUX), mg)
+        launches, plain = _counters()
+        out[f"check-{branch}"] = dict(
+            hist=hist, launches=launches, plain=plain,
+            split=M.expert_split(cfg, mg.size),
+            params=_flat_cpu(torch, gather_params(p, pl, on)),
+            whole=_whole_digest(torch, p, opt, pl))
+        del full, p, opt
+    cfg = epu["cfg"]
+    batch_n, sched_steps, lr, warmup = EP_SCHED
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_shards(build_model(cfg, dev),
+                         torch.Generator(device=dev).manual_seed(seed), mg)
+    pl = mesh_placements(params, cfg, model=mg.size)
+    if mg.index == 0:
+        log(f"[train-ep-uneven] {cfg.name} with {cfg.moe.n_experts} experts, "
+            f"placements over {mg.size} ranks: {describe(params, pl)}")
+    step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
+                             steps=sched_steps, lr=lr, warmup=warmup,
+                             seed=seed, model_group=mg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    losses, dropped, times = [], [], []
+    for i in range(EP_UNEVEN_STEPS):
+        batch = ds.batch(i)
+        t0 = time.perf_counter()
+        params, opt, met, _ = step(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs the card
+        times.append(time.perf_counter() - t0)
+        dropped.append(float(met["dropped_frac"]))
+        if mg.index == 0:
+            log(f"[train-ep-uneven] rank 0 step {i} loss {losses[-1]:.4f} "
+                f"grad norm {float(met['grad_norm']):.4f} dropped "
+                f"{dropped[-1]:.4f} {times[-1] * 1e3:.1f} ms")
+    launches, plain = _counters()
+    out["main"] = dict(losses=losses, dropped=dropped, times=times,
+                       launches=launches, plain=plain,
+                       split=M.expert_split(cfg, mg.size),
+                       peak=torch.cuda.max_memory_allocated(),
+                       whole=_whole_digest(torch, params, opt, pl),
+                       wall=time.perf_counter() - t_ep)
+    return out
+
+
+def report_train_ep_uneven(recs, epu) -> dict:
+    """Gate and print the uneven expert-parallel phases from every rank's
+    records (``train_ep_uneven_rank``'s).
+
+    train-ep-uneven-check, against the one-rank steps of
+    ``prepare_train_ep_uneven``: each config took its branch (``ffn``,
+    ``whole``), losses within 1e-4, the grad norms and aux metrics within
+    1e-5, gathered parameters within ``EP_UNEVEN_PARAMS_TOL``, the leaves
+    a rank holds whole and the step bitwise equal across the ranks, K1-K3
+    launched on each rank, no plain version.
+
+    train-ep-uneven: the stacks split over ffn; every rank's losses
+    equal, the leaves held whole bitwise equal across the ranks, per rank
+    and step 2 K1, 1 K2 and 1 K3 call an attention layer, no plain
+    version; against the unsharded run of the same cut (where one ran)
+    every step within 1e-2 (train-ep's limit). Prints rank 0's step
+    median and the peak per rank. Returns {path: launches summed over the
+    ranks}."""
+    arch, n, cfg = epu["arch"], epu["n"], epu["cfg"]
+    where = f"{n} ranks on backend {epu['backend']} " \
+        f"({epu['device'] or 'one card a rank'})"
+    out = {}
+    for branch, (want_h, want_p) in epu["check_ref"].items():
+        what = f"train-ep-uneven-check {branch}"
+        rs = [r[f"check-{branch}"] for r in recs]
+        ccfg = _ep_uneven_check_cfgs()[branch]
+        ptol = EP_UNEVEN_PARAMS_TOL[branch]
+        perr = max(float((rec["params"] - want_p).abs().max()) for rec in rs)
+        for r, rec in enumerate(rs):
+            check(rec["split"] == (None if branch == "whole" else branch),
+                  f"{what}: the experts split over {rec['split']}")
+            lerr = max(abs(a[0] - b[0]) for a, b in zip(rec["hist"], want_h))
+            rest = max(abs(x - y) for a, b in zip(rec["hist"], want_h)
+                       for x, y in zip(a[1:], b[1:]))
+            check(lerr <= 1e-4 and rest <= 1e-5
+                  and float((rec["params"] - want_p).abs().max()) <= ptol,
+                  f"{what} rank {r}: (loss, grad norm, aux) {rec['hist']} vs "
+                  f"one rank's {want_h} (loss 1e-4, the rest 1e-5; off by "
+                  f"{lerr}, {rest}); parameters off by {perr} ({ptol})")
+            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+                  f"{what} rank {r}: launches {rec['launches']}, plain "
+                  f"{rec['plain']}")
+        check(len({rec["whole"] for rec in rs}) == 1,
+              f"{what}: the leaves held whole or the step differ across the "
+              f"ranks")
+        log(f"[{what}] d {ccfg.d_model} H {ccfg.n_heads}/{ccfg.n_kv_heads} "
+            f"hd {ccfg.hd}, {ccfg.moe.n_experts} experts of width "
+            f"{ccfg.moe.d_ff_expert} top-{ccfg.moe.top_k} (split over "
+            f"{rs[0]['split'] or 'nothing'}), f32, {where}: (loss, grad "
+            f"norm, lb, z, dropped) {rs[0]['hist']} vs one rank {want_h}; "
+            f"gathered parameters off by {perr} (limit {ptol}); whole leaves "
+            f"and step bitwise equal; launches a rank {rs[0]['launches']}")
+        out[f"train-ep-uneven-check-{branch}"] = {
+            k: sum(rec["launches"][k] for rec in rs) for k in ("K1", "K2",
+                                                               "K3")}
+    tag = "train-ep-uneven"
+    rs = [r["main"] for r in recs]
+    r0 = rs[0]
+    losses = r0["losses"]
+    n_steps = len(losses)
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * n_steps, "K2": n_attn * n_steps,
+            "K3": 2 * n_attn * n_steps}
+    for r, rec in enumerate(rs):
+        check(rec["split"] == "ffn", f"{tag}: the experts split over "
+              f"{rec['split']}, not their ffn")
+        check(rec["losses"] == losses,
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, plain "
+              f"{rec['plain']}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(len({rec["whole"] for rec in rs}) == 1,
+          f"{tag}: the leaves held whole or the step differ across the ranks")
+    ref = epu["ref"]
+    vs, unsh = "(no unsharded reference)", "no unsharded run"
+    if ref is not None:
+        want_l = ref["losses"][:n_steps]
+        diff = max(abs(a - b) for a, b in zip(losses, want_l))
+        check(diff <= 1e-2, f"{tag}: losses {losses} vs unsharded {want_l} "
+              f"(1e-2)")
+        vs = f"vs unsharded {want_l} (max diff {diff})"
+        unsh = (f"unsharded {ref['median_ms']:.3f} ms; peak "
+                f"{ref['peak'] / 2**30:.3f} GiB")
+    med = sorted(r0["times"][1:])[(n_steps - 1) // 2] * 1e3
+    log(f"[{tag}] {arch} bf16 remat full, every published width, "
+        f"{cfg.n_layers} layer(s), {cfg.moe.n_experts} experts on every rank "
+        f"(their ffn {cfg.moe.d_ff_expert} split {n} ways, the router whole) "
+        f"top-{cfg.moe.top_k}, {where}, seq 4096 batch {EP_SCHED[0]}, "
+        f"{n_steps} steps of a {EP_SCHED[1]}-step schedule: {r0['wall']:.1f} "
+        f"s on rank 0 with its check; losses {losses} {vs}; dropped share "
+        f"per step {r0['dropped']}; whole leaves and step bitwise equal "
+        f"across the ranks; launches a rank {r0['launches']}")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{n_steps - 1} "
+        f"(rank 0; {unsh}); peak per rank "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in rs]} GiB")
+    out[tag] = {k: sum(rec["launches"][k] for rec in rs)
+                for k in ("K1", "K2", "K3")}
+    return out
+
+
 def report_profile(prof, wall_s: float, n_steps: int, what: str) -> dict:
     """Device time by kernel name over the profiled engine steps, and the
     device's idle share (1 - kernel time / host wall time of the steps;
@@ -6427,7 +7276,8 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    phase_build()
+    # the decode phases run while the training kernels still compile
+    phase_build(wait_all=False)
     timer = Timer(torch)
     k4 = phase_kernels(torch, timer, args.seed)
     k5 = phase_k5(torch, timer, args.seed)
@@ -6439,7 +7289,8 @@ def main(argv=None) -> int:
     launches_rg, _ = phase_lockstep(torch, args.seed, "recurrentgemma-9b",
                                     RG_B, RG_PROMPT, RG_NEW)
     torch.cuda.empty_cache()
-    phase_lockstep(torch, args.seed, "mamba2-370m", RG_B, RG_PROMPT, RG_NEW)
+    phase_lockstep(torch, args.seed, "mamba2-370m", RG_B, RG_PROMPT,
+                   RG_NEW)
     torch.cuda.empty_cache()
     launches_int8, int8_tokens, int8_c = phase_serve_int8(torch, args.seed)
     launches, bf16_tokens, bf16_c, _ = phase_serve(torch, args.seed)
@@ -6450,15 +7301,6 @@ def main(argv=None) -> int:
     log(f"[serve-int8] tokens equal to the bf16 slab's run: {agree} of "
         f"{SERVE_R * SERVE_NEW} (first tokens {first} of {SERVE_R}; random "
         f"weights, not gated)")
-    # sequence-parallel serving in one spawn of 2 ranks: the narrowed
-    # check, the bf16 slab at full width, then the int8 page-sparse slab
-    sharded = phase_serve_sharded(
-        torch, args.seed, 2,
-        (("serve-sharded", bf16_tokens, {}, SHARD_REQS),
-         ("serve-sharded-int8", int8_tokens, INT8_SPARSE, SHARD_INT8_REQS)),
-        with_check=True)
-    launches_s2, launches_s4 = (sharded[w][0] for w in (
-        "serve-sharded", "serve-sharded-int8"))
     # gemma-7b at full width and depth on the continuous engine, one
     # profiled decode step
     # kill and resume: the serve phases' runs under the supervisor, two
@@ -6489,6 +7331,7 @@ def main(argv=None) -> int:
                                          RG_PROMPT, RG_NEW)
         fam_k1[arch] = _counters()[0]
         torch.cuda.empty_cache()
+    finish_build()
     trec = phase_train_kernels(torch, timer, args.seed)
     tl = {"lockstep-whisper-base": fam_k1["whisper-base"],
           "analysis": phase_analysis(torch)}
@@ -6538,36 +7381,6 @@ def main(argv=None) -> int:
     tl["longformer-4k"], _, lf_stats = phase_train(torch, args.seed,
                                                    "longformer-4k")
     torch.cuda.empty_cache()
-    # sequence-parallel training: the narrowed check, then smollm-135m and
-    # longformer-4k at full size against the unsharded train phases
-    tl.update(train_sharded_check(torch, args.seed))
-    tl["train-sharded"] = phase_train_sharded(torch, args.seed,
-                                              "smollm-135m", full)
-    tl["train-sharded-longformer-4k"] = phase_train_sharded(
-        torch, args.seed, "longformer-4k", lf_stats)
-    torch.cuda.empty_cache()
-    # data-parallel training: the narrowed check (f32 and int8 wires),
-    # then smollm-135m at full size on 2 ranks (f32 all_reduce) and 4
-    # (int8 wire) against the unsharded train phase
-    dpc_launches, dp_check = train_dp_check(torch, args.seed)
-    tl.update(dpc_launches)
-    # the FSDP fallback in the train-dp spawn, after its data-parallel run:
-    # the narrowed check against train-dp-check's, then smollm-135m at
-    # full size against train-dp's
-    tl["train-dp"], dp_losses, fsdp_launches = phase_train_dp(
-        torch, args.seed, "train-dp", full,
-        fsdp=fsdp_inputs(torch, args.seed, dp_check))
-    tl.update(fsdp_launches)
-    del dp_check
-    # the int8 wire under the FSDP fallback and at (data 2, model 2) in
-    # the train-dp-int8 spawn, after its data-parallel run: the narrowed
-    # checks, then smollm-135m at full size against train-dp-int8's losses
-    tl["train-dp-int8"], _, int8_launches = phase_train_dp(
-        torch, args.seed, "train-dp-int8", full, dp_losses,
-        fsdp=fsdp_inputs(torch, args.seed, None),
-        tp=tp_int8_inputs(torch, args.seed))
-    tl.update(int8_launches)
-    torch.cuda.empty_cache()
     # recurrentgemma-9b at full width, at the depth both one card and the
     # train-tp ranks sharing it hold: the unsharded phase, train-tp's
     # reference
@@ -6580,20 +7393,79 @@ def main(argv=None) -> int:
         torch, args.seed, "recurrentgemma-9b", n_layers=rg_depth,
         steps=GEMMA_STEPS, batch=GEMMA_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    # expert-parallel training: its references on one rank first (the
-    # narrowed MoE checks, arctic-480b at every width and the picked expert
-    # count), then in one spawn of 2 model ranks: tensor-parallel training
-    # (the narrowed checks of every family, then gemma-7b and
-    # recurrentgemma-9b at full width against their unsharded train
-    # phases) and expert-parallel training (the narrowed MoE check, then
-    # arctic-480b against its reference)
+    # expert-parallel training's references on one rank (the narrowed MoE
+    # checks, arctic-480b at every width and the expert count that fits),
+    # and an expert count the group does not divide (the narrowed checks of
+    # both branches, arctic-480b's stacks split over their ffn: the
+    # unsharded run of that cut)
     ep = prepare_train_ep(torch, args.seed)
     tl["train-ep-unsharded-arctic-480b"] = ep["ref_launches"]
     torch.cuda.empty_cache()
-    tl.update(phase_train_tp(torch, args.seed, (
-        ("gemma-7b", gemma_stats, gemma_depth, None),
-        ("recurrentgemma-9b", rg_stats, rg_depth, rg_depth)), ep=ep))
-    del ep
+    epu = prepare_train_ep_uneven(torch, args.seed)
+    tl["train-ep-uneven-unsharded-arctic-480b"] = epu["ref_launches"]
+    torch.cuda.empty_cache()
+    moe_seq = seq_moe_inputs(torch, args.seed)
+    tl["train-sharded-moe-unsharded-arctic-480b"] = moe_seq["ref_launches"]
+    torch.cuda.empty_cache()
+    # one spawn of 2 ranks for every 2-rank phase (a spawn's ranks take ~20
+    # s to start and warm up on the card): sequence-parallel serving (the
+    # narrowed check, the bf16 slab at full width, then the int8 page-
+    # sparse slab); sequence-parallel training (the narrowed checks, one of
+    # them an MoE whose dispatch groups span the shards, smollm-135m and
+    # longformer-4k at full size against the unsharded train phases, then
+    # arctic-480b's MoE layer against the unsharded run of its cut);
+    # data-parallel training (the narrowed check on both wires, smollm-135m
+    # at full size with the f32 all_reduce against the unsharded train
+    # phase, and the FSDP fallback: its check against train-dp-check's,
+    # smollm-135m against train-dp's); tensor-parallel training (the
+    # narrowed checks of every family, gemma-7b and recurrentgemma-9b at
+    # full width against their unsharded train phases, the int8 checks and
+    # gemma-7b on the int8 wire) and expert-parallel training (the narrowed
+    # MoE check, arctic-480b against its reference, and the uneven expert
+    # count's checks and run)
+    seq_parts = train_sharded_parts(
+        torch, args.seed, (("smollm-135m", full),
+                           ("longformer-4k", lf_stats)), moe=moe_seq)
+    parts = dict([
+        ("serve-sharded", serve_sharded_job(
+            torch, args.seed, 2,
+            (("serve-sharded", bf16_tokens, {}, SHARD_REQS),
+             ("serve-sharded-int8", int8_tokens, INT8_SPARSE,
+              SHARD_INT8_REQS)), with_check=True)),
+        *seq_parts,
+        ("train-dp-check", dp_check_job(torch, args.seed)),
+        ("train-dp", train_dp_job(torch, args.seed, "train-dp", full,
+                                  fsdp=fsdp_inputs(torch, args.seed, None))),
+        ("train-tp", train_tp_job(torch, args.seed, (
+            ("gemma-7b", gemma_stats, gemma_depth, None),
+            ("recurrentgemma-9b", rg_stats, rg_depth, rg_depth)), ep=ep,
+            epu=epu))])
+    got = spawn_jobs(torch, args.seed, list(parts.items()))
+
+    def report(name, **kw):
+        (_, fn, st), (recs, wall) = parts[name], got[name]
+        return fn(recs, st, wall, **kw)
+    served = report("serve-sharded")
+    launches_s2, launches_s4 = (served[w][0] for w in (
+        "serve-sharded", "serve-sharded-int8"))
+    for name, _ in seq_parts:
+        tl.update(report(name))
+    dpc_launches, dp_check = report("train-dp-check")
+    tl.update(dpc_launches)
+    tl["train-dp"], dp_losses, fsdp_launches = report("train-dp",
+                                                      dp_check=dp_check)
+    tl.update(fsdp_launches)
+    tl.update(report("train-tp"))
+    del moe_seq, seq_parts, parts, got, served, dp_check, ep, epu
+    torch.cuda.empty_cache()
+    # the int8 wire under the FSDP fallback and at (data 2, model 2) in
+    # the train-dp-int8 spawn, after its data-parallel run: the narrowed
+    # checks, then smollm-135m at full size against train-dp-int8's losses
+    tl["train-dp-int8"], _, int8_launches = phase_train_dp(
+        torch, args.seed, "train-dp-int8", full, dp_losses,
+        fsdp=fsdp_inputs(torch, args.seed, None),
+        tp=tp_int8_inputs(torch, args.seed))
+    tl.update(int8_launches)
     torch.cuda.empty_cache()
     phase_train(torch, args.seed, "mamba2-370m", n_layers=MAMBA_TRAIN_LAYERS,
                 steps=GEMMA_STEPS, batch=MAMBA_BATCH, lr=1e-3, warmup=3)

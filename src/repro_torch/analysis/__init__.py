@@ -1,7 +1,7 @@
 """repro_torch.analysis — static soundness verification and lint gates of
 the port: the port of :mod:`repro.analysis`.
 
-Three cooperating passes (run together by ``python -m
+Five cooperating passes (run together by ``python -m
 repro_torch.analysis.lint``):
 
 * :mod:`repro_torch.analysis.plan_verify` — the plan soundness prover,
@@ -20,12 +20,18 @@ repro_torch.analysis.lint``):
   dtypes of the collectives of a train step and a sharded decode step
   (the int8 gradient wire, the f32 merge of sharded partials, the f32
   gradient sum).
+* :mod:`repro_torch.analysis.ownership` — slab write ownership: the
+  sequence-parallel decode's write routing probed over every cache
+  position and shard (the reference's ``check_write_ownership``).
+* :mod:`repro_torch.analysis.smem_budget` — the shared memory of every
+  kernel launch (a mirror of the ``.cu`` launchers' sizes) against the
+  card's per-block limits (the reference's VMEM budget).
 * :mod:`repro_torch.analysis.code_lint` — the stdlib-``ast`` lint
   (unused imports, mutable default arguments, shadowed builtins, bare
   excepts).
 
-Which plans/patterns get verified is declared once, in
-:mod:`repro_torch.analysis.registry`.
+Which plans, patterns and paged layouts get verified is declared once,
+in :mod:`repro_torch.analysis.registry`.
 """
 from __future__ import annotations
 

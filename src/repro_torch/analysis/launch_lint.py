@@ -22,13 +22,14 @@ something where eager PyTorch launches hand-written kernels and
   tensors. The rules: the compressed wire (data-parallel, under a model
   group, and under the FSDP fallback) sends int8 values and f32 scales,
   and no float gradient crosses the data group; the uncompressed
-  gradient sum is f32; the sharded merge's partials ``(out, m, l)`` are
-  f32.
+  gradient sum is f32; an MoE step under a sequence group gathers its
+  router logits in f32 (:func:`check_seq_gathers`); the sharded merge's
+  partials ``(out, m, l)`` are f32.
 
-The reference's scatter-mode, double-dequant, shard_map-reduction and
-VMEM checks read a jaxpr and have no counterpart here; its
-write-ownership probe and a per-launch shared-memory budget are left to
-a later port (ROADMAP queue 1, item 4).
+The reference's scatter-mode, double-dequant and shard_map-reduction
+checks read a jaxpr and have no counterpart here; its write-ownership
+probe and its VMEM budget are :mod:`repro_torch.analysis.ownership` and
+:mod:`repro_torch.analysis.smem_budget`.
 """
 from __future__ import annotations
 
@@ -259,12 +260,13 @@ def _sites():
 # One train step, one sharded decode step
 # ---------------------------------------------------------------------- #
 def record_train_step(cfg, *, data: int = 1, model: int = 1,
-                      fsdp: bool = False, compress: bool = False,
-                      seq: int = 32, batch: int = 4
+                      shards: int = 1, fsdp: bool = False,
+                      compress: bool = False, seq: int = 32, batch: int = 4
                       ) -> Tuple[List[Record], int]:
     """(every collective of one train step of ``cfg`` on the CPU, rank 0
-    of a ``(data, model)`` mesh of recording groups; the number of the
-    wire's scale groups)."""
+    of a ``(data, model)`` mesh of recording groups, or of a recording
+    sequence group of ``shards``; the number of the wire's scale
+    groups)."""
     from repro_torch.dist.compression import scale_groups
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
@@ -275,13 +277,15 @@ def record_train_step(cfg, *, data: int = 1, model: int = 1,
     log: list = []
     dg = rec_group(RecDataGroup, data, log) if data > 1 else None
     mg = rec_group(RecModelGroup, model, log) if model > 1 else None
+    sg = rec_group(RecSeqGroup, shards, log) if shards > 1 else None
     m = build_model(cfg, "cpu")
     tcfg = TrainConfig(compress_grads=compress)
     gen = torch.Generator().manual_seed(0)
     params = init_shards(m, gen, mg, dg, fsdp) if (mg or fsdp) \
         else m.init(gen)
     opt = adamw.init(tcfg.optimizer, params)
-    step = make_train_step(m, tcfg, data=dg, model_group=mg, fsdp=fsdp)
+    step = make_train_step(m, tcfg, group=sg, data=dg, model_group=mg,
+                           fsdp=fsdp)
     b = SyntheticLM(cfg, DataConfig(seq, batch, seed=0, branch=2,
                                     n_docs=4)).batch(0)
     del log[:]
@@ -372,6 +376,28 @@ def check_train_wire(log: List[Record], compress: bool, n_groups: int,
                     "collective-dtype", target,
                     f"gradient sum over {axis} ({op}) of {n} values in {dt}"
                     f": the sum must be f32"))
+    return findings
+
+
+def check_seq_gathers(log: List[Record], target: str = "") -> List[Finding]:
+    """A train step under a sequence group of an MoE model: its router
+    logits cross the group in f32 (one ``all_gather`` a layer, so at
+    least one ran, and every ``all_gather`` over the group is f32; the
+    gradient sum's rule is :func:`check_train_wire`'s)."""
+    gathers = [r for r in log if r[0] == "seq" and r[1] == "all_gather"]
+    findings: List[Finding] = []
+    if not gathers:
+        findings.append(Finding(
+            "collective-dtype", target,
+            "the MoE step gathered no router logits over the sequence "
+            "group"))
+    for axis, op, dt, n, _ in gathers:
+        if dt != "float32":
+            findings.append(Finding(
+                "collective-dtype", target,
+                f"{op} over {axis} of {n} values in {dt}: the router "
+                f"logits must cross the group in f32, or the shards route "
+                f"on other bits than one device"))
     return findings
 
 

@@ -1,7 +1,7 @@
 """The static soundness gate of the port: ``python -m
 repro_torch.analysis.lint [--json]``.
 
-The port of :mod:`repro.analysis.lint`. Runs the three passes over every
+The port of :mod:`repro.analysis.lint`. Runs the five passes over every
 registered target and exits nonzero on any error finding:
 
 1. the plan soundness prover (:mod:`repro_torch.analysis.plan_verify`)
@@ -14,12 +14,20 @@ registered target and exits nonzero on any error finding:
    collective dtypes of one train step on each wire (data-parallel f32
    and int8, int8 under a model group, FSDP f32 and int8) and of one
    sharded decode step, on the CPU with recording stand-in groups;
-3. the stdlib AST code lint (:mod:`repro_torch.analysis.code_lint`) over
+3. slab write ownership (:mod:`repro_torch.analysis.ownership`): the
+   sequence-parallel decode's write routing probed over every cache
+   position and shard of the registry's paged layouts;
+4. the shared-memory budget (:mod:`repro_torch.analysis.smem_budget`):
+   every kernel launch of every plan target at head dims 64, 128 and 256
+   in f32, bf16 and f16, and every decode instantiation, against the
+   H100's per-block limits, with the largest sequence length each
+   target's owner-tile sum takes;
+5. the stdlib AST code lint (:mod:`repro_torch.analysis.code_lint`) over
    ``src/repro_torch``, ``tools`` and ``chip_smoke.py``.
 
 ``--json`` prints the machine-readable report (``{"targets": [...],
-"findings": [...], "summary": {...}}``) instead of the rendered
-findings.
+"findings": [...], "smem": [...], "summary": {...}}``) instead of the
+rendered findings and the checked targets.
 """
 from __future__ import annotations
 
@@ -34,14 +42,18 @@ from repro_torch.analysis import Finding, render
 
 ROOT = Path(__file__).resolve().parents[3]
 CODE_PATHS = ("src/repro_torch", "tools", "chip_smoke.py")
-# the train steps whose collectives are linted: (name, recording mesh)
+# the train steps whose collectives are linted: (name, arch, recording
+# groups and shapes)
 TRAIN_WIRES = (
-    ("train.data2", dict(data=2)),
-    ("train.data2.int8", dict(data=2, compress=True)),
-    ("train.model2.int8", dict(model=2, compress=True)),
-    ("train.data2.model2.int8", dict(data=2, model=2, compress=True)),
-    ("train.data2.fsdp", dict(data=2, fsdp=True)),
-    ("train.data2.fsdp.int8", dict(data=2, fsdp=True, compress=True)),
+    ("train.data2", "smollm-135m", dict(data=2)),
+    ("train.data2.int8", "smollm-135m", dict(data=2, compress=True)),
+    ("train.model2.int8", "smollm-135m", dict(model=2, compress=True)),
+    ("train.data2.model2.int8", "smollm-135m",
+     dict(data=2, model=2, compress=True)),
+    ("train.data2.fsdp", "smollm-135m", dict(data=2, fsdp=True)),
+    ("train.data2.fsdp.int8", "smollm-135m",
+     dict(data=2, fsdp=True, compress=True)),
+    ("train.seq2.moe", "arctic-480b", dict(shards=2, seq=64)),
 )
 
 
@@ -91,15 +103,40 @@ def run_launch_pass(findings: List[Finding], targets: List[str]) -> None:
         targets.append(f"kernels.ops[{t.name}]")
 
     from repro_torch.configs import get_smoke
-    cfg = get_smoke("smollm-135m")
-    for name, mesh in TRAIN_WIRES:
+    for name, arch, mesh in TRAIN_WIRES:
+        cfg = get_smoke(arch)
         log, n_groups = ll.record_train_step(cfg, **mesh)
         findings += ll.check_train_wire(log, mesh.get("compress", False),
                                         n_groups, name, mesh.get("data", 1))
+        if mesh.get("shards", 1) > 1 and cfg.moe is not None:
+            findings += ll.check_seq_gathers(log, name)
         targets.append(name)
-    findings += ll.check_decode_merge(ll.record_decode_step(cfg),
-                                      "engine.decode@2shards")
+    findings += ll.check_decode_merge(
+        ll.record_decode_step(get_smoke("smollm-135m")),
+        "engine.decode@2shards")
     targets.append("engine.decode@2shards")
+
+
+def run_ownership_pass(findings: List[Finding], targets: List[str]) -> None:
+    from repro_torch.analysis.ownership import check_write_ownership
+    from repro_torch.analysis.registry import ownership_targets
+    from repro_torch.serve.paged_cache import layout_for_pattern
+
+    for t in ownership_targets():
+        lay = layout_for_pattern(t.pattern, t.page, shards=t.shards)
+        findings += check_write_ownership(lay, t.name)
+        targets.append(t.name)
+
+
+def run_smem_pass(findings: List[Finding], targets: List[str]) -> list:
+    """The shared-memory budget; returns its one row a target."""
+    from repro_torch.analysis.registry import plan_targets
+    from repro_torch.analysis.smem_budget import check_budget
+
+    got, rows = check_budget(plan_targets())
+    findings += got
+    targets += [r["target"] for r in rows] + ["smem[decode]"]
+    return rows
 
 
 def run_code_pass(findings: List[Finding], targets: List[str]) -> None:
@@ -114,6 +151,8 @@ def collect() -> dict:
     targets: List[str] = []
     run_plan_pass(findings, targets)
     run_launch_pass(findings, targets)
+    run_ownership_pass(findings, targets)
+    smem = run_smem_pass(findings, targets)
     run_code_pass(findings, targets)
     errors = [f for f in findings if f.severity == "error"]
     by_pass: dict = {}
@@ -122,6 +161,7 @@ def collect() -> dict:
     return {
         "targets": targets,
         "findings": [f.as_dict() for f in findings],
+        "smem": smem,
         "summary": {
             "targets_checked": len(targets),
             "findings": len(findings),
@@ -136,7 +176,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
         description="static soundness gate of the port: plan prover + "
-                    "launch and collective lint + code lint")
+                    "launch and collective lint + write ownership + "
+                    "shared-memory budget + code lint")
     ap.add_argument("--json", action="store_true",
                     help="print the JSON report instead of the findings")
     args = ap.parse_args(argv)
@@ -149,6 +190,12 @@ def main(argv=None) -> int:
         findings = [Finding(**d) for d in report["findings"]]
         if findings:
             print(render(findings))
+        print("targets: " + ", ".join(report["targets"]))
+        for r in report["smem"]:
+            print(f"{r['target']}: blocks {r['blocks'][0]}/{r['blocks'][1]}"
+                  f", n {r['n']}: {r['rows']} packed rows; largest launch "
+                  f"{r['largest']} {r['largest_bytes']} bytes; the owner "
+                  f"sum takes n up to {r['owner_sum_max_n'] or 'its grid'}")
         print(f"checked {s['targets_checked']} targets: "
               f"{s['errors']} errors, {s['findings']} findings")
     return 1 if s["errors"] else 0

@@ -7,7 +7,10 @@ coverage count per plan). Every entry is verified for forward coverage,
 adjoint (transposed + packed) soundness and — where ``n_shards`` is
 non-empty — shard-exchange soundness; causal 1-D entries additionally get
 the never-drop proof and the dynamic full-keep replay, and chunk targets
-the ChunkPlan prefill-slice proofs.
+the ChunkPlan prefill-slice proofs. The same plan targets are the
+shared-memory budget's (:mod:`repro_torch.analysis.smem_budget`); the
+ownership targets are the paged layouts whose sharded write routing
+:mod:`repro_torch.analysis.ownership` probes.
 """
 from __future__ import annotations
 
@@ -83,4 +86,32 @@ def chunk_targets() -> Tuple[ChunkTarget, ...]:
         ChunkTarget("chunk-short-prompt",
                     P.causal_sliding_window(16, n_sinks=2),
                     prompt=11, chunk=16, page=8),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnershipTarget:
+    """One paged layout whose decode write routing is probed: the slab of
+    ``pattern`` in pages of ``page`` slots striped over ``shards``."""
+    name: str
+    pattern: HybridSparsePattern
+    page: int
+    shards: int
+
+
+def ownership_targets() -> Tuple[OwnershipTarget, ...]:
+    """The reference's two layouts (window 16 + 2 sinks, page 8, 1 and 2
+    shards) and those ``chip_smoke.py`` serves over 2 shards: smollm-135m
+    (window 1024 + 4 sinks, page 16) and its serve-sharded checks
+    (windows 24 and 56 + 2 sinks, page 8)."""
+    sw = P.causal_sliding_window(16, n_sinks=2)
+    return (
+        OwnershipTarget("paged_layout@1shards", sw, 8, 1),
+        OwnershipTarget("paged_layout@2shards", sw, 8, 2),
+        OwnershipTarget("paged_layout[smollm-135m]@2shards",
+                        P.causal_sliding_window(1024, n_sinks=4), 16, 2),
+        OwnershipTarget("paged_layout[w24]@2shards",
+                        P.causal_sliding_window(24, n_sinks=2), 8, 2),
+        OwnershipTarget("paged_layout[w56]@2shards",
+                        P.causal_sliding_window(56, n_sinks=2), 8, 2),
     )

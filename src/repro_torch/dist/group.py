@@ -101,6 +101,24 @@ class _Ranks:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return t
 
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t``, stacked in rank order: ``(size, *t.shape)``
+        (one ``all_gather`` of the flat tensor; gloo takes CUDA tensors
+        here, ``tools/gloo_allgather_probe.py``)."""
+        out = torch.empty(self.size * t.numel(), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
+                                    group=self.pg)
+        return out.view(self.size, *t.shape)
+
+    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor from every rank's slice ``x`` along ``dim``
+        (one ``all_gather``, joined in rank order); every rank calls it."""
+        parts = self.all_gather(x)
+        if dim == 0:
+            return parts.view(self.size * x.shape[0], *x.shape[1:])
+        return torch.cat(parts.unbind(0), dim=dim)
+
 
 @dataclasses.dataclass(frozen=True)
 class SeqGroup(_Ranks):
@@ -164,6 +182,13 @@ class SeqGroup(_Ranks):
                        device=self.device)
         return float(self.pmax_(t)[0])
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every shard's ``x`` joined along ``dim`` in rank order (one
+        ``all_gather``); backward, this shard's slice of the gradient:
+        each shard uses only its own rows of the whole differentiably (the
+        MoE router logits: ``models/moe.moe_apply(seq=)``)."""
+        return _Gather.apply(x, self, dim, False)
+
 
 @dataclasses.dataclass(frozen=True)
 class DataGroup(_Ranks):
@@ -180,16 +205,6 @@ class DataGroup(_Ranks):
         :func:`run_ranks` hands each rank)."""
         return cls(group.pg, group.index, group.size, group.device,
                    group.backend)
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t``, stacked in rank order: ``(size, *t.shape)``
-        (one ``all_gather`` of the flat tensor; gloo takes CUDA tensors
-        here, ``tools/gloo_allgather_probe.py``)."""
-        out = torch.empty(self.size * t.numel(), dtype=t.dtype,
-                          device=t.device)
-        dist.all_gather_into_tensor(out, t.contiguous().view(-1),
-                                    group=self.pg)
-        return out.view(self.size, *t.shape)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """The flat ``t`` cut into ``size`` equal parts, part j sent to
@@ -210,14 +225,6 @@ class DataGroup(_Ranks):
         (a copy, so the whole tensor can be freed)."""
         return x.chunk(self.size, dim)[self.index].clone(
             memory_format=torch.contiguous_format)
-
-    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole tensor from every rank's slice ``x`` along ``dim``
-        (one ``all_gather``, joined in rank order); every rank calls it."""
-        parts = self.all_gather(x)
-        if dim == 0:
-            return parts.view(self.size * x.shape[0], *x.shape[1:])
-        return torch.cat(parts.unbind(0), dim=dim)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The elementwise sum of every rank's whole ``t``, this rank's
@@ -356,9 +363,7 @@ class ModelGroup(_Ranks):
     number of slices. Every rank of the group holds the same batch."""
 
     pmax_ = SeqGroup.pmax_
-    all_gather = DataGroup.all_gather
     shard = DataGroup.shard
-    unshard = DataGroup.unshard
     reduce_scatter = DataGroup.reduce_scatter
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,12 @@ its dispatch *computes* them split over experts (``moe_apply`` constrains
 the buffer to ``"experts"``). The port's per-layer stack is the 3-D
 ``(E, d, f)``, labelled ``('experts', 'embed', 'ffn')``, so it splits over
 experts: the placement the reference computes in. The router ``(d, E)``
-splits over its expert columns in both. Each leaf's split is judged on
-that leaf's own dim (``_mesh_clean``'s divisibility rule): an ffn dim is
+splits over its expert columns in both. Where the group does not divide
+E, ``_mesh_clean`` drops the experts axis: the stacks split over ffn
+where the group divides ``d_ff_expert`` and stay whole otherwise, and the
+router stays whole (``models/moe.expert_split``). Each leaf's split is
+judged on that leaf's own dim (``_mesh_clean``'s divisibility rule): an
+ffn dim is
 ``d_ff`` wide in a dense MLP, ``d_ff_expert`` in an expert stack,
 ``d_ff_expert · n_shared_experts`` in a shared expert, ``d_rnn`` in an
 RG-LRU block and ``2 d_inner + 2 N + H`` (``w_in``) or ``d_inner``
@@ -163,7 +167,8 @@ def split_axes(cfg, n: int, ffn: Optional[int] = None) -> FrozenSet[str]:
 def is_expert_stack(path: str) -> bool:
     """Whether the leaf at ``path`` is an MoE layer's expert stack
     (``moe/w_in``, ``moe/w_gate`` or ``moe/w_out``: the port's 3-D
-    ``(E, d, f)`` / ``(E, f, d)``, split on its experts dim)."""
+    ``(E, d, f)`` / ``(E, f, d)``, split on its experts dim where the
+    group divides E, else on its ffn dim or not at all)."""
     return re.search(r"(^|/)moe/w_(in|gate|out)$", path) is not None
 
 

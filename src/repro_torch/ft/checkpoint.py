@@ -38,8 +38,9 @@ of ``Shard(dim)`` / ``Replicate()``
 (:func:`repro_torch.train.trainer.state_shardings`). ``Shard(dim)`` on
 the model axis splits the leaf along ``dim`` over the ranks of a
 ``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, tensor
-parallelism; an MoE layer's expert stacks are ``Shard(0)``, its router
-``Shard(1)``), on the data axis over a ``data_group`` (the FSDP
+parallelism; an MoE layer's expert stacks are ``Shard(0)`` and its
+router ``Shard(1)`` where the group divides the experts), on the data
+axis over a ``data_group`` (the FSDP
 fallback); this rank keeps its contiguous slice. ``save(...,
 shardings=, model_group=, data_group=)`` of such a state gathers each
 split leaf over its group first, and the rank that is 0 in both groups

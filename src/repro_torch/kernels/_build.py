@@ -8,8 +8,11 @@ is rebuilt and a stale library is never loaded. Nothing here runs at import
 time, and nothing falls back: a machine without ``nvcc`` or without a CUDA
 device gets a ``RuntimeError``.
 
-:func:`build_all` starts one ``nvcc`` per source at once (the chip smoke
-script calls it first); :func:`load` returns the loaded ``ctypes.CDLL``.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+them; :func:`start_all` only starts them (the chip smoke script runs the
+decode phases while the training kernels still compile), and
+:func:`load` returns the loaded ``ctypes.CDLL``, waiting for its own
+build where one is running.
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ def _flags(name: str) -> tuple:
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# builds started by start_all and not waited for yet: name -> job
+_PENDING: Dict[str, tuple] = {}
 
 
 def sources() -> List[str]:
@@ -74,22 +79,25 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for ``name`` unless its library is built; returns
-    ``(final_path, tmp_path, Popen)`` or ``None``."""
+    ``(final_path, tmp_path, Popen, start wall time)`` or ``None``. Its output
+    goes to ``build/kernels/<name>.log`` (a file, not a pipe: a build no
+    one waits for yet never blocks on a full pipe)."""
     out = _lib_path(name)
     if out.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
+    with open(BUILD_DIR / f"{name}.log", "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                text=True)
+    return out, tmp, proc, time.time()
 
 
 def _finish(name: str, job) -> str:
-    out, tmp, proc = job
-    log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    out, tmp, proc, _ = job
+    proc.wait()
+    log = (BUILD_DIR / f"{name}.log").read_text()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu "
@@ -104,18 +112,38 @@ def _require_cuda() -> None:
                            "torch.cuda.is_available() is False")
 
 
+def start_all() -> List[str]:
+    """Start one nvcc for every source in ``csrc/`` whose library is not
+    built, all at once, without waiting; returns their names. :func:`wait`
+    (or :func:`load`) finishes each."""
+    _require_cuda()
+    for name in sources():
+        if name not in _PENDING:
+            job = _start(name)
+            if job is not None:
+                _PENDING[name] = job
+    return list(_PENDING)
+
+
+def wait(names=None) -> Dict[str, float]:
+    """Wait for the started builds of ``names`` (all by default). Returns
+    each one's build seconds, from nvcc's start to its library's write
+    (0.0 where nothing was building)."""
+    secs = {}
+    for name in (sources() if names is None else names):
+        job = _PENDING.pop(name, None)
+        if job is not None:
+            _finish(name, job)
+        secs[name] = 0.0 if job is None else \
+            job[0].stat().st_mtime - job[3]
+    return secs
+
+
 def build_all() -> Dict[str, float]:
     """Compile every source in ``csrc/`` in parallel (one nvcc each).
     Returns seconds spent per source (0.0 where the library was built)."""
-    _require_cuda()
-    t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in sources()}
-    secs = {}
-    for name, job in jobs.items():
-        if job is not None:
-            _finish(name, job)
-        secs[name] = 0.0 if job is None else time.perf_counter() - t0
-    return secs
+    start_all()
+    return wait()
 
 
 def build_log(name: str) -> str:
@@ -131,7 +159,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     _require_cuda()
-    job = _start(name)
+    job = _PENDING.pop(name, None) or _start(name)
     if job is not None:
         _finish(name, job)
     lib = ctypes.CDLL(str(_lib_path(name)))

@@ -66,6 +66,10 @@ int salo_decode(int dtype, int hd, const void* q, const void* k_cache,
   return (int)decode_body::dispatch<false>(dtype, 0, p, static_cast<cudaStream_t>(stream));
 }
 
+// The static shared memory of the kernel for dtype and hd, in bytes
+// (decode_body::smem_of); -1 where none is instantiated.
+int salo_decode_smem(int dtype, int hd) { return decode_body::smem_of<false>(dtype, 0, hd); }
+
 const char* salo_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

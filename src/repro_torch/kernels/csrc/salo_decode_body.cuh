@@ -595,4 +595,37 @@ cudaError_t dispatch(int dtype, int kv_int8, const Params& p, cudaStream_t s) {
   }
 }
 
+// The static shared memory of one instantiation, in bytes, as the
+// compiler laid it out (cudaFuncGetAttributes); -1 for a head dim or type
+// the launcher does not take, or an error. analysis/smem_budget.py mirrors
+// it (decode_bytes).
+template <typename T, typename KV, bool PAGED>
+int static_smem(int hd) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  switch (hd) {
+    case 64: e = cudaFuncGetAttributes(&a, decode_kernel<T, KV, 64, PAGED>); break;
+    case 128: e = cudaFuncGetAttributes(&a, decode_kernel<T, KV, 128, PAGED>); break;
+    case 256: e = cudaFuncGetAttributes(&a, decode_kernel<T, KV, 256, PAGED>); break;
+    default: return -1;
+  }
+  return e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+}
+
+template <bool PAGED>
+int smem_of(int dtype, int kv_int8, int hd) {
+  if (kv_int8 && !PAGED) return -1;
+  switch (dtype) {
+    case 0:
+      return kv_int8 ? static_smem<float, int8_t, PAGED>(hd) : static_smem<float, float, PAGED>(hd);
+    case 1:
+      return kv_int8 ? static_smem<__nv_bfloat16, int8_t, PAGED>(hd)
+                     : static_smem<__nv_bfloat16, __nv_bfloat16, PAGED>(hd);
+    case 2:
+      return kv_int8 ? static_smem<__half, int8_t, PAGED>(hd) : static_smem<__half, __half, PAGED>(hd);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace decode_body

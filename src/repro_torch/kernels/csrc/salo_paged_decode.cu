@@ -68,6 +68,12 @@ int salo_paged_decode(int dtype, int kv_int8, int hd, const void* q,
                                           static_cast<cudaStream_t>(stream));
 }
 
+// The static shared memory of the kernel for dtype, kv_int8 and hd, in
+// bytes (decode_body::smem_of); -1 where none is instantiated.
+int salo_paged_decode_smem(int dtype, int kv_int8, int hd) {
+  return decode_body::smem_of<true>(dtype, kv_int8, hd);
+}
+
 const char* salo_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -559,6 +559,18 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 bool block_ok(int b) { return b == 32 || b == 64 || b == 128 || b == 256; }
 
+template <int HD>
+int smem_of(int dtype, int nw) {
+  if (dtype == 0) return nw == 0 ? smem_bytes<HD>() : -1;
+  if (dtype != 1 && dtype != 2) return -1;
+  switch (nw) {
+    case 2: return mma_smem_bytes<HD, 2>();
+    case 4: return mma_smem_bytes<HD, 4>();
+    case kMaxWarps: return mma_smem_bytes<HD, kMaxWarps>();
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,6 +607,19 @@ int salo_table_attention(int dtype, int hd, const void* q, const void* k, const 
                                       bq, nkb, bk, steps, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory one block of the forward asks for, in bytes:
+// dtype 0 (f32, nw 0) smem_bytes<HD>; dtype 1 or 2 (16-bit) with nw warps
+// in {2, 4, 8} mma_smem_bytes<HD, nw>; -1 where none is instantiated.
+// analysis/smem_budget.py mirrors these sizes (k1_bytes).
+int salo_table_attention_smem(int dtype, int hd, int nw) {
+  switch (hd) {
+    case 64: return smem_of<64>(dtype, nw);
+    case 128: return smem_of<128>(dtype, nw);
+    case 256: return smem_of<256>(dtype, nw);
+    default: return -1;
   }
 }
 

@@ -1158,6 +1158,34 @@ cudaError_t launch_dkv(const float* dout, const float* delta, const float* m, co
 
 bool block_ok(int b) { return b == 32 || b == 64 || b == 128 || b == 256; }
 
+// The dynamic shared memory of K2 (kernel 0) or K3's row walk (kernel 1),
+// as their launchers instantiate them: f32 (nw 0), or 16-bit with nw warps
+// (2, 4, 8 up to hd 128; K2 2 and K3 2 or 4 at hd 256); -1 otherwise.
+template <int HD>
+int smem_of(int kernel, int dtype, int nw) {
+  const bool wide = HD > 128;
+  if (dtype == 0) {
+    if (nw != 0) return -1;
+    return kernel == 0 ? dq_smem_bytes<HD>() : dkv_smem_bytes<HD>();
+  }
+  if (dtype != 1 && dtype != 2) return -1;
+  if (kernel == 0) {
+    if (wide) return nw == 2 ? dq_mma_smem_bytes<HD, 2>() : -1;
+    switch (nw) {
+      case 2: return dq_mma_smem_bytes<HD, 2>();
+      case 4: return dq_mma_smem_bytes<HD, 4>();
+      case kMaxWarps: return dq_mma_smem_bytes<HD, kMaxWarps>();
+      default: return -1;
+    }
+  }
+  switch (nw) {
+    case 2: return dkv_mma_smem_bytes<HD, 2>();
+    case 4: return dkv_mma_smem_bytes<HD, 4>();
+    case kMaxWarps: return wide ? -1 : dkv_mma_smem_bytes<HD, kMaxWarps>();
+    default: return -1;
+  }
+}
+
 // mask_2x16 against step_mask pair by pair, one thread per unit u: rows
 // rp[2u..2u+1], columns cp[16u..16u+15], flags fl[u]. fast[u] gets
 // mask_2x16's bits, ref[u] step_mask's in the same order.
@@ -1287,6 +1315,27 @@ int salo_mask_2x16_check(const MaskSpec* ms, const void* rp, const void* cp, con
   else
     mask_check_kernel<false><<<blocks, 128, 0, st>>>(*ms, r, c, f, n, a, b);
   return (int)cudaGetLastError();
+}
+
+// Shared memory, in bytes, of kernel 0 (K2, dynamic), 1 (K3's row walk,
+// dynamic) or 2 (the owner-tile sum's static part, from the compiled
+// kernel; its dynamic part is R ints, refused above 48 KiB) for dtype, hd
+// and nw warps; -1 where none is instantiated or on an error.
+// analysis/smem_budget.py mirrors these sizes (k2_bytes, k3_bytes,
+// OWNER_SUM_STATIC).
+int salo_table_backward_smem(int kernel, int dtype, int hd, int nw) {
+  if (kernel == 2) {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, owner_sum_kernel) == cudaSuccess ? (int)a.sharedSizeBytes
+                                                                      : -1;
+  }
+  if (kernel != 0 && kernel != 1) return -1;
+  switch (hd) {
+    case 64: return smem_of<64>(kernel, dtype, nw);
+    case 128: return smem_of<128>(kernel, dtype, nw);
+    case 256: return smem_of<256>(kernel, dtype, nw);
+    default: return -1;
+  }
 }
 
 const char* salo_cuda_error_string(int code) {

@@ -51,15 +51,17 @@ attention heads, the MLP's ffn and the vocabulary
 (:func:`repro_torch.dist.sharding.mesh_placements`, printed once), cut
 from the single-device draw of ``--seed``, so the losses equal ``--model
 1``'s. Every arch runs so. The MoE archs (arctic-480b, kimi-k2-1t-a32b)
-split their expert stacks too, E / M experts a rank (expert parallelism;
-M must divide the expert count), each rank drawing only its own experts;
+split their expert stacks too: E / M experts a rank where M divides the
+expert count (expert parallelism), each rank drawing only its own
+experts; else every expert on every rank, the stacks split over their
+ffn where M divides it and whole otherwise (arctic-480b at ``--model
+3``), as the reference's ``_mesh_clean`` places them;
 recurrentgemma-9b and mamba2-370m split their RG-LRU and SSD blocks on
 ``d_rnn`` and their heads, the whole gate and conv leaves' gradients
 summed over the model group once a step; qwen2-vl-2b merges its vision
 tokens after the vocab-parallel lookup, and whisper-base splits its
-encoder and its cross attention's heads as well. An expert count M does
-not divide raises ``NotImplementedError`` (ROADMAP queue 1,
-'multi-GPU'). ``--compress-grads`` runs with it: each int8 scale is the
+encoder and its cross attention's heads as well. ``--compress-grads``
+runs with it: each int8 scale is the
 whole tensor's (the ranks' absmax maxed over the model group), so a
 rank's int8 values are its slices of ``--model 1``'s. The checkpoint
 holds the whole leaves, gathered over the model group, so it is the
@@ -113,8 +115,7 @@ from repro_torch.obs import Observability
 from repro_torch.obs.metrics import global_registry
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
-from repro_torch.train.trainer import (TrainConfig, check_tensor_parallel,
-                                       init_shards,
+from repro_torch.train.trainer import (TrainConfig, init_shards,
                                        make_train_step, state_shardings,
                                        train_placements)
 from repro_torch.tree import tree_leaves
@@ -188,8 +189,6 @@ def main(argv=None):
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to run the plain versions")
     n = args.data * args.model
-    check_tensor_parallel(get_smoke(args.arch) if args.smoke
-                          else get_config(args.arch), args.model)
     if n == 1:
         return _train(args, None, None)
     backend = args.dist_backend or ("nccl" if args.device == "cuda"

@@ -28,8 +28,7 @@ Megatron-style. A column-split product's input passes ``model.enter``
 outputs are summed by ``model.reduce``. The sums run in the activations'
 dtype, as GSPMD sums a bf16 dot's partials. ``model=None`` is the
 single-device code. A model group runs every block kind of the 11
-archs; only an MoE expert count it does not divide raises
-(``models/transformer.check_tensor_parallel``).
+archs.
 """
 from __future__ import annotations
 

@@ -145,9 +145,9 @@ class Model:
 
         ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
         parallel training; ``batch`` holds this rank's slice of every
-        sequence and the logits are that slice's. Only the dense
-        families' ``attn_mlp`` programs run under a group of more than
-        one shard (``transformer.check_sequence_parallel``).
+        sequence and the logits are that slice's. The dense families'
+        ``attn_mlp`` programs and the MoE family run under a group of
+        more than one shard (``transformer.check_sequence_parallel``).
 
         ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
         parallel training; ``batch`` holds this rank's rows of the global
@@ -168,8 +168,9 @@ class Model:
         rank of the group the same ``batch``. Where the group splits the
         vocabulary, the logits are this rank's vocab slice (B, S, V / n):
         a caller that needs the whole logits gathers them. A model group
-        runs every block kind of the 11 archs, the MoE layers' experts
-        split over it (``transformer.check_tensor_parallel``)."""
+        runs every block kind of the 11 archs, the MoE layers' expert
+        stacks split over it where it divides their experts or their ffn
+        (``moe.expert_split``), else whole."""
         cfg = self.cfg
         if group is not None and model is not None:
             raise ValueError("a rank is in a sequence group or a model "
@@ -177,8 +178,6 @@ class Model:
                              "seq and model together in training)")
         for kind, _ in self.program:
             T.check_sequence_parallel(cfg, kind, group)
-            T.check_tensor_parallel(cfg, kind,
-                                    1 if model is None else model.size)
         params = dict(params, embed=gather_weights(params["embed"]))
         x = self._embed_inputs(params, batch, model)
         positions = batch.get("positions", None)
@@ -208,15 +207,13 @@ class Model:
         ``router_z``; returns ``(loss, metrics)`` as the reference does:
         ``nll``, every aux term (``dropped_frac`` too) and ``loss``.
 
-        Under a sequence ``group`` (``batch`` this rank's slice) ``loss``
-        is this rank's share — the local sum of token losses over the
-        group's token count — whose gradients summed over the ranks are
-        the whole sequence's; the metrics ``nll`` and ``loss`` are the
-        group's totals (one ``all_reduce``, detached). Under a ``data``
-        group (``batch`` this rank's rows) every term is this rank's share
-        of the global batch's, the NLL's as under a sequence group and the
-        aux terms' as :func:`repro_torch.models.moe.moe_apply` takes them,
-        and the metrics are their totals (one ``all_reduce``, detached).
+        Under a sequence ``group`` (``batch`` this rank's slice) or a
+        ``data`` group (``batch`` this rank's rows) every term is this
+        rank's share of the whole batch's: the NLL's the local sum of
+        token losses over the group's token count, the MoE aux terms' as
+        :func:`repro_torch.models.moe.moe_apply` takes them, so the
+        gradients summed over the ranks are the whole batch's; the
+        metrics are the group's totals (one ``all_reduce``, detached).
 
         Under a ``model`` group (tensor parallelism, ``params`` this rank's
         slices, the batch the same on every rank of the group) the loss is
@@ -237,19 +234,16 @@ class Model:
         nll = L.cross_entropy(logits, batch["labels"], batch.get("mask"),
                               group=group if data is None else data,
                               model=vocab)
-        if group is not None:
-            total = group.psum_(nll.detach().reshape(1).clone())[0]
-            return nll, {"nll": total, "loss": total}
         loss, metrics = nll, {"nll": nll}
         for key, v in aux.items():
             if key in ("load_balance", "router_z"):
                 loss = loss + v
             metrics[key] = v
         metrics["loss"] = loss
-        if data is not None:
+        if group is not None or data is not None:
             keys = list(metrics)
-            totals = data.psum_(torch.stack([metrics[k].detach()
-                                             for k in keys]))
+            totals = (group or data).psum_(torch.stack(
+                [metrics[k].detach().reshape(()) for k in keys]))
             metrics = dict(zip(keys, totals.unbind()))
         return loss, metrics
 

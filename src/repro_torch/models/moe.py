@@ -1,7 +1,10 @@
 """Mixture-of-Experts FFN with capacity dispatch.
 
-The port of :mod:`repro.models.moe`, on one device or expert-parallel
-over a model group (:func:`moe_apply`'s ``model=``). Sort-based dispatch,
+The port of :mod:`repro.models.moe`, on one device, over a data group
+(``data=``), expert-parallel over a model group (``model=``: split over
+the experts, or over their ffn where the group does not divide them, or
+whole) and sequence-parallel (``seq=``) (:func:`moe_apply`). Sort-based
+dispatch,
 dropless up to the capacity factor: tokens are split into
 ``dispatch_groups`` groups; per group each token picks its ``top_k``
 experts, the (token, expert) entries are sorted by expert (a stable sort,
@@ -30,11 +33,13 @@ entries.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import split_axes
 from repro_torch.models.layers import dense_init, dt, mlp_apply, mlp_init
 
 
@@ -55,22 +60,27 @@ def _experts(gen, E: int, d_in: int, d_out: int, dtype, device,
     return w
 
 
-def check_expert_split(cfg: ModelConfig, n: int) -> None:
-    """Raises ``NotImplementedError`` unless a model group of ``n`` ranks
-    splits the experts evenly (``n`` divides ``E``)."""
-    E = cfg.moe.n_experts
-    if E % n:
-        raise NotImplementedError(
-            f"expert-parallel MoE splits {cfg.name}'s {E} experts evenly; a "
-            f"model group of {n} does not divide them: ROADMAP queue 1, "
-            f"'multi-GPU'")
+def expert_split(cfg: ModelConfig, n: int) -> Optional[str]:
+    """How a model group of ``n`` ranks splits the expert stacks: over
+    ``"experts"`` where ``n`` divides ``n_experts``, else over ``"ffn"``
+    where ``n`` divides ``d_ff_expert``, else not at all (``None``): the
+    reference's ``_mesh_clean`` drops a mesh axis that does not divide its
+    dim (:func:`repro_torch.dist.sharding.leaf_placement` places the
+    leaves by the same rule)."""
+    if n <= 1:
+        return None
+    split = split_axes(cfg, n, cfg.moe.d_ff_expert)
+    return "experts" if "experts" in split else \
+        "ffn" if "ffn" in split else None
 
 
-def expert_span(cfg: ModelConfig, model) -> tuple:
-    """The experts ``(lo, hi)`` a rank of the model group ``model`` holds:
-    ``E / n`` of them, contiguous, in rank order
-    (:func:`check_expert_split` first)."""
-    check_expert_split(cfg, model.size)
+def expert_span(cfg: ModelConfig, model) -> Optional[tuple]:
+    """The experts ``(lo, hi)`` a rank of the model group ``model`` holds
+    where the group splits them (:func:`expert_split`): ``E / n`` of them,
+    contiguous, in rank order. ``None`` where it does not: every rank
+    holds all E experts, their stacks split over ffn or whole."""
+    if expert_split(cfg, model.size) != "experts":
+        return None
     per = cfg.moe.n_experts // model.size
     return model.index * per, (model.index + 1) * per
 
@@ -156,7 +166,27 @@ def _slots(probs: torch.Tensor, k: int, C: int):
             torch.empty_like(keep).scatter_(-1, order, keep))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None, model=None):
+def _own_tokens(B: int, S: int, seq, device) -> torch.Tensor:
+    """The global flat indices (B, S·n flattened) of the (B, S) tokens
+    this rank of the sequence group ``seq`` holds: its contiguous slice of
+    every sequence, in rank order."""
+    tl = torch.arange(B * S, device=device)
+    return (tl // S) * (S * seq.size) + seq.index * S + tl % S
+
+
+def _own_groups(B: int, S: int, seq, Tg: int) -> int:
+    """How many dispatch groups of ``Tg`` tokens hold any of this rank's
+    tokens (:func:`_own_tokens`): the groups its buffer keeps. From the
+    shapes alone, so no host read."""
+    mine = set()
+    for b in range(B):
+        lo = b * S * seq.size + seq.index * S
+        mine.update(range(lo // Tg, (lo + S - 1) // Tg + 1))
+    return len(mine)
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None, model=None,
+              seq=None):
     """x: (B, S, d) -> (y, aux). ``aux``: ``load_balance``, ``router_z``
     (both scaled by their coefficients) and ``dropped_frac``, f32 scalars.
 
@@ -177,22 +207,45 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None, model=None):
     weighs this rank's prob sums by them; the router z and the dropped
     share are this rank's sums over the global counts.
 
-    ``model`` (a :class:`~repro_torch.dist.group.ModelGroup` of N ranks,
-    N dividing E; expert parallelism): ``p`` holds this rank's E / N
-    experts (:func:`expert_span`), its router columns and its slice of a
-    shared expert's ffn; x is the same on every rank. Every rank routes
-    the same tokens alike: its logit columns are gathered into the whole
-    (T, E) logits (:meth:`~repro_torch.dist.group.ModelGroup.gather`),
-    so the softmax, top-k, slots and capacity run on the same bits
-    everywhere. A rank dispatches only the kept entries of its own
-    experts into an ``(E/N·G·C + 1, d)`` buffer, gathers its experts'
-    output rows into a (T·k, d) tensor whose other rows are zero, and the
-    group sums it (ONE ``all_reduce`` a layer forward, exact: each row is
-    nonzero on one rank). The gated combine then runs alike on every
-    rank, so the gates' gradient is whole everywhere (summing the gated
-    ``y`` instead would leave it partial, and the router's gradient
-    wrong). The aux terms come from the whole probs on every rank, with
-    no collective of their own."""
+    ``seq`` (a :class:`~repro_torch.dist.group.SeqGroup` of n ranks): x
+    is this rank's slice of every sequence. The f32 router logits of its
+    tokens are gathered over the group (one ``all_gather`` a layer,
+    :meth:`~repro_torch.dist.group.SeqGroup.gather`: backward, this rank's
+    rows of the gradient), and every rank routes the whole batch's groups
+    alike: the G groups, their ``Tg`` tokens and the capacity C are the
+    unsharded run's, so every slot is too, whether or not a group's tokens
+    sit on one shard. A rank then dispatches, runs the experts on and
+    combines only its own tokens' kept entries, in a buffer of the groups
+    that hold any of them; the experts work row by row, so no activation
+    crosses the shards. Only its own rows of the gathered logits enter
+    its loss differentiably (its gates, its prob sums), so the gather's
+    backward is exact. The aux terms are this rank's shares, from the
+    whole batch's top-1 counts (no collective of their own); the group
+    sums its gradients.
+
+    ``model`` (a :class:`~repro_torch.dist.group.ModelGroup` of N ranks;
+    expert parallelism): x is the same on every rank, and the expert
+    stacks split as :func:`expert_split` says. Over ``"experts"`` (N
+    divides E), ``p`` holds this rank's E / N experts
+    (:func:`expert_span`), its router columns and its slice of a shared
+    expert's ffn. Every rank routes the same tokens alike: its logit
+    columns are gathered into the whole (T, E) logits
+    (:meth:`~repro_torch.dist.group.ModelGroup.gather`), so the softmax,
+    top-k, slots and capacity run on the same bits everywhere. A rank
+    dispatches only the kept entries of its own experts into an
+    ``(E/N·G·C + 1, d)`` buffer, gathers its experts' output rows into a
+    (T·k, d) tensor whose other rows are zero, and the group sums it (ONE
+    ``all_reduce`` a layer forward, exact: each row is nonzero on one
+    rank). Over ``"ffn"`` (N divides ``d_ff_expert``, not E), the router
+    is whole and every rank routes and dispatches all E experts, each
+    expert's products on this rank's ffn columns; the same one
+    ``all_reduce`` sums the ranks' partial rows. Whole (N divides
+    neither), every rank runs the whole MoE alike, with no collective,
+    and every gradient is whole on every rank. Either way the gated
+    combine runs alike on every rank, so the gates' gradient is whole
+    everywhere (summing the gated ``y`` instead would leave it partial,
+    and the router's gradient wrong). The aux terms come from the whole
+    probs on every rank, with no collective of their own."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
@@ -201,55 +254,82 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, data=None, model=None):
     xt = x.reshape(T, d)
     if model is not None and model.size == 1:
         model = None
-    lo, hi = (0, E) if model is None else expert_span(cfg, model)
-    if model is not None:
-        # every later use of xt is this rank's share of the work: its
+    if seq is not None and seq.size == 1:
+        seq = None
+    split = None if model is None else expert_split(cfg, model.size)
+    lo, hi = (0, E) if split != "experts" else expert_span(cfg, model)
+    xe = xt
+    if split is not None:
+        # every later use of xe is this rank's share of the work: its
         # gradient is summed over the group once, here
-        xt = model.enter(xt)
+        xe = model.enter(xt)
 
-    logits = xt.float() @ p["router"]                         # (T, E)
-    if model is not None:
-        logits = model.gather(logits, 1)
-    probs = torch.softmax(logits, dim=-1)
+    # a whole router gives the whole gradient on every rank: fed by xt
+    logits = (xe if split == "experts" else xt).float() @ p["router"]
+    if split == "experts":
+        logits = model.gather(logits, 1)                     # (T, E)
+    T_all, own = T, None
+    if seq is not None:
+        T_all = T * seq.size
+        own = _own_tokens(B, S, seq, x.device)
+        routed = seq.gather(logits.view(B, S, E), 1).reshape(T_all, E)
+    else:
+        routed = logits
+    probs = torch.softmax(routed, dim=-1)
 
-    G = n_groups(cfg, T * n)
+    G = n_groups(cfg, T_all * n)
     if G % n:
-        raise ValueError(f"{G} dispatch groups of {T * n} tokens do not "
-                         f"split over the data group's {n} ranks")
+        raise ValueError(f"{G} dispatch groups of {T_all * n} tokens do "
+                         f"not split over the data group's {n} ranks")
     G //= n
-    Tg = T // G
+    Tg = T_all // G
     C = capacity(cfg, Tg)
     gates, slot, keep = _slots(probs.reshape(G, Tg, E), k, C)
-    entries = xt[:, None, :].expand(T, k, d).reshape(T * k, d)
-    # this rank's experts' slots are [lo·G·C, hi·G·C) (on one device all)
-    n_slots = (hi - lo) * G * C
-    local = slot - lo * G * C
+    gates, slot, keep = (a.reshape(T_all, k) for a in (gates, slot, keep))
+    Gm = G
+    if own is not None:
+        gates, slot, keep = gates[own], slot[own], keep[own]
+        # the buffer keeps only the groups that hold this rank's tokens
+        Gm = _own_groups(B, S, seq, Tg)
+        held = torch.zeros(G, dtype=torch.long, device=x.device)
+        held = held.index_fill_(0, own // Tg, 1).cumsum_(0) - 1
+        e, g = slot // (G * C), slot % (G * C) // C
+        slot = e * (Gm * C) + held[g] * C + slot % C
+    entries = xe[:, None, :].expand(T, k, d).reshape(T * k, d)
+    # this rank's experts' slots are [lo·Gm·C, hi·Gm·C) (else all)
+    n_slots = (hi - lo) * Gm * C
+    local = slot - lo * Gm * C
     mine = keep & (local >= 0) & (local < n_slots)
     local = local.clamp(0, n_slots - 1)
     target = torch.where(mine, local, n_slots).reshape(-1)
-    buf = xt.new_zeros((n_slots + 1, d)).index_copy(0, target, entries)
-    out = _expert_ffn(p, buf[:n_slots].view(n_slots // (G * C), G * C, d),
-                      cfg)
+    buf = xe.new_zeros((n_slots + 1, d)).index_copy(0, target, entries)
+    out = _expert_ffn(p, buf[:n_slots].view(hi - lo, Gm * C, d), cfg)
 
     contrib = out.reshape(n_slots, d)[local.reshape(-1)] \
         * mine.reshape(-1, 1).to(x.dtype)
-    if model is not None:
+    if split is not None:
         contrib = model.reduce(contrib)
     y = torch.einsum("tkd,tk->td", contrib.view(T, k, d),
-                     gates.reshape(T, k).to(x.dtype))
+                     gates.to(x.dtype))
 
     # Switch load balance: E * sum_e (share routed to e) * (mean prob e)
     top1 = torch.argmax(probs, dim=-1)
     counts = torch.zeros(E, device=x.device).index_add_(
-        0, top1, torch.ones(T, device=x.device))        # exact counts
+        0, top1, torch.ones(T_all, device=x.device))    # exact counts
     if data is not None:
         data.psum_(counts)
-    frac = counts / (T * n)
-    lb = E * torch.sum(frac * probs.mean(0)) / n
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) / n
+    frac = counts / (T_all * n)
+    if own is None:
+        lb = E * torch.sum(frac * probs.mean(0)) / n
+        z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) / n
+        dropped = (1.0 - keep.float().mean()) / n
+    else:       # this rank's shares of the whole batch's terms
+        lb = E * torch.sum(frac * probs[own].sum(0) / T_all)
+        z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / T_all
+        dropped = (T * k - keep.sum()).float() / (T_all * k)
     aux = {"load_balance": m.load_balance_coef * lb,
            "router_z": m.router_z_coef * z,
-           "dropped_frac": (1.0 - keep.float().mean()) / n}
+           "dropped_frac": dropped}
 
     y = y.reshape(B, S, d)
     if m.n_shared_experts:

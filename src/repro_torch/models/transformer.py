@@ -149,9 +149,10 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     """Full-sequence block. ``positions``/``mrope``: the RoPE positions
     and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
     block cross-attends; ``group``: the sequence group of an ``attn_mlp``
-    block's attention (:func:`check_sequence_parallel`); ``data``: the
-    data group of an MoE block's routing; ``model``: the tensor-parallel
-    group of every block's products (:func:`check_tensor_parallel`).
+    block's attention and an MoE block's routing
+    (:func:`check_sequence_parallel`); ``data``: the data group of an MoE
+    block's routing; ``model``: the tensor-parallel group of every block's
+    products (``dist/sharding.mesh_placements``).
     Returns (x, aux): the MoE blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -173,7 +174,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                          cfg, pattern, positions=positions, mrope=mrope,
                          group=group, model=model)
-        return _ffn_residual(p, x + h, cfg, kind, data, model)
+        return _ffn_residual(p, x + h, cfg, kind, data, model, group)
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
                                  L.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -198,30 +199,21 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
     """Which blocks run under a sequence group of more than one shard: the
     ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
-    granite, longformer). The recurrent blocks' scans, the MoE dispatch,
-    the VLM's vision merge and M-RoPE and the encoder-decoder would need
-    cross-shard work of their own; they raise."""
+    granite, longformer) and the MoE family's blocks (arctic, kimi: the
+    dispatch routes the whole batch's groups on every shard,
+    :func:`repro_torch.models.moe.moe_apply`). The recurrent blocks'
+    scans, the VLM's vision merge and M-RoPE and the encoder-decoder would
+    need cross-shard work of their own; they raise."""
     if group is None or group.size == 1:
         return
-    if kind != "attn_mlp" or cfg.mrope_sections is not None \
+    if kind not in ("attn_mlp",) + MOE_KINDS \
+            or cfg.mrope_sections is not None \
             or cfg.n_vision_tokens or cfg.encoder_decoder:
         raise NotImplementedError(
             f"sequence-parallel training runs the attn_mlp blocks of the "
-            f"dense families; {cfg.name}'s {kind!r} blocks under a group "
-            f"of {group.size} are not ported yet: ROADMAP queue 1, "
-            f"'multi-GPU'")
-
-
-def check_tensor_parallel(cfg: ModelConfig, kind: str, n: int) -> None:
-    """Which blocks run under a model group of ``n`` > 1 ranks. A model
-    group runs every block kind of the 11 archs; only an MoE expert count
-    it does not divide raises. The heads, ffn, vocab and experts split by
-    :func:`repro_torch.dist.sharding.mesh_placements` (attention, cross
-    attention and MLPs Megatron-style, the RG-LRU and SSD blocks on
-    ``d_rnn`` and their heads, the experts by
-    :func:`repro_torch.models.moe.moe_apply`)."""
-    if n > 1 and kind in MOE_KINDS:
-        MOE.check_expert_split(cfg, n)
+            f"dense families and the MoE blocks; {cfg.name}'s {kind!r} "
+            f"blocks under a group of {group.size} are not ported yet: "
+            f"ROADMAP queue 1, 'multi-GPU'")
 
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -238,8 +230,7 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     x this rank's rows of the global batch (the MoE blocks route over the
     group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
     ``model``: tensor-parallel training, x the whole activation on every
-    rank and the layers' weights this rank's slices (``Model.forward``
-    checks the expert counts first: :func:`check_tensor_parallel`). A
+    rank and the layers' weights this rank's slices. A
     layer's weights split over the data group (the FSDP fallback:
     :class:`~repro_torch.dist.group.SplitWeight` leaves) are gathered
     inside the layer's body, so ``remat="full"``/``"dots"`` frees them
@@ -281,19 +272,20 @@ def add_aux(total: dict, aux: dict) -> dict:
 
 
 def _ffn_residual(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                  data=None, model=None):
+                  data=None, model=None, seq=None):
     """The post-attention FFN residual of an attention block. Returns (x,
     aux): the MoE aux losses, else ``{}`` (the serving paths drop them:
-    serving never backprops). ``data``: the data group an MoE block
-    routes over (training); ``model``: the tensor-parallel group of a
-    dense MLP and of the experts (expert parallelism)."""
+    serving never backprops). ``data``, ``seq``: the data or sequence
+    group an MoE block routes over (training); ``model``: the
+    tensor-parallel group of a dense MLP and of the experts (expert
+    parallelism)."""
     if kind not in ATTN_KINDS:
         raise ValueError(f"continuous serving supports attention block kinds "
                          f"{ATTN_KINDS}, got {kind!r}")
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MLP_KINDS:
         return x + L.mlp_apply(p["mlp"], h2, cfg, model), {}
-    y, aux = MOE.moe_apply(p["moe"], h2, cfg, data, model)
+    y, aux = MOE.moe_apply(p["moe"], h2, cfg, data, model, seq)
     if kind == "attn_moe_dense":    # arctic: the dense MLP beside the MoE
         return x + y + L.mlp_apply(p["mlp"], h2, cfg, model), aux
     return x + y, aux

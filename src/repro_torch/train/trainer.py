@@ -60,7 +60,9 @@ Every rank calls the step with the same global batch (``SyntheticLM
 A ``model_group`` (:class:`~repro_torch.dist.group.ModelGroup`, the
 reference's "model" axis) is tensor parallelism (and, for the MoE family,
 expert parallelism: each rank holds E / N of every expert stack and its
-router columns): every rank of the group
+router columns where N divides E, else every expert, the stacks split
+over ffn where N divides ``d_ff_expert`` and whole otherwise, with the
+router whole): every rank of the group
 takes the same rows, its parameters and optimizer state are its slices of
 the split leaves (:func:`shard_params` by
 :func:`train_placements`), its gradients of them
@@ -91,7 +93,6 @@ from repro_torch.dist.group import (DataGroup, Mesh2D, ModelGroup,
                                     SeqGroup, SplitWeight)
 from repro_torch.dist.sharding import mesh_placements
 from repro_torch.models import moe as MOE
-from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import Schedule
 from repro_torch.tree import tree_leaves, tree_map
@@ -223,10 +224,11 @@ def init_shards(model, generator, model_group=None, data=None,
     (and the embedding) is drawn, so a rank never holds the whole model:
     the same parameters a single-device run draws from the same
     generator, as :func:`shard_params` would cut them by
-    :func:`train_placements`. An MoE layer's expert stacks are drawn
-    expert by expert and only this rank's experts kept
-    (``moe.expert_span``), so a rank's transient is one expert's draw,
-    not a whole stack."""
+    :func:`train_placements`. Where the model group splits the experts,
+    an MoE layer's expert stacks are drawn expert by expert and only this
+    rank's experts kept (``moe.expert_span``), so a rank's transient is
+    one expert's draw, not a whole stack; stacks split over ffn, or
+    whole, are cut as any other leaf."""
     mesh = Mesh2D(data if fsdp else None, model_group)
     n, cfg = _size(model_group), model.cfg
     span = None
@@ -272,18 +274,6 @@ def state_shardings(placements, opt_state):
         master=None if opt_state.master is None else sh)}
 
 
-def check_tensor_parallel(cfg, n: int) -> None:
-    """What a train step over a model group of ``n`` ranks cannot run
-    raises ``NotImplementedError``. A model group runs every block kind
-    of the 11 archs, on either gradient wire; only an MoE expert count it
-    does not divide raises
-    (:func:`repro_torch.models.transformer.check_tensor_parallel`)."""
-    if n <= 1:
-        return
-    for kind, _ in T.make_program(cfg):
-        T.check_tensor_parallel(cfg, kind, n)
-
-
 def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
                     model_group=None, fsdp: bool = False) -> Callable:
     """``group``: sequence-parallel training over a
@@ -314,8 +304,6 @@ def make_train_step(model, tcfg: TrainConfig, group=None, data=None,
                         f"{type(model_group).__name__}")
     if model_group is not None and model_group.size == 1:
         model_group = None
-    if model_group is not None:
-        check_tensor_parallel(model.cfg, model_group.size)
     n = 1 if data is None else data.size
     fsdp = fsdp and n > 1
     wire = tcfg.compress_grads and n > 1

@@ -344,10 +344,20 @@ def _cfg():
                fromlist=["TRAIN_WIRES"]).TRAIN_WIRES)))
 def test_train_step_collectives_are_clean(i):
     from repro_torch.analysis.lint import TRAIN_WIRES
-    name, mesh = TRAIN_WIRES[i]
-    log, n_groups = ll.record_train_step(_cfg(), **mesh)
+    from repro_torch.configs import get_smoke
+    name, arch, mesh = TRAIN_WIRES[i]
+    log, n_groups = ll.record_train_step(get_smoke(arch), **mesh)
     assert ll.check_train_wire(log, mesh.get("compress", False), n_groups,
                                name, mesh.get("data", 1)) == []
+    if mesh.get("shards", 1) > 1:
+        # an MoE step under a sequence group: its 2 layers' f32 router
+        # logits gathered, its gradients summed in f32 over the group
+        assert ll.check_seq_gathers(log, name) == []
+        got = {(r[0], r[1], r[2]) for r in log if r[0] == "seq"}
+        assert ("seq", "all_gather", "float32") in got
+        assert any(r[0] == "seq" and r[4] == "grad-sum"
+                   and r[2] == "float32" for r in log)
+        assert sum(r[1] == "all_gather" for r in log) >= 2
     dtypes = {(r[0], r[1], r[2]) for r in log if r[4] == "wire"}
     if mesh.get("compress") and mesh.get("data", 1) > 1:
         op = "all_to_all" if mesh.get("fsdp") else "all_gather"
@@ -389,6 +399,20 @@ def test_a_bf16_gradient_sum_is_caught(monkeypatch):
     log, n_groups = ll.record_train_step(_cfg(), data=2)
     got = ll.check_train_wire(log, False, n_groups, "t", 2)
     assert any("bfloat16" in f.message for f in got)
+
+
+def test_a_bf16_logits_gather_is_caught(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist.group import _Gather
+
+    def low(self, x, dim):
+        return _Gather.apply(x.bfloat16(), self, dim, False).float()
+
+    monkeypatch.setattr(ll.RecSeqGroup, "gather", low)
+    log, _ = ll.record_train_step(get_smoke("arctic-480b"), shards=2,
+                                  seq=64)
+    got = ll.check_seq_gathers(log, "t")
+    assert got and all("bfloat16" in f.message for f in got)
 
 
 def test_decode_merge_is_f32_and_a_bf16_merge_is_caught(monkeypatch):

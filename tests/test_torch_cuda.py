@@ -1773,3 +1773,18 @@ def test_rglru_model_group_gloo_on_one_card_matches_cpu():
         assert torch.equal(got_y, res[0][0])
         for a, b in zip(got_gp + [got_gx], want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_smem_exports_match_the_mirror():
+    """Every instantiation's shared memory, as its ``.cu`` file exports it
+    (the decode kernels' and the owner sum's static bytes as compiled),
+    equals ``analysis.smem_budget``'s mirror, and the card's opt-in limit
+    is the one the budget holds the launches to."""
+    _need_cuda()
+    from repro_torch.analysis import smem_budget as S
+
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", S.OPTIN_LIMIT)
+    assert optin >= S.OPTIN_LIMIT
+    for x in S.instantiations():
+        assert S.exported(x) == x.total, x.name()

@@ -343,14 +343,34 @@ def _op_rank(group, case):
 # the model and the train step on gloo ranks
 # ------------------------------------------------------------------ #
 MODELS = ("smollm-135m", "longformer-4k")
+# The MoE family under a group, in two layouts: "<arch>" routes 16
+# dispatch groups of 16 tokens, every group on one shard; "<arch>:cross"
+# 2 groups of 128 tokens (two whole sequences), each split over both
+# shards (batch 4 > G / n = 1)
+MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
+MOE_MODELS = tuple(a + v for a in MOE_ARCHS for v in ("", ":cross"))
 SEQ, BATCH, STEPS = 64, 4, 3
 
 
+def _cfg(name, module="torch"):
+    """The smoke config of ``name`` (``<arch>`` or ``<arch>:cross``, the
+    latter with 2 dispatch groups) from the port or the reference."""
+    if module == "torch":
+        from repro_torch.configs import get_smoke
+    else:
+        from repro.configs import get_smoke
+    arch, _, variant = name.partition(":")
+    cfg = get_smoke(arch)
+    if variant == "cross":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=2))
+    return cfg
+
+
 def _batch(arch, i):
-    from repro.configs import get_smoke as j_smoke
     from repro.data.pipeline import DataConfig, SyntheticLM
-    ds = SyntheticLM(j_smoke(arch), DataConfig(SEQ, BATCH, seed=0, branch=2,
-                                               n_docs=4))
+    ds = SyntheticLM(_cfg(arch, "jax"), DataConfig(SEQ, BATCH, seed=0,
+                                                   branch=2, n_docs=4))
     return ds.batch(i)
 
 
@@ -371,20 +391,20 @@ def _tcfg(module):
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch):
     """JAX's unsharded smoke model: the port's parameters converted from
-    its init, loss and grads on batch 0, and 3 train-step losses."""
+    its init, loss, metrics and grads on batch 0, and 3 train-step
+    losses."""
     import jax
     import jax.numpy as jnp
 
-    from repro.configs import get_smoke as j_smoke
     from repro.models.model import build_model as j_build
     from repro.optim import adamw as j_adamw
     from repro.train.trainer import make_train_step as j_make_step
     from repro_torch.convert import params_from_jax
 
-    jmodel = j_build(j_smoke(arch))
+    jmodel = j_build(_cfg(arch, "jax"))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     b0 = {k: jnp.asarray(v) for k, v in _batch(arch, 0).items()}
-    (loss, _), grads = jax.jit(jax.value_and_grad(
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
         jmodel.loss, has_aux=True))(jparams, b0)
     jt = _tcfg("jax")
     step = jax.jit(j_make_step(jmodel, jt))
@@ -396,11 +416,27 @@ def _jax_model(arch):
     np_tree = functools.partial(jax.tree.map, np.asarray)
     return dict(params=params_from_jax(np_tree(jparams), "cpu"),
                 loss=float(loss),
+                metrics={k: float(v) for k, v in metrics.items()},
                 grads=params_from_jax(np_tree(grads), "cpu"), losses=losses)
 
 
+@functools.lru_cache(maxsize=None)
+def _port_model(arch):
+    """The port's unsharded loss and flat gradients on batch 0, from the
+    converted reference parameters."""
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(_cfg(arch), "cpu")
+    leaves = tree_map(lambda p: p.clone().requires_grad_(),
+                      _jax_model(arch)["params"])
+    loss, _ = model.loss(leaves, {k: torch.from_numpy(v)
+                                  for k, v in _batch(arch, 0).items()})
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return float(loss), torch.cat([g.reshape(-1) for g in grads]).numpy()
+
+
 def _model_rank(group, arch, params):
-    from repro_torch.configs import get_smoke
     from repro_torch.dist import sharded_plan
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -415,7 +451,7 @@ def _model_rank(group, arch, params):
         return real(*a, **kw)
 
     sharded_plan.sharded_attention = spy
-    model = build_model(get_smoke(arch), "cpu")
+    model = build_model(_cfg(arch), "cpu")
     batch = _seq_slice({k: torch.from_numpy(v)
                         for k, v in _batch(arch, 0).items()}, group)
     leaves = tree_map(lambda p: p.clone().requires_grad_(), params)
@@ -435,6 +471,7 @@ def _model_rank(group, arch, params):
                       + [x.reshape(-1) for x in tree_leaves(o.m)]
                       + [x.reshape(-1) for x in tree_leaves(o.v)])
     return dict(loss=float(metrics["loss"]), local=float(loss.detach()),
+                metrics={k: float(v) for k, v in metrics.items()},
                 grads=flat.numpy(), calls=n_calls, losses=losses,
                 state=state.numpy(), step=o.step)
 
@@ -447,9 +484,10 @@ def _rank_body(group, op_cases, models):
 
 @pytest.fixture(scope="module")
 def ranks():
-    """One spawn per group size: S=2 runs every op case and both models,
-    S=4 the op cases."""
-    models = {a: _jax_model(a)["params"] for a in MODELS}
+    """One spawn per group size: S=2 runs every op case and every model
+    (the dense ones and the MoE family in both layouts), S=4 the op
+    cases."""
+    models = {a: _jax_model(a)["params"] for a in MODELS + MOE_MODELS}
     return {S: run_ranks(_rank_body, S, backend="gloo", device="cpu",
                          timeout_s=DEADLINE_S,
                          args=(tuple(OP_CASES), models if S == 2 else {}))
@@ -472,31 +510,39 @@ def test_sharded_attention_matches_jax_unsharded(ranks, case, S):
                                        **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
 def test_model_loss_and_grads_under_group_match_jax(ranks, arch):
     """Loss within 1e-5 (the group's total, on every rank; the ranks'
-    local shares add up to it), gradients summed over the ranks within
-    1e-4 of JAX's unsharded ones, and the sharded route taken once per
-    attention layer."""
+    local shares add up to it; 1e-4 for the MoE family, with its aux
+    metrics the reference's, each counted once over the group),
+    gradients summed over the ranks within 1e-4 of JAX's unsharded ones
+    (and of the unsharded port's for the MoE family), and the sharded
+    route taken once per attention layer and its remat replay."""
     from repro_torch.tree import tree_leaves
 
     ref = _jax_model(arch)
+    tol = GRAD_TOL if arch in MOE_MODELS else FWD_TOL
     res = [r["model"][arch] for r in ranks[2]]
     for r in res:
-        np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5,
-                                   atol=1e-5)
-        # 2 layers, each forward and its remat-full replay
-        assert r["calls"] == 4, r["calls"]
+        np.testing.assert_allclose(r["loss"], ref["loss"], **tol)
+        assert r["calls"] == 2 * _cfg(arch).n_layers, r["calls"]
+        assert r["metrics"].keys() == ref["metrics"].keys()
+        for key, want in ref["metrics"].items():
+            np.testing.assert_allclose(r["metrics"][key], want, **tol,
+                                       err_msg=key)
     np.testing.assert_allclose(sum(r["local"] for r in res), ref["loss"],
-                               rtol=1e-5, atol=1e-5)
+                               **tol)
     want = np.concatenate([g.reshape(-1).numpy()
                            for g in tree_leaves(ref["grads"])])
     for r in res:
         np.testing.assert_allclose(r["grads"], want, **GRAD_TOL)
+        if arch in MOE_MODELS:
+            np.testing.assert_allclose(r["grads"], _port_model(arch)[1],
+                                       **GRAD_TOL)
     assert res[0]["grads"].tobytes() == res[1]["grads"].tobytes()
 
 
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
 def test_train_steps_under_group_match_jax(ranks, arch):
     """3 steps: losses within 1e-4 of JAX's train step, the parameters and
     the optimizer state bitwise equal on both ranks."""
@@ -545,17 +591,40 @@ def test_dense_ref_under_a_group_raises():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m",
-                                  "arctic-480b", "kimi-k2-1t-a32b",
                                   "qwen2-vl-2b", "whisper-base"])
 def test_unported_families_under_a_group_raise(arch):
-    from repro_torch.configs import get_smoke
+    """The recurrent, VLM and encoder-decoder families raise under a
+    group."""
     from repro_torch.models.model import build_model
-    model = build_model(get_smoke(arch), "cpu")
+    model = build_model(_cfg(arch), "cpu")
     batch = {"tokens": torch.zeros(1, 32, dtype=torch.int32),
              "labels": torch.zeros(1, 32, dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                        "'multi-GPU'"):
         model.loss(None, batch, group=_fake_group())
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_under_a_group_matches_unsharded(ranks, arch):
+    """The MoE family runs under a group: in both layouts (every dispatch
+    group on one shard, and groups split over the shards) the group's
+    loss and the gradients summed over the ranks are the unsharded port's
+    within 1e-4, and so is every rank's dispatch (its dropped share adds
+    up)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    model = build_model(_cfg(arch), "cpu")
+    for kind, _ in model.program:
+        T.check_sequence_parallel(model.cfg, kind, _fake_group())
+    for name in (arch, arch + ":cross"):
+        loss, grads = _port_model(name)
+        res = [r["model"][name] for r in ranks[2]]
+        for r in res:
+            np.testing.assert_allclose(r["loss"], loss, **GRAD_TOL)
+            np.testing.assert_allclose(r["grads"], grads, **GRAD_TOL)
+        np.testing.assert_allclose(
+            res[0]["metrics"]["dropped_frac"],
+            _jax_model(name)["metrics"]["dropped_frac"], rtol=0, atol=1e-7)
 
 
 def test_group_of_one_is_the_unsharded_path():

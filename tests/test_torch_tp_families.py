@@ -534,20 +534,29 @@ def test_ffn_width_is_the_whole_leafs_dim(arch):
             (s.model, s.model_sum) for s in tree_leaves(whole)]
 
 
-def test_only_an_expert_count_the_group_does_not_divide_raises():
-    """Every arch passes the model group's checks at 2 ranks (the
-    families' blocks run split); an MoE expert count the group does not
-    divide still raises."""
+def test_every_arch_and_an_uneven_expert_count_take_a_model_group():
+    """Every arch takes a model group of 2 in the step factory (the
+    families' blocks run split), and so does an MoE expert count the group
+    does not divide, which raised before: kimi's 8 experts at 9 ranks
+    stay whole, as the reference's ``_mesh_clean`` keeps them."""
     from repro_torch.configs import ARCHS as ALL
     from repro_torch.configs import get_smoke
-    from repro_torch.train.trainer import check_tensor_parallel
+    from repro_torch.dist.group import ModelGroup
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    def fake(n):
+        return ModelGroup(None, 0, n, torch.device("cpu"))
 
     for arch in ALL:
-        check_tensor_parallel(get_smoke(arch), 2)
+        make_train_step(build_model(get_smoke(arch), "cpu"), TrainConfig(),
+                        model_group=fake(2))
     kimi = get_smoke("kimi-k2-1t-a32b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                       "'multi-GPU'"):
-        check_tensor_parallel(kimi, kimi.moe.n_experts + 1)
+    n = kimi.moe.n_experts + 1
+    make_train_step(build_model(kimi, "cpu"), TrainConfig(),
+                    model_group=fake(n))
+    assert M.expert_split(kimi, n) is None
 
 
 # ------------------------------------------------------------------ #

@@ -183,17 +183,34 @@ def test_cli_smoke_loss_drops(capsys):
     assert final < first - 0.8, out
 
 
-def test_cli_unported_options_raise():
+def test_cli_arctic_model3_matches_model1(capfd):
     """``--model`` > 1 (tensor parallelism) runs every family
     (``tests/test_torch_tp.py``, ``tests/test_torch_tp_families.py``),
     ``--data`` and ``--compress-grads`` run
     (``tests/test_torch_dist_data.py``), with ``--model`` > 1 and
-    ``--fsdp`` too (``tests/test_torch_compress_split.py``); an expert
-    count the model group does not divide is multi-GPU work left to port,
-    and raises before any rank starts."""
+    ``--fsdp`` too (``tests/test_torch_compress_split.py``), and so does
+    an expert count the model group does not divide, the last option
+    that raised: arctic-480b's smoke at ``--model 3`` keeps its 4 experts
+    whole on every rank (as the reference's ``_mesh_clean``), its every
+    other leaf too, and prints ``--model 1``'s losses within 1e-4."""
     from repro_torch.launch.train import main
 
-    for extra in (["--arch", "arctic-480b", "--model", "3"],):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                           "'multi-GPU'"):
-            main(["--smoke", "--device", "cpu", "--steps", "1"] + extra)
+    cli = ["--arch", "arctic-480b", "--smoke", "--device", "cpu", "--seq",
+           "32", "--batch", "4", "--lr", "5e-3", "--log-every", "1",
+           "--steps", "4"]
+
+    def losses(out):
+        return {int(line.split()[1]): float(line.split()[3])
+                for line in out.splitlines() if line.startswith("step ")}
+
+    one = main(cli)
+    l1 = losses(capfd.readouterr().out)
+    three = main(cli + ["--model", "3", "--dist-backend", "gloo"])
+    out = capfd.readouterr().out
+    l3 = losses(out)
+    assert "model=3 (gloo)" in out
+    assert "moe/w_in: whole" in out and "moe/router: whole" in out
+    assert sorted(l1) == sorted(l3) == list(range(4))
+    for i in l1:
+        assert abs(l1[i] - l3[i]) <= 1e-4
+    assert abs(one - three) <= 1e-4

@@ -4,10 +4,12 @@
     python3 tools/train_sharded.py [--seed N]
 
 Run from the root of a checkout on a machine with a CUDA device. Builds the
-kernels, runs the narrowed train-sharded-check, the unsharded references
-(smollm-135m and longformer-4k trained at full size, 20 steps each, as
-``chip_smoke.py``'s train phases, without the checkpoint), then
-``chip_smoke.phase_train_sharded`` for both. The ranks use NCCL, one card
+kernels, runs the unsharded references (smollm-135m and longformer-4k
+trained at full size, 20 steps each, as ``chip_smoke.py``'s train phases,
+without the checkpoint, and arctic-480b's MoE layer at the cut of
+``chip_smoke.seq_moe_inputs``), then ``chip_smoke.phase_train_sharded``:
+the narrowed train-sharded-check, both archs and the MoE layer in one
+spawn. The ranks use NCCL, one card
 each, where the machine has the cards, else gloo ranks sharing cuda:0;
 every line names the backend. Prints the card's name and power limit
 last. Any failed check raises, so the exit code is nonzero.
@@ -43,13 +45,13 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
     C.phase_build()
-    C.train_sharded_check(torch, args.seed)
     refs = {}
     for arch in ("smollm-135m", "longformer-4k"):
         _, _, refs[arch] = C.phase_train(torch, args.seed, arch)
         torch.cuda.empty_cache()
-    for arch, ref in refs.items():
-        C.phase_train_sharded(torch, args.seed, arch, ref)
+    moe = C.seq_moe_inputs(torch, args.seed)
+    torch.cuda.empty_cache()
+    C.phase_train_sharded(torch, args.seed, tuple(refs.items()), moe=moe)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
