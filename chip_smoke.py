@@ -2781,7 +2781,8 @@ def phase_train_kernels(torch, timer, seed):
             log(f"[train-kernels] case {name} {kname}: "
                 + " ".join(f"{a}={b}" for a, b in recs[kname].items()))
         out_records[name] = recs
-    out_records["t"] = train_kernels_shard(torch, timer, seed)
+    for case in SHARD_CASES:
+        out_records[case] = train_kernels_shard(torch, timer, seed, case)
     return out_records
 
 
@@ -2873,8 +2874,18 @@ def phase_smem(torch) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
-SHARD_T = dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
-               hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1))
+# K1-K3 case (t-k): shard 1 of 2 of recurrentgemma-9b's train attention
+# under a sequence group (batch 1 x 16 query heads expanded from its one
+# KV head, hd 256, window 2048 + 4 sinks, 128-blocks): the window spans the
+# whole previous shard, so the view holds 16 local tiles, 15 halo tiles
+# from shard 0 (distance -1), the +1 slot and 1 global tile; bf16, the
+# column split of hd 256
+SHARD_CASES = {
+    "t": dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
+              hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1)),
+    "t-k": dict(pat=("csw", 2048, 4, 1), n=4096, shards=2, shard=1, bh=16,
+                hd=256, blk=128, dtype="bfloat16", view=(16, (15, 1), 1)),
+}
 
 
 def _view_mask(torch, sched, pos_q, pos_k, kvb, flags):
@@ -2894,12 +2905,13 @@ def _view_mask(torch, sched, pos_q, pos_k, kvb, flags):
     return mask.reshape(nq * bq, nkb * bk)
 
 
-def train_kernels_shard(torch, timer, seed):
-    """Case (t): K1, K2 and K3 on one shard's view tables
-    (``dist.sharded_plan.shard_plan``), held against their plain versions
-    within the train-kernels tolerances, dK/dV bitwise over two calls,
-    timed beside the bound, the plain versions and SDPA with the mask the
-    view tables imply. Returns {kernel: record}."""
+def train_kernels_shard(torch, timer, seed, case="t"):
+    """Case ``case`` of ``SHARD_CASES``, (t) or (t-k): K1, K2 and K3 on
+    one shard's view tables (``dist.sharded_plan.shard_plan``), held
+    against their plain versions within the train-kernels tolerances,
+    dK/dV bitwise over two calls, timed beside the bound, the plain
+    versions and SDPA with the mask the view tables imply. Returns
+    {kernel: record}."""
     import torch.nn.functional as F
 
     from repro_torch.core.scheduler import schedule
@@ -2907,13 +2919,13 @@ def train_kernels_shard(torch, timer, seed):
     from repro_torch.kernels import salo_attention as KA
     from repro_torch.kernels import salo_backward as KB
 
-    c = SHARD_T
+    c = SHARD_CASES[case]
     dtype = getattr(torch, c["dtype"])
     sched = schedule(_case_pattern(c["pat"]), c["n"])
     S, r, blk = c["shards"], c["shard"], c["blk"]
     sp = shard_plan(sched.plan(blk, blk, S * blk), S)
     check((sp.nkb_l, sp.halo_counts, sp.n_gt) == c["view"],
-          f"case t: view {sp.nkb_l} local + {sp.halo_counts} halo + "
+          f"case {case}: view {sp.nkb_l} local + {sp.halo_counts} halo + "
           f"{sp.n_gt} global tiles, expected {c['view']}")
     t = shard_tables(sp, torch.device("cuda", 0))
     pos_q, pos_k, kvb, flg = t.pos_q[r], t.pos_k[r], t.tables[r], t.flags[r]
@@ -2945,18 +2957,18 @@ def train_kernels_shard(torch, timer, seed):
                            ("dq", dq, rdq, GRAD_TOL[c["dtype"]]),
                            ("dk", dk, rdk, ktol), ("dv", dv, rdv, ktol)):
         a, b = a.float(), b.float()
-        check(bool(torch.isfinite(a).all()), f"case t: non-finite {what}")
+        check(bool(torch.isfinite(a).all()), f"case {case}: non-finite {what}")
         errs[what] = float((a - b).abs().max())
         check(bool(torch.allclose(a, b, atol=tl, rtol=tl)),
-              f"case t: kernel {what} vs plain max abs err {errs[what]} "
+              f"case {case}: kernel {what} vs plain max abs err {errs[what]} "
               f"> {tl}")
     errs["dq_off_share"] = KB.dq_off_share(dq, rdq)
     check(errs["dq_off_share"] <= KB.DQ_OFF_SHARE,
-          f"case t: dq off share {errs['dq_off_share']}")
+          f"case {case}: dq off share {errs['dq_off_share']}")
     check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
-          "case t: dK/dV differ between two runs on one input")
+          f"case {case}: dK/dV differ between two runs on one input")
     pairs = BH * _attended_pairs(torch, sched, pos_q, pos_k, kvb, flg)
-    log(f"[train-kernels] case t {c['dtype']} shard {r} of {S}, "
+    log(f"[train-kernels] case {case} {c['dtype']} shard {r} of {S}, "
         f"{sched.pattern} n={c['n']}: q {nQ} rows, view {nK} keys "
         f"({sp.nkb_l} local + {sum(sp.halo_counts)} halo + {sp.n_gt} global "
         f"tiles of {blk}), B*H={BH} hd={D}: steps={kvb.shape[1]} "
@@ -3010,7 +3022,7 @@ def train_kernels_shard(torch, timer, seed):
             max_abs_err=(errs["out"] if name == K1 else errs["dq"]
                          if name == K2 else max(errs["dk"], errs["dv"])),
             bytes=nbytes, ops=sum(o for o, _ in parts))
-        log(f"[train-kernels] case t {name}: "
+        log(f"[train-kernels] case {case} {name}: "
             + " ".join(f"{a}={b}" for a, b in recs[name].items()))
     return recs
 
@@ -4174,29 +4186,37 @@ def sharded_check_rank(group, seed, cfg, params, keys=("loss",)):
 
 def _sharded_check_inputs(torch, seed) -> dict:
     """train-sharded-check's configs, their parameters (on the CPU, from
-    ``seed``), the metrics each step keeps and the unsharded run they are
+    ``seed``), the metrics each step keeps and the unsharded runs they are
     held to: the narrowed f32 smollm (train_check's) and longformer (hd
-    64) unsharded on the card, and the MoE config of
-    ``_seq_moe_check_cfg`` unsharded on the CPU (the plain versions:
-    cuda == cpu). {name: (cfg, params, keys, reference steps, where)}."""
+    64) unsharded on the card, the MoE config of ``_seq_moe_check_cfg``
+    unsharded on the CPU (the plain versions: cuda == cpu), and the
+    recurrent checks of ``_recurrent_check_cfgs`` (recurrentgemma's one
+    griffin group at hd 256, window 32; mamba2 at smoke widths, chunk 16)
+    unsharded on both, their losses and grad norms kept. {name: (cfg,
+    params, keys, {where: reference steps})}."""
     from repro_torch.models.model import build_model
 
+    rec = _recurrent_check_cfgs()
     out = {}
-    for name, cfg, dev in (
-            ("smollm-135m", _train_cfg(smoke=True), "cuda"),
-            ("longformer-4k", _check_cfgs()["longformer-4k"], "cuda"),
-            ("kimi-k2-1t-a32b", _seq_moe_check_cfg(), "cpu")):
-        keys = ("loss",) + (AUX if cfg.moe is not None else ())
+    for name, cfg, devs in (
+            ("smollm-135m", _train_cfg(smoke=True), ("cuda",)),
+            ("longformer-4k", _check_cfgs()["longformer-4k"], ("cuda",)),
+            ("kimi-k2-1t-a32b", _seq_moe_check_cfg(), ("cpu",)),
+            *((arch, cfg, ("cuda", "cpu")) for arch, cfg in rec.items())):
+        keys = ("loss",) + (AUX if cfg.moe is not None else ()) \
+            + (("grad_norm",) if cfg.recurrent or cfg.ssm else ())
         params = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(seed))
-        p = _to(params, dev)
-        step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
-                                 lr=3e-3, warmup=1, seed=seed)
-        ref = []
-        for i in range(3):
-            p, opt, met, _ = step(p, opt, ds.batch(i))
-            ref.append(tuple(float(met[k]) for k in keys))
-        out[name] = (cfg, params, keys, ref, dev)
+        refs = {}
+        for dev in devs:
+            p = _to(params, dev)
+            step, opt, ds = _trainer(cfg, dev, p, seq=128, batch=2, steps=3,
+                                     lr=3e-3, warmup=1, seed=seed)
+            refs[dev] = []
+            for i in range(3):
+                p, opt, met, _ = step(p, opt, ds.batch(i))
+                refs[dev].append(tuple(float(met[k]) for k in keys))
+        out[name] = (cfg, params, keys, refs)
     return out
 
 
@@ -4221,23 +4241,39 @@ def sharded_check_job(torch, seed):
             dict(checks=checks, backend=backend, device=device))
 
 
+def _close(got, want, tol) -> bool:
+    """Every metric of every step of ``got`` within ``tol`` (abs and rel)
+    of ``want``'s."""
+    return all(math.isclose(a, b, rel_tol=tol, abs_tol=tol)
+               for h, w in zip(got, want) for a, b in zip(h, w))
+
+
 def report_sharded_checks(recs, st, wall) -> dict:
     """Gate and print train-sharded-check: every rank's losses (and an
-    MoE config's aux metrics) within 1e-4 of the unsharded run's,
-    parameters and optimizer state bitwise equal across the ranks, K1-K3
-    launched on every rank and no plain version. Returns {path: launches
-    summed over the ranks}."""
+    MoE config's aux metrics, a recurrent config's grad norms) within
+    1e-4 of each unsharded run's (a recurrent config's on the card and on
+    the CPU, which agree within 1e-4 too), parameters and optimizer state
+    bitwise equal across the ranks, K1-K3 launched on every rank of a
+    program with attention (none in mamba2's) and no plain version.
+    Returns {path: launches summed over the ranks}."""
     backend, device = st["backend"], st["device"]
     out = {}
-    for name, (cfg, _, keys, ref, dev) in st["checks"].items():
+    for name, (cfg, _, keys, refs) in st["checks"].items():
         res = [r[name] for r in recs]
+        if len(refs) > 1:
+            check(_close(refs["cuda"], refs["cpu"], 1e-4),
+                  f"train-sharded-check {name}: unsharded cuda "
+                  f"{refs['cuda']} != cpu {refs['cpu']} (1e-4)")
+        attn = _attention_layers(cfg) > 0
         for r, rec in enumerate(res):
-            check(all(math.isclose(a, b, rel_tol=1e-4, abs_tol=1e-4)
-                      for h, w in zip(rec["hist"], ref)
-                      for a, b in zip(h, w)),
-                  f"train-sharded-check {name} rank {r}: {keys} "
-                  f"{rec['hist']} != unsharded {ref} on the {dev} (1e-4)")
-            check(rec["plain"] == 0 and min(rec["launches"].values()) > 0,
+            for dev, ref in refs.items():
+                check(_close(rec["hist"], ref, 1e-4),
+                      f"train-sharded-check {name} rank {r}: {keys} "
+                      f"{rec['hist']} != unsharded {ref} on the {dev} "
+                      f"(1e-4)")
+            check(rec["plain"] == 0 and (
+                min(rec["launches"].values()) > 0 if attn
+                else max(rec["launches"].values()) == 0),
                   f"train-sharded-check {name} rank {r}: launches "
                   f"{rec['launches']}, plain {rec['plain']}")
         check(len({rec["digest"] for rec in res}) == 1,
@@ -4247,11 +4283,13 @@ def report_sharded_checks(recs, st, wall) -> dict:
             f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
             f"{cfg.moe.dispatch_groups} dispatch groups of 128 tokens, "
             f"each split over the {TRAIN_SHARDS} shards")
+        unsharded = "; ".join(f"on the {dev} {ref}"
+                              for dev, ref in refs.items())
         log(f"[train-sharded-check] {name} d {cfg.d_model} hd {cfg.hd} "
             f"f32{extra}, {TRAIN_SHARDS} ranks on backend {backend} "
             f"({device or 'one card a rank'}): {keys} per step "
-            f"{res[0]['hist']} vs unsharded on the {dev} {ref} (within "
-            f"1e-4); state bitwise equal across the ranks; launches a rank "
+            f"{res[0]['hist']} vs unsharded {unsharded} (within 1e-4); "
+            f"state bitwise equal across the ranks; launches a rank "
             f"{res[0]['launches']}")
         out[f"train-sharded-check-{name}"] = {
             k: sum(rec["launches"][k] for rec in res) for k in ("K1", "K2",
@@ -4362,22 +4400,23 @@ def train_sharded_rank(group, seed, arch, steps):
     return rec
 
 
-def seq_moe_rank(group, seed, moe):
-    """train-sharded-moe on one rank of the sequence group: ``moe["cfg"]``
-    (arctic-480b at every published width, ``EP_DEPTH`` layers, the cut
-    expert count: every rank holds every weight), bf16, remat full, this
-    rank's half of every sequence at seq 4096, batch ``EP_SCHED``'s, the
-    first ``SEQ_MOE_STEPS`` steps of ``EP_SCHED``'s schedule from the
-    seed, then one more step, profiled on rank 0. Returns the rank's
-    record."""
+def seq_train_rank(group, seed, run):
+    """A rank of a sequence-parallel train run at full width with its
+    depth cut (every rank holds every weight): ``run["cfg"]``, bf16,
+    remat full, this rank's slice of every sequence at seq 4096, the
+    batch and schedule of ``run["sched"]`` ``(batch, steps, lr,
+    warmup)``, its first ``run["steps"]`` steps from the seed, then one
+    more step, profiled on rank 0 (collectives by the profiler names
+    ``run["keys"]``). train-sharded-moe (arctic-480b at the cut expert
+    count) and train-sharded mamba2-370m. Returns the rank's record."""
     import torch
 
     from repro_torch.models.model import build_model
 
     _rank_prelude(torch)
     dev = str(group.device)
-    cfg = moe["cfg"]
-    batch_n, sched_steps, lr, warmup = EP_SCHED
+    cfg, tag = run["cfg"], run["tag"]
+    batch_n, sched_steps, lr, warmup = run["sched"]
     params = build_model(cfg, dev).init(
         torch.Generator(device=dev).manual_seed(seed))
     step, opt, ds = _trainer(cfg, dev, params, seq=4096, batch=batch_n,
@@ -4388,23 +4427,25 @@ def seq_moe_rank(group, seed, moe):
     torch.cuda.reset_peak_memory_stats()
     _counters(reset=True)
     losses, dropped, times = [], [], []
-    for i in range(SEQ_MOE_STEPS):
+    for i in range(run["steps"]):
         batch = ds.batch(i)
         t0 = time.perf_counter()
         params, opt, met, _ = step(params, opt, batch)
         losses.append(float(met["loss"]))         # syncs the card
         times.append(time.perf_counter() - t0)
-        dropped.append(float(met["dropped_frac"]))
+        if "dropped_frac" in met:
+            dropped.append(float(met["dropped_frac"]))
         if group.index == 0:
-            log(f"[train-sharded-moe] rank 0 step {i} loss {losses[-1]:.4f} "
-                f"grad norm {float(met['grad_norm']):.4f} dropped "
-                f"{dropped[-1]:.4f} {times[-1] * 1e3:.1f} ms")
+            log(f"[{tag}] rank 0 step {i} loss {losses[-1]:.4f} grad norm "
+                f"{float(met['grad_norm']):.4f}" + (
+                    f" dropped {dropped[-1]:.4f}" if dropped else "")
+                + f" {times[-1] * 1e3:.1f} ms")
     launches, plain = _counters()
     rec = dict(losses=losses, dropped=dropped, times=times,
                launches=launches, plain=plain,
                peak=torch.cuda.max_memory_allocated(),
                digest=_digest(torch, params, opt.m, opt.v))
-    batch = ds.batch(SEQ_MOE_STEPS)
+    batch = ds.batch(run["steps"])
     torch.cuda.synchronize()
     prof = None
     if group.index == 0:
@@ -4418,11 +4459,11 @@ def seq_moe_rank(group, seed, moe):
     dt = time.perf_counter() - ts
     if prof is not None:
         prof.stop()
-        by_name = report_profile(prof, dt, 1, f"train-sharded-moe "
-                                 f"{cfg.name} step (rank 0)")
+        by_name = report_profile(prof, dt, 1, f"{tag} {cfg.name} step "
+                                 f"(rank 0)")
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
-                   collectives=_collective_ms(prof, SEQ_MOE_KEYS))
+                   collectives=_collective_ms(prof, run["keys"]))
     return rec
 
 
@@ -4586,20 +4627,21 @@ def seq_moe_inputs(torch, seed, arch="arctic-480b") -> dict:
         torch, seed, arch, cfg=cfg, steps=sched_steps, batch=batch_n, lr=lr,
         warmup=warmup, run=SEQ_MOE_STEPS)
     return dict(arch=arch, cfg=cfg, ref=ref, ref_launches=ref_launches,
-                rank_args=dict(cfg=cfg))
+                rank_args=dict(cfg=cfg, sched=EP_SCHED, steps=SEQ_MOE_STEPS,
+                               tag="train-sharded-moe", keys=SEQ_MOE_KEYS))
 
 
 def seq_moe_job(torch, seed, moe):
     """train-sharded-moe's half before its ranks: the ranks' job
-    (``seq_moe_rank``) with what ``report_seq_moe`` reads (``moe``:
+    (``seq_train_rank``) with what ``report_seq_moe`` reads (``moe``:
     ``seq_moe_inputs``'s plan)."""
     backend, device = _shard_backend(torch, TRAIN_SHARDS)
-    return ((seq_moe_rank, (moe["rank_args"],)), report_seq_moe,
+    return ((seq_train_rank, (moe["rank_args"],)), report_seq_moe,
             dict(moe=moe, backend=backend, device=device))
 
 
 def report_seq_moe(recs, st, wall) -> dict:
-    """Gate and print train-sharded-moe (``seq_moe_rank``'s records)
+    """Gate and print train-sharded-moe (``seq_train_rank``'s records)
     against the unsharded run of the same cut: the step-0 loss within
     5e-3 and every step within 2e-2 (train-sharded's limits), equal
     losses and bitwise-equal parameters and optimizer state on every
@@ -4674,14 +4716,364 @@ def report_seq_moe(recs, st, wall) -> dict:
                   for k in ("K1", "K2", "K3")}}
 
 
-def train_sharded_parts(torch, seed, runs, moe=None, with_check=True):
+# train-sharded mamba2-370m and recurrentgemma-9b: the unsharded phases'
+# first steps they run (their schedules are TP_SCHED's), recurrentgemma's
+# depth (one griffin group) and their collectives by profiler name (the
+# halos' sends and receives, the carries' all_gathers and their
+# backward's reduce_scatters, the gradients' all_reduce)
+SEQ_REC_STEPS = 2
+SEQ_REC_KEYS = SEQ_MOE_KEYS + ("reduce_scatter", "reducescatter")
+SEQ_RG_DEPTH = 3
+# train-sharded recurrentgemma-9b's forward-and-backward form: the fixed
+# random projections a gradient leaf is digested into, and the bound on
+# each leaf's relative gradient error estimated from them: 3x the largest
+# a probe on the card read (9.9e-3, bf16; PERF.md §6), as four
+# projections estimate it to within about a third
+SEQ_RG_PROJ = 4
+SEQ_RG_GRAD_TOL = 3e-2
+
+
+def seq_carry_bytes(cfg, batch: int, n: int) -> dict:
+    """What a rank sends and receives a recurrent layer under a sequence
+    group of ``n``, counted from the shapes: the conv halo it sends
+    (``batch`` x (W - 1) rows of the conv's channels in bf16: ``d_rnn``
+    for the RG-LRU, d_inner + 2N for the SSD) and the carries it receives
+    in the gather (the n - 1 other shards' f32 decay product and end
+    state: 2 x ``batch`` x ``d_rnn``, or ``batch`` x H x (1 + N P) for the
+    SSD). Each crosses again in remat full's replay, and its gradient
+    back (the reverse ``ppermute``, the ``reduce_scatter``)."""
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        H = d_inner // s.head_dim
+        halo = batch * (s.conv_width - 1) * (d_inner + 2 * s.d_state) * 2
+        carry = batch * H * (1 + s.d_state * s.head_dim) * 4
+    else:
+        dr = cfg.recurrent.d_rnn or cfg.d_model
+        halo = batch * (cfg.recurrent.conv_width - 1) * dr * 2
+        carry = 2 * batch * dr * 4
+    return dict(halo=halo, carry=(n - 1) * carry)
+
+
+def seq_rg_whole_steps(torch, n: int = TRAIN_SHARDS) -> bool:
+    """Whether train-sharded recurrentgemma-9b runs whole train steps.
+    Every rank of a sequence group holds every weight, so it does where
+    the ranks that share a card (all ``n`` under gloo on cuda:0, one a
+    card under NCCL) fit ``train_bytes``' peak at the rank's 4096 / n
+    tokens in 92 % of it; else the split forward and backward with the
+    gradients' one ``all_reduce``, no update: 10 B a parameter (the bf16
+    weights, their f32 gradients and the all_reduce's flat f32 buffer)
+    and the rank's f32 logits (16 B a logit). Prints the reckoning."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, n_layers=SEQ_RG_DEPTH)
+    share = n if _shard_backend(torch, n)[1] is not None else 1
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = 0.92 * total
+    tb = train_bytes(cfg, 4096 // n, 1)
+    step = share * tb["peak"]
+    fwd_bwd = share * (10 * tb["params"] + 16 * (4096 // n) * cfg.vocab_size)
+    whole = step <= budget
+    check(whole or fwd_bwd <= budget,
+          f"train-sharded recurrentgemma-9b: {share} ranks on a card need "
+          f"{fwd_bwd / 1e9:.2f} GB for the forward and backward alone")
+    log(f"[train-sharded recurrentgemma-9b] reckoned: {SEQ_RG_DEPTH} of "
+        f"{full.n_layers} layers (one griffin group) at every published "
+        f"width, {tb['params'] / 1e6:.1f}M params (the tied embedding "
+        f"{tb['embedding'] / 1e6:.1f}M), held whole by every rank of a "
+        f"sequence group of {n}, {share} rank(s) a card: whole train steps "
+        f"peak at {step / 1e9:.2f} GB (32 B a parameter), the forward and "
+        f"backward with the gradients' all_reduce at {fwd_bwd / 1e9:.2f} "
+        f"GB, against {budget / 1e9:.2f} GB (92 % of {total / 1e9:.2f}): "
+        + ("whole train steps" if whole else
+           "the forward and backward, no AdamW update"))
+    return whole
+
+
+def _grad_digest(torch, grads) -> list:
+    """Each gradient leaf's f32 norm and its dot products with
+    ``SEQ_RG_PROJ`` fixed N(0, 1) vectors, drawn leaf by leaf from a seed
+    in chunks of 2^26 values (the same on every process and device):
+    what the host keeps of recurrentgemma-9b's 1.7G-value gradient to
+    hold two runs' gradients against each other."""
+    out = []
+    for i, g in enumerate(grads):
+        flat = g.reshape(-1)
+        gen = torch.Generator(device=flat.device).manual_seed(7919 + i)
+        proj = torch.zeros(SEQ_RG_PROJ, dtype=torch.float64,
+                           device=flat.device)
+        for lo in range(0, flat.numel(), 1 << 26):
+            part = flat[lo:lo + (1 << 26)].float()
+            r = torch.randn((SEQ_RG_PROJ, part.numel()), generator=gen,
+                            device=flat.device)
+            proj += (r @ part).double()
+        out.append((float(flat.float().norm()), proj.tolist()))
+    return out
+
+
+def _grad_errors(got, want) -> list:
+    """Per leaf, the relative error of ``got``'s gradient against
+    ``want``'s (``_grad_digest``s): the projections' root mean square
+    difference over ``want``'s norm (an estimate of |g - g_ref| /
+    |g_ref|, each projection of g - g_ref having that variance), and the
+    norms' relative difference."""
+    out = []
+    for (n_g, p_g), (n_w, p_w) in zip(got, want):
+        rms = math.sqrt(sum((a - b) ** 2 for a, b in zip(p_g, p_w))
+                        / len(p_w))
+        out.append((rms / max(n_w, 1e-30), abs(n_g - n_w) / max(n_w, 1e-30)))
+    return out
+
+
+def _rg_batch(torch, cfg, seed, dev):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    ds = SyntheticLM(cfg, DataConfig(4096, 1, seed=seed))
+    return {k: torch.as_tensor(v).to(dev) for k, v in ds.batch(0).items()}
+
+
+def seq_rg_reference(torch, seed, cfg, dev="cuda") -> dict:
+    """train-sharded recurrentgemma-9b's reference in its forward-and-
+    backward form: the unsharded loss and gradients on the card from the
+    seed's weights and first batch (seq 4096, batch 1, bf16, remat full).
+    Keeps on the host the loss, the K1-K3 launches and the gradients'
+    ``_grad_digest``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_map)
+
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    names = ["/".join(p) for p, _ in tree_flatten_with_path(params)[0]]
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    _counters(reset=True)
+    t0 = time.perf_counter()
+    loss, _ = model.loss(leaves, _rg_batch(torch, cfg, seed, dev))
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    launches, plain = _counters()
+    check(plain == 0, f"train-sharded recurrentgemma-9b reference: plain "
+          f"{plain}")
+    digest = _grad_digest(torch, grads)
+    log(f"[train-sharded recurrentgemma-9b] the unsharded reference: loss "
+        f"{loss:.6f}, forward and backward {dt * 1e3:.3f} ms, launches "
+        f"{launches}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    return dict(loss=loss, digest=digest, launches=launches, names=names)
+
+
+def seq_rg_rank(group, seed, cfg):
+    """train-sharded recurrentgemma-9b on one rank in its forward-and-
+    backward form: the seed's weights (every rank holds all) and first
+    batch, this rank's half of the sequence, the loss under the group,
+    its gradients cast to f32 and summed over the group in the trainer's
+    one flat ``all_reduce`` (``_psum_flat_``), no update; profiled on rank
+    0. Returns the loss, the gradients' digests, the launches, the peak
+    and rank 0's profile numbers."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import _psum_flat_, _seq_slice
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _rank_prelude(torch)
+    dev = str(group.device)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = _seq_slice(_rg_batch(torch, cfg, seed, dev), group)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counters(reset=True)
+    prof = None
+    if group.index == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    ts = time.perf_counter()
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = model.loss(leaves, batch, group=group)
+    grads = iter(g.float() for g in torch.autograd.grad(
+        loss, tree_leaves(leaves)))
+    grads = _psum_flat_(tree_map(lambda _: next(grads), params), group)
+    total = float(metrics["loss"])
+    dt = time.perf_counter() - ts
+    launches, plain = _counters()
+    rec = dict(loss=total, launches=launches, plain=plain, ms=dt * 1e3)
+    if prof is not None:
+        prof.stop()
+        by_name = report_profile(prof, dt, 1, "train-sharded "
+                                 "recurrentgemma-9b forward and backward "
+                                 "(rank 0)")
+        busy_ms = sum(t for _, t in by_name.values()) / 1e3
+        rec.update(idle=1 - busy_ms / (dt * 1e3),
+                   collectives=_collective_ms(prof, SEQ_REC_KEYS))
+    rec.update(peak=torch.cuda.max_memory_allocated(),
+               grads=_grad_digest(torch, tree_leaves(grads)),
+               digest=_digest(torch, grads))
+    return rec
+
+
+def seq_rec_inputs(torch, seed, arch, ref=None) -> dict:
+    """What a recurrent train-sharded run compares with, and its form:
+    mamba2-370m (``MAMBA_TRAIN_LAYERS`` layers) takes whole train steps
+    against ``ref``, the unsharded mamba2 phase's stats (same seed and
+    schedule); recurrentgemma-9b (one griffin group) takes whole steps
+    where ``seq_rg_whole_steps`` finds they fit, against the unsharded
+    phase of its cut run here, else the forward and backward against
+    ``seq_rg_reference``. Returns the run's plan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    depth = MAMBA_TRAIN_LAYERS if arch == "mamba2-370m" else SEQ_RG_DEPTH
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    sched = TP_SCHED[arch]
+    plan = dict(arch=arch, cfg=cfg, whole=True, ref=ref, ref_launches=None,
+                rank_args=dict(cfg=cfg, sched=sched, steps=SEQ_REC_STEPS,
+                               tag=f"train-sharded {arch}",
+                               keys=SEQ_REC_KEYS))
+    if arch == "mamba2-370m":
+        return plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    if seq_rg_whole_steps(torch):
+        batch_n, steps, lr, warmup = sched
+        plan["ref_launches"], _, plan["ref"] = phase_train(
+            torch, seed, arch, cfg=cfg, steps=steps, batch=batch_n, lr=lr,
+            warmup=warmup, run=SEQ_REC_STEPS)
+    else:
+        plan.update(whole=False, ref=seq_rg_reference(torch, seed, cfg))
+        plan["ref_launches"] = plan["ref"]["launches"]
+    torch.cuda.empty_cache()
+    return plan
+
+
+def seq_rec_job(torch, seed, rec):
+    """A recurrent train-sharded run's half before its ranks: the ranks'
+    job (``seq_train_rank`` for whole steps, ``seq_rg_rank`` for the
+    forward and backward) with what ``report_seq_rec`` reads (``rec``:
+    ``seq_rec_inputs``'s plan)."""
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    job = (seq_train_rank, (rec["rank_args"],)) if rec["whole"] \
+        else (seq_rg_rank, (rec["cfg"],))
+    return (job, report_seq_rec, dict(rec=rec, backend=backend,
+                                      device=device))
+
+
+def report_seq_rec(recs, st, wall) -> dict:
+    """Gate and print a recurrent train-sharded run against its unsharded
+    reference: the loss of every step (whole steps) or of the forward
+    (forward and backward) within 1e-2 of it (train-tp's convention for
+    a split bf16 run), equal on every rank; in the forward-and-backward
+    form every gradient leaf's relative error (``_grad_errors``) within
+    ``SEQ_RG_GRAD_TOL``; the parameters and optimizer state (or the
+    summed gradients) bitwise equal on every rank; per rank 2 K1, 1 K2
+    and 1 K3 call (2 kernels) an attention layer a step, none in mamba2,
+    no plain version. Prints rank 0's step time and idle share, the
+    collectives by profiler name, the halo and carry bytes a layer
+    (counted) and the peak per rank. Returns {path: the launches summed
+    over the ranks}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.rglru import _d_rnn
+
+    rec, backend, device = st["rec"], st["backend"], st["device"]
+    arch, cfg, ref = rec["arch"], rec["cfg"], rec["ref"]
+    tag = f"train-sharded {arch}"
+    S = TRAIN_SHARDS
+    r0 = recs[0]
+    batch_n = rec["rank_args"]["sched"][0]
+    n_attn = _train_attention_layers(cfg)
+    steps = len(r0["losses"]) if rec["whole"] else 1
+    want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
+            "K3": 2 * n_attn * steps}
+    for r, got in enumerate(recs):
+        check(got["launches"] == want and got["plain"] == 0,
+              f"{tag} rank {r}: launches {got['launches']} != {want}, "
+              f"plain {got['plain']}")
+    check(len({got["digest"] for got in recs}) == 1,
+          f"{tag}: the state differs across the ranks")
+    if rec["whole"]:
+        losses, want_l = r0["losses"], ref["losses"][:steps]
+        check(all(got["losses"] == losses for got in recs),
+              f"{tag}: the ranks' losses differ: "
+              f"{[got['losses'] for got in recs]}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{tag}: losses {losses}")
+        diff = max(abs(a - b) for a, b in zip(losses, want_l))
+        check(diff <= 1e-2, f"{tag}: losses {losses} vs unsharded {want_l} "
+              f"(1e-2)")
+        med = sorted(r0["times"][1:])[(steps - 1) // 2] * 1e3
+        what = (f"{steps} steps of a {rec['rank_args']['sched'][1]}-step "
+                f"schedule: losses {losses} vs unsharded {want_l} (max diff "
+                f"{diff}); parameters and optimizer state bitwise equal "
+                f"across the ranks")
+        timing = (f"step median {med:.3f} ms over steps 1..{steps - 1} "
+                  f"(rank 0; unsharded {ref['median_ms']:.3f} ms); "
+                  f"profiled step: host wall {r0['profiled_ms']:.3f} ms")
+    else:
+        check(all(got["loss"] == r0["loss"] for got in recs),
+              f"{tag}: the ranks' losses differ")
+        diff = abs(r0["loss"] - ref["loss"])
+        check(math.isfinite(r0["loss"]) and diff <= 1e-2,
+              f"{tag}: loss {r0['loss']} vs unsharded {ref['loss']} (1e-2)")
+        errs = _grad_errors(r0["grads"], ref["digest"])
+        order = sorted(range(len(errs)), key=lambda i: -errs[i][0])
+        top = ", ".join(f"{ref['names'][i]} {errs[i][0]:.3e} (norm "
+                        f"{ref['digest'][i][0]:.4e})" for i in order[:6])
+        check(all(e <= SEQ_RG_GRAD_TOL for e, _ in errs),
+              f"{tag}: gradient leaf {ref['names'][order[0]]} relative "
+              f"error {errs[order[0]][0]} > {SEQ_RG_GRAD_TOL}; the largest "
+              f"{top}")
+        what = (f"the forward and backward (no update): loss "
+                f"{r0['loss']} vs unsharded {ref['loss']} (diff {diff}); "
+                f"gradients summed over the ranks bitwise equal on every "
+                f"rank, per leaf relative error (from {SEQ_RG_PROJ} "
+                f"projections; limit {SEQ_RG_GRAD_TOL}) largest {top}; "
+                f"the norms' largest relative difference "
+                f"{max(n for _, n in errs):.3e}, over {len(errs)} leaves")
+        timing = (f"forward and backward with the all_reduce "
+                  f"{r0['ms']:.3f} ms (rank 0, profiled)")
+    cb = seq_carry_bytes(cfg, batch_n, S)
+    width = (f"d_rnn {_d_rnn(cfg)}" if cfg.recurrent is not None
+             else f"d_inner {cfg.ssm.expand * cfg.d_model}, N "
+             f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    log(f"[{tag}] bf16 remat full, every published width ({width}), "
+        f"{cfg.n_layers} of {get_config(arch).n_layers} layers, {S} ranks "
+        f"on backend {backend} "
+        f"({device or 'one card a rank'}), seq 4096 = {S} x {4096 // S}, "
+        f"batch {batch_n}: {wall:.1f} s on rank 0; {what}; launches a "
+        f"rank {r0['launches']}")
+    log(f"[{tag}] {timing}, device idle share {r0['idle']:.3f}; peak per "
+        f"rank {[round(got['peak'] / 2**30, 3) for got in recs]} GiB; "
+        f"collectives by name (host time): {coll}")
+    log(f"[{tag}] a recurrent layer: the conv halo a rank sends "
+        f"{cb['halo']} bytes, the carries it receives {cb['carry']} bytes "
+        f"(f32), each again in remat full's replay and back in the "
+        f"backward (counted, not timed)")
+    return {tag.replace(" ", "-"): {k: sum(got["launches"][k]
+                                           for got in recs)
+                                    for k in ("K1", "K2", "K3")}}
+
+
+def train_sharded_parts(torch, seed, runs, moe=None, with_check=True,
+                        recs=()):
     """The sequence-parallel training phases as parts of a spawn
     (``phase_two_ranks``, ``spawn_jobs``), each its own job and report:
     train-sharded-check (``with_check``; ``sharded_check_job``),
     train-sharded for each ``(arch, ref)`` of ``runs`` at full width and
     depth (``train_sharded_job``; ``ref`` the unsharded train phase's
-    stats) and train-sharded-moe (``moe``: ``seq_moe_inputs``'s plan;
-    ``seq_moe_job``)."""
+    stats), train-sharded-moe (``moe``: ``seq_moe_inputs``'s plan;
+    ``seq_moe_job``) and the recurrent runs (``recs``:
+    ``seq_rec_inputs``' plans; ``seq_rec_job``)."""
     parts = [("train-sharded-check", sharded_check_job(torch, seed))
              ] if with_check else []
     parts += [(f"train-sharded {arch}", train_sharded_job(torch, seed, arch,
@@ -4689,16 +5081,19 @@ def train_sharded_parts(torch, seed, runs, moe=None, with_check=True):
               for arch, ref in runs]
     if moe is not None:
         parts.append(("train-sharded-moe", seq_moe_job(torch, seed, moe)))
+    parts += [(f"train-sharded {rec['arch']}", seq_rec_job(torch, seed, rec))
+              for rec in recs]
     return parts
 
 
-def phase_train_sharded(torch, seed, runs, moe=None, with_check=True):
+def phase_train_sharded(torch, seed, runs, moe=None, with_check=True,
+                        recs=()):
     """``train_sharded_parts`` in one spawn of ``TRAIN_SHARDS`` ranks.
     Returns {path: launches summed over the ranks}."""
     out = {}
     for launches in phase_two_ranks(
             torch, seed, train_sharded_parts(torch, seed, runs, moe,
-                                             with_check),
+                                             with_check, recs),
             TRAIN_SHARDS, TRAIN_SHARD_TIMEOUT_S).values():
         out.update(launches)
     return out
@@ -7407,13 +7802,27 @@ def main(argv=None) -> int:
     moe_seq = seq_moe_inputs(torch, args.seed)
     tl["train-sharded-moe-unsharded-arctic-480b"] = moe_seq["ref_launches"]
     torch.cuda.empty_cache()
+    # the recurrent families under a sequence group: mamba2-370m's
+    # unsharded phase (MAMBA_TRAIN_LAYERS of 48 layers), the losses its
+    # sharded run is held to, and recurrentgemma-9b's unsharded reference
+    # at one griffin group (its forward and backward on one card)
+    _, _, mamba_stats = phase_train(
+        torch, args.seed, "mamba2-370m", n_layers=MAMBA_TRAIN_LAYERS,
+        steps=GEMMA_STEPS, batch=MAMBA_BATCH, lr=1e-3, warmup=3)
+    torch.cuda.empty_cache()
+    rec_seq = [seq_rec_inputs(torch, args.seed, "mamba2-370m", mamba_stats),
+               seq_rec_inputs(torch, args.seed, "recurrentgemma-9b")]
+    tl["train-sharded-unsharded-recurrentgemma-9b"] = \
+        rec_seq[1]["ref_launches"]
     # one spawn of 2 ranks for every 2-rank phase (a spawn's ranks take ~20
     # s to start and warm up on the card): sequence-parallel serving (the
     # narrowed check, the bf16 slab at full width, then the int8 page-
     # sparse slab); sequence-parallel training (the narrowed checks, one of
-    # them an MoE whose dispatch groups span the shards, smollm-135m and
-    # longformer-4k at full size against the unsharded train phases, then
-    # arctic-480b's MoE layer against the unsharded run of its cut);
+    # them an MoE whose dispatch groups span the shards, two recurrent,
+    # smollm-135m and longformer-4k at full size against the unsharded
+    # train phases, arctic-480b's MoE layer against the unsharded run of
+    # its cut, mamba2-370m against its unsharded phase and
+    # recurrentgemma-9b's forward and backward against its reference);
     # data-parallel training (the narrowed check on both wires, smollm-135m
     # at full size with the f32 all_reduce against the unsharded train
     # phase, and the FSDP fallback: its check against train-dp-check's,
@@ -7425,7 +7834,8 @@ def main(argv=None) -> int:
     # count's checks and run)
     seq_parts = train_sharded_parts(
         torch, args.seed, (("smollm-135m", full),
-                           ("longformer-4k", lf_stats)), moe=moe_seq)
+                           ("longformer-4k", lf_stats)), moe=moe_seq,
+        recs=rec_seq)
     parts = dict([
         ("serve-sharded", serve_sharded_job(
             torch, args.seed, 2,
@@ -7456,7 +7866,7 @@ def main(argv=None) -> int:
                                                       dp_check=dp_check)
     tl.update(fsdp_launches)
     tl.update(report("train-tp"))
-    del moe_seq, seq_parts, parts, got, served, dp_check, ep, epu
+    del moe_seq, rec_seq, seq_parts, parts, got, served, dp_check, ep, epu
     torch.cuda.empty_cache()
     # the int8 wire under the FSDP fallback and at (data 2, model 2) in
     # the train-dp-int8 spawn, after its data-parallel run: the narrowed
@@ -7466,9 +7876,6 @@ def main(argv=None) -> int:
         fsdp=fsdp_inputs(torch, args.seed, None),
         tp=tp_int8_inputs(torch, args.seed))
     tl.update(int8_launches)
-    torch.cuda.empty_cache()
-    phase_train(torch, args.seed, "mamba2-370m", n_layers=MAMBA_TRAIN_LAYERS,
-                steps=GEMMA_STEPS, batch=MAMBA_BATCH, lr=1e-3, warmup=3)
 
     def row(rec):
         return {"max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
@@ -7528,7 +7935,8 @@ def main(argv=None) -> int:
                 "m": "whisper_base_encoder_n1500_global_rows_bf16",
                 "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16",
                 "ep": "arctic_480b_ep2_rank_heads_bf16",
-                "k-tp": "recurrentgemma_9b_tp2_rank_heads_hd256_mqa_bf16"}
+                "k-tp": "recurrentgemma_9b_tp2_rank_heads_hd256_mqa_bf16",
+                "t-k": "recurrentgemma_9b_shard_view_hd256_mqa_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

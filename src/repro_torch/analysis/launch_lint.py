@@ -23,8 +23,11 @@ something where eager PyTorch launches hand-written kernels and
   group, and under the FSDP fallback) sends int8 values and f32 scales,
   and no float gradient crosses the data group; the uncompressed
   gradient sum is f32; an MoE step under a sequence group gathers its
-  router logits in f32 (:func:`check_seq_gathers`); the sharded merge's
-  partials ``(out, m, l)`` are f32.
+  router logits in f32 (:func:`check_seq_gathers`); a recurrent step
+  under one sends every conv's halo and gathers every scan's carry in
+  f32, its backward a ``reduce_scatter`` in f32
+  (:func:`check_seq_carries`); the sharded merge's partials ``(out, m,
+  l)`` are f32.
 
 The reference's scatter-mode, double-dequant and shard_map-reduction
 checks read a jaxpr and have no counterpart here; its write-ownership
@@ -398,6 +401,48 @@ def check_seq_gathers(log: List[Record], target: str = "") -> List[Finding]:
                 f"{op} over {axis} of {n} values in {dt}: the router "
                 f"logits must cross the group in f32, or the shards route "
                 f"on other bits than one device"))
+    return findings
+
+
+def recurrent_layers(cfg) -> int:
+    """The RG-LRU and SSD layers of ``cfg``'s program: two a griffin
+    group, one a ``rec_mlp`` or ``ssm`` layer."""
+    from repro_torch.models.transformer import make_program
+
+    per = {"griffin": 2, "rec_mlp": 1, "ssm": 1}
+    return sum(per.get(kind, 0) * n for kind, n in make_program(cfg))
+
+
+def check_seq_carries(log: List[Record], target: str = "",
+                      layers: int = 1) -> List[Finding]:
+    """A train step under a sequence group of a recurrent model with
+    ``layers`` RG-LRU or SSD layers: each layer's conv halo crossed the
+    group (a ``ppermute`` forward and its reverse backward: at least 2 a
+    layer) and its scan's carry crossed it in f32 (one summed
+    ``all_gather`` of the shards' decay products and end states a
+    forward, and its backward's ``reduce_scatter``: at least 1 of each
+    a layer, every one f32). A carry in a 16-bit type would enter the
+    shard with other bits than the unsharded recurrence's state."""
+    seq = [r for r in log if r[0] == "seq"]
+    findings: List[Finding] = []
+    for op, what, least in (("ppermute", "conv halo", 2),
+                            ("all_gather", "scan carry", 1),
+                            ("reduce_scatter", "scan carry's gradient", 1)):
+        got = [r for r in seq if r[1] == op]
+        if len(got) < least * layers:
+            findings.append(Finding(
+                "collective-dtype", target,
+                f"the step ran {len(got)} {op}s over the sequence group: "
+                f"its {layers} recurrent layers need at least "
+                f"{least * layers} (the {what})"))
+        if op == "ppermute":
+            continue
+        for axis, _, dt, n, _ in got:
+            if dt != "float32":
+                findings.append(Finding(
+                    "collective-dtype", target,
+                    f"{op} over {axis} of {n} values in {dt}: the "
+                    f"{what} must cross the group in f32"))
     return findings
 
 

@@ -54,6 +54,8 @@ TRAIN_WIRES = (
     ("train.data2.fsdp.int8", "smollm-135m",
      dict(data=2, fsdp=True, compress=True)),
     ("train.seq2.moe", "arctic-480b", dict(shards=2, seq=64)),
+    ("train.seq2.rec", "recurrentgemma-9b", dict(shards=2, seq=64)),
+    ("train.seq2.ssm", "mamba2-370m", dict(shards=2, seq=64)),
 )
 
 
@@ -110,6 +112,9 @@ def run_launch_pass(findings: List[Finding], targets: List[str]) -> None:
                                         n_groups, name, mesh.get("data", 1))
         if mesh.get("shards", 1) > 1 and cfg.moe is not None:
             findings += ll.check_seq_gathers(log, name)
+        elif mesh.get("shards", 1) > 1:
+            findings += ll.check_seq_carries(log, name,
+                                             ll.recurrent_layers(cfg))
         targets.append(name)
     findings += ll.check_decode_merge(
         ll.record_decode_step(get_smoke("smollm-135m")),

@@ -10,8 +10,13 @@ process group:
 * :class:`SeqGroup` — the process group, this rank's shard ``index``, the
   ``size`` and the rank's ``device``, with in-place ``pmax_``/``psum_``
   (``all_reduce`` MAX / SUM), :meth:`SeqGroup.ppermute` (``jax.lax
-  .ppermute``: the halo exchange of sequence-parallel training) and
-  :meth:`SeqGroup.agree` (rank 0's scalar on every rank).
+  .ppermute``: the halo exchange of sequence-parallel training),
+  :meth:`SeqGroup.agree` (rank 0's scalar on every rank), and the
+  autograd collectives of the recurrent blocks under a group:
+  :meth:`SeqGroup.halo` (a causal conv's context from the previous
+  shard), :meth:`SeqGroup.gather` (with ``summed``, a ``reduce_scatter``
+  backward) and :meth:`SeqGroup.carry` (a linear recurrence's state
+  entering the shard, composed in rank order).
 * :class:`DataGroup` — the data-parallel counterpart (the reference's
   ``batch`` -> ``data`` axis): the same fields, ``psum_`` and
   :meth:`DataGroup.all_gather` (the int8 gradient wire of
@@ -119,6 +124,18 @@ class _Ranks:
             return parts.view(self.size * x.shape[0], *x.shape[1:])
         return torch.cat(parts.unbind(0), dim=dim)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The elementwise sum of every rank's whole ``t``, this rank's
+        contiguous slice of it along ``dim`` (one ``reduce_scatter``; gloo
+        takes CUDA tensors here, ``tools/gloo_reduce_scatter_probe.py``).
+        The sum is in ``t``'s type; two ranks' sums equal an
+        ``all_reduce``'s bit for bit."""
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                   group=self.pg)
+        return out.movedim(0, dim).contiguous()
+
 
 @dataclasses.dataclass(frozen=True)
 class SeqGroup(_Ranks):
@@ -182,12 +199,52 @@ class SeqGroup(_Ranks):
                        device=self.device)
         return float(self.pmax_(t)[0])
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int,
+               summed: bool = False) -> torch.Tensor:
         """Every shard's ``x`` joined along ``dim`` in rank order (one
         ``all_gather``); backward, this shard's slice of the gradient:
         each shard uses only its own rows of the whole differentiably (the
-        MoE router logits: ``models/moe.moe_apply(seq=)``)."""
-        return _Gather.apply(x, self, dim, False)
+        MoE router logits: ``models/moe.moe_apply(seq=)``). With
+        ``summed``, each shard uses other shards' rows differentiably (a
+        recurrence's carry, :meth:`carry`): the gradients' sum over the
+        group, this shard's slice (one ``reduce_scatter``)."""
+        return _Gather.apply(x, self, dim, summed)
+
+    def halo(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The last ``rows`` rows along axis 1 of the previous shard's
+        ``x`` (zeros on shard 0): one :meth:`ppermute` from shard ``r`` to
+        ``r + 1``. Backward, the reverse ``ppermute`` of the gradient,
+        added to the last ``rows`` rows of this shard's ``x``. The
+        context a causal conv reads across the shard boundary
+        (``models/ssm._causal_conv``'s ``state``)."""
+        if not 0 < rows <= x.shape[1]:
+            raise ValueError(f"a halo of {rows} rows from a shard of "
+                             f"{x.shape[1]}: a shard must hold at least "
+                             f"the halo's rows")
+        return _Halo.apply(x, self, rows)
+
+    def carry(self, decay: torch.Tensor, state: torch.Tensor
+              ) -> torch.Tensor:
+        """The state entering this shard of a linear recurrence ``h_t =
+        a_t h_{t-1} + b_t`` whose every shard ran from zero: ``decay``
+        is the shard's product of ``a`` (broadcastable against
+        ``state``), ``state`` its end state from zero, both f32. One
+        summed :meth:`gather` of the two; then, in rank order, ``h <-
+        decay_s h + state_s`` for every shard ``s`` before this one, so
+        the state entering a shard has the same bits on every rank that
+        builds it. Every rank runs the same graph (a ``where`` keeps the
+        shards at and after this one out), so every rank's backward runs
+        the gather's ``reduce_scatter``."""
+        d = decay.numel()
+        flat = torch.cat([decay.reshape(-1), state.reshape(-1)])
+        parts = self.gather(flat[None], 0, summed=True)
+        h = torch.zeros_like(state)
+        for s in range(self.size):
+            step = parts[s, :d].view_as(decay) * h + \
+                parts[s, d:].view_as(state)
+            h = torch.where(torch.tensor(s < self.index, device=h.device),
+                            step, h)
+        return h
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,18 +282,6 @@ class DataGroup(_Ranks):
         (a copy, so the whole tensor can be freed)."""
         return x.chunk(self.size, dim)[self.index].clone(
             memory_format=torch.contiguous_format)
-
-    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """The elementwise sum of every rank's whole ``t``, this rank's
-        contiguous slice of it along ``dim`` (one ``reduce_scatter``; gloo
-        takes CUDA tensors here, ``tools/gloo_reduce_scatter_probe.py``).
-        The sum is in ``t``'s type; two ranks' sums equal an
-        ``all_reduce``'s bit for bit."""
-        x = t.movedim(dim, 0).contiguous()
-        out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                   group=self.pg)
-        return out.movedim(0, dim).contiguous()
 
     def gather_weight(self, shard: torch.Tensor, dim: int,
                       grad_to: torch.Tensor,
@@ -355,6 +400,28 @@ class _Gather(torch.autograd.Function):
                 .contiguous(), None, None, None)
 
 
+class _Halo(torch.autograd.Function):
+    """The previous shard's last ``rows`` rows along axis 1 forward
+    (zeros on shard 0); backward, the gradient sent back to the shard it
+    came from, added to its last ``rows`` rows (zeros elsewhere, and on
+    the last shard, whose rows no shard reads)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rows):
+        ctx.group, ctx.rows, ctx.shape = group, rows, x.shape
+        n = group.size
+        return group.ppermute(x[:, -rows:],
+                              [(r, r + 1) for r in range(n - 1)])
+
+    @staticmethod
+    def backward(ctx, g):
+        n, rows = ctx.group.size, ctx.rows
+        back = ctx.group.ppermute(g, [(r + 1, r) for r in range(n - 1)])
+        gx = back.new_zeros(ctx.shape)
+        gx[:, -rows:] = back
+        return gx, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelGroup(_Ranks):
     """One rank's view of a tensor-parallel group, the reference's
@@ -364,7 +431,6 @@ class ModelGroup(_Ranks):
 
     pmax_ = SeqGroup.pmax_
     shard = DataGroup.shard
-    reduce_scatter = DataGroup.reduce_scatter
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` unchanged; its gradient summed over the group (the input

@@ -146,8 +146,10 @@ class Model:
         ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
         parallel training; ``batch`` holds this rank's slice of every
         sequence and the logits are that slice's. The dense families'
-        ``attn_mlp`` programs and the MoE family run under a group of
-        more than one shard (``transformer.check_sequence_parallel``).
+        ``attn_mlp`` programs, the MoE family and the recurrent families
+        (recurrentgemma, mamba2: the conv halo and the scans' carries
+        across the shards) run under a group of more than one shard
+        (``transformer.check_sequence_parallel``).
 
         ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
         parallel training; ``batch`` holds this rank's rows of the global

@@ -15,6 +15,14 @@ tanh-approximate, as ``jax.nn.gelu``.
 RecurrentGemma alternates (rec, rec, attn); the attention third runs local
 sliding-window attention through the SALO kernels.
 
+Sequence parallelism (``seq=``): each rank holds a contiguous slice of
+every sequence. The conv takes the previous shard's last W-1 rows
+(``SeqGroup.halo``), and the scan, run from zero on the shard, adds the
+state entering it times its running decay, that state composed in rank
+order from every earlier shard's decay product and end state
+(``SeqGroup.carry``): the unsharded recurrence, as the reference's
+partitioner carries ``associative_scan`` across shards.
+
 Tensor parallelism (``model=``): where the group divides ``d_rnn``, a rank
 holds its ``d_rnn / n`` columns of ``w_in`` and ``w_gate_branch`` and rows
 of ``w_out`` (the reference's "ffn" placements), and runs the conv, the
@@ -62,20 +70,22 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig, device):
     }
 
 
-def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def linear_scan(a: torch.Tensor, b: torch.Tensor, prods: bool = False):
     """Inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` (``h_{-1} = 0``)
     along axis 1: Hillis–Steele over the pairs ``(a, b)``, which compose
     as ``(a1, b1) then (a2, b2) = (a1 * a2, a2 * b1 + b2)``. Each pass
     combines every position with the one ``d`` before it, ``d`` doubling
-    from 1 (``ceil(log2 T)`` passes)."""
+    from 1 (``ceil(log2 T)`` passes). With ``prods``, returns ``(h, P)``:
+    ``P_t`` the running product of ``a`` up to ``t`` (the last pass's
+    products too, which ``h`` alone does not need)."""
     T = a.shape[1]
     d = 1
     while d < T:
         b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
-        if 2 * d < T:                  # the last pass needs no products
+        if prods or 2 * d < T:
             a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
-    return b
+    return (b, a) if prods else b
 
 
 def _own(cfg: ModelConfig, model) -> slice:
@@ -88,10 +98,16 @@ def _own(cfg: ModelConfig, model) -> slice:
     return slice(model.index * n, (model.index + 1) * n)
 
 
-def _rglru_core(p, xr: torch.Tensor, h0=None, model=None):
+def _rglru_core(p, xr: torch.Tensor, h0=None, model=None, seq=None):
     """xr: (B, T, dr) post-conv, or this rank's (B, T, dr / n) channels
     under a ``model`` group that splits them. Returns (h, h_last), f32,
-    over xr's channels."""
+    over xr's channels. ``seq``: a sequence group, xr this shard's slice:
+    the shard scans from zero, keeping the running products ``P`` of
+    ``a``; the state entering it is composed from every earlier shard's
+    (product, end state) (:meth:`~repro_torch.dist.group.SeqGroup
+    .carry`) and added as ``h_t += P_t * h_in``, which costs one more
+    pass of products, where folding ``h_in`` into the first step would
+    cost a second scan."""
     xf = xr.float()
     w_a, w_i, lam, xg = p["w_a"], p["w_i"], p["lam"], xf
     if model is not None:         # the gates' columns of this rank
@@ -107,23 +123,34 @@ def _rglru_core(p, xr: torch.Tensor, h0=None, model=None):
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
     if h0 is not None:  # fold the initial state into the first step
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    h = linear_scan(a, b)
+    if seq is None:
+        h = linear_scan(a, b)
+    else:
+        h, P = linear_scan(a, b, prods=True)
+        h = h + P * seq.carry(P[:, -1], h[:, -1])[:, None]
     return h, h[:, -1]
 
 
 def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                model=None) -> torch.Tensor:
+                model=None, seq=None) -> torch.Tensor:
     """Griffin recurrent block, full sequence. x: (B,T,d) -> (B,T,d).
     Under a ``model`` group that splits ``d_rnn`` the weights are the
     rank's slices: x's gradient is summed over the group (``enter``) and
-    the rank's partial output too (``reduce``), each in x's dtype."""
+    the rank's partial output too (``reduce``), each in x's dtype. Under
+    a ``seq`` group x is this shard's slice of the sequence: the conv
+    reads the previous shard's last W-1 pre-conv rows (``seq.halo``) and
+    the scan takes the state entering the shard (``_rglru_core``)."""
     own = _own(cfg, model)
     split = own != slice(None)
+    seq = seq if seq is not None and seq.size > 1 else None
     if split:
         x = model.enter(x)
     xr = x @ p["w_in"].to(x.dtype)
-    xr, _ = _causal_conv(xr, p["conv_w"][:, own].to(x.dtype), act=None)
-    h, _ = _rglru_core(p, xr, model=model if split else None)
+    W = p["conv_w"].shape[0]
+    halo = seq.halo(xr, W - 1) if seq is not None and W > 1 else None
+    xr, _ = _causal_conv(xr, p["conv_w"][:, own].to(x.dtype), state=halo,
+                         act=None)
+    h, _ = _rglru_core(p, xr, model=model if split else None, seq=seq)
     gate = F.gelu(x @ p["w_gate_branch"].to(x.dtype), approximate="tanh")
     y = h.to(x.dtype) * gate
     out = y @ p["w_out"].to(x.dtype)

@@ -9,6 +9,13 @@ family. Plain torch on both devices; the block has no kernel of its own.
 
 Decode carries (conv_state, ssd_state) and costs O(1) per token.
 
+Sequence parallelism (``seq=``): each rank holds a contiguous slice of
+every sequence (a multiple of the chunk). The conv takes the previous
+shard's last W-1 pre-conv rows (``SeqGroup.halo``, the reference's
+``_causal_conv(state=)``), and the SSD the state entering the shard,
+composed in rank order from the earlier shards' total decays and end
+states (``SeqGroup.carry``).
+
 Tensor parallelism (``model=``): the reference splits ``w_in`` (d, 2
 d_inner + 2N + H) on its columns and ``w_out`` (d_inner, d) on its rows
 where the group divides each. A rank's columns of ``w_in`` do not line up
@@ -101,10 +108,22 @@ def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, eps: float,
 
 
 def ssd_chunked(x: torch.Tensor, B_mat: torch.Tensor, C_mat: torch.Tensor,
-                a: torch.Tensor, chunk: int) -> torch.Tensor:
+                a: torch.Tensor, chunk: int, s0=None, seq=None,
+                return_state: bool = False):
     """SSD scan. x: (B,T,H,P); B_mat/C_mat: (B,T,N); a: (B,T,H) log-decay
     <= 0. Returns y (B,T,H,P) in f32. Single B/C group broadcast over heads
-    (G=1)."""
+    (G=1).
+
+    ``s0``: the (B,H,N,P) f32 state entering the sequence (zeros by
+    default). ``seq``: a sequence group, the inputs this shard's slice:
+    ``s0`` is composed from the earlier shards' (exp of total log-decay,
+    end state) (:meth:`~repro_torch.dist.group.SeqGroup.carry`). The
+    recurrence is linear in its entering state, so the chunks run from
+    zero and ``s0`` is added to each chunk's entering state times the
+    decay before that chunk (the intra-chunk term never reads it): one
+    pass of the chunk loop, one ``y_inter``. ``return_state``: returns
+    ``(y, s_end, total)``, the end state (B,H,N,P) and the total
+    log-decay (B,H), f32."""
     Bsz, T, H, P = x.shape
     N = B_mat.shape[-1]
     Q = chunk
@@ -143,17 +162,44 @@ def ssd_chunked(x: torch.Tensor, B_mat: torch.Tensor, C_mat: torch.Tensor,
         s = s * chunk_decay[:, c, :, None, None] + state_c[:, c]
     s_in = torch.stack(s_in, dim=1)                    # (B,nc,H,N,P)
 
+    total = None
+    if s0 is not None or seq is not None or return_state:
+        if s0 is not None and seq is not None:
+            raise ValueError("ssd_chunked takes an entering state s0 or a "
+                             "group that composes it, not both")
+        ends = torch.cumsum(Acum[:, :, -1, :], dim=1)  # (B,nc,H)
+        total = ends[:, -1]
+        if seq is not None:
+            s0 = seq.carry(torch.exp(total)[..., None, None], s)
+        if s0 is not None:          # each chunk's decay since the start
+            before = torch.cat([torch.zeros_like(ends[:, :1]),
+                                ends[:, :-1]], dim=1)
+            s_in = s_in + torch.exp(before)[..., None, None] * s0[:, None]
+            s = s + torch.exp(total)[..., None, None] * s0
+
     y_inter = torch.einsum("bcqn,bcqh,bchnp->bcqhp", Cc, torch.exp(Acum),
                            s_in)
-    return (y_intra + y_inter).reshape(Bsz, T, H, P)
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    return (y, s, total) if return_state else y
 
 
 def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              model=None) -> torch.Tensor:
+              model=None, seq=None) -> torch.Tensor:
     """Train path. x: (B, T, d) -> (B, T, d). ``model``: tensor
-    parallelism, the weights this rank's slices (the module's header)."""
+    parallelism, the weights this rank's slices (the module's header).
+    ``seq``: sequence parallelism, x this shard's T tokens (a multiple of
+    the SSD chunk): the conv reads the previous shard's last W-1 pre-conv
+    rows (``seq.halo``) and the SSD the state entering the shard
+    (``ssd_chunked(seq=)``); the gated norm and ``w_out`` are per
+    token."""
     d_inner, H, N, P = _dims(cfg)
     B_, T, _ = x.shape
+    seq = seq if seq is not None and seq.size > 1 else None
+    if seq is not None and T % cfg.ssm.chunk:
+        raise ValueError(
+            f"{cfg.name} under a sequence group of {seq.size} shards: each "
+            f"shard's {T} tokens (T / n of {T * seq.size}) must be a "
+            f"multiple of the SSD chunk {cfg.ssm.chunk}")
     n = 1 if model is None else model.size
     cut_in = n > 1 and "ffn" in split_axes(cfg, n, 2 * d_inner + 2 * N + H)
     cut_out = n > 1 and "ffn" in split_axes(cfg, n, d_inner)
@@ -172,14 +218,16 @@ def ssm_apply(p, x: torch.Tensor, cfg: ModelConfig,
         xbc = torch.cat([xbc[..., ch], xbc[..., d_inner:]], dim=-1)
         conv_w = torch.cat([conv_w[:, ch], conv_w[:, d_inner:]], dim=-1)
     di = (hi - lo) * P
-    xbc, _ = _causal_conv(xbc, conv_w.to(x.dtype))
+    W = conv_w.shape[0]
+    halo = seq.halo(xbc, W - 1) if seq is not None and W > 1 else None
+    xbc, _ = _causal_conv(xbc, conv_w.to(x.dtype), state=halo)
     xi, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     delta = F.softplus(dt_raw.float() + p["dt_bias"][lo:hi])
     A = -torch.exp(p["A_log"][lo:hi])                  # (H,)
     xh = xi.reshape(B_, T, hi - lo, P)
     xdt = xh.float() * delta[..., None]
     a = delta * A                                      # (B,T,H) log decay
-    y = ssd_chunked(xdt, Bm, Cm, a, cfg.ssm.chunk)
+    y = ssd_chunked(xdt, Bm, Cm, a, cfg.ssm.chunk, seq=seq)
     y = y + p["D"][lo:hi][None, None, :, None] * xh.float()
     y = y.reshape(B_, T, di)
     if by_heads:

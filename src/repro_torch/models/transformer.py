@@ -148,11 +148,11 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
                 data=None, model=None):
     """Full-sequence block. ``positions``/``mrope``: the RoPE positions
     and M-RoPE sections; ``enc_out``: the encoder output an ``xattn``
-    block cross-attends; ``group``: the sequence group of an ``attn_mlp``
-    block's attention and an MoE block's routing
-    (:func:`check_sequence_parallel`); ``data``: the data group of an MoE
-    block's routing; ``model``: the tensor-parallel group of every block's
-    products (``dist/sharding.mesh_placements``).
+    block cross-attends; ``group``: the sequence group of an attention
+    block's attention, an MoE block's routing and a recurrent block's
+    conv halo and carry (:func:`check_sequence_parallel`); ``data``: the
+    data group of an MoE block's routing; ``model``: the tensor-parallel
+    group of every block's products (``dist/sharding.mesh_placements``).
     Returns (x, aux): the MoE blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -165,11 +165,12 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     if kind == "griffin":
         pats = _patterns(cfg)
         x, _ = block_apply(p["r1"], x, cfg, "rec_mlp", pattern, positions,
-                           model=model)
+                           group=group, model=model)
         x, _ = block_apply(p["r2"], x, cfg, "rec_mlp", pattern, positions,
-                           model=model)
+                           group=group, model=model)
         return block_apply(p["a"], x, cfg, "attn_mlp_local",
-                           pats["attn_mlp_local"], positions, model=model)
+                           pats["attn_mlp_local"], positions, group=group,
+                           model=model)
     if kind in ATTN_KINDS:
         h = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                          cfg, pattern, positions=positions, mrope=mrope,
@@ -178,10 +179,10 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     if kind == "ssm":
         return x + SSM.ssm_apply(p["ssm"],
                                  L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 cfg, model), {}
+                                 cfg, model, seq=group), {}
     if kind == "rec_mlp":
         x = x + RG.rglru_apply(p["rec"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg, model)
+                               cfg, model, seq=group)
         return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
                                cfg, model), {}
     raise ValueError(kind)
@@ -196,24 +197,31 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+# the block kinds that run under a sequence group of more than one shard
+SEQ_KINDS = ("attn_mlp", "ssm", "rec_mlp", "griffin") + MOE_KINDS
+
+
 def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
     """Which blocks run under a sequence group of more than one shard: the
     ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
-    granite, longformer) and the MoE family's blocks (arctic, kimi: the
+    granite, longformer), the MoE family's blocks (arctic, kimi: the
     dispatch routes the whole batch's groups on every shard,
-    :func:`repro_torch.models.moe.moe_apply`). The recurrent blocks'
-    scans, the VLM's vision merge and M-RoPE and the encoder-decoder would
-    need cross-shard work of their own; they raise."""
+    :func:`repro_torch.models.moe.moe_apply`) and the recurrent families'
+    (recurrentgemma's ``rec_mlp`` and ``griffin`` groups, whose local
+    attention takes the sharded route; mamba2's ``ssm``: the conv halo
+    and the scans' carries, :mod:`repro_torch.models.rglru`,
+    :mod:`repro_torch.models.ssm`). The VLM's vision merge and M-RoPE and
+    the encoder-decoder would need cross-shard work of their own; they
+    raise."""
     if group is None or group.size == 1:
         return
-    if kind not in ("attn_mlp",) + MOE_KINDS \
-            or cfg.mrope_sections is not None \
+    if kind not in SEQ_KINDS or cfg.mrope_sections is not None \
             or cfg.n_vision_tokens or cfg.encoder_decoder:
         raise NotImplementedError(
             f"sequence-parallel training runs the attn_mlp blocks of the "
-            f"dense families and the MoE blocks; {cfg.name}'s {kind!r} "
-            f"blocks under a group of {group.size} are not ported yet: "
-            f"ROADMAP queue 1, 'multi-GPU'")
+            f"dense families, the MoE blocks and the recurrent blocks; "
+            f"{cfg.name}'s {kind!r} blocks under a group of {group.size} "
+            f"are not ported yet: ROADMAP queue 1, 'multi-GPU'")
 
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -226,7 +234,8 @@ def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``group``: sequence-parallel training, x this rank's slice of the
     sequence (``Model.forward`` checks the kinds first:
     :func:`check_sequence_parallel`; a remat replay runs the attention's
-    exchange again, on every rank alike). ``data``: data-parallel training,
+    exchange, the recurrent blocks' halo and carry gathers again, on
+    every rank alike). ``data``: data-parallel training,
     x this rank's rows of the global batch (the MoE blocks route over the
     group's dispatch groups: :func:`repro_torch.models.moe.moe_apply`).
     ``model``: tensor-parallel training, x the whole activation on every

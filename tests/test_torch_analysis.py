@@ -350,9 +350,15 @@ def test_train_step_collectives_are_clean(i):
     assert ll.check_train_wire(log, mesh.get("compress", False), n_groups,
                                name, mesh.get("data", 1)) == []
     if mesh.get("shards", 1) > 1:
-        # an MoE step under a sequence group: its 2 layers' f32 router
-        # logits gathered, its gradients summed in f32 over the group
+        # a step under a sequence group: its f32 gathers (an MoE's 2
+        # layers' router logits, a recurrent model's scan carries), its
+        # gradients summed in f32 over the group
         assert ll.check_seq_gathers(log, name) == []
+        cfg = get_smoke(arch)
+        if cfg.moe is None:
+            assert ll.recurrent_layers(cfg) == 2
+            assert ll.check_seq_carries(log, name,
+                                        ll.recurrent_layers(cfg)) == []
         got = {(r[0], r[1], r[2]) for r in log if r[0] == "seq"}
         assert ("seq", "all_gather", "float32") in got
         assert any(r[0] == "seq" and r[4] == "grad-sum"
@@ -413,6 +419,39 @@ def test_a_bf16_logits_gather_is_caught(monkeypatch):
                                   seq=64)
     got = ll.check_seq_gathers(log, "t")
     assert got and all("bfloat16" in f.message for f in got)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m"])
+def test_a_bf16_carry_gather_is_caught(monkeypatch, arch):
+    """A scan carry gathered in bf16 (and its gradient reduce-scattered
+    in bf16) is a finding of ``check_seq_carries``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist.group import _Gather
+
+    def low(self, x, dim, summed=False):
+        return _Gather.apply(x.bfloat16(), self, dim, summed).float()
+
+    monkeypatch.setattr(ll.RecSeqGroup, "gather", low)
+    cfg = get_smoke(arch)
+    log, _ = ll.record_train_step(cfg, shards=2, seq=64)
+    got = ll.check_seq_carries(log, "t", ll.recurrent_layers(cfg))
+    assert got and all("bfloat16" in f.message for f in got)
+    assert {f.message.split()[0] for f in got} == {"all_gather",
+                                                   "reduce_scatter"}
+
+
+def test_a_step_without_the_conv_halo_is_caught(monkeypatch):
+    """A recurrent step whose convs read zeros in place of the previous
+    shard's rows (no halo ``ppermute``) is a finding."""
+    from repro_torch.configs import get_smoke
+
+    monkeypatch.setattr(ll.RecSeqGroup, "halo",
+                        lambda self, x, rows: x.new_zeros(
+                            (x.shape[0], rows, x.shape[2])))
+    cfg = get_smoke("mamba2-370m")
+    log, _ = ll.record_train_step(cfg, shards=2, seq=64)
+    got = ll.check_seq_carries(log, "t", ll.recurrent_layers(cfg))
+    assert len(got) == 1 and "0 ppermutes" in got[0].message
 
 
 def test_decode_merge_is_f32_and_a_bf16_merge_is_caught(monkeypatch):

@@ -1480,6 +1480,60 @@ def test_training_kernels_on_view_tables_match_plain(dtype, pname, n, S, r):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_on_recurrentgemma_shard_view_match_plain(dtype):
+    """Case (t-k): shard 1 of 2 of recurrentgemma-9b's train attention
+    (window 2048 + 4 sinks over n 4096, so the window spans the whole
+    previous shard; 128-blocks; 16 query heads on one KV head, expanded;
+    hd 256, the column split): K1, K2 and K3 on the view tables against
+    their plain versions within the train-kernels tolerances, dK/dV
+    bitwise over two calls."""
+    _need_cuda()
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.dist.sharded_plan import shard_plan, shard_tables
+    from repro_torch.kernels import salo_attention as KA
+    from repro_torch.kernels import salo_backward as KB
+
+    sched = schedule(causal_sliding_window(2048, n_sinks=4), 4096)
+    sp = shard_plan(sched.plan(128, 128, 2 * 128), 2)
+    assert (sp.nkb_l, sp.halo_counts, sp.n_gt) == (16, (15, 1), 1)
+    t = shard_tables(sp, torch.device("cuda"))
+    pq, pk, kvb, flg = t.pos_q[1], t.pos_k[1], t.tables[1], t.flags[1]
+    dkv_t = (t.row_tile[1], t.q_blocks[1], t.pk_flags[1])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    D = 256
+    q = torch.randn((16, sp.nq_l * 128, D), generator=g, device="cuda")
+    kv1 = [torch.randn((1, sp.view_tiles * 128, D), generator=g,
+                       device="cuda") for _ in range(2)]
+    q = q.to(dtype)
+    k, v = (x.to(dtype).expand(16, -1, -1).contiguous() for x in kv1)
+    dout = torch.randn(q.shape, generator=g, device="cuda")
+    kw = dict(sched=sched, scale=D ** -0.5)
+    out, m, l = KA.salo_table_attention(q, k, v, pq, pk, kvb, flg, **kw)
+    ro, rm, rl = KA.salo_table_attention_plain(q, k, v, pq, pk, kvb, flg,
+                                               **kw)
+    tol = KA.OUT_TOL[dtype]
+    torch.testing.assert_close(out.float(), ro.float(), atol=tol, rtol=tol)
+    for a, b in ((m, rm), (l, rl)):
+        torch.testing.assert_close(a, b, atol=KA.STATS_TOL,
+                                   rtol=KA.STATS_TOL)
+    delta = (dout * ro.float()).sum(-1)
+    bwd = (dout, delta, rm, rl, q, k, v, pq, pk)
+    dq = KB.salo_table_backward_dq(*bwd, kvb, flg, **kw)
+    rdq = KB.salo_table_backward_dq_plain(*bwd, kvb, flg, **kw)
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dq.float(), rdq, atol=gtol, rtol=gtol)
+    if dtype != torch.float32:
+        assert KB.dq_off_share(dq, rdq) <= KB.DQ_OFF_SHARE
+    dk, dv = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    dk2, dv2 = KB.salo_table_backward_dkv(*bwd, *dkv_t, **kw)
+    rdk, rdv = KB.salo_table_backward_dkv_plain(*bwd, *dkv_t, **kw)
+    ktol = KB.DKV_TOL[dtype]
+    torch.testing.assert_close(dk, rdk, atol=ktol, rtol=ktol)
+    torch.testing.assert_close(dv, rdv, atol=ktol, rtol=ktol)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
 def _sharded_op_rank(group, pname, n, dtype, seed):
     """One rank of the gloo sharded-attention test: its slice through
     sharded_attention, fwd and the three gradients, and the K1-K3 launch

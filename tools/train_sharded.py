@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """The sequence-parallel training phases of ``chip_smoke.py`` alone.
 
-    python3 tools/train_sharded.py [--seed N]
+    python3 tools/train_sharded.py [--seed N] [--recurrent]
 
 Run from the root of a checkout on a machine with a CUDA device. Builds the
 kernels, runs the unsharded references (smollm-135m and longformer-4k
 trained at full size, 20 steps each, as ``chip_smoke.py``'s train phases,
-without the checkpoint, and arctic-480b's MoE layer at the cut of
-``chip_smoke.seq_moe_inputs``), then ``chip_smoke.phase_train_sharded``:
-the narrowed train-sharded-check, both archs and the MoE layer in one
-spawn. The ranks use NCCL, one card
-each, where the machine has the cards, else gloo ranks sharing cuda:0;
-every line names the backend. Prints the card's name and power limit
+without the checkpoint, arctic-480b's MoE layer at the cut of
+``chip_smoke.seq_moe_inputs``, mamba2-370m at 12 layers as its train
+phase, and recurrentgemma-9b at one griffin group,
+``chip_smoke.seq_rec_inputs``), then ``chip_smoke.phase_train_sharded``:
+the narrowed train-sharded-check, both archs, the MoE layer and the two
+recurrent archs in one spawn. The ranks use NCCL, one card each, where
+the machine has the cards, else gloo ranks sharing cuda:0; every line
+names the backend. recurrentgemma-9b takes whole train steps where the
+ranks have a card each (``chip_smoke.seq_rg_whole_steps``), else its
+forward and backward alone. ``--recurrent``: only the recurrent parts
+(K1-K3 case (t-k), mamba2's unsharded phase cut to 3 steps, the
+recurrentgemma-9b reference, then train-sharded-check and the two
+recurrent runs in one spawn). Prints the card's name and power limit
 last. Any failed check raises, so the exit code is nonzero.
 """
 import argparse
@@ -31,6 +38,9 @@ import chip_smoke as C  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--recurrent", action="store_true",
+                    help="only case (t-k), the checks and the recurrent "
+                    "runs")
     args = ap.parse_args(argv)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -45,13 +55,24 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
     C.phase_build()
-    refs = {}
-    for arch in ("smollm-135m", "longformer-4k"):
-        _, _, refs[arch] = C.phase_train(torch, args.seed, arch)
+    refs, moe = {}, None
+    if args.recurrent:
+        C.train_kernels_shard(torch, C.Timer(torch), args.seed, "t-k")
+    else:
+        for arch in ("smollm-135m", "longformer-4k"):
+            _, _, refs[arch] = C.phase_train(torch, args.seed, arch)
+            torch.cuda.empty_cache()
+        moe = C.seq_moe_inputs(torch, args.seed)
         torch.cuda.empty_cache()
-    moe = C.seq_moe_inputs(torch, args.seed)
+    _, _, mamba = C.phase_train(
+        torch, args.seed, "mamba2-370m", n_layers=C.MAMBA_TRAIN_LAYERS,
+        steps=C.GEMMA_STEPS, batch=C.MAMBA_BATCH, lr=1e-3, warmup=3,
+        run=3 if args.recurrent else None)
     torch.cuda.empty_cache()
-    C.phase_train_sharded(torch, args.seed, tuple(refs.items()), moe=moe)
+    recs = [C.seq_rec_inputs(torch, args.seed, "mamba2-370m", mamba),
+            C.seq_rec_inputs(torch, args.seed, "recurrentgemma-9b")]
+    C.phase_train_sharded(torch, args.seed, tuple(refs.items()), moe=moe,
+                          recs=recs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
