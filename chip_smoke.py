@@ -364,6 +364,28 @@ nonzero:
     unsharded run's, the peak per rank, the idle share and collectives
     by name of the profiled step, and the router logits' gather bytes
     (counted from the shapes).
+18d3. **train-sharded qwen2-vl-2b**, **train-sharded whisper-base** —
+    the VLM and the encoder-decoder under a sequence group, jobs of the
+    shared spawn after the recurrent runs: 2 ranks, seq 4096 = 2 x 2048,
+    every published width, bf16, remat full, the first 3 steps of their
+    unsharded schedules and a profiled fourth. Every rank holds every
+    weight, so qwen2-vl-2b's depth is the deepest whose 2 copies' reckoned
+    peak (``train_bytes``, printed first) fits 92 % of the card (batch 1,
+    1024 vision slots all on rank 0, the M-RoPE positions sliced on axis
+    2), against the unsharded run of that cut; whisper-base runs at full
+    size (batch 8, its encoder whole on every rank over all 1500 frames,
+    its decoder's self attention sharded) against train whisper-base.
+    Gates: every step's loss within 1e-4 of the unsharded run's (bitwise
+    printed), equal on both ranks, the loss falling; parameters and
+    optimizer state bitwise equal on both ranks; per rank and step 2 K1,
+    1 K2 and 1 K3 call a decoder layer through ``sharded_attention`` and
+    as many a whisper encoder layer (case (m)'s shapes), no plain
+    version. Prints the step median and idle share, the collectives by
+    profiler name, the peak per rank and the decoder's halo bytes
+    (``ShardedPlan.stats``, counted). Train-kernels case (t-v): shard 1
+    of 2 of qwen2-vl-2b's train attention (batch 1 x 12 query heads on
+    its 2 KV heads, expanded, hd 128, window 1024 + 4 sinks, (t)'s view
+    tables), timed as (t).
 18e. **train-dp-check** — data-parallel training (``make_train_step(...,
     data=DataGroup)``), in the shared spawn after 18d2 (18f after it): the
     narrowed f32 smollm of train-check trained 3
@@ -2879,12 +2901,17 @@ def phase_smem(torch) -> None:
 # KV head, hd 256, window 2048 + 4 sinks, 128-blocks): the window spans the
 # whole previous shard, so the view holds 16 local tiles, 15 halo tiles
 # from shard 0 (distance -1), the +1 slot and 1 global tile; bf16, the
-# column split of hd 256
+# column split of hd 256. Case (t-v): the same shard of qwen2-vl-2b's
+# train attention (batch 1 x 12 query heads expanded from its 2 KV heads,
+# hd 128, window 1024 + 4 sinks: (t)'s view of 16 local, 8 + 1 halo and 1
+# global tiles)
 SHARD_CASES = {
     "t": dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
               hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1)),
     "t-k": dict(pat=("csw", 2048, 4, 1), n=4096, shards=2, shard=1, bh=16,
                 hd=256, blk=128, dtype="bfloat16", view=(16, (15, 1), 1)),
+    "t-v": dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=12,
+                hd=128, blk=128, dtype="bfloat16", view=(16, (8, 1), 1)),
 }
 
 
@@ -5064,16 +5091,193 @@ def report_seq_rec(recs, st, wall) -> dict:
                                     for k in ("K1", "K2", "K3")}}
 
 
+# train-sharded qwen2-vl-2b and whisper-base, the VLM and the encoder-
+# decoder under a sequence group: the first steps of their references'
+# schedules they run (a schedule's step 0 has lr 0, so the third step is
+# the first after an update), each schedule (qwen2-vl-2b's cut reference
+# at batch 1; whisper-base's the unsharded train phase's) and the bound
+# on their losses against the unsharded ones
+SEQ_FAM_STEPS = 3
+SEQ_FAM_SCHED = {"qwen2-vl-2b": (GEMMA_BATCH, QWEN_STEPS, 1e-3, 3),
+                 "whisper-base": (TRAIN_BATCH, GEMMA_STEPS, 1e-3, 3)}
+SEQ_FAM_TOL = 1e-4
+
+
+def seq_fam_depth(torch, arch: str, n: int = TRAIN_SHARDS) -> int:
+    """The depth of a family's train-sharded run: every rank of a
+    sequence group holds every weight, so the deepest ``arch`` (every
+    published width kept) whose ``train_bytes`` peak at the rank's 4096 /
+    n tokens, times the ranks that share a card (all ``n`` under gloo on
+    cuda:0, one under NCCL), fits 92 % of the card. Prints the
+    reckoning."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    batch = SEQ_FAM_SCHED[arch][0]
+    share = n if _shard_backend(torch, n)[1] is not None else 1
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = 0.92 * total
+    depth = _fit_depth(full, 4096 // n, batch, budget / share)
+    check(depth > 0, f"train-sharded {arch}: no layer's {share} copies fit")
+    tb = train_bytes(dataclasses.replace(full, n_layers=depth), 4096 // n,
+                     batch)
+    more = "" if depth == full.n_layers else (
+        f"; {depth + 1} layers would peak at "
+        f"{share * train_bytes(dataclasses.replace(full, n_layers=depth + 1), 4096 // n, batch)['peak'] / 1e9:.2f} GB")
+    log(f"[train-sharded {arch}] reckoned: {depth} of {full.n_layers} layers "
+        f"at every published width, {tb['params'] / 1e6:.1f}M params, held "
+        f"whole by every rank of a sequence group of {n}, {share} rank(s) a "
+        f"card, batch {batch}: whole train steps peak at "
+        f"{share * tb['peak'] / 1e9:.2f} GB against {budget / 1e9:.2f} GB "
+        f"(92 % of {total / 1e9:.2f}){more}")
+    return depth
+
+
+def seq_fam_inputs(torch, seed, arch, ref=None) -> dict:
+    """What a family's train-sharded run compares with: ``arch`` at
+    ``seq_fam_depth``'s depth and the schedule of ``SEQ_FAM_SCHED``,
+    against ``ref`` (the unsharded train phase's stats, same seed,
+    weights, batches and schedule) where that depth is the full one, else
+    against the unsharded run of its cut, run here over the same first
+    ``SEQ_FAM_STEPS`` steps. Returns the run's plan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=seq_fam_depth(torch, arch))
+    sched = SEQ_FAM_SCHED[arch]
+    plan = dict(arch=arch, cfg=cfg, ref=ref, ref_launches=None,
+                rank_args=dict(cfg=cfg, sched=sched, steps=SEQ_FAM_STEPS,
+                               tag=f"train-sharded {arch}", keys=P2P_KEYS))
+    if ref is None or cfg.n_layers != full.n_layers:
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch_n, steps, lr, warmup = sched
+        plan["ref_launches"], _, plan["ref"] = phase_train(
+            torch, seed, arch, cfg=cfg, steps=steps, batch=batch_n, lr=lr,
+            warmup=warmup, run=SEQ_FAM_STEPS)
+        torch.cuda.empty_cache()
+    return plan
+
+
+def seq_fam_job(torch, seed, fam):
+    """A family's train-sharded run's half before its ranks: the ranks'
+    job (``seq_train_rank``) with what ``report_seq_fam`` reads (``fam``:
+    ``seq_fam_inputs``' plan)."""
+    backend, device = _shard_backend(torch, TRAIN_SHARDS)
+    return ((seq_train_rank, (fam["rank_args"],)), report_seq_fam,
+            dict(fam=fam, backend=backend, device=device))
+
+
+def seq_halo_bytes(cfg, batch: int, n: int = TRAIN_SHARDS) -> dict:
+    """``ShardedPlan.stats`` of ``cfg``'s decoder attention at n 4096 over
+    ``n`` shards, at the blocks the sharded op picks, and what a rank
+    sends a layer over its ``batch`` x H flat heads (K and V in bf16;
+    counted, not timed): {"plan": the stats, "blocks", "view": (local,
+    halo, global tiles), "heads", "exchange", "allgather"}."""
+    from repro_torch.core.scheduler import build_plan, schedule
+    from repro_torch.dist.sharded_plan import _auto_block, shard_plan
+    from repro_torch.models.layers import salo_pattern
+
+    sched = schedule(salo_pattern(cfg), 4096)
+    b = _auto_block(sched.n_work, n, cfg.salo.block_q)
+    sp = shard_plan(build_plan(sched, b, b, n * b), n)
+    st = sp.stats(cfg.hd)
+    heads = batch * cfg.n_heads
+    return dict(plan=st, blocks=b, view=(sp.nkb_l, sp.halo_counts, sp.n_gt),
+                heads=heads, exchange=st["exchange_bytes"] * heads,
+                allgather=st["allgather_bytes"] * heads)
+
+
+def report_seq_fam(recs, st, wall) -> dict:
+    """Gate and print a family's train-sharded run against its unsharded
+    reference: every step's loss within ``SEQ_FAM_TOL`` of it (and
+    whether bitwise), equal on every rank, the loss falling; parameters
+    and optimizer state bitwise equal on every rank; per rank and step 2
+    K1, 1 K2 and 1 K3 call (2 kernels) a decoder layer, through
+    ``sharded_attention``, and as many again a layer of whisper's encoder,
+    whole on every rank (case (m)'s shapes); no plain version. Prints
+    rank 0's step median and idle share, the collectives by profiler
+    name, the peak per rank and the halo bytes (``ShardedPlan.stats``,
+    counted). Returns {path: the launches summed over the ranks}."""
+    from repro_torch.configs import get_config
+
+    fam, backend, device = st["fam"], st["backend"], st["device"]
+    arch, cfg, ref = fam["arch"], fam["cfg"], fam["ref"]
+    tag = f"train-sharded {arch}"
+    S = TRAIN_SHARDS
+    r0 = recs[0]
+    losses = r0["losses"]
+    steps = len(losses)
+    want_l = ref["losses"][:steps]
+    batch_n, sched_steps = fam["rank_args"]["sched"][:2]
+    n_attn = _train_attention_layers(cfg)
+    want = {"K1": 2 * n_attn * steps, "K2": n_attn * steps,
+            "K3": 2 * n_attn * steps}
+    for r, rec in enumerate(recs):
+        check(rec["losses"] == losses,
+              f"{tag}: rank {r}'s losses {rec['losses']} != rank 0's")
+        check(rec["launches"] == want and rec["plain"] == 0,
+              f"{tag} rank {r}: launches {rec['launches']} != {want}, "
+              f"plain {rec['plain']}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    diff = max(abs(a - b) for a, b in zip(losses, want_l))
+    check(diff <= SEQ_FAM_TOL, f"{tag}: losses {losses} vs unsharded "
+          f"{want_l} (max diff {diff} > {SEQ_FAM_TOL})")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    check(len({rec["digest"] for rec in recs}) == 1,
+          f"{tag}: parameters or optimizer state differ across the ranks")
+    med = sorted(r0["times"][1:])[(steps - 1) // 2] * 1e3
+    coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
+                     sorted(r0["collectives"].items(),
+                            key=lambda x: -x[1][1]))
+    hb = seq_halo_bytes(cfg, batch_n)
+    dec = _attention_layers(cfg)
+    enc = (f"; its encoder's {cfg.n_layers} layers whole on every rank "
+           f"({cfg.n_audio_frames} frames, no collective)"
+           if cfg.encoder_decoder else "")
+    log(f"[{tag}] bf16 remat full, every published width, {cfg.n_layers} "
+        f"of {get_config(arch).n_layers} layers, {S} ranks on backend "
+        f"{backend} ({device or 'one card a rank'}), seq 4096 = {S} x "
+        f"{4096 // S}, batch {batch_n}{enc}: {wall:.1f} s on rank 0; "
+        f"{steps} steps of a {sched_steps}-step schedule: losses {losses} vs "
+        f"unsharded {want_l} (max diff {diff}; "
+        f"{'bitwise equal' if losses == want_l else 'not bitwise'}); state "
+        f"bitwise equal across the ranks; launches a rank {r0['launches']} "
+        f"({dec} decoder layers through sharded_attention"
+        + (f", {cfg.n_layers} encoder layers whole" if cfg.encoder_decoder
+           else "") + ")")
+    log(f"[{tag}] step median {med:.3f} ms over steps 1..{steps - 1} (rank "
+        f"0; unsharded {ref['median_ms']:.3f} ms); peak per rank "
+        f"{[round(rec['peak'] / 2**30, 3) for rec in recs]} GiB (unsharded "
+        f"{ref['peak'] / 2**30:.3f} GiB); profiled step (rank 0): host wall "
+        f"{r0['profiled_ms']:.3f} ms, device idle share {r0['idle']:.3f}, "
+        f"collectives by name (host time): {coll}")
+    log(f"[{tag}] ShardedPlan.stats({cfg.hd}) of the decoder's attention at "
+        f"n 4096, {S} shards, blocks {hb['blocks']}: view {hb['view'][0]} "
+        f"local + {hb['view'][1]} halo + {hb['view'][2]} global tiles; per "
+        f"flat head and layer {hb['plan']}; a rank sends a layer over "
+        f"{hb['heads']} flat heads {hb['exchange']} bytes (all-gather "
+        f"{hb['allgather']}), again in remat full's replay and back in the "
+        f"backward (counted, not timed)")
+    return {tag.replace(" ", "-"): {k: sum(rec["launches"][k] for rec in recs)
+                                    for k in ("K1", "K2", "K3")}}
+
+
 def train_sharded_parts(torch, seed, runs, moe=None, with_check=True,
-                        recs=()):
+                        recs=(), fams=()):
     """The sequence-parallel training phases as parts of a spawn
     (``phase_two_ranks``, ``spawn_jobs``), each its own job and report:
     train-sharded-check (``with_check``; ``sharded_check_job``),
     train-sharded for each ``(arch, ref)`` of ``runs`` at full width and
     depth (``train_sharded_job``; ``ref`` the unsharded train phase's
     stats), train-sharded-moe (``moe``: ``seq_moe_inputs``'s plan;
-    ``seq_moe_job``) and the recurrent runs (``recs``:
-    ``seq_rec_inputs``' plans; ``seq_rec_job``)."""
+    ``seq_moe_job``), the recurrent runs (``recs``: ``seq_rec_inputs``'
+    plans; ``seq_rec_job``) and the VLM and encoder-decoder runs
+    (``fams``: ``seq_fam_inputs``' plans; ``seq_fam_job``)."""
     parts = [("train-sharded-check", sharded_check_job(torch, seed))
              ] if with_check else []
     parts += [(f"train-sharded {arch}", train_sharded_job(torch, seed, arch,
@@ -5083,17 +5287,19 @@ def train_sharded_parts(torch, seed, runs, moe=None, with_check=True,
         parts.append(("train-sharded-moe", seq_moe_job(torch, seed, moe)))
     parts += [(f"train-sharded {rec['arch']}", seq_rec_job(torch, seed, rec))
               for rec in recs]
+    parts += [(f"train-sharded {fam['arch']}", seq_fam_job(torch, seed, fam))
+              for fam in fams]
     return parts
 
 
 def phase_train_sharded(torch, seed, runs, moe=None, with_check=True,
-                        recs=()):
+                        recs=(), fams=()):
     """``train_sharded_parts`` in one spawn of ``TRAIN_SHARDS`` ranks.
     Returns {path: launches summed over the ranks}."""
     out = {}
     for launches in phase_two_ranks(
             torch, seed, train_sharded_parts(torch, seed, runs, moe,
-                                             with_check, recs),
+                                             with_check, recs, fams),
             TRAIN_SHARDS, TRAIN_SHARD_TIMEOUT_S).values():
         out.update(launches)
     return out
@@ -7754,7 +7960,7 @@ def main(argv=None) -> int:
         torch, args.seed, "qwen2-vl-2b", n_layers=depth, steps=QWEN_STEPS,
         batch=batch, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
-    tl["train-whisper-base"], _, _ = phase_train(
+    tl["train-whisper-base"], _, whisper_stats = phase_train(
         torch, args.seed, "whisper-base", steps=GEMMA_STEPS,
         batch=TRAIN_BATCH, lr=1e-3, warmup=3)
     torch.cuda.empty_cache()
@@ -7814,6 +8020,16 @@ def main(argv=None) -> int:
                seq_rec_inputs(torch, args.seed, "recurrentgemma-9b")]
     tl["train-sharded-unsharded-recurrentgemma-9b"] = \
         rec_seq[1]["ref_launches"]
+    # the VLM and the encoder-decoder under a sequence group: qwen2-vl-2b
+    # at the depth 2 whole copies fit, against the unsharded run of that
+    # cut; whisper-base at full size against its unsharded train phase
+    fam_seq = [seq_fam_inputs(torch, args.seed, "qwen2-vl-2b"),
+               seq_fam_inputs(torch, args.seed, "whisper-base",
+                              whisper_stats)]
+    for fam in fam_seq:
+        if fam["ref_launches"] is not None:
+            tl[f"train-sharded-unsharded-{fam['arch']}"] = \
+                fam["ref_launches"]
     # one spawn of 2 ranks for every 2-rank phase (a spawn's ranks take ~20
     # s to start and warm up on the card): sequence-parallel serving (the
     # narrowed check, the bf16 slab at full width, then the int8 page-
@@ -7821,8 +8037,9 @@ def main(argv=None) -> int:
     # them an MoE whose dispatch groups span the shards, two recurrent,
     # smollm-135m and longformer-4k at full size against the unsharded
     # train phases, arctic-480b's MoE layer against the unsharded run of
-    # its cut, mamba2-370m against its unsharded phase and
-    # recurrentgemma-9b's forward and backward against its reference);
+    # its cut, mamba2-370m against its unsharded phase,
+    # recurrentgemma-9b's forward and backward against its reference,
+    # qwen2-vl-2b and whisper-base against theirs);
     # data-parallel training (the narrowed check on both wires, smollm-135m
     # at full size with the f32 all_reduce against the unsharded train
     # phase, and the FSDP fallback: its check against train-dp-check's,
@@ -7835,7 +8052,7 @@ def main(argv=None) -> int:
     seq_parts = train_sharded_parts(
         torch, args.seed, (("smollm-135m", full),
                            ("longformer-4k", lf_stats)), moe=moe_seq,
-        recs=rec_seq)
+        recs=rec_seq, fams=fam_seq)
     parts = dict([
         ("serve-sharded", serve_sharded_job(
             torch, args.seed, 2,
@@ -7866,7 +8083,7 @@ def main(argv=None) -> int:
                                                       dp_check=dp_check)
     tl.update(fsdp_launches)
     tl.update(report("train-tp"))
-    del moe_seq, rec_seq, seq_parts, parts, got, served, dp_check, ep, epu
+    del moe_seq, rec_seq, fam_seq, seq_parts, parts, got, served, dp_check, ep, epu
     torch.cuda.empty_cache()
     # the int8 wire under the FSDP fallback and at (data 2, model 2) in
     # the train-dp-int8 spawn, after its data-parallel run: the narrowed
@@ -7936,7 +8153,8 @@ def main(argv=None) -> int:
                 "t": "shard_view_bf16", "tp": "gemma_7b_tp2_rank_heads_bf16",
                 "ep": "arctic_480b_ep2_rank_heads_bf16",
                 "k-tp": "recurrentgemma_9b_tp2_rank_heads_hd256_mqa_bf16",
-                "t-k": "recurrentgemma_9b_shard_view_hd256_mqa_bf16"}
+                "t-k": "recurrentgemma_9b_shard_view_hd256_mqa_bf16",
+                "t-v": "qwen2_vl_2b_shard_view_hd128_gqa6_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

@@ -26,8 +26,9 @@ something where eager PyTorch launches hand-written kernels and
   router logits in f32 (:func:`check_seq_gathers`); a recurrent step
   under one sends every conv's halo and gathers every scan's carry in
   f32, its backward a ``reduce_scatter`` in f32
-  (:func:`check_seq_carries`); the sharded merge's partials ``(out, m,
-  l)`` are f32.
+  (:func:`check_seq_carries`); every other step under one sends each
+  sharded attention layer's K/V halo (:func:`check_seq_halos`); the
+  sharded merge's partials ``(out, m, l)`` are f32.
 
 The reference's scatter-mode, double-dequant and shard_map-reduction
 checks read a jaxpr and have no counterpart here; its write-ownership
@@ -444,6 +445,34 @@ def check_seq_carries(log: List[Record], target: str = "",
                     f"{op} over {axis} of {n} values in {dt}: the "
                     f"{what} must cross the group in f32"))
     return findings
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg``'s program whose self attention runs sharded
+    under a sequence group: every attention block (whisper's ``xattn``
+    decoder blocks too; its encoder runs whole on every rank) and a
+    griffin group's local attention."""
+    from repro_torch.models.transformer import ATTN_KINDS, make_program
+
+    return sum(n for kind, n in make_program(cfg)
+               if kind in ATTN_KINDS + ("xattn", "griffin"))
+
+
+def check_seq_halos(log: List[Record], target: str = "",
+                    layers: int = 1) -> List[Finding]:
+    """A train step under a sequence group of a model with ``layers``
+    sharded attention layers: each one's K/V halo crossed the group (a
+    ``ppermute`` forward and the reverse one returning its gradient: at
+    least 2 a layer). A layer that attends only inside its own shard (a
+    block that drops the group) sends none."""
+    got = [r for r in log if r[0] == "seq" and r[1] == "ppermute"]
+    if len(got) >= 2 * layers:
+        return []
+    return [Finding(
+        "collective-dtype", target,
+        f"the step ran {len(got)} ppermutes over the sequence group: its "
+        f"{layers} sharded attention layers need at least {2 * layers} "
+        f"(each one's K/V halo and its gradient's return)")]
 
 
 def check_decode_merge(log: List[Record], target: str = "") -> List[Finding]:

@@ -12,8 +12,9 @@ registered target and exits nonzero on any error finding:
    .launch_lint`): the forward/backward launch contract of
    ``kernels.ops.salo_attention`` for every plan target, and the
    collective dtypes of one train step on each wire (data-parallel f32
-   and int8, int8 under a model group, FSDP f32 and int8) and of one
-   sharded decode step, on the CPU with recording stand-in groups;
+   and int8, int8 under a model group, FSDP f32 and int8; under a
+   sequence group the MoE, recurrent, VLM and encoder-decoder steps) and
+   of one sharded decode step, on the CPU with recording stand-in groups;
 3. slab write ownership (:mod:`repro_torch.analysis.ownership`): the
    sequence-parallel decode's write routing probed over every cache
    position and shard of the registry's paged layouts;
@@ -56,6 +57,8 @@ TRAIN_WIRES = (
     ("train.seq2.moe", "arctic-480b", dict(shards=2, seq=64)),
     ("train.seq2.rec", "recurrentgemma-9b", dict(shards=2, seq=64)),
     ("train.seq2.ssm", "mamba2-370m", dict(shards=2, seq=64)),
+    ("train.seq2.vlm", "qwen2-vl-2b", dict(shards=2, seq=64)),
+    ("train.seq2.xattn", "whisper-base", dict(shards=2, seq=64)),
 )
 
 
@@ -112,9 +115,12 @@ def run_launch_pass(findings: List[Finding], targets: List[str]) -> None:
                                         n_groups, name, mesh.get("data", 1))
         if mesh.get("shards", 1) > 1 and cfg.moe is not None:
             findings += ll.check_seq_gathers(log, name)
-        elif mesh.get("shards", 1) > 1:
+        elif mesh.get("shards", 1) > 1 and ll.recurrent_layers(cfg):
             findings += ll.check_seq_carries(log, name,
                                              ll.recurrent_layers(cfg))
+        elif mesh.get("shards", 1) > 1:
+            findings += ll.check_seq_halos(log, name,
+                                           ll.attention_layers(cfg))
         targets.append(name)
     findings += ll.check_decode_merge(
         ll.record_decode_step(get_smoke("smollm-135m")),

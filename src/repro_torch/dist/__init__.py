@@ -44,8 +44,7 @@ ranks, tensor parallelism (``model_group=ModelGroup``, ``--model``) its
 ``heads``, ``kv_heads``, ``ffn`` and ``vocab`` axes; the two compose as
 the reference's ``(data, model)`` mesh (``group.mesh_groups``). The port
 passes the groups explicitly; only the parameter placements come from
-the rules. Not ported yet (ROADMAP queue 1, item 3): the recurrent, VLM
-and encoder-decoder blocks under a sequence group, and the sharded op on
+the rules. Not ported yet (ROADMAP queue 1, item 3): the sharded op on
 reordered schedules (dilation > 1, dilated sinks: a global stride
 permutation across shards).
 """

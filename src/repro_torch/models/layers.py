@@ -224,7 +224,11 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig,
     ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
     parallel training. x is this rank's slice of S tokens of the
     sequence, the default positions are its global ones (``group.index *
-    S + arange(S)``) and the attention runs sharded.
+    S + arange(S)``; M-RoPE's come from the caller, its slice of the
+    global ones) and the attention runs sharded. q and k are rotated
+    before :func:`~repro_torch.core.attention.hybrid_attention` routes to
+    the sharded op, so the halo carries rotated K, as one device's
+    attention reads it.
 
     ``model`` (a :class:`~repro_torch.dist.group.ModelGroup`): tensor-
     parallel training. Where the group's size divides the heads, the

@@ -107,7 +107,8 @@ class Model:
         (B, S) is set (the vision frontend is stubbed: the embeddings come
         aligned to token slots). Under a ``model`` group the merge follows
         the vocab-parallel lookup's sum, alike on every rank (the whole
-        ``vision_proj`` on each)."""
+        ``vision_proj`` on each); under a sequence group each rank
+        merges its own slice's slots, with no collective."""
         cfg = self.cfg
         x = L.embed_apply(gather_weights(params["embed"]), batch["tokens"],
                           cfg, model)
@@ -123,7 +124,11 @@ class Model:
         ``enc`` attn_mlp layers on the bidirectional SALO pattern
         (``longformer(window, n_global)``: global rows and columns), then
         its final norm. Returns (B, n_frames, d), whole on every rank of
-        a ``model`` group (its layers split as the decoder's)."""
+        a ``model`` group (its layers split as the decoder's), and on
+        every rank of a sequence group too: it takes no group, so each
+        rank encodes every frame (1500 frames are no multiple of the
+        sharded plan's tiles, and the reference's input spec keeps the
+        frame axis whole)."""
         cfg = self.cfg
         pattern = L.salo_pattern(
             cfg, causal=False,
@@ -145,11 +150,18 @@ class Model:
 
         ``group`` (a :class:`~repro_torch.dist.group.SeqGroup`): sequence-
         parallel training; ``batch`` holds this rank's slice of every
-        sequence and the logits are that slice's. The dense families'
-        ``attn_mlp`` programs, the MoE family and the recurrent families
-        (recurrentgemma, mamba2: the conv halo and the scans' carries
-        across the shards) run under a group of more than one shard
-        (``transformer.check_sequence_parallel``).
+        sequence (``trainer._seq_slice``) and the logits are that slice's.
+        Every family runs under a group of more than one shard
+        (``transformer.check_sequence_parallel``): the recurrent ones
+        carry their conv halo and scan state across the shards; a VLM
+        merges the vision embeddings of its own slots (a shard with none
+        adds zero to ``vision_proj``'s gradient) and its default M-RoPE
+        positions are its global ones, ``group.index * S + arange(S)``;
+        whisper encodes the whole ``audio_embeds`` on every rank, with
+        no collective, and each rank's decoder slice cross-attends the
+        whole ``enc_out``. The encoder's and ``vision_proj``'s gradients
+        are each rank's share, summed with the others by the step's one
+        gradient ``all_reduce``.
 
         ``data`` (a :class:`~repro_torch.dist.group.DataGroup`): data-
         parallel training; ``batch`` holds this rank's rows of the global
@@ -186,7 +198,9 @@ class Model:
         mrope = cfg.mrope_sections
         if mrope is not None and positions is None:
             B, S = batch["tokens"].shape
-            positions = torch.arange(S, device=x.device).expand(3, B, S)
+            start = 0 if group is None else group.index * S
+            positions = torch.arange(start, start + S,
+                                     device=x.device).expand(3, B, S)
         enc_out = self._encode(params, batch, model) \
             if cfg.encoder_decoder else None
         pats = T._patterns(cfg)

@@ -156,7 +156,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, pattern,
     Returns (x, aux): the MoE blocks' aux losses, else ``{}``."""
     if kind == "xattn":
         x = x + L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                             cfg, pattern, positions=positions, model=model)
+                             cfg, pattern, positions=positions, group=group,
+                             model=model)
         x = x + L.cross_attn_apply(
             p["xattn"], L.rmsnorm(p["ln_x"], x, cfg.norm_eps), enc_out, cfg,
             model)
@@ -198,30 +199,30 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 # the block kinds that run under a sequence group of more than one shard
-SEQ_KINDS = ("attn_mlp", "ssm", "rec_mlp", "griffin") + MOE_KINDS
+SEQ_KINDS = ("attn_mlp", "ssm", "rec_mlp", "griffin", "xattn") + MOE_KINDS
 
 
 def check_sequence_parallel(cfg: ModelConfig, kind: str, group) -> None:
-    """Which blocks run under a sequence group of more than one shard: the
-    ``attn_mlp`` blocks of the dense families (smollm, gemma, phi4-mini,
-    granite, longformer), the MoE family's blocks (arctic, kimi: the
-    dispatch routes the whole batch's groups on every shard,
-    :func:`repro_torch.models.moe.moe_apply`) and the recurrent families'
-    (recurrentgemma's ``rec_mlp`` and ``griffin`` groups, whose local
-    attention takes the sharded route; mamba2's ``ssm``: the conv halo
-    and the scans' carries, :mod:`repro_torch.models.rglru`,
-    :mod:`repro_torch.models.ssm`). The VLM's vision merge and M-RoPE and
-    the encoder-decoder would need cross-shard work of their own; they
-    raise."""
+    """Which blocks run under a sequence group of more than one shard
+    (``SEQ_KINDS``): every program's of the 11 archs. The ``attn_mlp``
+    blocks of the dense families (smollm, gemma, phi4-mini, granite,
+    longformer) and of the VLM (qwen2-vl: M-RoPE rotates q and k on their
+    global positions before the halo carries k), the MoE family's
+    (arctic, kimi: the dispatch routes the whole batch's groups on every
+    shard, :func:`repro_torch.models.moe.moe_apply`), the recurrent
+    families' (recurrentgemma's ``rec_mlp`` and ``griffin`` groups, whose
+    local attention takes the sharded route; mamba2's ``ssm``: the conv
+    halo and the scans' carries, :mod:`repro_torch.models.rglru`,
+    :mod:`repro_torch.models.ssm`) and whisper's ``xattn`` decoder (its
+    self attention sharded, its cross attention local against the whole
+    encoder output). Any other kind raises."""
     if group is None or group.size == 1:
         return
-    if kind not in SEQ_KINDS or cfg.mrope_sections is not None \
-            or cfg.n_vision_tokens or cfg.encoder_decoder:
+    if kind not in SEQ_KINDS:
         raise NotImplementedError(
-            f"sequence-parallel training runs the attn_mlp blocks of the "
-            f"dense families, the MoE blocks and the recurrent blocks; "
+            f"sequence-parallel training runs the block kinds {SEQ_KINDS}; "
             f"{cfg.name}'s {kind!r} blocks under a group of {group.size} "
-            f"are not ported yet: ROADMAP queue 1, 'multi-GPU'")
+            f"are not ported: ROADMAP queue 1, 'multi-GPU'")
 
 
 def segment_apply(params, x: torch.Tensor, cfg: ModelConfig, kind: str,

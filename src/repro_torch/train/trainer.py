@@ -20,7 +20,9 @@ Every rank calls the step with the same global batch (``SyntheticLM
 .batch(i)`` is a function of the step) and takes its part of it:
 
 * a sequence ``group`` (:class:`~repro_torch.dist.group.SeqGroup`): its
-  slice along the sequence axis;
+  slice of each entry along that entry's sequence axis (``_seq_axis``:
+  axis 2 of M-RoPE ``positions``, axis 1 of the others), whisper's
+  ``audio_embeds`` whole;
 * a ``data`` group (:class:`~repro_torch.dist.group.DataGroup`, the
   reference's ``batch`` -> ``data`` axis): its rows, contiguous and in
   rank order. Uncompressed, the step equals the global batch's on one
@@ -112,18 +114,40 @@ def _batch_axis(key: str) -> int:
     return 1 if key == "positions" else 0
 
 
+# The sequence axis of each batch entry a sequence group slices, or None
+# for an entry every rank takes whole: M-RoPE ``positions`` (3, B, S)
+# carry it third; whisper's ``audio_embeds`` (B, n_audio_frames, d) are
+# the encoder's frames, not the token sequence (the reference's input
+# spec leaves that axis unsplit), so every rank encodes all of them.
+_SEQ_AXES = {"tokens": 1, "labels": 1, "mask": 1, "vision_embeds": 1,
+             "vision_mask": 1, "positions": 2, "audio_embeds": None}
+
+
+def _seq_axis(key: str):
+    """The sequence axis of a batch entry (``_SEQ_AXES``); an entry it
+    does not know raises rather than being guessed."""
+    if key not in _SEQ_AXES:
+        raise KeyError(f"batch entry {key!r}: no known sequence axis (one "
+                       f"of {sorted(_SEQ_AXES)})")
+    return _SEQ_AXES[key]
+
+
 def _seq_slice(batch, group):
     """This rank's slice of every batch entry along its sequence axis
-    (axis 1 of the (B, S) entries; the ranks' slices are contiguous and in
-    rank order)."""
+    (``_seq_axis``; the ranks' slices are contiguous and in rank order);
+    an entry without one whole."""
     out = {}
     for k, v in batch.items():
-        S = v.shape[1]
+        axis = _seq_axis(k)
+        if axis is None:
+            out[k] = v
+            continue
+        S = v.shape[axis]
         if S % group.size:
             raise ValueError(f"batch entry {k!r}: sequence length {S} is not "
                              f"divisible by the group's {group.size} shards")
         n = S // group.size
-        out[k] = v[:, group.index * n:(group.index + 1) * n].contiguous()
+        out[k] = v.narrow(axis, group.index * n, n).contiguous()
     return out
 
 

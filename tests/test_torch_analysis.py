@@ -349,12 +349,12 @@ def test_train_step_collectives_are_clean(i):
     log, n_groups = ll.record_train_step(get_smoke(arch), **mesh)
     assert ll.check_train_wire(log, mesh.get("compress", False), n_groups,
                                name, mesh.get("data", 1)) == []
-    if mesh.get("shards", 1) > 1:
+    cfg = get_smoke(arch)
+    if mesh.get("shards", 1) > 1 and (cfg.moe or ll.recurrent_layers(cfg)):
         # a step under a sequence group: its f32 gathers (an MoE's 2
         # layers' router logits, a recurrent model's scan carries), its
         # gradients summed in f32 over the group
         assert ll.check_seq_gathers(log, name) == []
-        cfg = get_smoke(arch)
         if cfg.moe is None:
             assert ll.recurrent_layers(cfg) == 2
             assert ll.check_seq_carries(log, name,
@@ -364,6 +364,15 @@ def test_train_step_collectives_are_clean(i):
         assert any(r[0] == "seq" and r[4] == "grad-sum"
                    and r[2] == "float32" for r in log)
         assert sum(r[1] == "all_gather" for r in log) >= 2
+    elif mesh.get("shards", 1) > 1:
+        # the VLM and encoder-decoder steps: each of the 2 decoder
+        # layers' K/V halo crossed the group, nothing was gathered (the
+        # vision merge is local, whisper's encoder whole on every rank),
+        # the gradients summed in f32
+        assert ll.attention_layers(cfg) == 2
+        assert ll.check_seq_halos(log, name, 2) == []
+        assert not any(r[1] == "all_gather" for r in log)
+        assert [r[2] for r in log if r[4] == "grad-sum"] == ["float32"]
     dtypes = {(r[0], r[1], r[2]) for r in log if r[4] == "wire"}
     if mesh.get("compress") and mesh.get("data", 1) > 1:
         op = "all_to_all" if mesh.get("fsdp") else "all_gather"
@@ -451,6 +460,27 @@ def test_a_step_without_the_conv_halo_is_caught(monkeypatch):
     cfg = get_smoke("mamba2-370m")
     log, _ = ll.record_train_step(cfg, shards=2, seq=64)
     got = ll.check_seq_carries(log, "t", ll.recurrent_layers(cfg))
+    assert len(got) == 1 and "0 ppermutes" in got[0].message
+
+
+def test_a_decoder_attending_only_its_shard_is_caught(monkeypatch):
+    """A whisper step whose ``xattn`` blocks drop the sequence group (each
+    shard's decoder self attention reads only its own keys: no halo) is a
+    finding; with the group, none."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke("whisper-base")
+    log, _ = ll.record_train_step(cfg, shards=2, seq=64)
+    assert ll.check_seq_halos(log, "t", ll.attention_layers(cfg)) == []
+    real = T.block_apply
+
+    def no_group(p, x, cfg, kind, pattern, *a, group=None, **kw):
+        return real(p, x, cfg, kind, pattern, *a, **kw)
+
+    monkeypatch.setattr(T, "block_apply", no_group)
+    log, _ = ll.record_train_step(cfg, shards=2, seq=64)
+    got = ll.check_seq_halos(log, "t", ll.attention_layers(cfg))
     assert len(got) == 1 and "0 ppermutes" in got[0].message
 
 

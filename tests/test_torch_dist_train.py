@@ -604,15 +604,51 @@ def test_dense_ref_under_a_group_raises():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-base"])
-def test_unported_families_under_a_group_raise(arch):
-    """The VLM and encoder-decoder families raise under a group."""
+def test_vlm_and_enc_dec_run_under_a_group(arch):
+    """The VLM and encoder-decoder families run ``Model.loss(...,
+    group=)`` under a stand-in group of 2 (one process:
+    ``launch_lint.RecSeqGroup`` computes each collective as if the other
+    rank held this one's tensors): a finite loss, a gradient for every
+    leaf, and each decoder layer's halo exchanged forward and back
+    (``tests/test_torch_seq_families.py`` holds the numbers on gloo
+    ranks)."""
+    from repro_torch.analysis import launch_lint as ll
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
-    model = build_model(_cfg(arch), "cpu")
-    batch = {"tokens": torch.zeros(1, 32, dtype=torch.int32),
-             "labels": torch.zeros(1, 32, dtype=torch.int32)}
+    from repro_torch.train.trainer import _seq_slice
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _cfg(arch)
+    log: list = []
+    group = ll.rec_group(ll.RecSeqGroup, 2, log)
+    model = build_model(cfg, "cpu")
+    params = tree_map(lambda p: p.requires_grad_(),
+                      model.init(torch.Generator().manual_seed(0)))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        cfg, DataConfig(SEQ, 2, seed=0)).batch(0).items()}
+    loss, metrics = model.loss(params, _seq_slice(batch, group), group=group)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    assert torch.isfinite(loss) and torch.isfinite(metrics["loss"])
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert ll.check_seq_halos(log, arch, ll.attention_layers(cfg)) == []
+
+
+def test_a_kind_outside_seq_kinds_raises():
+    """Every program of the 11 archs is admitted under a group; a block
+    kind outside ``SEQ_KINDS`` (the local-window kind, which runs only
+    inside a griffin group) still raises."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import transformer as T
+
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for kind, _ in T.make_program(cfg):
+            T.check_sequence_parallel(cfg, kind, _fake_group())
+    assert "attn_mlp_local" not in T.SEQ_KINDS
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
                        "'multi-GPU'"):
-        model.loss(None, batch, group=_fake_group())
+        T.check_sequence_parallel(_cfg("recurrentgemma-9b"),
+                                  "attn_mlp_local", _fake_group())
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])

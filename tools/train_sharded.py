@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
 """The sequence-parallel training phases of ``chip_smoke.py`` alone.
 
-    python3 tools/train_sharded.py [--seed N] [--recurrent]
+    python3 tools/train_sharded.py [--seed N] [--recurrent | --families]
 
 Run from the root of a checkout on a machine with a CUDA device. Builds the
 kernels, runs the unsharded references (smollm-135m and longformer-4k
 trained at full size, 20 steps each, as ``chip_smoke.py``'s train phases,
 without the checkpoint, arctic-480b's MoE layer at the cut of
 ``chip_smoke.seq_moe_inputs``, mamba2-370m at 12 layers as its train
-phase, and recurrentgemma-9b at one griffin group,
-``chip_smoke.seq_rec_inputs``), then ``chip_smoke.phase_train_sharded``:
-the narrowed train-sharded-check, both archs, the MoE layer and the two
-recurrent archs in one spawn. The ranks use NCCL, one card each, where
+phase, recurrentgemma-9b at one griffin group,
+``chip_smoke.seq_rec_inputs``, qwen2-vl-2b at the depth 2 whole copies
+fit and whisper-base at full size, ``chip_smoke.seq_fam_inputs``), then
+``chip_smoke.phase_train_sharded``: the narrowed train-sharded-check,
+both archs, the MoE layer, the two recurrent archs and the VLM and the
+encoder-decoder in one spawn. The ranks use NCCL, one card each, where
 the machine has the cards, else gloo ranks sharing cuda:0; every line
 names the backend. recurrentgemma-9b takes whole train steps where the
 ranks have a card each (``chip_smoke.seq_rg_whole_steps``), else its
 forward and backward alone. ``--recurrent``: only the recurrent parts
 (K1-K3 case (t-k), mamba2's unsharded phase cut to 3 steps, the
 recurrentgemma-9b reference, then train-sharded-check and the two
-recurrent runs in one spawn). Prints the card's name and power limit
+recurrent runs in one spawn). ``--families``: only the VLM and the
+encoder-decoder (K1-K3 case (t-v), whisper-base's unsharded phase cut to
+its first ``chip_smoke.SEQ_FAM_STEPS`` steps, qwen2-vl-2b's reference at
+its cut, then train-sharded-check and the two runs in one spawn). Prints the card's name and power limit
 last. Any failed check raises, so the exit code is nonzero.
 """
 import argparse
@@ -38,9 +43,13 @@ import chip_smoke as C  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--recurrent", action="store_true",
-                    help="only case (t-k), the checks and the recurrent "
-                    "runs")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--recurrent", action="store_true",
+                      help="only case (t-k), the checks and the recurrent "
+                      "runs")
+    only.add_argument("--families", action="store_true",
+                      help="only case (t-v), the checks and the VLM and "
+                      "encoder-decoder runs")
     args = ap.parse_args(argv)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -55,24 +64,35 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
     C.phase_build()
-    refs, moe = {}, None
+    refs, moe, recs, fams = {}, None, [], []
     if args.recurrent:
         C.train_kernels_shard(torch, C.Timer(torch), args.seed, "t-k")
+    elif args.families:
+        C.train_kernels_shard(torch, C.Timer(torch), args.seed, "t-v")
     else:
         for arch in ("smollm-135m", "longformer-4k"):
             _, _, refs[arch] = C.phase_train(torch, args.seed, arch)
             torch.cuda.empty_cache()
         moe = C.seq_moe_inputs(torch, args.seed)
         torch.cuda.empty_cache()
-    _, _, mamba = C.phase_train(
-        torch, args.seed, "mamba2-370m", n_layers=C.MAMBA_TRAIN_LAYERS,
-        steps=C.GEMMA_STEPS, batch=C.MAMBA_BATCH, lr=1e-3, warmup=3,
-        run=3 if args.recurrent else None)
-    torch.cuda.empty_cache()
-    recs = [C.seq_rec_inputs(torch, args.seed, "mamba2-370m", mamba),
-            C.seq_rec_inputs(torch, args.seed, "recurrentgemma-9b")]
+    if not args.families:
+        _, _, mamba = C.phase_train(
+            torch, args.seed, "mamba2-370m", n_layers=C.MAMBA_TRAIN_LAYERS,
+            steps=C.GEMMA_STEPS, batch=C.MAMBA_BATCH, lr=1e-3, warmup=3,
+            run=3 if args.recurrent else None)
+        torch.cuda.empty_cache()
+        recs = [C.seq_rec_inputs(torch, args.seed, "mamba2-370m", mamba),
+                C.seq_rec_inputs(torch, args.seed, "recurrentgemma-9b")]
+    if not args.recurrent:
+        _, _, whisper = C.phase_train(
+            torch, args.seed, "whisper-base", steps=C.GEMMA_STEPS,
+            batch=C.TRAIN_BATCH, lr=1e-3, warmup=3,
+            run=C.SEQ_FAM_STEPS if args.families else None)
+        torch.cuda.empty_cache()
+        fams = [C.seq_fam_inputs(torch, args.seed, "qwen2-vl-2b"),
+                C.seq_fam_inputs(torch, args.seed, "whisper-base", whisper)]
     C.phase_train_sharded(torch, args.seed, tuple(refs.items()), moe=moe,
-                          recs=recs)
+                          recs=recs, fams=fams)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
