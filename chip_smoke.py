@@ -314,6 +314,12 @@ nonzero:
     on the causal form of its pattern (window 512 + 1 sink), as the
     reference's model does; the bidirectional band with its global row is
     train-kernels case (h).
+18'. **train smollm-135m dilation 2** — smollm-135m at full size with
+    its attention's dilation raised to 2 (no published config sets one:
+    the reordered schedule, SALO's data reordering), the train phase's
+    first 2 steps of its 20-step schedule and a profiled third, as the
+    train phase: the losses train-sharded smollm-135m dilation 2 is held
+    to.
 18b. **train-sharded-check** — sequence-parallel training
     (``dist.sharded_plan``), 18b-18d2 each a job of the shared spawn
     (``train_sharded_parts``): the narrowed f32 smollm of
@@ -324,9 +330,12 @@ nonzero:
     batches, and the narrowed f32 kimi-k2 of the MoE checks with 2
     dispatch groups (each one sequence split over both shards: the router
     logits gathered, every group routed on every rank) against its
-    unsharded run on the CPU (cuda == cpu): losses (and the MoE's aux
-    metrics) within 1e-4, parameters and optimizer state bitwise equal on
-    both ranks (sha256 of their bytes), K1-K3 launched on each.
+    unsharded run on the CPU (cuda == cpu), and the narrowed smollm at
+    dilation 2 (the stride exchange: each rank's working slice one
+    residue class, a halo tile and a global tile) against its unsharded
+    runs on the card and on the CPU (cuda == cpu): losses (and the MoE's
+    aux metrics) within 1e-4, parameters and optimizer state bitwise
+    equal on both ranks (sha256 of their bytes), K1-K3 launched on each.
 18c. **train-sharded** — smollm-135m at full width and depth, bf16, remat
     full, seq 4096 split over 2 ranks, global batch 8, the train phase's
     first 2 steps (same seed, weights, batches and 20-step schedule). On
@@ -350,6 +359,21 @@ nonzero:
     longformer-4k; its one-layer gate runs the paper's bidirectional
     Longformer layer (window 512, one global token with its global row:
     halos on both sides and the global-row epilogue over the group).
+18d'. **train-sharded smollm-135m dilation 2** — a reordered schedule
+    under the group: 18c at dilation 2, against train smollm-135m
+    dilation 2, with 18c's gates (its one-layer gate on the dilated
+    pattern). q, k and v enter each rank's slice of the working stream
+    (rank r holds residue class r of the stride-2 permutation) through
+    one all_to_all, the output leaves through one, the backward's
+    cotangent enters and dq, dk and dv leave the same way: 6 a layer
+    under remat full. Gated: rank 0's profiled step ran exactly that many
+    all_to_alls (by the process group's op name) and no collective but
+    the sums, the halo's sends and receives and those. Prints the
+    exchange's bytes (counted from the shapes) beside the halo's, the
+    step median, idle share and collectives by name. Train-kernels case
+    (t-d): shard 1 of its 2 (residue class 1: 16 query blocks against a
+    view of 16 local, 8 halo and 2 global tiles, the halo's pairs all
+    masked, 8 x 9 flat heads, hd 64, bf16), timed as (t).
 18d2. **train-sharded-moe** — arctic-480b at every published width, 1 of
     35 layers, bf16, remat full, seq 4096 split over the 2 ranks, batch 1
     (16 dispatch groups of 256 tokens, each on one shard), with the
@@ -2568,6 +2592,20 @@ def _attended_pairs(torch, sched, pos_q, pos_k, kvb, flags) -> int:
     return total
 
 
+def _live_tiles(torch, sched, pos_q, pos_k, kvb, flags) -> int:
+    """Key tiles of the step tables in which some pair survives the mask:
+    the K/V tiles these inputs need read (a tile whose every pair is
+    masked, like a dilated plan's odd-offset halo, adds nothing to the
+    output)."""
+    live = set()
+    for s in range(kvb.shape[1]):
+        pk = pos_k.index_select(0, kvb[:, s])
+        hit = sched.step_mask(pos_q[:, :, None], pk[:, None, :],
+                              flags[:, s, None, None]).flatten(1).any(1)
+        live.update(kvb[:, s][hit].tolist())
+    return len(live)
+
+
 def _executed_pairs(sched, pos_q, pos_k, kvb, flags, rows: int) -> int:
     """Pairs of the (rows x 64-key) sub-tiles of the step tables in which
     any pair survives: what K1 executes for one head (a 32-key tile is one
@@ -2904,7 +2942,13 @@ def phase_smem(torch) -> None:
 # column split of hd 256. Case (t-v): the same shard of qwen2-vl-2b's
 # train attention (batch 1 x 12 query heads expanded from its 2 KV heads,
 # hd 128, window 1024 + 4 sinks: (t)'s view of 16 local, 8 + 1 halo and 1
-# global tiles)
+# global tiles). Case (t-d): shard 1 of 2 of smollm-135m's train attention
+# at dilation 2 (train-sharded smollm-135m dilation 2: 8 x 9 flat heads, hd
+# 64, window 1024 + 4 sinks, 128-blocks): its working slice is residue
+# class 1 (2048 rows, 16 query blocks) against a view of 16 local tiles, 8
+# halo tiles from shard 0 (residue class 0's tail: every pair masked, each
+# offset odd) and 2 global tiles (the dilated sinks in working slots 0, 1,
+# 2048 and 2049)
 SHARD_CASES = {
     "t": dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=72,
               hd=64, blk=128, dtype="bfloat16", view=(16, (8, 1), 1)),
@@ -2912,6 +2956,8 @@ SHARD_CASES = {
                 hd=256, blk=128, dtype="bfloat16", view=(16, (15, 1), 1)),
     "t-v": dict(pat=("csw", 1024, 4, 1), n=4096, shards=2, shard=1, bh=12,
                 hd=128, blk=128, dtype="bfloat16", view=(16, (8, 1), 1)),
+    "t-d": dict(pat=("csw", 1024, 4, 2), n=4096, shards=2, shard=1, bh=72,
+                hd=64, blk=128, dtype="bfloat16", view=(16, (8,), 2)),
 }
 
 
@@ -2933,9 +2979,10 @@ def _view_mask(torch, sched, pos_q, pos_k, kvb, flags):
 
 
 def train_kernels_shard(torch, timer, seed, case="t"):
-    """Case ``case`` of ``SHARD_CASES``, (t) or (t-k): K1, K2 and K3 on
-    one shard's view tables (``dist.sharded_plan.shard_plan``), held
-    against their plain versions within the train-kernels tolerances,
+    """Case ``case`` of ``SHARD_CASES``, (t), (t-k), (t-v) or (t-d): K1,
+    K2 and K3 on one shard's view tables (``dist.sharded_plan
+    .shard_plan``), held against their plain versions within the
+    train-kernels tolerances,
     dK/dV bitwise over two calls, timed beside the bound, the plain
     versions and SDPA with the mask the view tables imply. Returns
     {kernel: record}."""
@@ -2995,17 +3042,21 @@ def train_kernels_shard(torch, timer, seed, case="t"):
     check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
           f"case {case}: dK/dV differ between two runs on one input")
     pairs = BH * _attended_pairs(torch, sched, pos_q, pos_k, kvb, flg)
+    live = _live_tiles(torch, sched, pos_q, pos_k, kvb, flg)
     log(f"[train-kernels] case {case} {c['dtype']} shard {r} of {S}, "
         f"{sched.pattern} n={c['n']}: q {nQ} rows, view {nK} keys "
         f"({sp.nkb_l} local + {sum(sp.halo_counts)} halo + {sp.n_gt} global "
         f"tiles of {blk}), B*H={BH} hd={D}: steps={kvb.shape[1]} "
-        f"packed rows={dkv_t[0].numel()} pairs={pairs} max abs err {errs}; "
+        f"packed rows={dkv_t[0].numel()} pairs={pairs} live view tiles="
+        f"{live} of {sp.view_tiles} max abs err {errs}; "
         f"dK/dV bitwise equal over two runs")
 
-    # bytes: each input read once, each output written once; operations as
-    # _k12_io and the K3 count of phase_train_kernels, at the bf16 rate
+    # bytes: each input read once, each output written once, K and V read
+    # only in the view tiles some pair attends (K3 writes the whole view's
+    # dK/dV); operations as _k12_io and the K3 count of
+    # phase_train_kernels, at the bf16 rate
     item, pk16 = q.element_size(), PEAK_OPS[c["dtype"]]
-    qb, kvb_bytes = BH * nQ * D * item, 2 * BH * nK * D * item
+    qb, kvb_bytes = BH * nQ * D * item, 2 * BH * live * blk * D * item
     stats = 3 * BH * nQ * 4
     tables = 4 * (pos_q.numel() + pos_k.numel() + kvb.numel() + flg.numel())
     ttables = 4 * (pos_q.numel() + pos_k.numel()
@@ -4146,9 +4197,19 @@ SHARDED_STEPS = {"smollm-135m": 2, "longformer-4k": 3}
 # longformer-4k LM trains on its causal form, as the reference's does)
 SHARDED_GATE = {"smollm-135m": None, "longformer-4k": ("lf", 512, 1)}
 TRAIN_SHARD_TIMEOUT_S = 600.0
+# train-sharded smollm-135m dilation 2: the reordered schedule (the working
+# stream's stride exchange across shards) at smollm-135m's full size, the
+# dilation of its SALOConfig raised (no published config sets one), its
+# steps SHARDED_STEPS["smollm-135m"], held to an unsharded run of the same
+# config and steps on the card
+SHARDED_DILATION = 2
 # the collectives of a sharded train step by profiler name: the point-to-
 # point halo sends and receives and the all_reduces
 P2P_KEYS = ("all_reduce", "allreduce", "send", "recv")
+# the stride exchange's all_to_alls, and every collective the profiler
+# names (the process group's ops and each backend's spans)
+A2A_KEYS = ("all_to_all", "alltoall")
+COLLECTIVE_KEYS = ("c10d::", "gloo:", "nccl:")
 # train-sharded-moe: the first steps of EP_SCHED's schedule it runs
 # against the unsharded run of its cut, and its collectives by profiler
 # name (the halo's, the all_reduces and the router logits' all_gathers)
@@ -4219,8 +4280,12 @@ def _sharded_check_inputs(torch, seed) -> dict:
     unsharded on the CPU (the plain versions: cuda == cpu), and the
     recurrent checks of ``_recurrent_check_cfgs`` (recurrentgemma's one
     griffin group at hd 256, window 32; mamba2 at smoke widths, chunk 16)
-    unsharded on both, their losses and grad norms kept. {name: (cfg,
-    params, keys, {where: reference steps})}."""
+    unsharded on both, their losses and grad norms kept, and the narrowed
+    smollm at dilation 2 (a reordered schedule: the stride exchange,
+    each rank's working slice one residue class of 64 slots with a halo
+    tile and a global tile) unsharded on both. {name: (cfg, params, keys,
+    {where: reference steps})}."""
+    from repro_torch.configs import with_dilation
     from repro_torch.models.model import build_model
 
     rec = _recurrent_check_cfgs()
@@ -4229,7 +4294,10 @@ def _sharded_check_inputs(torch, seed) -> dict:
             ("smollm-135m", _train_cfg(smoke=True), ("cuda",)),
             ("longformer-4k", _check_cfgs()["longformer-4k"], ("cuda",)),
             ("kimi-k2-1t-a32b", _seq_moe_check_cfg(), ("cpu",)),
-            *((arch, cfg, ("cuda", "cpu")) for arch, cfg in rec.items())):
+            *((arch, cfg, ("cuda", "cpu")) for arch, cfg in rec.items()),
+            (f"smollm-135m-dilation-{SHARDED_DILATION}",
+             with_dilation(_train_cfg(smoke=True), SHARDED_DILATION),
+             ("cuda", "cpu"))):
         keys = ("loss",) + (AUX if cfg.moe is not None else ()) \
             + (("grad_norm",) if cfg.recurrent or cfg.ssm else ())
         params = build_model(cfg, "cpu").init(
@@ -4364,21 +4432,29 @@ def _layer_gate(torch, group, cfg, seed, spec=None):
     return errs, ok
 
 
-def train_sharded_rank(group, seed, arch, steps):
+def _sharded_tag(arch: str, dilation: int = 1) -> str:
+    if dilation > 1:
+        return f"train-sharded {arch} dilation {dilation}"
+    return "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+
+
+def train_sharded_rank(group, seed, arch, steps, dilation=1):
     """A spawned rank of a full-size train-sharded phase: the one-layer
-    gate, then ``arch`` at full width and depth, bf16, remat full, seq
-    4096, global batch ``TRAIN_BATCH``, ``steps`` steps of the train
-    phase's schedule (20 steps, lr 3e-3, warmup 10) from the same seed,
-    then one more step, profiled on rank 0. Returns the rank's record."""
+    gate, then ``arch`` at full width and depth (its attention at
+    ``dilation``), bf16, remat full, seq 4096, global batch
+    ``TRAIN_BATCH``, ``steps`` steps of the train phase's schedule (20
+    steps, lr 3e-3, warmup 10) from the same seed, then one more step,
+    profiled on rank 0 (every collective by profiler name). Returns the
+    rank's record."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, with_dilation
     from repro_torch.models.model import build_model
 
     _rank_prelude(torch)
-    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    tag = _sharded_tag(arch, dilation)
     dev = str(group.device)
-    cfg = get_config(arch)
+    cfg = with_dilation(get_config(arch), dilation)
     gate_errs, gate_ok = _layer_gate(torch, group, cfg, seed,
                                      SHARDED_GATE[arch])
     torch.cuda.empty_cache()
@@ -4423,7 +4499,7 @@ def train_sharded_rank(group, seed, arch, steps):
         by_name = report_profile(prof, dt, 1, f"{tag} step (rank 0)")
         busy_ms = sum(t for _, t in by_name.values()) / 1e3
         rec.update(profiled_ms=dt * 1e3, idle=1 - busy_ms / (dt * 1e3),
-                   collectives=_collective_ms(prof, P2P_KEYS))
+                   collectives=_collective_ms(prof, COLLECTIVE_KEYS))
     return rec
 
 
@@ -4494,18 +4570,19 @@ def seq_train_rank(group, seed, run):
     return rec
 
 
-def _log_sharded_stats(arch) -> None:
-    """``ShardedPlan.stats`` of ``arch``'s attention and of its one-layer
-    gate's at n 4096 over ``TRAIN_SHARDS``: the exchange's bytes against
-    an all-gather's, as counted."""
-    from repro_torch.configs import get_config
+def _log_sharded_stats(arch, dilation=1) -> None:
+    """``ShardedPlan.stats`` of ``arch``'s attention (at ``dilation``) and
+    of its one-layer gate's at n 4096 over ``TRAIN_SHARDS``: the
+    exchange's bytes against an all-gather's, as counted; on a reordered
+    schedule also the stride exchange's (``seq_stride_bytes``)."""
+    from repro_torch.configs import get_config, with_dilation
     from repro_torch.core.scheduler import build_plan, schedule
     from repro_torch.dist.sharded_plan import _auto_block, shard_plan
     from repro_torch.models.layers import salo_pattern
 
-    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    tag = _sharded_tag(arch, dilation)
     S = TRAIN_SHARDS
-    cfg = get_config(arch)
+    cfg = with_dilation(get_config(arch), dilation)
     for what, pat in (("model", salo_pattern(cfg)),
                       ("gate", salo_pattern(cfg) if SHARDED_GATE[arch] is None
                        else _case_pattern(SHARDED_GATE[arch]))):
@@ -4521,18 +4598,50 @@ def _log_sharded_stats(arch) -> None:
             f"layer over {heads} flat heads: exchange "
             f"{st['exchange_bytes'] * heads} bytes vs all-gather "
             f"{st['allgather_bytes'] * heads} (counted, not timed)")
+    if dilation > 1:
+        sb = seq_stride_bytes(cfg, TRAIN_BATCH)
+        log(f"[{tag}] the stride exchange (the working stream across "
+            f"{S} shards, bf16): a rank sends {sb['tensor']} bytes of each "
+            f"exchanged tensor to the other ranks; per layer forward "
+            f"{sb['forward']} (q, k, v, out), backward {sb['backward']} "
+            f"(dout, dq, dk, dv), remat full's replay {sb['replay']}; "
+            f"{sb['step']} bytes a step a rank over {cfg.n_layers} layers "
+            f"(counted from the shapes, not timed)")
 
 
-def train_sharded_job(torch, seed, arch, ref):
+def seq_stride_bytes(cfg, batch: int, n: int = TRAIN_SHARDS,
+                     seq: int = 4096) -> dict:
+    """The bytes a rank sends the other ranks through the stride exchange
+    of ``cfg``'s attention at ``seq`` (``dist.sharded_plan
+    .stride_exchange``'s counts, rank 0; bf16 over ``batch`` x n_heads
+    flat heads of hd): one tensor, a layer forward (4 tensors), backward
+    (4) and remat full's replay (4), and a step."""
+    from repro_torch.core.scheduler import build_plan, schedule
+    from repro_torch.dist.sharded_plan import _auto_block, stride_exchange
+    from repro_torch.models.layers import salo_pattern
+
+    sched = schedule(salo_pattern(cfg), seq)
+    b = _auto_block(sched.n_work, n, cfg.salo.block_q)
+    ex = stride_exchange(build_plan(sched, b, b, n * b), n)
+    rows = int(ex.counts[0].sum() - ex.counts[0, 0])
+    tensor = rows * batch * cfg.n_heads * cfg.hd * 2
+    layer = dict(forward=4 * tensor, backward=4 * tensor,
+                 replay=4 * tensor * (cfg.remat != "none"))
+    return dict(tensor=tensor, **layer,
+                step=sum(layer.values()) * cfg.n_layers)
+
+
+def train_sharded_job(torch, seed, arch, ref, dilation=1):
     """One train-sharded run's half before its ranks: ``arch``'s
-    ``ShardedPlan.stats`` and the ranks' job (``train_sharded_rank``),
-    with what ``report_train_sharded`` reads (``ref``: the unsharded
-    train phase's stats)."""
-    _log_sharded_stats(arch)
+    ``ShardedPlan.stats`` (at ``dilation``) and the ranks' job
+    (``train_sharded_rank``), with what ``report_train_sharded`` reads
+    (``ref``: the unsharded train phase's stats, of the same config)."""
+    _log_sharded_stats(arch, dilation)
     backend, device = _shard_backend(torch, TRAIN_SHARDS)
-    return ((train_sharded_rank, (arch, SHARDED_STEPS[arch])),
+    return ((train_sharded_rank, (arch, SHARDED_STEPS[arch], dilation)),
             report_train_sharded,
-            dict(arch=arch, ref=ref, backend=backend, device=device))
+            dict(arch=arch, ref=ref, backend=backend, device=device,
+                 dilation=dilation))
 
 
 def report_train_sharded(recs, st, wall) -> dict:
@@ -4543,15 +4652,20 @@ def report_train_sharded(recs, st, wall) -> dict:
     step within 2e-2 of it, the loss falling; equal losses and bitwise-
     equal parameters and optimizer state on every rank; per rank and step
     2 K1 (the forward and remat full's replay), 1 K2 and 1 K3 call (2
-    kernels) an attention layer, no plain version. Returns {path: the
-    launches summed over the ranks}."""
-    from repro_torch.configs import get_config
+    kernels) an attention layer, no plain version; rank 0's profiled step
+    ran no collective but the all_reduces, the halo's sends and receives
+    and, on a reordered schedule (``st["dilation"]`` > 1), exactly
+    ``launch_lint.stride_exchanges`` all_to_alls an attention layer (none
+    otherwise), counted by the process group's op name. Returns {path:
+    the launches summed over the ranks}."""
+    from repro_torch.analysis.launch_lint import stride_exchanges
+    from repro_torch.configs import get_config, with_dilation
 
-    arch, ref = st["arch"], st["ref"]
+    arch, ref, dil = st["arch"], st["ref"], st["dilation"]
     backend, device = st["backend"], st["device"]
-    tag = "train-sharded" + ("" if arch == "smollm-135m" else f" {arch}")
+    tag = _sharded_tag(arch, dil)
     S = TRAIN_SHARDS
-    cfg = get_config(arch)
+    cfg = with_dilation(get_config(arch), dil)
     steps = len(recs[0]["losses"])
     want_l = ref["losses"][:steps]
     n_attn = _train_attention_layers(cfg)
@@ -4576,6 +4690,16 @@ def report_train_sharded(recs, st, wall) -> dict:
     check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
     check(len({rec["digest"] for rec in recs}) == 1,
           f"{tag}: parameters or optimizer state differ across the ranks")
+    stray = [n for n in r0["collectives"]
+             if not any(k in n.lower() for k in P2P_KEYS + A2A_KEYS)]
+    check(not stray, f"{tag}: the profiled step ran collectives beyond the "
+          f"halo's, the sums and the stride exchange: {stray}")
+    a2a = sum(c for n, (c, _) in r0["collectives"].items()
+              if n.startswith("c10d::") and any(k in n.lower()
+                                                for k in A2A_KEYS))
+    want_a2a = stride_exchanges(cfg) * n_attn if dil > 1 else 0
+    check(a2a == want_a2a, f"{tag}: the profiled step ran {a2a} "
+          f"all_to_alls, expected {want_a2a} ({n_attn} attention layers)")
     med = sorted(r0["times"][1:])[(steps - 1) // 2] * 1e3
     coll = ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in
                      sorted(r0["collectives"].items(),
@@ -4594,6 +4718,11 @@ def report_train_sharded(recs, st, wall) -> dict:
         f"(unsharded {ref['peak'] / 2**30:.3f} GiB); profiled step (rank "
         f"0): host wall {r0['profiled_ms']:.3f} ms, device idle share "
         f"{r0['idle']:.3f}, collectives by name (host time): {coll}")
+    if dil > 1:
+        sb = seq_stride_bytes(cfg, TRAIN_BATCH)
+        log(f"[{tag}] stride exchange: {a2a} all_to_alls in the profiled "
+            f"step ({stride_exchanges(cfg)} a layer), {sb['step']} bytes a "
+            f"rank sends the other rank a step (counted from the shapes)")
     return {tag.replace(" ", "-"): {k: sum(rec["launches"][k] for rec in recs)
                                     for k in ("K1", "K2", "K3")}}
 
@@ -5272,17 +5401,19 @@ def train_sharded_parts(torch, seed, runs, moe=None, with_check=True,
     """The sequence-parallel training phases as parts of a spawn
     (``phase_two_ranks``, ``spawn_jobs``), each its own job and report:
     train-sharded-check (``with_check``; ``sharded_check_job``),
-    train-sharded for each ``(arch, ref)`` of ``runs`` at full width and
-    depth (``train_sharded_job``; ``ref`` the unsharded train phase's
-    stats), train-sharded-moe (``moe``: ``seq_moe_inputs``'s plan;
-    ``seq_moe_job``), the recurrent runs (``recs``: ``seq_rec_inputs``'
-    plans; ``seq_rec_job``) and the VLM and encoder-decoder runs
-    (``fams``: ``seq_fam_inputs``' plans; ``seq_fam_job``)."""
+    train-sharded for each ``(arch, ref, dilation)`` of ``runs`` at full
+    width and depth (``train_sharded_job``; ``ref`` the unsharded train
+    phase's stats of that config), train-sharded-moe (``moe``:
+    ``seq_moe_inputs``'s plan; ``seq_moe_job``), the recurrent runs
+    (``recs``: ``seq_rec_inputs``' plans; ``seq_rec_job``) and the VLM
+    and encoder-decoder runs (``fams``: ``seq_fam_inputs``' plans;
+    ``seq_fam_job``)."""
     parts = [("train-sharded-check", sharded_check_job(torch, seed))
              ] if with_check else []
-    parts += [(f"train-sharded {arch}", train_sharded_job(torch, seed, arch,
-                                                          ref))
-              for arch, ref in runs]
+    parts += [(f"train-sharded {arch}" + (f" dilation {dil}" if dil > 1
+                                          else ""),
+               train_sharded_job(torch, seed, arch, ref, dil))
+              for arch, ref, dil in runs]
     if moe is not None:
         parts.append(("train-sharded-moe", seq_moe_job(torch, seed, moe)))
     parts += [(f"train-sharded {rec['arch']}", seq_rec_job(torch, seed, rec))
@@ -7982,6 +8113,14 @@ def main(argv=None) -> int:
     tl["longformer-4k"], _, lf_stats = phase_train(torch, args.seed,
                                                    "longformer-4k")
     torch.cuda.empty_cache()
+    # smollm-135m at dilation 2, unsharded: the first steps of the train
+    # phase's schedule, the losses train-sharded's dilated run is held to
+    from repro_torch.configs import with_dilation
+    d2_arch = f"smollm-135m dilation {SHARDED_DILATION}"
+    tl[f"train-{d2_arch.replace(' ', '-')}"], _, d2_stats = phase_train(
+        torch, args.seed, d2_arch, run=SHARDED_STEPS["smollm-135m"],
+        cfg=with_dilation(_train_cfg(smoke=False), SHARDED_DILATION))
+    torch.cuda.empty_cache()
     # recurrentgemma-9b at full width, at the depth both one card and the
     # train-tp ranks sharing it hold: the unsharded phase, train-tp's
     # reference
@@ -8034,9 +8173,10 @@ def main(argv=None) -> int:
     # s to start and warm up on the card): sequence-parallel serving (the
     # narrowed check, the bf16 slab at full width, then the int8 page-
     # sparse slab); sequence-parallel training (the narrowed checks, one of
-    # them an MoE whose dispatch groups span the shards, two recurrent,
-    # smollm-135m and longformer-4k at full size against the unsharded
-    # train phases, arctic-480b's MoE layer against the unsharded run of
+    # them an MoE whose dispatch groups span the shards, two recurrent, one
+    # at dilation 2, smollm-135m and longformer-4k at full size against the
+    # unsharded train phases, smollm-135m at dilation 2 against its
+    # unsharded run, arctic-480b's MoE layer against the unsharded run of
     # its cut, mamba2-370m against its unsharded phase,
     # recurrentgemma-9b's forward and backward against its reference,
     # qwen2-vl-2b and whisper-base against theirs);
@@ -8050,9 +8190,10 @@ def main(argv=None) -> int:
     # MoE check, arctic-480b against its reference, and the uneven expert
     # count's checks and run)
     seq_parts = train_sharded_parts(
-        torch, args.seed, (("smollm-135m", full),
-                           ("longformer-4k", lf_stats)), moe=moe_seq,
-        recs=rec_seq, fams=fam_seq)
+        torch, args.seed, (("smollm-135m", full, 1),
+                           ("longformer-4k", lf_stats, 1),
+                           ("smollm-135m", d2_stats, SHARDED_DILATION)),
+        moe=moe_seq, recs=rec_seq, fams=fam_seq)
     parts = dict([
         ("serve-sharded", serve_sharded_job(
             torch, args.seed, 2,
@@ -8154,7 +8295,8 @@ def main(argv=None) -> int:
                 "ep": "arctic_480b_ep2_rank_heads_bf16",
                 "k-tp": "recurrentgemma_9b_tp2_rank_heads_hd256_mqa_bf16",
                 "t-k": "recurrentgemma_9b_shard_view_hd256_mqa_bf16",
-                "t-v": "qwen2_vl_2b_shard_view_hd128_gqa6_bf16"}
+                "t-v": "qwen2_vl_2b_shard_view_hd128_gqa6_bf16",
+                "t-d": "smollm_dilation2_shard_view_bf16"}
     for name, key, src, replaces, per_call in (
             (K1, "K1", "salo_table_attention.cu",
              "src/repro/kernels/salo_attention.py:119", 1),

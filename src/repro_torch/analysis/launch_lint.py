@@ -27,7 +27,9 @@ something where eager PyTorch launches hand-written kernels and
   under one sends every conv's halo and gathers every scan's carry in
   f32, its backward a ``reduce_scatter`` in f32
   (:func:`check_seq_carries`); every other step under one sends each
-  sharded attention layer's K/V halo (:func:`check_seq_halos`); the
+  sharded attention layer's K/V halo (:func:`check_seq_halos`), and on a
+  reordered schedule runs its stated number of stride exchanges a layer
+  (:func:`check_seq_exchanges`); the
   sharded merge's partials ``(out, m, l)`` are f32.
 
 The reference's scatter-mode, double-dequant and shard_map-reduction
@@ -189,6 +191,16 @@ class _Recording:
     def agree(self, value: float) -> float:
         self._rec("all_reduce_max", torch.zeros(1, dtype=torch.float64))
         return float(value)
+
+    def exchange(self, x: torch.Tensor, ex) -> torch.Tensor:
+        """:meth:`SeqGroup.exchange`, each rank's part to this one taken
+        from this rank's ``x`` at the rows that rank would send."""
+        send, recv = ex.device_rows(x.device, self.index)
+        self._rec("all_to_all", x.index_select(1, send))
+        rows = torch.cat([ex.rows_to(x.device, r, self.index)
+                          for r in range(self.size)])
+        out = x.new_zeros((x.shape[0], ex.n_out, *x.shape[2:]))
+        return out.index_copy_(1, recv, x.index_select(1, rows))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -473,6 +485,37 @@ def check_seq_halos(log: List[Record], target: str = "",
         f"the step ran {len(got)} ppermutes over the sequence group: its "
         f"{layers} sharded attention layers need at least {2 * layers} "
         f"(each one's K/V halo and its gradient's return)")]
+
+
+def stride_exchanges(cfg) -> int:
+    """The stride exchanges (``all_to_all`` over the sequence group) one
+    train step runs a sharded attention layer on a reordered schedule: 2
+    forward (q, k and v in one buffer; the output back), 2 backward (the
+    cotangent; dq, dk and dv back in one buffer) and the forward's 2
+    again where remat replays it."""
+    return 4 + 2 * (cfg.remat != "none")
+
+
+def check_seq_exchanges(log: List[Record], target: str = "",
+                        layers: int = 1, per_layer: int = 6
+                        ) -> List[Finding]:
+    """A train step under a sequence group of a model whose ``layers``
+    sharded attention layers run a reordered schedule (dilation > 1,
+    dilated sinks): exactly ``per_layer`` (:func:`stride_exchanges`)
+    stride exchanges a layer crossed the group as ``all_to_all``s,
+    beside each layer's halo (:func:`check_seq_halos`). Fewer leaves a
+    tensor in the wrong layout; more moves activations the step does not
+    need."""
+    got = [r for r in log if r[0] == "seq" and r[1] == "all_to_all"]
+    findings = check_seq_halos(log, target, layers)
+    if len(got) != per_layer * layers:
+        findings.append(Finding(
+            "collective-dtype", target,
+            f"the step ran {len(got)} all_to_alls over the sequence group: "
+            f"its {layers} sharded attention layers on a reordered schedule "
+            f"run exactly {per_layer * layers} ({per_layer} stride exchanges "
+            f"a layer)"))
+    return findings
 
 
 def check_decode_merge(log: List[Record], target: str = "") -> List[Finding]:

@@ -13,7 +13,8 @@ registered target and exits nonzero on any error finding:
    ``kernels.ops.salo_attention`` for every plan target, and the
    collective dtypes of one train step on each wire (data-parallel f32
    and int8, int8 under a model group, FSDP f32 and int8; under a
-   sequence group the MoE, recurrent, VLM and encoder-decoder steps) and
+   sequence group the MoE, recurrent, VLM and encoder-decoder steps, and
+   smollm at dilation 2 with its stride exchanges) and
    of one sharded decode step, on the CPU with recording stand-in groups;
 3. slab write ownership (:mod:`repro_torch.analysis.ownership`): the
    sequence-parallel decode's write routing probed over every cache
@@ -44,7 +45,8 @@ from repro_torch.analysis import Finding, render
 ROOT = Path(__file__).resolve().parents[3]
 CODE_PATHS = ("src/repro_torch", "tools", "chip_smoke.py")
 # the train steps whose collectives are linted: (name, arch, recording
-# groups and shapes)
+# groups and shapes; a ``dilation`` there sets the attention's, see
+# :func:`train_wire`)
 TRAIN_WIRES = (
     ("train.data2", "smollm-135m", dict(data=2)),
     ("train.data2.int8", "smollm-135m", dict(data=2, compress=True)),
@@ -59,7 +61,24 @@ TRAIN_WIRES = (
     ("train.seq2.ssm", "mamba2-370m", dict(shards=2, seq=64)),
     ("train.seq2.vlm", "qwen2-vl-2b", dict(shards=2, seq=64)),
     ("train.seq2.xattn", "whisper-base", dict(shards=2, seq=64)),
+    # seq 128: at 64 the one tile the halo would carry is a global tile
+    ("train.seq2.dilated", "smollm-135m", dict(shards=2, seq=128,
+                                               dilation=2)),
 )
+
+
+def train_wire(entry):
+    """(name, smoke config, ``record_train_step``'s keywords) of a
+    ``TRAIN_WIRES`` entry: its ``dilation``, where it has one, goes into
+    the config (a reordered schedule)."""
+    from repro_torch.configs import get_smoke, with_dilation
+
+    name, arch, mesh = entry
+    mesh = dict(mesh)
+    cfg = get_smoke(arch)
+    if "dilation" in mesh:
+        cfg = with_dilation(cfg, mesh.pop("dilation"))
+    return name, cfg, mesh
 
 
 def run_plan_pass(findings: List[Finding], targets: List[str]) -> None:
@@ -108,8 +127,8 @@ def run_launch_pass(findings: List[Finding], targets: List[str]) -> None:
         targets.append(f"kernels.ops[{t.name}]")
 
     from repro_torch.configs import get_smoke
-    for name, arch, mesh in TRAIN_WIRES:
-        cfg = get_smoke(arch)
+    for entry in TRAIN_WIRES:
+        name, cfg, mesh = train_wire(entry)
         log, n_groups = ll.record_train_step(cfg, **mesh)
         findings += ll.check_train_wire(log, mesh.get("compress", False),
                                         n_groups, name, mesh.get("data", 1))
@@ -118,6 +137,10 @@ def run_launch_pass(findings: List[Finding], targets: List[str]) -> None:
         elif mesh.get("shards", 1) > 1 and ll.recurrent_layers(cfg):
             findings += ll.check_seq_carries(log, name,
                                              ll.recurrent_layers(cfg))
+        elif mesh.get("shards", 1) > 1 and cfg.salo.dilation > 1:
+            findings += ll.check_seq_exchanges(
+                log, name, ll.attention_layers(cfg),
+                ll.stride_exchanges(cfg))
         elif mesh.get("shards", 1) > 1:
             findings += ll.check_seq_halos(log, name,
                                            ll.attention_layers(cfg))

@@ -36,3 +36,11 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def with_dilation(cfg: ModelConfig, dilation: int) -> ModelConfig:
+    """``cfg`` with its attention at ``dilation``: a reordered schedule
+    where it is above 1 (no published config sets one)."""
+    import dataclasses
+    return dataclasses.replace(cfg, salo=dataclasses.replace(
+        cfg.salo, dilation=dilation))

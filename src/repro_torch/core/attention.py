@@ -60,7 +60,9 @@ def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rank's contiguous slice (B, H, N / S, D) of the sequence, and the op
     routes, after the GQA expand, to
     :func:`repro_torch.dist.sharded_plan.sharded_attention` (the static or
-    the dynamic plan; the halo exchange feeds K1–K3 on each shard's view).
+    the dynamic plan; the halo exchange feeds K1–K3 on each shard's view;
+    a reordered schedule's slices cross the shards to the working stream
+    and back by one all-to-all each way).
     ``impl="dense_ref"`` under such a group raises.
 
     GQA: KV heads are expanded to H by ``expand(...).reshape`` — a copy of

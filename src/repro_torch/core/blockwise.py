@@ -343,7 +343,8 @@ def _dense_rows_vjp(q, k, v, sched: BandSchedule, scale: float, g):
 
 
 def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,
-                  dq_engine, dkv_engine, *, rows_vjp=None, working=None):
+                  dq_engine, dkv_engine, *, rows_vjp=None, working=None,
+                  qkv_w=None):
     """THE backward contract of every engine: host-step adjoints around two
     plan-walking gradient passes.
 
@@ -354,12 +355,15 @@ def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,
 
     A sequence shard (:func:`repro_torch.dist.sharded_plan
     .sharded_attention`) passes its own pieces: ``rows_vjp(g) -> (g,
-    (dq, dk, dv) or None)``, the global rows' VJP over the group, and
+    (dq, dk, dv) or None)``, the global rows' VJP over the group;
     ``working = (to_work, from_work, pos)``, the working-stream transforms
-    of its slice and the ``pos`` its engines get. The defaults are the
+    of its slice (each takes tensors and returns a tuple of them, so
+    several cross the shards in one exchange) and the ``pos`` its engines
+    get; and ``qkv_w``, the working-layout q, k, v its forward kept (then
+    ``q``, ``k``, ``v`` give only their types). The defaults are the
     whole sequence's: :func:`_dense_rows_vjp` where the pattern has global
     rows, :func:`working_stream` / :func:`undo_working` and the plan's
-    positions.
+    positions, q, k, v through ``to_work``.
     """
     sched = plan.sched
     B, N, D = q.shape
@@ -368,21 +372,23 @@ def plan_backward(g, q, k, v, out_w, m, l, plan: ExecutionPlan, scale: float,
         rows_vjp = functools.partial(_dense_rows_vjp, q, k, v, sched, scale)
     g, extra = rows_vjp(g) if rows_vjp is not None else (g, None)
     if working is None:
-        working = (lambda x: working_stream(x, sched, plan),
-                   lambda x: undo_working(x, sched, N, plan),
+        working = (lambda *xs: tuple(working_stream(x, sched, plan)
+                                     for x in xs),
+                   lambda *xs: tuple(undo_working(x, sched, N, plan)
+                                     for x in xs),
                    plan_tables(plan, q.device).pos)
     to_work, from_work, pos = working
     # 2. The output reorder is a permutation: the cotangent takes the SAME
     #    working-stream transform as the inputs did.
-    dout = to_work(g).float()
-    qw, kw, vw = to_work(q), to_work(k), to_work(v)
+    dout = to_work(g)[0].float()
+    qw, kw, vw = to_work(q, k, v) if qkv_w is None else qkv_w
     # 3. delta = rowwise dout . out — the flash-backward precompute.
     delta = (dout * out_w.float()).sum(dim=-1)
     # 4. The two plan walks.
     dq_w = dq_engine(dout, delta, m, l, qw, kw, vw, pos)
     dk_w, dv_w = dkv_engine(dout, delta, m, l, qw, kw, vw, pos)
     # 5. Back to original order (+ the epilogue contributions).
-    dq, dk, dv = from_work(dq_w), from_work(dk_w), from_work(dv_w)
+    dq, dk, dv = from_work(dq_w, dk_w, dv_w)
     if extra is not None:
         dq = dq + extra[0]
         dk = dk + extra[1]

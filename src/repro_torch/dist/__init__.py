@@ -7,7 +7,8 @@ control.
 * :mod:`repro_torch.dist.group` — :class:`~repro_torch.dist.group.SeqGroup`,
   the port's counterpart of a 1-D "seq" mesh and ``shard_map``'s axis
   index (the process group, this rank's shard, the size, the device) with
-  in-place ``pmax_``/``psum_`` collectives and ``ppermute``;
+  in-place ``pmax_``/``psum_`` collectives, ``ppermute`` and
+  ``exchange`` (one ``all_to_all`` of rows with split sizes);
   :class:`~repro_torch.dist.group.DataGroup`, the same for the "data"
   axis (each rank holds its rows of the global batch) with ``psum_`` and
   ``all_gather``; :class:`~repro_torch.dist.group.ModelGroup`, the "model"
@@ -24,8 +25,10 @@ control.
   train step's ``compress_grads`` over a data group.
 * :mod:`repro_torch.dist.sharded_plan` — sequence-parallel training
   (``ShardedPlan``/``shard_plan``: per-shard step tables over a ``[local |
-  halo | global]`` view; the halo exchange and its exact reverse; K1–K3
-  per shard; ``sharded_attention``, which ``hybrid_attention``,
+  halo | global]`` view; the halo exchange and its exact reverse; a
+  reordered schedule's stride exchange across shards, ``to_work`` /
+  ``from_work``; K1–K3 per shard; ``sharded_attention``, which
+  ``hybrid_attention``,
   ``Model.loss`` and ``make_train_step`` reach under ``group=``), and
   ``masked_psum_merge``, the cross-shard softmax merge of the
   sequence-parallel serving engine (``ContinuousEngine(seq_shards > 1,
@@ -44,7 +47,5 @@ ranks, tensor parallelism (``model_group=ModelGroup``, ``--model``) its
 ``heads``, ``kv_heads``, ``ffn`` and ``vocab`` axes; the two compose as
 the reference's ``(data, model)`` mesh (``group.mesh_groups``). The port
 passes the groups explicitly; only the parameter placements come from
-the rules. Not ported yet (ROADMAP queue 1, item 3): the sharded op on
-reordered schedules (dilation > 1, dilated sinks: a global stride
-permutation across shards).
+the rules.
 """

@@ -11,6 +11,9 @@ process group:
   ``size`` and the rank's ``device``, with in-place ``pmax_``/``psum_``
   (``all_reduce`` MAX / SUM), :meth:`SeqGroup.ppermute` (``jax.lax
   .ppermute``: the halo exchange of sequence-parallel training),
+  :meth:`SeqGroup.exchange` (one ``all_to_all_single`` that moves rows
+  between the ranks' slices as a :class:`RowExchange` maps them: the
+  working stream's stride permutation across shards),
   :meth:`SeqGroup.agree` (rank 0's scalar on every rank), and the
   autograd collectives of the recurrent blocks under a group:
   :meth:`SeqGroup.halo` (a causal conv's context from the previous
@@ -47,7 +50,8 @@ process group:
 * :class:`StackedGroup` — the same collectives over a leading shard axis
   of one tensor on one device: what ``jax.vmap(..., axis_name="seq")``
   is to ``shard_map``. It holds every shard's tensors in one process (the
-  merge checks on one card and the CPU tests use it).
+  merge checks on one card and the CPU tests use it), and runs
+  :meth:`StackedGroup.exchange` by indexing.
 * :func:`run_ranks` — start ``n`` local ranks, call ``fn(group, *args)``
   in each, join them under a deadline, and return every rank's result;
   with ``model=M`` the ranks form the reference's ``(data, model)`` mesh
@@ -69,6 +73,7 @@ so the FSDP gradient and its int8 wire need no such step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import pickle
 import shutil
@@ -80,6 +85,7 @@ from datetime import timedelta
 from pathlib import Path
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -198,6 +204,23 @@ class SeqGroup(_Ranks):
                        else float("-inf"), dtype=torch.float64,
                        device=self.device)
         return float(self.pmax_(t)[0])
+
+    def exchange(self, x: torch.Tensor, ex: "RowExchange") -> torch.Tensor:
+        """``x`` (B, ``ex.n_in``, ...) moved row by row along axis 1 as
+        ``ex`` says: this rank's rows ``ex.send_rows[index]`` go out, each
+        rank's part to it, through ONE ``all_to_all_single`` with split
+        sizes (the parts may be uneven); the rows received land in
+        ``ex.recv_rows[index]`` of a (B, ``ex.n_out``, ...) result, the
+        rows no rank sends are zeros. Gloo takes CUDA tensors here
+        (``tools/gloo_all_to_all_probe.py``)."""
+        send_idx, recv_idx = ex.device_rows(x.device, self.index)
+        send = x.movedim(1, 0).index_select(0, send_idx).contiguous()
+        recv = send.new_empty((recv_idx.numel(), *send.shape[1:]))
+        dist.all_to_all_single(
+            recv, send, output_split_sizes=ex.counts[:, self.index].tolist(),
+            input_split_sizes=ex.counts[self.index].tolist(), group=self.pg)
+        out = x.new_zeros((x.shape[0], ex.n_out, *x.shape[2:]))
+        return out.index_copy_(1, recv_idx, recv.movedim(0, 1))
 
     def gather(self, x: torch.Tensor, dim: int,
                summed: bool = False) -> torch.Tensor:
@@ -524,6 +547,67 @@ class StackedGroup:
         for s, d in perm:
             out[d] = buf[s]
         return out
+
+    def exchange(self, x: torch.Tensor, ex: "RowExchange") -> torch.Tensor:
+        """:meth:`SeqGroup.exchange` over the leading shard axis: ``x``
+        (S, B, ``ex.n_in``, ...) -> (S, B, ``ex.n_out``, ...)."""
+        self._check(x)
+        out = x.new_zeros((self.size, x.shape[1], ex.n_out, *x.shape[3:]))
+        for j in range(self.size):
+            parts = [x[r].index_select(1, ex.rows_to(x.device, r, j))
+                     for r in range(self.size)]
+            out[j].index_copy_(1, ex.device_rows(x.device, j)[1],
+                               torch.cat(parts, dim=1))
+        return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowExchange:
+    """Where every row of a sequence group's slices goes in one
+    all-to-all (:meth:`SeqGroup.exchange`): each rank holds ``n_in`` rows
+    and gets ``n_out``. ``counts[r, j]``: the rows rank ``r`` sends rank
+    ``j``; ``send_rows[r]``: rank ``r``'s rows in the order it sends them
+    (rank 0's part first); ``recv_rows[j]``: the row of rank ``j``'s
+    result each row it receives lands in (rank 0's part first). Every
+    input row goes out at most once and every output row comes in at most
+    once, so :attr:`reverse` (the rows sent back where they came from) is
+    this exchange's exact adjoint; output rows nobody sends are zeros."""
+    n_in: int
+    n_out: int
+    counts: Any                       # (S, S) int64 numpy
+    send_rows: tuple                  # S int64 numpy arrays
+    recv_rows: tuple                  # S int64 numpy arrays
+
+    @functools.cached_property
+    def offsets(self):
+        """``offsets[r, j]``: where rank ``r``'s part for rank ``j``
+        starts in ``send_rows[r]`` (``(S, S + 1)``)."""
+        return np.concatenate([np.zeros((len(self.counts), 1), np.int64),
+                               np.cumsum(self.counts, axis=1)], axis=1)
+
+    @functools.cached_property
+    def reverse(self) -> "RowExchange":
+        """The rows sent back: what this exchange put in an output row
+        returns to the input row it came from."""
+        return RowExchange(self.n_out, self.n_in, self.counts.T.copy(),
+                           self.recv_rows, self.send_rows)
+
+    def device_rows(self, device, rank: int):
+        """Rank ``rank``'s ``(send_rows, recv_rows)`` as int64 tensors on
+        ``device``, uploaded once."""
+        return _device_rows(self, torch.device(device))[rank]
+
+    def rows_to(self, device, rank: int, dst: int) -> torch.Tensor:
+        """Rank ``rank``'s rows for rank ``dst``, in the order ``dst``
+        receives them, on ``device``."""
+        return self.device_rows(device, rank)[0][
+            self.offsets[rank, dst]: self.offsets[rank, dst + 1]]
+
+
+@functools.lru_cache(maxsize=64)
+def _device_rows(ex: RowExchange, device: torch.device):
+    return [(torch.as_tensor(s).to(device), torch.as_tensor(r).to(device))
+            for s, r in zip(ex.send_rows, ex.recv_rows)]
 
 
 def _rank_devices(n: int, backend: str, device) -> List[str]:

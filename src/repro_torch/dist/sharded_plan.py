@@ -24,12 +24,21 @@ the few **global-key** tiles: a halo exchange, not an all-gather.
   plans select each shard's tables on its view (K1 and K2 on them) and
   take the scatter dK/dV twin. The wrappers run the kernels for CUDA
   tensors and their plain versions for CPU tensors.
+* :func:`stride_exchange`, :func:`to_work` / :func:`from_work` — a
+  reordered schedule's working stream across shards (dilation > 1,
+  dilated sinks: the stride permutation of SALO's data reordering): each
+  rank's original slice to its slice of the working stream and back, one
+  ``all_to_all`` each way (:meth:`~repro_torch.dist.group.SeqGroup
+  .exchange`), an exact adjoint pair; the reference applies the
+  permutation to the global arrays before its ``shard_map`` region,
+  which XLA lowers to an all-to-all.
 * :func:`sharded_attention` — the differentiable op, one rank's slice of
   the sequence in and out, whose backward is the single-device contract
   :func:`repro_torch.core.blockwise.plan_backward` with shard-mapped
-  engines. Global *rows* (global queries attend every key) are the one
-  piece needing cross-shard softmax state: each rank forms their partial
-  against its own keys and :func:`masked_psum_merge` combines them.
+  engines and the shard's working-stream transforms. Global *rows*
+  (global queries attend every key) are the one piece needing
+  cross-shard softmax state: each rank forms their partial against its
+  own keys and :func:`masked_psum_merge` combines them.
 * :func:`masked_psum_merge` — the merge of finalized per-shard partials,
   which the serving engine also uses after K4 and the prefill chunk.
 
@@ -61,9 +70,7 @@ from repro_torch.core.patterns import HybridSparsePattern
 from repro_torch.core.renorm import NEG_INF
 from repro_torch.core.scheduler import (PAD_SENTINEL, ExecutionPlan,
                                         build_plan, pack_rows, schedule)
-from repro_torch.dist.group import StackedGroup
-
-NOT_PORTED = "ROADMAP queue 1, 'multi-GPU'"
+from repro_torch.dist.group import RowExchange, StackedGroup
 
 
 # ---------------------------------------------------------------------- #
@@ -683,19 +690,89 @@ def _rows_vjp(sched, group, q_l, k_l, v_l, scale: float, rows, qg, M, L,
 
 
 # ---------------------------------------------------------------------- #
+# The working stream across shards
+# ---------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=64)
+def stride_exchange(plan: ExecutionPlan, n_shards: int) -> RowExchange:
+    """The working stream of a reordered schedule across ``n_shards``
+    shards, as one all-to-all: rank ``r`` holds the original positions
+    ``[r N/S, (r+1) N/S)`` and works on the working slots ``[r n_pad/S,
+    (r+1) n_pad/S)``; each working slot takes the position ``sched.perm``
+    names (core/scheduler.py), from the rank that holds it. Slots whose
+    ``perm`` is past N and the tail past ``n_work`` are padding: no rank
+    sends them, so they are zeros. Pure numpy, cached per (plan,
+    n_shards)."""
+    sched, S = plan.sched, n_shards
+    N = sched.n
+    if N % S or plan.n_pad % S:
+        raise ValueError(f"the working stream of n {N} (n_pad "
+                         f"{plan.n_pad}) does not split into {S} shards")
+    n_l, w_l = N // S, plan.n_pad // S
+    pos = np.full(plan.n_pad, N, dtype=np.int64)     # original position
+    pos[: sched.n_work] = (np.arange(sched.n_work) if sched.perm is None
+                           else sched.perm)
+    counts = np.zeros((S, S), dtype=np.int64)
+    send = [[] for _ in range(S)]
+    recv = []
+    for j in range(S):                      # the rank whose slots these are
+        p = pos[j * w_l: (j + 1) * w_l]
+        src = np.where(p < N, p // n_l, S)
+        recv.append(np.concatenate([np.nonzero(src == r)[0]
+                                    for r in range(S)]))
+        for r in range(S):
+            rows = p[src == r] - r * n_l
+            counts[r, j] = rows.size
+            send[r].append(rows)
+    return RowExchange(n_l, w_l, counts,
+                       tuple(np.concatenate(x) for x in send), tuple(recv))
+
+
+def _through(sp: ShardedPlan, group, ex: RowExchange, xs):
+    """``xs`` through ONE exchange: joined on the batch axis (each (B, n,
+    ...) of one shape past B, the shard axis first on a StackedGroup) in
+    their widest type, moved, split, and each returned in its own type.
+    The identity on a schedule that is not reordered."""
+    if not sp.plan.sched.reordered:
+        return tuple(xs)
+    ax = 1 if _stacked(group) else 0
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    y = group.exchange(xs[0].to(dt) if len(xs) == 1 else
+                       torch.cat([x.to(dt) for x in xs], dim=ax), ex)
+    return tuple(p.to(x.dtype) for p, x in zip(y.chunk(len(xs), dim=ax),
+                                                xs))
+
+
+def to_work(sp: ShardedPlan, group, *xs):
+    """Each of ``xs``, this rank's slice (B, N / S, ...) of the original
+    sequence, as its slice (B, n_pad / S, ...) of the working stream: the
+    single-device :func:`~repro_torch.core.blockwise.working_stream` cut
+    per shard, bit for bit, through ONE all-to-all over ``group``
+    (:func:`stride_exchange`; every tensor of ``xs`` in one buffer).
+    Padding slots are zeros."""
+    return _through(sp, group, stride_exchange(sp.plan, sp.n_shards), xs)
+
+
+def from_work(sp: ShardedPlan, group, *xs):
+    """The inverse of :func:`to_work` and its exact adjoint (the same rows
+    sent back, the padding dropped): each of ``xs`` (B, n_pad / S, ...)
+    -> (B, N / S, ...), through ONE all-to-all."""
+    return _through(sp, group, stride_exchange(sp.plan, sp.n_shards)
+                    .reverse, xs)
+
+
+# ---------------------------------------------------------------------- #
 # The sharded attention op
 # ---------------------------------------------------------------------- #
-def _identity(x):
-    return x
-
-
 def _sharded_forward(q, k, v, sp: ShardedPlan, group, scale: float, dyn):
-    """One rank's forward: the local pass on its slice (which is its slice
-    of the working stream: the op admits no reorder and no padding), then
-    the global rows. Returns ``(out, (out_w, m, l), rows_state)``."""
+    """One rank's forward: q, k and v into the rank's slice of the working
+    stream (:func:`to_work`), the local pass on it, the output back
+    (:func:`from_work`), then the global rows on the original slices.
+    Returns ``(out, (qw, kw, vw, out_w, m, l), rows_state)``: m and l stay
+    in the working layout."""
     from repro_torch.kernels.ops import _launch_accounting
     sched = sp.plan.sched
     s = group.index
+    qw, kw, vw = to_work(sp, group, q, k, v)
     tiles = int((sp.flags[s] != 0).sum())
     if dyn is not None:
         from repro_torch.core.dynamic import _account_build
@@ -704,58 +781,72 @@ def _sharded_forward(q, k, v, sp: ShardedPlan, group, scale: float, dyn):
     # the booking's shapes are the shard's: nq_l query blocks
     _launch_accounting("salo_table_attention", types.SimpleNamespace(
         nq=sp.nq_l, block_q=sp.plan.block_q, block_k=sp.plan.block_k),
-        q, tiles)
-    out_w, m, l = _make_local_fwd(sp, group, scale, dyn)(q, k, v)
-    out, rows_state = out_w, ()
+        qw, tiles)
+    out_w, m, l = _make_local_fwd(sp, group, scale, dyn)(qw, kw, vw)
+    out, = from_work(sp, group, out_w)
+    rows_state = ()
     if sched.n_global > 0 and sched.global_rows:
         rows_state = _rows_forward(sched, group, q, k, v, scale)
         lo, own = _row_span(sched, group, q.shape[1])
         if own:
             out = torch.cat([rows_state[0][:, lo: lo + own].to(q.dtype),
-                             out_w[:, own:]], dim=1)
-    return out, (out_w, m, l), rows_state
+                             out[:, own:]], dim=1)
+    return out, (qw, kw, vw, out_w, m, l), rows_state
 
 
 class _ShardedAttention(torch.autograd.Function):
-    """The reference's ``custom_vjp`` pair: the forward saves the local
-    partial triple (and the global rows' state); the backward is
+    """The reference's ``custom_vjp`` pair: the forward saves the
+    working-layout q, k, v and the local partial triple (and, with global
+    rows, the original slices and the rows' state); the backward is
     :func:`~repro_torch.core.blockwise.plan_backward` with shard-mapped
-    engines — one combined local backward (one view exchange) answers the
-    dQ engine, and the dK/dV engine returns its stashed result."""
+    engines and this shard's working-stream transforms — one combined
+    local backward (one view exchange) answers the dQ engine, and the
+    dK/dV engine returns its stashed result."""
 
     @staticmethod
     def forward(ctx, q, k, v, sp, group, scale, dyn):
         out, res, rows_state = _sharded_forward(q, k, v, sp, group, scale,
                                                 dyn)
-        ctx.save_for_backward(q, k, v, *res, *rows_state)
+        rows = (q, k, v, *rows_state) if rows_state else ()
+        ctx.save_for_backward(*res, *rows)
         ctx.cfg = (sp, group, scale, dyn)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out_w, m, l, *rows_state = ctx.saved_tensors
+        qw, kw, vw, out_w, m, l, *rows = ctx.saved_tensors
         sp, group, scale, dyn = ctx.cfg
         sched = sp.plan.sched
         stash = {}
 
-        def dq_engine(dout, delta, m_, l_, qw, kw, vw, _pos):
+        def dq_engine(dout, delta, m_, l_, qw_, kw_, vw_, _pos):
             dq, dk, dv = _make_local_bwd(sp, group, scale, dyn)(
-                dout, delta, m_, l_, qw, kw, vw)
+                dout, delta, m_, l_, qw_, kw_, vw_)
             stash["dkv"] = (dk, dv)
             return dq
 
         def dkv_engine(*_args):
             return stash.pop("dkv")
 
-        if rows_state:
-            rows_vjp = functools.partial(_rows_vjp, sched, group, q, k, v,
-                                         scale, *rows_state)
+        def send_back(*grads):
+            # without global rows plan_backward adds nothing to the
+            # gradients before it rounds them to the inputs' types: round
+            # first, and the exchange moves half the bytes, the same bits
+            if not rows:
+                grads = tuple(x.to(w.dtype) for x, w in zip(grads,
+                                                             (qw, kw, vw)))
+            return from_work(sp, group, *grads)
+
+        if rows:
+            rows_vjp = functools.partial(_rows_vjp, sched, group,
+                                         *rows[:3], scale, *rows[3:])
         else:
             def rows_vjp(g_):
                 return g_, None
         dq, dk, dv = plan_backward(
-            g, q, k, v, out_w, m, l, sp.plan, scale, dq_engine, dkv_engine,
-            rows_vjp=rows_vjp, working=(_identity, _identity, None))
+            g, qw, kw, vw, out_w, m, l, sp.plan, scale, dq_engine,
+            dkv_engine, rows_vjp=rows_vjp, qkv_w=(qw, kw, vw),
+            working=(functools.partial(to_work, sp, group), send_back, None))
         return dq, dk, dv, None, None, None, None
 
 
@@ -775,13 +866,24 @@ def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Blocks: the largest power of two up to 128 and the shard's length,
     capped by ``block_q``/``block_k`` (the reference's ``_auto_block``).
-    The slice must be the rank's slice of the working stream: N a multiple
-    of ``S * lcm(block_q, block_k)`` (else ``ValueError``), and no
-    reordered schedule (dilation > 1, dilated sinks: their working stream
-    is a global stride permutation, an all-to-all in the reference;
-    ``NotImplementedError``). Covers causal and bidirectional windows
-    (halos on both sides), windows wider than a shard (several halo
-    distances), global tiles and global rows, 2-D ViL bands.
+    The plan pads its working stream to a multiple of ``S * lcm(block_q,
+    block_k)``. A reordered schedule (dilation > 1, dilated sinks: the
+    working stream is a global stride permutation, an all-to-all in the
+    reference) takes its slices through :func:`to_work` /
+    :func:`from_work`, its padding in the working stream. Otherwise the
+    rank's slice must be its slice of the working stream: N a multiple of
+    ``S * lcm(block_q, block_k)``, else ``ValueError``. Covers causal and
+    bidirectional windows (halos on both sides), windows wider than a
+    shard (several halo distances), global tiles and global rows, 2-D ViL
+    bands.
+
+    Collectives a call: the view exchange (one ``ppermute`` per halo
+    distance and one sum of the global tiles) forward and again backward,
+    with its reverse; on a reordered schedule also 2 stride exchanges
+    (``all_to_all``) forward — q, k and v in one buffer, the output back
+    — and 2 backward — the cotangent in, dq, dk and dv back in one
+    buffer (the forward keeps q, k and v in the working layout for it).
+    A train step under remat full replays the forward: 6 a layer.
 
     ``dynamic`` (a :class:`repro_torch.core.dynamic.DynamicConfig`): each
     shard selects its top-``keep`` steps on its view after the exchange.
@@ -796,15 +898,10 @@ def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = group.size
     N = n_local * S
     sched = schedule(pattern, N)
-    if sched.reordered:
-        raise NotImplementedError(
-            f"sharded_attention of a reordered schedule (dilation > 1 or "
-            f"dilated sinks) needs the working stream's global stride "
-            f"permutation across shards, not ported yet: {NOT_PORTED}")
     bq = _auto_block(sched.n_work, S, block_q)
     bk = _auto_block(sched.n_work, S, block_k)
     mult = S * math.lcm(bq, bk)
-    if N % mult:
+    if N % mult and not sched.reordered:
         raise ValueError(
             f"sharded_attention needs the sequence length N = {N} to be a "
             f"multiple of n_shards * lcm(block_q, block_k) = {S} * "

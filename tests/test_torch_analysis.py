@@ -343,13 +343,11 @@ def _cfg():
     __import__("repro_torch.analysis.lint",
                fromlist=["TRAIN_WIRES"]).TRAIN_WIRES)))
 def test_train_step_collectives_are_clean(i):
-    from repro_torch.analysis.lint import TRAIN_WIRES
-    from repro_torch.configs import get_smoke
-    name, arch, mesh = TRAIN_WIRES[i]
-    log, n_groups = ll.record_train_step(get_smoke(arch), **mesh)
+    from repro_torch.analysis.lint import TRAIN_WIRES, train_wire
+    name, cfg, mesh = train_wire(TRAIN_WIRES[i])
+    log, n_groups = ll.record_train_step(cfg, **mesh)
     assert ll.check_train_wire(log, mesh.get("compress", False), n_groups,
                                name, mesh.get("data", 1)) == []
-    cfg = get_smoke(arch)
     if mesh.get("shards", 1) > 1 and (cfg.moe or ll.recurrent_layers(cfg)):
         # a step under a sequence group: its f32 gathers (an MoE's 2
         # layers' router logits, a recurrent model's scan carries), its
@@ -365,12 +363,16 @@ def test_train_step_collectives_are_clean(i):
                    and r[2] == "float32" for r in log)
         assert sum(r[1] == "all_gather" for r in log) >= 2
     elif mesh.get("shards", 1) > 1:
-        # the VLM and encoder-decoder steps: each of the 2 decoder
-        # layers' K/V halo crossed the group, nothing was gathered (the
+        # the VLM, encoder-decoder and dilated steps: each of the 2
+        # decoder layers' K/V halo crossed the group (on a reordered
+        # schedule beside its stride exchanges), nothing was gathered (the
         # vision merge is local, whisper's encoder whole on every rank),
         # the gradients summed in f32
         assert ll.attention_layers(cfg) == 2
         assert ll.check_seq_halos(log, name, 2) == []
+        if cfg.salo.dilation > 1:
+            assert ll.check_seq_exchanges(log, name, 2,
+                                          ll.stride_exchanges(cfg)) == []
         assert not any(r[1] == "all_gather" for r in log)
         assert [r[2] for r in log if r[4] == "grad-sum"] == ["float32"]
     dtypes = {(r[0], r[1], r[2]) for r in log if r[4] == "wire"}
@@ -380,6 +382,37 @@ def test_train_step_collectives_are_clean(i):
         assert ("data", "all_gather", "float32") in dtypes
     if mesh.get("compress") and mesh.get("model", 1) > 1:
         assert ("model", "all_reduce_max", "float32") in dtypes
+
+
+def test_a_dilated_step_runs_its_stride_exchanges(monkeypatch):
+    """smollm at dilation 2 under a recording group of 2: each of its 2
+    attention layers runs 6 stride exchanges (remat full replays the
+    forward's 2) beside its halos; the undilated step runs none, and a
+    step that sends every exchange back twice is caught."""
+    from repro_torch.configs import with_dilation
+    from repro_torch.dist import sharded_plan
+
+    cfg = _cfg()
+    per = ll.stride_exchanges(cfg)
+    assert cfg.remat == "full" and per == 6
+    log, _ = ll.record_train_step(with_dilation(cfg, 2), shards=2, seq=128)
+    assert ll.check_seq_exchanges(log, "t", 2, per) == []
+    assert {(r[0], r[2]) for r in log if r[1] == "all_to_all"} == {
+        ("seq", "float32")}
+    plain, _ = ll.record_train_step(cfg, shards=2, seq=128)
+    assert ll.check_seq_halos(plain, "t", 2) == []
+    got = ll.check_seq_exchanges(plain, "t", 2, per)
+    assert len(got) == 1 and "ran 0 all_to_alls" in got[0].message
+    real = sharded_plan.from_work
+
+    def twice(sp, group, *xs):
+        real(sp, group, *xs)
+        return real(sp, group, *xs)
+
+    monkeypatch.setattr(sharded_plan, "from_work", twice)
+    log, _ = ll.record_train_step(with_dilation(cfg, 2), shards=2, seq=128)
+    got = ll.check_seq_exchanges(log, "t", 2, per)
+    assert len(got) == 1 and "ran 18 all_to_alls" in got[0].message
 
 
 @pytest.mark.parametrize("fsdp", [False, True])

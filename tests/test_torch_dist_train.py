@@ -10,15 +10,23 @@ CPU, f32.
   within 1e-4, reordered schedules and a dynamic plan included.
 * ``_build_views`` / ``_return_views`` are an adjoint pair (f64
   dot-product test).
+* The stride exchange of a reordered schedule (dilation > 1, dilated
+  sinks): on a ``StackedGroup`` ``to_work`` is the single-device
+  ``working_stream`` cut per shard, bit for bit (padding included: the
+  "dilated" family pads 128 positions to 256 working slots, so at 4
+  shards ranks 2 and 3 hold only padding, and at 2 shards rank 1 does),
+  ``from_work`` undoes it, and the pair is an exact adjoint (f64
+  dot-product test).
 * ``sharded_attention`` on 2- and 4-rank gloo groups equals JAX's
   unsharded ``blockwise_attention`` (and ``dynamic_attention``) within
-  1e-4 in the output and the three gradients.
+  1e-4 in the output and the three gradients, reordered schedules
+  included.
 * ``Model.loss`` under a 2-rank group equals JAX's unsharded loss within
   1e-5 and its gradients within 1e-4, through the sharded route (the
   dense, MoE and recurrent families: recurrentgemma's griffin group with
-  its local attention, mamba2's SSD blocks); 3 train steps under the
-  group give JAX's losses within 1e-4 with parameters bitwise equal
-  across the ranks.
+  its local attention, mamba2's SSD blocks; the smoke smollm at dilation
+  2 on the reordered route); 3 train steps under the group give JAX's
+  losses within 1e-4 with parameters bitwise equal across the ranks.
 
 The reference's own sharded tests need an 8-device mesh, which fails on
 this JAX; its per-shard pieces run under ``jax.vmap`` on one CPU device,
@@ -34,6 +42,7 @@ import pytest
 import torch
 
 from repro_torch.core import patterns as TP
+from repro_torch.core.blockwise import working_stream as t_working_stream
 from repro_torch.core.scheduler import build_plan as t_build_plan
 from repro_torch.core.scheduler import schedule as t_schedule
 from repro_torch.dist import sharded_plan as tspm
@@ -65,6 +74,12 @@ FAMILIES = {
     # 16: the dynamic cases
     "sinks_wide": ("causal_sliding_window", (40,), dict(n_sinks=3), 128, 4),
     "longformer_wide": ("longformer", (40,), dict(n_global=2), 128, 4),
+    # reordered schedules beside the reference's two: the smoke smollm's
+    # attention at dilation 2, and dilated sinks under a dynamic plan
+    "smollm_smoke_d2": ("causal_sliding_window", (16,),
+                        dict(n_sinks=2, dilation=2), 128, 4),
+    "sinks_dilated": ("causal_sliding_window", (8,),
+                      dict(n_sinks=4, dilation=2), 128, 4),
 }
 
 
@@ -279,11 +294,80 @@ def test_exchange_fills_padded_halo_slots_with_finite_values():
 
 
 # ------------------------------------------------------------------ #
+# the stride exchange on a StackedGroup
+# ------------------------------------------------------------------ #
+def _stack(x, S):
+    """(B, N, ...) -> (S, B, N / S, ...): every rank's slice."""
+    return x.reshape(x.shape[0], S, -1, *x.shape[2:]).transpose(0, 1) \
+        .contiguous()
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("name", ["dilated", "reordered_global",
+                                  "smollm_smoke_d2"])
+def test_to_work_is_the_working_stream_per_shard(name, S):
+    tsp, _ = _plans(name, S)
+    N = FAMILIES[name][3]
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.normal(size=(B, N, D)).astype(np.float32))
+    m = torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32))
+    g = StackedGroup(S)
+    got_x, = tspm.to_work(tsp, g, _stack(x, S))
+    got_m, = tspm.to_work(tsp, g, _stack(m, S))
+    for got, full in ((got_x, x), (got_m, m)):
+        assert torch.equal(got, _stack(t_working_stream(
+            full, tsp.plan.sched, tsp.plan), S))
+    back, = tspm.from_work(tsp, g, got_x)
+    assert torch.equal(back, _stack(x, S))
+    # several tensors of one shape cross in one buffer, each in its type
+    a, b = tspm.to_work(tsp, g, _stack(x, S), _stack(x, S).double())
+    assert a.dtype == torch.float32 and b.dtype == torch.float64
+    assert torch.equal(a, got_x) and torch.equal(b, got_x.double())
+
+
+def test_stride_exchange_padding_only_ranks():
+    """The "dilated" family pads 128 positions to 256 working slots: at 4
+    shards ranks 2 and 3, at 2 shards rank 1, receive nothing and send
+    their rows to the lower ranks; the splits are uneven."""
+    for S, empty in ((4, (2, 3)), (2, (1,))):
+        ex = tspm.stride_exchange(_plans("dilated", S)[0].plan, S)
+        assert ex.n_in == 128 // S and ex.n_out == 256 // S
+        for j in empty:
+            assert ex.counts[:, j].sum() == 0
+            assert ex.recv_rows[j].size == 0
+        assert ex.counts.sum() == 128
+        assert sorted(np.concatenate(ex.send_rows).tolist()) == sorted(
+            list(range(128 // S)) * S)
+
+
+@pytest.mark.parametrize("name,S", [("dilated", 4), ("dilated", 2),
+                                    ("reordered_global", 4)])
+def test_stride_exchange_is_an_exact_adjoint_pair(name, S):
+    """<to_work(x), y> == <x, from_work(y)> in f64, padding slots
+    included (to_work leaves them zero, from_work drops them)."""
+    tsp, _ = _plans(name, S)
+    N = FAMILIES[name][3]
+    rng = np.random.default_rng(N + S)
+    x, y = _t(rng.normal(size=(S, B, N // S, D)),
+              rng.normal(size=(S, B, tsp.plan.n_pad // S, D)))
+    g = StackedGroup(S)
+    xw, = tspm.to_work(tsp, g, x)
+    yb, = tspm.from_work(tsp, g, y)
+    assert xw.dtype == yb.dtype == torch.float64
+    lhs, rhs = float((xw * y).sum()), float((x * yb).sum())
+    assert abs(lhs - rhs) <= 1e-10 * max(1.0, abs(lhs)), (lhs, rhs)
+
+
+# ------------------------------------------------------------------ #
 # the op on gloo ranks
 # ------------------------------------------------------------------ #
 # (pattern name, N, blocks, dynamic keep): causal and bidirectional with
 # global rows, global rows spanning shards (g 24 > n_local at 4 ranks),
-# window == n_local, and a dynamic plan (keep 3 of 5 steps).
+# window == n_local, a dynamic plan (keep 3 of 5 steps), and the
+# reordered schedules: dilation 3 with padding (at 4 ranks ranks 2 and 3
+# hold only padding), dilated sinks, and a dynamic plan over dilated
+# sinks (keep 4 of up to 5 steps). Blocks None: the port's
+# ``_auto_block`` (the one that pads "dilated" to 256), JAX's op at 16.
 OP_CASES = {
     "longformer": ("longformer", 128, 16, None),
     "longformer_causal": ("longformer_causal", 128, 16, None),
@@ -291,6 +375,9 @@ OP_CASES = {
     "rows_span_shards": ("g_gt_nlocal_rows", 64, 16, None),
     "window_eq_nlocal": ("window_eq_nlocal", 64, 16, None),
     "dynamic": ("sinks_wide", 128, 16, 3),
+    "dilated": ("dilated", 128, None, None),
+    "reordered_global": ("reordered_global", 128, None, None),
+    "dynamic_reordered": ("sinks_dilated", 128, 16, 4),
 }
 
 
@@ -311,6 +398,7 @@ def _jax_op(case):
 
     name, _, blk, keep = OP_CASES[case]
     pat = _pattern(name, "jax")
+    blk = blk or 16
     q, k, v, cot = (jnp.asarray(x) for x in _op_inputs(case))
 
     def f(a, b, c):
@@ -345,19 +433,27 @@ def _op_rank(group, case):
 # the model and the train step on gloo ranks
 # ------------------------------------------------------------------ #
 MODELS = ("smollm-135m", "longformer-4k", "recurrentgemma-9b",
-          "mamba2-370m")
+          "mamba2-370m", "smollm-135m:dilated")
 # The MoE family under a group, in two layouts: "<arch>" routes 16
 # dispatch groups of 16 tokens, every group on one shard; "<arch>:cross"
 # 2 groups of 128 tokens (two whole sequences), each split over both
-# shards (batch 4 > G / n = 1)
+# shards (batch 4 > G / n = 1). "<arch>:dilated" has its attention at
+# dilation 2 (a reordered schedule).
 MOE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
 MOE_MODELS = tuple(a + v for a in MOE_ARCHS for v in ("", ":cross"))
 SEQ, BATCH, STEPS = 64, 4, 3
+# the dilated smollm at seq 128: each rank's working slice is one residue
+# class of 64 slots, rank 1's first query block fetches a halo tile from
+# rank 0 (at 64 the one halo tile is a global tile), and the sinks land
+# in a global tile on each rank
+SEQ_OF = {"smollm-135m:dilated": 128}
 
 
 def _cfg(name, module="torch"):
-    """The smoke config of ``name`` (``<arch>`` or ``<arch>:cross``, the
-    latter with 2 dispatch groups) from the port or the reference."""
+    """The smoke config of ``name`` (``<arch>``, ``<arch>:cross`` with 2
+    dispatch groups, or ``<arch>:dilated``) from the port or the
+    reference."""
+    from repro_torch.configs import with_dilation
     if module == "torch":
         from repro_torch.configs import get_smoke
     else:
@@ -367,13 +463,15 @@ def _cfg(name, module="torch"):
     if variant == "cross":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch_groups=2))
+    if variant == "dilated":
+        cfg = with_dilation(cfg, 2)
     return cfg
 
 
 def _batch(arch, i):
     from repro.data.pipeline import DataConfig, SyntheticLM
-    ds = SyntheticLM(_cfg(arch, "jax"), DataConfig(SEQ, BATCH, seed=0,
-                                                   branch=2, n_docs=4))
+    ds = SyntheticLM(_cfg(arch, "jax"), DataConfig(
+        SEQ_OF.get(arch, SEQ), BATCH, seed=0, branch=2, n_docs=4))
     return ds.batch(i)
 
 
@@ -458,9 +556,9 @@ def _model_rank(group, arch, params):
     calls = []
     real = sharded_plan.sharded_attention
 
-    def spy(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
+    def spy(q, k, v, pattern, *a, **kw):
+        calls.append(t_schedule(pattern, q.shape[1] * group.size).reordered)
+        return real(q, k, v, pattern, *a, **kw)
 
     sharded_plan.sharded_attention = spy
     model = build_model(_cfg(arch), "cpu")
@@ -471,7 +569,6 @@ def _model_rank(group, arch, params):
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
     flat = torch.cat([g.reshape(-1) for g in grads])
     group.psum_(flat)
-    n_calls = len(calls)
     sharded_plan.sharded_attention = real
     tt = _tcfg("torch")
     step = make_train_step(model, tt, group=group)
@@ -484,7 +581,7 @@ def _model_rank(group, arch, params):
                       + [x.reshape(-1) for x in tree_leaves(o.v)])
     return dict(loss=float(metrics["loss"]), local=float(loss.detach()),
                 metrics={k: float(v) for k, v in metrics.items()},
-                grads=flat.numpy(), calls=n_calls, losses=losses,
+                grads=flat.numpy(), calls=calls, losses=losses,
                 state=state.numpy(), step=o.step)
 
 
@@ -530,7 +627,8 @@ def test_model_loss_and_grads_under_group_match_jax(ranks, arch):
     gradients summed over the ranks within 1e-4 of JAX's unsharded ones
     (and of the unsharded port's for the MoE family), and the sharded
     route taken once per attention layer and its remat replay (once per
-    griffin group's local attention; never in mamba2's program)."""
+    griffin group's local attention; never in mamba2's program), on the
+    reordered route exactly where the attention is dilated)."""
     from repro_torch.tree import tree_leaves
 
     ref = _jax_model(arch)
@@ -538,7 +636,8 @@ def test_model_loss_and_grads_under_group_match_jax(ranks, arch):
     res = [r["model"][arch] for r in ranks[2]]
     for r in res:
         np.testing.assert_allclose(r["loss"], ref["loss"], **tol)
-        assert r["calls"] == 2 * _attention_layers(arch), r["calls"]
+        assert r["calls"] == [arch.endswith(":dilated")] * (
+            2 * _attention_layers(arch)), r["calls"]
         assert r["metrics"].keys() == ref["metrics"].keys()
         for key, want in ref["metrics"].items():
             np.testing.assert_allclose(r["metrics"][key], want, **tol,
@@ -576,14 +675,6 @@ def _fake_group(S=2):
     """A group object for the argument checks, which raise before any
     collective."""
     return SeqGroup(None, 0, S, torch.device("cpu"))
-
-
-@pytest.mark.parametrize("name", ["dilated", "reordered_global"])
-def test_sharded_attention_reordered_raises(name):
-    q = torch.zeros(B, 64, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                       "'multi-GPU'"):
-        tspm.sharded_attention(q, q, q, _pattern(name), _fake_group())
 
 
 def test_sharded_attention_needs_a_whole_multiple():
